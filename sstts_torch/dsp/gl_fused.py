@@ -1,0 +1,255 @@
+"""Semi-fused Griffin-Lim iteration tail: the port of kernel B2.
+
+Port of `sstts/dsp/gl_fused.py:fused_reproject_analyze` (227-488).  One call
+takes the synthesis frames F = q @ w_inv (computed outside, as in JAX) and
+returns the next spectrum:
+
+    q' = renorm( bf16(wss2d * shift_add(F)) @ w_fwd )
+
+with the renorm q' = s * rsqrt(re^2 + im^2 + 1e-24) * mag on the flat
+(..., n_frames, 2*hp) layout (real lanes [0, hp), imaginary [hp, 2*hp)).
+With momentum the renorm takes s + m*(s - prev) and the call also returns s.
+
+`reproject_analyze` is the kernel's own function, without the edge rows:
+a CPU tensor runs `reproject_analyze_plain`, a CUDA tensor launches
+`sstts_torch/csrc/gl_semi.cu` or raises.  `fused_reproject_analyze` adds the
+exact repair of the reflect-pad edge rows in plain torch, as the JAX package
+repairs them in XLA after its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from sstts_torch.dsp.reproject import (
+    apply_mirror_runs,
+    band_plan,
+    padded_wss2d,
+    shift_add_rows,
+)
+from sstts_torch.ops import build
+
+
+class _GlArgs(ctypes.Structure):
+    """Mirror of `GlArgs` in csrc/gl_semi.cu (same field order)."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in ("frames", "mag2", "w_fwd", "wss2d", "prev", "q_out", "s_out")
+    ] + [
+        (name, ctypes.c_int)
+        for name in ("Bt", "T", "wp", "hp", "w_len", "hop", "d_max")
+    ] + [("momentum", ctypes.c_float)]
+
+
+_SIGNATURES = {
+    "sstts_gl_semi": ([ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+    "sstts_gl_semi_smem_bytes": ([ctypes.c_int], ctypes.c_int),
+}
+
+
+def renorm(
+    s32: torch.Tensor, mag2: torch.Tensor, hp: int, dtype: torch.dtype
+) -> torch.Tensor:
+    """q = s * rsqrt(|s|^2 + 1e-24) * mag, per bin over the (re, im) lanes."""
+    sr = s32[..., :hp]
+    si = s32[..., hp:]
+    inv = torch.rsqrt(sr * sr + si * si + 1e-24)
+    return (s32 * torch.cat([inv, inv], dim=-1) * mag2.float()).to(dtype)
+
+
+def reproject_analyze_plain(
+    frames: torch.Tensor,
+    mag2: torch.Tensor,
+    w_fwd: torch.Tensor,
+    wss2d: torch.Tensor,
+    w_len: int,
+    hop: int,
+    d_max: int,
+    prev: Optional[torch.Tensor] = None,
+    momentum: float = 0.0,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The kernel's function in plain torch, without the edge repair.
+
+    frames (Bt, T, wp), mag2/prev (Bt, T, 2*hp), w_fwd (wp, 2*hp) in the
+    loop dtype; wss2d (T, wp) f32.  Returns (q', s or None) in the loop
+    dtype.  The product is exact f32 over operands rounded to the loop
+    dtype, i.e. the tensor-core product with f32 accumulation.
+    """
+    dtype = frames.dtype
+    n_frames = frames.shape[-2]
+    hp = mag2.shape[-1] // 2
+    acc = shift_add_rows(frames, w_len, hop, d_max, 0, n_frames)
+    fr = (acc * wss2d).to(dtype)
+    s32 = fr.float() @ w_fwd.float()
+    if prev is None or momentum <= 0.0:
+        return renorm(s32, mag2, hp, dtype), None
+    m32 = float(np.float32(momentum))
+    ex = s32 + m32 * (s32 - prev.float())
+    return renorm(ex, mag2, hp, dtype), s32.to(dtype)
+
+
+def _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum):
+    bt, n_frames, wp = frames.shape
+    L = mag2.shape[-1]
+    hp = L // 2
+    tensors = [frames, mag2, w_fwd] + ([] if prev is None else [prev])
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise NotImplementedError(
+            "fused_reproject_analyze CUDA kernel is bf16 only (the default "
+            "fft_impl='dft_default' loop); the f32 loop on CUDA is ROADMAP A "
+            "(f32 Griffin-Lim on CUDA)"
+        )
+    if wp % 64 or hp % 64:
+        raise ValueError(f"gl_semi kernel needs wp, hp multiples of 64: {wp}, {hp}")
+    if tuple(w_fwd.shape) != (wp, L) or tuple(wss2d.shape) != (n_frames, wp):
+        raise ValueError(
+            f"gl_semi: w_fwd {tuple(w_fwd.shape)} / wss2d {tuple(wss2d.shape)}"
+            f" do not match frames {tuple(frames.shape)}, mag2 {tuple(mag2.shape)}"
+        )
+    lib = build.load("gl_semi", _SIGNATURES)
+    smem = lib.sstts_gl_semi_smem_bytes(wp)
+    if smem > build.MAX_SMEM:
+        raise NotImplementedError(
+            f"gl_semi kernel keeps a 64 x {wp} frames panel in shared memory "
+            f"({smem} bytes > {build.MAX_SMEM}); n_fft above ~2700 is not supported"
+        )
+    frames = frames.contiguous()
+    mag2 = mag2.contiguous()
+    w_fwd = w_fwd.contiguous()
+    wss2d = wss2d.float().contiguous()
+    prev = None if prev is None else prev.contiguous()
+    q = torch.empty_like(mag2)
+    s = None if prev is None else torch.empty_like(mag2)
+    args = _GlArgs(
+        frames.data_ptr(), mag2.data_ptr(), w_fwd.data_ptr(), wss2d.data_ptr(),
+        None if prev is None else prev.data_ptr(), q.data_ptr(),
+        None if s is None else s.data_ptr(),
+        bt, n_frames, wp, hp, w_len, hop, d_max, float(momentum),
+    )
+    rc = lib.sstts_gl_semi(
+        ctypes.byref(args), torch.cuda.current_stream(frames.device).cuda_stream
+    )
+    build.check(lib, rc, "fused_reproject_analyze")
+    return q, s
+
+
+def reproject_analyze(
+    frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev=None, momentum=0.0
+):
+    """Device dispatch for the kernel's function (see module docstring);
+    counts CUDA launches in `reproject_analyze.launches`."""
+    if prev is not None and momentum <= 0.0:
+        prev = None
+    if frames.device.type == "cpu":
+        return reproject_analyze_plain(
+            frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum
+        )
+    if frames.device.type != "cuda":
+        raise NotImplementedError(f"fused_reproject_analyze on {frames.device.type}")
+    out = _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum)
+    reproject_analyze.launches += 1
+    return out
+
+
+reproject_analyze.launches = 0
+
+
+def _edge_bounds(runs, n_frames: int) -> Tuple[int, int]:
+    half_t = n_frames // 2
+    head_end = max(
+        [max(r[0], r[3]) for r in runs if r[0] < half_t], default=-1
+    ) + 1
+    tail_start = min(
+        [min(r[0], r[3]) for r in runs if r[0] >= half_t], default=n_frames
+    )
+    return head_end, tail_start
+
+
+def fused_reproject_analyze(
+    frames: torch.Tensor,
+    mag2: torch.Tensor,
+    w_fwd: torch.Tensor,
+    n_fft: int,
+    hop: int,
+    win_length: int,
+    length: int,
+    prev: Optional[torch.Tensor] = None,
+    momentum: float = 0.0,
+    wss2d: Optional[torch.Tensor] = None,
+):
+    """Reprojection + analysis GEMM + renorm, with exact edge rows.
+
+    frames (..., n_frames, wp), mag2 (..., n_frames, 2*hp), w_fwd
+    (wp, 2*hp), all in the loop dtype.  Returns q' or, with momentum,
+    (q', s) — the JAX function's contract.  `wss2d` is the plan's envelope
+    padded to wp lanes on the frames' device; a loop passes it once
+    instead of uploading it every iteration.
+    """
+    *batch, n_frames, wp = frames.shape
+    L = mag2.shape[-1]
+    hp = L // 2
+    plan = band_plan(n_fft, hop, win_length, n_frames, length)
+    w_len, d_max = plan["w_len"], plan["d_max"]
+    with_momentum = prev is not None and momentum > 0.0
+    dtype = frames.dtype
+    f3 = frames.reshape(-1, n_frames, wp)
+    b_total = f3.shape[0]
+    mag3 = mag2.reshape(-1, n_frames, L).expand(b_total, n_frames, L)
+    p3 = (
+        prev.reshape(-1, n_frames, L).expand(b_total, n_frames, L)
+        if with_momentum
+        else None
+    )
+    if wss2d is None:
+        wss2d = padded_wss2d(plan, wp, frames.device)
+    w_fwd = w_fwd.to(dtype)
+    qn, sn = reproject_analyze(
+        f3, mag3, w_fwd, wss2d, w_len, hop, d_max, p3, momentum
+    )
+
+    runs = plan["runs"]
+    if runs:
+        head_end, tail_start = _edge_bounds(runs, n_frames)
+        m32 = float(np.float32(momentum))
+        w32 = w_fwd.float()
+
+        def fix(rows_lo, rows_hi, local_runs):
+            slab = shift_add_rows(f3, w_len, hop, d_max, rows_lo, rows_hi)
+            slab = slab * wss2d[rows_lo:rows_hi]
+            slab = apply_mirror_runs(slab, local_runs)
+            s32 = slab.to(dtype).float() @ w32
+            mags = mag3[:, rows_lo:rows_hi]
+            if with_momentum:
+                ex = s32 + m32 * (s32 - p3[:, rows_lo:rows_hi].float())
+                return renorm(ex, mags, hp, dtype), s32.to(dtype)
+            return renorm(s32, mags, hp, dtype), None
+
+        if head_end > tail_start:  # tiny frame counts: the slabs overlap
+            qn, s_fix = fix(0, n_frames, runs)
+            sn = s_fix if with_momentum else None
+        else:
+            if head_end > 0:
+                q_h, s_h = fix(0, head_end, [r for r in runs if r[0] < head_end])
+                qn[:, :head_end] = q_h
+                if with_momentum:
+                    sn[:, :head_end] = s_h
+            if tail_start < n_frames:
+                local = [
+                    (r[0] - tail_start, r[1], r[2], r[3] - tail_start, r[4], r[5])
+                    for r in runs
+                    if r[0] >= tail_start
+                ]
+                q_t, s_t = fix(tail_start, n_frames, local)
+                qn[:, tail_start:] = q_t
+                if with_momentum:
+                    sn[:, tail_start:] = s_t
+
+    qn = qn.reshape(*batch, n_frames, L)
+    if with_momentum:
+        return qn, sn.reshape(*batch, n_frames, L)
+    return qn

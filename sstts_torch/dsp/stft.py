@@ -1,0 +1,62 @@
+"""Window, inverse window-sum envelope and overlap-add.
+
+Port of the pieces of `sstts/dsp/stft.py` (lines 70-91, 121-150) and of the
+host helpers `hann_window`/`pad_center` (`sstts/dsp/reference.py:24-34`)
+that the Griffin-Lim synthesis needs.  The numpy helpers are copies, so the
+port never imports the JAX package; they return host numpy (they are
+cached, and a cached tensor would pin one device).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def hann_window(win_length: int) -> np.ndarray:
+    """Periodic ("fftbins") Hann window, as used by librosa/scipy for STFT."""
+    n = np.arange(win_length, dtype=np.float64)
+    return 0.5 - 0.5 * np.cos(2.0 * np.pi * n / win_length)
+
+
+def pad_center(window: np.ndarray, size: int) -> np.ndarray:
+    """Center-pad a window to `size` (librosa.util.pad_center)."""
+    lpad = (size - len(window)) // 2
+    rpad = size - len(window) - lpad
+    return np.pad(window, (lpad, rpad))
+
+
+@functools.lru_cache(maxsize=None)
+def window(n_fft: int, win_length: int) -> np.ndarray:
+    """Periodic Hann window center-padded to n_fft (float32)."""
+    return pad_center(hann_window(win_length), n_fft).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def window_sum_sq(
+    n_fft: int, hop_length: int, win_length: int, n_frames: int
+) -> np.ndarray:
+    """Inverse of the overlap-added squared-window envelope (float32), 1.0
+    where the envelope vanishes."""
+    w2 = window(n_fft, win_length).astype(np.float64) ** 2
+    total = (n_frames - 1) * hop_length + n_fft
+    wss = np.zeros(total, dtype=np.float64)
+    for i in range(n_frames):
+        wss[i * hop_length : i * hop_length + n_fft] += w2
+    inv = np.where(wss > 1e-10, 1.0 / np.maximum(wss, 1e-10), 1.0)
+    return inv.astype(np.float32)
+
+
+def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
+    """(..., n_frames, n) -> (..., (n_frames - 1) * hop + n) by overlap-add."""
+    *batch, n_frames, n = frames.shape
+    total = (n_frames - 1) * hop_length + n
+    cols = frames.reshape(-1, n_frames, n).transpose(1, 2)  # (N, n, n_frames)
+    y = F.fold(
+        cols, output_size=(1, total), kernel_size=(1, n),
+        stride=(1, hop_length),
+    )
+    return y.reshape(*batch, total)

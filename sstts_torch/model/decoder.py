@@ -1,0 +1,124 @@
+"""The attention-GRU decoder cell: the port of `sstts/model/decoder.py`
+(49-210), autoregressive inference only.
+
+One step: prenet -> attention GRU -> Bahdanau attention -> decoder
+projection -> residual GRU stack -> r mel frames and r stop logits.  Once an
+utterance has finished, every carry freezes and its frames are zeroed; the
+stop check is sigmoid(max over r) > threshold.  This is the plain path that
+`Tacotron.decode_infer` loops; the fused CUDA decode is
+`sstts_torch.ops.decoder`.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from sstts_torch.config import ArchitectureConfig
+from sstts_torch.model.attention import BahdanauAttention, attention_context
+from sstts_torch.model.modules import PreNet
+from sstts_torch.model.rnn import GRUCell
+
+
+class DecoderCarry(NamedTuple):
+    attn_h: torch.Tensor  # (B, Ha)
+    dec_hs: Tuple[torch.Tensor, ...]  # each (B, Hd)
+    context: torch.Tensor  # (B, Dm)
+    alignment: torch.Tensor  # (B, T)
+    prev_frame: torch.Tensor  # (B, n_mels)
+    finished: torch.Tensor  # (B,) bool
+
+
+class StepOutput(NamedTuple):
+    mel: torch.Tensor  # (B, r, n_mels)
+    stop_logits: torch.Tensor  # (B, r)
+    alignment: torch.Tensor  # (B, T)
+    finished: torch.Tensor  # (B,) finished before this step's emission
+
+
+class DecoderCell(nn.Module):
+    def __init__(self, arch: ArchitectureConfig, n_mels: int, memory_dim: int):
+        super().__init__()
+        if arch.attention_type != "bahdanau":
+            raise NotImplementedError(
+                f"attention_type={arch.attention_type!r}: the port implements "
+                "Bahdanau attention only (local-Luong is ROADMAP queue A)"
+            )
+        a = arch
+        self.arch = arch
+        self.n_mels = n_mels
+        self.prenet = PreNet(n_mels, a.prenet_units, a.prenet_dropout)
+        self.attention = BahdanauAttention(
+            memory_dim, a.attention_gru_units, a.attention_units
+        )
+        self.attn_gru = GRUCell(a.prenet_units[-1] + memory_dim, a.attention_gru_units)
+        self.dec_proj = nn.Linear(a.attention_gru_units + memory_dim, a.decoder_gru_units)
+        for i in range(a.decoder_gru_layers):
+            setattr(
+                self, f"dec_gru{i}",
+                GRUCell(a.decoder_gru_units, a.decoder_gru_units),
+            )
+        self.frame_proj = nn.Linear(a.decoder_gru_units, a.reduction_factor * n_mels)
+        self.stop_proj = nn.Linear(a.decoder_gru_units, a.reduction_factor)
+
+    @property
+    def dec_grus(self):
+        return [getattr(self, f"dec_gru{i}") for i in range(self.arch.decoder_gru_layers)]
+
+    def init_carry(self, memory: torch.Tensor) -> DecoderCarry:
+        a = self.arch
+        batch, t_enc, memory_dim = memory.shape
+        z = lambda n: memory.new_zeros(batch, n)  # noqa: E731
+        align0 = z(t_enc)
+        align0[:, 0] = 1.0
+        return DecoderCarry(
+            attn_h=z(a.attention_gru_units),
+            dec_hs=tuple(z(a.decoder_gru_units) for _ in range(a.decoder_gru_layers)),
+            context=z(memory_dim),
+            alignment=align0,
+            prev_frame=z(self.n_mels),
+            finished=torch.zeros(batch, dtype=torch.bool, device=memory.device),
+        )
+
+    def forward(
+        self,
+        carry: DecoderCarry,
+        memory: torch.Tensor,
+        keys: torch.Tensor,
+        memory_mask: Optional[torch.Tensor],
+        keep=None,
+        stop_threshold: float = 0.5,
+    ) -> Tuple[DecoderCarry, StepOutput]:
+        """One autoregressive step; `keep` is the prenet's per-layer keep
+        masks for this step (None: no dropout)."""
+        a = self.arch
+        pre = self.prenet(carry.prev_frame, keep)
+        attn_h = self.attn_gru(torch.cat([pre, carry.context], dim=-1), carry.attn_h)
+        alignment = self.attention(attn_h, keys, memory_mask)
+        context = attention_context(alignment, memory)
+        x = self.dec_proj(torch.cat([attn_h, context], dim=-1))
+        new_dec_hs = []
+        for gru, h in zip(self.dec_grus, carry.dec_hs):
+            h_new = gru(x, h)
+            new_dec_hs.append(h_new)
+            x = x + h_new  # residual connection
+        mel = self.frame_proj(x).reshape(-1, a.reduction_factor, self.n_mels)
+        stop_logits = self.stop_proj(x)
+
+        fin = carry.finished
+
+        def keep_old(new, old):
+            return torch.where(fin.reshape((-1,) + (1,) * (new.dim() - 1)), old, new)
+
+        mel = torch.where(fin[:, None, None], torch.zeros_like(mel), mel)
+        new_carry = DecoderCarry(
+            attn_h=keep_old(attn_h, carry.attn_h),
+            dec_hs=tuple(keep_old(nh, oh) for nh, oh in zip(new_dec_hs, carry.dec_hs)),
+            context=keep_old(context, carry.context),
+            alignment=keep_old(alignment, carry.alignment),
+            prev_frame=keep_old(mel[:, -1, :], carry.prev_frame),
+            finished=fin | (torch.sigmoid(stop_logits.max(dim=-1).values) > stop_threshold),
+        )
+        return new_carry, StepOutput(mel, stop_logits, alignment, fin)

@@ -1,0 +1,165 @@
+"""Core network blocks: pre-net, highway, conv bank, CBHG.
+
+Port of `sstts/model/modules.py` (26-262), inference only: batch norm uses
+its running statistics (eps 1e-3).  Layouts follow the JAX package at the
+module boundary — (B, T, D) batch-major with an optional (B, T) mask — and
+convolutions transpose to PyTorch's (B, D, T) inside.  Parameter names
+follow flax, so `sstts_torch.convert` maps one tree onto the other.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sstts_torch.model.rnn import BiGRU
+
+
+def _mask3(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return mask[..., None].to(like.dtype)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm over the last dim with the running statistics (eval)."""
+
+    def __init__(self, features: int, epsilon: float = 1e-3):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = (x - self.mean) / torch.sqrt(self.var + self.epsilon)
+        return y * self.scale + self.bias
+
+
+class PreNet(nn.Module):
+    """FC-ReLU-dropout stack.  Dropout takes explicit keep masks (one (B, P)
+    {0, 1} tensor per layer, or None for no dropout) so that every path —
+    plain, kernel, batch of one — can be fed the same noise."""
+
+    def __init__(self, d_in: int, units: Sequence[int], dropout: float = 0.5):
+        super().__init__()
+        self.dropout = dropout
+        dims = [d_in, *units]
+        for i in range(len(units)):
+            setattr(self, f"fc{i}", nn.Linear(dims[i], dims[i + 1]))
+        self.n_layers = len(units)
+
+    def forward(self, x: torch.Tensor, keep=None) -> torch.Tensor:
+        scale = 1.0 / (1.0 - self.dropout) if self.dropout < 1.0 else 0.0
+        for i in range(self.n_layers):
+            x = F.relu(getattr(self, f"fc{i}")(x))
+            if keep is not None:
+                x = torch.where(keep[i] > 0, x * scale, torch.zeros_like(x))
+        return x
+
+
+class Highway(nn.Module):
+    """Single highway layer: T * H(x) + (1 - T) * x."""
+
+    def __init__(self, units: int):
+        super().__init__()
+        self.h = nn.Linear(units, units)
+        self.t = nn.Linear(units, units)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = F.relu(self.h(x))
+        t = torch.sigmoid(self.t(x))
+        return h * t + x * (1.0 - t)
+
+
+class Conv1dBank(nn.Module):
+    """K parallel conv1d's of widths 1..K, each BN+ReLU, concatenated:
+    (B, T, D) -> (B, T, K * channels).
+
+    Kernel `conv{k}` is (channels, D, k), PyTorch's Conv1d layout.  SAME
+    padding is asymmetric for even widths, ((k-1)//2, k//2), as in XLA, so
+    each conv pads explicitly and runs unpadded.
+    """
+
+    def __init__(self, d_in: int, bank_k: int, channels: int):
+        super().__init__()
+        self.bank_k = bank_k
+        for k in range(1, bank_k + 1):
+            setattr(self, f"conv{k}", nn.Parameter(torch.empty(channels, d_in, k)))
+            setattr(self, f"bn{k}", MaskedBatchNorm(channels))
+
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        if mask is not None:
+            x = x * _mask3(mask, x)
+        xc = x.transpose(1, 2)  # (B, D, T)
+        outs = []
+        for k in range(1, self.bank_k + 1):
+            y = F.conv1d(F.pad(xc, ((k - 1) // 2, k // 2)), getattr(self, f"conv{k}"))
+            y = getattr(self, f"bn{k}")(y.transpose(1, 2))
+            outs.append(F.relu(y))
+        out = torch.cat(outs, dim=-1)
+        if mask is not None:
+            out = out * _mask3(mask, out)
+        return out
+
+
+class CBHG(nn.Module):
+    """Conv bank -> max-pool(2, stride 1) -> two 3-wide conv projections
+    (+BN, first ReLU) -> residual -> highway stack -> BiGRU.
+    (B, T, D) -> (B, T, 2 * gru_units)."""
+
+    def __init__(
+        self,
+        d_in: int,
+        bank_k: int,
+        bank_channels: int,
+        proj_channels: Tuple[int, int],
+        highway_layers: int,
+        highway_units: int,
+        gru_units: int,
+    ):
+        super().__init__()
+        if proj_channels[1] != d_in:
+            raise ValueError(
+                f"CBHG residual dim mismatch: proj2={proj_channels[1]} vs input={d_in}"
+            )
+        self.bank = Conv1dBank(d_in, bank_k, bank_channels)
+        self.proj1 = nn.Conv1d(bank_k * bank_channels, proj_channels[0], 3, padding=1, bias=False)
+        self.proj1_bn = MaskedBatchNorm(proj_channels[0])
+        self.proj2 = nn.Conv1d(proj_channels[0], proj_channels[1], 3, padding=1, bias=False)
+        self.proj2_bn = MaskedBatchNorm(proj_channels[1])
+        if d_in != highway_units:
+            self.highway_in = nn.Linear(d_in, highway_units)
+        self.highway_layers = highway_layers
+        for i in range(highway_layers):
+            setattr(self, f"highway{i}", Highway(highway_units))
+        self.gru = BiGRU(highway_units, gru_units)
+
+    def forward(
+        self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        residual = x
+        y = self.bank(x, mask)
+        # Max-pool width 2, stride 1, SAME: max(y[t], y[t+1]), -inf past the end.
+        right = F.pad(y[:, 1:], (0, 0, 0, 1), value=float("-inf"))
+        y = torch.maximum(y, right)
+        if mask is not None:
+            y = torch.where(mask[..., None], y, torch.zeros_like(y))
+        y = self.proj1(y.transpose(1, 2)).transpose(1, 2)
+        y = F.relu(self.proj1_bn(y))
+        if mask is not None:
+            y = y * _mask3(mask, y)
+        y = self.proj2(y.transpose(1, 2)).transpose(1, 2)
+        y = self.proj2_bn(y)
+        y = y + residual
+        if hasattr(self, "highway_in"):
+            y = self.highway_in(y)
+        for i in range(self.highway_layers):
+            y = getattr(self, f"highway{i}")(y)
+        if mask is not None:
+            y = y * _mask3(mask, y)
+        return self.gru(y, mask)

@@ -1,0 +1,137 @@
+"""The Tacotron model: the port of `sstts/model/tacotron.py` (41-82,
+160-216), inference only.
+
+char embedding -> pre-net -> CBHG encoder -> (Bahdanau-attention GRU +
+residual GRU stack, r frames/step) -> post-CBHG -> linear spectrogram.
+Module and parameter names follow the flax tree (see
+`sstts_torch.convert`).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from sstts_torch.config import ArchitectureConfig, DatasetConfig
+from sstts_torch.data.text import charset_for
+from sstts_torch.model.decoder import DecoderCell
+from sstts_torch.model.modules import CBHG, Conv1dBank, Highway, PreNet
+from sstts_torch.model.rnn import _GRUParams
+
+
+class Tacotron(nn.Module):
+    def __init__(self, arch: ArchitectureConfig, data: DatasetConfig):
+        super().__init__()
+        a = arch
+        self.arch = arch
+        self.data = data
+        vocab = a.vocab_size or charset_for(data.extra_chars).vocab_size
+        self.embedding = nn.Embedding(vocab, a.embedding_dim)
+        self.encoder_prenet = PreNet(a.embedding_dim, a.prenet_units, a.prenet_dropout)
+        self.encoder_cbhg = CBHG(
+            a.prenet_units[-1], a.encoder_bank_k, a.encoder_bank_channels,
+            a.encoder_proj_channels, a.encoder_highway_layers,
+            a.encoder_highway_units, a.encoder_gru_units,
+        )
+        memory_dim = 2 * a.encoder_gru_units
+        self.decoder_cell = DecoderCell(a, data.n_mels, memory_dim)
+        # The second post projection returns to mel space by definition.
+        post_proj = (a.post_proj_channels[0], data.n_mels)
+        self.post_cbhg = CBHG(
+            data.n_mels, a.post_bank_k, a.post_bank_channels, post_proj,
+            a.post_highway_layers, a.post_highway_units, a.post_gru_units,
+        )
+        self.linear_proj = nn.Linear(2 * a.post_gru_units, data.n_linear)
+
+    def encode(self, char_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, T) ids -> memory (B, T, 2*enc_gru), mask (B, T) bool.  The
+        encoder prenet's dropout is train-time only."""
+        mask = char_ids != 0
+        x = self.encoder_prenet(self.embedding(char_ids))
+        return self.encoder_cbhg(x, mask), mask
+
+    def decode_infer(
+        self,
+        memory: torch.Tensor,
+        memory_mask: torch.Tensor,
+        max_steps: int,
+        stop_threshold: float = 0.5,
+        min_steps: int = 8,
+        keep=None,
+    ) -> Dict[str, torch.Tensor]:
+        """Autoregressive fixed-length loop with stop-token mask
+        accumulation (the plain path).  `keep` is (keep0 (S, B, P0),
+        keep1 (S, B, P1)) or None for no dropout.  Returns mel
+        (B, S*r, M), stop_logits (B, S*r), alignments (B, S, T), n_frames."""
+        cell = self.decoder_cell
+        r = self.arch.reduction_factor
+        batch = memory.shape[0]
+        keys = cell.attention.init_keys(memory)
+        carry = cell.init_carry(memory)
+        outs = []
+        for step in range(max_steps):
+            k = None if keep is None else [m[step] for m in keep]
+            new, out = cell(carry, memory, keys, memory_mask, k, stop_threshold)
+            fin = new.finished & (step >= min_steps - 1)
+            carry = new._replace(finished=carry.finished | fin)
+            outs.append(out)
+        mel = torch.stack([o.mel for o in outs], 1)
+        finished = torch.stack([o.finished for o in outs], 1)
+        return {
+            "mel": mel.reshape(batch, max_steps * r, self.data.n_mels),
+            "stop_logits": torch.stack([o.stop_logits for o in outs], 1).reshape(
+                batch, max_steps * r
+            ),
+            "alignments": torch.stack([o.alignment for o in outs], 1),
+            "n_frames": (~finished).sum(1) * r,
+        }
+
+    def postprocess(
+        self, mel: torch.Tensor, frame_mask: Optional[torch.Tensor]
+    ) -> torch.Tensor:
+        """Predicted mel -> linear spectrogram via the post-processing CBHG."""
+        return self.linear_proj(self.post_cbhg(mel, frame_mask))
+
+
+def init_state_dict(
+    arch: ArchitectureConfig, data: DatasetConfig, seed: int = 0
+) -> Dict[str, torch.Tensor]:
+    """A seeded random init on the CPU, with the JAX package's initialiser
+    families: LeCun-normal kernels, orthogonal recurrent weights, zero
+    biases, highway gate bias -1, Bahdanau v ~ U(-1, 1)/sqrt(A), batch-norm
+    running stats at mean 0 and var 1."""
+    g = torch.Generator().manual_seed(int(seed))
+    model = Tacotron(arch, data)
+
+    def lecun(t: torch.Tensor, fan_in: int) -> None:
+        with torch.no_grad():
+            t.normal_(0.0, fan_in ** -0.5, generator=g)
+
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.Linear):
+                lecun(mod.weight, mod.in_features)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Conv1d):
+                lecun(mod.weight, mod.in_channels * mod.kernel_size[0])
+            elif isinstance(mod, Conv1dBank):
+                for k in range(1, mod.bank_k + 1):
+                    w = getattr(mod, f"conv{k}")
+                    lecun(w, w.shape[1] * k)
+            elif isinstance(mod, _GRUParams):
+                lecun(mod.wx, mod.wx.shape[0])
+                nn.init.orthogonal_(mod.wh, generator=g)
+                mod.b.zero_()
+            elif isinstance(mod, nn.Embedding):
+                mod.weight.normal_(0.0, 1.0, generator=g)
+        for mod in model.modules():
+            if isinstance(mod, Highway):
+                mod.t.bias.fill_(-1.0)
+        att = model.decoder_cell.attention
+        units = att.v.shape[0]
+        att.v.uniform_(-1.0, 1.0, generator=g).mul_(units ** -0.5)
+        att.b.zero_()
+    return model.state_dict()

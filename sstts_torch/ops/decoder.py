@@ -1,0 +1,345 @@
+"""Fused autoregressive decode: the port of `sstts/ops/pallas_decoder.py`
+`fused_decode` (59-352), kernel B4.
+
+`fused_decode` hoists the per-utterance key projection (as JAX does), casts
+the cell's weights to the matmul dtype, and hands a `DecodeInputs` to
+`decode_steps`, which dispatches on the device: a CPU tensor runs
+`decode_steps_plain` (the kernel's math in plain torch), a CUDA tensor
+launches `sstts_torch/csrc/decoder.cu` or raises.
+
+Dropout: the caller draws the keep masks for both prenet layers, (S, B, P0)
+and (S, B, P1), and the same tensors feed the kernel and the plain version,
+so the two agree with dropout on.  JAX's kernel draws its noise on the TPU
+core, a different stream by design, so parity with JAX runs with dropout
+off.  Products take both operands rounded to the matmul dtype (bf16 by
+default, or f32) with f32 accumulation; gates and softmax run in f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+
+from sstts_torch.ops import build
+
+#: Weight matrices, each (K, N) row-major, in kernel argument order; the
+#: vectors (biases, score v) stay f32.
+_MATRICES = (
+    "prenet_w0", "prenet_w1", "attn_wx", "attn_wh", "query_w", "dec_w",
+    "gru0_wx", "gru0_wh", "gru1_wx", "gru1_wh", "frame_w", "stop_w",
+)
+
+
+class DecoderWeights(NamedTuple):
+    prenet_w0: torch.Tensor  # (M, P0)
+    prenet_b0: torch.Tensor
+    prenet_w1: torch.Tensor  # (P0, P1)
+    prenet_b1: torch.Tensor
+    attn_wx: torch.Tensor  # (P1 + Dm, 3 Ha)
+    attn_wh: torch.Tensor  # (Ha, 3 Ha)
+    attn_b: torch.Tensor
+    query_w: torch.Tensor  # (Ha, A)
+    score_v: torch.Tensor
+    score_b: torch.Tensor
+    dec_w: torch.Tensor  # (Ha + Dm, Hd)
+    dec_b: torch.Tensor
+    gru0_wx: torch.Tensor  # (Hd, 3 Hd)
+    gru0_wh: torch.Tensor
+    gru0_b: torch.Tensor
+    gru1_wx: torch.Tensor
+    gru1_wh: torch.Tensor
+    gru1_b: torch.Tensor
+    frame_w: torch.Tensor  # (Hd, r M)
+    frame_b: torch.Tensor
+    stop_w: torch.Tensor  # (Hd, r)
+    stop_b: torch.Tensor
+
+
+class DecodeInputs(NamedTuple):
+    """Everything one fused decode reads, already on its device."""
+
+    w: DecoderWeights
+    memory: torch.Tensor  # (B, T, Dm) matmul dtype
+    keys: torch.Tensor  # (B, T, A) matmul dtype
+    maskf: torch.Tensor  # (B, T) f32 {0, 1}
+    keep0: Optional[torch.Tensor]  # (S, B, P0) f32 {0, 1}, or None
+    keep1: Optional[torch.Tensor]  # (S, B, P1)
+    max_steps: int
+    n_mels: int
+    reduction: int
+    stop_threshold: float
+    min_steps: int
+    dropout_scale: float
+
+
+def supports_arch(arch) -> bool:
+    """The kernel implements Bahdanau attention, a 2-layer prenet and
+    exactly 2 residual decoder GRUs."""
+    return (
+        arch.attention_type == "bahdanau"
+        and arch.decoder_gru_layers == 2
+        and len(arch.prenet_units) == 2
+    )
+
+
+def weights_from_cell(cell, matmul_dtype: torch.dtype) -> DecoderWeights:
+    """The decoder cell's parameters in kernel layout: Linear weights
+    transposed to (in, out), matrices in the matmul dtype, vectors f32."""
+    if not supports_arch(cell.arch):
+        raise NotImplementedError(
+            "the fused decoder implements Bahdanau attention with a 2-layer "
+            "prenet and 2 decoder GRUs; this architecture is not supported"
+        )
+    lin = lambda m: (m.weight.T, m.bias)  # noqa: E731
+    w0, b0 = lin(cell.prenet.fc0)
+    w1, b1 = lin(cell.prenet.fc1)
+    dw, db = lin(cell.dec_proj)
+    fw, fb = lin(cell.frame_proj)
+    sw, sb = lin(cell.stop_proj)
+    g = [cell.attn_gru, cell.dec_gru0, cell.dec_gru1]
+    raw = DecoderWeights(
+        w0, b0, w1, b1,
+        g[0].wx, g[0].wh, g[0].b,
+        cell.attention.query_proj.weight.T, cell.attention.v, cell.attention.b,
+        dw, db,
+        g[1].wx, g[1].wh, g[1].b,
+        g[2].wx, g[2].wh, g[2].b,
+        fw, fb, sw, sb,
+    )
+    return DecoderWeights(
+        *[
+            t.detach().to(matmul_dtype if name in _MATRICES else torch.float32).contiguous()
+            for name, t in zip(DecoderWeights._fields, raw)
+        ]
+    )
+
+
+def draw_keep_masks(
+    max_steps: int, batch: int, units, rate: float,
+    generator: torch.Generator, device,
+):
+    """Prenet keep masks (S, B, P) for each layer, f32 {0, 1}, drawn with
+    `generator` on `device` (keep with probability 1 - rate)."""
+    return tuple(
+        (torch.rand(max_steps, batch, p, generator=generator, device=device) >= rate).float()
+        for p in units
+    )
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w with both operands rounded to w's dtype, f32 accumulation."""
+    return x.to(w.dtype).float() @ w.float()
+
+
+def _gru_step(x, h, wx, wh, b):
+    hidden = h.shape[-1]
+    gx = _dot(x, wx) + b
+    gh = _dot(h, wh)
+    r = torch.sigmoid(gx[:, :hidden] + gh[:, :hidden])
+    z = torch.sigmoid(gx[:, hidden : 2 * hidden] + gh[:, hidden : 2 * hidden])
+    n = torch.tanh(gx[:, 2 * hidden :] + r * gh[:, 2 * hidden :])
+    return z * h + (1.0 - z) * n
+
+
+def decode_steps_plain(p: DecodeInputs) -> Dict[str, torch.Tensor]:
+    """The kernel's function in plain torch (any device): mel (B, S, r*M),
+    stop (B, S, r), align (B, S, T), fin (B, S) f32 (1 = finished before
+    the step)."""
+    w = p.w
+    B, T, Dm = p.memory.shape
+    Ha, Hd = w.attn_wh.shape[0], w.gru0_wh.shape[0]
+    r, M = p.reduction, p.n_mels
+    dev = p.memory.device
+    mem = p.memory.float()
+    keys = p.keys.float()
+    zeros = lambda n: torch.zeros(B, n, device=dev)  # noqa: E731
+    attn_h, h0, h1, ctx, prev = zeros(Ha), zeros(Hd), zeros(Hd), zeros(Dm), zeros(M)
+    fin = zeros(1)
+    mels, stops, aligns, fins = [], [], [], []
+    for t in range(p.max_steps):
+        fin_old = fin
+        x = F.relu(_dot(prev, w.prenet_w0) + w.prenet_b0)
+        if p.keep0 is not None:
+            x = torch.where(p.keep0[t] > 0, x * p.dropout_scale, torch.zeros_like(x))
+        x = F.relu(_dot(x, w.prenet_w1) + w.prenet_b1)
+        if p.keep1 is not None:
+            x = torch.where(p.keep1[t] > 0, x * p.dropout_scale, torch.zeros_like(x))
+        h_a = _gru_step(torch.cat([x, ctx], -1), attn_h, w.attn_wx, w.attn_wh, w.attn_b)
+        q = _dot(h_a, w.query_w) + w.score_b
+        s = torch.tanh(keys + q[:, None, :])
+        scores = (s * w.score_v).sum(-1)
+        scores = torch.where(p.maskf > 0, scores, torch.full_like(scores, -1e9))
+        e = torch.exp(scores - scores.max(-1, keepdim=True).values)
+        align = e / e.sum(-1, keepdim=True)
+        c = torch.einsum("bt,btd->bd", align, mem)
+        d = _dot(torch.cat([h_a, c], -1), w.dec_w) + w.dec_b
+        n0 = _gru_step(d, h0, w.gru0_wx, w.gru0_wh, w.gru0_b)
+        d = d + n0
+        n1 = _gru_step(d, h1, w.gru1_wx, w.gru1_wh, w.gru1_b)
+        d = d + n1
+        mel = _dot(d, w.frame_w) + w.frame_b
+        stop = _dot(d, w.stop_w) + w.stop_b
+        done = fin_old > 0
+        mel = torch.where(done, torch.zeros_like(mel), mel)
+        hit = (torch.sigmoid(stop.max(-1, keepdim=True).values) > p.stop_threshold).float()
+        if p.min_steps > 0 and t < p.min_steps - 1:
+            hit = torch.zeros_like(hit)
+        fin = torch.maximum(fin_old, hit)
+        keep = lambda new, old: torch.where(done, old, new)  # noqa: E731
+        attn_h, h0, h1 = keep(h_a, attn_h), keep(n0, h0), keep(n1, h1)
+        ctx = keep(c, ctx)
+        prev = keep(mel[:, (r - 1) * M :], prev)
+        mels.append(mel)
+        stops.append(stop)
+        aligns.append(align)
+        fins.append(fin_old[:, 0])
+    return {
+        "mel": torch.stack(mels, 1),
+        "stop": torch.stack(stops, 1),
+        "align": torch.stack(aligns, 1),
+        "fin": torch.stack(fins, 1),
+    }
+
+
+class _DecodeArgs(ctypes.Structure):
+    """Mirror of `DecodeArgs` in csrc/decoder.cu (same field order)."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in (
+            *DecoderWeights._fields, "memory", "keys", "mask", "keep0", "keep1",
+            "mel", "stop", "align", "fin",
+        )
+    ] + [
+        (name, ctypes.c_int)
+        for name in (
+            "B", "T", "S", "M", "P0", "P1", "Dm", "A", "Ha", "Hd", "r",
+            "min_steps",
+        )
+    ] + [("stop_threshold", ctypes.c_float), ("dropout_scale", ctypes.c_float)]
+
+
+_SIGNATURES = {
+    "sstts_fused_decode": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "sstts_decode_smem_bytes": ([ctypes.c_void_p], ctypes.c_int),
+}
+
+
+def _kernel(p: DecodeInputs) -> Dict[str, torch.Tensor]:
+    w = p.w
+    dt = w.attn_wx.dtype
+    if dt not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"fused decode matmul dtype {dt}")
+    if p.memory.dtype != dt or p.keys.dtype != dt or any(
+        getattr(w, n).dtype != dt for n in _MATRICES
+    ):
+        raise ValueError("fused decode: weights, memory and keys must share one dtype")
+    B, T, Dm = p.memory.shape
+    A = p.keys.shape[-1]
+    S, r, M = p.max_steps, p.reduction, p.n_mels
+    P0, P1 = w.prenet_w0.shape[1], w.prenet_w1.shape[1]
+    Ha, Hd = w.attn_wh.shape[0], w.gru0_wh.shape[0]
+    widest = max(P0, P1, 3 * Ha, A, 3 * Hd, r * M)
+    if widest > 1024:
+        raise NotImplementedError(
+            f"fused decode kernel keeps products up to 1024 columns wide; "
+            f"this cell needs {widest}"
+        )
+    dev = p.memory.device
+    out = {
+        "mel": torch.empty(B, S, r * M, device=dev),
+        "stop": torch.empty(B, S, r, device=dev),
+        "align": torch.empty(B, S, T, device=dev),
+        "fin": torch.empty(B, S, device=dev),
+    }
+    for t in (p.memory, p.keys, p.maskf, p.keep0, p.keep1, *w):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError("fused decode inputs must be contiguous on one device")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    args = _DecodeArgs(
+        *[ptr(t) for t in w],
+        ptr(p.memory), ptr(p.keys), ptr(p.maskf), ptr(p.keep0), ptr(p.keep1),
+        ptr(out["mel"]), ptr(out["stop"]), ptr(out["align"]), ptr(out["fin"]),
+        B, T, S, M, P0, P1, Dm, A, Ha, Hd, r, int(p.min_steps),
+        float(p.stop_threshold), float(p.dropout_scale),
+    )
+    lib = build.load("decoder", _SIGNATURES)
+    smem = lib.sstts_decode_smem_bytes(ctypes.byref(args))
+    if smem > build.MAX_SMEM:
+        raise NotImplementedError(
+            f"fused decode state needs {smem} bytes of shared memory "
+            f"(limit {build.MAX_SMEM}) at T={T}"
+        )
+    rc = lib.sstts_fused_decode(
+        ctypes.byref(args), int(dt == torch.bfloat16),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, rc, "fused_decode")
+    return out
+
+
+def decode_steps(p: DecodeInputs) -> Dict[str, torch.Tensor]:
+    """Device dispatch (see module docstring); counts CUDA launches in
+    `decode_steps.launches`."""
+    dev = p.memory.device.type
+    if dev == "cpu":
+        return decode_steps_plain(p)
+    if dev != "cuda":
+        raise NotImplementedError(f"fused decode on {dev}")
+    out = _kernel(p)
+    decode_steps.launches += 1
+    return out
+
+
+decode_steps.launches = 0
+
+
+def prepare_decode(
+    cell,
+    memory: torch.Tensor,
+    memory_mask: torch.Tensor,
+    max_steps: int,
+    *,
+    stop_threshold: float = 0.5,
+    min_steps: int = 8,
+    keep=None,
+    matmul_dtype: torch.dtype = torch.bfloat16,
+) -> DecodeInputs:
+    """Hoisted per-utterance work: the key projection (f32, as JAX) and
+    the casts.  `keep` is (keep0, keep1) or None for no dropout."""
+    w = weights_from_cell(cell, matmul_dtype)
+    keys = memory.float() @ cell.attention.memory_proj.weight.T.float()
+    keep0, keep1 = (None, None) if keep is None else (k.float().contiguous() for k in keep)
+    rate = float(cell.prenet.dropout)
+    return DecodeInputs(
+        w=w,
+        memory=memory.to(matmul_dtype).contiguous(),
+        keys=keys.to(matmul_dtype).contiguous(),
+        maskf=memory_mask.float().contiguous(),
+        keep0=keep0,
+        keep1=keep1,
+        max_steps=int(max_steps),
+        n_mels=cell.n_mels,
+        reduction=cell.arch.reduction_factor,
+        stop_threshold=float(stop_threshold),
+        min_steps=int(min_steps),
+        dropout_scale=1.0 / (1.0 - rate) if rate < 1.0 else 0.0,
+    )
+
+
+def fused_decode(cell, memory, memory_mask, max_steps, **kw) -> Dict[str, torch.Tensor]:
+    """Autoregressive decode of `max_steps` steps; the same output dict as
+    `Tacotron.decode_infer`: mel (B, S*r, M), stop_logits (B, S*r),
+    alignments (B, S, T), n_frames (B,)."""
+    p = prepare_decode(cell, memory, memory_mask, max_steps, **kw)
+    out = decode_steps(p)
+    B, S = out["fin"].shape
+    return {
+        "mel": out["mel"].reshape(B, S * p.reduction, p.n_mels),
+        "stop_logits": out["stop"].reshape(B, S * p.reduction),
+        "alignments": out["align"],
+        "n_frames": (out["fin"] < 0.5).sum(1) * p.reduction,
+    }

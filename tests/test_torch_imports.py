@@ -1,0 +1,120 @@
+"""The port's package boundary: no JAX inside, same config fingerprints,
+the card by default, no launches on the CPU, and clear refusals for what
+this slice does not implement."""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import sstts.config as jax_config
+import sstts_torch.config as port_config
+from sstts_torch.synthesize import Synthesizer, check_supported
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def test_port_imports_no_jax_and_no_sstts():
+    """Importing every sstts_torch module leaves no jax, flax or sstts.*
+    module behind (run in a fresh interpreter)."""
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import sstts_torch\n"
+        "names = ['sstts_torch'] + [m.name for m in pkgutil.walk_packages("
+        "sstts_torch.__path__, 'sstts_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'sstts'))\n"
+        "print(json.dumps({'modules': names, 'bad': bad}))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == []
+    for expected in (
+        "sstts_torch.synthesize", "sstts_torch.convert",
+        "sstts_torch.model.tacotron", "sstts_torch.ops.gru",
+        "sstts_torch.ops.decoder", "sstts_torch.dsp.gl_fused",
+        "sstts_torch.dsp.griffin_lim", "sstts_torch.data.text",
+    ):
+        assert expected in res["modules"]
+
+
+@pytest.mark.parametrize(
+    "make",
+    [
+        lambda m: m.Config(),
+        lambda m: m.tiny_config(),
+        lambda m: m.with_fast_vocoder(m.Config()),
+    ],
+    ids=["default", "tiny", "fast_vocoder"],
+)
+def test_config_fingerprints_match(make):
+    assert make(port_config).fingerprint() == make(jax_config).fingerprint()
+    assert dataclasses.asdict(make(port_config)) == dataclasses.asdict(
+        make(jax_config)
+    )
+
+
+def test_synthesizer_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = port_config.tiny_config()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Synthesizer(cfg, {})
+
+
+def test_kernel_wrappers_on_cpu_do_not_launch():
+    """A wrapper given CPU tensors runs its plain version and counts no
+    launch."""
+    from sstts_torch.dsp.gl_fused import reproject_analyze
+    from sstts_torch.ops import kernel_wrappers
+    from sstts_torch.ops.gru import gru_sequence
+
+    before = {k: w.launches for k, w in kernel_wrappers().items()}
+    rng = np.random.default_rng(0)
+    xs = torch.as_tensor(rng.normal(size=(2, 5, 4)).astype(np.float32))
+    wx = torch.as_tensor(rng.normal(size=(4, 9)).astype(np.float32))
+    wh = torch.as_tensor(rng.normal(size=(3, 9)).astype(np.float32))
+    y = gru_sequence(xs, wx, wh, torch.zeros(9), None, False)
+    assert y.shape == (2, 5, 3)
+    frames = torch.zeros(1, 4, 128)
+    mag2 = torch.ones(1, 4, 128)
+    q, s = reproject_analyze(
+        frames, mag2, torch.zeros(128, 128), torch.ones(4, 128), 100, 25, 3
+    )
+    assert s is None and q.shape == (1, 4, 128)
+    after = {k: w.launches for k, w in kernel_wrappers().items()}
+    assert after == before
+
+
+_CPU_REFUSALS = [
+    ("arch", {"attention_type": "local_luong"}),
+    ("arch", {"fused_conv_bank": True}),
+    ("arch", {"compute_dtype": "bfloat16"}),
+    ("inference", {"wire_format": "mulaw8"}),
+    ("inference", {"griffin_lim_iter_impl": "split"}),
+    ("inference", {"griffin_lim_iter_impl": "fused"}),
+]
+_CUDA_REFUSALS = [
+    ("inference", {"decoder_impl": "xla"}),
+    ("inference", {"griffin_lim_fft_impl": "dft_highest"}),
+]
+
+
+@pytest.mark.parametrize(
+    "section,fields,device",
+    [(s, f, "cpu") for s, f in _CPU_REFUSALS]
+    + [(s, f, "cuda") for s, f in _CUDA_REFUSALS],
+)
+def test_unported_config_values_raise(section, fields, device):
+    cfg = port_config.tiny_config()
+    cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **fields)})
+    with pytest.raises(NotImplementedError):
+        check_supported(cfg, torch.device(device))
