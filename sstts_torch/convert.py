@@ -1,4 +1,4 @@
-"""flax parameter trees -> the port's `state_dict`.
+"""flax parameter trees <-> the port's `state_dict`.
 
 `convert_params` takes the JAX package's `params` and `batch_stats` trees as
 nested dicts of numpy arrays (what `jax.tree.map(np.asarray, ...)` gives)
@@ -16,12 +16,15 @@ layout rules:
 * `embedding/embedding` -> `embedding.weight`.
 
 It raises on a leaf the port has no place for and on a port tensor that no
-leaf fills, so nothing is silently dropped or left at its init.
+leaf fills, so nothing is silently dropped or left at its init.  `to_flax`
+is the inverse: a `state_dict` (or any name -> tensor map of the model's
+parameters, such as their gradients) -> flax-shaped `params` and
+`batch_stats` trees of numpy leaves.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +33,7 @@ from sstts_torch.config import Config
 from sstts_torch.model.tacotron import Tacotron
 
 _RENAME = {"forward": "forward_gru", "backward": "backward_gru"}
+_UNRENAME = {v: k for k, v in _RENAME.items()}
 
 
 def _leaves(tree: Any, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
@@ -78,3 +82,27 @@ def convert_params(params: Any, batch_stats: Any, cfg: Config) -> Dict[str, torc
     if missing:
         raise KeyError(f"port tensors with no flax leaf: {missing}")
     return out
+
+
+def to_flax(state: Mapping[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A port name -> tensor map -> (params, batch_stats) nested dicts of
+    numpy arrays in the flax layout (the inverse of `convert_params`)."""
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for key, tensor in state.items():
+        *mods, leaf = key.split(".")
+        mods = [_UNRENAME.get(m, m) for m in mods]
+        value = tensor.detach().cpu().numpy().copy()
+        tree = stats if leaf in ("mean", "var") else params
+        if leaf == "weight" and mods[-1] == "embedding":
+            leaf = "embedding"
+        elif leaf == "weight":
+            leaf = "kernel"
+            value = value.T if value.ndim == 2 else value.transpose(2, 1, 0)
+        elif leaf.startswith("conv") and value.ndim == 3:
+            value = value.transpose(2, 1, 0)
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.ascontiguousarray(value)
+    return params, stats

@@ -1,8 +1,11 @@
-// Whole-sequence GRU for Hopper (sm_90a): kernel B3 of the port.
+// Whole-sequence GRU for Hopper (sm_90a): kernel B3 of the port, forward
+// and backward.
 //
 // Replaces sstts/ops/pallas_gru.py:gru_sequence (the Pallas TPU kernel that
-// runs an entire GRU sequence in one pallas_call).  Same math, gate order
-// r, z, n and the "v3" candidate n = tanh(xn + r * (h @ Wh_n)):
+// runs an entire GRU sequence in one pallas_call) and the recurrence of its
+// gradient, gru_sequence_ad (which JAX differentiates through its lax.scan
+// oracle).  Same math, gate order r, z, n and the "v3" candidate
+// n = tanh(xn + r * (h @ Wh_n)):
 //
 //   gx = x @ Wx + b,  gh = h @ Wh,
 //   r = sigmoid(xr + hr),  z = sigmoid(xz + hz),  n = tanh(xn + r * hn),
@@ -17,7 +20,7 @@
 // 2*B*T*(D + H)*3H = 5.0 GFLOP at B=32, T=800, D=H=128, is negligible next
 // to 800 rounds of a 128-deep dot product plus two block barriers each.
 //
-// Design: two kernels.
+// Design: three kernels.
 //  1. gru_input_proj: the input projection has no sequential dependence, so
 //     it runs as one tiled f32 GEMM over all B*T rows (64x64 output tiles,
 //     4x4 outputs per thread, operands staged through shared memory).
@@ -28,6 +31,25 @@
 //     inside the block, so no state round-trips device memory between steps.
 //     Each step: thread c computes gh[c] = sum_k h[k] * Wh[k, c]; after a
 //     barrier, threads 0..H-1 apply the gates and write h and the output.
+//     When a gradient is wanted it also writes, per step, the gates r, z, n,
+//     the recurrent candidate term hn and the carry before the step
+//     (5H floats; 42 MB at B=32, T=515, H=128), so that the backward never
+//     repeats the forward's serial chain.
+//  3. gru_recurrence_bwd: the reverse-time recurrence of the gradient, one
+//     block per utterance.  Wh is held transposed in shared memory, (3H, H),
+//     so that dh_prev[k] = sum_c dgh[c] * Wh[k, c] reads consecutive
+//     addresses across threads; the 3H-long sum is split over three groups
+//     of H threads (128-long chains, as in the forward) that meet in shared
+//     memory.  Per step, from the saved gates and the incoming carry
+//     gradient, it writes the gate-preactivation gradients dgx (input side)
+//     and dgh (recurrent side, dgx with the candidate's entry times r).
+//     The carry gradient passes straight through masked steps.  The weight
+//     gradients dWx = xs^T dgx, dWh = h_prev^T dgh, db = sum dgx and
+//     dxs = dgx Wx^T are large independent products that the wrapper leaves
+//     to cuBLAS, as the JAX package leaves them to XLA.  Bound: 2*3H*H
+//     operations per step and utterance (1.6 GFLOP at B=32, T=515) and
+//     ~100 MB of saved state and outputs, so ~0.03 ms; the 515 dependent
+//     steps set the time.
 //
 // Plain C interface (bound with ctypes); the launch goes on the caller's
 // stream, nothing synchronises, and the return value is cudaGetLastError().
@@ -101,7 +123,9 @@ __device__ __forceinline__ float sigmoidf_(float v) {
 __global__ void gru_recurrence(const float* __restrict__ gx,
                                const float* __restrict__ wh,
                                const float* __restrict__ mask,
-                               float* __restrict__ out, int T, int H,
+                               float* __restrict__ out,
+                               float* __restrict__ gates,
+                               float* __restrict__ hprev, int T, int H,
                                int reverse) {
   extern __shared__ float smem[];
   const int G = 3 * H;
@@ -132,6 +156,15 @@ __global__ void gru_recurrence(const float* __restrict__ gx,
       const float z = sigmoidf_(gx_s[H + i] + gh_s[H + i]);
       const float n = tanhf(gx_s[2 * H + i] + r * gh_s[2 * H + i]);
       const float h = h_s[i];
+      if (gates) {
+        const size_t row = (size_t)b * T + t;
+        float* g = gates + row * 4 * H;
+        g[i] = r;
+        g[H + i] = z;
+        g[2 * H + i] = n;
+        g[3 * H + i] = gh_s[2 * H + i];
+        hprev[row * H + i] = h;
+      }
       float hn = z * h + (1.f - z) * n;
       float o = hn;
       if (mask) {
@@ -145,18 +178,92 @@ __global__ void gru_recurrence(const float* __restrict__ gx,
   }
 }
 
+// Reverse-time recurrence of the gradient (see the header).  Walks the steps
+// in the opposite order to the forward scan.
+__global__ void gru_recurrence_bwd(const float* __restrict__ dout,
+                                   const float* __restrict__ gates,
+                                   const float* __restrict__ hprev,
+                                   const float* __restrict__ wh,
+                                   const float* __restrict__ mask,
+                                   float* __restrict__ dgx,
+                                   float* __restrict__ dgh, int T, int H,
+                                   int reverse) {
+  extern __shared__ float smem[];
+  const int G = 3 * H;
+  float* wt_s = smem;           // (3H, H) Wh transposed
+  float* dh_s = wt_s + G * H;   // (H,) gradient of the carry after the step
+  float* dhc_s = dh_s + H;      // (H,) its direct part before the step
+  float* dgh_s = dhc_s + H;     // (3H,) this step's recurrent gradient
+  float* part_s = dgh_s + G;    // (3H,) three groups' partial sums
+  const int b = blockIdx.x;
+
+  for (int i = threadIdx.x; i < H * G; i += blockDim.x)
+    wt_s[(i % G) * H + i / G] = wh[i];
+  for (int i = threadIdx.x; i < H; i += blockDim.x) dh_s[i] = 0.f;
+  __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? s : T - 1 - s;
+    const size_t row = (size_t)b * T + t;
+    const float m = mask ? mask[row] : 1.f;
+    for (int i = threadIdx.x; i < H; i += blockDim.x) {
+      const float* g = gates + row * 4 * H;
+      const float r = g[i], z = g[H + i], n = g[2 * H + i], hn = g[3 * H + i];
+      const float h = hprev[row * H + i];
+      // out = m * h_t, h_t = m * h' + (1 - m) * h.
+      const float dh_t = dh_s[i] + m * dout[row * H + i];
+      const float dh_new = m * dh_t;
+      const float dz = dh_new * (h - n);
+      const float dn = dh_new * (1.f - z);
+      const float dan = dn * (1.f - n * n);
+      const float dar = dan * hn * r * (1.f - r);
+      const float daz = dz * z * (1.f - z);
+      float* gxo = dgx + row * G;
+      float* gho = dgh + row * G;
+      gxo[i] = dar;
+      gxo[H + i] = daz;
+      gxo[2 * H + i] = dan;
+      gho[i] = dar;
+      gho[H + i] = daz;
+      gho[2 * H + i] = dan * r;
+      dgh_s[i] = dar;
+      dgh_s[H + i] = daz;
+      dgh_s[2 * H + i] = dan * r;
+      dhc_s[i] = (1.f - m) * dh_t + dh_new * z;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < G; e += blockDim.x) {
+      const int grp = e / H, k = e % H;
+      const float* w = wt_s + (size_t)grp * H * H + k;
+      const float* d = dgh_s + grp * H;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int c = 0; c < H; ++c) acc = fmaf(d[c], w[c * H], acc);
+      part_s[e] = acc;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < H; i += blockDim.x)
+      dh_s[i] = dhc_s[i] + part_s[i] + part_s[H + i] + part_s[2 * H + i];
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 int sstts_gru_smem_bytes(int H) { return (H * 3 * H + H + 6 * H) * 4; }
 
+int sstts_gru_bwd_smem_bytes(int H) { return (3 * H * H + 8 * H) * 4; }
+
 // xs (B, T, D), wx (D, 3H), wh (H, 3H), b (3H), mask (B, T) or NULL, all
-// f32 and contiguous; gx_scratch (B, T, 3H) f32; out (B, T, H) f32.
+// f32 and contiguous; gx_scratch (B, T, 3H) f32; out (B, T, H) f32; gates
+// (B, T, 4H) and hprev (B, T, H) f32, or both NULL when no gradient is
+// wanted.
 int sstts_gru_sequence(const float* xs, const float* wx, const float* wh,
                        const float* b, const float* mask, float* gx_scratch,
-                       float* out, int B, int T, int D, int H, int reverse,
-                       void* stream) {
+                       float* out, float* gates, float* hprev, int B, int T,
+                       int D, int H, int reverse, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int M = B * T, N = 3 * H;
   dim3 pgrid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
@@ -171,8 +278,28 @@ int sstts_gru_sequence(const float* xs, const float* wx, const float* wh,
   if (err != cudaSuccess) return (int)err;
   int threads = ((N + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
-  gru_recurrence<<<B, threads, smem, st>>>(gx_scratch, wh, mask, out, T, H,
-                                           reverse);
+  gru_recurrence<<<B, threads, smem, st>>>(gx_scratch, wh, mask, out, gates,
+                                           hprev, T, H, reverse);
+  return (int)cudaGetLastError();
+}
+
+// dout (B, T, H), gates (B, T, 4H), hprev (B, T, H) from the forward, wh
+// (H, 3H), mask (B, T) or NULL, all f32 and contiguous; dgx and dgh
+// (B, T, 3H) f32 outputs.
+int sstts_gru_sequence_backward(const float* dout, const float* gates,
+                                const float* hprev, const float* wh,
+                                const float* mask, float* dgx, float* dgh,
+                                int B, int T, int H, int reverse,
+                                void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int smem = sstts_gru_bwd_smem_bytes(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_recurrence_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int threads = ((3 * H + 31) / 32) * 32;
+  if (threads > 1024) threads = 1024;
+  gru_recurrence_bwd<<<B, threads, smem, st>>>(dout, gates, hprev, wh, mask,
+                                               dgx, dgh, T, H, reverse);
   return (int)cudaGetLastError();
 }
 

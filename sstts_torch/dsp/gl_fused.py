@@ -31,7 +31,7 @@ from sstts_torch.dsp.reproject import (
     padded_wss2d,
     shift_add_rows,
 )
-from sstts_torch.ops import build
+from sstts_torch.ops import build, require_no_grad
 
 
 class _GlArgs(ctypes.Structure):
@@ -142,7 +142,9 @@ def reproject_analyze(
     frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev=None, momentum=0.0
 ):
     """Device dispatch for the kernel's function (see module docstring);
-    counts CUDA launches in `reproject_analyze.launches`."""
+    counts CUDA launches in `reproject_analyze.launches`.  Inference-only:
+    raises when grad mode is on and an input requires grad."""
+    require_no_grad("fused_reproject_analyze", frames, mag2, w_fwd, wss2d, prev)
     if prev is not None and momentum <= 0.0:
         prev = None
     if frames.device.type == "cpu":

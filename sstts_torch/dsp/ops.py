@@ -1,14 +1,30 @@
-"""dB conversions and block-parallel de-emphasis.
+"""Pre-emphasis, dB conversions, block-parallel de-emphasis and the
+feature pipeline.
 
-Port of `sstts/dsp/ops.py:30-83` (de-emphasis) and `99-113` (dB ops).
+Port of `sstts/dsp/ops.py:24-28` (pre-emphasis), `30-83` (de-emphasis),
+`99-113` (dB ops) and `618-651` (`wav_to_features` with
+`fft_impl="default"`).  The direct-DFT feature transforms ("dft_*") are not
+ported (ROADMAP A.6).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Tuple
 
 import numpy as np
 import torch
+
+from sstts_torch.config import DatasetConfig
+from sstts_torch.dsp import mel as mel_mod
+from sstts_torch.dsp import stft as stft_mod
+
+_DFT_IMPLS = ("dft_default", "dft_high", "dft_highest")
+
+
+def preemphasis(y: torch.Tensor, coeff: float) -> torch.Tensor:
+    """y'[t] = y[t] - coeff * y[t-1] (y'[0] = y[0]), over the last dim."""
+    return y - coeff * torch.nn.functional.pad(y[..., :-1], (1, 0))
 
 
 def magnitude_to_decibel(x: torch.Tensor) -> torch.Tensor:
@@ -79,3 +95,28 @@ def deemphasis(y: torch.Tensor, coeff: float, block: int = 256) -> torch.Tensor:
     s_prev = torch.nn.functional.pad(s[..., :-1], (1, 0))
     out = zs + s_prev[..., None] * ramp
     return out.reshape(*batch, n_blocks * block)[..., :n]
+
+
+def wav_to_features(
+    y: torch.Tensor, cfg: DatasetConfig, fft_impl: str = "default"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(..., n_samples) waveform -> (linear (..., n_frames, n_fft//2+1),
+    mel (..., n_frames, n_mels)), both normalized to [0, 1]; one STFT feeds
+    both."""
+    if fft_impl in _DFT_IMPLS:
+        raise NotImplementedError(
+            f"feature fft_impl={fft_impl!r} is not ported yet (ROADMAP A.6: "
+            "direct-DFT features); use 'default'"
+        )
+    if fft_impl != "default":
+        raise ValueError(
+            f"unknown fft_impl {fft_impl!r}; valid: 'default', "
+            + ", ".join(repr(k) for k in _DFT_IMPLS)
+        )
+    y = preemphasis(y.float(), cfg.preemphasis)
+    mag = stft_mod.stft(y, cfg.n_fft, cfg.hop_len, cfg.win_len).abs()
+    linear = normalize_decibel(magnitude_to_decibel(mag), cfg.ref_level_db, cfg.min_level_db)
+    mel = normalize_decibel(
+        magnitude_to_decibel(mel_mod.apply_mel(mag, cfg)), cfg.ref_level_db, cfg.min_level_db
+    )
+    return linear, mel

@@ -1,10 +1,11 @@
-"""Window, inverse window-sum envelope and overlap-add.
+"""Window, framing, STFT, inverse window-sum envelope and overlap-add.
 
-Port of the pieces of `sstts/dsp/stft.py` (lines 70-91, 121-150) and of the
-host helpers `hann_window`/`pad_center` (`sstts/dsp/reference.py:24-34`)
-that the Griffin-Lim synthesis needs.  The numpy helpers are copies, so the
-port never imports the JAX package; they return host numpy (they are
-cached, and a cached tensor would pin one device).
+Port of `sstts/dsp/stft.py` (70-150, the centered `stft` at 153-166 and
+`num_frames`) and of the host helpers `hann_window`/`pad_center`
+(`sstts/dsp/reference.py:24-34`).  The JAX package runs the FFT in XLA,
+outside any kernel of its own; here it is `torch.fft.rfft`.  The numpy
+helpers are copies, so the port never imports the JAX package; they return
+host numpy (they are cached, and a cached tensor would pin one device).
 """
 
 from __future__ import annotations
@@ -60,3 +61,26 @@ def overlap_add(frames: torch.Tensor, hop_length: int) -> torch.Tensor:
         stride=(1, hop_length),
     )
     return y.reshape(*batch, total)
+
+
+def frame_signal(y: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
+    """(..., n_samples) already-padded signal -> (..., n_frames, n_fft):
+    frame i covers samples [i*hop, i*hop + n_fft), as many as fit."""
+    return y.unfold(-1, n_fft, hop_length)
+
+
+def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
+    """Centered batched STFT with librosa semantics: reflect padding by
+    n_fft//2 on both sides, periodic Hann of win_length center-padded to
+    n_fft.  (..., n_samples) -> complex (..., n_frames, n_fft//2 + 1)."""
+    lead = y.shape[:-1]
+    pad = n_fft // 2
+    y = F.pad(y.reshape(-1, 1, y.shape[-1]), (pad, pad), mode="reflect")
+    frames = frame_signal(y.reshape(*lead, -1), n_fft, hop_length)
+    win = torch.as_tensor(window(n_fft, win_length), device=y.device)
+    return torch.fft.rfft(frames * win, n=n_fft)
+
+
+def num_frames(n_samples: int, hop_length: int) -> int:
+    """Frame count of a centered STFT over n_samples."""
+    return 1 + n_samples // hop_length

@@ -1,12 +1,14 @@
 """The attention-GRU decoder cell: the port of `sstts/model/decoder.py`
-(49-210), autoregressive inference only.
+(49-228).
 
-One step: prenet -> attention GRU -> Bahdanau attention -> decoder
-projection -> residual GRU stack -> r mel frames and r stop logits.  Once an
-utterance has finished, every carry freezes and its frames are zeroed; the
-stop check is sigmoid(max over r) > threshold.  This is the plain path that
-`Tacotron.decode_infer` loops; the fused CUDA decode is
-`sstts_torch.ops.decoder`.
+One autoregressive step: prenet -> attention GRU -> Bahdanau attention ->
+decoder projection -> residual GRU stack -> r mel frames and r stop
+logits.  Once an utterance has finished, every carry freezes and its frames
+are zeroed; the stop check is sigmoid(max over r) > threshold.  This is
+the plain path that `Tacotron.decode_infer` loops; the fused CUDA decode is
+`sstts_torch.ops.decoder`.  `teacher_step` is the teacher-forced step with
+the prenet and the projections hoisted out (the plain path of
+`Tacotron.decode_teacher`; the fused scan is `sstts_torch.ops.teacher`).
 """
 
 from __future__ import annotations
@@ -82,6 +84,39 @@ class DecoderCell(nn.Module):
             finished=torch.zeros(batch, dtype=torch.bool, device=memory.device),
         )
 
+    def _sequential_chain(self, carry, prenet_out, memory, keys, memory_mask):
+        """The per-step chain shared by `forward` and `teacher_step`:
+        attention GRU -> attention -> residual GRU stack.  Returns (attn_h,
+        alignment, context, new_dec_hs, x)."""
+        attn_h = self.attn_gru(torch.cat([prenet_out, carry.context], dim=-1), carry.attn_h)
+        alignment = self.attention(attn_h, keys, memory_mask)
+        context = attention_context(alignment, memory)
+        x = self.dec_proj(torch.cat([attn_h, context], dim=-1))
+        new_dec_hs = []
+        for gru, h in zip(self.dec_grus, carry.dec_hs):
+            h_new = gru(x, h)
+            new_dec_hs.append(h_new)
+            x = x + h_new  # residual connection
+        return attn_h, alignment, context, tuple(new_dec_hs), x
+
+    def teacher_step(
+        self,
+        carry: DecoderCarry,
+        prenet_out: torch.Tensor,
+        memory: torch.Tensor,
+        keys: torch.Tensor,
+        memory_mask: Optional[torch.Tensor],
+    ) -> Tuple[DecoderCarry, Tuple[torch.Tensor, torch.Tensor]]:
+        """One teacher-forced step on a hoisted prenet output: (new carry,
+        (x, alignment)), x being the feature the projections consume."""
+        attn_h, alignment, context, new_dec_hs, x = self._sequential_chain(
+            carry, prenet_out, memory, keys, memory_mask
+        )
+        new_carry = carry._replace(
+            attn_h=attn_h, dec_hs=new_dec_hs, context=context, alignment=alignment
+        )
+        return new_carry, (x, alignment)
+
     def forward(
         self,
         carry: DecoderCarry,
@@ -95,15 +130,9 @@ class DecoderCell(nn.Module):
         masks for this step (None: no dropout)."""
         a = self.arch
         pre = self.prenet(carry.prev_frame, keep)
-        attn_h = self.attn_gru(torch.cat([pre, carry.context], dim=-1), carry.attn_h)
-        alignment = self.attention(attn_h, keys, memory_mask)
-        context = attention_context(alignment, memory)
-        x = self.dec_proj(torch.cat([attn_h, context], dim=-1))
-        new_dec_hs = []
-        for gru, h in zip(self.dec_grus, carry.dec_hs):
-            h_new = gru(x, h)
-            new_dec_hs.append(h_new)
-            x = x + h_new  # residual connection
+        attn_h, alignment, context, new_dec_hs, x = self._sequential_chain(
+            carry, pre, memory, keys, memory_mask
+        )
         mel = self.frame_proj(x).reshape(-1, a.reduction_factor, self.n_mels)
         stop_logits = self.stop_proj(x)
 
@@ -122,3 +151,18 @@ class DecoderCell(nn.Module):
             finished=fin | (torch.sigmoid(stop_logits.max(dim=-1).values) > stop_threshold),
         )
         return new_carry, StepOutput(mel, stop_logits, alignment, fin)
+
+
+def group_frames(mel: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, F, M) -> (B, F // r, r, M); F must be a multiple of r."""
+    b, f, m = mel.shape
+    if f % r:
+        raise ValueError(f"frame count {f} not a multiple of reduction factor {r}")
+    return mel.reshape(b, f // r, r, m)
+
+
+def teacher_inputs(mel_gt: torch.Tensor, r: int) -> torch.Tensor:
+    """Teacher-forcing inputs, (B, F, M) -> (B, F // r, M): the last frame
+    of each previous r-group; step 0 receives the zero <GO> frame."""
+    last = group_frames(mel_gt, r)[:, :, -1, :]
+    return torch.nn.functional.pad(last[:, :-1], (0, 0, 1, 0))

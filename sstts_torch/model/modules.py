@@ -1,9 +1,11 @@
 """Core network blocks: pre-net, highway, conv bank, CBHG.
 
-Port of `sstts/model/modules.py` (26-262), inference only: batch norm uses
-its running statistics (eps 1e-3).  Layouts follow the JAX package at the
-module boundary — (B, T, D) batch-major with an optional (B, T) mask — and
-convolutions transpose to PyTorch's (B, D, T) inside.  Parameter names
+Port of `sstts/model/modules.py` (26-262).  Batch norm follows the module's
+mode: in `train()` it normalizes with statistics over the valid positions
+of the (B, T) mask and updates its running statistics at momentum 0.99; in
+`eval()` it uses the running statistics (eps 1e-3).  Layouts follow the JAX
+package at the module boundary — (B, T, D) batch-major with an optional
+(B, T) mask — and convolutions transpose to PyTorch's (B, D, T) inside.  Parameter names
 follow flax, so `sstts_torch.convert` maps one tree onto the other.
 """
 
@@ -23,33 +25,65 @@ def _mask3(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the last dim with the running statistics (eval)."""
+    """BatchNorm over (batch, time) of (B, T, C) inputs.  Train mode: mean
+    and (biased) variance over the valid positions only, and the running
+    statistics move towards them (EMA at `momentum`); eval mode: the
+    running statistics."""
 
-    def __init__(self, features: int, epsilon: float = 1e-3):
+    def __init__(self, features: int, epsilon: float = 1e-3, momentum: float = 0.99):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x - self.mean) / torch.sqrt(self.var + self.epsilon)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.training:
+            if mask is not None:
+                m = _mask3(mask, x)
+                count = torch.clamp(m.sum(), min=1.0)
+                mean = (x * m).sum((0, 1)) / count
+                var = (((x - mean) ** 2) * m).sum((0, 1)) / count
+            else:
+                mean = x.mean((0, 1))
+                var = x.var((0, 1), unbiased=False)
+            with torch.no_grad():
+                mom = self.momentum
+                self.mean.copy_(mom * self.mean + (1 - mom) * mean)
+                self.var.copy_(mom * self.var + (1 - mom) * var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) / torch.sqrt(var + self.epsilon)
         return y * self.scale + self.bias
 
 
 class PreNet(nn.Module):
-    """FC-ReLU-dropout stack.  Dropout takes explicit keep masks (one (B, P)
-    {0, 1} tensor per layer, or None for no dropout) so that every path —
-    plain, kernel, batch of one — can be fed the same noise."""
+    """FC-ReLU-dropout stack.  Dropout takes explicit keep masks (one
+    (..., P) {0, 1} tensor per layer, or None for no dropout) so that every
+    path — plain, kernel, batch of one — can be fed the same noise;
+    `keep_masks` draws them from a `torch.Generator`."""
 
     def __init__(self, d_in: int, units: Sequence[int], dropout: float = 0.5):
         super().__init__()
         self.dropout = dropout
+        self.units = tuple(units)
         dims = [d_in, *units]
         for i in range(len(units)):
             setattr(self, f"fc{i}", nn.Linear(dims[i], dims[i + 1]))
         self.n_layers = len(units)
+
+    def keep_masks(self, shape: Tuple[int, ...], generator: torch.Generator):
+        """Per-layer keep masks (*shape, P_i), kept with probability
+        1 - dropout; None at rate 0, where dropout is the identity."""
+        if self.dropout <= 0.0:
+            return None
+        return [
+            (torch.rand(*shape, p, generator=generator, device=generator.device)
+             >= self.dropout).float()
+            for p in self.units
+        ]
 
     def forward(self, x: torch.Tensor, keep=None) -> torch.Tensor:
         scale = 1.0 / (1.0 - self.dropout) if self.dropout < 1.0 else 0.0
@@ -99,7 +133,7 @@ class Conv1dBank(nn.Module):
         outs = []
         for k in range(1, self.bank_k + 1):
             y = F.conv1d(F.pad(xc, ((k - 1) // 2, k // 2)), getattr(self, f"conv{k}"))
-            y = getattr(self, f"bn{k}")(y.transpose(1, 2))
+            y = getattr(self, f"bn{k}")(y.transpose(1, 2), mask)
             outs.append(F.relu(y))
         out = torch.cat(outs, dim=-1)
         if mask is not None:
@@ -150,11 +184,11 @@ class CBHG(nn.Module):
         if mask is not None:
             y = torch.where(mask[..., None], y, torch.zeros_like(y))
         y = self.proj1(y.transpose(1, 2)).transpose(1, 2)
-        y = F.relu(self.proj1_bn(y))
+        y = F.relu(self.proj1_bn(y, mask))
         if mask is not None:
             y = y * _mask3(mask, y)
         y = self.proj2(y.transpose(1, 2)).transpose(1, 2)
-        y = self.proj2_bn(y)
+        y = self.proj2_bn(y, mask)
         y = y + residual
         if hasattr(self, "highway_in"):
             y = self.highway_in(y)

@@ -1,10 +1,18 @@
-"""The Tacotron model: the port of `sstts/model/tacotron.py` (41-82,
-160-216), inference only.
+"""The Tacotron model: the port of `sstts/model/tacotron.py`.
 
 char embedding -> pre-net -> CBHG encoder -> (Bahdanau-attention GRU +
 residual GRU stack, r frames/step) -> post-CBHG -> linear spectrogram.
 Module and parameter names follow the flax tree (see
 `sstts_torch.convert`).
+
+`forward` is the teacher-forced training forward (JAX's `__call__`); the
+module's mode plays JAX's `train` flag: in `train()` batch norm uses
+masked batch statistics and both prenets drop out, in `eval()` batch norm
+uses its running statistics and only the decoder prenet drops out (when
+`prenet_dropout_at_inference`, Tacotron-1's behaviour).  Dropout masks come
+from the `torch.Generator` the caller passes.  The teacher-forced scan runs
+the fused kernel on CUDA and, on the CPU, the plain module loop unless
+`teacher_impl="fused"` (`sstts_torch.ops.teacher.resolve_teacher_impl`).
 """
 
 from __future__ import annotations
@@ -16,17 +24,39 @@ from torch import nn
 
 from sstts_torch.config import ArchitectureConfig, DatasetConfig
 from sstts_torch.data.text import charset_for
-from sstts_torch.model.decoder import DecoderCell
+from sstts_torch.model.decoder import DecoderCell, teacher_inputs
 from sstts_torch.model.modules import CBHG, Conv1dBank, Highway, PreNet
 from sstts_torch.model.rnn import _GRUParams
+from sstts_torch.ops import teacher as teacher_ops
+
+
+def _keep_masks(prenet: PreNet, shape, generator, active: bool):
+    """The prenet's keep masks when its dropout is active, else None."""
+    if not active or prenet.dropout <= 0.0:
+        return None
+    if generator is None:
+        raise ValueError("prenet dropout is active: pass a torch.Generator")
+    return prenet.keep_masks(tuple(shape), generator)
 
 
 class Tacotron(nn.Module):
-    def __init__(self, arch: ArchitectureConfig, data: DatasetConfig):
+    def __init__(
+        self,
+        arch: ArchitectureConfig,
+        data: DatasetConfig,
+        teacher_impl: Optional[str] = None,
+        teacher_dtype: Optional[torch.dtype] = None,
+    ):
+        """`teacher_impl` ("auto", "xla" or "fused"; None = "auto") picks
+        the teacher-forced scan; `teacher_dtype` is the fused scan's matmul
+        dtype (None: bf16 on CUDA, f32 on the CPU, as the JAX package takes
+        bf16 on its TPU and f32 elsewhere)."""
         super().__init__()
         a = arch
         self.arch = arch
         self.data = data
+        self.teacher_impl = teacher_impl
+        self.teacher_dtype = teacher_dtype
         vocab = a.vocab_size or charset_for(data.extra_chars).vocab_size
         self.embedding = nn.Embedding(vocab, a.embedding_dim)
         self.encoder_prenet = PreNet(a.embedding_dim, a.prenet_units, a.prenet_dropout)
@@ -45,12 +75,55 @@ class Tacotron(nn.Module):
         )
         self.linear_proj = nn.Linear(2 * a.post_gru_units, data.n_linear)
 
-    def encode(self, char_ids: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def encode(
+        self, char_ids: torch.Tensor, generator: Optional[torch.Generator] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, T) ids -> memory (B, T, 2*enc_gru), mask (B, T) bool.  The
         encoder prenet's dropout is train-time only."""
         mask = char_ids != 0
-        x = self.encoder_prenet(self.embedding(char_ids))
+        x = self.embedding(char_ids)
+        keep = _keep_masks(self.encoder_prenet, x.shape[:2], generator, self.training)
+        x = self.encoder_prenet(x, keep)
         return self.encoder_cbhg(x, mask), mask
+
+    def decode_teacher(
+        self,
+        memory: torch.Tensor,
+        memory_mask: torch.Tensor,
+        mel_gt: torch.Tensor,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Teacher-forced scan -> (mel (B, F, M), stop_logits (B, F),
+        alignments (B, S, T)).  The prenet runs before the scan on all the
+        teacher frames at once, the frame/stop projections after it on the
+        stacked features."""
+        cell = self.decoder_cell
+        r = self.arch.reduction_factor
+        inputs = teacher_inputs(mel_gt, r)
+        batch, steps, _ = inputs.shape
+        active = self.training or self.arch.prenet_dropout_at_inference
+        pre = cell.prenet(inputs, _keep_masks(cell.prenet, (batch, steps), generator, active))
+        keys = cell.attention.init_keys(memory)
+        dev = memory.device
+        if teacher_ops.resolve_teacher_impl(self.teacher_impl, self.arch, dev) == "fused":
+            dt = self.teacher_dtype or (
+                torch.bfloat16 if dev.type == "cuda" else torch.float32
+            )
+            xs, alignments = teacher_ops.fused_teacher_scan_ad(
+                teacher_ops.teacher_weights_from_cell(cell), pre, memory, keys,
+                memory_mask.float(), dt,
+            )
+        else:
+            carry = cell.init_carry(memory)
+            outs = []
+            for step in range(steps):
+                carry, out = cell.teacher_step(carry, pre[:, step], memory, keys, memory_mask)
+                outs.append(out)
+            xs = torch.stack([x for x, _ in outs], 1)
+            alignments = torch.stack([al for _, al in outs], 1)
+        mel = cell.frame_proj(xs).reshape(batch, steps * r, self.data.n_mels)
+        stops = cell.stop_proj(xs).reshape(batch, steps * r)
+        return mel, stops, alignments
 
     def decode_infer(
         self,
@@ -93,6 +166,24 @@ class Tacotron(nn.Module):
     ) -> torch.Tensor:
         """Predicted mel -> linear spectrogram via the post-processing CBHG."""
         return self.linear_proj(self.post_cbhg(mel, frame_mask))
+
+    def forward(
+        self,
+        char_ids: torch.Tensor,
+        mel_gt: torch.Tensor,
+        frame_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        """Teacher-forced forward: mel, linear, stop_logits, alignments."""
+        memory, memory_mask = self.encode(char_ids, generator)
+        mel, stops, alignments = self.decode_teacher(memory, memory_mask, mel_gt, generator)
+        linear = self.postprocess(mel, frame_mask)
+        return {
+            "mel": mel.float(),
+            "linear": linear.float(),
+            "stop_logits": stops.float(),
+            "alignments": alignments.float(),
+        }
 
 
 def init_state_dict(

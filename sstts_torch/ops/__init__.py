@@ -5,15 +5,32 @@ Each kernel wrapper counts its CUDA launches in a `launches` attribute;
 through every kernel.
 """
 
+import torch
+
 
 def kernel_wrappers():
     """name -> wrapper (each has an integer `launches`) of every kernel."""
     from sstts_torch.dsp.gl_fused import reproject_analyze
     from sstts_torch.ops.decoder import decode_steps
-    from sstts_torch.ops.gru import gru_sequence
+    from sstts_torch.ops.gru import gru_sequence, gru_sequence_backward
+    from sstts_torch.ops.teacher import fused_teacher_scan
 
     return {
         "gru_sequence": gru_sequence,
+        "gru_sequence_backward": gru_sequence_backward,
+        "fused_teacher_scan": fused_teacher_scan,
         "fused_decode": decode_steps,
         "fused_reproject_analyze": reproject_analyze,
     }
+
+
+def require_no_grad(what: str, *tensors) -> None:
+    """Refuse to run an inference-only kernel where autograd would need its
+    gradient: its output would silently carry none."""
+    if torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{what} is inference-only and has no gradient; call it under "
+            "torch.no_grad() or torch.inference_mode()"
+        )

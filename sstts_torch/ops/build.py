@@ -3,7 +3,7 @@
 Each source in `sstts_torch/csrc/` compiles with `nvcc` for `sm_90a` into a
 shared library with a plain C interface, loaded with `ctypes` (no PyTorch
 headers, so a build takes seconds).  Libraries are named by a hash of their
-source, under `sstts_torch/_build/` (git-ignored), and built on first use;
+source and the shared headers (`csrc/*.cuh`), under `sstts_torch/_build/` (git-ignored), and built on first use;
 `build_all` starts one `nvcc` per source, all at once.
 
 Nothing here runs at import time: the CPU tests import every module of the
@@ -22,7 +22,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("gru", "decoder", "gl_semi")
+SOURCES = ("gru", "decoder", "gl_semi", "teacher")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -52,6 +52,7 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

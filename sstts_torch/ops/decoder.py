@@ -23,7 +23,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from sstts_torch.ops import build
+from sstts_torch.ops import build, require_no_grad
 
 #: Weight matrices, each (K, N) row-major, in kernel argument order; the
 #: vectors (biases, score v) stay f32.
@@ -283,7 +283,9 @@ def _kernel(p: DecodeInputs) -> Dict[str, torch.Tensor]:
 
 def decode_steps(p: DecodeInputs) -> Dict[str, torch.Tensor]:
     """Device dispatch (see module docstring); counts CUDA launches in
-    `decode_steps.launches`."""
+    `decode_steps.launches`.  Inference-only: raises when grad mode is on
+    and an input requires grad."""
+    require_no_grad("fused_decode", p.memory, p.keys, p.maskf, *p.w)
     dev = p.memory.device.type
     if dev == "cpu":
         return decode_steps_plain(p)

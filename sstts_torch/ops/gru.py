@@ -1,4 +1,5 @@
-"""Whole-sequence GRU: the port of `sstts/ops/pallas_gru.py` (kernel B3).
+"""Whole-sequence GRU and its gradient: the port of `sstts/ops/pallas_gru.py`
+(kernel B3; `gru_sequence` 69-123 and `gru_sequence_ad` 126-167).
 
 `gru_sequence` dispatches on the tensor's device: a CPU tensor runs the
 plain version (`gru_sequence_plain`, the counterpart of JAX's
@@ -6,12 +7,21 @@ plain version (`gru_sequence_plain`, the counterpart of JAX's
 kernel in `sstts_torch/csrc/gru.cu`, or raises.  There is no fallback from
 one to the other.  Layouts match the JAX package: xs (B, T, D), wx (D, 3H),
 wh (H, 3H), b (3H,), mask (B, T), gate order r, z, n.
+
+Gradient: when grad mode is on and an input requires grad, the call goes
+through `_GRUSequence`, an `autograd.Function`.  Its forward also keeps the
+gates r, z, n, the recurrent candidate term hn and the carry before each
+step; its backward runs the reverse-time recurrence
+(`gru_sequence_backward`: the kernel on the card, `gru_sequence_backward_plain`
+on the CPU) and leaves the four large independent products (dxs, dWx, dWh,
+db) to torch.matmul, as JAX leaves them to XLA.  Under `no_grad` or
+`inference_mode` nothing is kept.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -19,8 +29,10 @@ from sstts_torch.ops import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "sstts_gru_sequence": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "sstts_gru_sequence": ([_P] * 9 + [_I] * 5 + [_P], _I),
+    "sstts_gru_sequence_backward": ([_P] * 7 + [_I] * 4 + [_P], _I),
     "sstts_gru_smem_bytes": ([_I], _I),
+    "sstts_gru_bwd_smem_bytes": ([_I], _I),
 }
 
 
@@ -37,6 +49,48 @@ def gru_step_math(x, h, wx, wh, b):
     return z * h + (1.0 - z) * n
 
 
+def _steps(t_len: int, reverse: bool):
+    return range(t_len - 1, -1, -1) if reverse else range(t_len)
+
+
+def gru_sequence_forward_plain(
+    xs: torch.Tensor,
+    wx: torch.Tensor,
+    wh: torch.Tensor,
+    b: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    reverse: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Step loop with the kernel's semantics (any device; f32).  Returns
+    (out (B, T, H), gates (B, T, 4H) = [r, z, n, hn], hprev (B, T, H) = the
+    carry before each step): what the kernel writes when a gradient is
+    wanted."""
+    batch, t_len, _ = xs.shape
+    hidden = wh.shape[0]
+    xs = xs.float()
+    m = None if mask is None else mask.float()
+    h = xs.new_zeros(batch, hidden)
+    ys, gates, hprev = [None] * t_len, [None] * t_len, [None] * t_len
+    gx_all = xs @ wx + b
+    for t in _steps(t_len, reverse):
+        gx, gh = gx_all[:, t], h @ wh
+        r = torch.sigmoid(gx[:, :hidden] + gh[:, :hidden])
+        z = torch.sigmoid(gx[:, hidden : 2 * hidden] + gh[:, hidden : 2 * hidden])
+        hn = gh[:, 2 * hidden :]
+        n = torch.tanh(gx[:, 2 * hidden :] + r * hn)
+        gates[t] = torch.cat([r, z, n, hn], -1)
+        hprev[t] = h
+        h_new = z * h + (1.0 - z) * n
+        if m is not None:
+            mt = m[:, t, None]
+            h_new = mt * h_new + (1.0 - mt) * h
+            ys[t] = mt * h_new
+        else:
+            ys[t] = h_new
+        h = h_new
+    return torch.stack(ys, 1), torch.stack(gates, 1), torch.stack(hprev, 1)
+
+
 def gru_sequence_plain(
     xs: torch.Tensor,
     wx: torch.Tensor,
@@ -45,29 +99,46 @@ def gru_sequence_plain(
     mask: Optional[torch.Tensor] = None,
     reverse: bool = False,
 ) -> torch.Tensor:
-    """Step loop with the kernel's semantics (any device; f32)."""
-    batch, t_len, _ = xs.shape
-    hidden = wh.shape[0]
-    xs = xs.float()
+    """(B, T, D) -> (B, T, H): the forward's outputs only."""
+    return gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)[0]
+
+
+def gru_sequence_backward_plain(
+    dout: torch.Tensor,
+    gates: torch.Tensor,
+    hprev: torch.Tensor,
+    wh: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    reverse: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel's function as an explicit reverse loop (not
+    autograd): from the output gradient (B, T, H) and the forward's saved
+    gates/hprev, the gate-preactivation gradients dgx and dgh (B, T, 3H),
+    dgh being dgx with the candidate's entry times r."""
+    batch, t_len, hidden = dout.shape
+    dout = dout.float()
     m = None if mask is None else mask.float()
-    h = xs.new_zeros(batch, hidden)
-    ys = [None] * t_len
-    steps = range(t_len - 1, -1, -1) if reverse else range(t_len)
-    for t in steps:
-        h_new = gru_step_math(xs[:, t], h, wx, wh, b)
-        if m is not None:
-            mt = m[:, t, None]
-            h_new = mt * h_new + (1.0 - mt) * h
-            ys[t] = mt * h_new
-        else:
-            ys[t] = h_new
-        h = h_new
-    return torch.stack(ys, dim=1)
+    dh = dout.new_zeros(batch, hidden)
+    dgx, dgh = [None] * t_len, [None] * t_len
+    for t in _steps(t_len, not reverse):
+        g = gates[:, t]
+        r, z = g[:, :hidden], g[:, hidden : 2 * hidden]
+        n, hn = g[:, 2 * hidden : 3 * hidden], g[:, 3 * hidden :]
+        mt = 1.0 if m is None else m[:, t, None]
+        dh_t = dh + mt * dout[:, t]
+        dh_new = mt * dh_t
+        dz = dh_new * (hprev[:, t] - n)
+        dan = dh_new * (1.0 - z) * (1.0 - n * n)
+        dar = dan * hn * r * (1.0 - r)
+        daz = dz * z * (1.0 - z)
+        dgx[t] = torch.cat([dar, daz, dan], -1)
+        dgh[t] = torch.cat([dar, daz, dan * r], -1)
+        dh = (1.0 - mt) * dh_t + dh_new * z + dgh[t] @ wh.T
+    return torch.stack(dgx, 1), torch.stack(dgh, 1)
 
 
-def _kernel(xs, wx, wh, b, mask, reverse):
-    batch, t_len, d_in = xs.shape
-    hidden = wh.shape[0]
+def _check_shapes(xs, wx, wh, b) -> None:
+    d_in, hidden = xs.shape[-1], wh.shape[0]
     if tuple(wx.shape) != (d_in, 3 * hidden) or tuple(wh.shape) != (
         hidden, 3 * hidden
     ) or tuple(b.shape) != (3 * hidden,):
@@ -75,29 +146,127 @@ def _kernel(xs, wx, wh, b, mask, reverse):
             f"gru_sequence: shapes xs {tuple(xs.shape)}, wx {tuple(wx.shape)},"
             f" wh {tuple(wh.shape)}, b {tuple(b.shape)} do not agree"
         )
+
+
+def _load(smem_fn: str, hidden: int):
     lib = build.load("gru", _SIGNATURES)
-    smem = lib.sstts_gru_smem_bytes(hidden)
+    smem = getattr(lib, smem_fn)(hidden)
     if smem > build.MAX_SMEM or 3 * hidden > 1024:
         raise NotImplementedError(
-            f"gru_sequence CUDA kernel keeps Wh in shared memory: H={hidden} "
+            f"the gru_sequence CUDA kernels keep Wh in shared memory: H={hidden} "
             f"needs {smem} bytes (limit {build.MAX_SMEM}); H <= 137 is supported"
         )
+    return lib
+
+
+def _mask_f32(mask, dev):
+    return None if mask is None else mask.to(dev, torch.float32).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _kernel(xs, wx, wh, b, mask, reverse, save: bool):
+    _check_shapes(xs, wx, wh, b)
+    batch, t_len, d_in = xs.shape
+    hidden = wh.shape[0]
+    lib = _load("sstts_gru_smem_bytes", hidden)
     dev = xs.device
-    xs_c = xs.float().contiguous()
-    wx_c = wx.float().contiguous()
-    wh_c = wh.float().contiguous()
-    b_c = b.float().contiguous()
-    m_c = None if mask is None else mask.to(dev, torch.float32).contiguous()
-    gx = torch.empty(batch, t_len, 3 * hidden, device=dev, dtype=torch.float32)
-    out = torch.empty(batch, t_len, hidden, device=dev, dtype=torch.float32)
+    f32 = dict(device=dev, dtype=torch.float32)
+    xs_c, wx_c, wh_c, b_c = (a.float().contiguous() for a in (xs, wx, wh, b))
+    m_c = _mask_f32(mask, dev)
+    gx = torch.empty(batch, t_len, 3 * hidden, **f32)
+    out = torch.empty(batch, t_len, hidden, **f32)
+    gates = torch.empty(batch, t_len, 4 * hidden, **f32) if save else None
+    hprev = torch.empty(batch, t_len, hidden, **f32) if save else None
     rc = lib.sstts_gru_sequence(
         xs_c.data_ptr(), wx_c.data_ptr(), wh_c.data_ptr(), b_c.data_ptr(),
-        None if m_c is None else m_c.data_ptr(), gx.data_ptr(),
-        out.data_ptr(), batch, t_len, d_in, hidden, int(bool(reverse)),
+        _ptr(m_c), gx.data_ptr(), out.data_ptr(), _ptr(gates), _ptr(hprev),
+        batch, t_len, d_in, hidden, int(bool(reverse)),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "gru_sequence")
-    return out
+    gru_sequence.launches += 1
+    return out, gates, hprev
+
+
+def gru_sequence_backward(
+    dout: torch.Tensor,
+    gates: torch.Tensor,
+    hprev: torch.Tensor,
+    wh: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    reverse: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward recurrence: (dgx, dgh), each (B, T, 3H) f32.  CPU
+    tensors run `gru_sequence_backward_plain`; CUDA tensors launch the
+    kernel (counted in `gru_sequence_backward.launches`)."""
+    if dout.device.type == "cpu":
+        return gru_sequence_backward_plain(dout, gates, hprev, wh, mask, reverse)
+    if dout.device.type != "cuda":
+        raise NotImplementedError(f"gru_sequence_backward on {dout.device.type}")
+    batch, t_len, hidden = dout.shape
+    if tuple(gates.shape) != (batch, t_len, 4 * hidden) or tuple(hprev.shape) != (
+        batch, t_len, hidden
+    ) or tuple(wh.shape) != (hidden, 3 * hidden):
+        raise ValueError(
+            f"gru_sequence_backward: shapes dout {tuple(dout.shape)}, gates "
+            f"{tuple(gates.shape)}, hprev {tuple(hprev.shape)}, wh {tuple(wh.shape)}"
+        )
+    lib = _load("sstts_gru_bwd_smem_bytes", hidden)
+    dev = dout.device
+    dout_c, gates_c, hprev_c, wh_c = (
+        a.float().contiguous() for a in (dout, gates, hprev, wh)
+    )
+    m_c = _mask_f32(mask, dev)
+    dgx = torch.empty(batch, t_len, 3 * hidden, device=dev, dtype=torch.float32)
+    dgh = torch.empty_like(dgx)
+    rc = lib.sstts_gru_sequence_backward(
+        dout_c.data_ptr(), gates_c.data_ptr(), hprev_c.data_ptr(),
+        wh_c.data_ptr(), _ptr(m_c), dgx.data_ptr(), dgh.data_ptr(),
+        batch, t_len, hidden, int(bool(reverse)),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    build.check(lib, rc, "gru_sequence_backward")
+    gru_sequence_backward.launches += 1
+    return dgx, dgh
+
+
+gru_sequence_backward.launches = 0
+
+
+def _forward(xs, wx, wh, b, mask, reverse, save: bool):
+    if xs.device.type == "cpu":
+        if not save:
+            return gru_sequence_plain(xs, wx, wh, b, mask, reverse), None, None
+        return gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)
+    if xs.device.type != "cuda":
+        raise NotImplementedError(f"gru_sequence on {xs.device.type}")
+    return _kernel(xs, wx, wh, b, mask, reverse, save)
+
+
+class _GRUSequence(torch.autograd.Function):
+    """Kernel (or plain) forward that keeps the gates; backward recurrence
+    by `gru_sequence_backward`, products by torch.matmul."""
+
+    @staticmethod
+    def forward(ctx, xs, wx, wh, b, mask, reverse):
+        out, gates, hprev = _forward(xs, wx, wh, b, mask, reverse, save=True)
+        ctx.save_for_backward(xs, wx, wh, mask, gates, hprev)
+        ctx.reverse = reverse
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        xs, wx, wh, mask, gates, hprev = ctx.saved_tensors
+        dgx, dgh = gru_sequence_backward(dout, gates, hprev, wh, mask, ctx.reverse)
+        d_in, g3 = wx.shape
+        dxs = dgx @ wx.float().T
+        dwx = xs.float().reshape(-1, d_in).T @ dgx.reshape(-1, g3)
+        dwh = hprev.reshape(-1, wh.shape[0]).T @ dgh.reshape(-1, g3)
+        db = dgx.sum((0, 1))
+        return dxs, dwx, dwh, db, None, None
 
 
 def gru_sequence(
@@ -108,18 +277,14 @@ def gru_sequence(
     mask: Optional[torch.Tensor] = None,
     reverse: bool = False,
 ) -> torch.Tensor:
-    """(B, T, D) inputs -> (B, T, H) GRU outputs (f32).
+    """(B, T, D) inputs -> (B, T, H) GRU outputs (f32), differentiable.
 
-    CPU tensors run `gru_sequence_plain`; CUDA tensors launch the kernel
-    (and count the launch in `gru_sequence.launches`).
+    CPU tensors run the plain versions; CUDA tensors launch the kernels
+    (each forward launch counted in `gru_sequence.launches`).
     """
-    if xs.device.type == "cpu":
-        return gru_sequence_plain(xs, wx, wh, b, mask, reverse)
-    if xs.device.type != "cuda":
-        raise NotImplementedError(f"gru_sequence on {xs.device.type}")
-    out = _kernel(xs, wx, wh, b, mask, reverse)
-    gru_sequence.launches += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (xs, wx, wh, b)):
+        return _GRUSequence.apply(xs, wx, wh, b, mask, reverse)
+    return _forward(xs, wx, wh, b, mask, reverse, save=False)[0]
 
 
 gru_sequence.launches = 0

@@ -150,6 +150,19 @@ class Synthesizer:
         impl = cfg.inference.decoder_impl or "auto"
         self._use_fused = self.device.type == "cuda" or impl == "fused"
 
+    @classmethod
+    def from_checkpoint(
+        cls, path, cfg: Optional[Config] = None, device=None, seed: int = 0
+    ) -> "Synthesizer":
+        """A Synthesizer from the newest checkpoint that `sstts_torch.train`
+        wrote under the workdir `path`, with the stored config unless `cfg`
+        is given (its fingerprint must match; `inference.use_ema` selects
+        the EMA parameters).  Raises FileNotFoundError without one."""
+        from sstts_torch.checkpoint import load_params
+
+        cfg, params = load_params(path, cfg)
+        return cls(cfg, params, seed=seed, device=device)
+
     # The pipeline ---------------------------------------------------------- #
 
     def _keep_masks(self, batch: int, max_steps: int):

@@ -43,6 +43,8 @@ def test_port_imports_no_jax_and_no_sstts():
         "sstts_torch.model.tacotron", "sstts_torch.ops.gru",
         "sstts_torch.ops.decoder", "sstts_torch.dsp.gl_fused",
         "sstts_torch.dsp.griffin_lim", "sstts_torch.data.text",
+        "sstts_torch.train", "sstts_torch.checkpoint", "sstts_torch.ops.teacher",
+        "sstts_torch.model.losses", "sstts_torch.data.pipeline",
     ):
         assert expected in res["modules"]
 
@@ -92,6 +94,40 @@ def test_kernel_wrappers_on_cpu_do_not_launch():
     assert s is None and q.shape == (1, 4, 128)
     after = {k: w.launches for k, w in kernel_wrappers().items()}
     assert after == before
+
+
+def test_kernel_wrappers_list_all_five():
+    from sstts_torch.ops import kernel_wrappers
+
+    assert sorted(kernel_wrappers()) == sorted([
+        "gru_sequence", "gru_sequence_backward", "fused_teacher_scan",
+        "fused_decode", "fused_reproject_analyze",
+    ])
+
+
+def test_cpu_gradients_do_not_launch():
+    """The GRU's and the teacher scan's gradient paths on CPU tensors run
+    their plain versions and count no launch."""
+    from sstts_torch.ops import kernel_wrappers
+    from sstts_torch.ops.gru import gru_sequence
+    from sstts_torch.ops.teacher import TeacherWeights, fused_teacher_scan_ad
+
+    before = {k: w.launches for k, w in kernel_wrappers().items()}
+    g = torch.Generator().manual_seed(0)
+    rand = lambda *s: torch.randn(*s, generator=g).requires_grad_()  # noqa: E731
+    y = gru_sequence(rand(2, 5, 4), rand(4, 9), rand(3, 9), rand(9), None, True)
+    y.sum().backward()
+    H, D, A, P = 4, 6, 5, 3
+    w = TeacherWeights(
+        rand(P + D, 3 * H), rand(H, 3 * H), rand(3 * H), rand(H, A), rand(A), rand(A),
+        rand(H + D, H), rand(H), rand(H, 3 * H), rand(H, 3 * H), rand(3 * H),
+        rand(H, 3 * H), rand(H, 3 * H), rand(3 * H),
+    )
+    xs, al = fused_teacher_scan_ad(w, rand(2, 3, P), rand(2, 7, D), rand(2, 7, A),
+                                   torch.ones(2, 7), torch.float32)
+    (xs.sum() + al.sum()).backward()
+    assert w.attn_wx.grad is not None
+    assert {k: w.launches for k, w in kernel_wrappers().items()} == before
 
 
 _CPU_REFUSALS = [
