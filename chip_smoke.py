@@ -11,8 +11,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
 2. each kernel against its plain PyTorch version, on the card, at the main
    paths' shapes, with the tolerance stated beside each check; median times
    from CUDA events for the kernel, its plain version and, where one
-   PyTorch call computes the same function, that call; and the bounds of
-   the two kernels still to port, from their shapes;
+   PyTorch call computes the same function, that call; and each kernel's
+   bound, from its shapes;
 3. the synthesis path: `Synthesizer.synthesize_batch` at the full default
    `Config()` from a seeded random init, bench.py's workload (32 x an 88
    character text, 160 decoder steps = 800 frames, stop threshold 1.1,
@@ -23,6 +23,14 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    batch with the fast vocoder (GL-30 at momentum 0.99), which runs the
    Griffin-Lim kernel's momentum variant; and one main-path batch under
    torch.profiler for the device time by kernel and the busy share;
+3c. the serving path, bench.py's candidates on the same workload: fused-60,
+   split-60 and semi-25@0.99 with PCM16 or the adpcm3/adpcm4/mulaw8 wires,
+   each one warm-up batch and then `synthesize_stream` over 4 batches at
+   depth 2 with the counters set to 0 just before and read just after
+   (B5 or B1 or B2 once an iteration, 4 GRU and 1 decode a batch); the
+   wire encoders on the card against the CPU (equal bytes), a stream yield
+   against `synthesize_batch`, the tiny config card against CPU for split
+   and fused, a 3-sentence long-form paragraph and `to_file`;
 3b. the training path at the full default `Config()` on the synthetic
    corpus: b=32 in the (128 characters, 515 frames) bucket, 103 decoder
    steps; one warm-up train step, then 5 timed steps on one fixed batch
@@ -475,22 +483,135 @@ def check_gl(dev):
     }
 
 
-def pending_bounds():
-    """The bounds of the TPU kernels still to port, at the synthesis path's
-    size (b=32 x 800 frames, packed width 1152, 2 x 1024 bins), by the rule
-    of the ported ones."""
-    rows, wp, hp = 32 * 800, 1152, 1024
-    # B1: out = wss2d * (9 shifted frames summed), bf16 frames in and out.
-    b1 = bound_ms(2 * rows * wp * 2, 10 * rows * wp, "f32")
-    # B5: B2 with GEMM1 inside: q (bf16) -> frames -> spectrum, two GEMMs;
-    # q and mag2 in, q out, w_inv and w_fwd once.
-    b5 = bound_ms(3 * rows * 2 * hp * 2 + 2 * wp * 2 * hp * 2, 2 * 2 * rows * wp * 2 * hp, "bf16")
-    return [
-        {"name": "reproject_frames_pallas", "replaces": "sstts/dsp/reproject.py:207",
-         "bound_ms": b1[0], "bound_by": b1[1]},
-        {"name": "fused_gl_iteration", "replaces": "sstts/dsp/gl_fused.py:491",
-         "bound_ms": b5[0], "bound_by": b5[1]},
-    ]
+def check_reproject(dev):
+    """B1 against its plain version at the split iteration's shapes, in
+    bf16 (the default loop) and f32 (the f32 loop on the card)."""
+    import torch
+
+    from sstts_torch.config import Config
+    from sstts_torch.dsp import reproject as rp
+
+    ds = Config().dataset
+    Bt, T, wp = 32, 800, 1152
+    length = (T - 1) * ds.hop_len
+    geom = (ds.n_fft, ds.hop_len, ds.win_len, length)
+    plan = rp.band_plan(ds.n_fft, ds.hop_len, ds.win_len, T, length)
+    w_len, d_max = plan["w_len"], plan["d_max"]
+    g = torch.Generator().manual_seed(6)
+    frames = torch.randn(Bt, T, wp, generator=g)
+    frames[..., w_len:] = 0.0  # GEMM1's zero lanes
+    wss2d = rp.padded_wss2d(plan, wp, dev)
+    checks, times = [], {}
+    # The kernel adds the same f32 terms in the same order as the plain
+    # version and rounds once at the same point, so the two should be
+    # equal; held to one unit in the last place of the largest value
+    # (2^-23 of it in f32, 2^-8 in bf16), and under 0.1% of the elements
+    # may differ at all.
+    for dt, ulp in ((torch.bfloat16, 2.0**-8), (torch.float32, 2.0**-23)):
+        f = frames.to(dev, dt)
+        got = rp.reproject_frames(f, *geom, wss2d)
+        ref = rp.reproject_frames_plain(f, *geom, wss2d)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        frac = float((got != ref).float().mean())
+        tol = ulp * float(ref.float().abs().max())
+        case = str(dt).split(".")[-1]
+        log(f"  B1 reproject_frames {case}: max_abs_err {err:.3e} differing "
+            f"{frac:.2e} (tol {tol:.3g}, < 0.1%)")
+        if not (err <= tol and frac < 1e-3):
+            raise AssertionError(f"reproject_frames {case}: {err}, {frac}")
+        checks.append({"case": case, "max_abs_err": err, "tol": tol, "differing": frac})
+        # The kernel alone (what the bound counts), the wrapper with its
+        # mirror runs in torch, and the plain version (mirror runs included).
+        times[case] = {
+            "kernel": cuda_ms(lambda: rp._kernel(f, wss2d, w_len, ds.hop_len, d_max)),
+            "wrapper": cuda_ms(lambda: rp.reproject_frames(f, *geom, wss2d)),
+            "plain": cuda_ms(lambda: rp.reproject_frames_plain(f, *geom, wss2d), 2, 3),
+        }
+        log(f"  B1 {case} times: {times[case]}")
+    rows = Bt * T
+    n_bytes = 2 * rows * wp * 2 + nbytes(wss2d)
+    bms, by = bound_ms(n_bytes, 10 * rows * wp, "f32")
+    return {
+        "name": "reproject_frames_pallas", "route": "cuda",
+        "source": "sstts_torch/csrc/reproject.cu",
+        "replaces": "sstts/dsp/reproject.py:207",
+        "max_abs_err": checks[0]["max_abs_err"],
+        "ms": times["bfloat16"]["kernel"], "plain_ms": times["bfloat16"]["plain"],
+        "bound_ms": bms, "bound_by": by, "library_ms": None,
+        "ms_with_mirror_runs": times["bfloat16"]["wrapper"],
+        "ms_f32": times["float32"]["kernel"], "shape": [Bt, T, wp], "checks": checks,
+    }
+
+
+def check_gl_fused(dev):
+    """B5 against its plain version at the synthesis path's shapes, bf16:
+    the kernel's own function, and the whole iteration with the edge repair
+    (the same torch code on both sides)."""
+    import torch
+
+    from sstts_torch.config import Config
+    from sstts_torch.dsp import gl_fused as gl
+    from sstts_torch.dsp.reproject import band_plan, padded_wss2d
+
+    ds = Config().dataset
+    Bt, T, wp, hp = 32, 800, 1152, 1024
+    length = (T - 1) * ds.hop_len
+    plan = band_plan(ds.n_fft, ds.hop_len, ds.win_len, T, length)
+    w_len, d_max, hop = plan["w_len"], plan["d_max"], ds.hop_len
+    g = torch.Generator().manual_seed(7)
+    bf = torch.bfloat16
+    q = torch.randn(Bt, T, 2 * hp, generator=g).to(dev, bf)
+    mag2 = torch.rand(Bt, T, 2 * hp, generator=g).to(dev, bf)
+    w_inv = torch.randn(2 * hp, wp, generator=g) / 32
+    w_inv[:, w_len:] = 0.0  # the loop's zero-padded synthesis columns
+    w_inv = w_inv.to(dev, bf)
+    w_fwd = (torch.randn(wp, 2 * hp, generator=g) / 32).to(dev, bf)
+    wss2d = padded_wss2d(plan, wp, dev)
+    core = (q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max)
+    got = gl.gl_iteration(*core)
+    ref = gl.gl_iteration_plain(*core)
+    whole = gl.fused_gl_iteration(q, mag2, w_inv, w_fwd, ds.n_fft, hop, ds.win_len,
+                                  length, wss2d)
+    whole_ref, _ = gl._patch_edges(
+        ref.clone(), None,
+        lambda lo, hi: gl._edge_frames(q, w_inv, w_len, hop, d_max, lo, hi) * wss2d[lo:hi],
+        mag2, w_fwd, plan, T, hp,
+    )
+    torch.cuda.synchronize()
+    # bf16 out at |q| <= 1.  GEMM1's f32 sums run in another order than the
+    # plain version's, so a reprojected frame now and then rounds to the
+    # neighbouring bf16 value before GEMM2, and the renorm turns that into
+    # a phase change that is large only where |s| is near 0: held by the
+    # relative L2 error (2^-7, one bf16 step) and the share of elements
+    # that differ at all (< 5%); the largest difference is reported.
+    checks = []
+    for case, a, b in (("kernel", got, ref), ("with-edge-repair", whole, whole_ref)):
+        err = max_err(a, b)
+        rel = float((a.float() - b.float()).norm() / b.float().norm())
+        frac = float((a != b).float().mean())
+        log(f"  B5 fused_gl_iteration {case}: rel L2 {rel:.3e} differing {frac:.2e} "
+            f"max_abs_err {err:.3e} (tol rel L2 {2.0**-7:.3g}, < 5%)")
+        if not (rel <= 2.0**-7 and frac < 5e-2):
+            raise AssertionError(f"fused_gl_iteration {case}: {rel}, {frac}, {err}")
+        checks.append({"case": case, "max_abs_err": err, "rel_l2": rel,
+                       "tol_rel_l2": 2.0**-7, "differing": frac})
+    ms = cuda_ms(lambda: gl.gl_iteration(*core), 3, 5)
+    plain = cuda_ms(lambda: gl.gl_iteration_plain(*core), 1, 3)
+    ms_whole = cuda_ms(lambda: gl.fused_gl_iteration(
+        q, mag2, w_inv, w_fwd, ds.n_fft, hop, ds.win_len, length, wss2d), 3, 5)
+    rows = Bt * T
+    n_bytes = nbytes(q, mag2, w_inv, w_fwd, wss2d) + rows * 2 * hp * 2
+    bms, by = bound_ms(n_bytes, 2 * 2 * rows * wp * 2 * hp, "bf16")
+    return {
+        "name": "fused_gl_iteration", "route": "cuda",
+        "source": "sstts_torch/csrc/gl_fused.cu",
+        "replaces": "sstts/dsp/gl_fused.py:491",
+        "max_abs_err": checks[0]["max_abs_err"],
+        "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "ms_with_edge_repair": ms_whole,
+        "shape": [Bt, T, wp, 2 * hp], "checks": checks,
+    }
 
 
 # ---------------------------------------------------------------- phase 3 --
@@ -514,17 +635,11 @@ def main_path(dev, card):
     import numpy as np
     import torch
 
-    from sstts_torch.config import Config, tiny_config, with_fast_vocoder
+    from sstts_torch.config import with_fast_vocoder
     from sstts_torch.model.tacotron import init_state_dict
     from sstts_torch.synthesize import Synthesizer
 
-    cfg = Config()
-    cfg = cfg.replace(
-        inference=dataclasses.replace(
-            cfg.inference, max_decoder_steps=160, stop_threshold=1.1,
-            griffin_lim_iters=60,
-        )
-    )
+    cfg = bench_config()
     texts = ["the quick brown fox jumps over the lazy dog " * 2] * 32
     t0 = time.perf_counter()
     params = init_state_dict(cfg.arch, cfg.dataset, seed=0)
@@ -541,8 +656,8 @@ def main_path(dev, card):
     wavs = synth.synthesize_batch(texts)
     wall = time.perf_counter() - t0
     launches = counts()
-    expected = {"gru_sequence": 4, "gru_sequence_backward": 0, "fused_teacher_scan": 0,
-                "fused_decode": 1, "fused_reproject_analyze": 60}
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"gru_sequence": 4, "fused_decode": 1, "fused_reproject_analyze": 60})
     log(f"  main path launches: {launches} (expected {expected})")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
@@ -558,31 +673,8 @@ def main_path(dev, card):
               "launches": launches}
 
     # The same pipeline on a tiny config: the card (kernels) against the
-    # CPU (their plain versions), deterministic (dropout off), both with
-    # the fused decoder's bf16 products and the bf16 Griffin-Lim loop.
-    tcfg = tiny_config()
-    tcfg = tcfg.replace(
-        arch=dataclasses.replace(tcfg.arch, prenet_dropout_at_inference=False),
-        inference=dataclasses.replace(
-            tcfg.inference, decoder_impl="fused", stop_threshold=1.1,
-            max_decoder_steps=24, griffin_lim_iters=8,
-        ),
-    )
-    tparams = init_state_dict(tcfg.arch, tcfg.dataset, seed=1)
-    small = ["the quick brown fox", "jumps over the lazy dog twice"]
-    _, on_card = Synthesizer(tcfg, tparams).synthesize_batch(small, full_output=True)
-    _, on_cpu = Synthesizer(tcfg, tparams, device="cpu").synthesize_batch(
-        small, full_output=True
-    )
-    rel = float(np.linalg.norm(on_card["wav"] - on_cpu["wav"])
-                / np.linalg.norm(on_cpu["wav"]))
-    mel_err = float(np.abs(on_card["mel"] - on_cpu["mel"]).max())
-    log(f"  tiny config card vs CPU plain: n_frames {on_card['n_frames'].tolist()} "
-        f"vs {on_cpu['n_frames'].tolist()}, mel max_abs_err {mel_err:.3e}, "
-        f"wav rel L2 {rel:.3e} (tol 5e-2: bf16 loops)")
-    if not (np.array_equal(on_card["n_samples"], on_cpu["n_samples"]) and rel < 5e-2):
-        raise AssertionError(f"tiny card vs CPU: rel {rel}")
-    result["tiny_card_vs_cpu_rel_l2"] = rel
+    # CPU (their plain versions).
+    result["tiny_card_vs_cpu_rel_l2"] = tiny_card_vs_cpu(tiny_cfg())
 
     fast = Synthesizer(with_fast_vocoder(cfg), params, seed=0)
     fast.synthesize_batch(texts)  # warm-up
@@ -652,6 +744,211 @@ def profile(fn, card, host_ops=()) -> dict:
             "host_ms": host}
 
 
+# --------------------------------------------------------------- phase 3c --
+
+#: bench.py's serving candidates (bench.py:205-218) that this phase drives:
+#: (iteration, wire, iterations, momentum, the Griffin-Lim kernel and its
+#: launches per batch).  Every batch also launches B3 4 times and B4 once.
+SERVING = [
+    ("fused", "pcm16", 60, 0.0, "fused_gl_iteration", 60),
+    ("split", "pcm16", 60, 0.0, "reproject_frames_pallas", 60),
+    ("split", "adpcm3", 25, 0.99, "reproject_frames_pallas", 25),
+    ("semi", "adpcm3", 25, 0.99, "fused_reproject_analyze", 25),
+    ("semi", "adpcm4", 30, 0.99, "fused_reproject_analyze", 30),
+    ("semi", "mulaw8", 30, 0.99, "fused_reproject_analyze", 30),
+]
+
+
+def bench_config():
+    """bench.py's workload at the default Config(): 160 decoder steps of
+    r=5 (800 frames), stop threshold 1.1 so every row runs to full length."""
+    from sstts_torch.config import Config
+
+    cfg = Config()
+    return cfg.replace(
+        inference=dataclasses.replace(
+            cfg.inference, max_decoder_steps=160, stop_threshold=1.1,
+            griffin_lim_iters=60,
+        )
+    )
+
+
+def with_inference(cfg, **fields):
+    return cfg.replace(inference=dataclasses.replace(cfg.inference, **fields))
+
+
+def serving_path(dev, card):
+    """Each serving candidate: one warm-up batch, then `synthesize_stream`
+    over 4 batches at depth 2 with the counters set to 0 just before and
+    read just after; then the wire encoders card against CPU, a stream
+    yield against `synthesize_batch`, the tiny config card against CPU for
+    split and fused, long-form and `to_file`."""
+    import numpy as np
+    import torch
+
+    from sstts_torch.data.wav import load_wav
+    from sstts_torch.model.tacotron import init_state_dict
+    from sstts_torch.ops import kernel_wrappers
+    from sstts_torch.synthesize import Synthesizer
+
+    cfg = bench_config()
+    ds = cfg.dataset
+    params = init_state_dict(cfg.arch, cfg.dataset, seed=0)
+    texts = ["the quick brown fox jumps over the lazy dog " * 2] * 32
+    frames = cfg.inference.max_decoder_steps * cfg.arch.reduction_factor
+    n_batches, n_expected = 4, (frames - 1) * ds.hop_len
+    audio_s = 32 * n_expected / ds.sample_rate
+    result = {"candidates": []}
+    totals = dict.fromkeys(kernel_wrappers(), 0)
+    for impl, wire, iters, momentum, kernel, per_batch in SERVING:
+        name = f"{impl}-{iters}@{momentum}/{wire}"
+        synth = Synthesizer(with_inference(
+            cfg, griffin_lim_iter_impl=impl, wire_format=wire,
+            griffin_lim_iters=iters, griffin_lim_momentum=momentum,
+        ), params, seed=0)
+        synth.synthesize_batch(texts)  # warm-up
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = list(synth.synthesize_stream([texts] * n_batches, depth=2))
+        wall = time.perf_counter() - t0
+        launches = counts()
+        expected = dict.fromkeys(launches, 0)
+        expected.update({"gru_sequence": 4 * n_batches, "fused_decode": n_batches,
+                         kernel: per_batch * n_batches})
+        batch_s = wall / n_batches
+        log(f"  {name}: {n_batches} batches in {wall:.4f} s, {batch_s:.4f} s a batch, "
+            f"{audio_s / batch_s:.2f} s audio / wall s; launches {launches} [{card}]")
+        if launches != expected:
+            raise AssertionError(f"{name}: launches {launches} != {expected}")
+        for wavs in outs:
+            if len(wavs) != 32 or any(
+                w.shape != (n_expected,) or not np.isfinite(w).all() for w in wavs
+            ):
+                raise AssertionError(f"{name}: waveforms {[w.shape for w in wavs]}")
+        for k, v in launches.items():
+            totals[k] += v
+        result["candidates"].append({"name": name, "batch_s": batch_s,
+                                     "rtf_x": audio_s / batch_s, "launches": launches})
+        if impl in ("fused", "split") and iters == 60:
+            result[f"profile_{impl}"] = profile(lambda: synth.synthesize_batch(texts), card)
+    result["launches"] = totals
+
+    # 1. The wire encoders on the card and on the CPU over the same f32
+    # audio (a synthesized batch and a seeded harmonic mix): equal bytes.
+    from sstts_torch.dsp import ops as dsp_ops
+
+    _, full = Synthesizer(cfg, params, seed=1).synthesize_batch(
+        texts, full_output=True, fetch=("wav", "n_samples"))
+    rng = np.random.default_rng(8)
+    tt = np.arange(n_expected) / ds.sample_rate
+    mix = (0.5 * np.sin(2 * np.pi * 220 * tt) + 0.2 * np.sin(2 * np.pi * 730 * tt)
+           + 0.02 * rng.standard_normal((32, n_expected)))
+    enc_ms = {}
+    for label, audio in (("synthesized", full["wav"]), ("harmonic", mix)):
+        x = torch.as_tensor(np.asarray(audio, np.float32))
+        xd = x.to(dev)
+        for fmt in dsp_ops.WIRE_FORMATS:
+            on_card = dsp_ops.encode_wire(xd, fmt).cpu().numpy()
+            on_cpu = dsp_ops.encode_wire(x, fmt).numpy()
+            if not np.array_equal(on_card, on_cpu):
+                raise AssertionError(
+                    f"{fmt} wire on {label} audio: {int((on_card != on_cpu).sum())} "
+                    f"of {on_cpu.size} bytes differ between card and CPU")
+            if label == "synthesized":
+                enc_ms[fmt] = cuda_ms(lambda: dsp_ops.encode_wire(xd, fmt), 2, 3)
+        log(f"  wire encoders on {label} audio (32 x {n_expected}): card bytes == CPU "
+            f"bytes for {list(dsp_ops.WIRE_FORMATS)}")
+    log(f"  wire encode ms on the card (32 x {n_expected}): {enc_ms} [{card}]")
+    result["encode_ms"] = enc_ms
+
+    # 2. A stream yield equals synthesize_batch (same seed, same dropout
+    # draws, the same kernels on the same card).
+    mcfg = with_inference(cfg, griffin_lim_iters=30, griffin_lim_momentum=0.99,
+                          wire_format="mulaw8")
+    streamed = list(Synthesizer(mcfg, params, seed=2).synthesize_stream([texts] * 2))
+    single = Synthesizer(mcfg, params, seed=2)
+    for got in streamed:
+        want = single.synthesize_batch(texts)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError("a stream yield differs from synthesize_batch")
+    log("  stream yields == synthesize_batch (2 batches, mulaw8, GL-30@0.99)")
+
+    # 3. The tiny config on the card (kernels B1, B5) against the CPU
+    # (their plain versions), as phase 3 holds the semi iteration.
+    result["tiny_card_vs_cpu_rel_l2"] = {
+        impl: tiny_card_vs_cpu(with_inference(tiny_cfg(), griffin_lim_iter_impl=impl))
+        for impl in ("split", "fused")
+    }
+
+    # 4. Long-form: a 3-sentence paragraph, one sentence a chunk (at most
+    # 60 characters each), as one batch padded to 4.
+    paragraph = ("The quick brown fox jumps over the lazy dog. A second sentence "
+                 "follows it here. And a third one ends the paragraph.")
+    synth = Synthesizer(cfg, params, seed=3)
+    t0 = time.perf_counter()
+    long_wav = synth.synthesize_longform(paragraph, max_chars=60)
+    long_s = time.perf_counter() - t0
+    gap = int(ds.sample_rate * 0.12)
+    if long_wav.shape != (3 * n_expected + 2 * gap,) or not np.isfinite(long_wav).all():
+        raise AssertionError(f"long-form: {long_wav.shape}")
+    log(f"  long-form: 3 chunks, {long_wav.shape[0]} samples in {long_s:.3f} s [{card}]")
+
+    # 5. to_file, read back (dropout off: the same audio twice).
+    quiet = Synthesizer(cfg.replace(arch=dataclasses.replace(
+        cfg.arch, prenet_dropout_at_inference=False)), params)
+    path = quiet.to_file(texts[0], Path(__file__).resolve().parent / "chip_scratch" / "smoke.wav")
+    samples, sr = load_wav(path)
+    want = quiet.synthesize(texts[0])
+    err = float(np.abs(samples - want).max())
+    log(f"  to_file: {path.name}, {samples.shape[0]} samples at {sr} Hz, max diff from "
+        f"synthesize {err:.2e} (PCM16 read back at 1/32768: tol 1e-4)")
+    if sr != ds.sample_rate or samples.shape != want.shape or not err <= 1e-4:
+        raise AssertionError(f"to_file: {sr}, {samples.shape}, {err}")
+    return result
+
+
+def tiny_cfg():
+    """The tiny config, deterministic (dropout off), with the fused
+    decoder's bf16 products and the bf16 Griffin-Lim loop."""
+    from sstts_torch.config import tiny_config
+
+    tcfg = tiny_config()
+    return tcfg.replace(
+        arch=dataclasses.replace(tcfg.arch, prenet_dropout_at_inference=False),
+        inference=dataclasses.replace(
+            tcfg.inference, decoder_impl="fused", stop_threshold=1.1,
+            max_decoder_steps=24, griffin_lim_iters=8,
+        ),
+    )
+
+
+def tiny_card_vs_cpu(tcfg) -> float:
+    """The tiny config's batch on the card (kernels) against the CPU (their
+    plain versions): equal lengths and 5e-2 relative L2 (bf16 loops)."""
+    import numpy as np
+
+    from sstts_torch.model.tacotron import init_state_dict
+    from sstts_torch.synthesize import Synthesizer
+
+    tparams = init_state_dict(tcfg.arch, tcfg.dataset, seed=1)
+    small = ["the quick brown fox", "jumps over the lazy dog twice"]
+    _, on_card = Synthesizer(tcfg, tparams).synthesize_batch(small, full_output=True)
+    _, on_cpu = Synthesizer(tcfg, tparams, device="cpu").synthesize_batch(
+        small, full_output=True
+    )
+    rel = float(np.linalg.norm(on_card["wav"] - on_cpu["wav"])
+                / np.linalg.norm(on_cpu["wav"]))
+    mel_err = float(np.abs(on_card["mel"] - on_cpu["mel"]).max())
+    impl = tcfg.inference.griffin_lim_iter_impl or "auto"
+    log(f"  tiny config card vs CPU plain ({impl}): n_frames "
+        f"{on_card['n_frames'].tolist()} vs {on_cpu['n_frames'].tolist()}, mel "
+        f"max_abs_err {mel_err:.3e}, wav rel L2 {rel:.3e} (tol 5e-2: bf16 loops)")
+    if not (np.array_equal(on_card["n_samples"], on_cpu["n_samples"]) and rel < 5e-2):
+        raise AssertionError(f"tiny card vs CPU ({impl}): rel {rel}")
+    return rel
+
+
 # --------------------------------------------------------------- phase 3b --
 
 
@@ -719,8 +1016,8 @@ def train_path(dev, card):
         times.append(time.perf_counter() - t0)
         losses.append(float(m["loss"]))
     launches = counts()
-    expected = {"gru_sequence": 20, "gru_sequence_backward": 20, "fused_teacher_scan": 5,
-                "fused_decode": 0, "fused_reproject_analyze": 0}
+    expected = dict.fromkeys(launches, 0)
+    expected.update({"gru_sequence": 20, "gru_sequence_backward": 20, "fused_teacher_scan": 5})
     log(f"  5 train steps: launches {launches} (expected {expected}: 4/4/1 a step)")
     if launches != expected:
         raise AssertionError(f"train launch counts {launches} != {expected}")
@@ -743,8 +1040,8 @@ def train_path(dev, card):
     emetrics, out = tr.make_eval_step(cfg)(state, batch)
     torch.cuda.synchronize()
     elaunch = counts()
-    expected = {"gru_sequence": 4, "gru_sequence_backward": 0, "fused_teacher_scan": 1,
-                "fused_decode": 0, "fused_reproject_analyze": 0}
+    expected = dict.fromkeys(elaunch, 0)
+    expected.update({"gru_sequence": 4, "fused_teacher_scan": 1})
     eloss = float(emetrics["loss"])
     log(f"  eval step: loss {eloss:.5f}, launches {elaunch} (expected {expected})")
     if elaunch != expected or not np.isfinite(eloss):
@@ -814,28 +1111,30 @@ def main() -> int:
     with exact_f32(dev):
         kernels = [
             check_gru(dev), check_gru_backward(dev), check_teacher(dev),
-            check_decoder(dev), check_gl(dev),
+            check_decoder(dev), check_gl(dev), check_reproject(dev), check_gl_fused(dev),
         ]
     for k in kernels:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}) [{card}]")
-    pending = pending_bounds()
-    for k in pending:
-        log(f"  still to port, {k['name']}: bound {k['bound_ms']:.4f} ms by {k['bound_by']}")
 
     log("phase 3: the synthesis path")
     main_res = main_path(dev, card)
+    log("phase 3c: the serving path")
+    serve_res = serving_path(dev, card)
     log("phase 3b: the training path")
     train_res = train_path(dev, card)
-    training = ("gru_sequence_backward", "fused_teacher_scan")
+    # Each kernel's launches come from the path it carries.
+    own_path = {"gru_sequence_backward": "training", "fused_teacher_scan": "training",
+                "reproject_frames_pallas": "serving", "fused_gl_iteration": "serving"}
     for k in kernels:
         by_path = {"synthesis": main_res["launches"][k["name"]],
+                   "serving": serve_res["launches"][k["name"]],
                    "training": train_res["launches"][k["name"]]}
-        k["launches"] = by_path["training" if k["name"] in training else "synthesis"]
+        k["launches"] = by_path[own_path.get(k["name"], "synthesis")]
         k["launches_by_path"] = by_path
-    log(json.dumps({"main_path": main_res, "train_path": train_res,
-                    "pending_bounds": pending, "card": card}))
+    log(json.dumps({"main_path": main_res, "serving_path": serve_res,
+                    "train_path": train_res, "card": card}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

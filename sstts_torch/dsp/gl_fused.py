@@ -1,6 +1,7 @@
-"""Semi-fused Griffin-Lim iteration tail: the port of kernel B2.
+"""Fused Griffin-Lim iterations: the ports of kernels B2 and B5.
 
-Port of `sstts/dsp/gl_fused.py:fused_reproject_analyze` (227-488).  One call
+B2, the semi-fused iteration tail, is the port of
+`sstts/dsp/gl_fused.py:fused_reproject_analyze` (227-488).  One call
 takes the synthesis frames F = q @ w_inv (computed outside, as in JAX) and
 returns the next spectrum:
 
@@ -15,6 +16,13 @@ a CPU tensor runs `reproject_analyze_plain`, a CUDA tensor launches
 `sstts_torch/csrc/gl_semi.cu` or raises.  `fused_reproject_analyze` adds the
 exact repair of the reflect-pad edge rows in plain torch, as the JAX package
 repairs them in XLA after its kernel.
+
+B5, the whole iteration, is the port of `fused_gl_iteration` (84-188,
+491-645): GEMM1 q @ w_inv moves inside the kernel and its frames stay f32
+through the shift-add.  `gl_iteration` is the kernel's own function (a CPU
+tensor runs `gl_iteration_plain`, a CUDA tensor launches
+`sstts_torch/csrc/gl_fused.cu` or raises); `fused_gl_iteration` adds the
+edge repair, rebuilding those rows from q (`_edge_frames`).
 """
 
 from __future__ import annotations
@@ -161,15 +169,55 @@ def reproject_analyze(
 reproject_analyze.launches = 0
 
 
-def _edge_bounds(runs, n_frames: int) -> Tuple[int, int]:
+def _patch_edges(qn, sn, slab_rows, mag3, w_fwd, plan, n_frames, hp, p3=None,
+                 momentum=0.0):
+    """Exactly recompute the few rows whose reprojected frames receive
+    reflect-pad mirror values (the kernels leave them wss-masked), as the
+    JAX package's `_patch_edges` and `fused_reproject_analyze` (420-483) do.
+
+    `slab_rows(lo, hi)` returns the pre-mirror reprojected f32 frames rows
+    [lo, hi).  Each side's slab holds every run's target and source rows;
+    its mirror runs, GEMM2 and renorm (with momentum when `p3` is given)
+    are redone in plain torch and written over qn (and sn) in place.
+    Returns (qn, sn).
+    """
+    runs = plan["runs"]
+    if not runs:
+        return qn, sn
     half_t = n_frames // 2
-    head_end = max(
-        [max(r[0], r[3]) for r in runs if r[0] < half_t], default=-1
-    ) + 1
-    tail_start = min(
-        [min(r[0], r[3]) for r in runs if r[0] >= half_t], default=n_frames
-    )
-    return head_end, tail_start
+    head_end = max([max(r[0], r[3]) for r in runs if r[0] < half_t], default=-1) + 1
+    tail_start = min([min(r[0], r[3]) for r in runs if r[0] >= half_t], default=n_frames)
+    dtype = qn.dtype
+    m32 = float(np.float32(momentum))
+    w32 = w_fwd.float()
+
+    def fix(rows_lo, rows_hi, local_runs):
+        slab = apply_mirror_runs(slab_rows(rows_lo, rows_hi), local_runs)
+        s32 = slab.to(dtype).float() @ w32
+        mags = mag3[:, rows_lo:rows_hi]
+        if p3 is not None:
+            ex = s32 + m32 * (s32 - p3[:, rows_lo:rows_hi].float())
+            return renorm(ex, mags, hp, dtype), s32.to(dtype)
+        return renorm(s32, mags, hp, dtype), None
+
+    if head_end > tail_start:  # tiny frame counts: the slabs overlap
+        return fix(0, n_frames, runs)
+    if head_end > 0:
+        q_h, s_h = fix(0, head_end, [r for r in runs if r[0] < head_end])
+        qn[:, :head_end] = q_h
+        if sn is not None:
+            sn[:, :head_end] = s_h
+    if tail_start < n_frames:
+        local = [
+            (r[0] - tail_start, r[1], r[2], r[3] - tail_start, r[4], r[5])
+            for r in runs
+            if r[0] >= tail_start
+        ]
+        q_t, s_t = fix(tail_start, n_frames, local)
+        qn[:, tail_start:] = q_t
+        if sn is not None:
+            sn[:, tail_start:] = s_t
+    return qn, sn
 
 
 def fused_reproject_analyze(
@@ -194,11 +242,9 @@ def fused_reproject_analyze(
     """
     *batch, n_frames, wp = frames.shape
     L = mag2.shape[-1]
-    hp = L // 2
     plan = band_plan(n_fft, hop, win_length, n_frames, length)
     w_len, d_max = plan["w_len"], plan["d_max"]
     with_momentum = prev is not None and momentum > 0.0
-    dtype = frames.dtype
     f3 = frames.reshape(-1, n_frames, wp)
     b_total = f3.shape[0]
     mag3 = mag2.reshape(-1, n_frames, L).expand(b_total, n_frames, L)
@@ -209,49 +255,187 @@ def fused_reproject_analyze(
     )
     if wss2d is None:
         wss2d = padded_wss2d(plan, wp, frames.device)
-    w_fwd = w_fwd.to(dtype)
+    w_fwd = w_fwd.to(frames.dtype)
     qn, sn = reproject_analyze(
         f3, mag3, w_fwd, wss2d, w_len, hop, d_max, p3, momentum
     )
-
-    runs = plan["runs"]
-    if runs:
-        head_end, tail_start = _edge_bounds(runs, n_frames)
-        m32 = float(np.float32(momentum))
-        w32 = w_fwd.float()
-
-        def fix(rows_lo, rows_hi, local_runs):
-            slab = shift_add_rows(f3, w_len, hop, d_max, rows_lo, rows_hi)
-            slab = slab * wss2d[rows_lo:rows_hi]
-            slab = apply_mirror_runs(slab, local_runs)
-            s32 = slab.to(dtype).float() @ w32
-            mags = mag3[:, rows_lo:rows_hi]
-            if with_momentum:
-                ex = s32 + m32 * (s32 - p3[:, rows_lo:rows_hi].float())
-                return renorm(ex, mags, hp, dtype), s32.to(dtype)
-            return renorm(s32, mags, hp, dtype), None
-
-        if head_end > tail_start:  # tiny frame counts: the slabs overlap
-            qn, s_fix = fix(0, n_frames, runs)
-            sn = s_fix if with_momentum else None
-        else:
-            if head_end > 0:
-                q_h, s_h = fix(0, head_end, [r for r in runs if r[0] < head_end])
-                qn[:, :head_end] = q_h
-                if with_momentum:
-                    sn[:, :head_end] = s_h
-            if tail_start < n_frames:
-                local = [
-                    (r[0] - tail_start, r[1], r[2], r[3] - tail_start, r[4], r[5])
-                    for r in runs
-                    if r[0] >= tail_start
-                ]
-                q_t, s_t = fix(tail_start, n_frames, local)
-                qn[:, tail_start:] = q_t
-                if with_momentum:
-                    sn[:, tail_start:] = s_t
-
+    qn, sn = _patch_edges(
+        qn, sn,
+        lambda lo, hi: shift_add_rows(f3, w_len, hop, d_max, lo, hi) * wss2d[lo:hi],
+        mag3, w_fwd, plan, n_frames, L // 2, p3, momentum,
+    )
     qn = qn.reshape(*batch, n_frames, L)
     if with_momentum:
         return qn, sn.reshape(*batch, n_frames, L)
     return qn
+
+
+# ------------------------------------------------------------- kernel B5 --
+
+
+class _GlFusedArgs(ctypes.Structure):
+    """Mirror of `GlFusedArgs` in csrc/gl_fused.cu (same field order)."""
+
+    _fields_ = [
+        (name, ctypes.c_void_p)
+        for name in ("q", "mag2", "w_inv", "w_fwd", "wss2d", "frames", "q_out")
+    ] + [
+        (name, ctypes.c_int)
+        for name in ("Bt", "T", "wp", "hp", "w_len", "hop", "d_max")
+    ]
+
+
+_FUSED_SIGNATURES = {
+    "sstts_gl_fused": ([ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+    "sstts_gl_fused_smem_bytes": ([ctypes.c_int], ctypes.c_int),
+    "sstts_gl_fused_scratch_rows": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+}
+
+
+def gl_iteration_plain(
+    q: torch.Tensor,
+    mag2: torch.Tensor,
+    w_inv: torch.Tensor,
+    w_fwd: torch.Tensor,
+    wss2d: torch.Tensor,
+    w_len: int,
+    hop: int,
+    d_max: int,
+) -> torch.Tensor:
+    """Kernel B5's function in plain torch, without the edge repair.
+
+    q, mag2 (Bt, T, 2*hp) and w_inv (2*hp, wp), w_fwd (wp, 2*hp) in the
+    loop dtype; wss2d (T, wp) f32.  GEMM1's frames stay f32 through the
+    shift-add (unlike "semi" and "split", which round them to the loop
+    dtype); the reprojected frames round to the loop dtype before GEMM2.
+    Both products are exact f32 over the operands, i.e. the tensor-core
+    product with f32 accumulation.
+    """
+    n_frames = q.shape[-2]
+    frames = q.float() @ w_inv.float()
+    acc = shift_add_rows(frames, w_len, hop, d_max, 0, n_frames)
+    fr = (acc * wss2d).to(q.dtype)
+    s32 = fr.float() @ w_fwd.float()
+    return renorm(s32, mag2, mag2.shape[-1] // 2, q.dtype)
+
+
+def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max):
+    bt, n_frames, L = q.shape
+    hp, wp = L // 2, w_inv.shape[1]
+    if any(t.dtype != torch.bfloat16 for t in (q, mag2, w_inv, w_fwd)):
+        raise NotImplementedError(
+            "fused_gl_iteration CUDA kernel is bf16 only (the default "
+            "fft_impl='dft_default' loop); the f32 loop on CUDA runs "
+            "iter_impl='split'"
+        )
+    if wp % 128 or hp % 64:
+        raise ValueError(
+            f"gl_fused kernel needs wp % 128 == 0 and hp % 64 == 0: {wp}, {hp}"
+        )
+    if (
+        tuple(w_inv.shape) != (L, wp)
+        or tuple(w_fwd.shape) != (wp, L)
+        or tuple(wss2d.shape) != (n_frames, wp)
+        or tuple(mag2.shape) != tuple(q.shape)
+    ):
+        raise ValueError(
+            f"gl_fused: q {tuple(q.shape)}, mag2 {tuple(mag2.shape)}, w_inv "
+            f"{tuple(w_inv.shape)}, w_fwd {tuple(w_fwd.shape)}, wss2d "
+            f"{tuple(wss2d.shape)} do not match"
+        )
+    lib = build.load("gl_fused", _FUSED_SIGNATURES)
+    smem = lib.sstts_gl_fused_smem_bytes(wp)
+    rows = lib.sstts_gl_fused_scratch_rows(n_frames, d_max)
+    if smem > build.MAX_SMEM or rows < 0:
+        raise NotImplementedError(
+            f"gl_fused kernel: {smem} bytes of shared memory (max "
+            f"{build.MAX_SMEM}) at wp={wp}, or d_max={d_max} halo rows beyond "
+            "its 80-row GEMM1 tile"
+        )
+    q = q.contiguous()
+    mag2 = mag2.contiguous()
+    w_inv = w_inv.contiguous()
+    w_fwd = w_fwd.contiguous()
+    wss2d = wss2d.float().contiguous()
+    # GEMM1's f32 frames, one (80, wp) slab per block: written and read
+    # back by the same block, so it mostly stays in L2.
+    scratch = torch.empty(bt, rows, wp, dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    args = _GlFusedArgs(
+        q.data_ptr(), mag2.data_ptr(), w_inv.data_ptr(), w_fwd.data_ptr(),
+        wss2d.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        bt, n_frames, wp, hp, w_len, hop, d_max,
+    )
+    rc = lib.sstts_gl_fused(
+        ctypes.byref(args), torch.cuda.current_stream(q.device).cuda_stream
+    )
+    build.check(lib, rc, "fused_gl_iteration")
+    return out
+
+
+def gl_iteration(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max):
+    """Device dispatch for kernel B5's function (see `gl_iteration_plain`);
+    counts CUDA launches in `gl_iteration.launches`.  Inference-only:
+    raises when grad mode is on and an input requires grad."""
+    require_no_grad("fused_gl_iteration", q, mag2, w_inv, w_fwd, wss2d)
+    if q.device.type == "cpu":
+        return gl_iteration_plain(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max)
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"fused_gl_iteration on {q.device.type}")
+    out = _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max)
+    gl_iteration.launches += 1
+    return out
+
+
+gl_iteration.launches = 0
+
+
+def _edge_frames(q3, w_inv, w_len, hop, d_max, rows_lo, rows_hi):
+    """Exact pre-envelope reprojected frames rows [rows_lo, rows_hi),
+    rebuilt from the spectrum: GEMM1 (exact f32 products) on the thin q
+    neighbourhood, then the shift-add (the JAX `_edge_frames_xla`)."""
+    n_frames = q3.shape[1]
+    g_lo = max(0, rows_lo - d_max)
+    g_hi = min(n_frames, rows_hi + d_max)
+    f1 = q3[:, g_lo:g_hi].float() @ w_inv.float()
+    return shift_add_rows(f1, w_len, hop, d_max, rows_lo - g_lo, rows_hi - g_lo)
+
+
+def fused_gl_iteration(
+    q: torch.Tensor,
+    mag2: torch.Tensor,
+    w_inv: torch.Tensor,
+    w_fwd: torch.Tensor,
+    n_fft: int,
+    hop: int,
+    win_length: int,
+    length: int,
+    wss2d: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """One whole Griffin-Lim iteration q -> q' (the JAX
+    `fused_gl_iteration`, 491-645): kernel B5 (its plain version on the
+    CPU), then the exact repair of the reflect-pad edge rows in plain torch.
+
+    q, mag2 (..., n_frames, 2*hp) in the loop dtype; w_inv (2*hp, wp),
+    w_fwd (wp, 2*hp).  Classic iterations only: momentum is refused by
+    `griffin_lim`, as in JAX.  `wss2d` as in `fused_reproject_analyze`.
+    """
+    *batch, n_frames, L = q.shape
+    wp = w_inv.shape[1]
+    plan = band_plan(n_fft, hop, win_length, n_frames, length)
+    w_len, d_max = plan["w_len"], plan["d_max"]
+    dtype = q.dtype
+    q3 = q.reshape(-1, n_frames, L)
+    b_total = q3.shape[0]
+    mag3 = mag2.reshape(-1, n_frames, L).expand(b_total, n_frames, L)
+    if wss2d is None:
+        wss2d = padded_wss2d(plan, wp, q.device)
+    w_inv = w_inv.to(dtype)
+    w_fwd = w_fwd.to(dtype)
+    qn = gl_iteration(q3, mag3, w_inv, w_fwd, wss2d, w_len, hop, d_max)
+    qn, _ = _patch_edges(
+        qn, None,
+        lambda lo, hi: _edge_frames(q3, w_inv, w_len, hop, d_max, lo, hi) * wss2d[lo:hi],
+        mag3, w_fwd, plan, n_frames, L // 2,
+    )
+    return qn.reshape(*batch, n_frames, L)

@@ -1,23 +1,31 @@
-"""Griffin-Lim phase reconstruction on the banded, packed layout.
+"""Griffin-Lim phase reconstruction.
 
-Port of `sstts/dsp/griffin_lim.py` (64-134, 161-256, 259-512): the
-real-arithmetic loop over window-support-reduced DFT GEMMs, in the "semi"
-iteration that the JAX package picks on its accelerator.  Each iteration is
+Port of `sstts/dsp/griffin_lim.py` (64-158, 161-256, 259-512).  The
+"dft_*" transforms run the real-arithmetic loop over window-support-reduced
+DFT GEMMs on the flat spectrum layout (..., n_frames, 2*hp): real lanes
+[0, hp), imaginary lanes [hp, 2*hp).  In the bf16 loop ("dft_default") the
+Nyquist bin rides in DC's imaginary slot and the loop normalises the (DC,
+Nyquist) pair by their joint magnitude; the final synthesis unpacks both
+and runs in f32.  "dft_high"/"dft_highest" run the same loop unpacked in
+f32.  Every iteration of the JAX package runs:
 
-    frames = q @ w_inv                     (torch.matmul in the loop dtype)
-    q      = fused_reproject_analyze(...)  (kernel B2, sstts_torch.dsp.gl_fused)
+    "semi"       frames = q @ w_inv; kernel B2 (reprojection + GEMM2 +
+                 renorm, `sstts_torch.dsp.gl_fused.fused_reproject_analyze`);
+    "split"      frames = q @ w_inv; kernel B1 (`sstts_torch.dsp.reproject`);
+                 s = frames @ w_fwd; the renorm in torch;
+    "split_xla"  "split" with the reprojection in plain torch ops (no kernel);
+    "fused"      kernel B5, the whole iteration (`fused_gl_iteration`).
 
-on the flat spectrum layout (..., n_frames, 2*hp): real lanes [0, hp),
-imaginary lanes [hp, 2*hp), hp the bin count rounded up to 128 lanes.  In
-the bf16 loop ("dft_default") the Nyquist bin rides in DC's imaginary slot
-and the loop normalises the (DC, Nyquist) pair by their joint magnitude; the
-final synthesis unpacks both and runs in f32.  "dft_high"/"dft_highest"
-run the same loop unpacked in f32 (CPU only in this port: the CUDA kernel is
-bf16).
+"auto" is "semi" on every device: on the CPU the JAX package would pick
+"split", but the port keeps one default path whose kernel the card runs.
+On the card B2 and B5 take bf16 only, so the f32 loop there runs "split"
+or "split_xla" (B1 takes both types).  "xla"/"default" run the complex
+loop over the centred STFT (`torch.fft`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -25,8 +33,12 @@ from sstts_torch.config import Config
 from sstts_torch.dsp import fft as mmfft
 from sstts_torch.dsp import ops
 from sstts_torch.dsp import stft as stft_mod
-from sstts_torch.dsp.gl_fused import fused_reproject_analyze
-from sstts_torch.dsp.reproject import band_plan, padded_wss2d
+from sstts_torch.dsp.gl_fused import (
+    fused_gl_iteration,
+    fused_reproject_analyze,
+    renorm,
+)
+from sstts_torch.dsp.reproject import band_plan, padded_wss2d, reproject
 
 #: Default Griffin-Lim transform: direct rDFT GEMMs in bf16 (as the JAX
 #: package's GL_FFT_IMPL).
@@ -36,10 +48,63 @@ _LOOP_DTYPE = {
     "dft_high": torch.float32,
     "dft_highest": torch.float32,
 }
+ITER_IMPLS = ("auto", "split", "split_xla", "fused", "semi")
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def resolve_iter_impl(iter_impl, momentum: float, fft_impl: str, device) -> str:
+    """The iteration a call runs, with the JAX package's validation
+    (`ValueError` for an unknown iteration or transform and for "fused"
+    with momentum) and the port's refusals (`NotImplementedError`): the
+    matmul FFT, and the f32 loop on the card in B2 and B5, which are bf16
+    only."""
+    impl = iter_impl or "auto"
+    if impl not in ITER_IMPLS:
+        raise ValueError(
+            f"unknown griffin_lim iter_impl {impl!r}; expected one of "
+            "'auto', 'split', 'split_xla', 'fused', 'semi'"
+        )
+    if momentum > 0.0 and impl == "fused":
+        raise ValueError(
+            "iter_impl='fused' does not support griffin_lim_momentum > 0 "
+            "(the fused kernel folds renorm into the iteration); use "
+            "'split', 'semi', or momentum=0"
+        )
+    if fft_impl == "ct_matmul":
+        raise NotImplementedError(
+            "griffin_lim fft_impl='ct_matmul' (the JAX package's matmul FFT) "
+            "is not ported; 'xla'/'default' run torch.fft"
+        )
+    if fft_impl not in _LOOP_DTYPE and fft_impl not in ("xla", "default"):
+        raise ValueError(
+            f"unknown griffin_lim fft_impl {fft_impl!r}; valid: 'default', "
+            "'xla', 'dft_default', 'dft_high', 'dft_highest'"
+        )
+    if impl == "auto":
+        impl = "semi"
+    if (
+        torch.device(device).type == "cuda"
+        and _LOOP_DTYPE.get(fft_impl) == torch.float32
+        and impl in ("semi", "fused")
+    ):
+        raise NotImplementedError(
+            f"griffin_lim iter_impl={impl!r} with fft_impl={fft_impl!r} on "
+            "CUDA: kernels B2 and B5 are bf16 only; the f32 loop runs "
+            "iter_impl='split' (ROADMAP A.5)"
+        )
+    return impl
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b with f32 accumulation, rounded once to a's dtype: exact f32
+    products of the operands on the CPU (as XLA there), the card's GEMM in
+    the operands' type (f32 accumulation) on CUDA."""
+    if a.device.type == "cpu":
+        return (a.float() @ b.float()).to(a.dtype)
+    return a @ b
 
 
 def griffin_lim(
@@ -58,26 +123,50 @@ def griffin_lim(
     Deterministic zero-phase init; momentum > 0 is the fast Griffin-Lim
     update (Perraudin et al. 2013).
     """
-    if (iter_impl or "auto") not in ("auto", "semi"):
-        raise NotImplementedError(
-            f"griffin_lim iter_impl={iter_impl!r}: this port runs the semi "
-            "iteration only ('auto'/'semi'); 'split', 'split_xla' and 'fused' "
-            "are ROADMAP items B.1 and B.5"
-        )
-    if fft_impl not in _LOOP_DTYPE:
-        raise NotImplementedError(
-            f"griffin_lim fft_impl={fft_impl!r}: this port runs the direct-DFT "
-            "loop only ('dft_default', 'dft_high', 'dft_highest')"
-        )
-    loop_dtype = _LOOP_DTYPE[fft_impl]
     magnitude = magnitude.float()
-    device = magnitude.device
-    n_frames, half = magnitude.shape[-2], magnitude.shape[-1]
+    n_frames = magnitude.shape[-2]
     if 1 + length // hop_length < n_frames:
         raise ValueError(
             f"length={length} too short for {n_frames} frames at hop={hop_length}"
         )
+    impl = resolve_iter_impl(iter_impl, momentum, fft_impl, magnitude.device)
+    if fft_impl in ("xla", "default"):
+        return _griffin_lim_complex(
+            magnitude, n_fft, hop_length, win_length, n_iters, length, momentum
+        )
+    return _griffin_lim_real(
+        magnitude, n_fft, hop_length, win_length, n_iters, length, momentum,
+        _LOOP_DTYPE[fft_impl], impl,
+    )
 
+
+def _griffin_lim_complex(magnitude, n_fft, hop_length, win_length, n_iters,
+                         length, momentum):
+    """The complex loop over the centred STFT (JAX 136-158)."""
+    n_frames = magnitude.shape[-2]
+
+    def project(angles):
+        return stft_mod.istft(
+            magnitude * angles, n_fft, hop_length, win_length, length
+        )
+
+    angles = torch.ones_like(magnitude, dtype=torch.complex64)
+    prev = torch.zeros_like(angles)
+    for _ in range(n_iters):
+        s = stft_mod.stft(project(angles), n_fft, hop_length, win_length)
+        s = s[..., :n_frames, :]
+        extrap = s + momentum * (s - prev) if momentum > 0.0 else s
+        angles = extrap / torch.clamp(extrap.abs(), min=1e-16)
+        prev = s
+    return project(angles)
+
+
+def _griffin_lim_real(magnitude, n_fft, hop_length, win_length, n_iters,
+                      length, momentum, loop_dtype, iter_impl):
+    """The real-arithmetic loop over direct-DFT GEMMs (JAX 161-256 and
+    `_loop_banded`, 259-492)."""
+    device = magnitude.device
+    n_frames, half = magnitude.shape[-2], magnitude.shape[-1]
     window_np = stft_mod.window(n_fft, win_length)
     inv_wss_full = stft_mod.window_sum_sq(n_fft, hop_length, win_length, n_frames)
     lo, w_len, cos_w, nsin_w, inv_re_w, inv_im_w = mmfft.rdft_matrices_windowed(
@@ -104,8 +193,13 @@ def griffin_lim(
         and half > 2
     )
     hb = half - 1 if packed else half
-    hp = _round_up(hb, 128)
-    wp = _round_up(w_len, 128)
+    # The kernels' 128-lane-padded layout on the card, and wherever the
+    # iteration needs it (the JAX rule, with the card in place of the TPU);
+    # the CPU's "split" runs the window-support widths, as JAX on the CPU.
+    if device.type == "cuda" or iter_impl != "split":
+        hp, wp = _round_up(hb, 128), _round_up(w_len, 128)
+    else:
+        hp, wp = hb, w_len
 
     def rowpad(m):  # (rows <= hp, w_len) -> (hp, wp)
         return F.pad(m, (0, wp - w_len, 0, hp - m.shape[0]))
@@ -144,17 +238,36 @@ def griffin_lim(
     q = torch.cat([mag_r, qi0], dim=-1).to(loop_dtype)
 
     plan = band_plan(n_fft, hop_length, win_length, n_frames, length)
-    args = (w_fwd, n_fft, hop_length, win_length, length)
-    kw = {"wss2d": padded_wss2d(plan, wp, device)}  # uploaded once
-    if momentum > 0.0:
+    geom = (n_fft, hop_length, win_length, length)
+    wss2d = padded_wss2d(plan, wp, device)  # uploaded once
+    m32 = float(np.float32(momentum))
+    if iter_impl == "semi":
+        if momentum > 0.0:
+            prev = torch.zeros_like(q)
+            for _ in range(n_iters):
+                q, prev = fused_reproject_analyze(
+                    _mm(q, w_inv), mag2, w_fwd, *geom, prev=prev,
+                    momentum=momentum, wss2d=wss2d,
+                )
+        else:
+            for _ in range(n_iters):
+                q = fused_reproject_analyze(
+                    _mm(q, w_inv), mag2, w_fwd, *geom, wss2d=wss2d
+                )
+    elif iter_impl == "fused":
+        for _ in range(n_iters):
+            q = fused_gl_iteration(q, mag2, w_inv, w_fwd, *geom, wss2d=wss2d)
+    else:
+        impl = "xla" if iter_impl == "split_xla" else "auto"
         prev = torch.zeros_like(q)
         for _ in range(n_iters):
-            q, prev = fused_reproject_analyze(
-                q @ w_inv, mag2, *args, prev=prev, momentum=momentum, **kw
-            )
-    else:
-        for _ in range(n_iters):
-            q = fused_reproject_analyze(q @ w_inv, mag2, *args, **kw)
+            frames = reproject(_mm(q, w_inv), *geom, impl=impl, wss2d=wss2d)
+            s = _mm(frames, w_fwd)
+            s32 = s.float()
+            if momentum > 0.0:
+                s32 = s32 + m32 * (s32 - prev.float())
+                prev = s
+            q = renorm(s32, mag2, hp, loop_dtype)
 
     # Final synthesis in f32: recover the unit phase from the scaled
     # spectrum and apply the exact f32 magnitude; the packed layout unpacks
@@ -187,4 +300,3 @@ def spectrogram_to_wav(
         iter_impl=inf.griffin_lim_iter_impl,
     )
     return ops.deemphasis(y, ds.preemphasis)
-

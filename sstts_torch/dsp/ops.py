@@ -2,9 +2,9 @@
 feature pipeline.
 
 Port of `sstts/dsp/ops.py:24-28` (pre-emphasis), `30-83` (de-emphasis),
-`99-113` (dB ops) and `618-651` (`wav_to_features` with
-`fft_impl="default"`).  The direct-DFT feature transforms ("dft_*") are not
-ported (ROADMAP A.6).
+`99-113` (dB ops), `116-570` (the device->host wire codecs) and `618-651`
+(`wav_to_features` with `fft_impl="default"`).  The direct-DFT feature
+transforms ("dft_*") are not ported (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -95,6 +95,273 @@ def deemphasis(y: torch.Tensor, coeff: float, block: int = 256) -> torch.Tensor:
     s_prev = torch.nn.functional.pad(s[..., :-1], (1, 0))
     out = zs + s_prev[..., None] * ramp
     return out.reshape(*batch, n_blocks * block)[..., :n]
+
+
+# --- wire codecs ------------------------------------------------------------
+#
+# The encoders run on the audio's device in plain torch (the JAX package
+# runs them in XLA, without a kernel of its own) and give the JAX package's
+# bytes, the same on the card and on the CPU:
+#   * XLA fuses `c + a * b` into one multiply-add; the port takes it as the
+#     exact f64 product-sum rounded once to f32 (`_fma`);
+#   * a division by a constant is a true f32 division (`_div`): torch on
+#     CUDA would multiply by the reciprocal of a Python scalar divisor;
+#   * mu-law's log1p is taken in f64 and rounded to f32, so both devices
+#     agree (XLA's own f32 log1p is not always correctly rounded).
+# The decoders are numpy copies of the JAX package's host decoders.
+
+ADPCM_BLOCK = 256
+
+
+def _div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c as a true f32 division on any device."""
+    return x / torch.tensor(c, dtype=torch.float32, device=x.device)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """f32 a * b + c with one rounding (the product of two f32 values is
+    exact in f64)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def mulaw_encode_u8(y: torch.Tensor, mu: float = 255.0) -> torch.Tensor:
+    """Continuous mu-law companding of [-1, 1] audio to uint8 (on the
+    audio's device); inverse `mulaw_decode_host`.  log1p is taken in f64
+    and rounded to f32, so every device gives the same codes."""
+    y = torch.clamp(y.float(), -1.0, 1.0)
+    lg = torch.log1p((np.float32(mu) * y.abs()).double()).float()
+    c = _div(torch.sign(y) * lg, float(np.log1p(mu)))
+    return torch.round((c + 1.0) * 127.5).to(torch.uint8)
+
+
+_MULAW_LUT: dict = {}
+
+
+def mulaw_decode_host(u8: np.ndarray, mu: float = 255.0) -> np.ndarray:
+    """Host (numpy) inverse of `mulaw_encode_u8` -> float32 audio: one
+    gather from a 256-entry table."""
+    lut = _MULAW_LUT.get(mu)
+    if lut is None:
+        c = np.arange(256, dtype=np.float32) / 127.5 - 1.0
+        lut = (np.sign(c) * (np.expm1(np.abs(c) * np.log1p(mu)) / mu)).astype(np.float32)
+        _MULAW_LUT[mu] = lut
+    return lut[np.asarray(u8, np.uint8)]
+
+
+def _dpcm_quantize_blocks(y, q_lo, q_hi, levels, offset=0.0, ns_beta=0.0):
+    """Block-adaptive feedback DPCM quantizer (the JAX
+    `_dpcm_quantize_blocks`).
+
+    [-1, 1] audio (B, n) -> (codes (B, nb, block) uint8 offset by -q_lo
+    with a dummy slot 0, scales (B, nb) f16, seeds (B, nb) i16).  `levels`
+    divides the block's largest open-loop delta into the scale; `offset`
+    0.5 selects the mid-rise lattice; `ns_beta` > 0 adds first-order
+    error-feedback noise shaping (encoder only).  The loop runs over the
+    255 in-block positions with every (row, block) pair as one lane.
+    """
+    block = ADPCM_BLOCK
+    y = y.float()
+    bsz, n = y.shape
+    nb = -(-n // block)
+    if nb * block > n:  # edge padding
+        y = torch.cat([y, y[:, -1:].expand(bsz, nb * block - n)], dim=1)
+    blocks = torch.clamp(y, -1.0, 1.0).reshape(bsz, nb, block)
+    seeds = torch.round(blocks[..., 0] * 32767.0).to(torch.int16)
+    rec = _div(seeds.float(), 32767.0)
+    deltas = blocks[..., 1:] - blocks[..., :-1]
+    scale = _div(torch.amax(deltas.abs(), dim=-1), float(levels))
+    scale = torch.clamp(scale, min=1e-6).to(torch.float16)
+    scale_f = scale.float()
+    xs = blocks.permute(2, 0, 1)[1:]  # (block - 1, B, nb)
+    qs = []
+    if ns_beta:
+        beta = -float(np.float32(ns_beta))
+        err = torch.zeros_like(rec)
+        lim = 2.0 * scale_f
+        for u_t in xs:
+            tgt = _fma(torch.full_like(err, beta), err, u_t)
+            q = torch.clamp(torch.round((tgt - rec) / scale_f - offset), q_lo, q_hi)
+            rec = _fma(q + offset, scale_f, rec)
+            err = torch.minimum(torch.maximum(rec - tgt, -lim), lim)
+            qs.append(q)
+    else:
+        for u_t in xs:
+            q = torch.clamp(torch.round((u_t - rec) / scale_f - offset), q_lo, q_hi)
+            rec = _fma(q + offset, scale_f, rec)
+            qs.append(q)
+    codes = (torch.stack(qs, dim=-1) - q_lo).to(torch.uint8)  # (B, nb, 255)
+    dummy = torch.full((bsz, nb, 1), int(-q_lo), dtype=torch.uint8, device=y.device)
+    return torch.cat([dummy, codes], dim=-1), scale, seeds
+
+
+def _wire(packed, scale, seeds):
+    """(B, nb, k) packed codes, (B, nb) f16 scales and i16 seeds -> the
+    uint8 row layout [codes | scales | seeds] (little-endian)."""
+    bsz = packed.shape[0]
+    return torch.cat(
+        [
+            packed.reshape(bsz, -1),
+            scale.contiguous().view(torch.uint8).reshape(bsz, -1),
+            seeds.contiguous().view(torch.uint8).reshape(bsz, -1),
+        ],
+        dim=1,
+    )
+
+
+def adpcm4_encode_wire(y: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] audio (B, n) -> uint8 wire rows (B, 132 * ceil(n/256)):
+    4-bit block-adaptive feedback DPCM, two codes a byte."""
+    codes, scale, seeds = _dpcm_quantize_blocks(y, -8.0, 7.0, 7)
+    return _wire(codes[..., 0::2] | (codes[..., 1::2] << 4), scale, seeds)
+
+
+def adpcm3_encode_wire(y: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] audio (B, n) -> uint8 wire rows (B, 100 * ceil(n/256)):
+    3-bit DPCM, eight codes packed little-endian into 3 bytes."""
+    codes, scale, seeds = _dpcm_quantize_blocks(y, -4.0, 3.0, 3)
+    bsz, nb, _ = codes.shape
+    c = codes.reshape(bsz, nb, ADPCM_BLOCK // 8, 8)
+    b0 = c[..., 0] | (c[..., 1] << 3) | ((c[..., 2] & 3) << 6)
+    b1 = (c[..., 2] >> 2) | (c[..., 3] << 1) | (c[..., 4] << 4) | ((c[..., 5] & 1) << 7)
+    b2 = (c[..., 5] >> 1) | (c[..., 6] << 2) | (c[..., 7] << 5)
+    return _wire(torch.stack([b0, b1, b2], dim=-1), scale, seeds)
+
+
+def adpcm2_encode_wire(y: torch.Tensor, ns_beta: float = 0.0) -> torch.Tensor:
+    """[-1, 1] audio (B, n) -> uint8 wire rows (B, 68 * ceil(n/256)):
+    2-bit mid-rise DPCM ((code - 1.5) * scale), four codes a byte;
+    `ns_beta` shapes the noise without changing the layout."""
+    codes, scale, seeds = _dpcm_quantize_blocks(
+        y, -2.0, 1.0, 1.5, offset=0.5, ns_beta=ns_beta
+    )
+    bsz, nb, _ = codes.shape
+    c = codes.reshape(bsz, nb, ADPCM_BLOCK // 4, 4)
+    packed = c[..., 0] | (c[..., 1] << 2) | (c[..., 2] << 4) | (c[..., 3] << 6)
+    return _wire(packed, scale, seeds)
+
+
+def _split_rows(rows: np.ndarray, code_bytes: int):
+    """uint8 wire rows -> (packed codes (B, nb, code_bytes), scales and
+    seeds (B, nb, 1) f32)."""
+    rows = np.ascontiguousarray(np.atleast_2d(np.asarray(rows, np.uint8)))
+    bsz = rows.shape[0]
+    nb = rows.shape[1] // (code_bytes + 4)
+    npk = nb * code_bytes
+    packed = rows[:, :npk].reshape(bsz, nb, code_bytes)
+    scales = (
+        rows[:, npk : npk + 2 * nb].reshape(-1).view(np.float16)
+        .astype(np.float32).reshape(bsz, nb, 1)
+    )
+    seeds = (
+        rows[:, npk + 2 * nb :].reshape(-1).view(np.int16)
+        .astype(np.float32).reshape(bsz, nb, 1) / 32767.0
+    )
+    return packed, scales, seeds
+
+
+def _integrate(q: np.ndarray, scales, seeds) -> np.ndarray:
+    """The decoder's telescoped feedback loop: seed + cumsum(q * scale)."""
+    q[..., 0] = 0.0  # dummy slot; sample 0 is the seed itself
+    y = seeds + np.cumsum(q * scales, axis=-1)
+    return y.reshape(q.shape[0], -1).astype(np.float32)
+
+
+def _adpcm4_decode_rows_np(rows: np.ndarray) -> np.ndarray:
+    """Numpy inverse of `adpcm4_encode_wire` -> (B, n_pad) float32."""
+    packed, scales, seeds = _split_rows(rows, ADPCM_BLOCK // 2)
+    codes = np.empty(packed.shape[:2] + (ADPCM_BLOCK,), np.float32)
+    codes[..., 0::2] = packed & 15
+    codes[..., 1::2] = packed >> 4
+    return _integrate(codes - 8.0, scales, seeds)
+
+
+def _adpcm3_decode_rows_np(rows: np.ndarray) -> np.ndarray:
+    """Numpy inverse of `adpcm3_encode_wire` -> (B, n_pad) float32."""
+    packed, scales, seeds = _split_rows(rows, ADPCM_BLOCK * 3 // 8)
+    bsz, nb = packed.shape[:2]
+    packed = packed.reshape(bsz, nb, ADPCM_BLOCK // 8, 3)
+    b0, b1, b2 = (packed[..., i].astype(np.uint16) for i in range(3))
+    codes = np.empty((bsz, nb, ADPCM_BLOCK // 8, 8), np.float32)
+    codes[..., 0] = b0 & 7
+    codes[..., 1] = (b0 >> 3) & 7
+    codes[..., 2] = ((b0 >> 6) | (b1 << 2)) & 7
+    codes[..., 3] = (b1 >> 1) & 7
+    codes[..., 4] = (b1 >> 4) & 7
+    codes[..., 5] = ((b1 >> 7) | (b2 << 1)) & 7
+    codes[..., 6] = (b2 >> 2) & 7
+    codes[..., 7] = (b2 >> 5) & 7
+    return _integrate(codes.reshape(bsz, nb, ADPCM_BLOCK) - 4.0, scales, seeds)
+
+
+def _adpcm2_decode_rows_np(rows: np.ndarray) -> np.ndarray:
+    """Numpy inverse of `adpcm2_encode_wire` -> (B, n_pad) float32."""
+    packed, scales, seeds = _split_rows(rows, ADPCM_BLOCK // 4)
+    codes = np.empty(packed.shape[:2] + (ADPCM_BLOCK,), np.float32)
+    for i in range(4):
+        codes[..., i::4] = (packed >> (2 * i)) & 3
+    return _integrate(codes - 1.5, scales, seeds)
+
+
+def adpcm4_decode_host(row: np.ndarray, n_samples: int) -> np.ndarray:
+    return _adpcm4_decode_rows_np(row[None])[0, :n_samples]
+
+
+def adpcm3_decode_host(row: np.ndarray, n_samples: int) -> np.ndarray:
+    return _adpcm3_decode_rows_np(row[None])[0, :n_samples]
+
+
+def adpcm2_decode_host(row: np.ndarray, n_samples: int) -> np.ndarray:
+    return _adpcm2_decode_rows_np(row[None])[0, :n_samples]
+
+
+def adpcm4_wire_bytes(n_samples: int) -> int:
+    """Wire row width (bytes) of `adpcm4_encode_wire` for n samples."""
+    return -(-n_samples // ADPCM_BLOCK) * (ADPCM_BLOCK // 2 + 4)
+
+
+def adpcm3_wire_bytes(n_samples: int) -> int:
+    """Wire row width (bytes) of `adpcm3_encode_wire` for n samples."""
+    return -(-n_samples // ADPCM_BLOCK) * (ADPCM_BLOCK * 3 // 8 + 4)
+
+
+def adpcm2_wire_bytes(n_samples: int) -> int:
+    """Wire row width (bytes) of `adpcm2_encode_wire` for n samples."""
+    return -(-n_samples // ADPCM_BLOCK) * (ADPCM_BLOCK // 4 + 4)
+
+
+WIRE_FORMATS = ("pcm16", "mulaw8", "adpcm4", "adpcm3", "adpcm2")
+
+
+def encode_wire(wav: torch.Tensor, wire_format: str) -> torch.Tensor:
+    """[-1, 1] audio (B, n) -> the device->host wire rows of
+    `inference.wire_format` (PCM16 int16, or uint8 for the others)."""
+    if wire_format == "mulaw8":
+        return mulaw_encode_u8(wav)
+    if wire_format == "adpcm4":
+        return adpcm4_encode_wire(wav)
+    if wire_format == "adpcm3":
+        return adpcm3_encode_wire(wav)
+    if wire_format == "adpcm2":
+        return adpcm2_encode_wire(wav)
+    if wire_format == "pcm16":
+        return torch.round(torch.clamp(wav, -1.0, 1.0) * 32767.0).to(torch.int16)
+    raise ValueError(f"unknown wire_format {wire_format!r}; expected one of {WIRE_FORMATS}")
+
+
+def decode_wire_rows(rows: np.ndarray, wire_format: str) -> np.ndarray:
+    """Host inverse of `encode_wire`: (B, W) wire rows -> (B, n_pad)
+    float32 audio (each row is sliced to its sample count by the caller)."""
+    if wire_format == "mulaw8":
+        return mulaw_decode_host(rows)
+    if wire_format == "adpcm4":
+        return _adpcm4_decode_rows_np(rows)
+    if wire_format == "adpcm3":
+        return _adpcm3_decode_rows_np(rows)
+    if wire_format == "adpcm2":
+        return _adpcm2_decode_rows_np(rows)
+    if wire_format == "pcm16":
+        return np.multiply(rows, np.float32(1.0 / 32767.0), dtype=np.float32)
+    raise ValueError(f"unknown wire_format {wire_format!r}; expected one of {WIRE_FORMATS}")
 
 
 def wav_to_features(

@@ -1,26 +1,34 @@
-"""Banded frames-domain reprojection for the Griffin-Lim loop.
+"""Banded frames-domain reprojection for the Griffin-Lim loop: kernel B1.
 
-Port of `sstts/dsp/reproject.py:43-157`.  Between the two DFT GEMMs of a
-Griffin-Lim iteration, overlap-add -> window-sum normalise -> reflect pad ->
-re-frame collapses into a banded shift-add over the synthesis frames F:
+Port of `sstts/dsp/reproject.py` (43-190, 207-367).  Between the two DFT
+GEMMs of a Griffin-Lim iteration, overlap-add -> window-sum normalise ->
+reflect pad -> re-frame collapses into a banded shift-add over the synthesis
+frames F:
 
     F'[t, j] = inv_wss[lo + t*hop + j] * sum_{d=-D..D} F[t - d, j + d*hop],
 
 plus mirrored copies (librosa's reflect padding) at the few edge positions
 whose sample index falls outside the signal.  `band_plan` is a copy of the
 JAX package's host-side plan (`_band_plan`), so the port needs none of it.
+
+`reproject_frames` is kernel B1's wrapper: a CPU tensor runs
+`reproject_frames_plain` (the JAX package's XLA formulation), a CUDA tensor
+launches `sstts_torch/csrc/reproject.cu` or raises; the mirror runs follow
+in torch, as the JAX package applies them in XLA after its kernel.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sstts_torch.dsp.stft import hann_window, pad_center
+from sstts_torch.ops import build, require_no_grad
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,3 +154,144 @@ def shift_add_rows(
         if d:
             acc = acc + term(d)
     return acc
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _geometry(frames: torch.Tensor, n_fft, hop, win_length, length):
+    """(plan, w_len, width): `frames` is (..., n_frames, width) with width
+    the window support or its 128-lane padding."""
+    n_frames, width = frames.shape[-2], frames.shape[-1]
+    plan = band_plan(n_fft, hop, win_length, n_frames, length)
+    w_len = plan["w_len"]
+    if width not in (w_len, _round_up(w_len, 128)):
+        raise ValueError(
+            f"reprojection frames width {width}: expected the window support "
+            f"{w_len} or its 128-lane padding {_round_up(w_len, 128)}"
+        )
+    return plan, w_len, width
+
+
+def reproject_frames_plain(
+    frames: torch.Tensor,
+    n_fft: int,
+    hop: int,
+    win_length: int,
+    length: int,
+    wss2d: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel B1's plain version, the JAX package's XLA formulation
+    (`reproject_frames`, 124-157): the shift-add times the envelope in f32,
+    then the mirror runs, then a cast to the input dtype.  `frames` is
+    (..., n_frames, width); lanes [w_len, width) of the result are zero.
+    `wss2d` is the plan's envelope padded to `width`, on the frames' device
+    (a loop passes it once)."""
+    plan, w_len, width = _geometry(frames, n_fft, hop, win_length, length)
+    n_frames = frames.shape[-2]
+    acc = shift_add_rows(frames, w_len, hop, plan["d_max"], 0, n_frames)
+    if wss2d is None:
+        wss2d = padded_wss2d(plan, width, frames.device)
+    out = apply_mirror_runs(acc * wss2d, plan["runs"])
+    return out.to(frames.dtype)
+
+
+class _ReprojectArgs(ctypes.Structure):
+    """Mirror of `ReprojectArgs` in csrc/reproject.cu (same field order)."""
+
+    _fields_ = [(n, ctypes.c_void_p) for n in ("frames", "wss2d", "out")] + [
+        (n, ctypes.c_int) for n in ("Bt", "T", "wp", "w_len", "hop", "d_max")
+    ]
+
+
+_SIGNATURES = {
+    "sstts_reproject": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "sstts_reproject_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_int),
+}
+
+
+def _kernel(f3, wss2d, w_len, hop, d_max):
+    """Launch B1 on f3 (Bt, T, wp) bf16 or f32, wp a multiple of 8;
+    returns the reprojected frames before the mirror runs."""
+    if f3.dtype not in (torch.bfloat16, torch.float32):
+        raise NotImplementedError(f"reproject_frames kernel: dtype {f3.dtype}")
+    bt, n_frames, wp = f3.shape
+    if wp % 8 or tuple(wss2d.shape) != (n_frames, wp):
+        raise ValueError(
+            f"reproject_frames kernel: frames {tuple(f3.shape)}, wss2d "
+            f"{tuple(wss2d.shape)} (needs wp % 8 == 0 and wss2d (T, wp))"
+        )
+    lib = build.load("reproject", _SIGNATURES)
+    smem = lib.sstts_reproject_smem_bytes(wp, d_max, f3.element_size())
+    if smem > build.MAX_SMEM:
+        raise NotImplementedError(
+            f"reproject_frames kernel stages {smem} bytes of frames in shared "
+            f"memory (> {build.MAX_SMEM})"
+        )
+    f3 = f3.contiguous()
+    wss2d = wss2d.float().contiguous()
+    out = torch.empty_like(f3)
+    args = _ReprojectArgs(
+        f3.data_ptr(), wss2d.data_ptr(), out.data_ptr(),
+        bt, n_frames, wp, w_len, hop, d_max,
+    )
+    rc = lib.sstts_reproject(
+        ctypes.byref(args), int(f3.dtype == torch.bfloat16),
+        torch.cuda.current_stream(f3.device).cuda_stream,
+    )
+    build.check(lib, rc, "reproject_frames")
+    return out
+
+
+def reproject_frames(
+    frames: torch.Tensor,
+    n_fft: int,
+    hop: int,
+    win_length: int,
+    length: int,
+    wss2d: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Kernel B1 with its mirror runs (see the module docstring); counts
+    CUDA launches in `reproject_frames.launches`.  Inference-only: raises
+    when grad mode is on and the input requires grad."""
+    require_no_grad("reproject_frames", frames, wss2d)
+    if frames.device.type == "cpu":
+        return reproject_frames_plain(frames, n_fft, hop, win_length, length, wss2d)
+    if frames.device.type != "cuda":
+        raise NotImplementedError(f"reproject_frames on {frames.device.type}")
+    plan, w_len, width = _geometry(frames, n_fft, hop, win_length, length)
+    *batch, n_frames, _ = frames.shape
+    wp = _round_up(w_len, 128)
+    f3 = frames.reshape(-1, n_frames, width)
+    if width != wp:  # the kernel's layout is the 128-lane-padded one
+        f3 = F.pad(f3, (0, wp - width))
+    if wss2d is None or wss2d.shape[-1] != wp:
+        wss2d = padded_wss2d(plan, wp, frames.device)
+    out = _kernel(f3, wss2d, w_len, hop, plan["d_max"])
+    reproject_frames.launches += 1
+    out = apply_mirror_runs(out, plan["runs"])
+    return out[..., :width].reshape(*batch, n_frames, width)
+
+
+reproject_frames.launches = 0
+
+
+def reproject(
+    frames: torch.Tensor,
+    n_fft: int,
+    hop: int,
+    win_length: int,
+    length: int,
+    impl: str = "auto",
+    wss2d: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Reprojected frames in the input dtype, as the JAX `reproject`
+    (335-367): "auto" is kernel B1 (its plain version on the CPU), "xla"
+    the no-kernel banded formulation in torch ops on any device.  Both take
+    the window-support width and the 128-lane-padded one."""
+    if impl == "auto":
+        return reproject_frames(frames, n_fft, hop, win_length, length, wss2d)
+    if impl == "xla":
+        return reproject_frames_plain(frames, n_fft, hop, win_length, length, wss2d)
+    raise ValueError(f"unknown reproject impl {impl!r}; expected 'auto' or 'xla'")

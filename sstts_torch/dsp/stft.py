@@ -1,7 +1,7 @@
 """Window, framing, STFT, inverse window-sum envelope and overlap-add.
 
-Port of `sstts/dsp/stft.py` (70-150, the centered `stft` at 153-166 and
-`num_frames`) and of the host helpers `hann_window`/`pad_center`
+Port of `sstts/dsp/stft.py` (70-150, the centered `stft` and `istft` at
+153-189 and `num_frames`) and of the host helpers `hann_window`/`pad_center`
 (`sstts/dsp/reference.py:24-34`).  The JAX package runs the FFT in XLA,
 outside any kernel of its own; here it is `torch.fft.rfft`.  The numpy
 helpers are copies, so the port never imports the JAX package; they return
@@ -79,6 +79,21 @@ def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int) -> torch
     frames = frame_signal(y.reshape(*lead, -1), n_fft, hop_length)
     win = torch.as_tensor(window(n_fft, win_length), device=y.device)
     return torch.fft.rfft(frames * win, n=n_fft)
+
+
+def istft(
+    spec: torch.Tensor, n_fft: int, hop_length: int, win_length: int, length: int
+) -> torch.Tensor:
+    """Inverse of `stft`: complex (..., n_frames, n_fft//2 + 1) ->
+    (..., length) samples by windowed overlap-add, window-sum
+    normalisation and the centre trim."""
+    n_frames = spec.shape[-2]
+    win = torch.as_tensor(window(n_fft, win_length), device=spec.device)
+    y = overlap_add(torch.fft.irfft(spec, n=n_fft) * win, hop_length)
+    inv = window_sum_sq(n_fft, hop_length, win_length, n_frames)
+    y = y * torch.as_tensor(inv, device=spec.device)
+    start = n_fft // 2
+    return y[..., start : start + length]
 
 
 def num_frames(n_samples: int, hop_length: int) -> int:

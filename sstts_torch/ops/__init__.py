@@ -10,7 +10,8 @@ import torch
 
 def kernel_wrappers():
     """name -> wrapper (each has an integer `launches`) of every kernel."""
-    from sstts_torch.dsp.gl_fused import reproject_analyze
+    from sstts_torch.dsp.gl_fused import gl_iteration, reproject_analyze
+    from sstts_torch.dsp.reproject import reproject_frames
     from sstts_torch.ops.decoder import decode_steps
     from sstts_torch.ops.gru import gru_sequence, gru_sequence_backward
     from sstts_torch.ops.teacher import fused_teacher_scan
@@ -21,6 +22,8 @@ def kernel_wrappers():
         "fused_teacher_scan": fused_teacher_scan,
         "fused_decode": decode_steps,
         "fused_reproject_analyze": reproject_analyze,
+        "reproject_frames_pallas": reproject_frames,
+        "fused_gl_iteration": gl_iteration,
     }
 
 

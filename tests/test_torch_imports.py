@@ -1,6 +1,6 @@
 """The port's package boundary: no JAX inside, same config fingerprints,
 the card by default, no launches on the CPU, and clear refusals for what
-this slice does not implement."""
+the port does not implement."""
 
 import dataclasses
 import json
@@ -45,6 +45,7 @@ def test_port_imports_no_jax_and_no_sstts():
         "sstts_torch.dsp.griffin_lim", "sstts_torch.data.text",
         "sstts_torch.train", "sstts_torch.checkpoint", "sstts_torch.ops.teacher",
         "sstts_torch.model.losses", "sstts_torch.data.pipeline",
+        "sstts_torch.dsp.reproject", "sstts_torch.dsp.ops", "sstts_torch.data.wav",
     ):
         assert expected in res["modules"]
 
@@ -75,7 +76,8 @@ def test_synthesizer_defaults_to_cuda_and_raises_without_it(monkeypatch):
 def test_kernel_wrappers_on_cpu_do_not_launch():
     """A wrapper given CPU tensors runs its plain version and counts no
     launch."""
-    from sstts_torch.dsp.gl_fused import reproject_analyze
+    from sstts_torch.dsp.gl_fused import gl_iteration, reproject_analyze
+    from sstts_torch.dsp.reproject import reproject_frames
     from sstts_torch.ops import kernel_wrappers
     from sstts_torch.ops.gru import gru_sequence
 
@@ -92,16 +94,24 @@ def test_kernel_wrappers_on_cpu_do_not_launch():
         frames, mag2, torch.zeros(128, 128), torch.ones(4, 128), 100, 25, 3
     )
     assert s is None and q.shape == (1, 4, 128)
+    out = reproject_frames(torch.ones(1, 20, 512), 512, 100, 400, 1900)
+    assert out.shape == (1, 20, 512)
+    q = gl_iteration(
+        frames, mag2, torch.zeros(128, 128), torch.zeros(128, 128),
+        torch.ones(4, 128), 100, 25, 3,
+    )
+    assert q.shape == (1, 4, 128)
     after = {k: w.launches for k, w in kernel_wrappers().items()}
     assert after == before
 
 
-def test_kernel_wrappers_list_all_five():
+def test_kernel_wrappers_list_all_seven():
     from sstts_torch.ops import kernel_wrappers
 
     assert sorted(kernel_wrappers()) == sorted([
         "gru_sequence", "gru_sequence_backward", "fused_teacher_scan",
-        "fused_decode", "fused_reproject_analyze",
+        "fused_decode", "fused_reproject_analyze", "reproject_frames_pallas",
+        "fused_gl_iteration",
     ])
 
 
@@ -130,27 +140,41 @@ def test_cpu_gradients_do_not_launch():
     assert {k: w.launches for k, w in kernel_wrappers().items()} == before
 
 
-_CPU_REFUSALS = [
-    ("arch", {"attention_type": "local_luong"}),
-    ("arch", {"fused_conv_bank": True}),
-    ("arch", {"compute_dtype": "bfloat16"}),
-    ("inference", {"wire_format": "mulaw8"}),
-    ("inference", {"griffin_lim_iter_impl": "split"}),
-    ("inference", {"griffin_lim_iter_impl": "fused"}),
+_REFUSALS = [
+    ("arch", {"attention_type": "local_luong"}, "cpu", NotImplementedError),
+    ("arch", {"fused_conv_bank": True}, "cpu", NotImplementedError),
+    ("arch", {"compute_dtype": "bfloat16"}, "cpu", NotImplementedError),
+    # As the JAX package: the fused iteration has no momentum variant, and
+    # an unknown wire is refused.
+    ("inference", {"griffin_lim_iter_impl": "fused", "griffin_lim_momentum": 0.99},
+     "cpu", ValueError),
+    ("inference", {"wire_format": "opus"}, "cpu", ValueError),
+    ("inference", {"decoder_impl": "xla"}, "cuda", NotImplementedError),
+    # B2 and B5 are bf16 only: the f32 loop on the card runs "split".
+    ("inference", {"griffin_lim_fft_impl": "dft_highest"}, "cuda", NotImplementedError),
+    ("inference", {"griffin_lim_iter_impl": "fused", "griffin_lim_fft_impl": "dft_high"},
+     "cuda", NotImplementedError),
 ]
-_CUDA_REFUSALS = [
-    ("inference", {"decoder_impl": "xla"}),
-    ("inference", {"griffin_lim_fft_impl": "dft_highest"}),
-]
+
+
+@pytest.mark.parametrize("section,fields,device,error", _REFUSALS)
+def test_unported_config_values_raise(section, fields, device, error):
+    cfg = port_config.tiny_config()
+    cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **fields)})
+    with pytest.raises(error):
+        check_supported(cfg, torch.device(device))
 
 
 @pytest.mark.parametrize(
-    "section,fields,device",
-    [(s, f, "cpu") for s, f in _CPU_REFUSALS]
-    + [(s, f, "cuda") for s, f in _CUDA_REFUSALS],
+    "fields",
+    [
+        {"wire_format": "mulaw8"}, {"wire_format": "adpcm2"},
+        {"griffin_lim_iter_impl": "split", "griffin_lim_fft_impl": "dft_highest"},
+        {"griffin_lim_iter_impl": "fused"},
+        {"griffin_lim_fft_impl": "xla", "griffin_lim_momentum": 0.99},
+    ],
 )
-def test_unported_config_values_raise(section, fields, device):
+def test_serving_config_values_are_accepted_on_the_card(fields):
     cfg = port_config.tiny_config()
-    cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **fields)})
-    with pytest.raises(NotImplementedError):
-        check_supported(cfg, torch.device(device))
+    cfg = cfg.replace(inference=dataclasses.replace(cfg.inference, **fields))
+    check_supported(cfg, torch.device("cuda"))
