@@ -30,7 +30,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    (B5 or B1 or B2 once an iteration, 4 GRU and 1 decode a batch); the
    wire encoders on the card against the CPU (equal bytes), a stream yield
    against `synthesize_batch`, the tiny config card against CPU for split
-   and fused, a 3-sentence long-form paragraph and `to_file`;
+   (bf16 and f32 loops) and fused, the f32 Griffin-Lim loop card against
+   CPU, a 3-sentence long-form paragraph and `to_file`;
 3b. the training path at the full default `Config()` on the synthetic
    corpus: b=32 in the (128 characters, 515 frames) bucket, 103 decoder
    steps; one warm-up train step, then 5 timed steps on one fixed batch
@@ -469,8 +470,12 @@ def check_gl(dev):
     ms = cuda_ms(lambda: reproject_analyze(*args, None, 0.0))
     plain = cuda_ms(lambda: reproject_analyze_plain(*args, None, 0.0), 2, 3)
     ms_m = cuda_ms(lambda: reproject_analyze(*args, prev, 0.99))
-    n_bytes = nbytes(frames, mag2, w_fwd, wss2d) + Bt * T * 2 * hp * 2
-    n_ops = 2 * Bt * T * wp * 2 * hp
+    # What the function needs: lanes from w_len on are zero in the frames,
+    # w_fwd's rows and the envelope, so neither read nor multiplied.
+    rows = Bt * T
+    n_bytes = (rows * w_len * 2 + nbytes(mag2, w_fwd[:w_len], wss2d[:, :w_len])
+               + rows * 2 * hp * 2)
+    n_ops = 2 * rows * w_len * 2 * hp
     bms, by = bound_ms(n_bytes, n_ops, "bf16")
     return {
         "name": "fused_reproject_analyze", "route": "cuda",
@@ -529,9 +534,11 @@ def check_reproject(dev):
             "plain": cuda_ms(lambda: rp.reproject_frames_plain(f, *geom, wss2d), 2, 3),
         }
         log(f"  B1 {case} times: {times[case]}")
+    # Reads the frames' and the envelope's first w_len lanes (the rest is
+    # zero), writes every lane; 8 adds and a multiply per needed element.
     rows = Bt * T
-    n_bytes = 2 * rows * wp * 2 + nbytes(wss2d)
-    bms, by = bound_ms(n_bytes, 10 * rows * wp, "f32")
+    n_bytes = rows * w_len * 2 + nbytes(wss2d[:, :w_len]) + rows * wp * 2
+    bms, by = bound_ms(n_bytes, 9 * rows * w_len, "f32")
     return {
         "name": "reproject_frames_pallas", "route": "cuda",
         "source": "sstts_torch/csrc/reproject.cu",
@@ -600,9 +607,12 @@ def check_gl_fused(dev):
     plain = cuda_ms(lambda: gl.gl_iteration_plain(*core), 1, 3)
     ms_whole = cuda_ms(lambda: gl.fused_gl_iteration(
         q, mag2, w_inv, w_fwd, ds.n_fft, hop, ds.win_len, length, wss2d), 3, 5)
+    # Both GEMMs need only the first w_len synthesis lanes (w_inv's columns,
+    # w_fwd's rows and the envelope are zero beyond them).
     rows = Bt * T
-    n_bytes = nbytes(q, mag2, w_inv, w_fwd, wss2d) + rows * 2 * hp * 2
-    bms, by = bound_ms(n_bytes, 2 * 2 * rows * wp * 2 * hp, "bf16")
+    n_bytes = (nbytes(q, mag2, w_inv[:, :w_len], w_fwd[:w_len], wss2d[:, :w_len])
+               + rows * 2 * hp * 2)
+    bms, by = bound_ms(n_bytes, 2 * 2 * rows * w_len * 2 * hp, "bf16")
     return {
         "name": "fused_gl_iteration", "route": "cuda",
         "source": "sstts_torch/csrc/gl_fused.cu",
@@ -782,7 +792,8 @@ def serving_path(dev, card):
     over 4 batches at depth 2 with the counters set to 0 just before and
     read just after; then the wire encoders card against CPU, a stream
     yield against `synthesize_batch`, the tiny config card against CPU for
-    split and fused, long-form and `to_file`."""
+    split (bf16 and f32 loops) and fused, the f32 loop card against CPU,
+    long-form and `to_file`."""
     import numpy as np
     import torch
 
@@ -875,11 +886,16 @@ def serving_path(dev, card):
     log("  stream yields == synthesize_batch (2 batches, mulaw8, GL-30@0.99)")
 
     # 3. The tiny config on the card (kernels B1, B5) against the CPU
-    # (their plain versions), as phase 3 holds the semi iteration.
-    result["tiny_card_vs_cpu_rel_l2"] = {
+    # (their plain versions), as phase 3 holds the semi iteration; "split"
+    # also with the f32 loop, which the card runs through "split".
+    tiny = {
         impl: tiny_card_vs_cpu(with_inference(tiny_cfg(), griffin_lim_iter_impl=impl))
         for impl in ("split", "fused")
     }
+    tiny["split-dft_high"] = tiny_card_vs_cpu(with_inference(
+        tiny_cfg(), griffin_lim_iter_impl="split", griffin_lim_fft_impl="dft_high"))
+    result["tiny_card_vs_cpu_rel_l2"] = tiny
+    result["f32_loop_card_vs_cpu_rel_l2"] = check_f32_loop(dev)
 
     # 4. Long-form: a 3-sentence paragraph, one sentence a chunk (at most
     # 60 characters each), as one batch padded to 4.
@@ -908,6 +924,56 @@ def serving_path(dev, card):
     return result
 
 
+def check_f32_loop(dev) -> dict:
+    """The f32 Griffin-Lim loop ("split" at dft_high and dft_highest) on the
+    card (cuBLAS f32 GEMMs, B1 in f32, the renorm in torch) against the CPU
+    (exact f32 products, B1's plain version) on one magnitude: the default
+    geometry, 2 x 120 frames of a seeded harmonic mix, 8 iterations, classic
+    and at momentum 0.99."""
+    import numpy as np
+    import torch
+
+    from sstts_torch.config import Config
+    from sstts_torch.dsp import stft as stft_mod
+    from sstts_torch.dsp.griffin_lim import griffin_lim
+    from sstts_torch.synthesize import exact_f32
+
+    ds = Config().dataset
+    T, n_iters = 120, 8
+    length = (T - 1) * ds.hop_len
+    rng = np.random.default_rng(10)
+    tt = np.arange(length) / ds.sample_rate
+    y = (0.5 * np.sin(2 * np.pi * 220 * tt) + 0.2 * np.sin(2 * np.pi * 730 * tt)
+         + 0.02 * rng.standard_normal((2, length)))
+    mag = stft_mod.stft(torch.as_tensor(y, dtype=torch.float32), ds.n_fft, ds.hop_len,
+                        ds.win_len).abs()[..., :T, :].contiguous()
+    # Both sides are f32 with sums in other orders; Griffin-Lim carries a
+    # last-place difference through its iterations and turns it into a
+    # phase change at near-silent bins, so the waveforms are held to 5e-3
+    # relative L2, far below the distance between the bf16 and the f32
+    # loops on such noisy input.
+    tol, out = 5e-3, {}
+    for fft_impl in ("dft_high", "dft_highest"):
+        for m in (0.0, 0.99):
+            args = (ds.n_fft, ds.hop_len, ds.win_len, n_iters, length)
+            kw = {"momentum": m, "fft_impl": fft_impl, "iter_impl": "split"}
+            reset()
+            with torch.no_grad(), exact_f32(dev):
+                on_card = griffin_lim(mag.to(dev), *args, **kw).cpu()
+            torch.cuda.synchronize()
+            launches = counts()["reproject_frames_pallas"]
+            with torch.no_grad():
+                on_cpu = griffin_lim(mag, *args, **kw)
+            rel = float((on_card - on_cpu).norm() / on_cpu.norm())
+            case = f"{fft_impl}@{m}"
+            log(f"  f32 loop (split, {case}) card vs CPU: wav rel L2 {rel:.3e} "
+                f"(tol {tol}); B1 launches {launches} (expected {n_iters})")
+            if not (rel < tol and launches == n_iters and torch.isfinite(on_card).all()):
+                raise AssertionError(f"f32 loop {case}: rel {rel}, launches {launches}")
+            out[case] = rel
+    return out
+
+
 def tiny_cfg():
     """The tiny config, deterministic (dropout off), with the fused
     decoder's bf16 products and the bf16 Griffin-Lim loop."""
@@ -925,7 +991,9 @@ def tiny_cfg():
 
 def tiny_card_vs_cpu(tcfg) -> float:
     """The tiny config's batch on the card (kernels) against the CPU (their
-    plain versions): equal lengths and 5e-2 relative L2 (bf16 loops)."""
+    plain versions): equal lengths, and relative L2 under 5e-2 with the
+    bf16 Griffin-Lim loop, whose roundings set the error (the mels agree to
+    about 1e-7), and under 5e-3 with the f32 loop (as `check_f32_loop`)."""
     import numpy as np
 
     from sstts_torch.model.tacotron import init_state_dict
@@ -940,11 +1008,13 @@ def tiny_card_vs_cpu(tcfg) -> float:
     rel = float(np.linalg.norm(on_card["wav"] - on_cpu["wav"])
                 / np.linalg.norm(on_cpu["wav"]))
     mel_err = float(np.abs(on_card["mel"] - on_cpu["mel"]).max())
-    impl = tcfg.inference.griffin_lim_iter_impl or "auto"
+    fft_impl = tcfg.inference.griffin_lim_fft_impl or "dft_default"
+    impl = f"{tcfg.inference.griffin_lim_iter_impl or 'auto'}, {fft_impl}"
+    tol = 5e-2 if fft_impl == "dft_default" else 5e-3
     log(f"  tiny config card vs CPU plain ({impl}): n_frames "
         f"{on_card['n_frames'].tolist()} vs {on_cpu['n_frames'].tolist()}, mel "
-        f"max_abs_err {mel_err:.3e}, wav rel L2 {rel:.3e} (tol 5e-2: bf16 loops)")
-    if not (np.array_equal(on_card["n_samples"], on_cpu["n_samples"]) and rel < 5e-2):
+        f"max_abs_err {mel_err:.3e}, wav rel L2 {rel:.3e} (tol {tol})")
+    if not (np.array_equal(on_card["n_samples"], on_cpu["n_samples"]) and rel < tol):
         raise AssertionError(f"tiny card vs CPU ({impl}): rel {rel}")
     return rel
 

@@ -17,9 +17,10 @@
 // them in XLA.  Momentum is not supported, as in the JAX package.
 //
 // Bound on the H100: operations.  At the main path's shapes (32 x 800
-// rows, 2 hp = 2048, wp = 1152) the two GEMMs are 2 x 120.8 GFLOP, 0.2443 ms
-// at 989 TFLOP/s bf16, against 0.096 ms for q, mag2 and q' (3 x 105 MB)
-// and both matrices at 3.35 TB/s.
+// rows, 2 hp = 2048, w_len = 1101 of wp = 1152 lanes) the two GEMMs need
+// 2 x 115.4 GFLOP (the lanes from w_len on are zero), 0.2335 ms at
+// 989 TFLOP/s bf16, against 0.098 ms for q, mag2 and q' (3 x 105 MB), both
+// matrices and the envelope at 3.35 TB/s.
 //
 // Design (simple first; wgmma, TMA and clusters are later work): B2
 // (csrc/gl_semi.cu) with GEMM1 in front, one block per (64 frames,
@@ -32,23 +33,16 @@
 //     w_inv through a three-stage cp.async ring, and stores each f32 tile
 //     into the block's own global scratch slab (80 x wp f32, 369 KB at wp
 //     = 1152), which the block reads back at once and so mostly finds in L2;
-//   * phase 2 builds the A panel from that slab exactly as B2 builds it from
-//     the frames (its shared memory reuses phase 1's ring);
-//   * phase 3 is B2's GEMM2 and renorm epilogue.
+//   * phases 2 and 3 are B2's, from gl_tail.cuh: the A panel built from that
+//     slab (its shared memory reuses phase 1's ring), then per bin tile
+//     GEMM2 and the renorm epilogue.
 // The halo costs 16 extra GEMM1 rows per 64 (+25% of GEMM1): recomputed
-// rather than exchanged, since blocks run in no order.  The code of phases
-// 2 and 3 is a copy of gl_semi.cu's, not a shared header: moving device code
-// into a header changed nvcc's code for another kernel before (PERF.md).
+// rather than exchanged, since blocks run in no order.
 
 // Plain C interface (bound with ctypes); launch on the caller's stream,
 // return cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using bf16 = __nv_bfloat16;
+#include "gl_tail.cuh"
 
 extern "C" {
 
@@ -68,39 +62,11 @@ struct GlFusedArgs {
 
 namespace {
 
-constexpr int BM = 64;        // frames per block
 constexpr int M1 = 80;        // GEMM1 rows: BM + 2 D <= M1, whole 16-row tiles
 constexpr int BN1 = 128;      // GEMM1 columns per pass (8 warps x 16)
 constexpr int BK1 = 32;
 constexpr int A1_LD = BK1 + 8;
 constexpr int B1_LD = BN1 + 8;
-constexpr int BN = 64;        // bins per GEMM2 tile; the tile holds 2 * BN columns
-constexpr int BK = 64;
-constexpr int STAGES = 3;
-constexpr int kThreads = 256;
-constexpr int A_PAD = 8;
-constexpr int B_LD = 2 * BN + 8;
-constexpr int C_LD = 2 * BN + 4;
-
-__device__ __forceinline__ float2 ld2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void st2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // GEMM1 stage: q rows r_lo + [0, M1) x columns [k0, k0 + BK1) into (M1,
 // A1_LD), zeros for rows outside [0, T) and beyond BM + 2D; w_inv rows
@@ -125,21 +91,6 @@ __device__ __forceinline__ void load_g1_stage(bf16* dst, const GlFusedArgs& p,
   for (int c = threadIdx.x; c < BK1 * b_chunks; c += kThreads) {
     const int kk = c / b_chunks, col = (c % b_chunks) * 8;
     cp_async16(bdst + kk * B1_LD + col, p.w_inv + (size_t)(k0 + kk) * p.wp + n0 + col);
-  }
-}
-
-// GEMM2 stage: rows [k0, k0+BK) of w_fwd's columns [j0, j0+BN) and
-// [hp+j0, ...) into a (BK, 2*BN) shared tile: 16-byte chunks, 4 per thread.
-__device__ __forceinline__ void load_b_stage(bf16* dst, const GlFusedArgs& p,
-                                             int k0, int j0) {
-  const int L = 2 * p.hp;
-  constexpr int chunks_per_row = 2 * BN / 8;
-  for (int c = threadIdx.x; c < BK * chunks_per_row; c += kThreads) {
-    const int kk = c / chunks_per_row;
-    const int col = (c % chunks_per_row) * 8;
-    const int gcol = col < BN ? j0 + col : p.hp + j0 + (col - BN);
-    cp_async16(dst + kk * B_LD + col,
-               p.w_fwd + (size_t)(k0 + kk) * L + gcol);
   }
 }
 
@@ -202,138 +153,8 @@ __global__ void __launch_bounds__(kThreads) gl_fused_kernel(const GlFusedArgs p)
   }
   __syncthreads();  // the slab's global writes are visible to the block
 
-  const int lda = p.wp + A_PAD;
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // (BM, lda)
-  bf16* Bs = As + BM * lda;                      // STAGES x (BK, B_LD)
-  float* Cs = reinterpret_cast<float*>(Bs);      // (BM, C_LD), aliases Bs
-  const int wm = warp & 1;   // 32-row slice
-  const int wn = warp >> 1;  // 32-column slice of [re | im]
-
-  // Phase 2: the reprojected A panel from the f32 slab, B2's code with the
-  // slab in place of the frames.  Summation order follows the Pallas
-  // kernel: the d = 0 term first, then d = -D..D without 0.
-  constexpr int RG = 4;                 // rows per pass
-  constexpr int KPT = 5;                // lanes per thread per pass
-  for (int kb = 0; kb < p.wp; kb += KPT * kThreads)
-  for (int r0 = 0; r0 < BM; r0 += RG) {
-    float acc[RG][KPT];
-#pragma unroll
-    for (int rr = 0; rr < RG; ++rr)
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) acc[rr][i] = 0.f;
-    for (int di = 0; di <= 2 * D; ++di) {
-      const int d = di == 0 ? 0 : (di <= D ? di - 1 - D : di - D);
-#pragma unroll
-      for (int rr = 0; rr < RG; ++rr) {
-        const int t = t0 + r0 + rr, ts = t - d;
-        const bool row_ok = t < p.T && ts >= 0 && ts < p.T;
-        const float* src = Fs + (size_t)(ts - r_lo) * p.wp;
-#pragma unroll
-        for (int i = 0; i < KPT; ++i) {
-          const int k = kb + tid + i * kThreads, ks = k + d * p.hop;
-          if (row_ok && k < p.w_len && ks >= 0 && ks < p.w_len) acc[rr][i] += src[ks];
-        }
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < RG; ++rr) {
-      const int t = t0 + r0 + rr;
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) {
-        const int k = kb + tid + i * kThreads;
-        if (k < p.wp) {
-          const float w = t < p.T ? p.wss2d[(size_t)t * p.wp + k] : 0.f;
-          As[(r0 + rr) * lda + k] = __float2bfloat16(acc[rr][i] * w);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // Phase 3: per bin tile, GEMM2 over K through a STAGES-deep cp.async
-  // ring (one barrier per K chunk), then the renorm epilogue.
-  const int n_k = p.wp / BK;
-  for (int j0 = 0; j0 < p.hp; j0 += BN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int f = 0; f < 2; ++f) wmma::fill_fragment(acc[i][f], 0.f);
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < n_k) load_b_stage(Bs + s * BK * B_LD, p, s * BK, j0);
-      cp_async_commit();
-    }
-    for (int kc = 0; kc < n_k; ++kc) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      const int nxt = kc + STAGES - 1;
-      if (nxt < n_k) load_b_stage(Bs + (nxt % STAGES) * BK * B_LD, p, nxt * BK, j0);
-      cp_async_commit();
-      const bf16* stage = Bs + (kc % STAGES) * BK * B_LD;
-#pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(
-              a[i], As + (wm * 32 + i * 16) * lda + kc * BK + ks * 16, lda);
-#pragma unroll
-        for (int f = 0; f < 2; ++f)
-          wmma::load_matrix_sync(
-              bfr[f], stage + (ks * 16) * B_LD + wn * 32 + f * 16, B_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int f = 0; f < 2; ++f)
-            wmma::mma_sync(acc[i][f], a[i], bfr[f], acc[i][f]);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int f = 0; f < 2; ++f)
-        wmma::store_matrix_sync(
-            Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + f * 16, acc[i][f],
-            C_LD, wmma::mem_row_major);
-    __syncthreads();
-
-    // Epilogue: each thread takes bin pairs (j, j+1), so every global
-    // access is a 4-byte bf16x2; all loads of the tile are issued before
-    // any is used.
-    constexpr int kPer = BM * BN / 2 / kThreads;
-    float2 mre[kPer], mim[kPer];
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int e = tid + u * kThreads;
-      const int r = e / (BN / 2), j = 2 * (e % (BN / 2));
-      const int t = t0 + r;
-      if (t < p.T) {
-        const size_t row = ((size_t)bi * p.T + t) * L;
-        mre[u] = ld2(p.mag2 + row + j0 + j);
-        mim[u] = ld2(p.mag2 + row + p.hp + j0 + j);
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int e = tid + u * kThreads;
-      const int r = e / (BN / 2), j = 2 * (e % (BN / 2));
-      const int t = t0 + r;
-      if (t >= p.T) continue;
-      const size_t row = ((size_t)bi * p.T + t) * L;
-      const float sr0 = Cs[r * C_LD + j], sr1 = Cs[r * C_LD + j + 1];
-      const float si0 = Cs[r * C_LD + BN + j], si1 = Cs[r * C_LD + BN + j + 1];
-      const float inv0 = rsqrtf(sr0 * sr0 + si0 * si0 + 1e-24f);
-      const float inv1 = rsqrtf(sr1 * sr1 + si1 * si1 + 1e-24f);
-      st2(p.q_out + row + j0 + j, sr0 * inv0 * mre[u].x, sr1 * inv1 * mre[u].y);
-      st2(p.q_out + row + p.hp + j0 + j, si0 * inv0 * mim[u].x,
-          si1 * inv1 * mim[u].y);
-    }
-    __syncthreads();
-  }
+  // Phases 2 and 3: B2's, over the f32 slab (row 0 is frame r_lo).
+  gl_tail<false>(p, smem_raw, Fs, r_lo);
 }
 
 }  // namespace
@@ -342,10 +163,7 @@ extern "C" {
 
 int sstts_gl_fused_smem_bytes(int wp) {
   const int ring1 = STAGES * (M1 * A1_LD + BK1 * B1_LD) * 2;
-  const int a = BM * (wp + A_PAD) * 2;
-  const int b = STAGES * BK * B_LD * 2;
-  const int c = BM * C_LD * 4;
-  const int two = a + (b > c ? b : c);
+  const int two = tail_smem_bytes(wp);
   return ring1 > two ? ring1 : two;
 }
 

@@ -16,45 +16,26 @@
 // in XLA.
 //
 // Bound on the H100: operations.  At the main path's shapes (32 x 800 rows,
-// K = 1152, N = 2048) the GEMM is 2*25600*1152*2048 = 120.8 GFLOP, 0.122 ms
-// at 989 TFLOP/s bf16, against ~0.08 ms for its ~273 MB of traffic at
-// 3.35 TB/s; it runs 60 times per batch at GL-60.
+// K = w_len = 1101 of wp = 1152 lanes, N = 2048) the GEMM needs
+// 2*25600*1101*2048 = 115.4 GFLOP, 0.1167 ms at 989 TFLOP/s bf16, against
+// ~0.08 ms for its ~274 MB of traffic at 3.35 TB/s; it runs 60 times per
+// batch at GL-60.
 //
-// Design (simple first; wgmma, TMA and clusters are later work):
-//   * grid (row block of BM = 64 frames, utterance); 256 threads, 8 warps;
-//   * the block first builds its whole A panel (64 x wp bf16, 145 KB at
-//     wp = 1152) in shared memory, once: each element is the f32 sum of the
-//     nine shifted, lane-masked loads, scaled by wss2d and rounded to bf16
-//     (JAX rounds at fr.astype(dtype)), so the shift-add costs one pass
-//     however many output tiles follow.  A thread accumulates 4 rows x 5
-//     lanes at a time, so each shift issues 20 independent loads;
-//   * it then walks the bins in tiles of BN = 64.  For each tile it
-//     accumulates BOTH halves of w_fwd (real lanes j0.., imaginary lanes
-//     hp+j0..) into a 64 x 128 f32 tile with tensor-core WMMA
-//     (16x16x16 bf16, a 32x32 tile per warp), streaming w_fwd from L2
-//     through a three-stage cp.async ring with one barrier per K chunk, so
-//     the epilogue holds each bin's real and imaginary parts together and
-//     applies the renorm (and the momentum extrapolation) before writing
-//     bf16, two bins per thread (4-byte accesses, loads issued first).
-// PERF.md has the time of each phase (sstts_torch/tools/ablate_gl_semi.py
-// builds this file with SSTTS_ABLATE set to drop phases; it is 0 in every
-// other build, and the compiler then removes the tests below).
+// Design (simple first; wgmma, TMA and clusters are later work): grid (row
+// block of BM = 64 frames, utterance), 256 threads, 8 warps.  The block
+// builds its whole A panel from the bf16 frames in shared memory once (JAX
+// rounds at fr.astype(dtype)), so the shift-add costs one pass however many
+// output tiles follow; it then walks the bins in tiles of 64, each a GEMM of
+// the panel with both halves of w_fwd and the renorm (and the momentum
+// extrapolation) in the epilogue.  The three phases are gl_tail.cuh's,
+// shared with kernel B5 (gl_fused.cu).  PERF.md has the time of each phase
+// (sstts_torch/tools/ablate_gl_semi.py builds this file with SSTTS_ABLATE
+// set to drop phases).
 
 // Plain C interface (bound with ctypes); launch on the caller's stream,
 // return cudaGetLastError().
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using bf16 = __nv_bfloat16;
-
-// Measurement only: a bit mask of phases to skip (1 the A panel, 2 the
-// GEMM, 4 the epilogue).
-#ifndef SSTTS_ABLATE
-#define SSTTS_ABLATE 0
-#endif
+#include "gl_tail.cuh"
 
 extern "C" {
 
@@ -75,226 +56,31 @@ struct GlArgs {
 
 namespace {
 
-constexpr int BM = 64;
-constexpr int BN = 64;  // bins per tile; the tile holds 2 * BN columns
-constexpr int BK = 64;
-constexpr int STAGES = 3;
-constexpr int kThreads = 256;
-constexpr int A_PAD = 8;
-constexpr int B_LD = 2 * BN + 8;
-constexpr int C_LD = 2 * BN + 4;
-
-__device__ __forceinline__ float2 ld2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ void st2(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Stage rows [k0, k0+BK) of w_fwd's columns [j0, j0+BN) and [hp+j0, ...)
-// into a (BK, 2*BN) shared tile: 16-byte chunks, 4 per thread.
-__device__ __forceinline__ void load_b_stage(bf16* dst, const GlArgs& p,
-                                             int k0, int j0) {
-  const int L = 2 * p.hp;
-  constexpr int chunks_per_row = 2 * BN / 8;
-  for (int c = threadIdx.x; c < BK * chunks_per_row; c += kThreads) {
-    const int kk = c / chunks_per_row;
-    const int col = (c % chunks_per_row) * 8;
-    const int gcol = col < BN ? j0 + col : p.hp + j0 + (col - BN);
-    cp_async16(dst + kk * B_LD + col,
-               p.w_fwd + (size_t)(k0 + kk) * L + gcol);
-  }
-}
-
+// One instance for the classic iteration (prev NULL) and one with momentum.
+template <bool kMomentum>
 __global__ void __launch_bounds__(kThreads) gl_semi_kernel(const GlArgs p) {
-  using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int lda = p.wp + A_PAD;
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);  // (BM, lda)
-  bf16* Bs = As + BM * lda;                      // STAGES x (BK, B_LD)
-  float* Cs = reinterpret_cast<float*>(Bs);      // (BM, C_LD), aliases Bs
-  const int t0 = blockIdx.x * BM;
-  const int bi = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp & 1;   // 32-row slice
-  const int wn = warp >> 1;  // 32-column slice of [re | im]
-  const int L = 2 * p.hp;
-
-  // Phase 1: the reprojected A panel, built once.  Summation order follows
-  // the Pallas kernel: the d = 0 term first, then d = -D..D without 0.
-  const bf16* F = p.frames + (size_t)bi * p.T * p.wp;
-  constexpr int RG = 4;                 // rows per pass
-  constexpr int KPT = 5;                // lanes per thread per pass
-  for (int kb = 0; kb < ((SSTTS_ABLATE & 1) ? 0 : p.wp); kb += KPT * kThreads)
-  for (int r0 = 0; r0 < BM; r0 += RG) {
-    float acc[RG][KPT];
-#pragma unroll
-    for (int rr = 0; rr < RG; ++rr)
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) acc[rr][i] = 0.f;
-    for (int di = 0; di <= 2 * p.d_max; ++di) {
-      // d = 0 first, then -D..-1, 1..D: the Pallas kernel's order.
-      const int d = di == 0 ? 0 : (di <= p.d_max ? di - 1 - p.d_max : di - p.d_max);
-#pragma unroll
-      for (int rr = 0; rr < RG; ++rr) {
-        const int t = t0 + r0 + rr, ts = t - d;
-        const bool row_ok = t < p.T && ts >= 0 && ts < p.T;
-#pragma unroll
-        for (int i = 0; i < KPT; ++i) {
-          const int k = kb + tid + i * kThreads, ks = k + d * p.hop;
-          if (row_ok && k < p.w_len && ks >= 0 && ks < p.w_len)
-            acc[rr][i] += __bfloat162float(F[(size_t)ts * p.wp + ks]);
-        }
-      }
-    }
-#pragma unroll
-    for (int rr = 0; rr < RG; ++rr) {
-      const int t = t0 + r0 + rr;
-#pragma unroll
-      for (int i = 0; i < KPT; ++i) {
-        const int k = kb + tid + i * kThreads;
-        if (k < p.wp) {
-          const float w = t < p.T ? p.wss2d[(size_t)t * p.wp + k] : 0.f;
-          As[(r0 + rr) * lda + k] = __float2bfloat16(acc[rr][i] * w);
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // Phase 2: per bin tile, GEMM over K through a STAGES-deep cp.async
-  // ring (one barrier per K chunk), then the renorm epilogue.
-  const int n_k = p.wp / BK;
-  for (int j0 = 0; j0 < p.hp; j0 += BN) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int f = 0; f < 2; ++f) wmma::fill_fragment(acc[i][f], 0.f);
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < n_k) load_b_stage(Bs + s * BK * B_LD, p, s * BK, j0);
-      cp_async_commit();
-    }
-    for (int kc = 0; kc < ((SSTTS_ABLATE & 2) ? 0 : n_k); ++kc) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      const int nxt = kc + STAGES - 1;
-      if (nxt < n_k) load_b_stage(Bs + (nxt % STAGES) * BK * B_LD, p, nxt * BK, j0);
-      cp_async_commit();
-      const bf16* stage = Bs + (kc % STAGES) * BK * B_LD;
-#pragma unroll
-      for (int ks = 0; ks < BK / 16; ++ks) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bfr[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(
-              a[i], As + (wm * 32 + i * 16) * lda + kc * BK + ks * 16, lda);
-#pragma unroll
-        for (int f = 0; f < 2; ++f)
-          wmma::load_matrix_sync(
-              bfr[f], stage + (ks * 16) * B_LD + wn * 32 + f * 16, B_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int f = 0; f < 2; ++f)
-            wmma::mma_sync(acc[i][f], a[i], bfr[f], acc[i][f]);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int f = 0; f < 2; ++f)
-        wmma::store_matrix_sync(
-            Cs + (wm * 32 + i * 16) * C_LD + wn * 32 + f * 16, acc[i][f],
-            C_LD, wmma::mem_row_major);
-    __syncthreads();
-
-    // Epilogue: each thread takes bin pairs (j, j+1), so every global
-    // access is a 4-byte bf16x2; all loads of the tile are issued before
-    // any is used.
-    constexpr int kPer = BM * BN / 2 / kThreads;
-    float2 mre[kPer], mim[kPer], pre[kPer], pim[kPer];
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int e = tid + u * kThreads;
-      const int r = e / (BN / 2), j = 2 * (e % (BN / 2));
-      const int t = t0 + r;
-      if (!(SSTTS_ABLATE & 4) && t < p.T) {
-        const size_t row = ((size_t)bi * p.T + t) * L;
-        mre[u] = ld2(p.mag2 + row + j0 + j);
-        mim[u] = ld2(p.mag2 + row + p.hp + j0 + j);
-        if (p.prev) {
-          pre[u] = ld2(p.prev + row + j0 + j);
-          pim[u] = ld2(p.prev + row + p.hp + j0 + j);
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kPer; ++u) {
-      const int e = tid + u * kThreads;
-      const int r = e / (BN / 2), j = 2 * (e % (BN / 2));
-      const int t = t0 + r;
-      if ((SSTTS_ABLATE & 4) || t >= p.T) continue;
-      const size_t row = ((size_t)bi * p.T + t) * L;
-      float sr0 = Cs[r * C_LD + j], sr1 = Cs[r * C_LD + j + 1];
-      float si0 = Cs[r * C_LD + BN + j], si1 = Cs[r * C_LD + BN + j + 1];
-      if (p.prev) {
-        st2(p.s_out + row + j0 + j, sr0, sr1);
-        st2(p.s_out + row + p.hp + j0 + j, si0, si1);
-        sr0 = sr0 + p.momentum * (sr0 - pre[u].x);
-        sr1 = sr1 + p.momentum * (sr1 - pre[u].y);
-        si0 = si0 + p.momentum * (si0 - pim[u].x);
-        si1 = si1 + p.momentum * (si1 - pim[u].y);
-      }
-      const float inv0 = rsqrtf(sr0 * sr0 + si0 * si0 + 1e-24f);
-      const float inv1 = rsqrtf(sr1 * sr1 + si1 * si1 + 1e-24f);
-      st2(p.q_out + row + j0 + j, sr0 * inv0 * mre[u].x, sr1 * inv1 * mre[u].y);
-      st2(p.q_out + row + p.hp + j0 + j, si0 * inv0 * mim[u].x,
-          si1 * inv1 * mim[u].y);
-    }
-    __syncthreads();
-  }
+  gl_tail<kMomentum>(p, smem_raw, p.frames + (size_t)blockIdx.y * p.T * p.wp, 0);
 }
 
 }  // namespace
 
 extern "C" {
 
-int sstts_gl_semi_smem_bytes(int wp) {
-  const int a = BM * (wp + A_PAD) * 2;
-  const int b = STAGES * BK * B_LD * 2;
-  const int c = BM * C_LD * 4;
-  return a + (b > c ? b : c);
-}
+int sstts_gl_semi_smem_bytes(int wp) { return tail_smem_bytes(wp); }
 
 // Requires wp % 64 == 0 and hp % 64 == 0 (the loop pads both to 128-lane
 // multiples) and sstts_gl_semi_smem_bytes(wp) <= 232448.
 int sstts_gl_semi(const GlArgs* a, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int smem = sstts_gl_semi_smem_bytes(a->wp);
+  void (*kernel)(const GlArgs) =
+      a->prev ? gl_semi_kernel<true> : gl_semi_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      gl_semi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a->T + BM - 1) / BM, a->Bt);
-  gl_semi_kernel<<<grid, kThreads, smem, st>>>(*a);
+  kernel<<<grid, kThreads, smem, st>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -10,9 +10,10 @@
 // (sstts_torch/dsp/reproject.py), as the JAX package applies them in XLA.
 //
 // Bound on the H100: bytes.  At the split iteration's shapes (32 x 800
-// frames x 1152 lanes, bf16) it reads and writes 59 MB each plus the 3.7 MB
-// f32 envelope: 0.0352 ms at 3.35 TB/s, against 9 adds and a multiply per
-// element (0.3 GFLOP, 0.004 ms at 67 TFLOP/s f32).
+// frames, w_len = 1101 of wp = 1152 lanes, bf16) it needs to read 56 MB of
+// frames and the 3.5 MB f32 envelope (lanes below w_len) and to write 59 MB
+// (every lane): 0.0355 ms at 3.35 TB/s, against 8 adds and a multiply per
+// element (0.25 GFLOP, 0.004 ms at 67 TFLOP/s f32).
 //
 // Design (simple first): grid (row block of BT = 16 frames, utterance),
 // 256 threads.  A block stages its BT rows plus D halo rows on each side in
