@@ -12,7 +12,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    paths' shapes, with the tolerance stated beside each check; median times
    from CUDA events for the kernel, its plain version and, where one
    PyTorch call computes the same function, that call; and each kernel's
-   bound, from its shapes;
+   bound, from its shapes; for the GRU kernels also what ptxas reported
+   (registers, no spill in the H = 128 kernels), both kinds of kernel
+   (H = 128 and the generic one at H = 16), and their stages' times apart;
 3. the synthesis path: `Synthesizer.synthesize_batch` at the full default
    `Config()` from a seeded random init, bench.py's workload (32 x an 88
    character text, 160 decoder steps = 800 frames, stop threshold 1.1,
@@ -115,48 +117,115 @@ def max_err(a, b) -> float:
 # ---------------------------------------------------------------- phase 2 --
 
 
-def check_gru(dev):
+def gru_inputs(dev, B, T, D, H, seed, empty_row=False):
+    """Seeded GRU inputs on the card: xs, wx, wh, b, a ragged and a full
+    mask (lengths between T // 2 and T; with `empty_row`, row 0 of the
+    ragged mask is all padding), and an output gradient."""
     import torch
 
-    from sstts_torch.ops.gru import gru_sequence, gru_sequence_plain
-
-    B, T, D, H = 32, 800, 128, 128
-    g = torch.Generator().manual_seed(1)
+    g = torch.Generator().manual_seed(seed)
     xs = torch.randn(B, T, D, generator=g).to(dev)
     wx = (torch.randn(D, 3 * H, generator=g) / D**0.5).to(dev)
     wh = torch.nn.init.orthogonal_(torch.empty(H, 3 * H), generator=g).to(dev)
     b = (0.1 * torch.randn(3 * H, generator=g)).to(dev)
-    lengths = torch.randint(400, T + 1, (B,), generator=g).to(dev)
+    lengths = torch.randint(max(T // 2, 1), T + 1, (B,), generator=g).to(dev)
     ragged = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()
-    full = torch.ones(B, T, device=dev)
+    if empty_row:
+        ragged[0] = 0.0
+    dout = torch.randn(B, T, H, generator=g).to(dev)
+    return xs, wx, wh, b, {"ragged": ragged, "full": torch.ones(B, T, device=dev)}, dout
+
+
+def gru_ptxas(match: str) -> dict:
+    """What ptxas reported for the kernels of csrc/gru.cu whose name holds
+    `match`; the H = 128 kernels must not spill or use local memory."""
+    from sstts_torch.ops import build
+
+    found = {k: v for k, v in build.ptxas_report("gru").items() if match in k}
+    if not found:
+        raise AssertionError(f"ptxas reported no kernel named *{match}*")
+    for name, info in found.items():
+        log(f"  ptxas {name}: {info['registers']} registers, {info['stack_bytes']} bytes "
+            f"stack, {info['spill_store_bytes']}/{info['spill_load_bytes']} bytes spill "
+            f"stores/loads")
+        if "h128" in name and (info["stack_bytes"] or info["spill_store_bytes"]
+                               or info["spill_load_bytes"]):
+            raise AssertionError(f"{name} uses local memory: {info}")
+    return found
+
+
+#: (B, T, D, H) beside the main shape: one step, an odd length (both the
+#: H = 128 kernels), the generic kernels at the tiny config's H = 16, and
+#: widths that are no multiple of 4 (the projection's ragged tiles and
+#: scalar stores); where T > 1, row 0 of the ragged mask is all padding.
+GRU_SIDE_SHAPES = [(32, 1, 128, 128), (5, 37, 128, 128), (4, 24, 16, 16), (3, 1, 16, 16),
+                   (2, 9, 10, 5)]
+
+
+def check_gru(dev):
+    import torch
+
+    from sstts_torch.ops import build, gru
+    from sstts_torch.ops.gru import (
+        gru_sequence, gru_sequence_forward_plain, gru_sequence_plain,
+    )
+
+    ptxas = {**gru_ptxas("gru_fwd"), **gru_ptxas("gru_input_proj")}
     # f32 both sides, 800 dependent steps, sums in another order: 1e-4.
     tol = 1e-4
     checks = []
-    for mask_name, mask in (("ragged", ragged), ("full", full)):
-        for reverse in (False, True):
-            got = gru_sequence(xs, wx, wh, b, mask, reverse)
-            ref = gru_sequence_plain(xs, wx, wh, b, mask, reverse)
-            torch.cuda.synchronize()
-            err = max_err(got, ref)
-            case = f"{mask_name}-{'rev' if reverse else 'fwd'}"
-            log(f"  B3 gru_sequence {case}: max_abs_err {err:.3e} (tol {tol})")
-            if not err <= tol:
-                raise AssertionError(f"gru_sequence {case}: {err} > {tol}")
-            checks.append({"case": case, "max_abs_err": err, "tol": tol})
+    for shape in [(32, 800, 128, 128)] + GRU_SIDE_SHAPES:
+        B, T, D, H = shape
+        kind = "h128" if gru.kernel_kind(H) == gru.KIND_H128 else "generic"
+        xs, wx, wh, b, masks, _ = gru_inputs(
+            dev, *shape, seed=1, empty_row=shape in GRU_SIDE_SHAPES and T > 1)
+        for mask_name, mask in masks.items():
+            for reverse in (False, True):
+                ref, ref_gates, ref_hprev = gru_sequence_forward_plain(
+                    xs, wx, wh, b, mask, reverse)
+                got = gru_sequence(xs, wx, wh, b, mask, reverse)
+                # What training launches: the same kernel, gates and carries kept.
+                got_s, gates, hprev = gru._kernel(xs, wx, wh, b, mask, reverse, save=True)
+                torch.cuda.synchronize()
+                errs = {"out": max_err(got, ref), "out_saving": max_err(got_s, ref),
+                        "gates": max_err(gates, ref_gates),
+                        "hprev": max_err(hprev, ref_hprev)}
+                case = f"T{T}-H{H}-{kind}-{mask_name}-{'rev' if reverse else 'fwd'}"
+                log(f"  B3 gru_sequence {case}: max_abs_err {errs} (tol {tol})")
+                if not max(errs.values()) <= tol:
+                    raise AssertionError(f"gru_sequence {case}: {errs} > {tol}")
+                checks.append({"case": case, "max_abs_err": max(errs.values()),
+                               "errors": errs, "tol": tol})
     # Main-path call: post-CBHG direction, all frames valid.
+    B, T, D, H = 32, 800, 128, 128
+    xs, wx, wh, b, masks, _ = gru_inputs(dev, B, T, D, H, seed=1)
+    full = masks["full"]
     ms = cuda_ms(lambda: gru_sequence(xs, wx, wh, b, full, False))
+    ms_saving = cuda_ms(lambda: gru._kernel(xs, wx, wh, b, full, False, save=True))
     plain = cuda_ms(lambda: gru_sequence_plain(xs, wx, wh, b, full, False), 1, 3)
+    # The two stages apart, through the library's own entry points.
+    lib = build.load("gru", gru.SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gx = torch.empty(B, T, 3 * H, device=dev)
+    out = torch.empty(B, T, H, device=dev)
+
+    def stage(fn, *args):
+        build.check(lib, getattr(lib, fn)(*args, stream), fn)
+
+    proj_ms = cuda_ms(lambda: stage(
+        "sstts_gru_input_proj", xs.data_ptr(), wx.data_ptr(), b.data_ptr(),
+        gx.data_ptr(), B * T, D, 3 * H))
+    rec_ms = cuda_ms(lambda: stage(
+        "sstts_gru_recurrence", gx.data_ptr(), wh.data_ptr(), full.data_ptr(),
+        out.data_ptr(), None, None, B, T, H, 0, gru.KIND_H128))
+    log(f"  B3 stages at b={B}, T={T}: input projection {proj_ms:.4f} ms, recurrence "
+        f"{rec_ms:.4f} ms; the wrapper {ms:.4f} ms, saving the gates {ms_saving:.4f} ms")
     # One PyTorch call with the same function when every step is valid:
     # cuDNN's GRU (gates r, z, n; r multiplies h @ W_hn + b_hn, b_hn = 0).
-    lib = torch.nn.GRU(D, H, batch_first=True).to(dev)
+    lib_gru = cudnn_gru(dev, wx, wh, b)
     with torch.no_grad():
-        lib.weight_ih_l0.copy_(wx.T)
-        lib.weight_hh_l0.copy_(wh.T)
-        lib.bias_ih_l0.copy_(b)
-        lib.bias_hh_l0.zero_()
-        lib_out = lib(xs)[0]
-        lib_err = max_err(lib_out, gru_sequence(xs, wx, wh, b, full, False))
-        lib_ms = cuda_ms(lambda: lib(xs))
+        lib_err = max_err(lib_gru(xs)[0], gru_sequence(xs, wx, wh, b, full, False))
+        lib_ms = cuda_ms(lambda: lib_gru(xs))
     log(f"  B3 cuDNN nn.GRU vs kernel (full mask): max_abs_err {lib_err:.3e}")
     n_bytes = nbytes(xs, wx, wh, b, full) + B * T * H * 4
     n_ops = 2 * B * T * (D * 3 * H + H * 3 * H)
@@ -167,77 +236,96 @@ def check_gru(dev):
         "replaces": "sstts/ops/pallas_gru.py:69",
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-        "library_ms": lib_ms, "shape": [B, T, D, H], "checks": checks,
+        "library_ms": lib_ms, "ms_saving_gates": ms_saving,
+        "ms_input_projection": proj_ms, "ms_recurrence": rec_ms, "ptxas": ptxas,
+        "shape": [B, T, D, H], "checks": checks,
     }
 
 
+def cudnn_gru(dev, wx, wh, b):
+    """torch.nn.GRU with the port's weights (b_hh = 0): the library yardstick,
+    the same function only when every step is valid."""
+    import torch
+
+    lib = torch.nn.GRU(wx.shape[0], wh.shape[0], batch_first=True).to(dev)
+    with torch.no_grad():
+        lib.weight_ih_l0.copy_(wx.T)
+        lib.weight_hh_l0.copy_(wh.T)
+        lib.bias_ih_l0.copy_(b)
+        lib.bias_hh_l0.zero_()
+    return lib
+
+
 def check_gru_backward(dev):
-    """B3's backward recurrence against its plain version, and the gates the
-    forward kernel saves for it against the plain forward's, at the
-    encoder's (T=128) and the post-CBHG's (T=515) training lengths."""
+    """B3's backward recurrence against its plain version at the encoder's
+    (T=128) and the post-CBHG's (T=515) training lengths, one step, an odd
+    length and the generic kernel's H = 16; then its time alone, the whole
+    backward of the autograd.Function (recurrence and the four cuBLAS
+    products) and cuDNN's whole backward."""
     import torch
 
     from sstts_torch.ops import gru
     from sstts_torch.ops.gru import (
-        gru_sequence_backward, gru_sequence_backward_plain, gru_sequence_forward_plain,
+        gru_sequence, gru_sequence_backward, gru_sequence_backward_plain,
+        gru_sequence_forward_plain,
     )
 
-    B, D, H = 32, 128, 128
-    g = torch.Generator().manual_seed(11)
-    wx = (torch.randn(D, 3 * H, generator=g) / D**0.5).to(dev)
-    wh = torch.nn.init.orthogonal_(torch.empty(H, 3 * H), generator=g).to(dev)
-    b = (0.1 * torch.randn(3 * H, generator=g)).to(dev)
+    ptxas = gru_ptxas("gru_bwd")
     # f32 both sides; 515 dependent steps in another summation order, held
     # relative to the largest value: 1e-4.
     tol = 1e-4
     checks, main = [], None
-    for T in (128, 515):
-        xs = torch.randn(B, T, D, generator=g).to(dev)
-        dout = torch.randn(B, T, H, generator=g).to(dev)
-        lengths = torch.randint(T // 2, T + 1, (B,), generator=g).to(dev)
-        ragged = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()
-        for mask_name, mask in (("ragged", ragged), ("full", torch.ones(B, T, device=dev))):
+    for shape in [(32, 128, 128, 128), (32, 515, 128, 128)] + GRU_SIDE_SHAPES:
+        B, T, D, H = shape
+        kind = "h128" if gru.kernel_kind(H) == gru.KIND_H128 else "generic"
+        xs, wx, wh, b, masks, dout = gru_inputs(
+            dev, *shape, seed=11, empty_row=shape in GRU_SIDE_SHAPES and T > 1)
+        for mask_name, mask in masks.items():
             for reverse in (False, True):
-                _, gates, hprev = gru._kernel(xs, wx, wh, b, mask, reverse, save=True)
-                _, gates_p, hprev_p = gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)
+                # The inputs a training step hands it (the plain forward's
+                # gates are held to the kernel's in check_gru).
+                _, gates, hprev = gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)
                 got = gru_sequence_backward(dout, gates, hprev, wh, mask, reverse)
                 ref = gru_sequence_backward_plain(dout, gates, hprev, wh, mask, reverse)
                 torch.cuda.synchronize()
                 errs = {
-                    "gates": max_err(gates, gates_p) / float(gates_p.abs().max()),
-                    "hprev": max_err(hprev, hprev_p) / max(float(hprev_p.abs().max()), 1e-30),
-                    "dgx": max_err(got[0], ref[0]) / float(ref[0].abs().max()),
-                    "dgh": max_err(got[1], ref[1]) / float(ref[1].abs().max()),
+                    "dgx": max_err(got[0], ref[0]) / max(float(ref[0].abs().max()), 1e-30),
+                    "dgh": max_err(got[1], ref[1]) / max(float(ref[1].abs().max()), 1e-30),
                 }
-                case = f"T{T}-{mask_name}-{'rev' if reverse else 'fwd'}"
+                case = f"T{T}-H{H}-{kind}-{mask_name}-{'rev' if reverse else 'fwd'}"
                 log(f"  B3 backward {case}: relative errors {errs} (tol {tol})")
                 if not max(errs.values()) <= tol:
                     raise AssertionError(f"gru_sequence_backward {case}: {errs}")
                 abs_err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
                 checks.append({"case": case, "max_abs_err": abs_err, "rel_errors": errs, "tol": tol})
                 if T == 515 and mask_name == "ragged" and not reverse:
-                    main = (xs, dout, gates, hprev, mask)
-    xs, dout, gates, hprev, mask = main
-    T = xs.shape[1]
+                    main = (xs, wx, wh, b, dout, gates.contiguous(), hprev.contiguous(), mask)
+    xs, wx, wh, b, dout, gates, hprev, mask = main
+    B, T, D = xs.shape
+    H = wh.shape[0]
     ms = cuda_ms(lambda: gru_sequence_backward(dout, gates, hprev, wh, mask, False))
     plain = cuda_ms(lambda: gru_sequence_backward_plain(dout, gates, hprev, wh, mask, False), 1, 3)
-    # Library yardstick: cuDNN's GRU backward (fwd+bwd minus fwd), the same
-    # function only when every step is valid (b_hh = 0).
-    lib = torch.nn.GRU(D, H, batch_first=True).to(dev)
-    with torch.no_grad():
-        lib.weight_ih_l0.copy_(wx.T)
-        lib.weight_hh_l0.copy_(wh.T)
-        lib.bias_ih_l0.copy_(b)
-        lib.bias_hh_l0.zero_()
+    # The whole backward of the Function: the recurrence and dxs, dWx, dWh,
+    # db, as autograd runs it (its forward is not in the time).
+    leaves = [t.clone().requires_grad_() for t in (xs, wx, wh, b)]
+    y = gru_sequence(*leaves, mask, False)
+    ms_whole = cuda_ms(lambda: torch.autograd.grad(y, leaves, dout, retain_graph=True))
+    # Library yardstick: cuDNN's whole GRU backward (fwd+bwd minus fwd), the
+    # same function only when every step is valid (b_hh = 0).
+    lib = cudnn_gru(dev, wx, wh, b)
     xs_g = xs.clone().requires_grad_()
 
     def fwd_bwd():
-        out = lib(xs_g)[0]
-        out.backward(dout)
+        lib.zero_grad(set_to_none=True)
+        xs_g.grad = None
+        lib(xs_g)[0].backward(dout)
 
     with torch.no_grad():
         lib_fwd = cuda_ms(lambda: lib(xs))
     lib_ms = cuda_ms(fwd_bwd) - lib_fwd
+    log(f"  B3 backward at b={B}, T={T}: recurrence alone {ms:.4f} ms; the whole backward "
+        f"(recurrence + dxs, dWx, dWh, db) {ms_whole:.4f} ms; cuDNN's whole backward "
+        f"{lib_ms:.4f} ms")
     n_bytes = nbytes(dout, gates, hprev, wh, mask) + 2 * B * T * 3 * H * 4
     n_ops = 2 * B * T * 3 * H * H
     bms, by = bound_ms(n_bytes, n_ops, "f32")
@@ -247,7 +335,8 @@ def check_gru_backward(dev):
         "replaces": "sstts/ops/pallas_gru.py:126",
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-        "library_ms": lib_ms, "shape": [B, T, D, H], "checks": checks,
+        "library_ms": lib_ms, "ms_whole_backward": ms_whole, "ptxas": ptxas,
+        "shape": [B, T, D, H], "checks": checks,
     }
 
 
@@ -741,8 +830,11 @@ def profile(fn, card, host_ops=()) -> dict:
         f"busy {busy_us / 1e3:.2f} ms ({busy_us / 1e3 / (wall * 1e3):.1%} of wall), "
         f"idle inside the span {(span_us - busy_us) / 1e3:.2f} ms, host-only time "
         f"outside it {wall * 1e3 - span_us / 1e3:.2f} ms [{card}]")
-    for name, (us, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"    {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
+    ranked = sorted(rows.items(), key=lambda kv: -kv[1][0])
+    # The 12 largest rows, and the GRU kernels' wherever they rank.
+    for rank, (name, (us, n)) in enumerate(ranked):
+        if rank < 12 or "gru_" in name:
+            log(f"    {us / 1e3:9.3f} ms  x{n:<5d} {name[:90]}")
     host = {}
     for e in prof.events():
         for op in host_ops:

@@ -13,43 +13,82 @@
 //
 // with the optional (B, T) mask freezing the carry and zeroing the output on
 // padded steps (h = m*h' + (1-m)*h, out = m*h), and `reverse` walking T right
-// to left while writing outputs in the original order.
+// to left while writing outputs in the original order.  All f32.
 //
-// Bound on the H100: the recurrence is serial-latency-bound.  The post-CBHG
-// call has T = 800 dependent steps per utterance; its arithmetic,
-// 2*B*T*(D + H)*3H = 5.0 GFLOP at B=32, T=800, D=H=128, is negligible next
-// to 800 rounds of a 128-deep dot product plus two block barriers each.
+// Bound on the H100: the arithmetic, 2*B*T*(D + H)*3H = 5.0 GFLOP at B=32,
+// T=800, D=H=128, is 0.075 ms of the card's f32 rate, and the bytes less.
+// What sets the time is the serial chain: T dependent steps per utterance,
+// each a 128-deep product, a gate, and a hand-over of h to every thread of
+// the block, on 32 of the card's 132 SMs at B=32.  One step's 3H*H = 49,152
+// multiply-adds take an SM's 128 f32 lanes 384 cycles to dispatch, and every
+// 32-bit value a thread loads from shared memory takes one more cycle of
+// its quarter's register-file write port (a float4 load four, whether the
+// lanes read one address or 32), so a step costs about 550 cycles before
+// the gates, two barriers and the hand-over: ~1,050 cycles (0.54 us) as
+// measured.  The kernels below therefore stay several times over the
+// roofline bound by design; everything that is not on that chain is kept
+// off it.
 //
-// Design: three kernels.
-//  1. gru_input_proj: the input projection has no sequential dependence, so
-//     it runs as one tiled f32 GEMM over all B*T rows (64x64 output tiles,
-//     4x4 outputs per thread, operands staged through shared memory).
-//  2. gru_recurrence: one block per utterance, one thread per gate column
-//     (3H = 384 threads at H = 128).  Wh stays in dynamic shared memory in
-//     f32 for the whole sequence (128*384*4 = 192 KB, under the 227 KB
-//     opt-in), the carry h lives in shared memory, and the loop over T runs
-//     inside the block, so no state round-trips device memory between steps.
-//     Each step: thread c computes gh[c] = sum_k h[k] * Wh[k, c]; after a
-//     barrier, threads 0..H-1 apply the gates and write h and the output.
-//     When a gradient is wanted it also writes, per step, the gates r, z, n,
-//     the recurrent candidate term hn and the carry before the step
-//     (5H floats; 42 MB at B=32, T=515, H=128), so that the backward never
-//     repeats the forward's serial chain.
-//  3. gru_recurrence_bwd: the reverse-time recurrence of the gradient, one
-//     block per utterance.  Wh is held transposed in shared memory, (3H, H),
-//     so that dh_prev[k] = sum_c dgh[c] * Wh[k, c] reads consecutive
-//     addresses across threads; the 3H-long sum is split over three groups
-//     of H threads (128-long chains, as in the forward) that meet in shared
-//     memory.  Per step, from the saved gates and the incoming carry
-//     gradient, it writes the gate-preactivation gradients dgx (input side)
-//     and dgh (recurrent side, dgx with the candidate's entry times r).
-//     The carry gradient passes straight through masked steps.  The weight
-//     gradients dWx = xs^T dgx, dWh = h_prev^T dgh, db = sum dgx and
-//     dxs = dgx Wx^T are large independent products that the wrapper leaves
-//     to cuBLAS, as the JAX package leaves them to XLA.  Bound: 2*3H*H
-//     operations per step and utterance (1.6 GFLOP at B=32, T=515) and
-//     ~100 MB of saved state and outputs, so ~0.03 ms; the 515 dependent
-//     steps set the time.
+// Three stages:
+//  1. gru_input_proj: x @ Wx + b has no sequential dependence and runs as
+//     one tiled f32 GEMM over all B*T rows (128x64 output tiles, 8x4
+//     outputs a thread, both operands read from shared memory as float4,
+//     the next slice loaded into registers while this one is multiplied).
+//  2. The forward recurrence, one block per utterance, the loop over T
+//     inside the block.
+//     * H = 128 (gru_fwd_h128; the width of every GRU that gru_sequence
+//       sees at the default configuration): 512 threads; thread (q, i) =
+//       (tid / 128, tid % 128) owns hidden unit i and the K-quarter q and
+//       keeps its 3 x 32 weights Wh[32q..32q+31, {i, H+i, 2H+i}] in
+//       registers for the whole sequence.  q is the same in all lanes of a
+//       warp, so each of a thread's 8 float4 loads of h is one broadcast;
+//       three independent chains of 32 (one a gate) end in 3 x 4 partial
+//       sums a unit in shared memory; after a barrier warps 0..3, one
+//       thread a unit and every lane busy, add the four quarters, apply
+//       the gates (ex2.approx / rcp.approx, see fast_sigmoid) and write h;
+//       a second barrier ends the step.  (Four lanes a unit joined by
+//       shuffles, with one barrier, was slower: every warp then runs the
+//       gate's instructions with a quarter of its lanes, and the instruction
+//       slots, not the barrier, are what a step runs out of.)  The step's
+//       gx row and mask value arrive through an 8-deep cp.async ring in
+//       shared memory, started 7 steps ahead by warps 4..7, so no load
+//       from device memory is on the chain; the stores (out, and
+//       gates/hprev when a gradient is wanted) are sent off and not waited
+//       on.
+//     * any other H (gru_fwd_generic): one thread per gate column, Wh in
+//       dynamic shared memory (3H*H*4 bytes of the 227 KB opt-in, so H up
+//       to 137), exact expf/tanhf, two barriers a step.
+//     When a gradient is wanted both write, per step, the gates r, z, n, the
+//     recurrent candidate term hn and the carry before the step (5H floats;
+//     42 MB at B=32, T=515, H=128), so that the backward never repeats the
+//     forward's serial chain.
+//  3. The reverse-time recurrence of the gradient, one block per utterance.
+//     Per step, from the saved gates and the incoming carry gradient, it
+//     writes the gate-preactivation gradients dgx (input side) and dgh
+//     (recurrent side: dgx with the candidate's entry times r) and carries
+//     dh_prev[k] = direct part + sum_c dgh[c] * Wh[k, c].  The carry
+//     gradient passes straight through masked steps.
+//     * H = 128 (gru_bwd_h128): 512 threads; warp s owns the 24 gate
+//       columns 24s..24s+23 and lane l the four units 4l..4l+3, so a thread
+//       keeps the 4 x 24 weights Wh[4l..4l+3, 24s..24s+23] in registers
+//       (read once from the untransposed Wh) and each dgh value it loads
+//       (6 float4 broadcasts a step) serves four multiply-adds.  The 16
+//       warps' sums of a unit meet in shared memory; warps 0..3, one
+//       thread a unit, add them, keep the direct part of dh[k] in a
+//       register from step to step and do the elementwise phase; two
+//       barriers a step.  The step's gates, hprev, dout and mask value
+//       arrive through the same kind of cp.async ring (warps 4..10).
+//     * any other H (gru_bwd_generic): Wh transposed in dynamic shared
+//       memory, three barriers a step.
+//     The weight gradients dWx = xs^T dgx, dWh = h_prev^T dgh, db = sum dgx
+//     and dxs = dgx Wx^T are large independent products that the wrapper
+//     leaves to cuBLAS, as the JAX package leaves them to XLA.  Bound:
+//     2*3H*H operations per step and utterance (1.6 GFLOP at B=32, T=515)
+//     and ~100 MB of saved state and outputs, so ~0.03 ms; the 515
+//     dependent steps set the time.
+//
+// The wrapper chooses the kernel from H (`kind`); a kind that does not fit
+// the shape is refused with cudaErrorInvalidValue, never replaced.
 //
 // Plain C interface (bound with ctypes); the launch goes on the caller's
 // stream, nothing synchronises, and the return value is cudaGetLastError().
@@ -59,74 +98,137 @@
 
 namespace {
 
-constexpr int kTile = 64;
-constexpr int kTileK = 16;
-
-__global__ void __launch_bounds__(256)
-gru_input_proj(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, float* __restrict__ out,
-               int M, int K, int N) {
-  __shared__ float As[kTileK][kTile + 1];
-  __shared__ float Bs[kTileK][kTile];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  const int m0 = blockIdx.y * kTile;
-  const int n0 = blockIdx.x * kTile;
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kTileK) {
-    for (int e = threadIdx.x; e < kTile * kTileK; e += blockDim.x) {
-      const int r = e / kTileK, kk = e % kTileK;
-      const int gm = m0 + r, gk = k0 + kk;
-      As[kk][r] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.f;
-    }
-    for (int e = threadIdx.x; e < kTile * kTileK; e += blockDim.x) {
-      const int kk = e / kTile, c = e % kTile;
-      const int gk = k0 + kk, gn = n0 + c;
-      Bs[kk][c] = (gk < K && gn < N) ? w[(size_t)gk * N + gn] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gm = m0 + ty + 16 * i;
-    if (gm >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gn = n0 + tx + 16 * j;
-      if (gn < N) out[(size_t)gm * N + gn] = acc[i][j] + bias[gn];
-    }
-  }
-}
+// ------------------------------------------------------------------ tools --
 
 __device__ __forceinline__ float sigmoidf_(float v) {
   return 1.f / (1.f + expf(-v));
 }
 
-__global__ void gru_recurrence(const float* __restrict__ gx,
-                               const float* __restrict__ wh,
-                               const float* __restrict__ mask,
-                               float* __restrict__ out,
-                               float* __restrict__ gates,
-                               float* __restrict__ hprev, int T, int H,
-                               int reverse) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------------- the input projection --
+
+constexpr int kPM = 128;  // rows of an output tile
+constexpr int kPN = 64;   // columns of an output tile
+constexpr int kPK = 16;   // depth of a staged slice
+
+__global__ void __launch_bounds__(256, 2)
+gru_input_proj(const float* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ bias, float* __restrict__ out,
+               int M, int K, int N) {
+  // Two buffers of one staged slice each.  As is stored transposed,
+  // (k, row), so that a thread's 8 rows are two float4; the 4 floats of
+  // padding keep each row of As 16-byte aligned.
+  __shared__ __align__(16) float As[2][kPK][kPM + 4];
+  __shared__ __align__(16) float Bs[2][kPK][kPN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16;
+  const int ty = tid / 16;
+  const int m0 = blockIdx.y * kPM;
+  const int n0 = blockIdx.x * kPN;
+  float acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  // A thread's share of a slice: 8 elements of x, 4 of w, held in registers
+  // from the load (started before the products of the slice in hand) to the
+  // store into the other buffer (after them).
+  float pa[8], pb[4];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = tid + 256 * u;
+      const int gm = m0 + e / kPK, gk = k0 + e % kPK;
+      pa[u] = (gm < M && gk < K) ? x[(size_t)gm * K + gk] : 0.f;
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = tid + 256 * u;
+      const int gk = k0 + e / kPN, gn = n0 + e % kPN;
+      pb[u] = (gk < K && gn < N) ? w[(size_t)gk * N + gn] : 0.f;
+    }
+  };
+  auto stage = [&](int buf) {
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = tid + 256 * u;
+      As[buf][e % kPK][e / kPK] = pa[u];
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = tid + 256 * u;
+      Bs[buf][e / kPN][e % kPN] = pb[u];
+    }
+  };
+
+  fetch(0);
+  stage(0);
+  __syncthreads();
+  int buf = 0;
+  for (int k0 = 0; k0 < K; k0 += kPK, buf ^= 1) {
+    const bool more = k0 + kPK < K;
+    if (more) fetch(k0 + kPK);
+#pragma unroll
+    for (int kk = 0; kk < kPK; ++kk) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 8]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 8 + 4]);
+      const float4 bv = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (more) stage(buf ^ 1);
+    __syncthreads();
+  }
+  const int gn = n0 + tx * 4;
+  const bool vec = (N % 4 == 0) && gn + 3 < N;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + ty * 8 + i;
+    if (gm >= M) continue;
+    float* o = out + (size_t)gm * N + gn;
+    if (vec) {
+      *reinterpret_cast<float4*>(o) =
+          make_float4(acc[i][0] + bias[gn], acc[i][1] + bias[gn + 1],
+                      acc[i][2] + bias[gn + 2], acc[i][3] + bias[gn + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gn + j < N) o[j] = acc[i][j] + bias[gn + j];
+    }
+  }
+}
+
+// ------------------------------------------ recurrences at any width H --
+
+__global__ void gru_fwd_generic(const float* __restrict__ gx,
+                                const float* __restrict__ wh,
+                                const float* __restrict__ mask,
+                                float* __restrict__ out,
+                                float* __restrict__ gates,
+                                float* __restrict__ hprev, int T, int H,
+                                int reverse) {
   extern __shared__ float smem[];
   const int G = 3 * H;
   float* w_s = smem;          // (H, 3H) recurrent weights
@@ -180,14 +282,14 @@ __global__ void gru_recurrence(const float* __restrict__ gx,
 
 // Reverse-time recurrence of the gradient (see the header).  Walks the steps
 // in the opposite order to the forward scan.
-__global__ void gru_recurrence_bwd(const float* __restrict__ dout,
-                                   const float* __restrict__ gates,
-                                   const float* __restrict__ hprev,
-                                   const float* __restrict__ wh,
-                                   const float* __restrict__ mask,
-                                   float* __restrict__ dgx,
-                                   float* __restrict__ dgh, int T, int H,
-                                   int reverse) {
+__global__ void gru_bwd_generic(const float* __restrict__ dout,
+                                const float* __restrict__ gates,
+                                const float* __restrict__ hprev,
+                                const float* __restrict__ wh,
+                                const float* __restrict__ mask,
+                                float* __restrict__ dgx,
+                                float* __restrict__ dgh, int T, int H,
+                                int reverse) {
   extern __shared__ float smem[];
   const int G = 3 * H;
   float* wt_s = smem;           // (3H, H) Wh transposed
@@ -248,58 +350,367 @@ __global__ void gru_recurrence_bwd(const float* __restrict__ dout,
   }
 }
 
+// ---------------------------------------------- recurrences at H = 128 --
+
+constexpr int kH = 128;        // hidden units
+constexpr int kG = 3 * kH;     // gate columns
+constexpr int kThreads = 512;
+constexpr int kRing = 8;       // steps in flight from device memory
+constexpr int kFwdSlot = kG + 4;      // a gx row and the mask value
+constexpr int kBwdSlot = 6 * kH + 4;  // gates, hprev, dout and the mask value
+constexpr int kFetchWarp0 = 4;  // the warps from this one on start the copies
+
+// Starts the copy of step s's gx row (and mask value) into its ring slot
+// and commits it as one group; called by the threads from warp kFetchWarp0
+// on, of which the first kG / 4 + 1 have something to copy.
+__device__ __forceinline__ void fwd_fetch(float (*ring)[kFwdSlot],
+                                          const float* __restrict__ gx,
+                                          const float* __restrict__ mask,
+                                          size_t row0, int s, int T,
+                                          int reverse) {
+  if (s < T) {
+    const size_t row = row0 + (reverse ? T - 1 - s : s);
+    float* slot = ring[s % kRing];
+    const int c = threadIdx.x - 32 * kFetchWarp0;
+    if (c < kG / 4)
+      cp_async16(slot + 4 * c, gx + row * kG + 4 * c);
+    else if (c == kG / 4 && mask)
+      cp_async4(slot + kG, mask + row);
+  }
+  cp_async_commit();
+}
+
+// The gates of the H = 128 forward, from ex2.approx and rcp.approx (a few
+// instructions each, where expf, an IEEE division and tanhf are ~80 on the
+// step's serial chain).  Each is within ~1e-6 of the exact function in
+// absolute terms, also where the result saturates (exp to inf gives 0 or 1,
+// never NaN), which over 800 steps moves the output no further from the
+// plain version than the exact functions do (4e-7 against 3e-7 of the
+// largest value at T = 800).
+__device__ __forceinline__ float fast_sigmoid(float v) {
+  return __fdividef(1.f, 1.f + __expf(-v));
+}
+__device__ __forceinline__ float fast_tanh(float v) {
+  return 1.f - __fdividef(2.f, 1.f + __expf(2.f * v));
+}
+
+template <bool kSave>
+__global__ void __launch_bounds__(kThreads, 1)
+gru_fwd_h128(const float* __restrict__ gx, const float* __restrict__ wh,
+             const float* __restrict__ mask, float* __restrict__ out,
+             float* __restrict__ gates, float* __restrict__ hprev, int T,
+             int reverse) {
+  __shared__ __align__(16) float h_s[kH];
+  __shared__ __align__(16) float part_s[3][4][kH];  // (gate, K-quarter, unit)
+  __shared__ __align__(16) float ring[kRing][kFwdSlot];
+  const int tid = threadIdx.x;
+  const int q = tid >> 7, i = tid & (kH - 1);  // q is the same in a warp
+  const bool fetcher = q == 1;  // warps 4..7 (kFetchWarp0 on)
+  const size_t row0 = (size_t)blockIdx.x * T;
+
+  float w[3][32];
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int kk = 0; kk < 32; ++kk)
+      w[g][kk] = wh[(size_t)(32 * q + kk) * kG + g * kH + i];
+
+  if (tid < kH) h_s[tid] = 0.f;
+  if (fetcher) {
+#pragma unroll
+    for (int s = 0; s < kRing - 1; ++s)
+      fwd_fetch(ring, gx, mask, row0, s, T, reverse);
+  }
+  __syncthreads();
+
+  float h_own = 0.f;  // h[i], in the threads with q = 0
+  for (int s = 0; s < T; ++s) {
+    if (fetcher) fwd_fetch(ring, gx, mask, row0, s + kRing - 1, T, reverse);
+
+    // Every thread: its quarter of the three products for unit i.  All
+    // lanes of a warp read the same h values (one broadcast a load).
+    const float4* hb = reinterpret_cast<const float4*>(h_s + 32 * q);
+    float ar = 0.f, az = 0.f, an = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float4 hv = hb[j];
+      ar = fmaf(hv.x, w[0][4 * j], ar);
+      az = fmaf(hv.x, w[1][4 * j], az);
+      an = fmaf(hv.x, w[2][4 * j], an);
+      ar = fmaf(hv.y, w[0][4 * j + 1], ar);
+      az = fmaf(hv.y, w[1][4 * j + 1], az);
+      an = fmaf(hv.y, w[2][4 * j + 1], an);
+      ar = fmaf(hv.z, w[0][4 * j + 2], ar);
+      az = fmaf(hv.z, w[1][4 * j + 2], az);
+      an = fmaf(hv.z, w[2][4 * j + 2], an);
+      ar = fmaf(hv.w, w[0][4 * j + 3], ar);
+      az = fmaf(hv.w, w[1][4 * j + 3], az);
+      an = fmaf(hv.w, w[2][4 * j + 3], an);
+    }
+    part_s[0][q][i] = ar;
+    part_s[1][q][i] = az;
+    part_s[2][q][i] = an;
+    if (fetcher) cp_async_wait<kRing - 1>();  // this step's slot has landed
+    __syncthreads();
+
+    // Warps 0..3, one thread a unit, every lane busy: the gates.
+    if (q == 0) {
+      const float* rs = ring[s % kRing];
+      const size_t row = row0 + (reverse ? T - 1 - s : s);
+      const float hr = (part_s[0][0][i] + part_s[0][1][i]) +
+                       (part_s[0][2][i] + part_s[0][3][i]);
+      const float hz = (part_s[1][0][i] + part_s[1][1][i]) +
+                       (part_s[1][2][i] + part_s[1][3][i]);
+      const float hn = (part_s[2][0][i] + part_s[2][1][i]) +
+                       (part_s[2][2][i] + part_s[2][3][i]);
+      const float r = fast_sigmoid(rs[i] + hr);
+      const float z = fast_sigmoid(rs[kH + i] + hz);
+      const float n = fast_tanh(rs[2 * kH + i] + r * hn);
+      if (kSave) {
+        float* g = gates + row * 4 * kH;
+        g[i] = r;
+        g[kH + i] = z;
+        g[2 * kH + i] = n;
+        g[3 * kH + i] = hn;
+        hprev[row * kH + i] = h_own;
+      }
+      float h_new = z * h_own + (1.f - z) * n;
+      float o = h_new;
+      if (mask) {
+        const float m = rs[kG];
+        h_new = m * h_new + (1.f - m) * h_own;
+        o = m * h_new;
+      }
+      h_own = h_new;
+      h_s[i] = h_new;
+      out[row * kH + i] = o;
+    }
+    __syncthreads();
+  }
+}
+
+// The same for the backward's step: gates, hprev, dout and the mask value,
+// kH + kH / 2 + 1 threads with something to copy.
+__device__ __forceinline__ void bwd_fetch(float (*ring)[kBwdSlot],
+                                          const float* __restrict__ gates,
+                                          const float* __restrict__ hprev,
+                                          const float* __restrict__ dout,
+                                          const float* __restrict__ mask,
+                                          size_t row0, int s, int T,
+                                          int reverse) {
+  if (s < T) {
+    const size_t row = row0 + (reverse ? s : T - 1 - s);
+    float* slot = ring[s % kRing];
+    const int c = threadIdx.x - 32 * kFetchWarp0;
+    if (c < kH)
+      cp_async16(slot + 4 * c, gates + row * 4 * kH + 4 * c);
+    else if (c < kH + kH / 4)
+      cp_async16(slot + 4 * c, hprev + row * kH + 4 * (c - kH));
+    else if (c < kH + kH / 2)
+      cp_async16(slot + 4 * c, dout + row * kH + 4 * (c - kH - kH / 4));
+    else if (c == kH + kH / 2 && mask)
+      cp_async4(slot + 6 * kH, mask + row);
+  }
+  cp_async_commit();
+}
+
+constexpr int kBwdCols = kG / 16;  // gate columns a warp owns: 24
+
+__global__ void __launch_bounds__(kThreads, 1)
+gru_bwd_h128(const float* __restrict__ dout, const float* __restrict__ gates,
+             const float* __restrict__ hprev, const float* __restrict__ wh,
+             const float* __restrict__ mask, float* __restrict__ dgx,
+             float* __restrict__ dgh, int T, int reverse) {
+  __shared__ __align__(16) float d_s[kG];          // this step's dgh
+  __shared__ __align__(16) float part_s[16][kH];   // (column slice, unit)
+  __shared__ __align__(16) float ring[kRing][kBwdSlot];
+  const int tid = threadIdx.x;
+  const int slice = tid >> 5, lane = tid & 31;
+  // Warps 4..10 hold the kH + kH / 2 + 1 threads that copy.
+  const bool fetcher = slice >= kFetchWarp0 && slice < kFetchWarp0 + 7;
+  const size_t row0 = (size_t)blockIdx.x * T;
+
+  // Wh[4 * lane + u, 24 * slice + c]: each dgh value a thread loads serves
+  // four units.
+  float w[4][kBwdCols];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float4* wr = reinterpret_cast<const float4*>(
+        wh + (size_t)(4 * lane + u) * kG + kBwdCols * slice);
+#pragma unroll
+    for (int j = 0; j < kBwdCols / 4; ++j) {
+      const float4 v = wr[j];
+      w[u][4 * j] = v.x;
+      w[u][4 * j + 1] = v.y;
+      w[u][4 * j + 2] = v.z;
+      w[u][4 * j + 3] = v.w;
+    }
+  }
+  for (int e = tid; e < 16 * kH; e += kThreads) (&part_s[0][0])[e] = 0.f;
+  if (fetcher) {
+#pragma unroll
+    for (int s = 0; s < kRing - 1; ++s)
+      bwd_fetch(ring, gates, hprev, dout, mask, row0, s, T, reverse);
+    cp_async_wait<kRing - 2>();
+  }
+  __syncthreads();
+
+  float dhc = 0.f;  // direct part of the carry gradient, threads 0..kH-1
+  for (int s = 0; s < T; ++s) {
+    if (fetcher)
+      bwd_fetch(ring, gates, hprev, dout, mask, row0, s + kRing - 1, T, reverse);
+
+    // Warps 0..3, one thread a unit: close the carry gradient of the step
+    // before from the 16 slices' sums, then the elementwise phase.
+    if (tid < kH) {
+      const int k = tid;
+      float p[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        p[c] = (part_s[c][k] + part_s[4 + c][k]) +
+               (part_s[8 + c][k] + part_s[12 + c][k]);
+      const float dh = dhc + ((p[0] + p[1]) + (p[2] + p[3]));
+
+      const float* rs = ring[s % kRing];
+      const size_t row = row0 + (reverse ? s : T - 1 - s);
+      const float r = rs[k], z = rs[kH + k], n = rs[2 * kH + k];
+      const float hn = rs[3 * kH + k], h = rs[4 * kH + k];
+      const float m = mask ? rs[6 * kH] : 1.f;
+      // out = m * h_t, h_t = m * h' + (1 - m) * h.
+      const float dh_t = dh + m * rs[5 * kH + k];
+      const float dh_new = m * dh_t;
+      const float dz = dh_new * (h - n);
+      const float dn = dh_new * (1.f - z);
+      const float dan = dn * (1.f - n * n);
+      const float dar = dan * hn * r * (1.f - r);
+      const float daz = dz * z * (1.f - z);
+      const float dghn = dan * r;
+      float* gxo = dgx + row * kG;
+      float* gho = dgh + row * kG;
+      gxo[k] = dar;
+      gxo[kH + k] = daz;
+      gxo[2 * kH + k] = dan;
+      gho[k] = dar;
+      gho[kH + k] = daz;
+      gho[2 * kH + k] = dghn;
+      d_s[k] = dar;
+      d_s[kH + k] = daz;
+      d_s[2 * kH + k] = dghn;
+      dhc = (1.f - m) * dh_t + dh_new * z;
+    }
+    __syncthreads();
+
+    // Every thread: its 24 columns of dgh times its 4 x 24 weights.
+    const float4* dq = reinterpret_cast<const float4*>(d_s + kBwdCols * slice);
+    float a[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < kBwdCols / 4; ++j) {
+      const float4 v = dq[j];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        a[u] = fmaf(v.x, w[u][4 * j], a[u]);
+        a[u] = fmaf(v.y, w[u][4 * j + 1], a[u]);
+        a[u] = fmaf(v.z, w[u][4 * j + 2], a[u]);
+        a[u] = fmaf(v.w, w[u][4 * j + 3], a[u]);
+      }
+    }
+    *reinterpret_cast<float4*>(&part_s[slice][4 * lane]) =
+        make_float4(a[0], a[1], a[2], a[3]);
+    if (fetcher) cp_async_wait<kRing - 2>();  // the next step's slot has landed
+    __syncthreads();
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
+// Which kernel runs a recurrence; the wrapper chooses from H.
+enum { SSTTS_GRU_GENERIC = 0, SSTTS_GRU_H128 = 1 };
+
+// Dynamic shared memory of the generic kernels at width H.
 int sstts_gru_smem_bytes(int H) { return (H * 3 * H + H + 6 * H) * 4; }
 
 int sstts_gru_bwd_smem_bytes(int H) { return (3 * H * H + 8 * H) * 4; }
 
-// xs (B, T, D), wx (D, 3H), wh (H, 3H), b (3H), mask (B, T) or NULL, all
-// f32 and contiguous; gx_scratch (B, T, 3H) f32; out (B, T, H) f32; gates
-// (B, T, 4H) and hprev (B, T, H) f32, or both NULL when no gradient is
-// wanted.
-int sstts_gru_sequence(const float* xs, const float* wx, const float* wh,
-                       const float* b, const float* mask, float* gx_scratch,
-                       float* out, float* gates, float* hprev, int B, int T,
-                       int D, int H, int reverse, void* stream) {
+// gx (M, N) = xs (M, K) @ wx (K, N) + b (N), all f32 and contiguous.
+int sstts_gru_input_proj(const float* xs, const float* wx, const float* b,
+                         float* gx, int M, int K, int N, void* stream) {
+  if (M == 0 || N == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int M = B * T, N = 3 * H;
-  dim3 pgrid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  gru_input_proj<<<pgrid, 256, 0, st>>>(xs, wx, b, gx_scratch, M, D, N);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int smem = sstts_gru_smem_bytes(H);
-  err = cudaFuncSetAttribute(gru_recurrence,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return (int)err;
-  int threads = ((N + 31) / 32) * 32;
-  if (threads > 1024) threads = 1024;
-  gru_recurrence<<<B, threads, smem, st>>>(gx_scratch, wh, mask, out, gates,
-                                           hprev, T, H, reverse);
+  dim3 grid((N + kPN - 1) / kPN, (M + kPM - 1) / kPM);
+  gru_input_proj<<<grid, 256, 0, st>>>(xs, wx, b, gx, M, K, N);
   return (int)cudaGetLastError();
 }
 
-// dout (B, T, H), gates (B, T, 4H), hprev (B, T, H) from the forward, wh
-// (H, 3H), mask (B, T) or NULL, all f32 and contiguous; dgx and dgh
-// (B, T, 3H) f32 outputs.
-int sstts_gru_sequence_backward(const float* dout, const float* gates,
-                                const float* hprev, const float* wh,
-                                const float* mask, float* dgx, float* dgh,
-                                int B, int T, int H, int reverse,
-                                void* stream) {
+// The forward recurrence over gx (B, T, 3H); see sstts_gru_sequence.
+int sstts_gru_recurrence(const float* gx, const float* wh, const float* mask,
+                         float* out, float* gates, float* hprev, int B, int T,
+                         int H, int reverse, int kind, void* stream) {
+  if (B == 0 || T == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int smem = sstts_gru_bwd_smem_bytes(H);
+  if (kind == SSTTS_GRU_H128) {
+    if (H != kH) return (int)cudaErrorInvalidValue;
+    if (gates)
+      gru_fwd_h128<true><<<B, kThreads, 0, st>>>(gx, wh, mask, out, gates,
+                                                 hprev, T, reverse);
+    else
+      gru_fwd_h128<false><<<B, kThreads, 0, st>>>(gx, wh, mask, out, gates,
+                                                  hprev, T, reverse);
+    return (int)cudaGetLastError();
+  }
+  if (kind != SSTTS_GRU_GENERIC) return (int)cudaErrorInvalidValue;
+  const int smem = sstts_gru_smem_bytes(H);
   cudaError_t err = cudaFuncSetAttribute(
-      gru_recurrence_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      gru_fwd_generic, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   int threads = ((3 * H + 31) / 32) * 32;
   if (threads > 1024) threads = 1024;
-  gru_recurrence_bwd<<<B, threads, smem, st>>>(dout, gates, hprev, wh, mask,
-                                               dgx, dgh, T, H, reverse);
+  gru_fwd_generic<<<B, threads, smem, st>>>(gx, wh, mask, out, gates, hprev,
+                                            T, H, reverse);
+  return (int)cudaGetLastError();
+}
+
+// xs (B, T, D), wx (D, 3H), wh (H, 3H), b (3H), mask (B, T) or NULL, all
+// f32 and contiguous (16-byte aligned); gx_scratch (B, T, 3H) f32; out
+// (B, T, H) f32; gates (B, T, 4H) and hprev (B, T, H) f32, or both NULL
+// when no gradient is wanted.
+int sstts_gru_sequence(const float* xs, const float* wx, const float* wh,
+                       const float* b, const float* mask, float* gx_scratch,
+                       float* out, float* gates, float* hprev, int B, int T,
+                       int D, int H, int reverse, int kind, void* stream) {
+  const int rc =
+      sstts_gru_input_proj(xs, wx, b, gx_scratch, B * T, D, 3 * H, stream);
+  if (rc != 0) return rc;
+  return sstts_gru_recurrence(gx_scratch, wh, mask, out, gates, hprev, B, T,
+                              H, reverse, kind, stream);
+}
+
+// dout (B, T, H), gates (B, T, 4H), hprev (B, T, H) from the forward, wh
+// (H, 3H), mask (B, T) or NULL, all f32 and contiguous (16-byte aligned);
+// dgx and dgh (B, T, 3H) f32 outputs.
+int sstts_gru_sequence_backward(const float* dout, const float* gates,
+                                const float* hprev, const float* wh,
+                                const float* mask, float* dgx, float* dgh,
+                                int B, int T, int H, int reverse, int kind,
+                                void* stream) {
+  if (B == 0 || T == 0) return 0;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (kind == SSTTS_GRU_H128) {
+    if (H != kH) return (int)cudaErrorInvalidValue;
+    gru_bwd_h128<<<B, kThreads, 0, st>>>(dout, gates, hprev, wh, mask, dgx,
+                                         dgh, T, reverse);
+    return (int)cudaGetLastError();
+  }
+  if (kind != SSTTS_GRU_GENERIC) return (int)cudaErrorInvalidValue;
+  const int smem = sstts_gru_bwd_smem_bytes(H);
+  cudaError_t err = cudaFuncSetAttribute(
+      gru_bwd_generic, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  int threads = ((3 * H + 31) / 32) * 32;
+  if (threads > 1024) threads = 1024;
+  gru_bwd_generic<<<B, threads, smem, st>>>(dout, gates, hprev, wh, mask, dgx,
+                                            dgh, T, H, reverse);
   return (int)cudaGetLastError();
 }
 

@@ -3,8 +3,11 @@
 Each source in `sstts_torch/csrc/` compiles with `nvcc` for `sm_90a` into a
 shared library with a plain C interface, loaded with `ctypes` (no PyTorch
 headers, so a build takes seconds).  Libraries are named by a hash of their
-source and the shared headers (`csrc/*.cuh`), under `sstts_torch/_build/` (git-ignored), and built on first use;
-`build_all` starts one `nvcc` per source, all at once.
+source and the shared headers (`csrc/*.cuh`), under `sstts_torch/_build/`
+(git-ignored), and built on first use; `build_all` starts one `nvcc` per
+source, all at once.  The compiler's output (`-Xptxas -v`: each kernel's
+registers, shared memory and spills) is kept beside the library as
+`lib<name>-<hash>.log`; `ptxas_report` reads it.
 
 Nothing here runs at import time: the CPU tests import every module of the
 port on hosts with no `nvcc` and no card.
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -25,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("gru", "decoder", "gl_semi", "teacher", "reproject", "gl_fused")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 #: Shared memory one block may use on the H100 (the 227 KB opt-in).
@@ -82,10 +86,37 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, Path]:
         if proc.returncode != 0:
             failed.append(f"--- {name}.cu (rc {proc.returncode}) ---\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: no process loads a half-written file
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return {name: library_path(name) for name in names}
+
+
+_PTXAS_ENTRY = re.compile(
+    r"Compiling entry function '(?P<name>\w+)' for 'sm_90a'.*?"
+    r"(?P<stack>\d+) bytes stack frame, (?P<stores>\d+) bytes spill stores, "
+    r"(?P<loads>\d+) bytes spill loads.*?Used (?P<regs>\d+) registers",
+    re.S,
+)
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+    """What ptxas said of each kernel of `csrc/<name>.cu` when the library
+    was built: mangled kernel name -> registers a thread, bytes of stack,
+    and bytes of spill stores and loads."""
+    path = library_path(name)
+    if not path.exists():
+        build_all([name])
+    log = path.with_suffix(".log").read_text()
+    return {
+        m["name"]: {
+            "registers": int(m["regs"]), "stack_bytes": int(m["stack"]),
+            "spill_store_bytes": int(m["stores"]),
+            "spill_load_bytes": int(m["loads"]),
+        }
+        for m in _PTXAS_ENTRY.finditer(log)
+    }
 
 
 def load(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:

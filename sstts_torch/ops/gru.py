@@ -4,9 +4,15 @@
 `gru_sequence` dispatches on the tensor's device: a CPU tensor runs the
 plain version (`gru_sequence_plain`, the counterpart of JAX's
 `gru_sequence_xla` scan oracle); a CUDA tensor launches the hand-written
-kernel in `sstts_torch/csrc/gru.cu`, or raises.  There is no fallback from
+kernels in `sstts_torch/csrc/gru.cu`, or raises.  There is no fallback from
 one to the other.  Layouts match the JAX package: xs (B, T, D), wx (D, 3H),
 wh (H, 3H), b (3H,), mask (B, T), gate order r, z, n.
+
+On the card the recurrences come in two kinds, chosen here from H alone
+(`kernel_kind`): at H = 128, the width of every GRU at the default
+`Config()`, kernels that hold Wh in registers; at any other H, generic
+kernels that hold Wh in shared memory (H up to 137).  Neither stands in for
+the other: a kernel that fails to build or launch raises.
 
 Gradient: when grad mode is on and an input requires grad, the call goes
 through `_GRUSequence`, an `autograd.Function`.  Its forward also keeps the
@@ -28,12 +34,17 @@ import torch
 from sstts_torch.ops import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    "sstts_gru_sequence": ([_P] * 9 + [_I] * 5 + [_P], _I),
-    "sstts_gru_sequence_backward": ([_P] * 7 + [_I] * 4 + [_P], _I),
+SIGNATURES = {
+    "sstts_gru_sequence": ([_P] * 9 + [_I] * 6 + [_P], _I),
+    "sstts_gru_sequence_backward": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "sstts_gru_input_proj": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    "sstts_gru_recurrence": ([_P] * 6 + [_I] * 5 + [_P], _I),
     "sstts_gru_smem_bytes": ([_I], _I),
     "sstts_gru_bwd_smem_bytes": ([_I], _I),
 }
+
+#: The `kind` argument of the C entry points (SSTTS_GRU_* in csrc/gru.cu).
+KIND_GENERIC, KIND_H128 = 0, 1
 
 
 def gru_step_math(x, h, wx, wh, b):
@@ -137,7 +148,12 @@ def gru_sequence_backward_plain(
     return torch.stack(dgx, 1), torch.stack(dgh, 1)
 
 
-def _check_shapes(xs, wx, wh, b) -> None:
+def _check_shapes(xs, wx, wh, b, mask) -> None:
+    if xs.dim() != 3 or wh.dim() != 2:
+        raise ValueError(
+            f"gru_sequence: xs {tuple(xs.shape)} must be (B, T, D) and wh "
+            f"{tuple(wh.shape)} (H, 3H)"
+        )
     d_in, hidden = xs.shape[-1], wh.shape[0]
     if tuple(wx.shape) != (d_in, 3 * hidden) or tuple(wh.shape) != (
         hidden, 3 * hidden
@@ -146,21 +162,46 @@ def _check_shapes(xs, wx, wh, b) -> None:
             f"gru_sequence: shapes xs {tuple(xs.shape)}, wx {tuple(wx.shape)},"
             f" wh {tuple(wh.shape)}, b {tuple(b.shape)} do not agree"
         )
+    _check_mask(mask, xs.shape[:2], "gru_sequence")
+
+
+def _check_mask(mask, batch_time, what: str) -> None:
+    if mask is not None and tuple(mask.shape) != tuple(batch_time):
+        raise ValueError(
+            f"{what}: mask {tuple(mask.shape)} must be (B, T) = {tuple(batch_time)}"
+        )
+
+
+def kernel_kind(hidden: int) -> int:
+    """Which pair of CUDA recurrences serves width H: the register-resident
+    ones at H = 128, else the generic ones."""
+    return KIND_H128 if hidden == 128 else KIND_GENERIC
 
 
 def _load(smem_fn: str, hidden: int):
-    lib = build.load("gru", _SIGNATURES)
-    smem = getattr(lib, smem_fn)(hidden)
-    if smem > build.MAX_SMEM or 3 * hidden > 1024:
-        raise NotImplementedError(
-            f"the gru_sequence CUDA kernels keep Wh in shared memory: H={hidden} "
-            f"needs {smem} bytes (limit {build.MAX_SMEM}); H <= 137 is supported"
-        )
-    return lib
+    """The library and the kind of kernel for width H; raises where that
+    kernel cannot take H."""
+    lib = build.load("gru", SIGNATURES)
+    kind = kernel_kind(hidden)
+    if kind == KIND_GENERIC:
+        smem = getattr(lib, smem_fn)(hidden)
+        if smem > build.MAX_SMEM:
+            raise NotImplementedError(
+                f"the generic gru_sequence CUDA kernel keeps Wh (H x 3H, f32) in "
+                f"shared memory: H={hidden} needs {smem} bytes of the "
+                f"{build.MAX_SMEM} a block may use"
+            )
+    return lib, kind
 
 
 def _mask_f32(mask, dev):
     return None if mask is None else mask.to(dev, torch.float32).contiguous()
+
+
+def _dense(t):
+    """f32, contiguous and 16-byte aligned (the kernels read float4)."""
+    t = t.float().contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _ptr(t):
@@ -168,13 +209,12 @@ def _ptr(t):
 
 
 def _kernel(xs, wx, wh, b, mask, reverse, save: bool):
-    _check_shapes(xs, wx, wh, b)
     batch, t_len, d_in = xs.shape
     hidden = wh.shape[0]
-    lib = _load("sstts_gru_smem_bytes", hidden)
+    lib, kind = _load("sstts_gru_smem_bytes", hidden)
     dev = xs.device
     f32 = dict(device=dev, dtype=torch.float32)
-    xs_c, wx_c, wh_c, b_c = (a.float().contiguous() for a in (xs, wx, wh, b))
+    xs_c, wx_c, wh_c, b_c = (_dense(a) for a in (xs, wx, wh, b))
     m_c = _mask_f32(mask, dev)
     gx = torch.empty(batch, t_len, 3 * hidden, **f32)
     out = torch.empty(batch, t_len, hidden, **f32)
@@ -183,7 +223,7 @@ def _kernel(xs, wx, wh, b, mask, reverse, save: bool):
     rc = lib.sstts_gru_sequence(
         xs_c.data_ptr(), wx_c.data_ptr(), wh_c.data_ptr(), b_c.data_ptr(),
         _ptr(m_c), gx.data_ptr(), out.data_ptr(), _ptr(gates), _ptr(hprev),
-        batch, t_len, d_in, hidden, int(bool(reverse)),
+        batch, t_len, d_in, hidden, int(bool(reverse)), kind,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "gru_sequence")
@@ -202,11 +242,12 @@ def gru_sequence_backward(
     """The backward recurrence: (dgx, dgh), each (B, T, 3H) f32.  CPU
     tensors run `gru_sequence_backward_plain`; CUDA tensors launch the
     kernel (counted in `gru_sequence_backward.launches`)."""
+    batch, t_len, hidden = dout.shape
+    _check_mask(mask, (batch, t_len), "gru_sequence_backward")
     if dout.device.type == "cpu":
         return gru_sequence_backward_plain(dout, gates, hprev, wh, mask, reverse)
     if dout.device.type != "cuda":
         raise NotImplementedError(f"gru_sequence_backward on {dout.device.type}")
-    batch, t_len, hidden = dout.shape
     if tuple(gates.shape) != (batch, t_len, 4 * hidden) or tuple(hprev.shape) != (
         batch, t_len, hidden
     ) or tuple(wh.shape) != (hidden, 3 * hidden):
@@ -214,18 +255,16 @@ def gru_sequence_backward(
             f"gru_sequence_backward: shapes dout {tuple(dout.shape)}, gates "
             f"{tuple(gates.shape)}, hprev {tuple(hprev.shape)}, wh {tuple(wh.shape)}"
         )
-    lib = _load("sstts_gru_bwd_smem_bytes", hidden)
+    lib, kind = _load("sstts_gru_bwd_smem_bytes", hidden)
     dev = dout.device
-    dout_c, gates_c, hprev_c, wh_c = (
-        a.float().contiguous() for a in (dout, gates, hprev, wh)
-    )
+    dout_c, gates_c, hprev_c, wh_c = (_dense(a) for a in (dout, gates, hprev, wh))
     m_c = _mask_f32(mask, dev)
     dgx = torch.empty(batch, t_len, 3 * hidden, device=dev, dtype=torch.float32)
     dgh = torch.empty_like(dgx)
     rc = lib.sstts_gru_sequence_backward(
         dout_c.data_ptr(), gates_c.data_ptr(), hprev_c.data_ptr(),
         wh_c.data_ptr(), _ptr(m_c), dgx.data_ptr(), dgh.data_ptr(),
-        batch, t_len, hidden, int(bool(reverse)),
+        batch, t_len, hidden, int(bool(reverse)), kind,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "gru_sequence_backward")
@@ -237,6 +276,7 @@ gru_sequence_backward.launches = 0
 
 
 def _forward(xs, wx, wh, b, mask, reverse, save: bool):
+    _check_shapes(xs, wx, wh, b, mask)
     if xs.device.type == "cpu":
         if not save:
             return gru_sequence_plain(xs, wx, wh, b, mask, reverse), None, None

@@ -1,1 +1,34 @@
-"""Measurement tools that run on the card."""
+"""Measurement tools that run on the card, and what they share."""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+
+
+def time_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """Median over `reps` of the mean time of `iters` back-to-back calls of
+    `fn`, in ms from CUDA events, after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return statistics.median(times)
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()

@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import statistics
 import subprocess
 import tempfile
 from pathlib import Path
@@ -25,6 +24,7 @@ import torch
 from sstts_torch.dsp.gl_fused import _GlArgs
 from sstts_torch.dsp.reproject import band_plan, padded_wss2d
 from sstts_torch.ops import build
+from sstts_torch.tools import card_line, time_ms
 
 MASKS = {
     0: "full",
@@ -35,22 +35,6 @@ MASKS = {
     5: "GEMM only",
     3: "epilogue only",
 }
-
-
-def _time_ms(fn, iters: int = 20, reps: int = 5) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / iters)
-    return statistics.median(times)
 
 
 def main() -> None:
@@ -99,11 +83,8 @@ def main() -> None:
                 if rc:
                     raise RuntimeError(f"gl_semi (mask {m}): CUDA error {rc}")
 
-            res[name] = _time_ms(launch)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
+            res[name] = time_ms(launch)
+    card = card_line()
     print(json.dumps({"gl_semi_phase_ms": res, "shape": [Bt, T, wp, 2 * hp],
                       "card": card}))
 

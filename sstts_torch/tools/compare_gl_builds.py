@@ -30,24 +30,9 @@ import torch
 from sstts_torch.dsp.gl_fused import _GlArgs, _GlFusedArgs
 from sstts_torch.dsp.reproject import band_plan, padded_wss2d
 from sstts_torch.ops import build
+from sstts_torch.tools import card_line, time_ms
 
 KERNELS = {"gl_semi": "sstts_gl_semi", "gl_fused": "sstts_gl_fused"}
-
-
-def _time_ms(fn, iters: int = 20, reps: int = 5) -> float:
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b) / iters)
-    return statistics.median(times)
 
 
 def _build(dirs, tmp):
@@ -141,23 +126,20 @@ def main() -> None:
             torch.cuda.synchronize()
             launches[(tag, case)], outs[(tag, case)] = launch, out.clone()
         for launch in launches.values():
-            _time_ms(launch)
+            time_ms(launch)
         res = {"ptxas": ptxas}
         for name in ("gl_semi", "gl_semi_momentum", "gl_fused"):
             times = {"base": [], "new": []}
             for _ in range(5):
                 for tag in ("base", "new", "new", "base"):
-                    times[tag].append(_time_ms(launches[(tag, name)]))
+                    times[tag].append(time_ms(launches[(tag, name)]))
             base, new = statistics.mean(times["base"]), statistics.mean(times["new"])
             res[name] = {
                 "outputs_equal": bool(torch.equal(outs[("base", name)], outs[("new", name)])),
                 "base_ms": times["base"], "new_ms": times["new"],
                 "base_mean_ms": base, "new_mean_ms": new, "change": new / base - 1.0,
             }
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
+    card = card_line()
     print(json.dumps({"compare_gl_builds": res, "shape": [Bt, T, wp, 2 * hp],
                       "card": card}))
 

@@ -1,0 +1,82 @@
+"""Repeated wall times of the synthesis and training paths of one tree.
+
+    cd TREE && python3 PATH/TO/sstts_torch/tools/path_walls.py [--batches 12] [--steps 8]
+
+Run as a script from the root of the tree to be measured (this one, or
+another checkout unpacked beside it): it imports `chip_smoke` and
+`sstts_torch` from the current directory, so one copy of this file times
+two trees in turns on one card.  It drives `chip_smoke.py`'s synthesis
+workload (`Synthesizer.synthesize_batch`, b=32, 800 frames, GL-60, PCM16)
+`--batches` times after two warm-up batches, and its training workload
+(b=32 in the 515-frame bucket) `--steps` times after one warm-up step, and
+prints one JSON line with every reading, the medians and the card.  A
+single reading of either moves by more than 10% with the host; compare
+medians.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import statistics
+import sys
+import time
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batches", type=int, default=12)
+    ap.add_argument("--steps", type=int, default=8)
+    args = ap.parse_args()
+
+    # The tree under measurement is the current directory, not this file's.
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    import chip_smoke
+    from sstts_torch import train as tr
+    from sstts_torch.config import Config
+    from sstts_torch.model.tacotron import init_state_dict
+    from sstts_torch.synthesize import Synthesizer
+
+    if not torch.cuda.is_available():
+        raise SystemExit("path_walls: no CUDA device")
+    cfg = chip_smoke.bench_config()
+    texts = ["the quick brown fox jumps over the lazy dog " * 2] * 32
+    synth = Synthesizer(cfg, init_state_dict(cfg.arch, cfg.dataset, seed=0), seed=0)
+    walls = []
+    for i in range(args.batches + 2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synth.synthesize_batch(texts)
+        if i >= 2:
+            walls.append(time.perf_counter() - t0)
+
+    tcfg = Config()
+    tcfg = tcfg.replace(
+        dataset=dataclasses.replace(tcfg.dataset, dataset="synthetic"),
+        training=dataclasses.replace(tcfg.training, batch_size=32),
+    )
+    batch = chip_smoke.fixed_batch(tcfg, 32, 1, (10, 16))
+    state = tr.create_state(tcfg, seed=0)
+    step = tr.make_train_step(tcfg)
+    steps = []
+    for i in range(args.steps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        if i >= 1:
+            steps.append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps({
+        "tree": os.getcwd(),
+        "batch_wall_s": {"median": statistics.median(walls), "all": walls},
+        "train_step_ms": {"median": statistics.median(steps), "all": steps},
+        "card": chip_smoke.card_line(),
+    }))
+
+
+if __name__ == "__main__":
+    main()

@@ -17,6 +17,7 @@ from sstts.model.rnn import BiGRU as JaxBiGRU
 from sstts.model.tacotron import Tacotron as JaxTacotron
 from sstts.ops.pallas_gru import gru_sequence as jax_gru_pallas
 from sstts.ops.pallas_gru import gru_sequence_xla
+from sstts_torch.ops import gru as gru_ops
 from sstts_torch.ops.gru import gru_sequence
 
 ATOL = 2e-5
@@ -53,6 +54,88 @@ def test_gru_sequence_matches_pallas_and_scan(gru_inputs, reverse, masked):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref_scan), atol=ATOL)
     if masked:  # padded steps emit exact zeros
         assert np.all(got.numpy()[mask == 0] == 0.0)
+
+
+@pytest.mark.parametrize(
+    "t_len,lengths",
+    [(1, [1, 1, 1]), (1, [1, 0, 1]), (7, [7, 0, 4])],
+    ids=["one-step", "one-step-empty-row", "empty-row"],
+)
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_gru_sequence_one_step_and_empty_row(gru_inputs, t_len, lengths, reverse):
+    """A single step, and a row that is all padding: its outputs are exact
+    zeros and its carry never leaves 0."""
+    xs, wx, wh, b, _ = gru_inputs
+    xs = xs[:, :t_len]
+    mask = (np.arange(t_len)[None, :] < np.array(lengths)[:, None]).astype(np.float32)
+    got = gru_sequence(t(xs), t(wx), t(wh), t(b), t(mask), reverse).numpy()
+    ref_pallas = jax_gru_pallas(
+        jnp.asarray(xs), wx, wh, b, jnp.asarray(mask), reverse=reverse, interpret=True
+    )
+    ref_scan = gru_sequence_xla(jnp.asarray(xs), wx, wh, b, jnp.asarray(mask), reverse=reverse)
+    assert got.shape == (3, t_len, 5)
+    np.testing.assert_allclose(got, np.asarray(ref_pallas), atol=ATOL)
+    np.testing.assert_allclose(got, np.asarray(ref_scan), atol=ATOL)
+    assert np.all(got[mask == 0] == 0.0)
+
+
+def test_gru_sequence_rejects_a_mask_that_is_not_batch_by_time(gru_inputs):
+    """The kernels index the mask as (B, T); any other shape is refused
+    before a device is chosen, under grad as well."""
+    xs, wx, wh, b, mask = (t(a) for a in gru_inputs)
+    for bad in (mask[:, :-1], mask[:2], mask[..., None], mask.T):
+        with pytest.raises(ValueError, match=r"mask .* must be \(B, T\)"):
+            gru_sequence(xs, wx, wh, b, bad)
+        with pytest.raises(ValueError, match=r"mask .* must be \(B, T\)"):
+            gru_sequence(xs.clone().requires_grad_(), wx, wh, b, bad)
+    gates = torch.zeros(3, 11, 20)
+    with pytest.raises(ValueError, match=r"mask .* must be \(B, T\)"):
+        gru_ops.gru_sequence_backward(torch.zeros(3, 11, 5), gates, xs[..., :5], wh, mask[:2])
+    with pytest.raises(ValueError, match="do not agree"):
+        gru_sequence(xs, wx[:, :-1], wh, b, mask)
+
+
+def test_kernel_kind_follows_the_hidden_width():
+    """H = 128 takes the register-resident kernels, every other width the
+    generic ones; the C entry points' signatures carry the kind."""
+    assert gru_ops.kernel_kind(128) == gru_ops.KIND_H128
+    assert {gru_ops.kernel_kind(h) for h in (1, 16, 127, 129, 137, 256)} == {
+        gru_ops.KIND_GENERIC
+    }
+    assert gru_ops.KIND_GENERIC != gru_ops.KIND_H128
+    for fn in ("sstts_gru_sequence", "sstts_gru_sequence_backward", "sstts_gru_recurrence"):
+        argtypes, _ = gru_ops.SIGNATURES[fn]
+        assert argtypes[-2] is gru_ops._I and argtypes[-1] is gru_ops._P
+
+
+def test_ptxas_report_reads_the_log_kept_beside_the_library(tmp_path, monkeypatch):
+    """`build.ptxas_report` parses what `nvcc -Xptxas -v` printed when the
+    library was built (the log is written next to it by `build_all`)."""
+    from sstts_torch.ops import build
+
+    assert "-Xptxas" in build.NVCC_FLAGS and "-v" in build.NVCC_FLAGS
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    lib = build.library_path("gru")
+    lib.write_bytes(b"")
+    lib.with_suffix(".log").write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_ZN3abc12gru_fwd_h128ILb1EEEvPKf' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN3abc12gru_fwd_h128ILb1EEEvPKf\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 124 registers, used 1 barriers, 20096 bytes smem\n"
+        "ptxas info    : Compiling entry function '_Z15gru_bwd_generic' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z15gru_bwd_generic\n"
+        "    64 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, 400 bytes cmem[0]\n"
+    )
+    assert build.ptxas_report("gru") == {
+        "_ZN3abc12gru_fwd_h128ILb1EEEvPKf": {
+            "registers": 124, "stack_bytes": 0, "spill_store_bytes": 0,
+            "spill_load_bytes": 0},
+        "_Z15gru_bwd_generic": {
+            "registers": 40, "stack_bytes": 64, "spill_store_bytes": 8,
+            "spill_load_bytes": 12},
+    }
 
 
 @pytest.fixture(scope="module")

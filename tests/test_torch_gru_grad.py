@@ -63,6 +63,29 @@ def test_gru_gradient_matches_jax_vjp(inputs, masked, reverse):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=ATOL, rtol=RTOL, err_msg=name)
 
 
+@pytest.mark.parametrize(
+    "t_len,lengths,reverse",
+    [(1, [1, 1, 1], False), (1, [1, 0, 1], True), (7, [7, 0, 4], False), (7, [7, 0, 4], True)],
+    ids=["one-step", "one-step-empty-row", "empty-row-fwd", "empty-row-rev"],
+)
+def test_gru_gradient_one_step_and_empty_row(inputs, t_len, lengths, reverse):
+    """A single step, and a row that is all padding: that row's dxs is zero
+    and it adds nothing to the weight gradients."""
+    x = dict(inputs)
+    x["xs"], x["g"] = x["xs"][:, :t_len], x["g"][:, :t_len]
+    x["mask"] = (np.arange(t_len)[None, :] < np.array(lengths)[:, None]).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda xs, wx, wh, b: gru_sequence_ad(
+            xs, wx, wh, b, jnp.asarray(x["mask"]), reverse, True),
+        *(jnp.asarray(x[k]) for k in ("xs", "wx", "wh", "b")),
+    )
+    ref = vjp(jnp.asarray(x["g"]))
+    got = _port_grads(x, True, reverse)
+    for name, a, r in zip(("dxs", "dwx", "dwh", "db"), got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=ATOL, rtol=RTOL, err_msg=name)
+    assert torch.all(got[0][torch.as_tensor(x["mask"]) == 0] == 0.0)
+
+
 @pytest.mark.parametrize("masked,reverse", _CASES[1:3], ids=["ragged-fwd", "ragged-rev"])
 def test_gru_gradient_matches_autograd_of_plain_forward(inputs, masked, reverse):
     got = _port_grads(inputs, masked, reverse)

@@ -46,7 +46,8 @@ def test_port_imports_no_jax_and_no_sstts():
         "sstts_torch.train", "sstts_torch.checkpoint", "sstts_torch.ops.teacher",
         "sstts_torch.model.losses", "sstts_torch.data.pipeline",
         "sstts_torch.dsp.reproject", "sstts_torch.dsp.ops", "sstts_torch.data.wav",
-        "sstts_torch.tools.compare_gl_builds",
+        "sstts_torch.tools.compare_gl_builds", "sstts_torch.tools.ablate_gru",
+        "sstts_torch.tools.sm_microbench", "sstts_torch.tools.path_walls",
     ):
         assert expected in res["modules"]
 
