@@ -15,6 +15,10 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    bound, from its shapes; for the GRU kernels also what ptxas reported
    (registers, no spill in the H = 128 kernels), both kinds of kernel
    (H = 128 and the generic one at H = 16), and their stages' times apart;
+   for the two Griffin-Lim GEMM kernels also batches of 3, 2 and 1
+   utterances (clusters of two with a member left over) and 515, 37 and 5
+   frames, the momentum variant's time, the host's time per launch, ptxas's
+   registers (no spill) and the time before their redesign;
 3. the synthesis path: `Synthesizer.synthesize_batch` at the full default
    `Config()` from a seeded random init, bench.py's workload (32 x an 88
    character text, 160 decoder steps = 800 frames, stop threshold 1.1,
@@ -136,22 +140,28 @@ def gru_inputs(dev, B, T, D, H, seed, empty_row=False):
     return xs, wx, wh, b, {"ragged": ragged, "full": torch.ones(B, T, device=dev)}, dout
 
 
-def gru_ptxas(match: str) -> dict:
-    """What ptxas reported for the kernels of csrc/gru.cu whose name holds
-    `match`; the H = 128 kernels must not spill or use local memory."""
+def kernel_ptxas(source: str, match: str, no_spill: str) -> dict:
+    """What ptxas reported for the kernels of csrc/<source>.cu whose name
+    holds `match`; those whose name holds `no_spill` must not spill or use
+    local memory."""
     from sstts_torch.ops import build
 
-    found = {k: v for k, v in build.ptxas_report("gru").items() if match in k}
+    found = {k: v for k, v in build.ptxas_report(source).items() if match in k}
     if not found:
-        raise AssertionError(f"ptxas reported no kernel named *{match}*")
+        raise AssertionError(f"ptxas reported no kernel named *{match}* in {source}.cu")
     for name, info in found.items():
         log(f"  ptxas {name}: {info['registers']} registers, {info['stack_bytes']} bytes "
             f"stack, {info['spill_store_bytes']}/{info['spill_load_bytes']} bytes spill "
             f"stores/loads")
-        if "h128" in name and (info["stack_bytes"] or info["spill_store_bytes"]
-                               or info["spill_load_bytes"]):
+        if no_spill in name and (info["stack_bytes"] or info["spill_store_bytes"]
+                                 or info["spill_load_bytes"]):
             raise AssertionError(f"{name} uses local memory: {info}")
     return found
+
+
+def gru_ptxas(match: str) -> dict:
+    """The kernels of csrc/gru.cu; the H = 128 ones must not spill."""
+    return kernel_ptxas("gru", match, "h128")
 
 
 #: (B, T, D, H) beside the main shape: one step, an odd length (both the
@@ -507,73 +517,147 @@ def check_decoder(dev):
     }
 
 
-def check_gl(dev):
+#: B2's and B5's times per launch before their redesign on TMA and wgmma
+#: (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the new ones.
+GL_MS_PREV = {"fused_reproject_analyze": 1.9111, "fused_reproject_analyze_momentum": 2.0116,
+              "fused_gl_iteration": 3.9469}
+
+#: (Bt, T) beside the main shape (32, 800), at the same widths: a batch the
+#: cluster of two does not divide, a single utterance, a length that is no
+#: multiple of 64, one below 64 and one no longer than the band (T <= 2 D).
+GL_SIDE_SHAPES = [(3, 515), (1, 800), (3, 37), (2, 5)]
+
+
+def gl_inputs(dev, Bt, T, seed):
+    """Seeded inputs of B2 and B5 on the card at the default config's
+    widths (wp = 1152 lanes, 2 hp = 2048), bf16."""
     import torch
 
     from sstts_torch.config import Config
-    from sstts_torch.dsp.gl_fused import reproject_analyze, reproject_analyze_plain
     from sstts_torch.dsp.reproject import band_plan, padded_wss2d
 
     ds = Config().dataset
-    Bt, T = 32, 800
+    wp, hp = 1152, 1024
     length = (T - 1) * ds.hop_len
     plan = band_plan(ds.n_fft, ds.hop_len, ds.win_len, T, length)
-    w_len, d_max = plan["w_len"], plan["d_max"]
-    wp, hp = 1152, 1024
-    g = torch.Generator().manual_seed(5)
+    w_len = plan["w_len"]
+    g = torch.Generator().manual_seed(seed)
+    bf = torch.bfloat16
     frames = torch.randn(Bt, T, wp, generator=g)
     frames[..., w_len:] = 0.0  # GEMM1's zero lanes
-    frames = frames.to(dev, torch.bfloat16)
-    mag2 = torch.rand(Bt, T, 2 * hp, generator=g).to(dev, torch.bfloat16)
-    w_fwd = (torch.randn(wp, 2 * hp, generator=g) / 32).to(dev, torch.bfloat16)
-    prev = torch.randn(Bt, T, 2 * hp, generator=g).to(dev, torch.bfloat16)
-    wss2d = padded_wss2d(plan, wp, dev)
-    args = (frames, mag2, w_fwd, wss2d, w_len, ds.hop_len, d_max)
+    w_inv = torch.randn(2 * hp, wp, generator=g) / 32
+    w_inv[:, w_len:] = 0.0  # the loop's zero-padded synthesis columns
+    return {
+        "ds": ds, "plan": plan, "length": length, "wp": wp, "hp": hp,
+        "frames": frames.to(dev, bf),
+        "q": torch.randn(Bt, T, 2 * hp, generator=g).to(dev, bf),
+        "mag2": torch.rand(Bt, T, 2 * hp, generator=g).to(dev, bf),
+        "w_inv": w_inv.to(dev, bf),
+        "w_fwd": (torch.randn(wp, 2 * hp, generator=g) / 32).to(dev, bf),
+        "prev": torch.randn(Bt, T, 2 * hp, generator=g).to(dev, bf),
+        "wss2d": padded_wss2d(plan, wp, dev),
+    }
+
+
+def host_us_per_launch(fn, n: int = 200) -> float:
+    """Host time of one call of `fn` (a kernel wrapper: allocation, the
+    tensor maps, the launch), the card kept busy but never waited for."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
+def check_gl(dev):
+    import torch
+
+    from sstts_torch.dsp.gl_fused import (
+        fused_reproject_analyze, reproject_analyze, reproject_analyze_plain,
+    )
+    from sstts_torch.dsp.gl_tiles import k_major
+
     checks = []
     # bf16 out: the kernel and the plain version round at the same points
     # and differ only in f32 summation order, which flips an output's last
     # bf16 bit now and then: one bf16 step at |q| <= 1 (2^-7) absolute, and
     # under 1% of the elements may differ at all.
     tol = 2.0**-7
-    for m in (0.0, 0.99):
-        pv = prev if m else None
-        got = reproject_analyze(*args, pv, m)
-        ref = reproject_analyze_plain(*args, pv, m)
-        torch.cuda.synchronize()
-        for name, a, b in (("q", got[0], ref[0]), ("s", got[1], ref[1])):
-            if a is None:
-                continue
-            err = max_err(a, b)
-            frac = float((a != b).float().mean())
-            scale = float(b.float().abs().max())
-            case = f"{'momentum' if m else 'classic'}-{name}"
-            # s is the raw spectrum (|s| up to `scale`): the same one-step
-            # rule relative to its size.
-            t = tol * max(1.0, scale)
-            log(f"  B2 fused_reproject_analyze {case}: max_abs_err {err:.3e} "
-                f"differing {frac:.2e} (tol {t:.3g}, < 1%)")
-            if not (err <= t and frac < 1e-2):
-                raise AssertionError(f"fused_reproject_analyze {case}: {err}, {frac}")
-            checks.append({"case": case, "max_abs_err": err, "tol": t,
-                           "differing": frac})
-    ms = cuda_ms(lambda: reproject_analyze(*args, None, 0.0))
+
+    def compare(Bt, T, seed):
+        x = gl_inputs(dev, Bt, T, seed)
+        args = (x["frames"], x["mag2"], x["w_fwd"], x["wss2d"], x["plan"]["w_len"],
+                x["ds"].hop_len, x["plan"]["d_max"])
+        for m in (0.0, 0.99):
+            pv = x["prev"] if m else None
+            got = reproject_analyze(*args, pv, m)
+            ref = reproject_analyze_plain(*args, pv, m)
+            torch.cuda.synchronize()
+            for name, a, b in (("q", got[0], ref[0]), ("s", got[1], ref[1])):
+                if a is None:
+                    continue
+                err = max_err(a, b)
+                frac = float((a != b).float().mean())
+                scale = float(b.float().abs().max())
+                case = f"{'momentum' if m else 'classic'}-{name}"
+                if (Bt, T) != (32, 800):
+                    case += f"-{Bt}x{T}"
+                # s is the raw spectrum (|s| up to `scale`): the same one-step
+                # rule relative to its size.
+                t = tol * max(1.0, scale)
+                log(f"  B2 fused_reproject_analyze {case}: max_abs_err {err:.3e} "
+                    f"differing {frac:.2e} (tol {t:.3g}, < 1%)")
+                if not (err <= t and frac < 1e-2 and torch.isfinite(a.float()).all()):
+                    raise AssertionError(f"fused_reproject_analyze {case}: {err}, {frac}")
+                checks.append({"case": case, "max_abs_err": err, "tol": t,
+                               "differing": frac})
+        return x, args
+
+    x, args = compare(32, 800, 5)
+    for i, (Bt, T) in enumerate(GL_SIDE_SHAPES):
+        compare(Bt, T, 50 + i)
+    ptxas = kernel_ptxas("gl_semi", "gl_semi_kernel", "gl_semi_kernel")
+    prev = x["prev"]
+    w_fwd_t = k_major(x["w_fwd"])  # the loop makes it once per call
+    ms = cuda_ms(lambda: reproject_analyze(*args, None, 0.0, w_fwd_t))
     plain = cuda_ms(lambda: reproject_analyze_plain(*args, None, 0.0), 2, 3)
-    ms_m = cuda_ms(lambda: reproject_analyze(*args, prev, 0.99))
+    ms_m = cuda_ms(lambda: reproject_analyze(*args, prev, 0.99, w_fwd_t))
+    ms_t = cuda_ms(lambda: reproject_analyze(*args, None, 0.0))
+    host_us = host_us_per_launch(lambda: reproject_analyze(*args, None, 0.0, w_fwd_t))
+    ds = x["ds"]
+    host_us_whole = host_us_per_launch(lambda: fused_reproject_analyze(
+        x["frames"], x["mag2"], x["w_fwd"], ds.n_fft, ds.hop_len, ds.win_len,
+        x["length"], wss2d=x["wss2d"], w_fwd_t=w_fwd_t))
+    Bt, T, wp, hp, w_len = 32, 800, x["wp"], x["hp"], x["plan"]["w_len"]
     # What the function needs: lanes from w_len on are zero in the frames,
     # w_fwd's rows and the envelope, so neither read nor multiplied.
     rows = Bt * T
-    n_bytes = (rows * w_len * 2 + nbytes(mag2, w_fwd[:w_len], wss2d[:, :w_len])
+    n_bytes = (rows * w_len * 2
+               + nbytes(x["mag2"], x["w_fwd"][:w_len], x["wss2d"][:, :w_len])
                + rows * 2 * hp * 2)
     n_ops = 2 * rows * w_len * 2 * hp
     bms, by = bound_ms(n_bytes, n_ops, "bf16")
+    log(f"  B2 times: {ms:.4f} ms (before the redesign "
+        f"{GL_MS_PREV['fused_reproject_analyze']}), momentum {ms_m:.4f} "
+        f"({GL_MS_PREV['fused_reproject_analyze_momentum']}), transposing w_fwd "
+        f"inside the call {ms_t:.4f}; bound {bms:.4f}: {bms / ms:.1%} of it; host "
+        f"{host_us:.1f} us a launch, {host_us_whole:.1f} us with the edge repair")
     return {
         "name": "fused_reproject_analyze", "route": "cuda",
         "source": "sstts_torch/csrc/gl_semi.cu",
         "replaces": "sstts/dsp/gl_fused.py:227",
         "max_abs_err": checks[0]["max_abs_err"],
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-        "library_ms": None, "ms_momentum": ms_m, "shape": [Bt, T, wp, 2 * hp],
-        "checks": checks,
+        "library_ms": None, "ms_momentum": ms_m, "ms_with_transpose": ms_t,
+        "ms_prev": GL_MS_PREV["fused_reproject_analyze"],
+        "ms_momentum_prev": GL_MS_PREV["fused_reproject_analyze_momentum"],
+        "host_us_per_launch": host_us, "host_us_with_edge_repair": host_us_whole,
+        "ptxas": ptxas, "shape": [Bt, T, wp, 2 * hp], "checks": checks,
     }
 
 
@@ -646,35 +730,9 @@ def check_gl_fused(dev):
     (the same torch code on both sides)."""
     import torch
 
-    from sstts_torch.config import Config
     from sstts_torch.dsp import gl_fused as gl
-    from sstts_torch.dsp.reproject import band_plan, padded_wss2d
+    from sstts_torch.dsp.gl_tiles import k_major
 
-    ds = Config().dataset
-    Bt, T, wp, hp = 32, 800, 1152, 1024
-    length = (T - 1) * ds.hop_len
-    plan = band_plan(ds.n_fft, ds.hop_len, ds.win_len, T, length)
-    w_len, d_max, hop = plan["w_len"], plan["d_max"], ds.hop_len
-    g = torch.Generator().manual_seed(7)
-    bf = torch.bfloat16
-    q = torch.randn(Bt, T, 2 * hp, generator=g).to(dev, bf)
-    mag2 = torch.rand(Bt, T, 2 * hp, generator=g).to(dev, bf)
-    w_inv = torch.randn(2 * hp, wp, generator=g) / 32
-    w_inv[:, w_len:] = 0.0  # the loop's zero-padded synthesis columns
-    w_inv = w_inv.to(dev, bf)
-    w_fwd = (torch.randn(wp, 2 * hp, generator=g) / 32).to(dev, bf)
-    wss2d = padded_wss2d(plan, wp, dev)
-    core = (q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max)
-    got = gl.gl_iteration(*core)
-    ref = gl.gl_iteration_plain(*core)
-    whole = gl.fused_gl_iteration(q, mag2, w_inv, w_fwd, ds.n_fft, hop, ds.win_len,
-                                  length, wss2d)
-    whole_ref, _ = gl._patch_edges(
-        ref.clone(), None,
-        lambda lo, hi: gl._edge_frames(q, w_inv, w_len, hop, d_max, lo, hi) * wss2d[lo:hi],
-        mag2, w_fwd, plan, T, hp,
-    )
-    torch.cuda.synchronize()
     # bf16 out at |q| <= 1.  GEMM1's f32 sums run in another order than the
     # plain version's, so a reprojected frame now and then rounds to the
     # neighbouring bf16 value before GEMM2, and the renorm turns that into
@@ -682,26 +740,60 @@ def check_gl_fused(dev):
     # relative L2 error (2^-7, one bf16 step) and the share of elements
     # that differ at all (< 5%); the largest difference is reported.
     checks = []
-    for case, a, b in (("kernel", got, ref), ("with-edge-repair", whole, whole_ref)):
-        err = max_err(a, b)
-        rel = float((a.float() - b.float()).norm() / b.float().norm())
-        frac = float((a != b).float().mean())
-        log(f"  B5 fused_gl_iteration {case}: rel L2 {rel:.3e} differing {frac:.2e} "
-            f"max_abs_err {err:.3e} (tol rel L2 {2.0**-7:.3g}, < 5%)")
-        if not (rel <= 2.0**-7 and frac < 5e-2):
-            raise AssertionError(f"fused_gl_iteration {case}: {rel}, {frac}, {err}")
-        checks.append({"case": case, "max_abs_err": err, "rel_l2": rel,
-                       "tol_rel_l2": 2.0**-7, "differing": frac})
-    ms = cuda_ms(lambda: gl.gl_iteration(*core), 3, 5)
+
+    def compare(Bt, T, seed):
+        x = gl_inputs(dev, Bt, T, seed)
+        ds, plan, hp = x["ds"], x["plan"], x["hp"]
+        w_len, d_max, hop = plan["w_len"], plan["d_max"], ds.hop_len
+        q, mag2, w_inv, w_fwd, wss2d = (x[k] for k in ("q", "mag2", "w_inv", "w_fwd",
+                                                       "wss2d"))
+        core = (q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max)
+        whole_args = (q, mag2, w_inv, w_fwd, ds.n_fft, hop, ds.win_len, x["length"], wss2d)
+        got = gl.gl_iteration(*core)
+        ref = gl.gl_iteration_plain(*core)
+        whole = gl.fused_gl_iteration(*whole_args)
+        whole_ref, _ = gl._patch_edges(
+            ref.clone(), None,
+            lambda lo, hi: gl._edge_frames(q, w_inv, w_len, hop, d_max, lo, hi) * wss2d[lo:hi],
+            mag2, w_fwd, plan, T, hp,
+        )
+        torch.cuda.synchronize()
+        for case, a, b in (("kernel", got, ref), ("with-edge-repair", whole, whole_ref)):
+            if (Bt, T) != (32, 800):
+                case += f"-{Bt}x{T}"
+            err = max_err(a, b)
+            rel = float((a.float() - b.float()).norm() / b.float().norm())
+            frac = float((a != b).float().mean())
+            log(f"  B5 fused_gl_iteration {case}: rel L2 {rel:.3e} differing {frac:.2e} "
+                f"max_abs_err {err:.3e} (tol rel L2 {2.0**-7:.3g}, < 5%)")
+            if not (rel <= 2.0**-7 and frac < 5e-2):
+                raise AssertionError(f"fused_gl_iteration {case}: {rel}, {frac}, {err}")
+            checks.append({"case": case, "max_abs_err": err, "rel_l2": rel,
+                           "tol_rel_l2": 2.0**-7, "differing": frac})
+        return x, core, whole_args
+
+    x, core, whole_args = compare(32, 800, 7)
+    for i, (Bt, T) in enumerate(GL_SIDE_SHAPES):
+        compare(Bt, T, 70 + i)
+    ptxas = kernel_ptxas("gl_fused", "gl_fused_kernel", "gl_fused_kernel")
+    kt = (k_major(x["w_inv"]), k_major(x["w_fwd"]))  # the loop makes them once
+    ms = cuda_ms(lambda: gl.gl_iteration(*core, *kt), 3, 5)
     plain = cuda_ms(lambda: gl.gl_iteration_plain(*core), 1, 3)
-    ms_whole = cuda_ms(lambda: gl.fused_gl_iteration(
-        q, mag2, w_inv, w_fwd, ds.n_fft, hop, ds.win_len, length, wss2d), 3, 5)
+    ms_whole = cuda_ms(lambda: gl.fused_gl_iteration(*whole_args, *kt), 3, 5)
+    host_us = host_us_per_launch(lambda: gl.gl_iteration(*core, *kt), 100)
+    host_us_whole = host_us_per_launch(
+        lambda: gl.fused_gl_iteration(*whole_args, *kt), 100)
+    Bt, T, wp, hp, w_len = 32, 800, x["wp"], x["hp"], x["plan"]["w_len"]
     # Both GEMMs need only the first w_len synthesis lanes (w_inv's columns,
     # w_fwd's rows and the envelope are zero beyond them).
     rows = Bt * T
-    n_bytes = (nbytes(q, mag2, w_inv[:, :w_len], w_fwd[:w_len], wss2d[:, :w_len])
-               + rows * 2 * hp * 2)
+    n_bytes = (nbytes(x["q"], x["mag2"], x["w_inv"][:, :w_len], x["w_fwd"][:w_len],
+                      x["wss2d"][:, :w_len]) + rows * 2 * hp * 2)
     bms, by = bound_ms(n_bytes, 2 * 2 * rows * w_len * 2 * hp, "bf16")
+    log(f"  B5 times: {ms:.4f} ms (before the redesign "
+        f"{GL_MS_PREV['fused_gl_iteration']}), with its edge repair {ms_whole:.4f}; "
+        f"bound {bms:.4f}: {bms / ms:.1%} of it; host {host_us:.1f} us a launch, "
+        f"{host_us_whole:.1f} us with the edge repair")
     return {
         "name": "fused_gl_iteration", "route": "cuda",
         "source": "sstts_torch/csrc/gl_fused.cu",
@@ -709,7 +801,9 @@ def check_gl_fused(dev):
         "max_abs_err": checks[0]["max_abs_err"],
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "library_ms": None, "ms_with_edge_repair": ms_whole,
-        "shape": [Bt, T, wp, 2 * hp], "checks": checks,
+        "ms_prev": GL_MS_PREV["fused_gl_iteration"],
+        "host_us_per_launch": host_us, "host_us_with_edge_repair": host_us_whole,
+        "ptxas": ptxas, "shape": [Bt, T, wp, 2 * hp], "checks": checks,
     }
 
 

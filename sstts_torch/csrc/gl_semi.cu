@@ -19,21 +19,24 @@
 // K = w_len = 1101 of wp = 1152 lanes, N = 2048) the GEMM needs
 // 2*25600*1101*2048 = 115.4 GFLOP, 0.1167 ms at 989 TFLOP/s bf16, against
 // ~0.08 ms for its ~274 MB of traffic at 3.35 TB/s; it runs 60 times per
-// batch at GL-60.
+// batch at GL-60.  At that rate one SM would take in 64 bytes of w_fwd a
+// clock, more than L2 can give 132 of them: the weights' way from L2, the
+// panel's build and the epilogue's loads are what a design has to hide, not
+// only the product.
 //
-// Design (simple first; wgmma, TMA and clusters are later work): grid (row
-// block of BM = 64 frames, utterance), 256 threads, 8 warps.  The block
-// builds its whole A panel from the bf16 frames in shared memory once (JAX
-// rounds at fr.astype(dtype)), so the shift-add costs one pass however many
-// output tiles follow; it then walks the bins in tiles of 64, each a GEMM of
-// the panel with both halves of w_fwd and the renorm (and the momentum
-// extrapolation) in the epilogue.  The three phases are gl_tail.cuh's,
-// shared with kernel B5 (gl_fused.cu).  PERF.md has the time of each phase
-// (sstts_torch/tools/ablate_gl_semi.py builds this file with SSTTS_ABLATE
-// set to drop phases).
+// Design: grid (row block of BM = 64 frames, utterance), clusters of 1, 2 or
+// 4 blocks along the utterances, 384 threads: two consumer warpgroups and a
+// producer.  The block is gl_tail.cuh's tail and nothing else: the panel
+// from rows of the bf16 frames (JAX rounds at fr.astype(dtype)) that pass
+// through shared memory once, GEMM2 on wgmma over a TMA ring of w_fwd that
+// the cluster shares by multicast, the renorm in registers.  The tensor map
+// of w_fwd is encoded on the host at every launch (microseconds).  PERF.md has the
+// time of each stage (sstts_torch/tools/ablate_gl_semi.py builds this file
+// with SSTTS_ABLATE set to skip stages).
 
 // Plain C interface (bound with ctypes); launch on the caller's stream,
-// return cudaGetLastError().
+// return cudaGetLastError() (or a negative code when a tensor map cannot be
+// encoded).
 
 #include "gl_tail.cuh"
 
@@ -43,13 +46,15 @@ extern "C" {
 struct GlArgs {
   const bf16* frames;  // (Bt, T, wp)
   const bf16* mag2;    // (Bt, T, 2 hp)
-  const bf16* w_fwd;   // (wp, 2 hp)
+  const bf16* w_fwd;   // (wp, 2 hp); not read (the kernel takes w_fwd_t)
   const float* wss2d;  // (T, wp), zero beyond w_len and outside the signal
   const bf16* prev;    // (Bt, T, 2 hp) or NULL (classic iteration)
   bf16* q_out;         // (Bt, T, 2 hp)
   bf16* s_out;         // (Bt, T, 2 hp) or NULL
   int Bt, T, wp, hp, w_len, hop, d_max;
   float momentum;
+  const bf16* w_fwd_t;  // (2 hp, wp): w_fwd transposed
+  int cluster;          // 1, 2 or 4 blocks a cluster; 0: the default
 };
 
 }  // extern "C"
@@ -58,34 +63,65 @@ namespace {
 
 // One instance for the classic iteration (prev NULL) and one with momentum.
 template <bool kMomentum>
-__global__ void __launch_bounds__(kThreads) gl_semi_kernel(const GlArgs p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  gl_tail<kMomentum>(p, smem_raw, p.frames + (size_t)blockIdx.y * p.T * p.wp, 0);
+__global__ void __launch_bounds__(kThreads)
+gl_semi_kernel(const GlArgs p, __grid_constant__ const CUtensorMap map_w) {
+  extern __shared__ unsigned char smem_raw[];
+  const TailSmem s = tail_smem(smem_raw, p.w_len);
+  if (threadIdx.x == 0) {
+    tail_init_barriers(s, sm90::cluster_nctarank());
+    sm90::fence_barrier_init();
+  }
+  sm90::cluster_sync();
+  const int t0 = blockIdx.x * BM;
+  const int bi = blockIdx.y;
+  if (threadIdx.x >= kConsumers) {
+    sm90::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumers)
+      // A member without an utterance reads the last one's frames.
+      tail_producer<bf16>(
+          p, s, p.frames + (size_t)min(bi, p.Bt - 1) * p.T * p.wp, 0, &map_w, t0);
+    sm90::cluster_sync();  // no member leaves while another may signal it
+  } else {
+    sm90::reg_alloc<kConsumerRegs>();
+    tail_build_panel<bf16>(p, s, t0);
+    tail_gemm_renorm<kMomentum>(p, s, t0, bi);
+    sm90::cluster_sync();
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-int sstts_gl_semi_smem_bytes(int wp) { return tail_smem_bytes(wp); }
+// Dynamic shared memory of a launch, or -1 when the rows of frames do not fit
+// in the ring's memory or d_max is beyond a group of rows (8).
+int sstts_gl_semi_smem_bytes(int w_len, int d_max) {
+  return f_rows_fit(w_len, d_max, 2) ? tail_smem_bytes(w_len) : -1;
+}
 
-// Requires wp % 64 == 0 and hp % 64 == 0 (the loop pads both to 128-lane
-// multiples) and sstts_gl_semi_smem_bytes(wp) <= 232448.
+// Requires wp % 64 == 0, hp % 128 == 0, 16-byte aligned tensors and
+// 0 <= sstts_gl_semi_smem_bytes(w_len, d_max) <= 232448.
 int sstts_gl_semi(const GlArgs* a, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const int smem = sstts_gl_semi_smem_bytes(a->wp);
-  void (*kernel)(const GlArgs) =
+  const int smem = tail_smem_bytes(a->w_len);
+  void (*kernel)(const GlArgs, const CUtensorMap) =
       a->prev ? gl_semi_kernel<true> : gl_semi_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((a->T + BM - 1) / BM, a->Bt);
-  kernel<<<grid, kThreads, smem, st>>>(*a);
-  return (int)cudaGetLastError();
+  static int smem_set[2] = {0, 0};
+  if (smem > smem_set[a->prev != nullptr]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set[a->prev != nullptr] = smem;
+  }
+  CUtensorMap map_w;
+  const int rc = encode_w_fwd_map(&map_w, a->w_fwd_t, a->hp, a->wp, a->w_len);
+  if (rc != 0) return rc < 0 ? rc : -1000 - rc;
+  const int cl = cluster_size(a->Bt, a->cluster);
+  dim3 grid((a->T + BM - 1) / BM, round_up(a->Bt, cl));
+  cudaError_t err = launch_clustered(kernel, grid, cl, smem, st, *a, map_w);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-const char* sstts_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
-}
+const char* sstts_error_string(int code) { return tail_error_string(code); }
 
 }  // extern "C"

@@ -23,6 +23,14 @@ through the shift-add.  `gl_iteration` is the kernel's own function (a CPU
 tensor runs `gl_iteration_plain`, a CUDA tensor launches
 `sstts_torch/csrc/gl_fused.cu` or raises); `fused_gl_iteration` adds the
 edge repair, rebuilding those rows from q (`_edge_frames`).
+
+Both kernels read their weight matrices K-major (`gl_tiles.k_major`: the
+transposed, contiguous copy, the layout of a wgmma operand a TMA load
+brings); the Griffin-Lim loop makes those copies once per call and passes
+them (`w_fwd_t`, `w_inv_t`), a lone call makes them itself.  B5's f32 frames
+pass through a scratch of one slab per SM that is kept between launches
+(`fused_scratch`).  `dsp/gl_tiles.py` holds the kernels' tile constants and
+refuses the shapes they do not take.
 """
 
 from __future__ import annotations
@@ -33,6 +41,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from sstts_torch.dsp import gl_tiles
 from sstts_torch.dsp.reproject import (
     apply_mirror_runs,
     band_plan,
@@ -51,12 +60,13 @@ class _GlArgs(ctypes.Structure):
     ] + [
         (name, ctypes.c_int)
         for name in ("Bt", "T", "wp", "hp", "w_len", "hop", "d_max")
-    ] + [("momentum", ctypes.c_float)]
+    ] + [("momentum", ctypes.c_float), ("w_fwd_t", ctypes.c_void_p),
+         ("cluster", ctypes.c_int)]
 
 
 _SIGNATURES = {
     "sstts_gl_semi": ([ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
-    "sstts_gl_semi_smem_bytes": ([ctypes.c_int], ctypes.c_int),
+    "sstts_gl_semi_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
 }
 
 
@@ -101,7 +111,30 @@ def reproject_analyze_plain(
     return renorm(ex, mag2, hp, dtype), s32.to(dtype)
 
 
-def _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum):
+_checked = set()
+
+
+def _check_shapes(smem_bytes, kernel, wp, hp, w_len, d_max, fused) -> None:
+    """Refuse what the kernel does not take (`gl_tiles.check_shapes`), and
+    hold that reckoning to the library's own, once per shape."""
+    key = (kernel, wp, hp, w_len, d_max)
+    if key in _checked:
+        return
+    smem = gl_tiles.check_shapes(kernel, wp, hp, w_len, d_max, fused=fused)
+    if smem_bytes(w_len, d_max) != smem:
+        raise RuntimeError(f"{kernel}: dsp/gl_tiles.py and the CUDA source disagree")
+    _checked.add(key)
+
+
+def _aligned(*tensors) -> None:
+    """TMA reads from 16-byte aligned tensors."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError("the Griffin-Lim kernels need 16-byte aligned tensors")
+
+
+def _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum,
+            w_fwd_t=None, cluster=0):
     bt, n_frames, wp = frames.shape
     L = mag2.shape[-1]
     hp = L // 2
@@ -112,25 +145,20 @@ def _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum):
             "fft_impl='dft_default' loop); the f32 loop on CUDA is ROADMAP A "
             "(f32 Griffin-Lim on CUDA)"
         )
-    if wp % 64 or hp % 64:
-        raise ValueError(f"gl_semi kernel needs wp, hp multiples of 64: {wp}, {hp}")
     if tuple(w_fwd.shape) != (wp, L) or tuple(wss2d.shape) != (n_frames, wp):
         raise ValueError(
             f"gl_semi: w_fwd {tuple(w_fwd.shape)} / wss2d {tuple(wss2d.shape)}"
             f" do not match frames {tuple(frames.shape)}, mag2 {tuple(mag2.shape)}"
         )
     lib = build.load("gl_semi", _SIGNATURES)
-    smem = lib.sstts_gl_semi_smem_bytes(wp)
-    if smem > build.MAX_SMEM:
-        raise NotImplementedError(
-            f"gl_semi kernel keeps a 64 x {wp} frames panel in shared memory "
-            f"({smem} bytes > {build.MAX_SMEM}); n_fft above ~2700 is not supported"
-        )
+    _check_shapes(lib.sstts_gl_semi_smem_bytes, "gl_semi", wp, hp, w_len, d_max, False)
     frames = frames.contiguous()
     mag2 = mag2.contiguous()
-    w_fwd = w_fwd.contiguous()
+    if w_fwd_t is None:
+        w_fwd_t = gl_tiles.k_major(w_fwd)
     wss2d = wss2d.float().contiguous()
     prev = None if prev is None else prev.contiguous()
+    _aligned(frames, mag2, w_fwd_t, wss2d, prev)
     q = torch.empty_like(mag2)
     s = None if prev is None else torch.empty_like(mag2)
     args = _GlArgs(
@@ -138,6 +166,7 @@ def _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum):
         None if prev is None else prev.data_ptr(), q.data_ptr(),
         None if s is None else s.data_ptr(),
         bt, n_frames, wp, hp, w_len, hop, d_max, float(momentum),
+        w_fwd_t.data_ptr(), cluster,
     )
     rc = lib.sstts_gl_semi(
         ctypes.byref(args), torch.cuda.current_stream(frames.device).cuda_stream
@@ -147,11 +176,14 @@ def _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum):
 
 
 def reproject_analyze(
-    frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev=None, momentum=0.0
+    frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev=None, momentum=0.0,
+    w_fwd_t=None,
 ):
     """Device dispatch for the kernel's function (see module docstring);
     counts CUDA launches in `reproject_analyze.launches`.  Inference-only:
-    raises when grad mode is on and an input requires grad."""
+    raises when grad mode is on and an input requires grad.  `w_fwd_t` is
+    `gl_tiles.k_major(w_fwd)`, the layout the kernel reads; a loop passes it
+    once instead of transposing every iteration."""
     require_no_grad("fused_reproject_analyze", frames, mag2, w_fwd, wss2d, prev)
     if prev is not None and momentum <= 0.0:
         prev = None
@@ -161,7 +193,8 @@ def reproject_analyze(
         )
     if frames.device.type != "cuda":
         raise NotImplementedError(f"fused_reproject_analyze on {frames.device.type}")
-    out = _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum)
+    out = _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum,
+                  w_fwd_t)
     reproject_analyze.launches += 1
     return out
 
@@ -231,6 +264,7 @@ def fused_reproject_analyze(
     prev: Optional[torch.Tensor] = None,
     momentum: float = 0.0,
     wss2d: Optional[torch.Tensor] = None,
+    w_fwd_t: Optional[torch.Tensor] = None,
 ):
     """Reprojection + analysis GEMM + renorm, with exact edge rows.
 
@@ -238,7 +272,8 @@ def fused_reproject_analyze(
     (wp, 2*hp), all in the loop dtype.  Returns q' or, with momentum,
     (q', s) — the JAX function's contract.  `wss2d` is the plan's envelope
     padded to wp lanes on the frames' device; a loop passes it once
-    instead of uploading it every iteration.
+    instead of uploading it every iteration, and likewise `w_fwd_t`, the
+    CUDA kernel's layout of w_fwd (`gl_tiles.k_major`).
     """
     *batch, n_frames, wp = frames.shape
     L = mag2.shape[-1]
@@ -257,7 +292,7 @@ def fused_reproject_analyze(
         wss2d = padded_wss2d(plan, wp, frames.device)
     w_fwd = w_fwd.to(frames.dtype)
     qn, sn = reproject_analyze(
-        f3, mag3, w_fwd, wss2d, w_len, hop, d_max, p3, momentum
+        f3, mag3, w_fwd, wss2d, w_len, hop, d_max, p3, momentum, w_fwd_t
     )
     qn, sn = _patch_edges(
         qn, sn,
@@ -281,15 +316,34 @@ class _GlFusedArgs(ctypes.Structure):
         for name in ("q", "mag2", "w_inv", "w_fwd", "wss2d", "frames", "q_out")
     ] + [
         (name, ctypes.c_int)
-        for name in ("Bt", "T", "wp", "hp", "w_len", "hop", "d_max")
-    ]
+        for name in ("Bt", "T", "wp", "hp", "w_len", "hop", "d_max", "n_slabs")
+    ] + [
+        (name, ctypes.c_void_p) for name in ("w_inv_t", "w_fwd_t", "slab_free")
+    ] + [("cluster", ctypes.c_int)]
 
 
 _FUSED_SIGNATURES = {
     "sstts_gl_fused": ([ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
-    "sstts_gl_fused_smem_bytes": ([ctypes.c_int], ctypes.c_int),
-    "sstts_gl_fused_scratch_rows": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "sstts_gl_fused_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
 }
+
+#: (device index, wp) -> (scratch, flags): GEMM1's f32 slabs, one per SM, and
+#: the flag of each (1 = free), kept between launches.  A block of kernel B5
+#: takes a free slab and gives it back before it ends, so launches on any
+#: stream may share them.
+_slabs = {}
+
+
+def fused_scratch(device: torch.device, wp: int):
+    """The slabs and flags of `device` for rows of `wp` lanes."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), wp)
+    if key not in _slabs:
+        n = torch.cuda.get_device_properties(device).multi_processor_count
+        _slabs[key] = (
+            torch.empty(n, gl_tiles.slab_floats(wp), dtype=torch.float32, device=device),
+            torch.ones(n, dtype=torch.int32, device=device),
+        )
+    return _slabs[key]
 
 
 def gl_iteration_plain(
@@ -319,7 +373,8 @@ def gl_iteration_plain(
     return renorm(s32, mag2, mag2.shape[-1] // 2, q.dtype)
 
 
-def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max):
+def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max,
+                  w_inv_t=None, w_fwd_t=None, cluster=0):
     bt, n_frames, L = q.shape
     hp, wp = L // 2, w_inv.shape[1]
     if any(t.dtype != torch.bfloat16 for t in (q, mag2, w_inv, w_fwd)):
@@ -327,10 +382,6 @@ def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max):
             "fused_gl_iteration CUDA kernel is bf16 only (the default "
             "fft_impl='dft_default' loop); the f32 loop on CUDA runs "
             "iter_impl='split'"
-        )
-    if wp % 128 or hp % 64:
-        raise ValueError(
-            f"gl_fused kernel needs wp % 128 == 0 and hp % 64 == 0: {wp}, {hp}"
         )
     if (
         tuple(w_inv.shape) != (L, wp)
@@ -344,27 +395,22 @@ def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max):
             f"{tuple(wss2d.shape)} do not match"
         )
     lib = build.load("gl_fused", _FUSED_SIGNATURES)
-    smem = lib.sstts_gl_fused_smem_bytes(wp)
-    rows = lib.sstts_gl_fused_scratch_rows(n_frames, d_max)
-    if smem > build.MAX_SMEM or rows < 0:
-        raise NotImplementedError(
-            f"gl_fused kernel: {smem} bytes of shared memory (max "
-            f"{build.MAX_SMEM}) at wp={wp}, or d_max={d_max} halo rows beyond "
-            "its 80-row GEMM1 tile"
-        )
+    _check_shapes(lib.sstts_gl_fused_smem_bytes, "gl_fused", wp, hp, w_len, d_max, True)
     q = q.contiguous()
     mag2 = mag2.contiguous()
-    w_inv = w_inv.contiguous()
-    w_fwd = w_fwd.contiguous()
+    if w_inv_t is None:
+        w_inv_t = gl_tiles.k_major(w_inv)
+    if w_fwd_t is None:
+        w_fwd_t = gl_tiles.k_major(w_fwd)
     wss2d = wss2d.float().contiguous()
-    # GEMM1's f32 frames, one (80, wp) slab per block: written and read
-    # back by the same block, so it mostly stays in L2.
-    scratch = torch.empty(bt, rows, wp, dtype=torch.float32, device=q.device)
+    _aligned(q, mag2, w_inv_t, w_fwd_t, wss2d)
+    scratch, flags = fused_scratch(q.device, wp)
     out = torch.empty_like(q)
     args = _GlFusedArgs(
         q.data_ptr(), mag2.data_ptr(), w_inv.data_ptr(), w_fwd.data_ptr(),
         wss2d.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        bt, n_frames, wp, hp, w_len, hop, d_max,
+        bt, n_frames, wp, hp, w_len, hop, d_max, scratch.shape[0],
+        w_inv_t.data_ptr(), w_fwd_t.data_ptr(), flags.data_ptr(), cluster,
     )
     rc = lib.sstts_gl_fused(
         ctypes.byref(args), torch.cuda.current_stream(q.device).cuda_stream
@@ -373,16 +419,20 @@ def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max):
     return out
 
 
-def gl_iteration(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max):
+def gl_iteration(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max,
+                 w_inv_t=None, w_fwd_t=None):
     """Device dispatch for kernel B5's function (see `gl_iteration_plain`);
     counts CUDA launches in `gl_iteration.launches`.  Inference-only:
-    raises when grad mode is on and an input requires grad."""
+    raises when grad mode is on and an input requires grad.  `w_inv_t` and
+    `w_fwd_t` are `gl_tiles.k_major` of the two matrices, the layouts the
+    kernel reads; a loop passes them once."""
     require_no_grad("fused_gl_iteration", q, mag2, w_inv, w_fwd, wss2d)
     if q.device.type == "cpu":
         return gl_iteration_plain(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max)
     if q.device.type != "cuda":
         raise NotImplementedError(f"fused_gl_iteration on {q.device.type}")
-    out = _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max)
+    out = _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max,
+                        w_inv_t, w_fwd_t)
     gl_iteration.launches += 1
     return out
 
@@ -411,6 +461,8 @@ def fused_gl_iteration(
     win_length: int,
     length: int,
     wss2d: Optional[torch.Tensor] = None,
+    w_inv_t: Optional[torch.Tensor] = None,
+    w_fwd_t: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One whole Griffin-Lim iteration q -> q' (the JAX
     `fused_gl_iteration`, 491-645): kernel B5 (its plain version on the
@@ -418,7 +470,8 @@ def fused_gl_iteration(
 
     q, mag2 (..., n_frames, 2*hp) in the loop dtype; w_inv (2*hp, wp),
     w_fwd (wp, 2*hp).  Classic iterations only: momentum is refused by
-    `griffin_lim`, as in JAX.  `wss2d` as in `fused_reproject_analyze`.
+    `griffin_lim`, as in JAX.  `wss2d`, `w_inv_t` and `w_fwd_t` as in
+    `fused_reproject_analyze`: constants a loop passes once.
     """
     *batch, n_frames, L = q.shape
     wp = w_inv.shape[1]
@@ -432,7 +485,8 @@ def fused_gl_iteration(
         wss2d = padded_wss2d(plan, wp, q.device)
     w_inv = w_inv.to(dtype)
     w_fwd = w_fwd.to(dtype)
-    qn = gl_iteration(q3, mag3, w_inv, w_fwd, wss2d, w_len, hop, d_max)
+    qn = gl_iteration(q3, mag3, w_inv, w_fwd, wss2d, w_len, hop, d_max,
+                      w_inv_t, w_fwd_t)
     qn, _ = _patch_edges(
         qn, None,
         lambda lo, hi: _edge_frames(q3, w_inv, w_len, hop, d_max, lo, hi) * wss2d[lo:hi],

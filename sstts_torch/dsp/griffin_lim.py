@@ -33,6 +33,7 @@ from sstts_torch.config import Config
 from sstts_torch.dsp import fft as mmfft
 from sstts_torch.dsp import ops
 from sstts_torch.dsp import stft as stft_mod
+from sstts_torch.dsp.gl_tiles import k_major
 from sstts_torch.dsp.gl_fused import (
     fused_gl_iteration,
     fused_reproject_analyze,
@@ -241,22 +242,28 @@ def _griffin_lim_real(magnitude, n_fft, hop_length, win_length, n_iters,
     geom = (n_fft, hop_length, win_length, length)
     wss2d = padded_wss2d(plan, wp, device)  # uploaded once
     m32 = float(np.float32(momentum))
+    # The K-major copies kernels B2 and B5 read, made once per call.
+    on_card = device.type == "cuda" and loop_dtype == torch.bfloat16
+    w_fwd_t = k_major(w_fwd) if on_card and iter_impl in ("semi", "fused") else None
+    w_inv_t = k_major(w_inv) if on_card and iter_impl == "fused" else None
     if iter_impl == "semi":
         if momentum > 0.0:
             prev = torch.zeros_like(q)
             for _ in range(n_iters):
                 q, prev = fused_reproject_analyze(
                     _mm(q, w_inv), mag2, w_fwd, *geom, prev=prev,
-                    momentum=momentum, wss2d=wss2d,
+                    momentum=momentum, wss2d=wss2d, w_fwd_t=w_fwd_t,
                 )
         else:
             for _ in range(n_iters):
                 q = fused_reproject_analyze(
-                    _mm(q, w_inv), mag2, w_fwd, *geom, wss2d=wss2d
+                    _mm(q, w_inv), mag2, w_fwd, *geom, wss2d=wss2d,
+                    w_fwd_t=w_fwd_t,
                 )
     elif iter_impl == "fused":
         for _ in range(n_iters):
-            q = fused_gl_iteration(q, mag2, w_inv, w_fwd, *geom, wss2d=wss2d)
+            q = fused_gl_iteration(q, mag2, w_inv, w_fwd, *geom, wss2d=wss2d,
+                                   w_inv_t=w_inv_t, w_fwd_t=w_fwd_t)
     else:
         impl = "xla" if iter_impl == "split_xla" else "auto"
         prev = torch.zeros_like(q)
