@@ -2,15 +2,14 @@
 // built from (gl_tail.cuh, gl_semi.cu, gl_fused.cu): mbarriers, TMA tensor
 // loads (plain and multicast over a thread-block cluster), wgmma with both
 // operands in 128-byte-swizzled shared memory, cluster barriers, setmaxnreg,
-// and the host-side encoding of a TMA tensor map.  The driver library is not
-// linked: cuTensorMapEncodeTiled is looked up at run time.
+// and the host-side encoding of a TMA tensor map.  libcuda is not linked:
+// cuTensorMapEncodeTiled is looked up through the runtime.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <stdint.h>
 
 namespace sm90 {
@@ -228,7 +227,7 @@ __device__ __forceinline__ void wgmma_m64n72k16(float (&d)[36], uint64_t desc_a,
 
 // A tiled tensor map over `rank` dimensions (innermost first; `strides` in
 // bytes for dimensions 1.., each a multiple of 16).  Returns 0, or -1 when
-// the driver's encoder cannot be found, or the driver's error code.
+// libcuda's encoder cannot be found, or its error code.
 inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                       const void* base, const uint64_t* dims,
                       const uint64_t* strides, const uint32_t* box,
@@ -245,10 +244,6 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                                 &q) != cudaSuccess ||
         q != cudaDriverEntryPointSuccess)
       p = nullptr;
-    if (!p) {
-      void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
-      if (h) p = dlsym(h, "cuTensorMapEncodeTiled");
-    }
     return reinterpret_cast<Fn>(p);
   }();
   if (!fn) return -1;

@@ -8,10 +8,8 @@ launch; the tests hold them to the constants in the sources), the constant
 layouts the wrappers hand the kernels (`k_major`), the 128-byte swizzle of the
 panel, the shift-add as the kernels form it (`ring_shift_add`: rows of F
 through a ring of row groups, shifted on the way out of shared memory;
-`pair_from_words`: a bf16 pair at an odd shift from two 32-bit words), the
-zero-filled box formulation a TMA tensor map would give (`box_shift_add`; the
-card refuses its unaligned box starts, see csrc/gl_tail.cuh) and the work
-schedule (`schedule`, `ring_stage`).
+`pair_from_words`: a bf16 pair at an odd shift from two 32-bit words) and the
+work schedule (`schedule`, `ring_stage`).
 """
 
 from __future__ import annotations
@@ -136,38 +134,6 @@ def shift_order(d_max: int) -> List[int]:
     return [0] + [d for d in range(-d_max, d_max + 1) if d]
 
 
-def load_box(f: torch.Tensor, lane0: int, row0: int, lanes: int, rows: int,
-             w_len: int) -> torch.Tensor:
-    """What one TMA box load returns: `rows` x `lanes` of F (..., T, wp) from
-    (row0, lane0), zeros where the row is outside [0, T) or the lane outside
-    [0, w_len) (the tensor map's extent), f32."""
-    n_frames = f.shape[-2]
-    out = torch.zeros(*f.shape[:-2], rows, lanes, dtype=torch.float32)
-    r_lo, r_hi = max(row0, 0), min(row0 + rows, n_frames)
-    l_lo, l_hi = max(lane0, 0), min(lane0 + lanes, w_len)
-    if r_lo < r_hi and l_lo < l_hi:
-        out[..., r_lo - row0 : r_hi - row0, l_lo - lane0 : l_hi - lane0] = (
-            f[..., r_lo:r_hi, l_lo:l_hi].float()
-        )
-    return out
-
-
-def box_shift_add(f: torch.Tensor, w_len: int, hop: int, d_max: int, t0: int,
-                  lanes_per_stage: int) -> torch.Tensor:
-    """The panel's sums for frames [t0, t0 + BM) as the kernels form them:
-    per stage of `lanes_per_stage` lanes, the 2 * d_max + 1 zero-filled boxes
-    at (lane k0 + d * hop, row t0 - d), added in `shift_order`.  Returns
-    (..., BM, K) f32 with K = k_needed(w_len) rounded up to whole stages."""
-    k_all = round_up(k_needed(w_len), lanes_per_stage)
-    out = torch.zeros(*f.shape[:-2], BM, k_all, dtype=torch.float32)
-    for k0 in range(0, k_all, lanes_per_stage):
-        acc = torch.zeros(*f.shape[:-2], BM, lanes_per_stage, dtype=torch.float32)
-        for d in shift_order(d_max):
-            acc = acc + load_box(f, k0 + d * hop, t0 - d, lanes_per_stage, BM, w_len)
-        out[..., k0 : k0 + lanes_per_stage] = acc
-    return out
-
-
 def pair_from_words(words, lane: int, w_len: int):
     """The bf16 lanes (lane, lane + 1) of a row given as little-endian 32-bit
     words (numpy uint32), as the kernel reads them: the two words that hold
@@ -263,6 +229,11 @@ def schedule(n_frames: int, bt: int, hp: int, cluster: int
                         yield rb, y + member, 2 * pair + wg, member, wg
 
 
-def ring_stage(n: int, n_kc: int) -> Tuple[int, int, int, int]:
-    """(slot, use, bin tile, K chunk) of the n-th stage the producer loads."""
-    return n % STAGES, n // STAGES, 2 * ((n >> 1) // n_kc) + (n & 1), (n >> 1) % n_kc
+def ring_stage(n: int, n_kc: int, n_pairs: int, rotation: int = 0
+               ) -> Tuple[int, int, int, int]:
+    """(slot, use, bin tile, K chunk) of the n-th stage the producer loads.
+    A block starts its cycle of the n_pairs bin-tile pairs at pair
+    `rotation` (its row block plus its cluster's number), so that blocks
+    running together work at different bins."""
+    pair = ((n >> 1) // n_kc + rotation) % n_pairs
+    return n % STAGES, n // STAGES, 2 * pair + (n & 1), (n >> 1) % n_kc

@@ -10,7 +10,8 @@ together, into a temporary directory) and times each build at the main
 path's shape, (32, 800, 1152) -> (32, 800, 2048) bf16, classic iteration,
 with CUDA events.  The stages of a block overlap (and so do the blocks of a
 launch), so the times do not add up: a mask says what the kernel costs
-without that stage's work.  A build with stages skipped computes garbage;
+without that stage's work.  The whole kernels are also timed with clusters
+of 1, 2 and 4 blocks.  A build with stages skipped computes garbage;
 only its time means anything.  Prints one JSON line with the card's name and
 power limit.
 """
@@ -117,6 +118,11 @@ def main() -> None:
 
             label = (MASKS if name == "gl_semi" else FUSED_MASKS)[m]
             res[name][label] = time_ms(launch)
+            if m == 0:  # the whole kernel by cluster size (0 is the default, 2)
+                for cl in (1, 2, 4):
+                    a.cluster = cl
+                    res[name][f"full, clusters of {cl}"] = time_ms(launch)
+                a.cluster = 0
     card = card_line()
     print(json.dumps({"gl_semi_phase_ms": res["gl_semi"],
                       "gl_fused_phase_ms": res["gl_fused"],

@@ -37,30 +37,13 @@ def _frames(n_frames, wp, w_len, dtype, seed, batch=()):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n_frames,t0", [(150, 0), (150, 128), (37, 0), (3, 0), (70, 64)])
 @pytest.mark.parametrize("geom", GEOMETRIES)
-def test_box_shift_add_equals_shift_add_rows(geom, n_frames, t0, dtype):
-    """Nine zero-filled boxes at (lane k0 + d hop, row t0 - d) of a
-    (lane < w_len, frame < T, utterance) tensor, added in the Pallas order:
-    T no multiple of 64, T <= D, w_len no multiple of 16, a row block at an
-    utterance's end; a batch of two, so a box never reads the neighbour."""
-    n_fft, hop, win = geom
-    plan = band_plan(n_fft, hop, win, n_frames, (n_frames - 1) * hop)
-    w_len, d_max = plan["w_len"], plan["d_max"]
-    wp = gt.round_up(w_len, 128)
-    f = _frames(n_frames, wp, w_len, dtype, 3, batch=(2,))
-    lanes = 64 // f.element_size()
-    got = gt.box_shift_add(f, w_len, hop, d_max, t0, lanes)
-    rows = min(gt.BM, n_frames - t0)
-    ref = shift_add_rows(f, w_len, hop, d_max, t0, t0 + rows)
-    assert torch.equal(got[..., :rows, :w_len], ref[..., :w_len])
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("n_frames,t0", [(150, 0), (150, 128), (37, 0), (3, 0), (70, 64)])
-@pytest.mark.parametrize("geom", GEOMETRIES)
 def test_ring_shift_add_equals_shift_add_rows(geom, n_frames, t0, dtype):
-    """The kernels' own formulation: rows of F through a ring of four row
-    groups (8 bf16 or 4 f32 rows), the producer as far ahead as the ring
-    allows, each source row found at (r - d + group) mod ring size."""
+    """The kernels' formulation of the shift-add, equal bit for bit to
+    `shift_add_rows`: rows of F through a ring of four row groups (8 bf16 or
+    4 f32 rows), the producer as far ahead as the ring allows, each source
+    row found at (r - d + group) mod ring size; T no multiple of 64, T <= D,
+    w_len no multiple of 16, a row block at an utterance's end, and lanes
+    beyond the support that hold no zeros."""
     n_fft, hop, win = geom
     plan = band_plan(n_fft, hop, win, n_frames, (n_frames - 1) * hop)
     w_len, d_max = plan["w_len"], plan["d_max"]
@@ -134,19 +117,22 @@ def test_schedule_covers_every_output_tile_once(cluster, bt):
     assert gt.cluster_size(bt, cluster) == cluster
 
 
+@pytest.mark.parametrize("rotation", [0, 3, 13])
 @pytest.mark.parametrize("n_kc", [7, 18])
-def test_ring_stages_carry_every_tile_chunk_once(n_kc):
-    """The producer's n-th stage: every (bin tile, K chunk) once, alternate
-    stages to alternate warpgroups, slots in turn."""
-    n_tiles = 8
-    stages = [gt.ring_stage(n, n_kc) for n in range(n_tiles * n_kc)]
+def test_ring_stages_carry_every_tile_chunk_once(n_kc, rotation):
+    """The producer's n-th stage: every (bin tile, K chunk) once whatever
+    pair the block starts at, alternate stages to alternate warpgroups,
+    slots in turn."""
+    n_pairs = 4
+    stages = [gt.ring_stage(n, n_kc, n_pairs, rotation) for n in range(2 * n_pairs * n_kc)]
     assert {(tile, kc) for _, _, tile, kc in stages} == {
-        (tile, kc) for tile in range(n_tiles) for kc in range(n_kc)}
+        (tile, kc) for tile in range(2 * n_pairs) for kc in range(n_kc)}
     for n, (slot, use, tile, kc) in enumerate(stages):
         assert slot == n % gt.STAGES and use == n // gt.STAGES and tile % 2 == n % 2
-    for wg in range(2):  # a warpgroup sees its tiles whole and in order
+    for wg in range(2):  # a warpgroup sees its tiles whole, K in order
         mine = [(tile, kc) for n, (_, _, tile, kc) in enumerate(stages) if n % 2 == wg]
-        assert mine == [(tile, kc) for tile in range(wg, n_tiles, 2) for kc in range(n_kc)]
+        order = [2 * ((pr + rotation) % n_pairs) + wg for pr in range(n_pairs)]
+        assert mine == [(tile, kc) for tile in order for kc in range(n_kc)]
 
 
 def _constants(*names):
