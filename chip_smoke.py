@@ -518,7 +518,9 @@ def check_decoder(dev):
 
 
 #: B2's and B5's times per launch before their redesign on TMA and wgmma
-#: (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W), printed beside the new ones.
+#: (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W), logged beside the new ones.
+#: They are records, not readings of this run, so they stay out of the
+#: `kernels` line (tools/compare_gl_builds.py times both designs in one run).
 GL_MS_PREV = {"fused_reproject_analyze": 1.9111, "fused_reproject_analyze_momentum": 2.0116,
               "fused_gl_iteration": 3.9469}
 
@@ -654,8 +656,6 @@ def check_gl(dev):
         "max_abs_err": checks[0]["max_abs_err"],
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "library_ms": None, "ms_momentum": ms_m, "ms_with_transpose": ms_t,
-        "ms_prev": GL_MS_PREV["fused_reproject_analyze"],
-        "ms_momentum_prev": GL_MS_PREV["fused_reproject_analyze_momentum"],
         "host_us_per_launch": host_us, "host_us_with_edge_repair": host_us_whole,
         "ptxas": ptxas, "shape": [Bt, T, wp, 2 * hp], "checks": checks,
     }
@@ -801,7 +801,6 @@ def check_gl_fused(dev):
         "max_abs_err": checks[0]["max_abs_err"],
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "library_ms": None, "ms_with_edge_repair": ms_whole,
-        "ms_prev": GL_MS_PREV["fused_gl_iteration"],
         "host_us_per_launch": host_us, "host_us_with_edge_repair": host_us_whole,
         "ptxas": ptxas, "shape": [Bt, T, wp, 2 * hp], "checks": checks,
     }

@@ -59,8 +59,10 @@ extern "C" {
 struct GlFusedArgs {
   const bf16* q;       // (Bt, T, 2 hp)
   const bf16* mag2;    // (Bt, T, 2 hp)
-  const bf16* w_inv;   // (2 hp, wp); not read (the kernel takes w_inv_t)
-  const bf16* w_fwd;   // (wp, 2 hp); not read (the kernel takes w_fwd_t)
+  const bf16* w_inv;   // (2 hp, wp) and
+  const bf16* w_fwd;   // (wp, 2 hp); this kernel reads the transposed copies
+                       // below, the fields stay so that the first port's build
+                       // takes the same struct (tools/compare_gl_builds.py)
   const float* wss2d;  // (T, wp), zero beyond w_len and outside the signal
   float* frames;       // scratch (n_slabs, N1, wp), GEMM1's f32 frames
   bf16* q_out;         // (Bt, T, 2 hp)
@@ -69,7 +71,6 @@ struct GlFusedArgs {
   const bf16* w_inv_t;  // (wp, 2 hp): w_inv transposed
   const bf16* w_fwd_t;  // (2 hp, wp): w_fwd transposed
   int* slab_free;       // (n_slabs,): 1 where the slab is free
-  int cluster;          // 1, 2 or 4 blocks a cluster; 0: the default
 };
 
 }  // extern "C"
@@ -215,8 +216,11 @@ gl_fused_kernel(const GlFusedArgs p, __grid_constant__ const CUtensorMap map_q,
     }
     sm90::mbar_init(s.extra() + 2 * kG1MaxStages, kConsumers);
     sm90::fence_barrier_init();
-    // A free slab: at most one block runs on a SM, so the first look, at the
-    // SM's own number, nearly always finds one.
+    // A free slab.  A block waits for one while its cluster partner may hold
+    // one and wait for the block, so there must be a slab for every block the
+    // card holds at once: the launch function refuses fewer.  The registers
+    // (384 threads x 168) keep a SM to one block, so the first look, at the
+    // SM's own number, nearly always finds its slab free.
     uint32_t smid;
     asm volatile("mov.u32 %0, %%smid;\n" : "=r"(smid));
     int i = smid % p.n_slabs;
@@ -265,8 +269,9 @@ int sstts_gl_fused_smem_bytes(int w_len, int d_max) {
 }
 
 // Requires wp % 64 == 0, hp % 128 == 0, 16-byte aligned tensors,
-// 0 <= sstts_gl_fused_smem_bytes(w_len, d_max) <= 232448 and at least as
-// many slabs (all flagged free) as blocks can run at once (one per SM).
+// 0 <= sstts_gl_fused_smem_bytes(w_len, d_max) <= 232448 and slabs that are
+// all flagged free; returns -2 for fewer slabs than blocks the card can hold
+// at once (one per SM as the kernel is built).
 int sstts_gl_fused(const GlFusedArgs* a, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int smem = tail_smem_bytes(a->w_len);
@@ -277,6 +282,20 @@ int sstts_gl_fused(const GlFusedArgs* a, void* stream) {
     if (err != cudaSuccess) return (int)err;
     smem_set = smem;
   }
+  static int resident_smem = -1, resident = 0;  // blocks at once, at `smem`
+  if (smem != resident_smem) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gl_fused_kernel,
+                                                          kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    resident = per_sm * sms;
+    resident_smem = smem;
+  }
+  if (resident > a->n_slabs) return -2;
   const uint64_t L = 2 * (uint64_t)a->hp;
   CUtensorMap map_q, map_wi, map_w;
   int rc;
@@ -296,7 +315,7 @@ int sstts_gl_fused(const GlFusedArgs* a, void* stream) {
   }
   if (rc == 0) rc = encode_w_fwd_map(&map_w, a->w_fwd_t, a->hp, a->wp, a->w_len);
   if (rc != 0) return rc < 0 ? rc : -1000 - rc;
-  const int cl = cluster_size(a->Bt, a->cluster);
+  const int cl = cluster_size(a->Bt);
   dim3 grid((a->T + BM - 1) / BM, round_up(a->Bt, cl));
   cudaError_t err = launch_clustered(gl_fused_kernel, grid, cl, smem, st, *a, map_q,
                                      map_wi, map_w);

@@ -24,8 +24,8 @@
 // panel's build and the epilogue's loads are what a design has to hide, not
 // only the product.
 //
-// Design: grid (row block of BM = 64 frames, utterance), clusters of 1, 2 or
-// 4 blocks along the utterances, 384 threads: two consumer warpgroups and a
+// Design: grid (row block of BM = 64 frames, utterance), clusters of two
+// blocks along the utterances, 384 threads: two consumer warpgroups and a
 // producer.  The block is gl_tail.cuh's tail and nothing else: the panel
 // from rows of the bf16 frames (JAX rounds at fr.astype(dtype)) that pass
 // through shared memory once, GEMM2 on wgmma over a TMA ring of w_fwd that
@@ -46,7 +46,9 @@ extern "C" {
 struct GlArgs {
   const bf16* frames;  // (Bt, T, wp)
   const bf16* mag2;    // (Bt, T, 2 hp)
-  const bf16* w_fwd;   // (wp, 2 hp); not read (the kernel takes w_fwd_t)
+  const bf16* w_fwd;   // (wp, 2 hp); this kernel reads w_fwd_t instead, the
+                       // field stays so that the first port's build takes the
+                       // same struct (tools/compare_gl_builds.py)
   const float* wss2d;  // (T, wp), zero beyond w_len and outside the signal
   const bf16* prev;    // (Bt, T, 2 hp) or NULL (classic iteration)
   bf16* q_out;         // (Bt, T, 2 hp)
@@ -54,7 +56,6 @@ struct GlArgs {
   int Bt, T, wp, hp, w_len, hop, d_max;
   float momentum;
   const bf16* w_fwd_t;  // (2 hp, wp): w_fwd transposed
-  int cluster;          // 1, 2 or 4 blocks a cluster; 0: the default
 };
 
 }  // extern "C"
@@ -116,7 +117,7 @@ int sstts_gl_semi(const GlArgs* a, void* stream) {
   CUtensorMap map_w;
   const int rc = encode_w_fwd_map(&map_w, a->w_fwd_t, a->hp, a->wp, a->w_len);
   if (rc != 0) return rc < 0 ? rc : -1000 - rc;
-  const int cl = cluster_size(a->Bt, a->cluster);
+  const int cl = cluster_size(a->Bt);
   dim3 grid((a->T + BM - 1) / BM, round_up(a->Bt, cl));
   cudaError_t err = launch_clustered(kernel, grid, cl, smem, st, *a, map_w);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());

@@ -47,7 +47,7 @@
 //     The two consumer warpgroups take alternate bin tiles, so one multiplies
 //     while the other renorms.
 //   * w_fwd comes by TMA into a ring of kStages 16 KB stages.  The blocks of a
-//     cluster (the same 64 frames of 1, 2 or 4 different utterances) share
+//     cluster (the same 64 frames of two different utterances) share
 //     it: each member loads its share of every stage and multicasts it to
 //     all, so the weights cross from L2 once per cluster.  A stage's empty
 //     barrier therefore counts one arrival from every member.  A member with
@@ -71,6 +71,12 @@ using bf16 = __nv_bfloat16;
 // build, and the compiler then removes the tests below.
 #ifndef SSTTS_ABLATE
 #define SSTTS_ABLATE 0
+#endif
+
+// Blocks a cluster: 1, 2 or 4.  Measured alike within a few per cent, 2 the
+// best (PERF.md); the other sizes are built by the same tool, for timing.
+#ifndef SSTTS_CLUSTER
+#define SSTTS_CLUSTER 2
 #endif
 
 namespace {
@@ -549,16 +555,14 @@ inline cudaError_t launch_clustered(void (*kernel)(KArgs...), dim3 grid, int clu
   return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
 }
 
-// The cluster size of a launch over `bt` utterances: `want` when it is 1, 2
-// or 4, else the default.
-inline int cluster_size(int bt, int want) {
-  if (want == 1 || want == 2 || want == 4) return want;
-  return bt >= 2 ? 2 : 1;
-}
+// The cluster size of a launch over `bt` utterances: a single utterance has
+// nobody to share the weights with.
+inline int cluster_size(int bt) { return bt >= 2 ? SSTTS_CLUSTER : 1; }
 
 inline const char* tail_error_string(int code) {
   if (code == -1) return "cuTensorMapEncodeTiled not found in libcuda";
-  if (code < -1) return "cuTensorMapEncodeTiled refused a tensor map";
+  if (code == -2) return "fewer scratch slabs than blocks the card can hold at once";
+  if (code < -2) return "cuTensorMapEncodeTiled refused a tensor map";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -60,8 +60,7 @@ class _GlArgs(ctypes.Structure):
     ] + [
         (name, ctypes.c_int)
         for name in ("Bt", "T", "wp", "hp", "w_len", "hop", "d_max")
-    ] + [("momentum", ctypes.c_float), ("w_fwd_t", ctypes.c_void_p),
-         ("cluster", ctypes.c_int)]
+    ] + [("momentum", ctypes.c_float), ("w_fwd_t", ctypes.c_void_p)]
 
 
 _SIGNATURES = {
@@ -134,7 +133,7 @@ def _aligned(*tensors) -> None:
 
 
 def _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum,
-            w_fwd_t=None, cluster=0):
+            w_fwd_t=None):
     bt, n_frames, wp = frames.shape
     L = mag2.shape[-1]
     hp = L // 2
@@ -166,7 +165,7 @@ def _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum,
         None if prev is None else prev.data_ptr(), q.data_ptr(),
         None if s is None else s.data_ptr(),
         bt, n_frames, wp, hp, w_len, hop, d_max, float(momentum),
-        w_fwd_t.data_ptr(), cluster,
+        w_fwd_t.data_ptr(),
     )
     rc = lib.sstts_gl_semi(
         ctypes.byref(args), torch.cuda.current_stream(frames.device).cuda_stream
@@ -319,7 +318,7 @@ class _GlFusedArgs(ctypes.Structure):
         for name in ("Bt", "T", "wp", "hp", "w_len", "hop", "d_max", "n_slabs")
     ] + [
         (name, ctypes.c_void_p) for name in ("w_inv_t", "w_fwd_t", "slab_free")
-    ] + [("cluster", ctypes.c_int)]
+    ]
 
 
 _FUSED_SIGNATURES = {
@@ -330,7 +329,8 @@ _FUSED_SIGNATURES = {
 #: (device index, wp) -> (scratch, flags): GEMM1's f32 slabs, one per SM, and
 #: the flag of each (1 = free), kept between launches.  A block of kernel B5
 #: takes a free slab and gives it back before it ends, so launches on any
-#: stream may share them.
+#: stream may share them.  A SM holds one block of B5 at a time; the library
+#: refuses a launch if the card could hold more blocks than there are slabs.
 _slabs = {}
 
 
@@ -374,7 +374,7 @@ def gl_iteration_plain(
 
 
 def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max,
-                  w_inv_t=None, w_fwd_t=None, cluster=0):
+                  w_inv_t=None, w_fwd_t=None):
     bt, n_frames, L = q.shape
     hp, wp = L // 2, w_inv.shape[1]
     if any(t.dtype != torch.bfloat16 for t in (q, mag2, w_inv, w_fwd)):
@@ -410,7 +410,7 @@ def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max,
         q.data_ptr(), mag2.data_ptr(), w_inv.data_ptr(), w_fwd.data_ptr(),
         wss2d.data_ptr(), scratch.data_ptr(), out.data_ptr(),
         bt, n_frames, wp, hp, w_len, hop, d_max, scratch.shape[0],
-        w_inv_t.data_ptr(), w_fwd_t.data_ptr(), flags.data_ptr(), cluster,
+        w_inv_t.data_ptr(), w_fwd_t.data_ptr(), flags.data_ptr(),
     )
     rc = lib.sstts_gl_fused(
         ctypes.byref(args), torch.cuda.current_stream(q.device).cuda_stream

@@ -1,20 +1,14 @@
-"""What the Griffin-Lim kernels B2 and B5 rely on, in plain Python and torch.
+"""What the wrappers of the Griffin-Lim kernels B2 and B5 reckon on the host.
 
-The CUDA sources (`csrc/gl_tail.cuh`, `gl_semi.cu`, `gl_fused.cu`) cannot run
-without a card, so the rules they are built on live here where the CPU tests
-reach them: the tile constants and the shared-memory and scratch reckoning
-(the wrappers in `dsp/gl_fused.py` refuse a shape with them before any
-launch; the tests hold them to the constants in the sources), the constant
-layouts the wrappers hand the kernels (`k_major`), the 128-byte swizzle of the
-panel, the shift-add as the kernels form it (`ring_shift_add`: rows of F
-through a ring of row groups, shifted on the way out of shared memory;
-`pair_from_words`: a bf16 pair at an odd shift from two 32-bit words) and the
-work schedule (`schedule`, `ring_stage`).
+The tile constants of the CUDA sources (`csrc/gl_tail.cuh`, `gl_semi.cu`,
+`gl_fused.cu`) and the shared-memory and scratch reckoning built on them:
+the wrappers in `dsp/gl_fused.py` refuse a shape with `check_shapes` before
+anything is built or launched, and size B5's scratch with `slab_floats`; the
+tests hold the constants to the sources.  Also the constant layout the
+wrappers hand the kernels (`k_major`).
 """
 
 from __future__ import annotations
-
-from typing import Iterator, List, Tuple
 
 import torch
 
@@ -23,7 +17,6 @@ BM = 64  # frames per block
 BN = 64  # bins per GEMM2 tile (its B operand holds 2 * BN rows)
 BK = 64  # lanes of K per ring stage and per panel chunk
 STAGES = 5
-BOX_ROWS = 32  # rows of the transposed w_fwd per TMA box
 CHUNK_BYTES = BM * BK * 2
 STAGE_BYTES = 2 * BN * BK * 2
 F_SLOTS = 4  # groups of F rows in flight in the ring's memory
@@ -34,7 +27,6 @@ N1 = 72  # GEMM1 rows a block: BM + 2 * d_max <= N1
 M1_TILES = 2
 G1_STAGE_BYTES = 2 * M1_TILES * 64 * BK * 2 + N1 * BK * 2
 G1_MAX_STAGES = 4
-CLUSTER_SIZES = (1, 2, 4)
 
 
 def round_up(x: int, m: int) -> int:
@@ -118,122 +110,3 @@ def k_major(w: torch.Tensor) -> torch.Tensor:
     and contiguous, so that K (the dimension a product sums over) is the
     inner one for both wgmma operands."""
     return w.t().contiguous()
-
-
-def swizzle128_offset(row: int, k: int) -> int:
-    """Byte offset of bf16 element (row, k) in the panel: 8 KB chunks of 64
-    lanes, rows of 128 bytes whose 16-byte pieces are XOR-ed with the row's
-    low three bits (TMA's SWIZZLE_128B, what a wgmma descriptor reads)."""
-    chunk, kk = divmod(k, BK)
-    piece = (kk // 8) ^ (row & 7)
-    return chunk * CHUNK_BYTES + row * 128 + piece * 16 + (kk % 8) * 2
-
-
-def shift_order(d_max: int) -> List[int]:
-    """The order the shifted terms are added in: 0, then -D..D without 0."""
-    return [0] + [d for d in range(-d_max, d_max + 1) if d]
-
-
-def pair_from_words(words, lane: int, w_len: int):
-    """The bf16 lanes (lane, lane + 1) of a row given as little-endian 32-bit
-    words (numpy uint32), as the kernel reads them: the two words that hold
-    them joined by a funnel shift when `lane` is odd, each lane as the f32
-    whose high half it is, +0 for a lane outside [0, w_len).  The words may
-    be read outside the row (the kernel's loads are not masked, only their
-    values are), so `words` is indexed modulo its length."""
-    import numpy as np
-
-    n = len(words)
-    w0 = int(words[(lane >> 1) % n])
-    w1 = int(words[((lane >> 1) + 1) % n])
-    pair = ((w0 >> 16) | (w1 << 16)) & 0xFFFFFFFF if lane & 1 else w0
-    bits = [(pair << 16) & 0xFFFFFFFF, pair & 0xFFFF0000]
-    vals = np.array(bits, dtype=np.uint32).view(np.float32)
-    ok = [0 <= lane < w_len, 0 <= lane + 1 < w_len]
-    return [float(v) if good else 0.0 for v, good in zip(vals, ok)]
-
-
-def ring_shift_add(f: torch.Tensor, w_len: int, hop: int, d_max: int, t0: int,
-                   elem_bytes: int) -> torch.Tensor:
-    """The panel's sums for frames [t0, t0 + BM) of F (T, wp) as the kernels
-    form them.  Rows pass through F_SLOTS slots of `group` = 16 / elem_bytes
-    rows: group g holds frames [t0 + (g - 1) group, t0 + g group), only those
-    inside the utterance and the halo; the producer runs as far ahead as the
-    slots allow (group g lands when output group g - F_SLOTS is done).  For
-    output row r and shift d the source row is found at ring row
-    (r - d + group) mod (F_SLOTS * group); a row outside [0, T) and a lane
-    outside [0, w_len) add nothing.  Terms are added in `shift_order`.
-    Returns (BM, k_needed(w_len)) f32."""
-    group = 16 // elem_bytes
-    n_frames = f.shape[-2]
-    kd = k_needed(w_len)
-    ring = torch.full((F_SLOTS * group, f.shape[-1]), float("nan"))
-    out = torch.zeros(BM, kd)
-    n_groups = BM // group + 2
-    loaded = 0
-
-    def load_until(g_hi: int) -> None:
-        nonlocal loaded
-        while loaded < min(g_hi, n_groups):
-            g = loaded
-            u0 = t0 + (g - 1) * group
-            ring[g % F_SLOTS * group : (g % F_SLOTS + 1) * group] = float("nan")
-            lo = max(u0, 0, t0 - d_max)
-            hi = min(u0 + group, n_frames, t0 + BM + d_max)
-            for u in range(lo, hi):
-                ring[g % F_SLOTS * group + (u - u0)] = f[u].float()
-            loaded += 1
-
-    lanes = torch.arange(kd)
-    for og in range(BM // group):
-        load_until(og + F_SLOTS)  # everything the free slots can take
-        for rg in range(group):
-            r = og * group + rg
-            t = t0 + r
-            acc = torch.zeros(kd)
-            for d in shift_order(d_max):
-                u = t - d
-                if t >= n_frames or u < 0 or u >= n_frames:
-                    continue
-                row = ring[(r - d + group) % (F_SLOTS * group)]
-                src = lanes + d * hop
-                ok = (src >= 0) & (src < w_len)
-                acc = acc + torch.where(ok, row[src.clamp(0, f.shape[-1] - 1)],
-                                        torch.zeros(()))
-            out[r] = acc
-    return out
-
-
-def cluster_size(bt: int, want: int = 0) -> int:
-    """Blocks a cluster: `want` when it is 1, 2 or 4, else 2 (1 for a single
-    utterance)."""
-    if want in CLUSTER_SIZES:
-        return want
-    return 2 if bt >= 2 else 1
-
-
-def schedule(n_frames: int, bt: int, hp: int, cluster: int
-             ) -> Iterator[Tuple[int, int, int, int, int]]:
-    """Every (row block, utterance, bin tile, cluster member, warpgroup) the
-    grid computes and stores: the grid is (row blocks, bt rounded up to whole
-    clusters); member r of the cluster at y takes utterance y + r and stores
-    only when that utterance exists; of a block's hp / BN bin tiles,
-    consumer warpgroup w takes w, w + 2, ..."""
-    for rb in range(-(-n_frames // BM)):
-        for y in range(0, round_up(bt, cluster), cluster):
-            for member in range(cluster):
-                if y + member >= bt:
-                    continue
-                for pair in range(hp // (2 * BN)):
-                    for wg in range(2):
-                        yield rb, y + member, 2 * pair + wg, member, wg
-
-
-def ring_stage(n: int, n_kc: int, n_pairs: int, rotation: int = 0
-               ) -> Tuple[int, int, int, int]:
-    """(slot, use, bin tile, K chunk) of the n-th stage the producer loads.
-    A block starts its cycle of the n_pairs bin-tile pairs at pair
-    `rotation` (its row block plus its cluster's number), so that blocks
-    running together work at different bins."""
-    pair = ((n >> 1) // n_kc + rotation) % n_pairs
-    return n % STAGES, n // STAGES, 2 * pair + (n & 1), (n >> 1) % n_kc

@@ -10,8 +10,9 @@ together, into a temporary directory) and times each build at the main
 path's shape, (32, 800, 1152) -> (32, 800, 2048) bf16, classic iteration,
 with CUDA events.  The stages of a block overlap (and so do the blocks of a
 launch), so the times do not add up: a mask says what the kernel costs
-without that stage's work.  The whole kernels are also timed with clusters
-of 1, 2 and 4 blocks.  A build with stages skipped computes garbage;
+without that stage's work.  The whole kernels are also built and timed with
+clusters of 1, 2 and 4 blocks (SSTTS_CLUSTER; 2 is what every other build
+uses).  A build with stages skipped computes garbage;
 only its time means anything.  Prints one JSON line with the card's name and
 power limit.
 """
@@ -43,6 +44,8 @@ MASKS = {
     7: "launch and barriers only",
 }
 
+CLUSTERS = (1, 2, 4)
+
 FUSED_MASKS = {
     0: "full",
     8: "without GEMM1",
@@ -57,20 +60,23 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("ablate_gl_semi: no CUDA device")
     with tempfile.TemporaryDirectory() as tmp:
+        # (kernel, define, value) -> nvcc: a build per stage mask and per
+        # cluster size
         procs = {
-            (name, m): subprocess.Popen(
-                [build.nvcc(), *build.NVCC_FLAGS, f"-DSSTTS_ABLATE={m}",
-                 "-o", str(Path(tmp) / f"{name}-m{m}.so"),
+            (name, define, v): subprocess.Popen(
+                [build.nvcc(), *build.NVCC_FLAGS, f"-D{define}={v}",
+                 "-o", str(Path(tmp) / f"{name}-{define}-{v}.so"),
                  str(build.CSRC / f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             for name, masks in (("gl_semi", MASKS), ("gl_fused", FUSED_MASKS))
-            for m in masks
+            for define, values in (("SSTTS_ABLATE", masks), ("SSTTS_CLUSTER", CLUSTERS))
+            for v in values
         }
         for key, p in procs.items():
             log, _ = p.communicate()
             if p.returncode:
-                raise RuntimeError(f"nvcc {key[0]} -DSSTTS_ABLATE={key[1]} failed:\n{log}")
+                raise RuntimeError(f"nvcc {key[0]} -D{key[1]}={key[2]} failed:\n{log}")
         dev = torch.device("cuda")
         Bt, T, wp, hp = 32, 800, 1152, 1024
         n_fft, hop, win = 2048, 275, 1102
@@ -88,7 +94,7 @@ def main() -> None:
             frames.data_ptr(), mag2.data_ptr(), w_fwd.data_ptr(),
             wss2d.data_ptr(), None, q.data_ptr(), None,
             Bt, T, wp, hp, plan["w_len"], hop, plan["d_max"], 0.0,
-            w_fwd_t.data_ptr(), 0,
+            w_fwd_t.data_ptr(),
         )
         stream = torch.cuda.current_stream().cuda_stream
         w_inv = torch.randn(2 * hp, wp, generator=g) / 32
@@ -101,11 +107,11 @@ def main() -> None:
             qin.data_ptr(), mag2.data_ptr(), w_inv.data_ptr(), w_fwd.data_ptr(),
             wss2d.data_ptr(), scratch.data_ptr(), q.data_ptr(),
             Bt, T, wp, hp, plan["w_len"], hop, plan["d_max"], scratch.shape[0],
-            w_inv_t.data_ptr(), w_fwd_t.data_ptr(), flags.data_ptr(), 0,
+            w_inv_t.data_ptr(), w_fwd_t.data_ptr(), flags.data_ptr(),
         )
         res = {"gl_semi": {}, "gl_fused": {}}
-        for (name, m), _ in procs.items():
-            lib = ctypes.CDLL(str(Path(tmp) / f"{name}-m{m}.so"))
+        for name, define, v in procs:
+            lib = ctypes.CDLL(str(Path(tmp) / f"{name}-{define}-{v}.so"))
             fn = getattr(lib, f"sstts_{name}")
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -114,15 +120,13 @@ def main() -> None:
             def launch():
                 rc = fn(ctypes.byref(a), stream)
                 if rc:
-                    raise RuntimeError(f"{name} (mask {m}): CUDA error {rc}")
+                    raise RuntimeError(f"{name} (-D{define}={v}): CUDA error {rc}")
 
-            label = (MASKS if name == "gl_semi" else FUSED_MASKS)[m]
+            if define == "SSTTS_CLUSTER":
+                label = f"full, clusters of {v}"
+            else:
+                label = (MASKS if name == "gl_semi" else FUSED_MASKS)[v]
             res[name][label] = time_ms(launch)
-            if m == 0:  # the whole kernel by cluster size (0 is the default, 2)
-                for cl in (1, 2, 4):
-                    a.cluster = cl
-                    res[name][f"full, clusters of {cl}"] = time_ms(launch)
-                a.cluster = 0
     card = card_line()
     print(json.dumps({"gl_semi_phase_ms": res["gl_semi"],
                       "gl_fused_phase_ms": res["gl_fused"],

@@ -124,13 +124,13 @@ def main() -> None:
                 a = _GlArgs(frames.data_ptr(), mag2.data_ptr(), w_fwd.data_ptr(),
                             wss2d.data_ptr(), None, out.data_ptr(), None,
                             Bt, T, wp, hp, w_len, hop, d_max, 0.0,
-                            w_fwd_t.data_ptr(), 0)
+                            w_fwd_t.data_ptr())
             elif case == "gl_semi_momentum":
                 s_out = torch.empty_like(mag2)
                 a = _GlArgs(frames.data_ptr(), mag2.data_ptr(), w_fwd.data_ptr(),
                             wss2d.data_ptr(), prev.data_ptr(), out.data_ptr(),
                             s_out.data_ptr(), Bt, T, wp, hp, w_len, hop, d_max, 0.99,
-                            w_fwd_t.data_ptr(), 0)
+                            w_fwd_t.data_ptr())
                 a._s_out = s_out
             else:
                 if hasattr(lib, "sstts_gl_fused_scratch_rows"):  # a slab per block
@@ -144,7 +144,7 @@ def main() -> None:
                                  out.data_ptr(), Bt, T, wp, hp, w_len, hop, d_max,
                                  scratch.shape[0], w_inv_t.data_ptr(),
                                  w_fwd_t.data_ptr(),
-                                 None if flags is None else flags.data_ptr(), 0)
+                                 None if flags is None else flags.data_ptr())
                 a._scratch = scratch  # kept alive with the arguments
             a._out = out  # every build writes only its own output
 

@@ -1,9 +1,12 @@
 """What the CUDA kernels B2 and B5 (`sstts_torch/csrc/gl_tail.cuh`,
-`gl_semi.cu`, `gl_fused.cu`) rely on, held on the CPU: their index rules as
-`sstts_torch/dsp/gl_tiles.py` mirrors them, against `shift_add_rows` and
-plain products, and the Python reckoning of shared memory and scratch
-against the constants in the sources.  The kernels themselves run only on a
-card (`chip_smoke.py`).
+`gl_semi.cu`, `gl_fused.cu`) rely on, held on the CPU: their index rules,
+written out below in Python (the swizzle, the shift-add through a ring of
+row groups, a bf16 pair from two words, the work schedule), against
+`shift_add_rows` and plain products; and the wrappers' reckoning of shared
+memory and scratch (`sstts_torch/dsp/gl_tiles.py`) against the constants in
+the sources.  The Python rules are a second statement of the design, not the
+kernels: those run only on a card, where `chip_smoke.py` holds them to their
+plain versions.
 
 Exactness: the shift-add tests compare f32 sums of the same terms in the
 same order, so they must be equal bit for bit; the product tests use small
@@ -25,6 +28,126 @@ CSRC = Path(gt.__file__).resolve().parent.parent / "csrc"
 #: (n_fft, hop, win): the tiny config's geometry (w_len 399, D = 3) and one
 #: with an odd hop and a support that is no multiple of 16 (w_len 219, D = 4).
 GEOMETRIES = [(512, 100, 400), (256, 53, 220)]
+
+
+# ------------------------------------------- the kernels' index rules --
+
+
+def swizzle128_offset(row: int, k: int) -> int:
+    """Byte offset of bf16 element (row, k) in the panel: 8 KB chunks of 64
+    lanes, rows of 128 bytes whose 16-byte pieces are XOR-ed with the row's
+    low three bits (TMA's SWIZZLE_128B, what a wgmma descriptor reads)."""
+    chunk, kk = divmod(k, gt.BK)
+    piece = (kk // 8) ^ (row & 7)
+    return chunk * gt.CHUNK_BYTES + row * 128 + piece * 16 + (kk % 8) * 2
+
+
+def shift_order(d_max: int) -> list:
+    """The order the shifted terms are added in: 0, then -D..D without 0."""
+    return [0] + [d for d in range(-d_max, d_max + 1) if d]
+
+
+def pair_from_words(words, lane: int, w_len: int):
+    """The bf16 lanes (lane, lane + 1) of a row given as little-endian 32-bit
+    words (numpy uint32), as the kernel reads them: the two words that hold
+    them joined by a funnel shift when `lane` is odd, each lane as the f32
+    whose high half it is, +0 for a lane outside [0, w_len).  The words may
+    be read outside the row (the kernel's loads are not masked, only their
+    values are), so `words` is indexed modulo its length."""
+    n = len(words)
+    w0 = int(words[(lane >> 1) % n])
+    w1 = int(words[((lane >> 1) + 1) % n])
+    pair = ((w0 >> 16) | (w1 << 16)) & 0xFFFFFFFF if lane & 1 else w0
+    bits = [(pair << 16) & 0xFFFFFFFF, pair & 0xFFFF0000]
+    vals = np.array(bits, dtype=np.uint32).view(np.float32)
+    ok = [0 <= lane < w_len, 0 <= lane + 1 < w_len]
+    return [float(v) if good else 0.0 for v, good in zip(vals, ok)]
+
+
+def ring_shift_add(f: torch.Tensor, w_len: int, hop: int, d_max: int, t0: int,
+                   elem_bytes: int) -> torch.Tensor:
+    """The panel's sums for frames [t0, t0 + BM) of F (T, wp) as the kernels
+    form them.  Rows pass through F_SLOTS slots of `group` = 16 / elem_bytes
+    rows: group g holds frames [t0 + (g - 1) group, t0 + g group), only those
+    inside the utterance and the halo; the producer runs as far ahead as the
+    slots allow (group g lands when output group g - F_SLOTS is done).  For
+    output row r and shift d the source row is found at ring row
+    (r - d + group) mod (F_SLOTS * group); a row outside [0, T) and a lane
+    outside [0, w_len) add nothing.  Terms are added in `shift_order`.
+    Returns (BM, k_needed(w_len)) f32."""
+    group = 16 // elem_bytes
+    n_frames = f.shape[-2]
+    kd = gt.k_needed(w_len)
+    ring = torch.full((gt.F_SLOTS * group, f.shape[-1]), float("nan"))
+    out = torch.zeros(gt.BM, kd)
+    n_groups = gt.BM // group + 2
+    loaded = 0
+
+    def load_until(g_hi: int) -> None:
+        nonlocal loaded
+        while loaded < min(g_hi, n_groups):
+            g = loaded
+            u0 = t0 + (g - 1) * group
+            ring[g % gt.F_SLOTS * group : (g % gt.F_SLOTS + 1) * group] = float("nan")
+            lo = max(u0, 0, t0 - d_max)
+            hi = min(u0 + group, n_frames, t0 + gt.BM + d_max)
+            for u in range(lo, hi):
+                ring[g % gt.F_SLOTS * group + (u - u0)] = f[u].float()
+            loaded += 1
+
+    lanes = torch.arange(kd)
+    for og in range(gt.BM // group):
+        load_until(og + gt.F_SLOTS)  # everything the free slots can take
+        for rg in range(group):
+            r = og * group + rg
+            t = t0 + r
+            acc = torch.zeros(kd)
+            for d in shift_order(d_max):
+                u = t - d
+                if t >= n_frames or u < 0 or u >= n_frames:
+                    continue
+                row = ring[(r - d + group) % (gt.F_SLOTS * group)]
+                src = lanes + d * hop
+                ok = (src >= 0) & (src < w_len)
+                acc = acc + torch.where(ok, row[src.clamp(0, f.shape[-1] - 1)],
+                                        torch.zeros(()))
+            out[r] = acc
+    return out
+
+
+def cluster_size(bt: int, built_for: int = 2) -> int:
+    """Blocks a cluster (`cluster_size` in gl_tail.cuh): what the library was
+    built for (SSTTS_CLUSTER, 2 unless a tool sets it), 1 for a single
+    utterance."""
+    return built_for if bt >= 2 else 1
+
+
+def schedule(n_frames: int, bt: int, hp: int, cluster: int):
+    """Every (row block, utterance, bin tile, cluster member, warpgroup) the
+    grid computes and stores: the grid is (row blocks, bt rounded up to whole
+    clusters); member r of the cluster at y takes utterance y + r and stores
+    only when that utterance exists; of a block's hp / BN bin tiles,
+    consumer warpgroup w takes w, w + 2, ..."""
+    for rb in range(-(-n_frames // gt.BM)):
+        for y in range(0, gt.round_up(bt, cluster), cluster):
+            for member in range(cluster):
+                if y + member >= bt:
+                    continue
+                for pair in range(hp // (2 * gt.BN)):
+                    for wg in range(2):
+                        yield rb, y + member, 2 * pair + wg, member, wg
+
+
+def ring_stage(n: int, n_kc: int, n_pairs: int, rotation: int = 0) -> tuple:
+    """(slot, use, bin tile, K chunk) of the n-th stage the producer loads.
+    A block starts its cycle of the n_pairs bin-tile pairs at pair
+    `rotation` (its row block plus its cluster's number), so that blocks
+    running together work at different bins."""
+    pair = ((n >> 1) // n_kc + rotation) % n_pairs
+    return n % gt.STAGES, n // gt.STAGES, 2 * pair + (n & 1), (n >> 1) % n_kc
+
+
+# ---------------------------------------------------------- the tests --
 
 
 def _frames(n_frames, wp, w_len, dtype, seed, batch=()):
@@ -50,7 +173,7 @@ def test_ring_shift_add_equals_shift_add_rows(geom, n_frames, t0, dtype):
     wp = gt.round_up(w_len, 128)
     f = _frames(n_frames, wp, w_len, dtype, 4)
     f[..., w_len:] = 7.0  # lanes beyond the support must not be read
-    got = gt.ring_shift_add(f, w_len, hop, d_max, t0, f.element_size())
+    got = ring_shift_add(f, w_len, hop, d_max, t0, f.element_size())
     rows = min(gt.BM, n_frames - t0)
     clean = f.clone()
     clean[..., w_len:] = 0.0
@@ -67,7 +190,7 @@ def test_pair_from_words(lane):
     w_len = 19
     row = torch.arange(1, 25, dtype=torch.float32).to(torch.bfloat16)
     words = row.view(torch.int16).numpy().view(np.uint32)
-    got = gt.pair_from_words(words, lane, w_len)
+    got = pair_from_words(words, lane, w_len)
     want = [float(row[l]) if 0 <= l < w_len else 0.0 for l in (lane, lane + 1)]
     assert got == want
 
@@ -95,26 +218,26 @@ def test_k_cut_and_k_major_reproduce_the_product(w_len):
 def test_swizzle128_is_a_permutation_of_each_chunk():
     """Each 8 KB chunk of the panel holds its 64 rows x 64 lanes once, a
     row's 16-byte pieces XOR-ed with its low three bits."""
-    offs = {gt.swizzle128_offset(r, k) for r in range(gt.BM) for k in range(2 * gt.BK)}
+    offs = {swizzle128_offset(r, k) for r in range(gt.BM) for k in range(2 * gt.BK)}
     assert len(offs) == gt.BM * 2 * gt.BK
     assert offs == set(range(0, 2 * gt.CHUNK_BYTES, 2))
-    assert gt.swizzle128_offset(0, 8) == 16 and gt.swizzle128_offset(1, 8) == 128
-    assert gt.swizzle128_offset(5, 64 + 3) == gt.CHUNK_BYTES + 5 * 128 + 5 * 16 + 6
+    assert swizzle128_offset(0, 8) == 16 and swizzle128_offset(1, 8) == 128
+    assert swizzle128_offset(5, 64 + 3) == gt.CHUNK_BYTES + 5 * 128 + 5 * 16 + 6
 
 
 @pytest.mark.parametrize("bt", [1, 3, 32])
 @pytest.mark.parametrize("cluster", [1, 2, 4])
 def test_schedule_covers_every_output_tile_once(cluster, bt):
     n_frames, hp = 150, 256
-    seen = list(gt.schedule(n_frames, bt, hp, cluster))
+    seen = list(schedule(n_frames, bt, hp, cluster))
     tiles = [(rb, utt, tile) for rb, utt, tile, _, _ in seen]
     want = {(rb, utt, tile) for rb in range(3) for utt in range(bt)
             for tile in range(hp // gt.BN)}
     assert len(tiles) == len(set(tiles)) and set(tiles) == want
     for rb, utt, tile, member, wg in seen:
         assert member == utt % cluster and wg == tile % 2
-    assert gt.cluster_size(bt) == (1 if bt == 1 else 2)
-    assert gt.cluster_size(bt, cluster) == cluster
+    assert cluster_size(bt) == (1 if bt == 1 else 2)
+    assert cluster_size(bt, cluster) == (1 if bt == 1 else cluster)
 
 
 @pytest.mark.parametrize("rotation", [0, 3, 13])
@@ -124,7 +247,7 @@ def test_ring_stages_carry_every_tile_chunk_once(n_kc, rotation):
     pair the block starts at, alternate stages to alternate warpgroups,
     slots in turn."""
     n_pairs = 4
-    stages = [gt.ring_stage(n, n_kc, n_pairs, rotation) for n in range(2 * n_pairs * n_kc)]
+    stages = [ring_stage(n, n_kc, n_pairs, rotation) for n in range(2 * n_pairs * n_kc)]
     assert {(tile, kc) for _, _, tile, kc in stages} == {
         (tile, kc) for tile in range(2 * n_pairs) for kc in range(n_kc)}
     for n, (slot, use, tile, kc) in enumerate(stages):
@@ -149,13 +272,14 @@ def test_python_reckoning_matches_the_sources():
     mirror = {
         "BM": gt.BM, "BN": gt.BN, "BK": gt.BK, "kStages": gt.STAGES,
         "kChunkBytes": gt.CHUNK_BYTES, "kStageBytes": gt.STAGE_BYTES,
-        "kBoxRows": gt.BOX_ROWS, "kFSlots": gt.F_SLOTS, "kMaxPass": gt.MAX_PASS,
+        "kFSlots": gt.F_SLOTS, "kMaxPass": gt.MAX_PASS,
         "kBarrierBytes": gt.BARRIER_BYTES, "N1": gt.N1, "M1_TILES": gt.M1_TILES,
         "kG1StageBytes": gt.G1_STAGE_BYTES, "kG1MaxStages": gt.G1_MAX_STAGES,
     }
     assert {k: c[k] for k in mirror} == mirror
     assert c["kProducerRegs"] * 128 + c["kConsumerRegs"] * 256 <= 65536
     assert c["kThreads"] == 384 and c["kConsumers"] == 256
+    assert 2 * gt.BN % c["kBoxRows"] == 0  # whole TMA boxes a ring stage
     # the barriers fit their area: ring full/empty, F full/empty, 9 of GEMM1
     assert (2 * gt.STAGES + 2 * gt.F_SLOTS + 2 * gt.G1_MAX_STAGES + 1) * 8 <= gt.BARRIER_BYTES
     # the default config (w_len 1101, D = 4) and the tiny one (399, D = 3)
