@@ -17,8 +17,10 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    (H = 128 and the generic one at H = 16), and their stages' times apart;
    for the two Griffin-Lim GEMM kernels also batches of 3, 2 and 1
    utterances (clusters of two with a member left over) and 515, 37 and 5
-   frames, the momentum variant's time, the host's time per launch, ptxas's
-   registers (no spill) and the time before their redesign;
+   frames, two other geometries (a hop of 137 samples, D = 8, for B2; a
+   16 kHz corpus for both), NotImplementedError and no launch at the
+   geometries beyond them, the momentum variant's time, the host's time per
+   launch and ptxas's registers (no spill);
 3. the synthesis path: `Synthesizer.synthesize_batch` at the full default
    `Config()` from a seeded random init, bench.py's workload (32 x an 88
    character text, 160 decoder steps = 800 frames, stop threshold 1.1,
@@ -529,17 +531,37 @@ GL_MS_PREV = {"fused_reproject_analyze": 1.9111, "fused_reproject_analyze_moment
 #: multiple of 64, one below 64 and one no longer than the band (T <= 2 D).
 GL_SIDE_SHAPES = [(3, 515), (1, 800), (3, 37), (2, 5)]
 
+#: Other geometries the kernels take, as (case, DatasetConfig fields, kernels):
+#: a 6.22 ms hop at the default window (137 samples, D = 8, the most B2 takes;
+#: B5 stops at D = 4) and a 16 kHz corpus (window 800, hop 200: a support of
+#: 799 lanes in wp = 896, D = 3).
+GL_SIDE_GEOMETRIES = [
+    ("hop137", {"win_hop_ms": 6.22}, ("B2",)),
+    ("16kHz", {"sample_rate": 16000, "n_fft": 1024, "mel_fmax": 8000.0}, ("B2", "B5")),
+]
 
-def gl_inputs(dev, Bt, T, seed):
-    """Seeded inputs of B2 and B5 on the card at the default config's
-    widths (wp = 1152 lanes, 2 hp = 2048), bf16."""
+#: Geometries beyond the kernels, which their wrappers must refuse before any
+#: launch (PERF.md lists them): a support above 1152 lanes (24 kHz at 50 ms)
+#: for both, D = 5 for B5, D = 10 for B2.
+GL_REFUSED = [
+    ({"sample_rate": 24000, "mel_fmax": 12000.0}, ("B2", "B5")),
+    ({"win_hop_ms": 10.0}, ("B5",)),
+    ({"win_hop_ms": 5.0}, ("B2",)),
+]
+
+
+def gl_inputs(dev, Bt, T, seed, ds=None):
+    """Seeded inputs of B2 and B5 on the card, bf16, at the default config's
+    widths (wp = 1152 lanes, 2 hp = 2048) or with the lanes of another
+    dataset config `ds`."""
     import torch
 
     from sstts_torch.config import Config
     from sstts_torch.dsp.reproject import band_plan, padded_wss2d
 
-    ds = Config().dataset
-    wp, hp = 1152, 1024
+    ds = ds or Config().dataset
+    hp = 1024
+    wp = -(-(ds.win_len - 1) // 128) * 128
     length = (T - 1) * ds.hop_len
     plan = band_plan(ds.n_fft, ds.hop_len, ds.win_len, T, length)
     w_len = plan["w_len"]
@@ -559,6 +581,35 @@ def gl_inputs(dev, Bt, T, seed):
         "prev": torch.randn(Bt, T, 2 * hp, generator=g).to(dev, bf),
         "wss2d": padded_wss2d(plan, wp, dev),
     }
+
+
+def gl_side_geometries(kernel):
+    """(DatasetConfig, case name) of `GL_SIDE_GEOMETRIES` for B2 or B5."""
+    from sstts_torch.config import Config
+
+    return [(dataclasses.replace(Config().dataset, **fields), tag)
+            for tag, fields, kernels in GL_SIDE_GEOMETRIES if kernel in kernels]
+
+
+def gl_refusals(kernel, dev, wrapper, args_of):
+    """The wrapper of B2 or B5 raises NotImplementedError on the card, and
+    launches nothing, at each geometry of `GL_REFUSED` for it."""
+    from sstts_torch.config import Config
+
+    for fields, kernels in GL_REFUSED:
+        if kernel not in kernels:
+            continue
+        x = gl_inputs(dev, 2, 70, 90, dataclasses.replace(Config().dataset, **fields))
+        before = wrapper.launches
+        try:
+            wrapper(*args_of(x))
+        except NotImplementedError as e:
+            log(f"  {kernel} refuses {fields} (w_len {x['plan']['w_len']}, D "
+                f"{x['plan']['d_max']}): {str(e)[:60]}...")
+        else:
+            raise AssertionError(f"{kernel} took {fields}, which it does not support")
+        if wrapper.launches != before:
+            raise AssertionError(f"{kernel} counted a launch it refused")
 
 
 def host_us_per_launch(fn, n: int = 200) -> float:
@@ -591,8 +642,8 @@ def check_gl(dev):
     # under 1% of the elements may differ at all.
     tol = 2.0**-7
 
-    def compare(Bt, T, seed):
-        x = gl_inputs(dev, Bt, T, seed)
+    def compare(Bt, T, seed, ds=None, tag=""):
+        x = gl_inputs(dev, Bt, T, seed, ds)
         args = (x["frames"], x["mag2"], x["w_fwd"], x["wss2d"], x["plan"]["w_len"],
                 x["ds"].hop_len, x["plan"]["d_max"])
         for m in (0.0, 0.99):
@@ -608,7 +659,7 @@ def check_gl(dev):
                 scale = float(b.float().abs().max())
                 case = f"{'momentum' if m else 'classic'}-{name}"
                 if (Bt, T) != (32, 800):
-                    case += f"-{Bt}x{T}"
+                    case += f"-{Bt}x{T}{tag}"
                 # s is the raw spectrum (|s| up to `scale`): the same one-step
                 # rule relative to its size.
                 t = tol * max(1.0, scale)
@@ -623,6 +674,11 @@ def check_gl(dev):
     x, args = compare(32, 800, 5)
     for i, (Bt, T) in enumerate(GL_SIDE_SHAPES):
         compare(Bt, T, 50 + i)
+    for i, (ds, tag) in enumerate(gl_side_geometries("B2")):
+        compare(3, 150, 60 + i, ds, "-" + tag)
+    gl_refusals("B2", dev, reproject_analyze, lambda x: (
+        x["frames"], x["mag2"], x["w_fwd"], x["wss2d"], x["plan"]["w_len"],
+        x["ds"].hop_len, x["plan"]["d_max"]))
     ptxas = kernel_ptxas("gl_semi", "gl_semi_kernel", "gl_semi_kernel")
     prev = x["prev"]
     w_fwd_t = k_major(x["w_fwd"])  # the loop makes it once per call
@@ -741,8 +797,8 @@ def check_gl_fused(dev):
     # that differ at all (< 5%); the largest difference is reported.
     checks = []
 
-    def compare(Bt, T, seed):
-        x = gl_inputs(dev, Bt, T, seed)
+    def compare(Bt, T, seed, ds=None, tag=""):
+        x = gl_inputs(dev, Bt, T, seed, ds)
         ds, plan, hp = x["ds"], x["plan"], x["hp"]
         w_len, d_max, hop = plan["w_len"], plan["d_max"], ds.hop_len
         q, mag2, w_inv, w_fwd, wss2d = (x[k] for k in ("q", "mag2", "w_inv", "w_fwd",
@@ -760,7 +816,7 @@ def check_gl_fused(dev):
         torch.cuda.synchronize()
         for case, a, b in (("kernel", got, ref), ("with-edge-repair", whole, whole_ref)):
             if (Bt, T) != (32, 800):
-                case += f"-{Bt}x{T}"
+                case += f"-{Bt}x{T}{tag}"
             err = max_err(a, b)
             rel = float((a.float() - b.float()).norm() / b.float().norm())
             frac = float((a != b).float().mean())
@@ -775,6 +831,11 @@ def check_gl_fused(dev):
     x, core, whole_args = compare(32, 800, 7)
     for i, (Bt, T) in enumerate(GL_SIDE_SHAPES):
         compare(Bt, T, 70 + i)
+    for i, (ds, tag) in enumerate(gl_side_geometries("B5")):
+        compare(3, 150, 80 + i, ds, "-" + tag)
+    gl_refusals("B5", dev, gl.gl_iteration, lambda x: (
+        x["q"], x["mag2"], x["w_inv"], x["w_fwd"], x["wss2d"], x["plan"]["w_len"],
+        x["ds"].hop_len, x["plan"]["d_max"]))
     ptxas = kernel_ptxas("gl_fused", "gl_fused_kernel", "gl_fused_kernel")
     kt = (k_major(x["w_inv"]), k_major(x["w_fwd"]))  # the loop makes them once
     ms = cuda_ms(lambda: gl.gl_iteration(*core, *kt), 3, 5)

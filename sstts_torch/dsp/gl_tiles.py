@@ -77,7 +77,11 @@ def slab_floats(wp: int) -> int:
 
 def check_shapes(kernel: str, wp: int, hp: int, w_len: int, d_max: int,
                  fused: bool = False) -> int:
-    """Shared memory of a launch; raises for what the kernels do not take."""
+    """Shared memory of a launch; raises for what the kernels do not take:
+    a window support above 1152 samples (18 panel chunks), more than 8
+    overlapping frames a side for B2 (hop below about an eighth of the
+    window) and more than 4 for B5 (hop below about a fifth of it).  The
+    split iteration (`iter_impl="split"`) has none of these limits."""
     if wp % BK or hp % (2 * BN) or w_len > wp:
         raise ValueError(
             f"{kernel} kernel needs wp % {BK} == 0, hp % {2 * BN} == 0 and "
@@ -89,18 +93,19 @@ def check_shapes(kernel: str, wp: int, hp: int, w_len: int, d_max: int,
             f"{kernel} kernel keeps a {BM} x {k_needed(w_len)} frames panel in "
             f"shared memory ({smem} bytes > {MAX_SMEM}); a window support above "
             f"{(MAX_SMEM - tail_smem_bytes(0)) // CHUNK_BYTES * BK} samples is "
-            "not supported"
+            "not supported; iter_impl='split' takes it"
         )
     if not f_rows_fit(w_len, d_max, 4 if fused else 2):
         raise NotImplementedError(
             f"{kernel} kernel: d_max={d_max} reaches beyond one group of "
             f"{4 if fused else 8} rows, or rows of {w_len} lanes do not fit in "
-            f"its ring ({STAGES * STAGE_BYTES} bytes)"
+            f"its ring ({STAGES * STAGE_BYTES} bytes); iter_impl='split' takes it"
         )
     if fused and (BM + 2 * d_max > N1 or g1_stages(w_len) < 2):
         raise NotImplementedError(
             f"{kernel} kernel: d_max={d_max} halo rows beyond its {N1}-row GEMM1 "
-            f"tile, or a window support ({w_len}) too short for its GEMM1 ring"
+            f"tile, or a window support ({w_len}) too short for its GEMM1 ring; "
+            "iter_impl='semi' or 'split' takes it"
         )
     return smem
 
