@@ -15,7 +15,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    bound, from its shapes; for the GRU kernels also what ptxas reported
    (registers, no spill in the H = 128 kernels), both kinds of kernel
    (H = 128 and the generic one at H = 16), and their stages' times apart;
-   for the two Griffin-Lim GEMM kernels also batches of 3, 2 and 1
+   for the decode kernel B4 also the tiny config's widths, B=3 at T=300,
+   rows that stop at different steps, T=4096, and T=20000 refused before
+   any launch; for the two Griffin-Lim GEMM kernels also batches of 3, 2 and 1
    utterances (clusters of two with a member left over) and 515, 37 and 5
    frames, two other geometries (a hop of 137 samples, D = 8, for B2; a
    16 kHz corpus for both), NotImplementedError and no launch at the
@@ -451,34 +453,56 @@ def check_teacher(dev):
 def check_decoder(dev):
     import torch
 
-    from sstts_torch.config import Config
+    from sstts_torch.config import Config, tiny_config
     from sstts_torch.model.tacotron import Tacotron, init_state_dict
     from sstts_torch.ops import decoder as dec
 
-    cfg = Config()
-    model = Tacotron(cfg.arch, cfg.dataset)
-    model.load_state_dict(init_state_dict(cfg.arch, cfg.dataset, seed=2))
-    cell = model.decoder_cell.to(dev).eval()
-    B, T, Dm = 32, 96, 2 * cfg.arch.encoder_gru_units
-    g = torch.Generator().manual_seed(3)
-    memory = (0.5 * torch.randn(B, T, Dm, generator=g)).to(dev)
-    lengths = torch.randint(40, T + 1, (B,), generator=g).to(dev)
-    mask = torch.arange(T, device=dev)[None] < lengths[:, None]
-    gdev = torch.Generator(device=dev).manual_seed(4)
-    checks, main = [], None
-    # (S, dtype, stop threshold, tolerance on mel/stop, on alignments):
-    # f32 is the same arithmetic in another summation order (2e-4 / 2e-5,
-    # as tests/test_pallas_decoder.py holds the JAX kernel); bf16 rounds
-    # every product's operands, and a different f32 sum can round an
-    # activation to the neighbouring bf16 value, which 160 autoregressive
-    # steps carry forward: held loosely, 5e-2 of the largest value.
-    for S, dt, thr in ((20, torch.float32, 0.5), (160, torch.bfloat16, 1.1)):
+    cells = {}
+
+    def inputs(cfg_name, B, T, S, dt, thr, min_steps, seed=3):
+        if cfg_name not in cells:
+            cfg = Config() if cfg_name == "default" else tiny_config()
+            model = Tacotron(cfg.arch, cfg.dataset)
+            model.load_state_dict(init_state_dict(cfg.arch, cfg.dataset, seed=2))
+            cells[cfg_name] = (cfg, model.decoder_cell.to(dev).eval())
+        cfg, cell = cells[cfg_name]
+        Dm = 2 * cfg.arch.encoder_gru_units
+        g = torch.Generator().manual_seed(seed)
+        memory = (0.5 * torch.randn(B, T, Dm, generator=g)).to(dev)
+        lengths = torch.randint(min(40, T), T + 1, (B,), generator=g).to(dev)
+        mask = torch.arange(T, device=dev)[None] < lengths[:, None]
+        gdev = torch.Generator(device=dev).manual_seed(seed + 1)
         keep = dec.draw_keep_masks(S, B, cfg.arch.prenet_units, 0.5, gdev, dev)
         with torch.no_grad():
-            p = dec.prepare_decode(
-                cell, memory, mask, S, stop_threshold=thr, min_steps=8,
+            return dec.prepare_decode(
+                cell, memory, mask, S, stop_threshold=thr, min_steps=min_steps,
                 keep=keep, matmul_dtype=dt,
             )
+
+    checks, main = [], None
+    # (case, config, B, T, S, dtype, stop threshold, min_steps).  Tolerances
+    # on mel/stop and on alignments: f32 is the same arithmetic in another
+    # summation order (2e-4 / 2e-5, as tests/test_pallas_decoder.py holds the
+    # JAX kernel); bf16 rounds every product's operands, and a different f32
+    # sum can round an activation to the neighbouring bf16 value, which the
+    # autoregressive steps carry forward: held loosely, 5e-2 of the largest
+    # value.  Beside chip_smoke's two cases, the ring's edges: the tiny
+    # config's narrow rows (stop_w's 8 bytes padded to 16), B=3 at T=300
+    # (memory over 10 stages), rows that stop at different steps (f32, so
+    # that no stop logit sits across the threshold between the two), and
+    # T=4096, the longest text the kernel must take.
+    cases = [
+        ("S20-f32", "default", 32, 96, 20, torch.float32, 0.5, 8),
+        ("S160-bf16", "default", 32, 96, 160, torch.bfloat16, 1.1, 8),
+        ("tiny-f32", "tiny", 3, 11, 12, torch.float32, 0.5, 2),
+        ("tiny-bf16", "tiny", 3, 11, 12, torch.bfloat16, 1.1, 2),
+        ("B3-T300-bf16", "default", 3, 300, 40, torch.bfloat16, 1.1, 8),
+        ("stops-f32", "default", 8, 96, 24, torch.float32, 0.5, 1),
+        ("T4096-bf16", "default", 2, 4096, 6, torch.bfloat16, 1.1, 8),
+    ]
+    for case, cfg_name, B, T, S, dt, thr, min_steps in cases:
+        p = inputs(cfg_name, B, T, S, dt, thr, min_steps)
+        with torch.no_grad():
             got = dec.decode_steps(p)
             ref = dec.decode_steps_plain(p)
         torch.cuda.synchronize()
@@ -487,20 +511,34 @@ def check_decoder(dev):
         tol_al = 2e-5 if dt == torch.float32 else 5e-2
         errs = {k: max_err(got[k], ref[k]) for k in ("mel", "stop", "align")}
         fin_equal = bool(torch.equal(got["fin"], ref["fin"]))
-        case = f"S{S}-{str(dt).split('.')[-1]}"
-        log(f"  B4 fused_decode {case}: {errs} fin_equal={fin_equal} "
-            f"(tol mel/stop {tol_mel:.3g}, align {tol_al}; |mel| max {scale:.3g})")
+        steps = sorted({int(v) for v in (ref["fin"] < 0.5).sum(1).tolist()})
+        log(f"  B4 fused_decode {case}: {errs} fin_equal={fin_equal} (tol mel/stop "
+            f"{tol_mel:.3g}, align {tol_al}; |mel| max {scale:.3g}; steps run {steps})")
         if not (fin_equal and errs["mel"] <= tol_mel and errs["stop"] <= tol_mel
                 and errs["align"] <= tol_al):
             raise AssertionError(f"fused_decode {case}: {errs}, fin {fin_equal}")
+        if case == "stops-f32" and len(steps) < 2:
+            raise AssertionError(f"fused_decode {case}: every row stopped at {steps}")
         checks.append({"case": case, "max_abs_err": max(errs.values()),
-                       "tol": tol_mel, "errors": errs})
-        main = (p, checks[-1])
+                       "tol": tol_mel, "errors": errs, "steps_run": steps})
+        if case == "S160-bf16":
+            main = (p, checks[-1])
+    # Beyond the limit the wrapper refuses before any launch.
+    n0 = dec.decode_steps.launches
+    p = inputs("default", 1, 20000, 2, torch.bfloat16, 1.1, 8)
+    try:
+        with torch.no_grad():
+            dec.decode_steps(p)
+        raise AssertionError("fused_decode took T=20000")
+    except NotImplementedError as e:
+        log(f"  B4 fused_decode T=20000 refused: {e}")
+    assert dec.decode_steps.launches == n0
     p, main_check = main
     with torch.no_grad():
         ms = cuda_ms(lambda: dec.decode_steps(p), 3, 5)
         plain = cuda_ms(lambda: dec.decode_steps_plain(p), 1, 3)
     w = p.w
+    B, T, Dm = p.memory.shape
     S, r, M = p.max_steps, p.reduction, p.n_mels
     A = p.keys.shape[-1]
     n_bytes = nbytes(*w, p.memory, p.keys, p.maskf, p.keep0, p.keep1) + 4 * B * S * (
@@ -509,6 +547,10 @@ def check_decoder(dev):
     macs = sum(getattr(w, n).numel() for n in dec._MATRICES) + T * (A + Dm)
     n_ops = 2 * S * B * macs
     bms, by = bound_ms(n_bytes, n_ops, "bf16")
+    # The design's floor: every block streams the packed cell and its keys
+    # and memory once a step (rows padded to 16 bytes), at the rate one SM
+    # streams from L2 (sm_microbench's stream probe).
+    step_bytes = p.packed.numel() + T * (dec.row_bytes(A, 2) + dec.row_bytes(Dm, 2))
     return {
         "name": "fused_decode", "route": "cuda",
         "source": "sstts_torch/csrc/decoder.cu",
@@ -516,6 +558,7 @@ def check_decoder(dev):
         "max_abs_err": main_check["max_abs_err"],
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "library_ms": None, "shape": [B, T, S], "checks": checks,
+        "stream_bytes_a_step": step_bytes,
     }
 
 

@@ -16,24 +16,36 @@
 // rounded to it) with f32 accumulation; gate math and softmax are f32, as in
 // the Pallas kernel.
 //
-// Bound on the H100: latency.  160 dependent steps of ~2 * 32 * 1.7 M =
-// 0.11 GFLOP each, i.e. nothing for the card's arithmetic.  The cell's
-// 1.7 M parameters (3.4 MB in bf16) exceed one SM's shared memory, so the
-// TPU's "all weights resident" design does not carry over: here the weights
-// stay in device memory, where they remain L2-resident (50 MB L2) across the
-// steps, and each step re-reads them from L2.  That re-read is the next cost.
+// Bound on the H100: not arithmetic (a step is ~1.6 M multiply-adds an
+// utterance) but moving the cell to the SM.  The cell's 1.6 M parameters
+// (3.3 MB in bf16) exceed one SM's shared memory, so the TPU's "all weights
+// resident" design does not carry over: every step reads the whole cell and
+// the utterance's keys and memory (3.36 MB at the default config) from L2,
+// where they stay resident.  Loads issued by the threads themselves keep
+// too few bytes in flight for L2's latency (PR 1's kernel, 93 us a step).
 //
-// Design: one block per utterance (each row's decode is independent), the
-// loop over S inside the block, the recurrent state in shared memory.
-// Matrix-vector products split K over 8 groups of 128 threads (1024 in
-// all); in a group each thread owns a pair of adjacent output columns, so
-// a warp reads 128 contiguous bytes of a weight row and each thread's
-// dependent chain is an eighth of K; the groups' partial sums meet in
-// shared memory.  Attention scores use one warp per encoder position; the
-// softmax is a block reduction in f32.  The key projection
-// memory @ memory_proj is hoisted out of the kernel, as in JAX.  Any B (one
-// block each) and any T the shared memory holds (T floats; T = 256 needs
-// 1 KB); output widths up to kMaxN = 1024.
+// Design: one block per utterance, the loop over S inside the block, the
+// recurrent state in shared memory.  The host packs the twelve matrices into
+// one buffer in the order a step reads them and cuts it, with this
+// utterance's keys and memory, into a schedule of chunks of whole rows
+// (sstts_torch/ops/decoder.py:pack_weights, chunk_schedule).  One producer
+// lane walks that schedule S times, copying each chunk with cp.async.bulk
+// into a ring of shared-memory stages (stream.cuh), as far ahead as the ring
+// allows, across product and step boundaries: the order never depends on
+// the data.  The consumer warps take each product from the stages (K split
+// over groups, a thread a 16-byte column segment), the scores from the rows
+// of keys (a warp a row), the context from the rows of memory, and do the
+// gates, the softmax and the freeze between them.  The key projection
+// memory @ memory_proj is hoisted out of the kernel, as in JAX.  Limits: any
+// B (one block each); product widths up to kMaxCols = 1024; T up to what
+// shared memory holds beside the ring (T floats of scores).
+//
+// Compile-time settings: SSTTS_STAGES and SSTTS_STAGE_KB (the ring),
+// SSTTS_CONSUMER_WARPS (one producer warp besides), and SSTTS_ABLATE for
+// stage times: 1 the stream alone (consumers only wait for and release each
+// chunk); else a mask, 2 without the stream (no copies, no waiting), 4
+// without the products' multiply-adds (6: the consumers' attention, gates,
+// reductions and barriers alone).  Ablated builds compute garbage.
 
 // Plain C interface (bound with ctypes); launch on the caller's stream,
 // return cudaGetLastError().
@@ -43,36 +55,40 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "cell.cuh"
+#include "cell.cuh"  // sigmoidf_
+#include "stream.cuh"
+
+#ifndef SSTTS_STAGES
+#define SSTTS_STAGES 2
+#endif
+#ifndef SSTTS_STAGE_KB
+#define SSTTS_STAGE_KB 64
+#endif
+#ifndef SSTTS_CONSUMER_WARPS
+#define SSTTS_CONSUMER_WARPS 16
+#endif
+#ifndef SSTTS_ABLATE
+#define SSTTS_ABLATE 0
+#endif
 
 extern "C" {
 
 // Field order is mirrored by sstts_torch/ops/decoder.py:_DecodeArgs.
 struct DecodeArgs {
-  const void* prenet_w0;  // (M, P0)
+  const void* packed;    // the twelve matrices, rows padded to 16 bytes
+  const void* schedule;  // (n_chunks, 8) int32, stream::Chunk
   const float* prenet_b0;
-  const void* prenet_w1;  // (P0, P1)
   const float* prenet_b1;
-  const void* attn_wx;  // (P1 + Dm, 3 Ha)
-  const void* attn_wh;  // (Ha, 3 Ha)
   const float* attn_b;
-  const void* query_w;  // (Ha, A)
   const float* score_v;
   const float* score_b;
-  const void* dec_w;  // (Ha + Dm, Hd)
   const float* dec_b;
-  const void* gru0_wx;  // (Hd, 3 Hd)
-  const void* gru0_wh;
   const float* gru0_b;
-  const void* gru1_wx;
-  const void* gru1_wh;
   const float* gru1_b;
-  const void* frame_w;  // (Hd, r M)
   const float* frame_b;
-  const void* stop_w;  // (Hd, r)
   const float* stop_b;
-  const void* memory;  // (B, T, Dm) matmul dtype
-  const void* keys;    // (B, T, A) matmul dtype
+  const void* memory;  // (B, T, Dm) matmul dtype, rows padded to 16 bytes
+  const void* keys;    // (B, T, A) likewise
   const float* mask;   // (B, T) {0, 1}
   const float* keep0;  // (S, B, P0) {0, 1} or NULL (no dropout)
   const float* keep1;  // (S, B, P1)
@@ -82,6 +98,7 @@ struct DecodeArgs {
   float* fin;          // (B, S): 1 = finished before this step
   int B, T, S, M, P0, P1, Dm, A, Ha, Hd, r;
   int min_steps;
+  int n_chunks;
   float stop_threshold;
   float dropout_scale;
 };
@@ -90,148 +107,188 @@ struct DecodeArgs {
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kStages = SSTTS_STAGES;
+constexpr int kStageBytes = SSTTS_STAGE_KB * 1024;
+constexpr int kConsumerWarps = SSTTS_CONSUMER_WARPS;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;
+constexpr int kAblate = SSTTS_ABLATE;
+constexpr bool kStream = (kAblate & 2) == 0;
+constexpr bool kMath = (kAblate & 4) == 0;
+static_assert(kStageBytes >= 4 * 4096, "a stage holds 4 rows of 1024 f32 columns");
+constexpr int kMaxCols = 1024;
+// Split-K partials: G groups x the padded width, at most 8 floats a consumer.
+constexpr int kPartFloats = 8 * kConsumers;
+static_assert(kConsumers >= kMaxCols / 4, "a consumer a 16-byte segment of any row");
+
+using Ring = stream::Ring<kStages, kStageBytes, kConsumerWarps, kStream>;
 
 template <typename WT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 fused_decode_kernel(const DecodeArgs p) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Ring ring(smem);
   const int b = blockIdx.x, tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
+  const stream::Chunk* sched = static_cast<const stream::Chunk*>(p.schedule);
+  const int n = p.n_chunks;
+
+  if (tid == 0) ring.init();
+  __syncthreads();
+  if (tid >= kConsumers) {  // the producer warp: one lane streams
+    if (tid == kConsumers && kStream)
+      ring.produce(sched, n, p.S, static_cast<const unsigned char*>(p.packed),
+                   static_cast<const unsigned char*>(p.keys),
+                   static_cast<const unsigned char*>(p.memory), (size_t)b * p.T);
+    return;
+  }
+  stream::Cursor cur{0, 0u, 0};
+  if (kAblate == 1) {  // the stream alone
+    for (int i = 0; i < n * p.S; ++i) {
+      ring.acquire(cur);
+      ring.release(cur, n);
+    }
+    return;
+  }
+
   const int Hm = p.Ha > p.Hd ? p.Ha : p.Hd;
   const int rM = p.r * p.M;
-
-  // Shared-memory layout (floats).
-  float* attn_h = sm;                 // Ha   attention-GRU carry
-  float* h0 = attn_h + p.Ha;          // Hd   decoder-GRU carries
-  float* h1 = h0 + p.Hd;              // Hd
-  float* prev = h1 + p.Hd;            // M    previous frame
-  float* x0 = prev + p.M;             // P0   prenet layer 0
-  float* xin = x0 + p.P0;             // P1 + Dm: [prenet, context carry]
-  float* ctx = xin + p.P1;            //   context carry lives inside xin
-  float* gx = xin + p.P1 + p.Dm;      // 3 Hm
-  float* gh = gx + 3 * Hm;            // 3 Hm
-  float* dproj = gh + 3 * Hm;         // Ha + Dm: [h_a new, context new]
+  // Shared-memory layout (floats) after the ring; every buffer starts
+  // 16-byte aligned (the partials are stored as float4).
+  float* next = reinterpret_cast<float*>(smem + Ring::kBytes);
+  auto take = [&](int floats) {
+    float* at = next;
+    next += (floats + 3) & ~3;
+    return at;
+  };
+  float* part = take(kPartFloats);  // split-K partials
+  float* attn_h = take(p.Ha);       // attention-GRU carry
+  float* h0 = take(p.Hd);           // decoder-GRU carries
+  float* h1 = take(p.Hd);
+  float* prev = take(p.M);          // previous frame
+  float* x0 = take(p.P0);           // prenet layer 0
+  float* xin = take(p.P1 + p.Dm);   // [prenet, context carry]
+  float* ctx = xin + p.P1;          //   the context carry lives inside xin
+  float* gx = take(3 * Hm);
+  float* gh = take(3 * Hm);
+  float* dproj = take(p.Ha + p.Dm);  // [h_a new, context new]
   float* ha_new = dproj;
   float* ctx_new = dproj + p.Ha;
-  float* q = dproj + p.Ha + p.Dm;     // A
-  float* d = q + p.A;                 // Hd
-  float* h0n = d + p.Hd;              // Hd
-  float* h1n = h0n + p.Hd;            // Hd
-  float* melv = h1n + p.Hd;           // r M
-  float* stopv = melv + rM;           // r
-  float* sc = stopv + p.r;            // T  scores, then alignment
-  float* red = sc + p.T;              // 33 reduction scratch
-  float* fin_s = red + 33;            // 1
-  float* part = fin_s + 1;            // kMaxN * groups: split-K partials
+  float* q = take(p.A);
+  float* d = take(p.Hd);
+  float* h0n = take(p.Hd);
+  float* h1n = take(p.Hd);
+  float* melv = take(rM);
+  float* stopv = take(p.r);
+  float* sc = take(p.T);  // scores, then alignment
+  float* red = take(33);  // reduction scratch
+  float* fin_s = take(1);
+  float* kp0 = take(p.P0);  // this step's prenet keep masks
+  float* kp1 = take(p.P1);
+  // The keep masks of step t, or 1 (no dropout), from global memory once a
+  // step, off the prenet's critical path.
+  auto stage_keep = [&](int t) {
+    for (int i = tid; i < p.P0; i += kConsumers)
+      kp0[i] = p.keep0 ? p.keep0[((size_t)t * p.B + b) * p.P0 + i] : 1.f;
+    for (int i = tid; i < p.P1; i += kConsumers)
+      kp1[i] = p.keep1 ? p.keep1[((size_t)t * p.B + b) * p.P1 + i] : 1.f;
+  };
 
-  for (int i = tid; i < p.Ha; i += blockDim.x) attn_h[i] = 0.f;
-  for (int i = tid; i < p.Hd; i += blockDim.x) h0[i] = h1[i] = 0.f;
-  for (int i = tid; i < p.M; i += blockDim.x) prev[i] = 0.f;
-  for (int i = tid; i < p.Dm; i += blockDim.x) ctx[i] = 0.f;
+  for (int i = tid; i < p.Ha; i += kConsumers) attn_h[i] = 0.f;
+  for (int i = tid; i < p.Hd; i += kConsumers) h0[i] = h1[i] = 0.f;
+  for (int i = tid; i < p.M; i += kConsumers) prev[i] = 0.f;
+  for (int i = tid; i < p.Dm; i += kConsumers) ctx[i] = 0.f;
   if (tid == 0) fin_s[0] = 0.f;
-  __syncthreads();
+  stage_keep(0);
+  stream::consumer_sync<kConsumers>();
 
-  const WT* mem = static_cast<const WT*>(p.memory) + (size_t)b * p.T * p.Dm;
-  const WT* keys = static_cast<const WT*>(p.keys) + (size_t)b * p.T * p.A;
   const float* mask = p.mask + (size_t)b * p.T;
+  // One product of the stream into `out` (+ bias), K-length input x.
+  auto product = [&](const float* x, int N, const float* bias, float* out) {
+    stream::matvec<WT, true, kMath>(ring, cur, sched, n, x, N, part,
+                             [&](int j, float s) { out[j] = bias ? s + bias[j] : s; });
+  };
+  // One GRU step: gx = x @ wx + b, gh = h @ wh, then the gates; `post` (may
+  // be NULL) receives post[i] += h_new[i] (the residual connection).
+  auto gru = [&](const float* x, const float* h, int H, const float* bias,
+                 float* h_new, float* post) {
+    product(x, 3 * H, bias, gx);
+    product(h, 3 * H, nullptr, gh);
+    for (int i = tid; i < H; i += kConsumers) {
+      const float r = sigmoidf_(gx[i] + gh[i]);
+      const float z = sigmoidf_(gx[H + i] + gh[H + i]);
+      const float nn = tanhf(gx[2 * H + i] + r * gh[2 * H + i]);
+      const float hn = z * h[i] + (1.f - z) * nn;
+      h_new[i] = hn;
+      if (post) post[i] += hn;
+    }
+    stream::consumer_sync<kConsumers>();
+  };
 
   for (int t = 0; t < p.S; ++t) {
     const float fin_old = fin_s[0];
 
-    // 1. Prenet (dropout active at inference per Tacotron-1).
-    matvec<WT>(prev, p.M, p.prenet_w0, p.P0, p.prenet_b0, x0, part);
-    for (int n = tid; n < p.P0; n += blockDim.x) {
-      float v = fmaxf(x0[n], 0.f);
-      if (p.keep0)
-        v = p.keep0[((size_t)t * p.B + b) * p.P0 + n] > 0.f
-                ? v * p.dropout_scale
-                : 0.f;
-      x0[n] = v;
-    }
-    __syncthreads();
-    matvec<WT>(x0, p.P0, p.prenet_w1, p.P1, p.prenet_b1, xin, part);
-    for (int n = tid; n < p.P1; n += blockDim.x) {
-      float v = fmaxf(xin[n], 0.f);
-      if (p.keep1)
-        v = p.keep1[((size_t)t * p.B + b) * p.P1 + n] > 0.f
-                ? v * p.dropout_scale
-                : 0.f;
-      xin[n] = v;
-    }
-    __syncthreads();
+    // 1. Prenet (dropout active at inference per Tacotron-1), ReLU and the
+    // keep mask applied as each column's sum is made.
+    stream::matvec<WT, true, kMath>(ring, cur, sched, n, prev, p.P0, part, [&](int j, float s) {
+      const float v = fmaxf(s + p.prenet_b0[j], 0.f);
+      x0[j] = !p.keep0 ? v : kp0[j] > 0.f ? v * p.dropout_scale : 0.f;
+    });
+    stream::matvec<WT, true, kMath>(ring, cur, sched, n, x0, p.P1, part, [&](int j, float s) {
+      const float v = fmaxf(s + p.prenet_b1[j], 0.f);
+      xin[j] = !p.keep1 ? v : kp1[j] > 0.f ? v * p.dropout_scale : 0.f;
+    });
 
     // 2. Attention GRU over [prenet, context].
-    gru_step<WT>(xin, p.P1 + p.Dm, attn_h, p.Ha, p.attn_wx, p.attn_wh,
-                 p.attn_b, gx, gh, ha_new, nullptr, part);
+    gru(xin, attn_h, p.Ha, p.attn_b, ha_new, nullptr);
 
-    // 3. Bahdanau attention.
-    matvec<WT>(ha_new, p.Ha, p.query_w, p.A, p.score_b, q, part);
-    __syncthreads();
-    for (int tt = warp; tt < p.T; tt += n_warps) {
-      float score = 0.f;
-      for (int a = lane; a < p.A; a += 32)
-        score += tanhf(Load<WT>::w(keys, (size_t)tt * p.A + a) + q[a]) *
-                 p.score_v[a];
-      for (int o = 16; o > 0; o >>= 1)
-        score += __shfl_xor_sync(0xffffffffu, score, o);
-      if (lane == 0) sc[tt] = mask[tt] > 0.f ? score : -1e9f;
-    }
-    __syncthreads();
+    // 3. Bahdanau attention: the query, the scores from the rows of keys,
+    // the softmax, the context from the rows of memory.
+    product(ha_new, p.A, p.score_b, q);
+    stream::scores<WT>(ring, cur, sched, n, q, p.score_v, p.A, mask, sc);
     float local = -CUDART_INF_F;
-    for (int tt = tid; tt < p.T; tt += blockDim.x) local = fmaxf(local, sc[tt]);
-    const float mx = block_reduce(local, red, true);
+    for (int tt = tid; tt < p.T; tt += kConsumers) local = fmaxf(local, sc[tt]);
+    const float mx = stream::consumer_reduce<kConsumers>(local, red, true);
     local = 0.f;
-    for (int tt = tid; tt < p.T; tt += blockDim.x) {
+    for (int tt = tid; tt < p.T; tt += kConsumers) {
       const float e = expf(sc[tt] - mx);
       sc[tt] = e;
       local += e;
     }
-    const float sum = block_reduce(local, red, false);
+    const float sum = stream::consumer_reduce<kConsumers>(local, red, false);
     float* align_out = p.align + ((size_t)b * p.S + t) * p.T;
-    for (int tt = tid; tt < p.T; tt += blockDim.x) {
+    for (int tt = tid; tt < p.T; tt += kConsumers) {
       const float a = sc[tt] / sum;
       sc[tt] = a;
       align_out[tt] = a;
     }
-    __syncthreads();
-    for (int j = tid; j < p.Dm; j += blockDim.x) {
-      float acc = 0.f;
-      for (int tt = 0; tt < p.T; ++tt)
-        acc = fmaf(sc[tt], Load<WT>::w(mem, (size_t)tt * p.Dm + j), acc);
-      ctx_new[j] = acc;
-    }
-    __syncthreads();
+    stream::consumer_sync<kConsumers>();
+    stream::matvec<WT, false, kMath>(ring, cur, sched, n, sc, p.Dm, part,
+                              [&](int j, float s) { ctx_new[j] = s; });
 
     // 4. Decoder projection and two residual GRUs.
-    matvec<WT>(dproj, p.Ha + p.Dm, p.dec_w, p.Hd, p.dec_b, d, part);
-    __syncthreads();
-    gru_step<WT>(d, p.Hd, h0, p.Hd, p.gru0_wx, p.gru0_wh, p.gru0_b, gx, gh,
-                 h0n, d, part);
-    gru_step<WT>(d, p.Hd, h1, p.Hd, p.gru1_wx, p.gru1_wh, p.gru1_b, gx, gh,
-                 h1n, d, part);
+    product(dproj, p.Hd, p.dec_b, d);
+    gru(d, h0, p.Hd, p.gru0_b, h0n, d);
+    gru(d, h1, p.Hd, p.gru1_b, h1n, d);
 
     // 5. Frame and stop projections.
-    matvec<WT>(d, p.Hd, p.frame_w, rM, p.frame_b, melv, part);
-    matvec<WT>(d, p.Hd, p.stop_w, p.r, p.stop_b, stopv, part);
-    __syncthreads();
+    product(d, rM, p.frame_b, melv);
+    product(d, p.r, p.stop_b, stopv);
 
     // 6. Outputs, stop-mask accumulation, carry freeze.
     float* mel_out = p.mel + ((size_t)b * p.S + t) * rM;
-    for (int i = tid; i < rM; i += blockDim.x)
-      mel_out[i] = fin_old > 0.f ? 0.f : melv[i];
-    for (int i = tid; i < p.r; i += blockDim.x)
+    for (int i = tid; i < rM; i += kConsumers) mel_out[i] = fin_old > 0.f ? 0.f : melv[i];
+    for (int i = tid; i < p.r; i += kConsumers)
       p.stop[((size_t)b * p.S + t) * p.r + i] = stopv[i];
     if (fin_old <= 0.f) {
-      for (int i = tid; i < p.Ha; i += blockDim.x) attn_h[i] = ha_new[i];
-      for (int i = tid; i < p.Hd; i += blockDim.x) {
+      for (int i = tid; i < p.Ha; i += kConsumers) attn_h[i] = ha_new[i];
+      for (int i = tid; i < p.Hd; i += kConsumers) {
         h0[i] = h0n[i];
         h1[i] = h1n[i];
       }
-      for (int i = tid; i < p.Dm; i += blockDim.x) ctx[i] = ctx_new[i];
-      for (int i = tid; i < p.M; i += blockDim.x)
-        prev[i] = melv[(p.r - 1) * p.M + i];
+      for (int i = tid; i < p.Dm; i += kConsumers) ctx[i] = ctx_new[i];
+      for (int i = tid; i < p.M; i += kConsumers) prev[i] = melv[(p.r - 1) * p.M + i];
     }
+    if (t + 1 < p.S) stage_keep(t + 1);
     if (tid == 0) {
       p.fin[(size_t)b * p.S + t] = fin_old;
       float smax = stopv[0];
@@ -240,7 +297,7 @@ fused_decode_kernel(const DecodeArgs p) {
       if (p.min_steps > 0 && t < p.min_steps - 1) hit = 0.f;
       fin_s[0] = fmaxf(fin_old, hit);
     }
-    __syncthreads();
+    stream::consumer_sync<kConsumers>();
   }
 }
 
@@ -248,13 +305,20 @@ fused_decode_kernel(const DecodeArgs p) {
 
 extern "C" {
 
+// The compiled ring (ops/decoder.py:RingConfig).
+int sstts_decode_stages() { return kStages; }
+int sstts_decode_stage_bytes() { return kStageBytes; }
+int sstts_decode_consumer_warps() { return kConsumerWarps; }
+
+// ops/decoder.py:decode_smem_bytes says the same.
 int sstts_decode_smem_bytes(const DecodeArgs* a) {
   const int Hm = a->Ha > a->Hd ? a->Ha : a->Hd;
-  const int floats = a->Ha + 2 * a->Hd + a->M + a->P0 + a->P1 + a->Dm +
-                     6 * Hm + a->Ha + a->Dm + a->A + 3 * a->Hd +
-                     a->r * a->M + a->r + a->T + 33 + 1 +
-                     kMaxN * (kThreads / kColThreads);
-  return floats * 4;
+  const int sizes[] = {kPartFloats, a->Ha, a->Hd, a->Hd, a->M, a->P0, a->P1 + a->Dm,
+                       3 * Hm, 3 * Hm, a->Ha + a->Dm, a->A, a->Hd, a->Hd, a->Hd,
+                       a->r * a->M, a->r, a->T, 33, 1, a->P0, a->P1};
+  int floats = 0;
+  for (int n : sizes) floats += (n + 3) & ~3;
+  return Ring::kBytes + floats * 4;
 }
 
 // weights_bf16: 1 when every matrix, memory and keys are bf16, 0 for f32.
@@ -264,14 +328,12 @@ int sstts_fused_decode(const DecodeArgs* a, int weights_bf16, void* stream) {
   cudaError_t err;
   if (weights_bf16) {
     err = cudaFuncSetAttribute(fused_decode_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     fused_decode_kernel<__nv_bfloat16><<<a->B, kThreads, smem, st>>>(*a);
   } else {
     err = cudaFuncSetAttribute(fused_decode_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     fused_decode_kernel<float><<<a->B, kThreads, smem, st>>>(*a);
   }

@@ -7,6 +7,13 @@ the cell's weights to the matmul dtype, and hands a `DecodeInputs` to
 `decode_steps_plain` (the kernel's math in plain torch), a CUDA tensor
 launches `sstts_torch/csrc/decoder.cu` or raises.
 
+The kernel reads the cell's matrices as one stream: `prepare_decode` packs
+the twelve into one buffer in the order a step reads them, each row padded
+to 16 bytes (`pack_weights`), and `chunk_schedule` cuts that buffer, with
+each utterance's keys and memory where the attention reads them, into
+chunks of whole rows of at most one ring stage.  The kernel's producer walks
+that schedule once a step; `decode_steps_plain` reads the unpacked weights.
+
 Dropout: the caller draws the keep masks for both prenet layers, (S, B, P0)
 and (S, B, P1), and the same tensors feed the kernel and the plain version,
 so the two agree with dropout on.  JAX's kernel draws its noise on the TPU
@@ -18,15 +25,15 @@ default, or f32) with f32 accumulation; gates and softmax run in f32.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from sstts_torch.ops import build, require_no_grad
 
-#: Weight matrices, each (K, N) row-major, in kernel argument order; the
-#: vectors (biases, score v) stay f32.
+#: Weight matrices, each (K, N) row-major, in the order a step reads them
+#: (and `pack_weights` lays them out); the vectors (biases, score v) stay f32.
 _MATRICES = (
     "prenet_w0", "prenet_w1", "attn_wx", "attn_wh", "query_w", "dec_w",
     "gru0_wx", "gru0_wh", "gru1_wx", "gru1_wh", "frame_w", "stop_w",
@@ -58,6 +65,110 @@ class DecoderWeights(NamedTuple):
     stop_b: torch.Tensor
 
 
+class RingConfig(NamedTuple):
+    """The kernel's compile-time ring: stages, bytes a stage, consumer
+    warps (one producer warp besides)."""
+
+    stages: int
+    stage_bytes: int
+    consumer_warps: int
+
+
+#: What csrc/decoder.cu compiles by default (SSTTS_STAGES, SSTTS_STAGE_KB,
+#: SSTTS_CONSUMER_WARPS); a launch asks the library for its own, and a
+#: schedule is cut to the library's stage size.
+RING = RingConfig(stages=2, stage_bytes=65536, consumer_warps=16)
+
+#: Sources a chunk is copied from: the packed weights, or this utterance's
+#: rows of keys or of memory.
+SRC_WEIGHTS, SRC_KEYS, SRC_MEMORY = 0, 1, 2
+
+#: The products of one step in the order the kernel reads their operands.
+STEP_ORDER = (
+    "prenet_w0", "prenet_w1", "attn_wx", "attn_wh", "query_w", "keys", "memory",
+    "dec_w", "gru0_wx", "gru0_wh", "gru1_wx", "gru1_wh", "frame_w", "stop_w",
+)
+
+#: Widest product the kernel takes, as the first port's kernel did (a
+#: consumer thread holds one 16-byte segment of a row: 512 of them a
+#: 1024-column f32 row).
+MAX_COLS = 1024
+
+#: Columns of a schedule row (int32): source, product (index in STEP_ORDER),
+#: byte offset in the source, bytes, first and end row (k), row bytes, 0.
+CHUNK_FIELDS = ("src", "product", "offset", "bytes", "k0", "k1", "row_bytes", "pad")
+
+
+class Product(NamedTuple):
+    """One operand of a step's stream: `rows` (K) rows of `cols` (N) values,
+    `row_bytes` apart, from `offset` bytes into its source."""
+
+    name: str
+    src: int
+    offset: int
+    rows: int
+    cols: int
+    row_bytes: int
+
+
+def row_bytes(cols: int, itemsize: int) -> int:
+    """Bytes of one row of `cols` values, padded to a multiple of 16."""
+    return -(-cols * itemsize // 16) * 16
+
+
+def weight_layout(w: DecoderWeights) -> Tuple[Product, ...]:
+    """Where each of the twelve matrices lies in the packed buffer, in
+    `_MATRICES` order (the order a step reads them)."""
+    out, offset = [], 0
+    for name in _MATRICES:
+        m = getattr(w, name)
+        k, n = m.shape
+        rb = row_bytes(n, m.element_size())
+        out.append(Product(name, SRC_WEIGHTS, offset, k, n, rb))
+        offset += k * rb
+    return tuple(out)
+
+
+def pack_weights(w: DecoderWeights) -> torch.Tensor:
+    """The twelve matrices as one contiguous byte buffer on their device,
+    laid out by `weight_layout`; the padding of each row is zeros."""
+    parts = []
+    for pr in weight_layout(w):
+        m = getattr(w, pr.name)
+        pad = pr.row_bytes // m.element_size() - pr.cols
+        parts.append(F.pad(m, (0, pad)).contiguous().view(torch.uint8).reshape(-1))
+    return torch.cat(parts)
+
+
+def step_products(layout, T: int, A: int, Dm: int, itemsize: int) -> Tuple[Product, ...]:
+    """A step's operands in `STEP_ORDER`: the packed matrices, with this
+    utterance's keys (T, A) and memory (T, Dm) after the query."""
+    by_name = {pr.name: pr for pr in layout}
+    enc = {
+        "keys": Product("keys", SRC_KEYS, 0, T, A, row_bytes(A, itemsize)),
+        "memory": Product("memory", SRC_MEMORY, 0, T, Dm, row_bytes(Dm, itemsize)),
+    }
+    return tuple(enc.get(name) or by_name[name] for name in STEP_ORDER)
+
+
+def chunk_schedule(products, stage_bytes: int = RING.stage_bytes) -> torch.Tensor:
+    """The chunks of one step, (n, 8) int32 (`CHUNK_FIELDS`): each product
+    cut into runs of whole rows of at most `stage_bytes`, in step order."""
+    rows = []
+    for pid, pr in enumerate(products):
+        per = stage_bytes // pr.row_bytes
+        if per < 1:
+            raise NotImplementedError(
+                f"fused decode: a row of {pr.name} is {pr.row_bytes} bytes, more "
+                f"than one {stage_bytes}-byte ring stage"
+            )
+        for k0 in range(0, pr.rows, per):
+            k1 = min(pr.rows, k0 + per)
+            rows.append((pr.src, pid, pr.offset + k0 * pr.row_bytes,
+                         (k1 - k0) * pr.row_bytes, k0, k1, pr.row_bytes, 0))
+    return torch.tensor(rows, dtype=torch.int32).reshape(-1, len(CHUNK_FIELDS))
+
+
 class DecodeInputs(NamedTuple):
     """Everything one fused decode reads, already on its device."""
 
@@ -73,6 +184,7 @@ class DecodeInputs(NamedTuple):
     stop_threshold: float
     min_steps: int
     dropout_scale: float
+    packed: torch.Tensor  # the twelve matrices, `pack_weights`
 
 
 def supports_arch(arch) -> bool:
@@ -204,20 +316,24 @@ def decode_steps_plain(p: DecodeInputs) -> Dict[str, torch.Tensor]:
     }
 
 
+#: The vectors of `DecoderWeights` (biases and the score vector), f32.
+_VECTORS = tuple(n for n in DecoderWeights._fields if n not in _MATRICES)
+
+
 class _DecodeArgs(ctypes.Structure):
     """Mirror of `DecodeArgs` in csrc/decoder.cu (same field order)."""
 
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in (
-            *DecoderWeights._fields, "memory", "keys", "mask", "keep0", "keep1",
-            "mel", "stop", "align", "fin",
+            "packed", "schedule", *_VECTORS, "memory", "keys", "mask", "keep0",
+            "keep1", "mel", "stop", "align", "fin",
         )
     ] + [
         (name, ctypes.c_int)
         for name in (
             "B", "T", "S", "M", "P0", "P1", "Dm", "A", "Ha", "Hd", "r",
-            "min_steps",
+            "min_steps", "n_chunks",
         )
     ] + [("stop_threshold", ctypes.c_float), ("dropout_scale", ctypes.c_float)]
 
@@ -225,10 +341,90 @@ class _DecodeArgs(ctypes.Structure):
 _SIGNATURES = {
     "sstts_fused_decode": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     "sstts_decode_smem_bytes": ([ctypes.c_void_p], ctypes.c_int),
+    "sstts_decode_stages": ([], ctypes.c_int),
+    "sstts_decode_stage_bytes": ([], ctypes.c_int),
+    "sstts_decode_consumer_warps": ([], ctypes.c_int),
 }
 
 
-def _kernel(p: DecodeInputs) -> Dict[str, torch.Tensor]:
+def _rows16(x: torch.Tensor) -> torch.Tensor:
+    """`x` with its last dimension padded (zeros) to rows of a multiple of
+    16 bytes, on a 16-byte aligned address, as the bulk copies need."""
+    cols = x.shape[-1]
+    ld = row_bytes(cols, x.element_size()) // x.element_size()
+    if ld == cols and x.data_ptr() % 16 == 0:
+        return x
+    return F.pad(x, (0, ld - cols)).contiguous()
+
+
+def _up4(n: int) -> int:
+    """n floats rounded up to a 16-byte multiple (each of the kernel's
+    shared-memory buffers starts 16-byte aligned)."""
+    return -(-n // 4) * 4
+
+
+def decode_smem_bytes(p: DecodeInputs, ring: RingConfig = RING) -> int:
+    """Shared memory one block of the kernel takes: the ring (256 bytes of
+    barriers and the stages), then in floats the split-K partials (8 a
+    consumer thread), the state, T scores and the step's keep masks, each
+    buffer rounded up to 4 floats (`sstts_decode_smem_bytes` in
+    csrc/decoder.cu says the same)."""
+    w = p.w
+    T, Dm = p.memory.shape[1:]
+    A = p.keys.shape[-1]
+    P0, P1 = w.prenet_w0.shape[1], w.prenet_w1.shape[1]
+    Ha, Hd = w.attn_wh.shape[0], w.gru0_wh.shape[0]
+    r, M = p.reduction, p.n_mels
+    floats = 8 * 32 * ring.consumer_warps + sum(map(_up4, (
+        Ha, Hd, Hd, M, P0, P1 + Dm, 3 * max(Ha, Hd), 3 * max(Ha, Hd), Ha + Dm, A,
+        Hd, Hd, Hd, r * M, r, T, 33, 1, P0, P1)))
+    return 256 + ring.stages * ring.stage_bytes + 4 * floats
+
+
+def decode_launch_plan(p: DecodeInputs, ring: RingConfig = RING):
+    """What the kernel is handed besides `p`: the step's products and their
+    chunk schedule (int32 on p's device), and keys and memory with rows
+    padded to 16 bytes.  Raises NotImplementedError, before anything is
+    launched, for a cell wider than MAX_COLS or a T whose scores no longer
+    fit in shared memory beside the ring."""
+    w = p.w
+    B, T, Dm = p.memory.shape
+    A = p.keys.shape[-1]
+    P0, P1 = w.prenet_w0.shape[1], w.prenet_w1.shape[1]
+    Ha, Hd = w.attn_wh.shape[0], w.gru0_wh.shape[0]
+    widest = max(P0, P1, 3 * Ha, A, 3 * Hd, p.reduction * p.n_mels, Dm)
+    if widest > MAX_COLS:
+        raise NotImplementedError(
+            f"fused decode kernel keeps products up to {MAX_COLS} columns wide; "
+            f"this cell needs {widest}"
+        )
+    smem = decode_smem_bytes(p, ring)
+    if smem > build.MAX_SMEM:
+        room = (build.MAX_SMEM - (smem - 4 * _up4(T))) // 4  # floats for scores
+        raise NotImplementedError(
+            f"fused decode needs {smem} bytes of shared memory (limit "
+            f"{build.MAX_SMEM}) at T={T}: the ring and the T scores no longer "
+            f"fit; this cell takes T up to {room // 4 * 4}"
+        )
+    products = step_products(weight_layout(w), T, A, Dm, w.attn_wx.element_size())
+    schedule = chunk_schedule(products, ring.stage_bytes).to(p.memory.device)
+    return products, schedule, _rows16(p.keys), _rows16(p.memory)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the decode library's C functions on `lib` (a build of
+    csrc/decoder.cu, perhaps with other compile-time settings)."""
+    for fn, (argtypes, restype) in _SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def _kernel(p: DecodeInputs, lib: Optional[ctypes.CDLL] = None,
+            check_smem: bool = True) -> Dict[str, torch.Tensor]:
+    """Launch csrc/decoder.cu on `p` (through `lib`, a `bind`-ed build, or
+    this checkout's; `check_smem` False lets another tree's build lay out
+    its shared memory its own way)."""
     w = p.w
     dt = w.attn_wx.dtype
     if dt not in (torch.bfloat16, torch.float32):
@@ -242,36 +438,34 @@ def _kernel(p: DecodeInputs) -> Dict[str, torch.Tensor]:
     S, r, M = p.max_steps, p.reduction, p.n_mels
     P0, P1 = w.prenet_w0.shape[1], w.prenet_w1.shape[1]
     Ha, Hd = w.attn_wh.shape[0], w.gru0_wh.shape[0]
-    widest = max(P0, P1, 3 * Ha, A, 3 * Hd, r * M)
-    if widest > 1024:
-        raise NotImplementedError(
-            f"fused decode kernel keeps products up to 1024 columns wide; "
-            f"this cell needs {widest}"
-        )
     dev = p.memory.device
+    for t in (p.memory, p.keys, p.maskf, p.keep0, p.keep1, p.packed, *w):
+        if t is not None and (t.device != dev or not t.is_contiguous()):
+            raise ValueError("fused decode inputs must be contiguous on one device")
+    if lib is None:
+        lib = build.load("decoder", _SIGNATURES)
+    ring = RingConfig(lib.sstts_decode_stages(), lib.sstts_decode_stage_bytes(),
+                      lib.sstts_decode_consumer_warps())
+    _, schedule, keys, memory = decode_launch_plan(p, ring)
     out = {
         "mel": torch.empty(B, S, r * M, device=dev),
         "stop": torch.empty(B, S, r, device=dev),
         "align": torch.empty(B, S, T, device=dev),
         "fin": torch.empty(B, S, device=dev),
     }
-    for t in (p.memory, p.keys, p.maskf, p.keep0, p.keep1, *w):
-        if t is not None and (t.device != dev or not t.is_contiguous()):
-            raise ValueError("fused decode inputs must be contiguous on one device")
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     args = _DecodeArgs(
-        *[ptr(t) for t in w],
-        ptr(p.memory), ptr(p.keys), ptr(p.maskf), ptr(p.keep0), ptr(p.keep1),
+        ptr(p.packed), ptr(schedule), *[ptr(getattr(w, n)) for n in _VECTORS],
+        ptr(memory), ptr(keys), ptr(p.maskf), ptr(p.keep0), ptr(p.keep1),
         ptr(out["mel"]), ptr(out["stop"]), ptr(out["align"]), ptr(out["fin"]),
-        B, T, S, M, P0, P1, Dm, A, Ha, Hd, r, int(p.min_steps),
+        B, T, S, M, P0, P1, Dm, A, Ha, Hd, r, int(p.min_steps), schedule.shape[0],
         float(p.stop_threshold), float(p.dropout_scale),
     )
-    lib = build.load("decoder", _SIGNATURES)
     smem = lib.sstts_decode_smem_bytes(ctypes.byref(args))
-    if smem > build.MAX_SMEM:
-        raise NotImplementedError(
-            f"fused decode state needs {smem} bytes of shared memory "
-            f"(limit {build.MAX_SMEM}) at T={T}"
+    if check_smem and smem != decode_smem_bytes(p, ring):
+        raise RuntimeError(
+            f"fused decode: the library takes {smem} bytes of shared memory, "
+            f"decode_smem_bytes says {decode_smem_bytes(p, ring)}"
         )
     rc = lib.sstts_fused_decode(
         ctypes.byref(args), int(dt == torch.bfloat16),
@@ -310,8 +504,9 @@ def prepare_decode(
     keep=None,
     matmul_dtype: torch.dtype = torch.bfloat16,
 ) -> DecodeInputs:
-    """Hoisted per-utterance work: the key projection (f32, as JAX) and
-    the casts.  `keep` is (keep0, keep1) or None for no dropout."""
+    """Hoisted per-utterance work: the key projection (f32, as JAX), the
+    casts, and the matrices packed for the kernel's stream.  `keep` is
+    (keep0, keep1) or None for no dropout."""
     w = weights_from_cell(cell, matmul_dtype)
     keys = memory.float() @ cell.attention.memory_proj.weight.T.float()
     keep0, keep1 = (None, None) if keep is None else (k.float().contiguous() for k in keep)
@@ -329,6 +524,7 @@ def prepare_decode(
         stop_threshold=float(stop_threshold),
         min_steps=int(min_steps),
         dropout_scale=1.0 / (1.0 - rate) if rate < 1.0 else 0.0,
+        packed=pack_weights(w),
     )
 
 

@@ -6,9 +6,14 @@ Builds `sstts_torch/csrc/bench/sm_microbench.cu` with `nvcc` into a
 temporary directory and runs it: shared-memory float4 loads by address
 pattern, alone and before 96 multiply-adds a thread (a GRU step's inner
 product at H = 128), a block barrier, and a thread-block cluster's barrier
-with a store into every member's shared memory.  The GRU kernels' layouts
-(`csrc/gru.cu`) follow from these readings.  Prints the program's lines and
-the card's name and power limit.
+with a store into every member's shared memory; then the stream probe:
+32, 64 or 128 blocks, one a SM, each streaming decoder kernel B4's bytes a
+step (3,362,816, L2-resident) through a ring of `cp.async.bulk` stages by
+stage count and size, copies a stage, who polls the barrier, with and
+without the consumers reading each stage, and one thread's bursts of copies
+with no ring.  The GRU kernels' layouts (`csrc/gru.cu`) and B4's ring
+(`csrc/stream.cuh`) follow from these readings.  Prints the program's lines
+and the card's name and power limit.
 """
 
 from __future__ import annotations
