@@ -115,8 +115,8 @@ constexpr int kThreads = kConsumers + 32;
 constexpr int kAblate = SSTTS_ABLATE;
 constexpr bool kStream = (kAblate & 2) == 0;
 constexpr bool kMath = (kAblate & 4) == 0;
-static_assert(kStageBytes >= 4 * 4096, "a stage holds 4 rows of 1024 f32 columns");
 constexpr int kMaxCols = 1024;
+static_assert(kStageBytes >= 4 * kMaxCols, "a stage holds a row of kMaxCols f32");
 // Split-K partials: G groups x the padded width, at most 8 floats a consumer.
 constexpr int kPartFloats = 8 * kConsumers;
 static_assert(kConsumers >= kMaxCols / 4, "a consumer a 16-byte segment of any row");
