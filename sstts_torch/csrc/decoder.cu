@@ -22,7 +22,8 @@
 // resident" design does not carry over: every step reads the whole cell and
 // the utterance's keys and memory (3.36 MB at the default config) from L2,
 // where they stay resident.  Loads issued by the threads themselves keep
-// too few bytes in flight for L2's latency (PR 1's kernel, 93 us a step).
+// too few bytes in flight for L2's latency (the first port's kernel: 93 us
+// a step on an H100).
 //
 // Design: one block per utterance, the loop over S inside the block, the
 // recurrent state in shared memory.  The host packs the twelve matrices into

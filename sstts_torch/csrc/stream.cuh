@@ -193,10 +193,10 @@ __device__ __forceinline__ void fma_seg(float (&acc)[Seg<WT>::kValues], float x,
 // consecutive 16-byte segments of the stage, free of bank conflicts, and
 // has four rows' loads in flight before their multiply-adds.  (Blocks of
 // four consecutive rows a thread, their activations in one load, ran 6%
-// slower: fewer groups share a short product, and rows four apart collide
-// in the banks where a row is narrower than the warp.)  The G groups'
-// partial sums meet in `part` (at most 8 floats a consumer) and are added
-// by a tree: tpc threads a column, then shuffles.  kMath false (an
+// slower on an H100: fewer groups share a short product, and rows four
+// apart collide in the banks where a row is narrower than the warp.)  The
+// G groups' partial sums meet in `part` (at most 8 floats a consumer) and
+// are added by a tree: tpc threads a column, then shuffles.  kMath false (an
 // ablation) skips the multiply-adds and their loads.  Every consumer calls
 // it; on return the epilogue's writes are visible.
 template <typename WT, bool kRoundX, bool kMath = true, class R, class Epi>
@@ -268,7 +268,7 @@ __device__ __forceinline__ void matvec(const R& ring, Cursor& cur,
 
 // Bahdanau scores from the chunks of `keys` that come next in the ring:
 // sc[t] = sum_a tanh(keys[t, a] + q[a]) * v[a], or -1e9 where mask[t] is 0.
-// One warp a row of keys, as PR 1's kernel had it; f32 throughout.
+// One warp a row of keys, as the first port's kernel had it; f32 throughout.
 template <typename WT, class R>
 __device__ __forceinline__ void scores(const R& ring, Cursor& cur, const Chunk* __restrict__ sched,
                        int n_chunks, const float* q, const float* v, int A,
