@@ -480,17 +480,36 @@ def check_decoder(dev):
             )
 
     checks, main = [], None
-    # (case, config, B, T, S, dtype, stop threshold, min_steps).  Tolerances
-    # on mel/stop and on alignments: f32 is the same arithmetic in another
-    # summation order (2e-4 / 2e-5, as tests/test_pallas_decoder.py holds the
-    # JAX kernel); bf16 rounds every product's operands, and a different f32
-    # sum can round an activation to the neighbouring bf16 value, which the
-    # autoregressive steps carry forward: held loosely, 5e-2 of the largest
-    # value.  Beside chip_smoke's two cases, the ring's edges: the tiny
-    # config's narrow rows (stop_w's 8 bytes padded to 16), B=3 at T=300
-    # (memory over 10 stages), rows that stop at different steps (f32, so
-    # that no stop logit sits across the threshold between the two), and
-    # T=4096, the longest text the kernel must take.
+    # The longest text the kernel takes at the default widths, by the
+    # library's own count of its shared memory; the first port's kernel took
+    # T up to 4096 at least.
+    t_max = dec.longest_text(dec.library(), inputs("default", 1, 8, 2, torch.bfloat16, 1.1, 8))
+    if t_max < 4096:
+        raise AssertionError(f"fused_decode takes T up to {t_max} only")
+
+    def tolerances(case, dt, ref):
+        """Limits on mel/stop and on alignments.  f32 is the same arithmetic
+        in another summation order: 2e-4 / 2e-5, as tests/test_pallas_decoder.py
+        holds the JAX kernel.  bf16 rounds every product's operands, and a
+        different f32 sum can round an activation to the neighbouring bf16
+        value, which the steps carry forward: the main case is held as the
+        first port's kernel was, 5e-2 of the largest mel value (at least 1)
+        and 5e-2; the edge cases to 5e-2 of their largest mel or stop value
+        and 1e-3 of their largest alignment, so that a chunk of keys or
+        memory dropped or misplaced cannot pass."""
+        if dt == torch.float32:
+            return 2e-4, 2e-5
+        mel = float(ref["mel"].abs().max())
+        if case == "S160-bf16":
+            return 5e-2 * max(1.0, mel), 5e-2
+        return (5e-2 * max(mel, float(ref["stop"].abs().max())),
+                1e-3 * float(ref["align"].max()))
+
+    # (case, config, B, T, S, dtype, stop threshold, min_steps).  Beside
+    # chip_smoke's two cases, the ring's edges: the tiny config's narrow rows
+    # (stop_w's 8 bytes padded to 16), B=3 at T=300 (memory over 10 stages),
+    # rows that stop at different steps (f32, so that no stop logit sits
+    # across the threshold between the two), T=4096, and the longest T.
     cases = [
         ("S20-f32", "default", 32, 96, 20, torch.float32, 0.5, 8),
         ("S160-bf16", "default", 32, 96, 160, torch.bfloat16, 1.1, 8),
@@ -499,6 +518,7 @@ def check_decoder(dev):
         ("B3-T300-bf16", "default", 3, 300, 40, torch.bfloat16, 1.1, 8),
         ("stops-f32", "default", 8, 96, 24, torch.float32, 0.5, 1),
         ("T4096-bf16", "default", 2, 4096, 6, torch.bfloat16, 1.1, 8),
+        (f"T{t_max}-bf16", "default", 1, t_max, 2, torch.bfloat16, 1.1, 8),
     ]
     for case, cfg_name, B, T, S, dt, thr, min_steps in cases:
         p = inputs(cfg_name, B, T, S, dt, thr, min_steps)
@@ -506,32 +526,32 @@ def check_decoder(dev):
             got = dec.decode_steps(p)
             ref = dec.decode_steps_plain(p)
         torch.cuda.synchronize()
-        scale = float(ref["mel"].abs().max())
-        tol_mel = 2e-4 if dt == torch.float32 else 5e-2 * max(1.0, scale)
-        tol_al = 2e-5 if dt == torch.float32 else 5e-2
+        tol_mel, tol_al = tolerances(case, dt, ref)
         errs = {k: max_err(got[k], ref[k]) for k in ("mel", "stop", "align")}
         fin_equal = bool(torch.equal(got["fin"], ref["fin"]))
         steps = sorted({int(v) for v in (ref["fin"] < 0.5).sum(1).tolist()})
+        top = {k: float(ref[k].abs().max()) for k in ("mel", "stop", "align")}
         log(f"  B4 fused_decode {case}: {errs} fin_equal={fin_equal} (tol mel/stop "
-            f"{tol_mel:.3g}, align {tol_al}; |mel| max {scale:.3g}; steps run {steps})")
+            f"{tol_mel:.3g}, align {tol_al:.3g}; largest {top}; steps run {steps})")
         if not (fin_equal and errs["mel"] <= tol_mel and errs["stop"] <= tol_mel
                 and errs["align"] <= tol_al):
             raise AssertionError(f"fused_decode {case}: {errs}, fin {fin_equal}")
         if case == "stops-f32" and len(steps) < 2:
             raise AssertionError(f"fused_decode {case}: every row stopped at {steps}")
         checks.append({"case": case, "max_abs_err": max(errs.values()),
-                       "tol": tol_mel, "errors": errs, "steps_run": steps})
+                       "tol": tol_mel, "tol_align": tol_al, "errors": errs,
+                       "steps_run": steps})
         if case == "S160-bf16":
             main = (p, checks[-1])
-    # Beyond the limit the wrapper refuses before any launch.
+    # One beyond the limit the wrapper refuses before any launch.
     n0 = dec.decode_steps.launches
-    p = inputs("default", 1, 20000, 2, torch.bfloat16, 1.1, 8)
+    p = inputs("default", 1, t_max + 1, 2, torch.bfloat16, 1.1, 8)
     try:
         with torch.no_grad():
             dec.decode_steps(p)
-        raise AssertionError("fused_decode took T=20000")
+        raise AssertionError(f"fused_decode took T={t_max + 1}")
     except NotImplementedError as e:
-        log(f"  B4 fused_decode T=20000 refused: {e}")
+        log(f"  B4 fused_decode T={t_max + 1} refused: {e}")
     assert dec.decode_steps.launches == n0
     p, main_check = main
     with torch.no_grad():
@@ -551,6 +571,28 @@ def check_decoder(dev):
     # and memory once a step (rows padded to 16 bytes), at the rate one SM
     # streams from L2 (sm_microbench's stream probe).
     step_bytes = p.packed.numel() + T * (dec.row_bytes(A, 2) + dec.row_bytes(Dm, 2))
+    # The host does not wait for the card: with the card held busy, the
+    # hoisted work (packing, the schedule's copy) and the launch return
+    # long before the card is free.
+    cfg, cell = cells["default"]
+    memory = 0.5 * torch.randn(B, T, Dm, device=dev)
+    mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+    torch.cuda.synchronize()
+    busy = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    busy[0].record()
+    torch.cuda._sleep(200_000_000)
+    busy[1].record()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        dec.decode_steps(dec.prepare_decode(cell, memory, mask, S, stop_threshold=1.1,
+                                            matmul_dtype=torch.bfloat16))
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    busy_ms = busy[0].elapsed_time(busy[1])
+    log(f"  B4 prepare_decode + decode_steps: {host_ms:.3f} ms on the host while the "
+        f"card was busy for {busy_ms:.3f} ms")
+    if host_ms > busy_ms / 2:
+        raise AssertionError("fused_decode's host side waited for the card")
     return {
         "name": "fused_decode", "route": "cuda",
         "source": "sstts_torch/csrc/decoder.cu",

@@ -41,12 +41,13 @@
 // B (one block each); product widths up to kMaxCols = 1024; T up to what
 // shared memory holds beside the ring (T floats of scores).
 //
-// Compile-time settings: SSTTS_STAGES and SSTTS_STAGE_KB (the ring),
-// SSTTS_CONSUMER_WARPS (one producer warp besides), and SSTTS_ABLATE for
-// stage times: 1 the stream alone (consumers only wait for and release each
-// chunk); else a mask, 2 without the stream (no copies, no waiting), 4
-// without the products' multiply-adds (6: the consumers' attention, gates,
-// reductions and barriers alone).  Ablated builds compute garbage.
+// The ring is 2 stages of 64 KB, read by 16 consumer warps beside one
+// producer warp (PERF.md, PR 7, gives the settings tried and their times).
+// SSTTS_ABLATE, at compile time, gives stage times: 1 the stream alone
+// (consumers only wait for and release each chunk); else a mask, 2 without
+// the stream (no copies, no waiting), 4 without the products' multiply-adds
+// (6: the consumers' attention, gates, reductions and barriers alone).
+// Ablated builds compute garbage.
 
 // Plain C interface (bound with ctypes); launch on the caller's stream,
 // return cudaGetLastError().
@@ -59,15 +60,6 @@
 #include "cell.cuh"  // sigmoidf_
 #include "stream.cuh"
 
-#ifndef SSTTS_STAGES
-#define SSTTS_STAGES 2
-#endif
-#ifndef SSTTS_STAGE_KB
-#define SSTTS_STAGE_KB 64
-#endif
-#ifndef SSTTS_CONSUMER_WARPS
-#define SSTTS_CONSUMER_WARPS 16
-#endif
 #ifndef SSTTS_ABLATE
 #define SSTTS_ABLATE 0
 #endif
@@ -108,9 +100,11 @@ struct DecodeArgs {
 
 namespace {
 
-constexpr int kStages = SSTTS_STAGES;
-constexpr int kStageBytes = SSTTS_STAGE_KB * 1024;
-constexpr int kConsumerWarps = SSTTS_CONSUMER_WARPS;
+// The chunks of the host's schedule are cut to kStageBytes
+// (ops/decoder.py:STAGE_BYTES).
+constexpr int kStages = 2;
+constexpr int kStageBytes = 64 * 1024;
+constexpr int kConsumerWarps = 16;
 constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumers + 32;
 constexpr int kAblate = SSTTS_ABLATE;
@@ -306,12 +300,8 @@ fused_decode_kernel(const DecodeArgs p) {
 
 extern "C" {
 
-// The compiled ring (ops/decoder.py:RingConfig).
-int sstts_decode_stages() { return kStages; }
-int sstts_decode_stage_bytes() { return kStageBytes; }
-int sstts_decode_consumer_warps() { return kConsumerWarps; }
-
-// ops/decoder.py:decode_smem_bytes says the same.
+// Shared memory one block takes: the ring, then the buffers of the kernel's
+// layout (the only count of it; the wrapper refuses a shape from it).
 int sstts_decode_smem_bytes(const DecodeArgs* a) {
   const int Hm = a->Ha > a->Hd ? a->Ha : a->Hd;
   const int sizes[] = {kPartFloats, a->Ha, a->Hd, a->Hd, a->M, a->P0, a->P1 + a->Dm,

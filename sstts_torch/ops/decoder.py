@@ -7,12 +7,13 @@ the cell's weights to the matmul dtype, and hands a `DecodeInputs` to
 `decode_steps_plain` (the kernel's math in plain torch), a CUDA tensor
 launches `sstts_torch/csrc/decoder.cu` or raises.
 
-The kernel reads the cell's matrices as one stream: `prepare_decode` packs
-the twelve into one buffer in the order a step reads them, each row padded
-to 16 bytes (`pack_weights`), and `chunk_schedule` cuts that buffer, with
-each utterance's keys and memory where the attention reads them, into
-chunks of whole rows of at most one ring stage.  The kernel's producer walks
-that schedule once a step; `decode_steps_plain` reads the unpacked weights.
+The kernel reads the cell's matrices as one stream: on the card,
+`prepare_decode` packs the twelve into one buffer in the order a step reads
+them, each row padded to 16 bytes (`pack_weights`), and `chunk_schedule`
+cuts that buffer, with each utterance's keys and memory where the attention
+reads them, into chunks of whole rows of at most one ring stage, copied to
+the card without waiting for it.  The kernel's producer walks that schedule
+once a step; `decode_steps_plain` reads the unpacked weights.
 
 Dropout: the caller draws the keep masks for both prenet layers, (S, B, P0)
 and (S, B, P1), and the same tensors feed the kernel and the plain version,
@@ -65,19 +66,9 @@ class DecoderWeights(NamedTuple):
     stop_b: torch.Tensor
 
 
-class RingConfig(NamedTuple):
-    """The kernel's compile-time ring: stages, bytes a stage, consumer
-    warps (one producer warp besides)."""
-
-    stages: int
-    stage_bytes: int
-    consumer_warps: int
-
-
-#: What csrc/decoder.cu compiles by default (SSTTS_STAGES, SSTTS_STAGE_KB,
-#: SSTTS_CONSUMER_WARPS); a launch asks the library for its own, and a
-#: schedule is cut to the library's stage size.
-RING = RingConfig(stages=2, stage_bytes=65536, consumer_warps=16)
+#: Bytes of one of the kernel's ring stages (kStageBytes in
+#: csrc/decoder.cu): the schedule's chunks are cut to it.
+STAGE_BYTES = 65536
 
 #: Sources a chunk is copied from: the packed weights, or this utterance's
 #: rows of keys or of memory.
@@ -151,7 +142,7 @@ def step_products(layout, T: int, A: int, Dm: int, itemsize: int) -> Tuple[Produ
     return tuple(enc.get(name) or by_name[name] for name in STEP_ORDER)
 
 
-def chunk_schedule(products, stage_bytes: int = RING.stage_bytes) -> torch.Tensor:
+def chunk_schedule(products, stage_bytes: int = STAGE_BYTES) -> torch.Tensor:
     """The chunks of one step, (n, 8) int32 (`CHUNK_FIELDS`): each product
     cut into runs of whole rows of at most `stage_bytes`, in step order."""
     rows = []
@@ -184,7 +175,9 @@ class DecodeInputs(NamedTuple):
     stop_threshold: float
     min_steps: int
     dropout_scale: float
-    packed: torch.Tensor  # the twelve matrices, `pack_weights`
+    # On the card only (None on the CPU, whose plain version reads `w`):
+    packed: Optional[torch.Tensor]  # the twelve matrices, `pack_weights`
+    schedule: Optional[torch.Tensor]  # one step's chunks, `chunk_schedule`
 
 
 def supports_arch(arch) -> bool:
@@ -341,9 +334,6 @@ class _DecodeArgs(ctypes.Structure):
 _SIGNATURES = {
     "sstts_fused_decode": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
     "sstts_decode_smem_bytes": ([ctypes.c_void_p], ctypes.c_int),
-    "sstts_decode_stages": ([], ctypes.c_int),
-    "sstts_decode_stage_bytes": ([], ctypes.c_int),
-    "sstts_decode_consumer_warps": ([], ctypes.c_int),
 }
 
 
@@ -357,58 +347,53 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, ld - cols)).contiguous()
 
 
-def _up4(n: int) -> int:
-    """n floats rounded up to a 16-byte multiple (each of the kernel's
-    shared-memory buffers starts 16-byte aligned)."""
-    return -(-n // 4) * 4
-
-
-def decode_smem_bytes(p: DecodeInputs, ring: RingConfig = RING) -> int:
-    """Shared memory one block of the kernel takes: the ring (256 bytes of
-    barriers and the stages), then in floats the split-K partials (8 a
-    consumer thread), the state, T scores and the step's keep masks, each
-    buffer rounded up to 4 floats (`sstts_decode_smem_bytes` in
-    csrc/decoder.cu says the same)."""
+def check_widths(p: DecodeInputs) -> None:
+    """Raises NotImplementedError for a cell wider than MAX_COLS."""
     w = p.w
-    T, Dm = p.memory.shape[1:]
-    A = p.keys.shape[-1]
-    P0, P1 = w.prenet_w0.shape[1], w.prenet_w1.shape[1]
-    Ha, Hd = w.attn_wh.shape[0], w.gru0_wh.shape[0]
-    r, M = p.reduction, p.n_mels
-    floats = 8 * 32 * ring.consumer_warps + sum(map(_up4, (
-        Ha, Hd, Hd, M, P0, P1 + Dm, 3 * max(Ha, Hd), 3 * max(Ha, Hd), Ha + Dm, A,
-        Hd, Hd, Hd, r * M, r, T, 33, 1, P0, P1)))
-    return 256 + ring.stages * ring.stage_bytes + 4 * floats
-
-
-def decode_launch_plan(p: DecodeInputs, ring: RingConfig = RING):
-    """What the kernel is handed besides `p`: the step's products and their
-    chunk schedule (int32 on p's device), and keys and memory with rows
-    padded to 16 bytes.  Raises NotImplementedError, before anything is
-    launched, for a cell wider than MAX_COLS or a T whose scores no longer
-    fit in shared memory beside the ring."""
-    w = p.w
-    B, T, Dm = p.memory.shape
-    A = p.keys.shape[-1]
-    P0, P1 = w.prenet_w0.shape[1], w.prenet_w1.shape[1]
-    Ha, Hd = w.attn_wh.shape[0], w.gru0_wh.shape[0]
-    widest = max(P0, P1, 3 * Ha, A, 3 * Hd, p.reduction * p.n_mels, Dm)
+    widest = max(w.prenet_w0.shape[1], w.prenet_w1.shape[1], 3 * w.attn_wh.shape[0],
+                 p.keys.shape[-1], 3 * w.gru0_wh.shape[0], p.reduction * p.n_mels,
+                 p.memory.shape[-1])
     if widest > MAX_COLS:
         raise NotImplementedError(
             f"fused decode kernel keeps products up to {MAX_COLS} columns wide; "
             f"this cell needs {widest}"
         )
-    smem = decode_smem_bytes(p, ring)
-    if smem > build.MAX_SMEM:
-        room = (build.MAX_SMEM - (smem - 4 * _up4(T))) // 4  # floats for scores
-        raise NotImplementedError(
-            f"fused decode needs {smem} bytes of shared memory (limit "
-            f"{build.MAX_SMEM}) at T={T}: the ring and the T scores no longer "
-            f"fit; this cell takes T up to {room // 4 * 4}"
-        )
-    products = step_products(weight_layout(w), T, A, Dm, w.attn_wx.element_size())
-    schedule = chunk_schedule(products, ring.stage_bytes).to(p.memory.device)
-    return products, schedule, _rows16(p.keys), _rows16(p.memory)
+
+
+def _dims(p: DecodeInputs) -> dict:
+    """The integer fields of `_DecodeArgs` for `p`."""
+    w = p.w
+    B, T, Dm = p.memory.shape
+    return dict(
+        B=B, T=T, S=p.max_steps, M=p.n_mels, P0=w.prenet_w0.shape[1],
+        P1=w.prenet_w1.shape[1], Dm=Dm, A=p.keys.shape[-1], Ha=w.attn_wh.shape[0],
+        Hd=w.gru0_wh.shape[0], r=p.reduction, min_steps=int(p.min_steps),
+    )
+
+
+def longest_text(lib: ctypes.CDLL, p: DecodeInputs) -> int:
+    """The largest T at `p`'s widths whose block fits in shared memory, by
+    the library's own count (which grows with T); -1 if none does."""
+    args = _DecodeArgs(**_dims(p))
+
+    def fits(t: int) -> bool:
+        args.T = t
+        return lib.sstts_decode_smem_bytes(ctypes.byref(args)) <= build.MAX_SMEM
+
+    if not fits(0):
+        return -1
+    lo, hi = 0, 1
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:  # fits(lo), not fits(hi)
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
+
+
+def library() -> ctypes.CDLL:
+    """This checkout's build of csrc/decoder.cu, bound."""
+    return build.load("decoder", _SIGNATURES)
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -420,11 +405,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def _kernel(p: DecodeInputs, lib: Optional[ctypes.CDLL] = None,
-            check_smem: bool = True) -> Dict[str, torch.Tensor]:
-    """Launch csrc/decoder.cu on `p` (through `lib`, a `bind`-ed build, or
-    this checkout's; `check_smem` False lets another tree's build lay out
-    its shared memory its own way)."""
+def launch(lib: ctypes.CDLL, p: DecodeInputs) -> Dict[str, torch.Tensor]:
+    """Launch `lib` (`library()`, or another `bind`-ed build of
+    csrc/decoder.cu) on `p`, made by `prepare_decode` on the card.  Raises
+    NotImplementedError, before anything is launched, for a cell wider than
+    MAX_COLS or a T whose scores no longer fit in shared memory beside the
+    ring."""
     w = p.w
     dt = w.attn_wx.dtype
     if dt not in (torch.bfloat16, torch.float32):
@@ -433,40 +419,38 @@ def _kernel(p: DecodeInputs, lib: Optional[ctypes.CDLL] = None,
         getattr(w, n).dtype != dt for n in _MATRICES
     ):
         raise ValueError("fused decode: weights, memory and keys must share one dtype")
-    B, T, Dm = p.memory.shape
-    A = p.keys.shape[-1]
-    S, r, M = p.max_steps, p.reduction, p.n_mels
-    P0, P1 = w.prenet_w0.shape[1], w.prenet_w1.shape[1]
-    Ha, Hd = w.attn_wh.shape[0], w.gru0_wh.shape[0]
+    check_widths(p)
+    if p.packed is None or p.schedule is None:
+        raise ValueError("fused decode: no packed weights or schedule (prepare_decode "
+                         "packs them when the inputs are on the card)")
     dev = p.memory.device
-    for t in (p.memory, p.keys, p.maskf, p.keep0, p.keep1, p.packed, *w):
+    for t in (p.memory, p.keys, p.maskf, p.keep0, p.keep1, p.packed, p.schedule, *w):
         if t is not None and (t.device != dev or not t.is_contiguous()):
             raise ValueError("fused decode inputs must be contiguous on one device")
-    if lib is None:
-        lib = build.load("decoder", _SIGNATURES)
-    ring = RingConfig(lib.sstts_decode_stages(), lib.sstts_decode_stage_bytes(),
-                      lib.sstts_decode_consumer_warps())
-    _, schedule, keys, memory = decode_launch_plan(p, ring)
+    dims = _dims(p)
+    args = _DecodeArgs(**dims, n_chunks=p.schedule.shape[0],
+                       stop_threshold=float(p.stop_threshold),
+                       dropout_scale=float(p.dropout_scale))
+    smem = lib.sstts_decode_smem_bytes(ctypes.byref(args))
+    if smem > build.MAX_SMEM:
+        raise NotImplementedError(
+            f"fused decode needs {smem} bytes of shared memory (limit "
+            f"{build.MAX_SMEM}) at T={dims['T']}: the ring and the T scores no "
+            f"longer fit; this cell takes T up to {longest_text(lib, p)}"
+        )
+    B, T, S = dims["B"], dims["T"], dims["S"]
+    r, M = p.reduction, p.n_mels
     out = {
         "mel": torch.empty(B, S, r * M, device=dev),
         "stop": torch.empty(B, S, r, device=dev),
         "align": torch.empty(B, S, T, device=dev),
         "fin": torch.empty(B, S, device=dev),
     }
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    args = _DecodeArgs(
-        ptr(p.packed), ptr(schedule), *[ptr(getattr(w, n)) for n in _VECTORS],
-        ptr(memory), ptr(keys), ptr(p.maskf), ptr(p.keep0), ptr(p.keep1),
-        ptr(out["mel"]), ptr(out["stop"]), ptr(out["align"]), ptr(out["fin"]),
-        B, T, S, M, P0, P1, Dm, A, Ha, Hd, r, int(p.min_steps), schedule.shape[0],
-        float(p.stop_threshold), float(p.dropout_scale),
-    )
-    smem = lib.sstts_decode_smem_bytes(ctypes.byref(args))
-    if check_smem and smem != decode_smem_bytes(p, ring):
-        raise RuntimeError(
-            f"fused decode: the library takes {smem} bytes of shared memory, "
-            f"decode_smem_bytes says {decode_smem_bytes(p, ring)}"
-        )
+    ptrs = {"packed": p.packed, "schedule": p.schedule, "memory": _rows16(p.memory),
+            "keys": _rows16(p.keys), "mask": p.maskf, "keep0": p.keep0,
+            "keep1": p.keep1, **{n: getattr(w, n) for n in _VECTORS}, **out}
+    for name, t in ptrs.items():
+        setattr(args, name, None if t is None else t.data_ptr())
     rc = lib.sstts_fused_decode(
         ctypes.byref(args), int(dt == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -485,7 +469,7 @@ def decode_steps(p: DecodeInputs) -> Dict[str, torch.Tensor]:
         return decode_steps_plain(p)
     if dev != "cuda":
         raise NotImplementedError(f"fused decode on {dev}")
-    out = _kernel(p)
+    out = launch(library(), p)
     decode_steps.launches += 1
     return out
 
@@ -505,12 +489,20 @@ def prepare_decode(
     matmul_dtype: torch.dtype = torch.bfloat16,
 ) -> DecodeInputs:
     """Hoisted per-utterance work: the key projection (f32, as JAX), the
-    casts, and the matrices packed for the kernel's stream.  `keep` is
-    (keep0, keep1) or None for no dropout."""
+    casts, and on the card the matrices packed for the kernel's stream and
+    its chunk schedule.  `keep` is (keep0, keep1) or None for no dropout."""
     w = weights_from_cell(cell, matmul_dtype)
     keys = memory.float() @ cell.attention.memory_proj.weight.T.float()
     keep0, keep1 = (None, None) if keep is None else (k.float().contiguous() for k in keep)
     rate = float(cell.prenet.dropout)
+    packed = schedule = None
+    if memory.is_cuda:
+        packed = pack_weights(w)
+        T, Dm = memory.shape[1:]
+        products = step_products(weight_layout(w), T, keys.shape[-1], Dm,
+                                 w.attn_wx.element_size())
+        # From pinned memory, so that the host does not wait for the card.
+        schedule = chunk_schedule(products).pin_memory().to(memory.device, non_blocking=True)
     return DecodeInputs(
         w=w,
         memory=memory.to(matmul_dtype).contiguous(),
@@ -524,7 +516,8 @@ def prepare_decode(
         stop_threshold=float(stop_threshold),
         min_steps=int(min_steps),
         dropout_scale=1.0 / (1.0 - rate) if rate < 1.0 else 0.0,
-        packed=pack_weights(w),
+        packed=packed,
+        schedule=schedule,
     )
 
 

@@ -1,12 +1,11 @@
 """Stage times of kernel B4 (the ring-fed decode) on the card.
 
-    python3 -m sstts_torch.tools.ablate_decode [--ring STAGES:KB:WARPS[+NAME=V] ...]
+    python3 -m sstts_torch.tools.ablate_decode
 
-Builds `sstts_torch/csrc/decoder.cu` once for each ring setting (stages,
-KB a stage, consumer warps, and any further -D settings after a "+"; the
-compiled defaults unless `--ring` names others) and each SSTTS_ABLATE mask, one `nvcc` per build, all started
-together, into a temporary directory, and times every build with CUDA
-events at the main path's shape, (B=32, T=96, S=160) bf16 with dropout:
+Builds `sstts_torch/csrc/decoder.cu` once for each SSTTS_ABLATE mask, one
+`nvcc` per build, all started together, into a temporary directory, and
+times every build with CUDA events at the main path's shape, (B=32, T=96,
+S=160) bf16 with dropout:
 
 - 0, the whole kernel, first held to `decode_steps_plain` (`fin` equal, mel
   and stop within 5e-2 of the largest mel value, alignments within 5e-2);
@@ -27,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import tempfile
 
 import torch
@@ -42,50 +40,31 @@ MASKS = {0: "whole", 1: "stream alone", 2: "consumers without the stream",
          6: "consumers without the stream and the multiply-adds"}
 
 
-def compiled_ring() -> str:
-    """The ring setting decoder.cu compiles by default, as STAGES:KB:WARPS."""
-    src = (build.CSRC / "decoder.cu").read_text()
-    get = lambda name: re.search(rf"#define {name} (\d+)", src).group(1)  # noqa: E731
-    return f"{get('SSTTS_STAGES')}:{get('SSTTS_STAGE_KB')}:{get('SSTTS_CONSUMER_WARPS')}"
-
-
 def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--ring", nargs="*", default=None,
-                    help="ring settings STAGES:KB:WARPS[+NAME=V] (default: the compiled one)")
-    args = ap.parse_args()
+    argparse.ArgumentParser(description=__doc__.split("\n\n")[0]).parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate_decode: no CUDA device")
-    rings = args.ring or [compiled_ring()]
-    jobs = {}
-    for ring in rings:
-        stages, kb, warps = ring.split("+")[0].split(":")
-        for mask in MASKS:
-            jobs[(ring, mask)] = (build.CSRC / "decoder.cu", [
-                f"SSTTS_STAGES={stages}", f"SSTTS_STAGE_KB={kb}",
-                f"SSTTS_CONSUMER_WARPS={warps}", f"SSTTS_ABLATE={mask}",
-                *ring.split("+")[1:]])
+    jobs = {mask: (build.CSRC / "decoder.cu", [f"SSTTS_ABLATE={mask}"]) for mask in MASKS}
     dev = torch.device("cuda")
     p = decode_case(dev, 160, torch.bfloat16, 1.1)
     with torch.no_grad():
         ref = dec.decode_steps_plain(p)
     scale = max(1.0, float(ref["mel"].abs().max()))
-    res = {}
+    res = {"ptxas": {}}
     with tempfile.TemporaryDirectory() as tmp:
         libs = compile_builds(jobs, tmp)
-        for (ring, mask), (lib, ptxas) in libs.items():
-            entry = res.setdefault(ring, {"ptxas": {}})
-            entry["ptxas"][MASKS[mask]] = ptxas
+        for mask, (lib, ptxas, _) in libs.items():
+            res["ptxas"][MASKS[mask]] = ptxas
             with torch.no_grad():
                 if mask == 0:
-                    got = dec._kernel(p, lib)
+                    got = dec.launch(lib, p)
                     torch.cuda.synchronize()
                     errs = max_diffs(got, ref)
                     ok = (bool(torch.equal(got["fin"], ref["fin"]))
                           and errs["mel"] <= 5e-2 * scale and errs["stop"] <= 5e-2 * scale
                           and errs["align"] <= 5e-2)
-                    entry["check"] = {"errors": errs, "ok": ok}
-                entry[MASKS[mask]] = time_ms(lambda: dec._kernel(p, lib), iters=5, reps=5)
+                    res["check"] = {"errors": errs, "ok": ok}
+                res[MASKS[mask]] = time_ms(lambda: dec.launch(lib, p), iters=5, reps=5)
     print(json.dumps({"ablate_decode_ms": res, "shape": [32, 96, 160, "bf16"],
                       "card": card_line()}))
 

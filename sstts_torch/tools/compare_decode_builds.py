@@ -7,8 +7,8 @@ checkout, for example a parent commit unpacked with `git archive`) and from
 this checkout, one `nvcc` each, started together, into a temporary
 directory.  Either tree may hold the first port's kernel (twelve matrix
 pointers, each thread loading its weights from L2) or the ring kernel (one
-packed buffer and a chunk schedule); the library says which (only the ring
-kernel exports `sstts_decode_stage_bytes`).  Both builds get the same inputs:
+packed buffer and a chunk schedule); the source says which (only the ring
+kernel includes `stream.cuh`).  Both builds get the same inputs:
 `chip_smoke.py`'s two cases at the default `Config()` from a seeded random
 init, (B=32, T=96, S=160) in bf16 and S=20 in f32, prenet dropout on.  The
 script reports, for each case, each output's largest difference between the
@@ -40,7 +40,8 @@ OUTPUTS = ("mel", "stop", "align", "fin")
 
 def compile_builds(jobs, tmp):
     """Build every job, {key: (decoder.cu path, [-D settings])}, one `nvcc`
-    each, all started together; {key: (bound CDLL, ptxas summary)}."""
+    each, all started together; {key: (CDLL, ptxas summary, ring)}, ring
+    True for the ring kernel's interface (then the library is bound)."""
     procs = {}
     for key, (src, defines) in jobs.items():
         out = Path(tmp) / f"decoder-{abs(hash(key))}.so"
@@ -51,6 +52,7 @@ def compile_builds(jobs, tmp):
         ), out)
     libs = {}
     for key, (proc, out) in procs.items():
+        ring = '#include "stream.cuh"' in Path(jobs[key][0]).read_text()
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc {key} failed:\n{log}")
@@ -59,9 +61,9 @@ def compile_builds(jobs, tmp):
             "spill_store_bytes": [int(b) for b in re.findall(r"(\d+) bytes spill stores", log)],
         }
         lib = ctypes.CDLL(str(out))
-        if hasattr(lib, "sstts_decode_stage_bytes"):
+        if ring:
             dec.bind(lib)
-        libs[key] = (lib, ptxas)
+        libs[key] = (lib, ptxas, ring)
     return libs
 
 
@@ -104,11 +106,11 @@ class _FirstDecodeArgs(ctypes.Structure):
     ] + [("stop_threshold", ctypes.c_float), ("dropout_scale", ctypes.c_float)]
 
 
-def launcher(lib, p):
+def launcher(lib, ring, p):
     """A function that launches `lib`'s kernel on `p` and returns its
-    outputs, for either kernel interface."""
-    if hasattr(lib, "sstts_decode_stage_bytes"):
-        return lambda: dec._kernel(p, lib, check_smem=False)
+    outputs, for either kernel interface (`ring` as `compile_builds`)."""
+    if ring:
+        return lambda: dec.launch(lib, p)
     for fn, (argtypes, restype) in {
         "sstts_fused_decode": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
         "sstts_decode_smem_bytes": ([ctypes.c_void_p], ctypes.c_int),
@@ -165,7 +167,7 @@ def main() -> None:
             p = decode_case(dev, S, dt, thr)
             with torch.no_grad():
                 ref = dec.decode_steps_plain(p)
-                launches = {tag: launcher(lib, p) for tag, (lib, _) in libs.items()}
+                launches = {tag: launcher(lib, ring, p) for tag, (lib, _, ring) in libs.items()}
                 outs = {tag: {k: v.clone() for k, v in fn().items()}
                         for tag, fn in launches.items()}
                 torch.cuda.synchronize()

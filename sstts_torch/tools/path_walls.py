@@ -11,7 +11,10 @@ workload (`Synthesizer.synthesize_batch`, b=32, 800 frames, GL-60, PCM16)
 (b=32 in the 515-frame bucket) `--steps` times after one warm-up step, and
 prints one JSON line with every reading, the medians and the card.  A
 single reading of either moves by more than 10% with the host; compare
-medians.
+medians.  It also times, five times, the host's side of one decode
+(`prepare_decode` and `decode_steps` at b=32, T=96, 160 steps, bf16) while
+the card is held busy for ~100 ms: a host that waits for the card there
+reads near that time, one that does not a few ms.
 """
 
 from __future__ import annotations
@@ -38,7 +41,8 @@ def main() -> None:
     import chip_smoke
     from sstts_torch import train as tr
     from sstts_torch.config import Config
-    from sstts_torch.model.tacotron import init_state_dict
+    from sstts_torch.model.tacotron import Tacotron, init_state_dict
+    from sstts_torch.ops import decoder as dec
     from sstts_torch.synthesize import Synthesizer
 
     if not torch.cuda.is_available():
@@ -53,6 +57,22 @@ def main() -> None:
         synth.synthesize_batch(texts)
         if i >= 2:
             walls.append(time.perf_counter() - t0)
+
+    model = Tacotron(cfg.arch, cfg.dataset)
+    model.load_state_dict(init_state_dict(cfg.arch, cfg.dataset, seed=0))
+    cell = model.decoder_cell.cuda().eval()
+    memory = 0.5 * torch.randn(32, 96, 2 * cfg.arch.encoder_gru_units, device="cuda")
+    mask = torch.ones(32, 96, dtype=torch.bool, device="cuda")
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            dec.decode_steps(dec.prepare_decode(cell, memory, mask, 160, stop_threshold=1.1,
+                                                matmul_dtype=torch.bfloat16))
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
 
     tcfg = Config()
     tcfg = tcfg.replace(
@@ -74,6 +94,7 @@ def main() -> None:
         "tree": os.getcwd(),
         "batch_wall_s": {"median": statistics.median(walls), "all": walls},
         "train_step_ms": {"median": statistics.median(steps), "all": steps},
+        "decode_host_ms_card_busy": {"median": statistics.median(host), "all": host},
         "card": chip_smoke.card_line(),
     }))
 

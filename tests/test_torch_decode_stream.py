@@ -1,9 +1,10 @@
-"""Kernel B4's weight stream, on the CPU: how `prepare_decode` packs the
-decoder cell and how `chunk_schedule` cuts a step into the chunks the
-kernel's producer copies into its ring (sstts_torch/ops/decoder.py).  The
-kernel itself runs only on the card (`chip_smoke.py` holds it to its plain
-version); these tests hold the host side it runs on, at the tiny config's
-widths and the default Config()'s, in bf16 and f32.
+"""Kernel B4's weight stream, on the CPU: how `pack_weights` packs the
+decoder cell, how `chunk_schedule` cuts a step into the chunks the kernel's
+producer copies into its ring, and what the wrapper refuses
+(sstts_torch/ops/decoder.py).  The kernel itself runs only on the card
+(`chip_smoke.py` holds it to its plain version and takes it to its longest
+T); these tests hold the host side it runs on, at the tiny config's widths
+and the default Config()'s, in bf16 and f32.
 """
 
 import re
@@ -49,6 +50,15 @@ def unpack_weights(packed, layout, dtype):
     return out
 
 
+def plan(p):
+    """What `prepare_decode` makes on the card: the step's products, their
+    schedule and the packed matrices (here on the CPU)."""
+    products = dec.step_products(dec.weight_layout(p.w), p.memory.shape[1],
+                                 p.keys.shape[-1], p.memory.shape[-1],
+                                 p.w.attn_wx.element_size())
+    return products, dec.chunk_schedule(products), dec.pack_weights(p.w)
+
+
 def schedule_rows(sched):
     return [dict(zip(dec.CHUNK_FIELDS, row)) for row in sched.tolist()]
 
@@ -58,10 +68,13 @@ def schedule_rows(sched):
 @pytest.mark.parametrize("name", CONFIGS)
 def test_schedule_covers_each_operand_once_in_step_order(name, dtype, T):
     p = inputs(name, DTYPES[dtype], T)
-    products, sched, keys, memory = dec.decode_launch_plan(p)
+    # On the CPU nothing is packed: the plain version reads the matrices.
+    assert p.packed is None and p.schedule is None
+    products, sched, packed_buf = plan(p)
+    keys, memory = dec._rows16(p.keys), dec._rows16(p.memory)
     assert [pr.name for pr in products] == list(dec.STEP_ORDER)
     chunks = schedule_rows(sched)
-    stage = dec.RING.stage_bytes
+    stage = dec.STAGE_BYTES
     # Products in step order, each one run of chunks.
     ids = [c["product"] for c in chunks]
     assert ids == sorted(ids) and set(ids) == set(range(len(products)))
@@ -85,7 +98,7 @@ def test_schedule_covers_each_operand_once_in_step_order(name, dtype, T):
     assert [pr.name for pr in packed] == list(dec._MATRICES)
     ends = [pr.offset + pr.rows * pr.row_bytes for pr in packed]
     assert [pr.offset for pr in packed] == [0] + ends[:-1]
-    assert ends[-1] == p.packed.numel()
+    assert ends[-1] == packed_buf.numel()
     # Keys and memory: T rows of this utterance, rows padded to 16 bytes,
     # as the tensors handed to the kernel are laid out.
     for pr, t in ((products[5], keys), (products[6], memory)):
@@ -99,14 +112,15 @@ def test_schedule_covers_each_operand_once_in_step_order(name, dtype, T):
 def test_unpacking_gives_back_the_cells_matrices(name, dtype):
     p = inputs(name, DTYPES[dtype], 7)
     layout = dec.weight_layout(p.w)
-    assert p.packed.dtype == torch.uint8 and p.packed.is_contiguous()
-    got = unpack_weights(p.packed, layout, DTYPES[dtype])
+    packed = dec.pack_weights(p.w)
+    assert packed.dtype == torch.uint8 and packed.is_contiguous()
+    got = unpack_weights(packed, layout, DTYPES[dtype])
     for pr in layout:
         want = getattr(p.w, pr.name)
         assert want.dtype == DTYPES[dtype]
         assert torch.equal(got[pr.name], want), pr.name
         # Each row's padding is zeros.
-        rows = p.packed[pr.offset : pr.offset + pr.rows * pr.row_bytes]
+        rows = packed[pr.offset : pr.offset + pr.rows * pr.row_bytes]
         pad = rows.reshape(pr.rows, pr.row_bytes)[:, pr.cols * want.element_size():]
         assert not pad.any(), pr.name
 
@@ -139,43 +153,68 @@ def test_schedule_follows_the_stage_size(stage_bytes):
     assert sum(c["bytes"] for c in chunks) == sum(pr.rows * pr.row_bytes for pr in products)
 
 
+class _Library:
+    """A stand-in for the built library whose shared-memory count is a
+    fixed part and T floats of scores, rounded up to 4; it launches
+    nothing.  (decoder.cu's own count and its limit at the default widths,
+    15,792, are taken to the card by chip_smoke.py.)"""
+
+    def __init__(self, fixed):
+        self.fixed = fixed
+
+    def sstts_decode_smem_bytes(self, ref):
+        return self.fixed + 16 * (-(-ref._obj.T // 4))
+
+    def sstts_fused_decode(self, *a):
+        raise AssertionError("launched a refused shape")
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_longest_text_the_kernel_takes_and_its_refusal(dtype):
-    """T = 4096 is planned; the first T whose scores no longer fit beside
-    the ring is refused by name before anything is launched."""
+    """T = 4096 is cut into whole rows of at most a stage; the wrapper asks
+    the library for the longest T that fits (`longest_text`), and refuses
+    the next by name before anything is launched."""
     p = inputs("default", DTYPES[dtype], 4096, B=1, S=1)
-    dec.decode_launch_plan(p)
-    # Scores take T floats, rounded up to 4 (16-byte aligned buffers).
-    t_max = 4096 + (build.MAX_SMEM - dec.decode_smem_bytes(p)) // 16 * 4
-    assert t_max >= 4096 and dec.decode_smem_bytes(p) <= build.MAX_SMEM
-    dec.decode_launch_plan(inputs("default", DTYPES[dtype], t_max, B=1, S=1))
-    with pytest.raises(NotImplementedError, match=rf"T={t_max + 1}.*T up to {t_max}"):
-        dec.decode_launch_plan(inputs("default", DTYPES[dtype], t_max + 1, B=1, S=1))
+    products, sched, packed = plan(p)
+    chunks = schedule_rows(sched)
+    keys = [c for c in chunks if c["src"] == dec.SRC_KEYS]
+    assert keys[-1]["k1"] == 4096 and max(c["bytes"] for c in chunks) <= dec.STAGE_BYTES
+    lib = _Library(fixed=build.MAX_SMEM - 4 * 15792)
+    assert dec.longest_text(lib, p) == 15792
+    assert dec.longest_text(_Library(build.MAX_SMEM + 4), p) == -1
+    for t, ok in ((15792, True), (15793, False)):
+        q = inputs("default", DTYPES[dtype], t, B=1, S=1)
+        q = q._replace(packed=packed, schedule=plan(q)[1])
+        if ok:
+            assert dec.longest_text(lib, q) == t
+            continue
+        with pytest.raises(NotImplementedError, match=r"T=15793.*T up to 15792"):
+            dec.launch(lib, q)
 
 
 @pytest.mark.parametrize("cols,ok", [(1024, True), (1025, False)])
 def test_widest_product_the_kernel_takes(cols, ok):
     """Products up to 1024 columns (here the frame projection, r * M) are
-    planned; a wider one is refused by name."""
+    taken; the wrapper refuses a wider one by name before it looks at the
+    library."""
     p = inputs("tiny", torch.bfloat16, 7)
     w = p.w._replace(frame_w=torch.zeros(p.w.frame_w.shape[0], cols, dtype=torch.bfloat16))
     p = p._replace(w=w, n_mels=cols, reduction=1)
     if ok:
-        dec.decode_launch_plan(p)
+        dec.check_widths(p)
+        assert max(c["bytes"] for c in schedule_rows(plan(p)[1])) <= dec.STAGE_BYTES
     else:
         with pytest.raises(NotImplementedError, match="up to 1024 columns"):
-            dec.decode_launch_plan(p)
+            dec.launch(None, p)
 
 
 def test_host_mirrors_match_decoder_cu():
-    """`RING` is what decoder.cu compiles by default, `_DecodeArgs` has the
-    C struct's fields in its order, and the schedule's fields are the
+    """`STAGE_BYTES` is decoder.cu's stage size, `_DecodeArgs` has the C
+    struct's fields in its order, and the schedule's fields are the
     stream::Chunk's (stream.cuh)."""
     src = (build.CSRC / "decoder.cu").read_text()
-    define = lambda n: int(re.search(rf"#define {n} (\d+)", src).group(1))  # noqa: E731
-    assert dec.RING == dec.RingConfig(
-        define("SSTTS_STAGES"), 1024 * define("SSTTS_STAGE_KB"),
-        define("SSTTS_CONSUMER_WARPS"))
+    kb = re.search(r"constexpr int kStageBytes = (\d+) \* 1024;", src).group(1)
+    assert dec.STAGE_BYTES == 1024 * int(kb)
     body = re.search(r"struct DecodeArgs \{(.*?)\};", src, re.S).group(1)
     fields = []
     for line in body.split(";")[:-1]:
@@ -194,6 +233,8 @@ def test_plain_version_reads_the_unpacked_weights():
     p = inputs("tiny", torch.float32, 7)
     with torch.no_grad():
         want = dec.decode_steps_plain(p)
-        got = dec.decode_steps_plain(p._replace(packed=torch.zeros_like(p.packed)))
+        packed, sched = dec.pack_weights(p.w), plan(p)[1]
+        got = dec.decode_steps_plain(p._replace(packed=torch.zeros_like(packed),
+                                                schedule=torch.zeros_like(sched)))
     for k in want:
         assert torch.equal(want[k], got[k]), k
