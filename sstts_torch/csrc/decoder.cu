@@ -36,7 +36,8 @@
 // the data.  The consumer warps take each product from the stages (K split
 // over groups, a thread a 16-byte column segment), the scores from the rows
 // of keys (a warp a row), the context from the rows of memory, and do the
-// gates, the softmax and the freeze between them.  The key projection
+// gates, the softmax and the freeze between them; steps 2-4 are the chain
+// B6 runs too (chain.cuh).  The key projection
 // memory @ memory_proj is hoisted out of the kernel, as in JAX.  Limits: any
 // B (one block each); product widths up to kMaxCols = 1024; T up to what
 // shared memory holds beside the ring (T floats of scores).
@@ -57,7 +58,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include "cell.cuh"  // sigmoidf_
+#include "chain.cuh"
 #include "stream.cuh"
 
 #ifndef SSTTS_ABLATE
@@ -197,27 +198,11 @@ fused_decode_kernel(const DecodeArgs p) {
   stream::consumer_sync<kConsumers>();
 
   const float* mask = p.mask + (size_t)b * p.T;
-  // One product of the stream into `out` (+ bias), K-length input x.
-  auto product = [&](const float* x, int N, const float* bias, float* out) {
-    stream::matvec<WT, true, kMath>(ring, cur, sched, n, x, N, part,
-                             [&](int j, float s) { out[j] = bias ? s + bias[j] : s; });
-  };
-  // One GRU step: gx = x @ wx + b, gh = h @ wh, then the gates; `post` (may
-  // be NULL) receives post[i] += h_new[i] (the residual connection).
-  auto gru = [&](const float* x, const float* h, int H, const float* bias,
-                 float* h_new, float* post) {
-    product(x, 3 * H, bias, gx);
-    product(h, 3 * H, nullptr, gh);
-    for (int i = tid; i < H; i += kConsumers) {
-      const float r = sigmoidf_(gx[i] + gh[i]);
-      const float z = sigmoidf_(gx[H + i] + gh[H + i]);
-      const float nn = tanhf(gx[2 * H + i] + r * gh[2 * H + i]);
-      const float hn = z * h[i] + (1.f - z) * nn;
-      h_new[i] = hn;
-      if (post) post[i] += hn;
-    }
-    stream::consumer_sync<kConsumers>();
-  };
+  // Steps 2-4, the chain B6 runs too (chain.cuh).
+  const chain::Chain<WT, kMath, Ring> ch{ring, cur, sched, n};
+  const chain::Buffers bufs{part, attn_h, h0, h1, xin, gx, gh, dproj,
+                            q, d, h0n, h1n, sc, red};
+  const chain::Vectors vecs{p.attn_b, p.score_v, p.score_b, p.dec_b, p.gru0_b, p.gru1_b};
 
   for (int t = 0; t < p.S; ++t) {
     const float fin_old = fin_s[0];
@@ -233,41 +218,14 @@ fused_decode_kernel(const DecodeArgs p) {
       xin[j] = !p.keep1 ? v : kp1[j] > 0.f ? v * p.dropout_scale : 0.f;
     });
 
-    // 2. Attention GRU over [prenet, context].
-    gru(xin, attn_h, p.Ha, p.attn_b, ha_new, nullptr);
-
-    // 3. Bahdanau attention: the query, the scores from the rows of keys,
-    // the softmax, the context from the rows of memory.
-    product(ha_new, p.A, p.score_b, q);
-    stream::scores<WT>(ring, cur, sched, n, q, p.score_v, p.A, mask, sc);
-    float local = -CUDART_INF_F;
-    for (int tt = tid; tt < p.T; tt += kConsumers) local = fmaxf(local, sc[tt]);
-    const float mx = stream::consumer_reduce<kConsumers>(local, red, true);
-    local = 0.f;
-    for (int tt = tid; tt < p.T; tt += kConsumers) {
-      const float e = expf(sc[tt] - mx);
-      sc[tt] = e;
-      local += e;
-    }
-    const float sum = stream::consumer_reduce<kConsumers>(local, red, false);
-    float* align_out = p.align + ((size_t)b * p.S + t) * p.T;
-    for (int tt = tid; tt < p.T; tt += kConsumers) {
-      const float a = sc[tt] / sum;
-      sc[tt] = a;
-      align_out[tt] = a;
-    }
-    stream::consumer_sync<kConsumers>();
-    stream::matvec<WT, false, kMath>(ring, cur, sched, n, sc, p.Dm, part,
-                              [&](int j, float s) { ctx_new[j] = s; });
-
-    // 4. Decoder projection and two residual GRUs.
-    product(dproj, p.Hd, p.dec_b, d);
-    gru(d, h0, p.Hd, p.gru0_b, h0n, d);
-    gru(d, h1, p.Hd, p.gru1_b, h1n, d);
+    // 2-4. Attention GRU, Bahdanau attention, decoder projection and two
+    // residual GRUs.
+    ch.step(bufs, vecs, p.T, p.Dm, p.A, p.Ha, p.Hd, mask,
+            p.align + ((size_t)b * p.S + t) * p.T);
 
     // 5. Frame and stop projections.
-    product(d, rM, p.frame_b, melv);
-    product(d, p.r, p.stop_b, stopv);
+    ch.product(d, rM, p.frame_b, melv, part);
+    ch.product(d, p.r, p.stop_b, stopv, part);
 
     // 6. Outputs, stop-mask accumulation, carry freeze.
     float* mel_out = p.mel + ((size_t)b * p.S + t) * rM;
@@ -288,7 +246,7 @@ fused_decode_kernel(const DecodeArgs p) {
       p.fin[(size_t)b * p.S + t] = fin_old;
       float smax = stopv[0];
       for (int i = 1; i < p.r; ++i) smax = fmaxf(smax, stopv[i]);
-      float hit = sigmoidf_(smax) > p.stop_threshold ? 1.f : 0.f;
+      float hit = chain::sigmoidf_(smax) > p.stop_threshold ? 1.f : 0.f;
       if (p.min_steps > 0 && t < p.min_steps - 1) hit = 0.f;
       fin_s[0] = fmaxf(fin_old, hit);
     }

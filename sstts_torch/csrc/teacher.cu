@@ -16,177 +16,170 @@
 // Products take both operands rounded to the matmul dtype (bf16 or f32)
 // with f32 accumulation; gates and softmax are f32, as in the Pallas kernel.
 //
-// Bound on the H100: latency.  At the training shape (B=32, S=103, T=128)
-// a step is ~1.54 M multiply-adds per utterance, 1.0e10 operations in all
-// (~0.010 ms at the bf16 peak) over ~14 MB of inputs and outputs
-// (~0.004 ms); the chain of S dependent steps sets the time.  The step's
-// 1.5 M weights (2.9 MB in bf16) exceed one SM's shared memory, so, as in
-// the autoregressive decode (decoder.cu, kernel B4), they stay in device
-// memory, L2-resident across the steps, and each step re-reads them from L2.
+// Bound on the H100: not arithmetic (a step is ~1.5 M multiply-adds an
+// utterance) but moving the step's weights to the SM.  The eight matrices
+// (2.9 MB in bf16) exceed one SM's shared memory, so every step reads them,
+// and the utterance's keys and memory, from L2, where they stay resident.
 //
-// Design: B4's without the prenet, the projections and the stop logic.  One
-// block of 1024 threads per utterance, the loop over S inside the block, the
-// state in shared memory; products split K over 8 groups of 128 threads on
-// column pairs (cell.cuh).  Any B, any T the shared memory holds, product
-// widths up to kMaxN = 1024.
+// Design: B4's (decoder.cu) without the prenet, the projections and the stop
+// logic, from the same parts.  The host packs the eight matrices in the
+// order a step reads them, rows padded to 16 bytes (one device copy a
+// forward: the weights change every train step), and cuts them with the
+// utterance's keys and memory into a schedule of chunks of whole rows
+// (sstts_torch/ops/decoder.py: pack_weights, step_products, chunk_schedule;
+// the schedule depends on the shapes only and is made once for each).  One
+// block per utterance: one producer lane walks the schedule S times with
+// cp.async.bulk into a ring of shared-memory stages (stream.cuh); 16
+// consumer warps run the chain (chain.cuh, B4's steps 2-4) on the stages and
+// the state in shared memory.  The next step's prenet row is loaded with the
+// carries.  Limits: any B (one block each); product widths up to kMaxCols =
+// 1024; T up to what shared memory holds beside the ring (T floats of
+// scores), by the library's own count (sstts_teacher_smem_bytes).
 //
+// SSTTS_ABLATE, at compile time, gives stage times as in decoder.cu: 1 the
+// stream alone, else a mask: 2 without the stream, 4 without the products'
+// multiply-adds.  Ablated builds compute garbage.
+
 // Plain C interface (bound with ctypes); launch on the caller's stream,
 // return cudaGetLastError().
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
 
-#include "cell.cuh"
+#include "chain.cuh"
+#include "stream.cuh"
+
+#ifndef SSTTS_ABLATE
+#define SSTTS_ABLATE 0
+#endif
 
 extern "C" {
 
 // Field order is mirrored by sstts_torch/ops/teacher.py:_TeacherArgs.
 struct TeacherArgs {
-  const void* attn_wx;  // (P1 + Dm, 3 Ha)
-  const void* attn_wh;  // (Ha, 3 Ha)
+  const void* packed;    // the eight matrices, rows padded to 16 bytes
+  const void* schedule;  // (n_chunks, 8) int32, stream::Chunk
   const float* attn_b;
-  const void* query_w;  // (Ha, A)
   const float* score_v;
   const float* score_b;
-  const void* dec_w;  // (Ha + Dm, Hd)
   const float* dec_b;
-  const void* gru0_wx;  // (Hd, 3 Hd)
-  const void* gru0_wh;
   const float* gru0_b;
-  const void* gru1_wx;
-  const void* gru1_wh;
   const float* gru1_b;
   const float* pre;    // (B, S, P1) f32 prenet outputs
-  const void* memory;  // (B, T, Dm) matmul dtype
-  const void* keys;    // (B, T, A) matmul dtype
+  const void* memory;  // (B, T, Dm) matmul dtype, rows padded to 16 bytes
+  const void* keys;    // (B, T, A) likewise
   const float* mask;   // (B, T) {0, 1}
   float* xs;           // (B, S, Hd)
   float* align;        // (B, S, T)
   int B, T, S, P1, Dm, A, Ha, Hd;
+  int n_chunks;
 };
 
 }  // extern "C"
 
 namespace {
 
-constexpr int kThreads = 1024;
+// The ring's settings are B4's (decoder.cu); the chunks of the host's
+// schedule are cut to kStageBytes (ops/decoder.py:STAGE_BYTES).
+constexpr int kStages = 2;
+constexpr int kStageBytes = 64 * 1024;
+constexpr int kConsumerWarps = 16;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;
+constexpr int kAblate = SSTTS_ABLATE;
+constexpr bool kStream = (kAblate & 2) == 0;
+constexpr bool kMath = (kAblate & 4) == 0;
+constexpr int kMaxCols = 1024;
+static_assert(kStageBytes >= 4 * kMaxCols, "a stage holds a row of kMaxCols f32");
+// Split-K partials: G groups x the padded width, at most 8 floats a consumer.
+constexpr int kPartFloats = 8 * kConsumers;
+static_assert(kConsumers >= kMaxCols / 4, "a consumer a 16-byte segment of any row");
 
-// Bahdanau attention for one utterance: scores v . tanh(keys[t] + q), where
-// q already holds the query projection plus the score bias; a masked
-// softmax in f32 over T (one warp per position for the scores, block
-// reductions for max and sum); the alignment goes to `sc` and `align_out`,
-// and the context alignment @ memory to `ctx`.  Ends after a barrier.
-// The same arithmetic as B4's inline attention (decoder.cu); B4 keeps its
-// copy inline because nvcc compiles B4 about 10% slower through this
-// function, while B6 runs slightly faster with it.
-template <typename WT>
-__device__ void attend(const float* q, const WT* keys, const WT* mem,
-                       const float* mask, const float* score_v, int T, int A,
-                       int Dm, float* sc, float* red, float* align_out,
-                       float* ctx) {
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, n_warps = blockDim.x >> 5;
-  for (int tt = warp; tt < T; tt += n_warps) {
-    float score = 0.f;
-    for (int a = lane; a < A; a += 32)
-      score += tanhf(Load<WT>::w(keys, (size_t)tt * A + a) + q[a]) * score_v[a];
-    for (int o = 16; o > 0; o >>= 1)
-      score += __shfl_xor_sync(0xffffffffu, score, o);
-    if (lane == 0) sc[tt] = mask[tt] > 0.f ? score : -1e9f;
-  }
-  __syncthreads();
-  float local = -CUDART_INF_F;
-  for (int tt = tid; tt < T; tt += blockDim.x) local = fmaxf(local, sc[tt]);
-  const float mx = block_reduce(local, red, true);
-  local = 0.f;
-  for (int tt = tid; tt < T; tt += blockDim.x) {
-    const float e = expf(sc[tt] - mx);
-    sc[tt] = e;
-    local += e;
-  }
-  const float sum = block_reduce(local, red, false);
-  for (int tt = tid; tt < T; tt += blockDim.x) {
-    const float a = sc[tt] / sum;
-    sc[tt] = a;
-    align_out[tt] = a;
-  }
-  __syncthreads();
-  for (int j = tid; j < Dm; j += blockDim.x) {
-    float acc = 0.f;
-    for (int tt = 0; tt < T; ++tt)
-      acc = fmaf(sc[tt], Load<WT>::w(mem, (size_t)tt * Dm + j), acc);
-    ctx[j] = acc;
-  }
-  __syncthreads();
-}
+using Ring = stream::Ring<kStages, kStageBytes, kConsumerWarps, kStream>;
 
 template <typename WT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 teacher_scan_kernel(const TeacherArgs p) {
-  extern __shared__ float sm[];
+  extern __shared__ __align__(128) unsigned char smem[];
+  const Ring ring(smem);
   const int b = blockIdx.x, tid = threadIdx.x;
+  const stream::Chunk* sched = static_cast<const stream::Chunk*>(p.schedule);
+  const int n = p.n_chunks;
+
+  if (tid == 0) ring.init();
+  __syncthreads();
+  if (tid >= kConsumers) {  // the producer warp: one lane streams
+    if (tid == kConsumers && kStream)
+      ring.produce(sched, n, p.S, static_cast<const unsigned char*>(p.packed),
+                   static_cast<const unsigned char*>(p.keys),
+                   static_cast<const unsigned char*>(p.memory), (size_t)b * p.T);
+    return;
+  }
+  stream::Cursor cur{0, 0u, 0};
+  if (kAblate == 1) {  // the stream alone
+    for (int i = 0; i < n * p.S; ++i) {
+      ring.acquire(cur);
+      ring.release(cur, n);
+    }
+    return;
+  }
+
   const int Hm = p.Ha > p.Hd ? p.Ha : p.Hd;
+  // Shared-memory layout (floats) after the ring; every buffer starts
+  // 16-byte aligned (the partials are stored as float4).
+  float* next = reinterpret_cast<float*>(smem + Ring::kBytes);
+  auto take = [&](int floats) {
+    float* at = next;
+    next += (floats + 3) & ~3;
+    return at;
+  };
+  chain::Buffers s;
+  s.part = take(kPartFloats);
+  s.attn_h = take(p.Ha);
+  s.h0 = take(p.Hd);
+  s.h1 = take(p.Hd);
+  s.xin = take(p.P1 + p.Dm);  // [prenet, context carry]
+  s.gx = take(3 * Hm);
+  s.gh = take(3 * Hm);
+  s.dproj = take(p.Ha + p.Dm);  // [h_a new, context new]
+  s.q = take(p.A);
+  s.d = take(p.Hd);
+  s.h0n = take(p.Hd);
+  s.h1n = take(p.Hd);
+  s.sc = take(p.T);
+  s.red = take(33);
+  float* ctx = s.xin + p.P1;  // the context carry lives inside xin
+  const float* ha_new = s.dproj;
+  const float* ctx_new = s.dproj + p.Ha;
+  const float* pre = p.pre + (size_t)b * p.S * p.P1;
 
-  // Shared-memory layout (floats).
-  float* attn_h = sm;                 // Ha   attention-GRU carry
-  float* h0 = attn_h + p.Ha;          // Hd   decoder-GRU carries
-  float* h1 = h0 + p.Hd;              // Hd
-  float* xin = h1 + p.Hd;             // P1 + Dm: [prenet, context carry]
-  float* ctx = xin + p.P1;            //   context carry lives inside xin
-  float* gx = xin + p.P1 + p.Dm;      // 3 Hm
-  float* gh = gx + 3 * Hm;            // 3 Hm
-  float* dproj = gh + 3 * Hm;         // Ha + Dm: [h_a new, context new]
-  float* ha_new = dproj;
-  float* ctx_new = dproj + p.Ha;
-  float* q = dproj + p.Ha + p.Dm;     // A
-  float* d = q + p.A;                 // Hd
-  float* h0n = d + p.Hd;              // Hd
-  float* h1n = h0n + p.Hd;            // Hd
-  float* sc = h1n + p.Hd;             // T  scores, then alignment
-  float* red = sc + p.T;              // 33 reduction scratch
-  float* part = red + 33;             // kMaxN * groups: split-K partials
+  for (int i = tid; i < p.Ha; i += kConsumers) s.attn_h[i] = 0.f;
+  for (int i = tid; i < p.Hd; i += kConsumers) s.h0[i] = s.h1[i] = 0.f;
+  for (int i = tid; i < p.Dm; i += kConsumers) ctx[i] = 0.f;
+  for (int i = tid; i < p.P1; i += kConsumers) s.xin[i] = pre[i];
+  stream::consumer_sync<kConsumers>();
 
-  for (int i = tid; i < p.Ha; i += blockDim.x) attn_h[i] = 0.f;
-  for (int i = tid; i < p.Hd; i += blockDim.x) h0[i] = h1[i] = 0.f;
-  for (int i = tid; i < p.Dm; i += blockDim.x) ctx[i] = 0.f;
-
-  const WT* mem = static_cast<const WT*>(p.memory) + (size_t)b * p.T * p.Dm;
-  const WT* keys = static_cast<const WT*>(p.keys) + (size_t)b * p.T * p.A;
   const float* mask = p.mask + (size_t)b * p.T;
+  const chain::Chain<WT, kMath, Ring> ch{ring, cur, sched, n};
+  const chain::Vectors vecs{p.attn_b, p.score_v, p.score_b, p.dec_b, p.gru0_b, p.gru1_b};
 
   for (int t = 0; t < p.S; ++t) {
     const size_t row = (size_t)b * p.S + t;
-    for (int n = tid; n < p.P1; n += blockDim.x) xin[n] = p.pre[row * p.P1 + n];
-    __syncthreads();
+    ch.step(s, vecs, p.T, p.Dm, p.A, p.Ha, p.Hd, mask, p.align + row * p.T);
 
-    // 1. Attention GRU over [prenet, context].
-    gru_step<WT>(xin, p.P1 + p.Dm, attn_h, p.Ha, p.attn_wx, p.attn_wh,
-                 p.attn_b, gx, gh, ha_new, nullptr, part);
-
-    // 2. Bahdanau attention.
-    matvec<WT>(ha_new, p.Ha, p.query_w, p.A, p.score_b, q, part);
-    attend<WT>(q, keys, mem, mask, p.score_v, p.T, p.A, p.Dm, sc, red,
-               p.align + row * p.T, ctx_new);
-
-    // 3. Decoder projection and two residual GRUs.
-    matvec<WT>(dproj, p.Ha + p.Dm, p.dec_w, p.Hd, p.dec_b, d, part);
-    gru_step<WT>(d, p.Hd, h0, p.Hd, p.gru0_wx, p.gru0_wh, p.gru0_b, gx, gh,
-                 h0n, d, part);
-    gru_step<WT>(d, p.Hd, h1, p.Hd, p.gru1_wx, p.gru1_wh, p.gru1_b, gx, gh,
-                 h1n, d, part);
-
-    // 4. Output feature and carries.
+    // The step's feature, the carries, and the next step's prenet row.
     float* xs_out = p.xs + row * p.Hd;
-    for (int i = tid; i < p.Ha; i += blockDim.x) attn_h[i] = ha_new[i];
-    for (int i = tid; i < p.Hd; i += blockDim.x) {
-      h0[i] = h0n[i];
-      h1[i] = h1n[i];
-      xs_out[i] = d[i];
+    for (int i = tid; i < p.Ha; i += kConsumers) s.attn_h[i] = ha_new[i];
+    for (int i = tid; i < p.Hd; i += kConsumers) {
+      s.h0[i] = s.h0n[i];
+      s.h1[i] = s.h1n[i];
+      xs_out[i] = s.d[i];
     }
-    for (int i = tid; i < p.Dm; i += blockDim.x) ctx[i] = ctx_new[i];
-    __syncthreads();
+    for (int i = tid; i < p.Dm; i += kConsumers) ctx[i] = ctx_new[i];
+    if (t + 1 < p.S)
+      for (int i = tid; i < p.P1; i += kConsumers) s.xin[i] = pre[(size_t)(t + 1) * p.P1 + i];
+    stream::consumer_sync<kConsumers>();
   }
 }
 
@@ -194,30 +187,30 @@ teacher_scan_kernel(const TeacherArgs p) {
 
 extern "C" {
 
+// Shared memory one block takes: the ring, then the buffers of the kernel's
+// layout (the only count of it; the wrapper refuses a shape from it).
 int sstts_teacher_smem_bytes(const TeacherArgs* a) {
   const int Hm = a->Ha > a->Hd ? a->Ha : a->Hd;
-  const int floats = a->Ha + 2 * a->Hd + a->P1 + a->Dm + 6 * Hm + a->Ha +
-                     a->Dm + a->A + 3 * a->Hd + a->T + 33 +
-                     kMaxN * (kThreads / kColThreads);
-  return floats * 4;
+  const int sizes[] = {kPartFloats, a->Ha, a->Hd, a->Hd, a->P1 + a->Dm, 3 * Hm, 3 * Hm,
+                       a->Ha + a->Dm, a->A, a->Hd, a->Hd, a->Hd, a->T, 33};
+  int floats = 0;
+  for (int n : sizes) floats += (n + 3) & ~3;
+  return Ring::kBytes + floats * 4;
 }
 
 // weights_bf16: 1 when every matrix, memory and keys are bf16, 0 for f32.
-int sstts_fused_teacher_scan(const TeacherArgs* a, int weights_bf16,
-                             void* stream) {
+int sstts_fused_teacher_scan(const TeacherArgs* a, int weights_bf16, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int smem = sstts_teacher_smem_bytes(a);
   cudaError_t err;
   if (weights_bf16) {
     err = cudaFuncSetAttribute(teacher_scan_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     teacher_scan_kernel<__nv_bfloat16><<<a->B, kThreads, smem, st>>>(*a);
   } else {
     err = cudaFuncSetAttribute(teacher_scan_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     teacher_scan_kernel<float><<<a->B, kThreads, smem, st>>>(*a);
   }

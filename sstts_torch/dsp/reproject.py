@@ -13,12 +13,17 @@ JAX package's host-side plan (`_band_plan`), so the port needs none of it.
 
 `reproject_frames` is kernel B1's wrapper: a CPU tensor runs
 `reproject_frames_plain` (the JAX package's XLA formulation), a CUDA tensor
-launches `sstts_torch/csrc/reproject.cu` or raises; the mirror runs follow
-in torch, as the JAX package applies them in XLA after its kernel.
+launches `sstts_torch/csrc/reproject.cu` or raises.  The kernel applies the
+mirror runs itself, in the same launch, from the run table (`run_table`,
+made once a geometry); the JAX package applies them in XLA after its
+kernel.  The host picks the kernel's ring (`ring_config`) and its strips of
+rows (`strip_count`: about one wave of blocks, and every mirror run inside
+the strip of the block that applies it).
 """
 
 from __future__ import annotations
 
+import bisect
 import ctypes
 import functools
 from typing import List, Optional, Tuple
@@ -200,20 +205,151 @@ def reproject_frames_plain(
 class _ReprojectArgs(ctypes.Structure):
     """Mirror of `ReprojectArgs` in csrc/reproject.cu (same field order)."""
 
-    _fields_ = [(n, ctypes.c_void_p) for n in ("frames", "wss2d", "out")] + [
-        (n, ctypes.c_int) for n in ("Bt", "T", "wp", "w_len", "hop", "d_max")
+    _fields_ = [(n, ctypes.c_void_p) for n in ("frames", "wss2d", "runs", "out")] + [
+        (n, ctypes.c_int)
+        for n in ("Bt", "T", "wp", "w_len", "hop", "d_max", "strips", "group", "stages",
+                  "n_runs")
     ]
 
 
 _SIGNATURES = {
     "sstts_reproject": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
-    "sstts_reproject_smem_bytes": ([ctypes.c_int] * 3, ctypes.c_int),
+    "sstts_reproject_smem_bytes": ([ctypes.c_int] * 4, ctypes.c_int),
+    "sstts_reproject_threads": ([ctypes.c_int] * 2, ctypes.c_int),
+    "sstts_reproject_rows": ([], ctypes.c_int),
+    "sstts_reproject_blocks_per_sm": ([ctypes.c_void_p, ctypes.c_int], ctypes.c_int),
 }
 
+#: A ring stage holds the fewest rows (a power of two) that make at least
+#: this many bytes: one bulk copy and one barrier a stage.
+STAGE_BYTES = 16384
 
-def _kernel(f3, wss2d, w_len, hop, d_max):
-    """Launch B1 on f3 (Bt, T, wp) bf16 or f32, wp a multiple of 8;
-    returns the reprojected frames before the mirror runs."""
+#: Stages the ring holds beyond the band an output row reads, so that the
+#: copies run ahead of the arithmetic.
+PREFETCH_STAGES = 1
+
+#: The shortest strip of rows a block walks when the grid is cut to fill
+#: the card (a strip re-reads 2 D halo rows).
+MIN_STRIP = 32
+
+
+def library() -> ctypes.CDLL:
+    """This checkout's build of csrc/reproject.cu, bound."""
+    return build.load("reproject", _SIGNATURES)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the library's C functions on `lib` (a build of
+    csrc/reproject.cu from another tree)."""
+    for fn, (argtypes, restype) in _SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def ring_candidates(row_bytes: int, d_max: int, rows: int,
+                    prefetch: int = PREFETCH_STAGES, stage_bytes: int = STAGE_BYTES):
+    """(rows a stage G, stages NS) in the order the wrapper tries them: the
+    stage of at least `stage_bytes` with `prefetch` stages ahead, then less
+    prefetch, then smaller stages.  A consumer computes `rows` output rows
+    together, which read the 2 D + rows input rows around them: NS >=
+    ceil((2 D + rows - 1) / G) + 1, so that the stage a consumer waits for
+    never waits for one it has not released."""
+    g = 1
+    while g * row_bytes < stage_bytes:
+        g *= 2
+    out = []
+    while g >= 1:
+        for pf in range(prefetch, -1, -1):
+            out.append((g, -(-(2 * d_max + rows - 1) // g) + 1 + pf))
+        g //= 2
+    return out
+
+
+def ring_config(smem_bytes, wp: int, elem_bytes: int, d_max: int, rows: int,
+                prefetch: int = PREFETCH_STAGES,
+                stage_bytes: int = STAGE_BYTES) -> Tuple[int, int, int]:
+    """(G, NS, shared-memory bytes) of the first of `ring_candidates` whose
+    block fits the card by `smem_bytes(wp, elem_bytes, G, NS)`, the
+    library's own count.  NotImplementedError if none does."""
+    for g, ns in ring_candidates(wp * elem_bytes, d_max, rows, prefetch, stage_bytes):
+        smem = smem_bytes(wp, elem_bytes, g, ns)
+        if smem <= build.MAX_SMEM:
+            return g, ns, smem
+    raise NotImplementedError(
+        f"reproject_frames kernel: a ring of the {2 * d_max + rows} rows of {wp} lanes "
+        f"that {rows} output rows read ({elem_bytes}-byte values, D = {d_max}) exceeds "
+        f"{build.MAX_SMEM} bytes of shared memory"
+    )
+
+
+def strip_starts(n_frames: int, strips: int) -> List[int]:
+    """First row of each strip of an utterance, and n_frames after the last:
+    strip s holds rows [s T / strips, (s + 1) T / strips)."""
+    return [s * n_frames // strips for s in range(strips + 1)]
+
+
+def runs_fit(runs, n_frames: int, strips: int) -> bool:
+    """Every mirror run reads a row of the strip that holds its own: the
+    block of that strip applies it, in run order, after its rows are
+    stored."""
+    starts = strip_starts(n_frames, strips)
+
+    def strip_of(row: int) -> int:
+        return bisect.bisect_right(starts, row) - 1
+
+    return all(strip_of(t) == strip_of(t_src) for t, _, _, t_src, _, _ in runs)
+
+
+def strip_count(batch: int, n_frames: int, runs, slots: int,
+                min_strip: int = MIN_STRIP) -> int:
+    """Strips an utterance: as many as fill the `slots` blocks the card
+    holds at once (one wave) but none shorter than `min_strip` rows, then
+    fewer until every mirror run lies inside one strip (one strip always
+    holds them)."""
+    strips = max(1, min(slots // max(batch, 1), n_frames // min_strip))
+    while strips > 1 and not runs_fit(runs, n_frames, strips):
+        strips -= 1
+    return strips
+
+
+@functools.lru_cache(maxsize=64)
+def run_table(runs: tuple, device: torch.device) -> torch.Tensor:
+    """The mirror runs as the kernel reads them, (n_runs, 6) int32 rows
+    (t, a, b, t_src, src_lo, src_hi) on `device`, made once a geometry
+    and copied from pinned memory, so that the host does not wait."""
+    table = torch.tensor(runs, dtype=torch.int32).reshape(-1, 6)
+    if device.type == "cuda":
+        table = table.pin_memory().to(device, non_blocking=True)
+    return table
+
+
+@functools.lru_cache(maxsize=64)
+def _slots(lib, wp: int, elem_bytes: int, group: int, stages: int,
+           device: torch.device) -> int:
+    """Blocks of this shape the card holds at once: its SMs times the
+    library's blocks an SM."""
+    args = _ReprojectArgs(wp=wp, group=group, stages=stages)
+    per_sm = lib.sstts_reproject_blocks_per_sm(ctypes.byref(args), int(elem_bytes == 2))
+    if per_sm < 1:
+        raise RuntimeError(f"reproject_frames kernel: no block fits an SM ({per_sm})")
+    return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """`t` contiguous on a 16-byte aligned address (bulk copies and 16-byte
+    loads need it)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch(lib, f3, wss2d, w_len, hop, d_max, runs, *, prefetch: int = PREFETCH_STAGES,
+           stage_bytes: int = STAGE_BYTES, min_strip: int = MIN_STRIP):
+    """Launch `lib`'s kernel B1 (`library()`, or another `bind`-ed build) on
+    f3 (Bt, T, wp) bf16 or f32, wp a multiple of 8, with its mirror runs
+    `runs` (`band_plan`'s); returns the reprojected frames.  Raises
+    NotImplementedError, before any launch, for a ring that shared memory
+    cannot hold."""
     if f3.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"reproject_frames kernel: dtype {f3.dtype}")
     bt, n_frames, wp = f3.shape
@@ -222,19 +358,19 @@ def _kernel(f3, wss2d, w_len, hop, d_max):
             f"reproject_frames kernel: frames {tuple(f3.shape)}, wss2d "
             f"{tuple(wss2d.shape)} (needs wp % 8 == 0 and wss2d (T, wp))"
         )
-    lib = build.load("reproject", _SIGNATURES)
-    smem = lib.sstts_reproject_smem_bytes(wp, d_max, f3.element_size())
-    if smem > build.MAX_SMEM:
-        raise NotImplementedError(
-            f"reproject_frames kernel stages {smem} bytes of frames in shared "
-            f"memory (> {build.MAX_SMEM})"
-        )
-    f3 = f3.contiguous()
-    wss2d = wss2d.float().contiguous()
+    es = f3.element_size()
+    group, stages, _ = ring_config(lib.sstts_reproject_smem_bytes, wp, es, d_max,
+                                   lib.sstts_reproject_rows(), prefetch, stage_bytes)
+    slots = _slots(lib, wp, es, group, stages, f3.device)
+    strips = strip_count(bt, n_frames, runs, slots, min_strip)
+    table = run_table(tuple(runs), f3.device)
+    f3 = _aligned(f3)
+    wss2d = _aligned(wss2d.float())
     out = torch.empty_like(f3)
     args = _ReprojectArgs(
-        f3.data_ptr(), wss2d.data_ptr(), out.data_ptr(),
-        bt, n_frames, wp, w_len, hop, d_max,
+        f3.data_ptr(), wss2d.data_ptr(), table.data_ptr() if len(runs) else None,
+        out.data_ptr(), bt, n_frames, wp, w_len, hop, d_max, strips, group, stages,
+        len(runs),
     )
     rc = lib.sstts_reproject(
         ctypes.byref(args), int(f3.dtype == torch.bfloat16),
@@ -252,9 +388,10 @@ def reproject_frames(
     length: int,
     wss2d: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Kernel B1 with its mirror runs (see the module docstring); counts
-    CUDA launches in `reproject_frames.launches`.  Inference-only: raises
-    when grad mode is on and the input requires grad."""
+    """Kernel B1 with its mirror runs, one launch (see the module
+    docstring); counts CUDA launches in `reproject_frames.launches`.
+    Inference-only: raises when grad mode is on and the input requires
+    grad."""
     require_no_grad("reproject_frames", frames, wss2d)
     if frames.device.type == "cpu":
         return reproject_frames_plain(frames, n_fft, hop, win_length, length, wss2d)
@@ -268,9 +405,8 @@ def reproject_frames(
         f3 = F.pad(f3, (0, wp - width))
     if wss2d is None or wss2d.shape[-1] != wp:
         wss2d = padded_wss2d(plan, wp, frames.device)
-    out = _kernel(f3, wss2d, w_len, hop, plan["d_max"])
+    out = launch(library(), f3, wss2d, w_len, hop, plan["d_max"], plan["runs"])
     reproject_frames.launches += 1
-    out = apply_mirror_runs(out, plan["runs"])
     return out[..., :width].reshape(*batch, n_frames, width)
 
 

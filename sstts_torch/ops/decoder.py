@@ -107,39 +107,52 @@ def row_bytes(cols: int, itemsize: int) -> int:
     return -(-cols * itemsize // 16) * 16
 
 
-def weight_layout(w: DecoderWeights) -> Tuple[Product, ...]:
-    """Where each of the twelve matrices lies in the packed buffer, in
-    `_MATRICES` order (the order a step reads them)."""
+def weight_layout(w, names=_MATRICES, dtype: Optional[torch.dtype] = None
+                  ) -> Tuple[Product, ...]:
+    """Where each matrix of `names` (fields of `w`, each (K, N)) lies in the
+    packed buffer, in that order: B4's twelve by default, B6's eight
+    (`sstts_torch.ops.teacher.MATRICES`).  Rows are of `dtype` (the
+    matrices' own by default)."""
     out, offset = [], 0
-    for name in _MATRICES:
+    for name in names:
         m = getattr(w, name)
         k, n = m.shape
-        rb = row_bytes(n, m.element_size())
+        size = dtype.itemsize if dtype is not None else m.element_size()
+        rb = row_bytes(n, size)
         out.append(Product(name, SRC_WEIGHTS, offset, k, n, rb))
         offset += k * rb
     return tuple(out)
 
 
-def pack_weights(w: DecoderWeights) -> torch.Tensor:
-    """The twelve matrices as one contiguous byte buffer on their device,
-    laid out by `weight_layout`; the padding of each row is zeros."""
-    parts = []
-    for pr in weight_layout(w):
-        m = getattr(w, pr.name)
-        pad = pr.row_bytes // m.element_size() - pr.cols
-        parts.append(F.pad(m, (0, pad)).contiguous().view(torch.uint8).reshape(-1))
-    return torch.cat(parts)
+def pack_weights(w, names=_MATRICES, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The matrices of `names` as one contiguous byte buffer on their
+    device, laid out by `weight_layout`, cast to `dtype` (the matrices' own
+    by default) as they are copied in: one copy a matrix.  The padding of
+    each row is zeros."""
+    dtype = dtype or getattr(w, names[0]).dtype
+    layout = weight_layout(w, names, dtype)
+    end = layout[-1].offset + layout[-1].rows * layout[-1].row_bytes
+    padded = any(pr.row_bytes != pr.cols * dtype.itemsize for pr in layout)
+    buf = (torch.zeros if padded else torch.empty)(
+        end, dtype=torch.uint8, device=getattr(w, names[0]).device)
+    for pr in layout:
+        rows = buf[pr.offset : pr.offset + pr.rows * pr.row_bytes].view(dtype)
+        rows.view(pr.rows, -1)[:, : pr.cols].copy_(getattr(w, pr.name))
+    return buf
 
 
-def step_products(layout, T: int, A: int, Dm: int, itemsize: int) -> Tuple[Product, ...]:
-    """A step's operands in `STEP_ORDER`: the packed matrices, with this
-    utterance's keys (T, A) and memory (T, Dm) after the query."""
+def step_products(layout, T: int, A: int, Dm: int, itemsize: int,
+                  order=STEP_ORDER) -> Tuple[Product, ...]:
+    """A step's operands in `order` (B4's `STEP_ORDER` by default, or B6's
+    `sstts_torch.ops.teacher.STEP_ORDER`): the packed matrices, with this
+    utterance's keys (T, A) and memory (T, Dm) where the attention reads
+    them."""
     by_name = {pr.name: pr for pr in layout}
     enc = {
         "keys": Product("keys", SRC_KEYS, 0, T, A, row_bytes(A, itemsize)),
         "memory": Product("memory", SRC_MEMORY, 0, T, Dm, row_bytes(Dm, itemsize)),
     }
-    return tuple(enc.get(name) or by_name[name] for name in STEP_ORDER)
+    return tuple(enc.get(name) or by_name[name] for name in order)
 
 
 def chunk_schedule(products, stage_bytes: int = STAGE_BYTES) -> torch.Tensor:
@@ -371,14 +384,13 @@ def _dims(p: DecodeInputs) -> dict:
     )
 
 
-def longest_text(lib: ctypes.CDLL, p: DecodeInputs) -> int:
-    """The largest T at `p`'s widths whose block fits in shared memory, by
-    the library's own count (which grows with T); -1 if none does."""
-    args = _DecodeArgs(**_dims(p))
+def longest_fit(smem_bytes) -> int:
+    """The largest T for which `smem_bytes(T)`, a library's count of one
+    block's shared memory (which grows with T), fits the card; -1 if none
+    does."""
 
     def fits(t: int) -> bool:
-        args.T = t
-        return lib.sstts_decode_smem_bytes(ctypes.byref(args)) <= build.MAX_SMEM
+        return smem_bytes(t) <= build.MAX_SMEM
 
     if not fits(0):
         return -1
@@ -389,6 +401,18 @@ def longest_text(lib: ctypes.CDLL, p: DecodeInputs) -> int:
         mid = (lo + hi) // 2
         lo, hi = (mid, hi) if fits(mid) else (lo, mid)
     return lo
+
+
+def longest_text(lib: ctypes.CDLL, p: DecodeInputs) -> int:
+    """The largest T at `p`'s widths whose block fits in shared memory, by
+    the library's own count; -1 if none does."""
+    args = _DecodeArgs(**_dims(p))
+
+    def smem(t: int) -> int:
+        args.T = t
+        return lib.sstts_decode_smem_bytes(ctypes.byref(args))
+
+    return longest_fit(smem)
 
 
 def library() -> ctypes.CDLL:

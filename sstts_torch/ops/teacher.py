@@ -11,6 +11,13 @@ runs `fused_teacher_scan_plain` (the port of `teacher_scan_xla`, with the
 matmul dtype as an argument), a CUDA tensor launches
 `sstts_torch/csrc/teacher.cu` or raises.
 
+The kernel reads its eight matrices as one stream, as B4 does
+(`sstts_torch/ops/decoder.py`): `launch` packs them in the matmul dtype,
+rows padded to 16 bytes, in the order a step reads them (one device copy a
+forward, since the weights change every train step), and takes the
+shape's chunk schedule, made once for each shape and copied from pinned
+memory, so that the launch never waits for the card.
+
 Gradient (`fused_teacher_scan_ad`), the JAX package's contract
 (`_teacher_ad_bwd`): the forward launches the kernel on the live
 parameters, cast inside the wrapper and never detached from the graph; the
@@ -27,11 +34,13 @@ scan, and "fused" is this module's plain version under the same
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
 
 from sstts_torch.ops import build
+from sstts_torch.ops import decoder as dec
 from sstts_torch.ops.decoder import _dot, _gru_step
 
 
@@ -161,13 +170,37 @@ def fused_teacher_scan_plain(
     return torch.stack(xs, 1), torch.stack(aligns, 1)
 
 
+#: B6's matrices in the order a step reads them (and `pack_weights` lays
+#: them out); the vectors (biases, score v) stay f32.
+MATRICES = ("attn_wx", "attn_wh", "query_w", "dec_w",
+            "gru0_wx", "gru0_wh", "gru1_wx", "gru1_wh")
+
+#: The products of one step in the order the kernel reads their operands:
+#: B4's steps 2-4 (`decoder.STEP_ORDER`), the chain both kernels share.
+STEP_ORDER = ("attn_wx", "attn_wh", "query_w", "keys", "memory",
+              "dec_w", "gru0_wx", "gru0_wh", "gru1_wx", "gru1_wh")
+
+#: Bytes of one of the kernel's ring stages (kStageBytes in csrc/teacher.cu,
+#: B4's setting): the schedule's chunks are cut to it.
+STAGE_BYTES = dec.STAGE_BYTES
+
+#: Widest product the kernel takes (kMaxCols in csrc/teacher.cu).
+MAX_COLS = dec.MAX_COLS
+
+_VECTORS = tuple(n for n in TeacherWeights._fields if n not in MATRICES)
+
+
 class _TeacherArgs(ctypes.Structure):
     """Mirror of `TeacherArgs` in csrc/teacher.cu (same field order)."""
 
     _fields_ = [
         (name, ctypes.c_void_p)
-        for name in (*TeacherWeights._fields, "pre", "memory", "keys", "mask", "xs", "align")
-    ] + [(name, ctypes.c_int) for name in ("B", "T", "S", "P1", "Dm", "A", "Ha", "Hd")]
+        for name in ("packed", "schedule", *_VECTORS, "pre", "memory", "keys", "mask",
+                     "xs", "align")
+    ] + [
+        (name, ctypes.c_int)
+        for name in ("B", "T", "S", "P1", "Dm", "A", "Ha", "Hd", "n_chunks")
+    ]
 
 
 _SIGNATURES = {
@@ -176,42 +209,104 @@ _SIGNATURES = {
 }
 
 
-def _kernel(w, pre, memory, keys, maskf, dt):
+def library() -> ctypes.CDLL:
+    """This checkout's build of csrc/teacher.cu, bound."""
+    return build.load("teacher", _SIGNATURES)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the scan library's C functions on `lib` (a build of
+    csrc/teacher.cu, perhaps with other compile-time settings)."""
+    for fn, (argtypes, restype) in _SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
+def dims(w: TeacherWeights, pre: torch.Tensor, memory: torch.Tensor,
+         keys: torch.Tensor) -> dict:
+    """The integer fields of `_TeacherArgs` but `n_chunks`."""
+    B, S, P1 = pre.shape
+    T, Dm = memory.shape[1:]
+    return dict(B=B, T=T, S=S, P1=P1, Dm=Dm, A=keys.shape[-1],
+                Ha=w.attn_wh.shape[0], Hd=w.gru0_wh.shape[0])
+
+
+def longest_text(lib: ctypes.CDLL, d: dict) -> int:
+    """The largest T at the widths of `d` (`dims`) whose block fits in
+    shared memory, by the library's own count; -1 if none does."""
+    args = _TeacherArgs(**d)
+
+    def smem(t: int) -> int:
+        args.T = t
+        return lib.sstts_teacher_smem_bytes(ctypes.byref(args))
+
+    return dec.longest_fit(smem)
+
+
+def check_widths(w: TeacherWeights, d: dict) -> None:
+    """Raises NotImplementedError for a product wider than MAX_COLS."""
+    widest = max(3 * d["Ha"], d["A"], d["Dm"], d["Hd"], 3 * d["Hd"])
+    if widest > MAX_COLS:
+        raise NotImplementedError(
+            f"fused teacher scan kernel keeps products up to {MAX_COLS} columns "
+            f"wide; this cell needs {widest}"
+        )
+
+
+def step_products(w: TeacherWeights, d: dict, dt: torch.dtype):
+    """A step's operands in `STEP_ORDER`, the matrices as `pack_weights`
+    lays them out in `dt`."""
+    layout = dec.weight_layout(w, MATRICES, dt)
+    return dec.step_products(layout, d["T"], d["A"], d["Dm"], dt.itemsize, STEP_ORDER)
+
+
+@functools.lru_cache(maxsize=64)
+def _schedule(products, device: torch.device) -> torch.Tensor:
+    """The chunk schedule of `products` on `device`, made once for each
+    shape and copied from pinned memory, so that the host does not wait
+    for the card."""
+    return dec.chunk_schedule(products, STAGE_BYTES).pin_memory().to(device, non_blocking=True)
+
+
+def launch(lib: ctypes.CDLL, w: TeacherWeights, pre, memory, keys, maskf,
+           dt: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch `lib` (`library()`, or another `bind`-ed build of
+    csrc/teacher.cu) on live or cast weights: packs the eight matrices in
+    `dt` on the card (one copy each), takes the shape's schedule, launches.
+    Raises NotImplementedError, before anything is launched, for a product
+    wider than MAX_COLS or a T whose scores no longer fit in shared memory
+    beside the ring."""
     if dt not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"fused teacher scan matmul dtype {dt}")
     dev = pre.device
-    wc = TeacherWeights(*[t.contiguous() for t in _cast(w, dt)])
-    pre_c = pre.float().contiguous()
-    mem_c = memory.to(dt).contiguous()
-    keys_c = keys.to(dt).contiguous()
-    mask_c = maskf.float().contiguous()
-    B, S, P1 = pre.shape
-    T, Dm = memory.shape[1:]
-    A = keys.shape[-1]
-    Ha, Hd = w.attn_wh.shape[0], w.gru0_wh.shape[0]
-    widest = max(3 * Ha, A, 3 * Hd)
-    if widest > 1024:
-        raise NotImplementedError(
-            f"fused teacher scan kernel keeps products up to 1024 columns "
-            f"wide; this cell needs {widest}"
-        )
-    for t in (pre_c, mem_c, keys_c, mask_c, *wc):
-        if t.device != dev:
-            raise ValueError("fused teacher scan inputs must lie on one device")
-    xs = torch.empty(B, S, Hd, device=dev)
-    align = torch.empty(B, S, T, device=dev)
-    ptr = lambda t: t.data_ptr()  # noqa: E731
-    args = _TeacherArgs(
-        *[ptr(t) for t in wc], ptr(pre_c), ptr(mem_c), ptr(keys_c), ptr(mask_c),
-        ptr(xs), ptr(align), B, T, S, P1, Dm, A, Ha, Hd,
-    )
-    lib = build.load("teacher", _SIGNATURES)
+    d = dims(w, pre, memory, keys)
+    check_widths(w, d)
+    args = _TeacherArgs(**d)
     smem = lib.sstts_teacher_smem_bytes(ctypes.byref(args))
     if smem > build.MAX_SMEM:
         raise NotImplementedError(
-            f"fused teacher scan state needs {smem} bytes of shared memory "
-            f"(limit {build.MAX_SMEM}) at T={T}"
+            f"fused teacher scan needs {smem} bytes of shared memory (limit "
+            f"{build.MAX_SMEM}) at T={d['T']}: the ring and the T scores no "
+            f"longer fit; this cell takes T up to {longest_text(lib, d)}"
         )
+    vectors = [getattr(w, n).detach().float().contiguous() for n in _VECTORS]
+    ins = [pre.detach().float().contiguous(), dec._rows16(memory.detach().to(dt).contiguous()),
+           dec._rows16(keys.detach().to(dt).contiguous()), maskf.detach().float().contiguous()]
+    for t in (*w, *ins):
+        if t.device != dev:
+            raise ValueError("fused teacher scan inputs must lie on one device")
+    with torch.no_grad():
+        packed = dec.pack_weights(w, MATRICES, dt)
+    schedule = _schedule(step_products(w, d, dt), dev)
+    B, S, T, Hd = d["B"], d["S"], d["T"], d["Hd"]
+    xs = torch.empty(B, S, Hd, device=dev)
+    align = torch.empty(B, S, T, device=dev)
+    args.n_chunks = schedule.shape[0]
+    ptrs = {"packed": packed, "schedule": schedule, **dict(zip(_VECTORS, vectors)),
+            **dict(zip(("pre", "memory", "keys", "mask"), ins)), "xs": xs, "align": align}
+    for name, t in ptrs.items():
+        setattr(args, name, t.data_ptr())
     rc = lib.sstts_fused_teacher_scan(
         ctypes.byref(args), int(dt == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -234,7 +329,7 @@ def fused_teacher_scan(
         return fused_teacher_scan_plain(w, pre, memory, keys, maskf, matmul_dtype)
     if pre.device.type != "cuda":
         raise NotImplementedError(f"fused teacher scan on {pre.device.type}")
-    out = _kernel(w, pre, memory, keys, maskf, matmul_dtype)
+    out = launch(library(), w, pre, memory, keys, maskf, matmul_dtype)
     fused_teacher_scan.launches += 1
     return out
 

@@ -38,13 +38,14 @@ from sstts_torch.tools import card_line, time_ms
 OUTPUTS = ("mel", "stop", "align", "fin")
 
 
-def compile_builds(jobs, tmp):
-    """Build every job, {key: (decoder.cu path, [-D settings])}, one `nvcc`
-    each, all started together; {key: (CDLL, ptxas summary, ring)}, ring
-    True for the ring kernel's interface (then the library is bound)."""
+def compile_builds(jobs, tmp, binder=dec.bind):
+    """Build every job, {key: (path of decoder.cu or another ring kernel's
+    source, [-D settings])}, one `nvcc` each, all started together; {key:
+    (CDLL, ptxas summary, ring)}, ring True for the ring kernel's interface
+    (then `binder` binds the library)."""
     procs = {}
     for key, (src, defines) in jobs.items():
-        out = Path(tmp) / f"decoder-{abs(hash(key))}.so"
+        out = Path(tmp) / f"{Path(src).stem}-{abs(hash(key))}.so"
         procs[key] = (subprocess.Popen(
             [build.nvcc(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
              "-o", str(out), str(src)],
@@ -62,7 +63,7 @@ def compile_builds(jobs, tmp):
         }
         lib = ctypes.CDLL(str(out))
         if ring:
-            dec.bind(lib)
+            binder(lib)
         libs[key] = (lib, ptxas, ring)
     return libs
 

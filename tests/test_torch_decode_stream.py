@@ -1,13 +1,18 @@
-"""Kernel B4's weight stream, on the CPU: how `pack_weights` packs the
-decoder cell, how `chunk_schedule` cuts a step into the chunks the kernel's
-producer copies into its ring, and what the wrapper refuses
-(sstts_torch/ops/decoder.py).  The kernel itself runs only on the card
-(`chip_smoke.py` holds it to its plain version and takes it to its longest
-T); these tests hold the host side it runs on, at the tiny config's widths
-and the default Config()'s, in bf16 and f32.
+"""The weight stream of the two ring kernels, on the CPU: kernel B4 (the
+autoregressive decode, sstts_torch/ops/decoder.py) and kernel B6 (the
+teacher-forced scan, sstts_torch/ops/teacher.py), which share the host's
+packing and schedule and the device's ring and step chain.  How
+`pack_weights` packs a cell's matrices (B4's twelve, B6's eight), how
+`chunk_schedule` cuts a step into the chunks the kernel's producer copies
+into its ring, in each kernel's step order, and what the wrappers refuse.
+The kernels run only on the card (`chip_smoke.py` holds them to their plain
+versions and takes them to their longest T); these tests hold the host side
+they run on, at the tiny config's widths and the default Config()'s, in
+bf16 and f32.
 """
 
 import re
+from typing import NamedTuple
 
 import pytest
 import torch
@@ -16,9 +21,11 @@ from sstts_torch.config import Config, tiny_config
 from sstts_torch.model.tacotron import Tacotron, init_state_dict
 from sstts_torch.ops import build
 from sstts_torch.ops import decoder as dec
+from sstts_torch.ops import teacher as tops
 
 CONFIGS = {"tiny": tiny_config, "default": Config}
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+KERNELS = ("decode", "teacher")
 _cells = {}
 
 
@@ -40,6 +47,62 @@ def inputs(name, dtype, T, B=2, S=3):
         return dec.prepare_decode(cell, memory, mask, S, matmul_dtype=dtype)
 
 
+class Case(NamedTuple):
+    """One kernel's host side for one cell, as its wrapper makes it on the
+    card: the step's products, their schedule, the packed matrices, the
+    matrices' and the step's orders, the matrices in the matmul dtype, and
+    keys and memory as the kernel reads them."""
+
+    products: tuple
+    schedule: torch.Tensor
+    packed: torch.Tensor
+    matrices: tuple
+    order: tuple
+    weights: dict
+    keys: torch.Tensor
+    memory: torch.Tensor
+
+
+def teacher_inputs(name, dtype, T, B=2, S=3, widen=None):
+    """B6's arguments: the cell's live weights (f32), prenet rows, memory
+    and keys; `widen` makes the query (and so keys) that many columns."""
+    cfg, cell = cell_of(name)
+    g = torch.Generator().manual_seed(T)
+    w = tops.teacher_weights_from_cell(cell)
+    Dm = 2 * cfg.arch.encoder_gru_units
+    memory = torch.randn(B, T, Dm, generator=g)
+    with torch.no_grad():
+        keys = cell.attention.init_keys(memory)
+    if widen:
+        w = w._replace(query_w=torch.zeros(w.query_w.shape[0], widen),
+                       score_v=torch.zeros(widen), score_b=torch.zeros(widen))
+        keys = torch.zeros(B, T, widen)
+    pre = torch.zeros(B, S, w.attn_wx.shape[0] - Dm)
+    return w, pre, memory, keys, torch.ones(B, T)
+
+
+def case(kernel, name, dtype, T, B=2, S=3):
+    if kernel == "decode":
+        p = inputs(name, dtype, T, B, S)
+        # On the CPU nothing is packed: the plain version reads the matrices.
+        assert p.packed is None and p.schedule is None
+        products = dec.step_products(dec.weight_layout(p.w), T, p.keys.shape[-1],
+                                     p.memory.shape[-1], p.w.attn_wx.element_size())
+        return Case(products, dec.chunk_schedule(products), dec.pack_weights(p.w),
+                    dec._MATRICES, dec.STEP_ORDER,
+                    {n: getattr(p.w, n) for n in dec._MATRICES},
+                    dec._rows16(p.keys), dec._rows16(p.memory))
+    w, pre, memory, keys, _ = teacher_inputs(name, dtype, T, B, S)
+    products = tops.step_products(w, tops.dims(w, pre, memory, keys), dtype)
+    with torch.no_grad():
+        packed = dec.pack_weights(w, tops.MATRICES, dtype)
+    return Case(products, dec.chunk_schedule(products, tops.STAGE_BYTES), packed,
+                tops.MATRICES, tops.STEP_ORDER,
+                {n: getattr(w, n).detach().to(dtype) for n in tops.MATRICES},
+                dec._rows16(keys.to(dtype).contiguous()),
+                dec._rows16(memory.to(dtype).contiguous()))
+
+
 def unpack_weights(packed, layout, dtype):
     """The matrices back out of a packed buffer (the inverse of
     `pack_weights`)."""
@@ -50,15 +113,6 @@ def unpack_weights(packed, layout, dtype):
     return out
 
 
-def plan(p):
-    """What `prepare_decode` makes on the card: the step's products, their
-    schedule and the packed matrices (here on the CPU)."""
-    products = dec.step_products(dec.weight_layout(p.w), p.memory.shape[1],
-                                 p.keys.shape[-1], p.memory.shape[-1],
-                                 p.w.attn_wx.element_size())
-    return products, dec.chunk_schedule(products), dec.pack_weights(p.w)
-
-
 def schedule_rows(sched):
     return [dict(zip(dec.CHUNK_FIELDS, row)) for row in sched.tolist()]
 
@@ -66,42 +120,42 @@ def schedule_rows(sched):
 @pytest.mark.parametrize("T", [7, 96, 300])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", CONFIGS)
-def test_schedule_covers_each_operand_once_in_step_order(name, dtype, T):
-    p = inputs(name, DTYPES[dtype], T)
-    # On the CPU nothing is packed: the plain version reads the matrices.
-    assert p.packed is None and p.schedule is None
-    products, sched, packed_buf = plan(p)
-    keys, memory = dec._rows16(p.keys), dec._rows16(p.memory)
-    assert [pr.name for pr in products] == list(dec.STEP_ORDER)
-    chunks = schedule_rows(sched)
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_schedule_covers_each_operand_once_in_step_order(kernel, name, dtype, T):
+    c = case(kernel, name, DTYPES[dtype], T)
+    products = c.products
+    assert [pr.name for pr in products] == list(c.order)
+    chunks = schedule_rows(c.schedule)
     stage = dec.STAGE_BYTES
     # Products in step order, each one run of chunks.
-    ids = [c["product"] for c in chunks]
+    ids = [ch["product"] for ch in chunks]
     assert ids == sorted(ids) and set(ids) == set(range(len(products)))
     for pid, pr in enumerate(products):
-        mine = [c for c in chunks if c["product"] == pid]
-        assert {c["src"] for c in mine} == {pr.src}
+        mine = [ch for ch in chunks if ch["product"] == pid]
+        assert {ch["src"] for ch in mine} == {pr.src}
         # The bytes of the operand, exactly once, in order, in whole rows.
         offset, k = pr.offset, 0
-        for c in mine:
-            assert c["offset"] == offset and c["k0"] == k
-            assert c["row_bytes"] == pr.row_bytes and c["pad"] == 0
-            assert c["bytes"] == (c["k1"] - c["k0"]) * pr.row_bytes
-            assert 0 < c["bytes"] <= stage and c["bytes"] % 16 == 0
-            assert c["offset"] % 16 == 0
-            offset, k = offset + c["bytes"], c["k1"]
+        for ch in mine:
+            assert ch["offset"] == offset and ch["k0"] == k
+            assert ch["row_bytes"] == pr.row_bytes and ch["pad"] == 0
+            assert ch["bytes"] == (ch["k1"] - ch["k0"]) * pr.row_bytes
+            assert 0 < ch["bytes"] <= stage and ch["bytes"] % 16 == 0
+            assert ch["offset"] % 16 == 0
+            offset, k = offset + ch["bytes"], ch["k1"]
         assert k == pr.rows and offset == pr.offset + pr.rows * pr.row_bytes
         # No chunk stops short of a stage where the next row would fit.
-        assert all(c["bytes"] + pr.row_bytes > stage for c in mine[:-1])
-    # The twelve packed matrices lie back to back and fill the buffer.
+        assert all(ch["bytes"] + pr.row_bytes > stage for ch in mine[:-1])
+    # The packed matrices lie back to back and fill the buffer.
     packed = [pr for pr in products if pr.src == dec.SRC_WEIGHTS]
-    assert [pr.name for pr in packed] == list(dec._MATRICES)
+    assert [pr.name for pr in packed] == list(c.matrices)
     ends = [pr.offset + pr.rows * pr.row_bytes for pr in packed]
     assert [pr.offset for pr in packed] == [0] + ends[:-1]
-    assert ends[-1] == packed_buf.numel()
+    assert ends[-1] == c.packed.numel()
     # Keys and memory: T rows of this utterance, rows padded to 16 bytes,
-    # as the tensors handed to the kernel are laid out.
-    for pr, t in ((products[5], keys), (products[6], memory)):
+    # as the tensors handed to the kernel are laid out, after the query.
+    at = c.order.index("keys")
+    assert c.order[at - 1 : at + 2] == ("query_w", "keys", "memory")
+    for pr, t in ((products[at], c.keys), (products[at + 1], c.memory)):
         assert (pr.rows, pr.offset) == (T, 0)
         assert t.shape[-1] * t.element_size() == pr.row_bytes
         assert t.data_ptr() % 16 == 0 and t.is_contiguous()
@@ -109,30 +163,31 @@ def test_schedule_covers_each_operand_once_in_step_order(name, dtype, T):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("name", CONFIGS)
-def test_unpacking_gives_back_the_cells_matrices(name, dtype):
-    p = inputs(name, DTYPES[dtype], 7)
-    layout = dec.weight_layout(p.w)
-    packed = dec.pack_weights(p.w)
-    assert packed.dtype == torch.uint8 and packed.is_contiguous()
-    got = unpack_weights(packed, layout, DTYPES[dtype])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_unpacking_gives_back_the_cells_matrices(kernel, name, dtype):
+    c = case(kernel, name, DTYPES[dtype], 7)
+    layout = [pr for pr in c.products if pr.src == dec.SRC_WEIGHTS]
+    assert c.packed.dtype == torch.uint8 and c.packed.is_contiguous()
+    got = unpack_weights(c.packed, layout, DTYPES[dtype])
     for pr in layout:
-        want = getattr(p.w, pr.name)
+        want = c.weights[pr.name]
         assert want.dtype == DTYPES[dtype]
         assert torch.equal(got[pr.name], want), pr.name
         # Each row's padding is zeros.
-        rows = packed[pr.offset : pr.offset + pr.rows * pr.row_bytes]
+        rows = c.packed[pr.offset : pr.offset + pr.rows * pr.row_bytes]
         pad = rows.reshape(pr.rows, pr.row_bytes)[:, pr.cols * want.element_size():]
         assert not pad.any(), pr.name
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_narrow_rows_are_padded_to_16_bytes(dtype):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_narrow_rows_are_padded_to_16_bytes(kernel, dtype):
     """stop_w's r columns (10 bytes in bf16, 20 in f32 at the default) and
     every row of the tiny config start on a 16-byte boundary."""
     for name in CONFIGS:
-        layout = dec.weight_layout(inputs(name, DTYPES[dtype], 7).w)
+        c = case(kernel, name, DTYPES[dtype], 7)
         size = torch.tensor([], dtype=DTYPES[dtype]).element_size()
-        for pr in layout:
+        for pr in c.products:
             assert pr.row_bytes % 16 == 0 and pr.offset % 16 == 0
             assert pr.row_bytes - pr.cols * size < 16
     assert dec.row_bytes(5, 2) == 16 and dec.row_bytes(5, 4) == 32
@@ -140,91 +195,144 @@ def test_narrow_rows_are_padded_to_16_bytes(dtype):
 
 
 @pytest.mark.parametrize("stage_bytes", [16, 4096, 65536])
-def test_schedule_follows_the_stage_size(stage_bytes):
-    p = inputs("tiny", torch.float32, 96)
-    products = dec.step_products(dec.weight_layout(p.w), 96, p.keys.shape[-1],
-                                 p.memory.shape[-1], 4)
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_schedule_follows_the_stage_size(kernel, stage_bytes):
+    products = case(kernel, "tiny", torch.float32, 96).products
     if stage_bytes < max(pr.row_bytes for pr in products):
         with pytest.raises(NotImplementedError, match="ring stage"):
             dec.chunk_schedule(products, stage_bytes)
         return
     chunks = schedule_rows(dec.chunk_schedule(products, stage_bytes))
-    assert max(c["bytes"] for c in chunks) <= stage_bytes
-    assert sum(c["bytes"] for c in chunks) == sum(pr.rows * pr.row_bytes for pr in products)
+    assert max(ch["bytes"] for ch in chunks) <= stage_bytes
+    assert sum(ch["bytes"] for ch in chunks) == sum(pr.rows * pr.row_bytes for pr in products)
 
 
 class _Library:
-    """A stand-in for the built library whose shared-memory count is a
+    """A stand-in for a built ring library whose shared-memory count is a
     fixed part and T floats of scores, rounded up to 4; it launches
-    nothing.  (decoder.cu's own count and its limit at the default widths,
-    15,792, are taken to the card by chip_smoke.py.)"""
+    nothing.  (decoder.cu's and teacher.cu's own counts and their limits at
+    the default widths are taken to the card by chip_smoke.py.)"""
 
     def __init__(self, fixed):
         self.fixed = fixed
 
-    def sstts_decode_smem_bytes(self, ref):
+    def smem(self, ref):
         return self.fixed + 16 * (-(-ref._obj.T // 4))
+
+    sstts_decode_smem_bytes = sstts_teacher_smem_bytes = smem
 
     def sstts_fused_decode(self, *a):
         raise AssertionError("launched a refused shape")
 
+    sstts_fused_teacher_scan = sstts_fused_decode
+
 
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_longest_text_the_kernel_takes_and_its_refusal(dtype):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_longest_text_the_kernel_takes_and_its_refusal(kernel, dtype):
     """T = 4096 is cut into whole rows of at most a stage; the wrapper asks
     the library for the longest T that fits (`longest_text`), and refuses
     the next by name before anything is launched."""
-    p = inputs("default", DTYPES[dtype], 4096, B=1, S=1)
-    products, sched, packed = plan(p)
-    chunks = schedule_rows(sched)
-    keys = [c for c in chunks if c["src"] == dec.SRC_KEYS]
-    assert keys[-1]["k1"] == 4096 and max(c["bytes"] for c in chunks) <= dec.STAGE_BYTES
+    dt = DTYPES[dtype]
+    c = case(kernel, "default", dt, 4096, B=1, S=1)
+    chunks = schedule_rows(c.schedule)
+    keys = [ch for ch in chunks if ch["src"] == dec.SRC_KEYS]
+    assert keys[-1]["k1"] == 4096 and max(ch["bytes"] for ch in chunks) <= dec.STAGE_BYTES
     lib = _Library(fixed=build.MAX_SMEM - 4 * 15792)
-    assert dec.longest_text(lib, p) == 15792
-    assert dec.longest_text(_Library(build.MAX_SMEM + 4), p) == -1
     for t, ok in ((15792, True), (15793, False)):
-        q = inputs("default", DTYPES[dtype], t, B=1, S=1)
-        q = q._replace(packed=packed, schedule=plan(q)[1])
-        if ok:
-            assert dec.longest_text(lib, q) == t
-            continue
-        with pytest.raises(NotImplementedError, match=r"T=15793.*T up to 15792"):
-            dec.launch(lib, q)
+        if kernel == "decode":
+            q = inputs("default", dt, t, B=1, S=1)
+            assert dec.longest_text(_Library(build.MAX_SMEM + 4), q) == -1
+            q = q._replace(packed=c.packed, schedule=case(kernel, "default", dt, 8).schedule)
+            longest = dec.longest_text(lib, q)
+            run = lambda: dec.launch(lib, q)  # noqa: E731
+        else:
+            w, pre, memory, keys_t, maskf = teacher_inputs("default", dt, t, B=1, S=1)
+            d = tops.dims(w, pre, memory, keys_t)
+            assert tops.longest_text(_Library(build.MAX_SMEM + 4), d) == -1
+            longest = tops.longest_text(lib, d)
+            run = lambda: tops.launch(lib, w, pre, memory, keys_t, maskf, dt)  # noqa: E731
+        assert longest == 15792
+        if not ok:
+            with pytest.raises(NotImplementedError, match=r"T=15793.*T up to 15792"):
+                run()
 
 
 @pytest.mark.parametrize("cols,ok", [(1024, True), (1025, False)])
-def test_widest_product_the_kernel_takes(cols, ok):
-    """Products up to 1024 columns (here the frame projection, r * M) are
-    taken; the wrapper refuses a wider one by name before it looks at the
-    library."""
-    p = inputs("tiny", torch.bfloat16, 7)
-    w = p.w._replace(frame_w=torch.zeros(p.w.frame_w.shape[0], cols, dtype=torch.bfloat16))
-    p = p._replace(w=w, n_mels=cols, reduction=1)
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_widest_product_the_kernel_takes(kernel, cols, ok):
+    """Products up to 1024 columns (B4: the frame projection, r * M; B6:
+    the query, and so the keys) are taken; the wrapper refuses a wider one
+    by name before it looks at the library."""
+    if kernel == "decode":
+        p = inputs("tiny", torch.bfloat16, 7)
+        w = p.w._replace(frame_w=torch.zeros(p.w.frame_w.shape[0], cols, dtype=torch.bfloat16))
+        p = p._replace(w=w, n_mels=cols, reduction=1)
+        check = lambda: dec.check_widths(p)  # noqa: E731
+        refuse = lambda: dec.launch(None, p)  # noqa: E731
+        products = dec.step_products(dec.weight_layout(w), 7, p.keys.shape[-1],
+                                     p.memory.shape[-1], 2)
+    else:
+        w, pre, memory, keys, maskf = teacher_inputs("tiny", torch.bfloat16, 7, widen=cols)
+        d = tops.dims(w, pre, memory, keys)
+        check = lambda: tops.check_widths(w, d)  # noqa: E731
+        refuse = lambda: tops.launch(None, w, pre, memory, keys, maskf, torch.bfloat16)  # noqa: E731
+        products = tops.step_products(w, d, torch.bfloat16)
     if ok:
-        dec.check_widths(p)
-        assert max(c["bytes"] for c in schedule_rows(plan(p)[1])) <= dec.STAGE_BYTES
+        check()
+        chunks = schedule_rows(dec.chunk_schedule(products))
+        assert max(ch["bytes"] for ch in chunks) <= dec.STAGE_BYTES
     else:
         with pytest.raises(NotImplementedError, match="up to 1024 columns"):
-            dec.launch(None, p)
+            refuse()
 
 
-def test_host_mirrors_match_decoder_cu():
-    """`STAGE_BYTES` is decoder.cu's stage size, `_DecodeArgs` has the C
-    struct's fields in its order, and the schedule's fields are the
-    stream::Chunk's (stream.cuh)."""
-    src = (build.CSRC / "decoder.cu").read_text()
-    kb = re.search(r"constexpr int kStageBytes = (\d+) \* 1024;", src).group(1)
-    assert dec.STAGE_BYTES == 1024 * int(kb)
-    body = re.search(r"struct DecodeArgs \{(.*?)\};", src, re.S).group(1)
+def c_struct_fields(src, struct):
+    """Field names of `struct` in a C source, in order."""
+    body = re.search(rf"struct {struct} \{{(.*?)\}};", src, re.S).group(1)
     fields = []
     for line in body.split(";")[:-1]:
         decl = re.sub(r"//[^\n]*", "", line).strip()
         names = decl.split(None, 1)[1] if decl.startswith(("int ", "float ")) else decl
         fields += [re.sub(r"^.*[\s*]", "", n.strip()) for n in names.split(",")]
-    assert fields == [f for f, _ in dec._DecodeArgs._fields_]
+    return fields
+
+
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_host_mirrors_match_decoder_cu(kernel):
+    """The host's stage size and widest product are the kernel source's
+    (decoder.cu or teacher.cu: one ring setting for both), its args
+    structure has the C struct's fields in their order, and the schedule's
+    fields are the stream::Chunk's (stream.cuh)."""
+    source, struct, args, stage, cols = {
+        "decode": ("decoder.cu", "DecodeArgs", dec._DecodeArgs, dec.STAGE_BYTES, dec.MAX_COLS),
+        "teacher": ("teacher.cu", "TeacherArgs", tops._TeacherArgs, tops.STAGE_BYTES,
+                    tops.MAX_COLS),
+    }[kernel]
+    src = (build.CSRC / source).read_text()
+    kb = re.search(r"constexpr int kStageBytes = (\d+) \* 1024;", src).group(1)
+    assert stage == 1024 * int(kb)
+    assert cols == int(re.search(r"constexpr int kMaxCols = (\d+);", src).group(1))
+    settings = {n: re.search(rf"constexpr int {n} = (\d+);", src).group(1)
+                for n in ("kStages", "kConsumerWarps")}
+    assert settings == {"kStages": "2", "kConsumerWarps": "16"}
+    assert '#include "chain.cuh"' in src and '#include "stream.cuh"' in src
+    assert c_struct_fields(src, struct) == [f for f, _ in args._fields_]
     chunk = re.search(r"struct alignas\(16\) Chunk \{\s*int ([^;]*);",
                       (build.CSRC / "stream.cuh").read_text()).group(1)
     assert tuple(n.strip() for n in chunk.split(",")) == dec.CHUNK_FIELDS
+
+
+def test_teacher_step_is_the_decode_steps_chain():
+    """B6's step reads the operands of B4's steps 2-4 in B4's order (the
+    chain both kernels run, csrc/chain.cuh), and its matrices are the
+    teacher weights' matrices."""
+    chain = tuple(n for n in dec.STEP_ORDER
+                  if n not in ("prenet_w0", "prenet_w1", "frame_w", "stop_w"))
+    assert tops.STEP_ORDER == chain
+    assert tops.MATRICES == tuple(n for n in chain if n not in ("keys", "memory"))
+    assert set(tops.MATRICES) <= set(tops.TeacherWeights._fields)
+    assert not (build.CSRC / "cell.cuh").exists()
 
 
 def test_plain_version_reads_the_unpacked_weights():
@@ -233,8 +341,8 @@ def test_plain_version_reads_the_unpacked_weights():
     p = inputs("tiny", torch.float32, 7)
     with torch.no_grad():
         want = dec.decode_steps_plain(p)
-        packed, sched = dec.pack_weights(p.w), plan(p)[1]
-        got = dec.decode_steps_plain(p._replace(packed=torch.zeros_like(packed),
-                                                schedule=torch.zeros_like(sched)))
+        c = case("decode", "tiny", torch.float32, 7)
+        got = dec.decode_steps_plain(p._replace(packed=torch.zeros_like(c.packed),
+                                                schedule=torch.zeros_like(c.schedule)))
     for k in want:
         assert torch.equal(want[k], got[k]), k
