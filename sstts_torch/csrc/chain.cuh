@@ -20,6 +20,25 @@
 
 namespace chain {
 
+// The ring both kernels stream through: kStages stages of kStageBytes (the
+// host's schedule cuts its chunks to that size: ops/decoder.py:STAGE_BYTES),
+// kConsumerWarps consumer warps and one producer warp; products up to
+// kMaxCols columns.
+constexpr int kStages = 2;
+constexpr int kStageBytes = 64 * 1024;
+constexpr int kConsumerWarps = 16;
+constexpr int kConsumers = 32 * kConsumerWarps;
+constexpr int kThreads = kConsumers + 32;
+constexpr int kMaxCols = 1024;
+static_assert(kStageBytes >= 4 * kMaxCols, "a stage holds a row of kMaxCols f32");
+static_assert(kConsumers >= kMaxCols / 4, "a consumer a 16-byte segment of any row");
+// Split-K partials: G groups x the padded width, at most 8 floats a consumer.
+constexpr int kPartFloats = 8 * kConsumers;
+
+// The ring; Stream false gives a build without copies (SSTTS_ABLATE).
+template <bool Stream>
+using Ring = stream::Ring<kStages, kStageBytes, kConsumerWarps, Stream>;
+
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.f / (1.f + expf(-v)); }
 
 // The chain's state and scratch in shared memory (floats), one utterance.

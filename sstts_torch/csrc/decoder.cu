@@ -43,7 +43,8 @@
 // shared memory holds beside the ring (T floats of scores).
 //
 // The ring is 2 stages of 64 KB, read by 16 consumer warps beside one
-// producer warp (PERF.md, PR 7, gives the settings tried and their times).
+// producer warp (chain.cuh, B6's too; PERF.md §6 gives the settings tried
+// and their times).
 // SSTTS_ABLATE, at compile time, gives stage times: 1 the stream alone
 // (consumers only wait for and release each chunk); else a mask, 2 without
 // the stream (no copies, no waiting), 4 without the products' multiply-adds
@@ -101,23 +102,14 @@ struct DecodeArgs {
 
 namespace {
 
-// The chunks of the host's schedule are cut to kStageBytes
-// (ops/decoder.py:STAGE_BYTES).
-constexpr int kStages = 2;
-constexpr int kStageBytes = 64 * 1024;
-constexpr int kConsumerWarps = 16;
-constexpr int kConsumers = 32 * kConsumerWarps;
-constexpr int kThreads = kConsumers + 32;
+// The ring's settings are chain.cuh's, one for B4 and B6.
+using chain::kConsumers;
+using chain::kPartFloats;
+using chain::kThreads;
 constexpr int kAblate = SSTTS_ABLATE;
 constexpr bool kStream = (kAblate & 2) == 0;
 constexpr bool kMath = (kAblate & 4) == 0;
-constexpr int kMaxCols = 1024;
-static_assert(kStageBytes >= 4 * kMaxCols, "a stage holds a row of kMaxCols f32");
-// Split-K partials: G groups x the padded width, at most 8 floats a consumer.
-constexpr int kPartFloats = 8 * kConsumers;
-static_assert(kConsumers >= kMaxCols / 4, "a consumer a 16-byte segment of any row");
-
-using Ring = stream::Ring<kStages, kStageBytes, kConsumerWarps, kStream>;
+using Ring = chain::Ring<kStream>;
 
 template <typename WT>
 __global__ void __launch_bounds__(kThreads, 1)

@@ -44,11 +44,10 @@
 //
 // What holds it on an H100 (PERF.md §6; tools/ablate_reproject.py): the
 // consumers' arithmetic, ~0.1 ms alone against ~0.04 ms for the stream
-// alone; neither the ring's settings nor more blocks an SM (smaller rings,
-// a register cap), scalar loads or terms compiled for a fixed D made it
-// faster.  Build-time settings for that tool: SSTTS_ROWS (kRows),
-// SSTTS_PAIR (0: scalar loads), SSTTS_MAXNREG (a register cap),
-// SSTTS_PRODUCER_WARP (0: consumer warp 0 copies) and SSTTS_ABLATE (below).
+// alone.  None of these made it faster (PERF.md §6 gives the readings):
+// other ring settings, more blocks an SM (smaller rings, a register cap),
+// scalar loads of a misaligned segment, 1 or 2 rows a thread, consumer warp
+// 0 as the producer, terms compiled for a fixed D.
 
 // Plain C interface (bound with ctypes); launch on the caller's stream,
 // return cudaGetLastError().
@@ -79,14 +78,8 @@ struct ReprojectArgs {
 
 namespace {
 
-#ifndef SSTTS_ROWS
-#define SSTTS_ROWS 4
-#endif
 #ifndef SSTTS_ABLATE
 #define SSTTS_ABLATE 0
-#endif
-#ifndef SSTTS_PAIR
-#define SSTTS_PAIR 1
 #endif
 
 // Most threads a block: consumers (a multiple of 32, up to kMaxThreads - 32,
@@ -94,7 +87,7 @@ namespace {
 constexpr int kMaxThreads = 512;
 // Output rows a consumer computes together (the host sizes the ring for
 // them: sstts_reproject_rows).
-constexpr int kRows = SSTTS_ROWS;
+constexpr int kRows = 4;
 // SSTTS_ABLATE, at compile time, gives stage times (ablated builds compute
 // garbage): 1 the stream alone (the consumers only wait for and release
 // each stage); else a mask, 2 without the stream (no copies, no waiting),
@@ -102,20 +95,6 @@ constexpr int kRows = SSTTS_ROWS;
 constexpr int kAblate = SSTTS_ABLATE;
 constexpr bool kStream = kAblate == 1 || (kAblate & 2) == 0;
 constexpr bool kTerms = (kAblate & 4) == 0;
-// A misaligned source segment by two aligned 16-byte loads (1), or by
-// scalar loads (0, a build for comparison).
-constexpr bool kPair = SSTTS_PAIR != 0;
-// One producer warp copies the stages (1), or consumer warp 0 does (0, a
-// build for comparison: a third block an SM in bf16, but slower in f32).
-#ifndef SSTTS_PRODUCER_WARP
-#define SSTTS_PRODUCER_WARP 1
-#endif
-constexpr bool kProducerWarp = SSTTS_PRODUCER_WARP != 0;
-#ifdef SSTTS_MAXNREG
-#define REPROJECT_BOUNDS __maxnreg__(SSTTS_MAXNREG)
-#else
-#define REPROJECT_BOUNDS __launch_bounds__(kMaxThreads)
-#endif
 
 using stream::lds128;
 __device__ __forceinline__ uint32_t lds16(uint32_t a) {
@@ -212,24 +191,16 @@ __device__ __forceinline__ void add_term(float (&acc)[kRows][L::V], const uint32
   if (s0 + V <= 0 || s0 >= w_len) return;
   if (whole && s0 >= 0 && s0 + V <= w_len) {
     const int a = s0 & ~(V - 1);
-    if (kPair) {
-      const uint32_t off = a * ES;
-      switch (s0 - a) {  // the shift: uniform across the block
-        case 0: add_rows<L, 0>(acc, at, rows, off); break;
-        case 1: add_rows<L, 1>(acc, at, rows, off); break;
-        case 2: add_rows<L, 2>(acc, at, rows, off); break;
-        case 3: add_rows<L, 3>(acc, at, rows, off); break;
-        case 4: if (V > 4) add_rows<L, (V > 4 ? 4 : 0)>(acc, at, rows, off); break;
-        case 5: if (V > 4) add_rows<L, (V > 4 ? 5 : 0)>(acc, at, rows, off); break;
-        case 6: if (V > 4) add_rows<L, (V > 4 ? 6 : 0)>(acc, at, rows, off); break;
-        default: if (V > 4) add_rows<L, (V > 4 ? 7 : 0)>(acc, at, rows, off); break;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        if ((rows >> i) & 1)
-#pragma unroll
-          for (int m = 0; m < V; ++m) acc[i][m] += L::load1(at[i] + (s0 + m) * ES);
+    const uint32_t off = a * ES;
+    switch (s0 - a) {  // the shift: uniform across the block
+      case 0: add_rows<L, 0>(acc, at, rows, off); break;
+      case 1: add_rows<L, 1>(acc, at, rows, off); break;
+      case 2: add_rows<L, 2>(acc, at, rows, off); break;
+      case 3: add_rows<L, 3>(acc, at, rows, off); break;
+      case 4: if (V > 4) add_rows<L, (V > 4 ? 4 : 0)>(acc, at, rows, off); break;
+      case 5: if (V > 4) add_rows<L, (V > 4 ? 5 : 0)>(acc, at, rows, off); break;
+      case 6: if (V > 4) add_rows<L, (V > 4 ? 6 : 0)>(acc, at, rows, off); break;
+      default: if (V > 4) add_rows<L, (V > 4 ? 7 : 0)>(acc, at, rows, off); break;
     }
     return;
   }
@@ -250,7 +221,7 @@ __device__ __forceinline__ void add_term(float (&acc)[kRows][L::V], const uint32
 // consumer thread computes kRows output rows of its segment together: each
 // term's tests, addresses and shift are worked out once for all of them.
 template <typename T>
-__global__ void REPROJECT_BOUNDS reproject_kernel(const ReprojectArgs p) {
+__global__ void __launch_bounds__(kMaxThreads) reproject_kernel(const ReprojectArgs p) {
   using L = Lanes<T>;
   constexpr int V = L::V;
   constexpr int ES = (int)sizeof(T);
@@ -261,7 +232,7 @@ __global__ void REPROJECT_BOUNDS reproject_kernel(const ReprojectArgs p) {
   unsigned char* ring = smem + 16 * NS;
   const int row_bytes = p.wp * ES;
   const int ring_rows = NS * G;
-  const int NT = blockDim.x - (kProducerWarp ? 32 : 0);  // consumers
+  const int NT = blockDim.x - 32;  // consumers
   const int tid = threadIdx.x, b = blockIdx.y, s = blockIdx.x;
   const int t0 = (int)((long long)s * p.T / p.strips);
   const int t1 = (int)((long long)(s + 1) * p.T / p.strips);
@@ -277,33 +248,23 @@ __global__ void REPROJECT_BOUNDS reproject_kernel(const ReprojectArgs p) {
     sm90::fence_barrier_init();
   }
   __syncthreads();
-  const unsigned char* src = static_cast<const unsigned char*>(p.frames) +
-                             (utt + (size_t)rlo * p.wp) * ES;
-  int issued = 0;  // stages copied (by one lane)
-  // Copies stages up to `last` (and no further than the strip's rows),
-  // each into its slot once every consumer warp has released the slot's
-  // previous stage.
-  const auto issue_to = [&](int last) {
-    for (; issued <= last && issued * G < n_rows; ++issued) {
-      const int slot = issued % NS;
-      if (issued >= NS) sm90::mbar_wait(empty + slot, ((issued / NS) - 1) & 1);
-      if ((tid & 31) == 0) {
-        const uint32_t bytes = (uint32_t)min(G, n_rows - issued * G) * row_bytes;
+  if (tid >= NT) {  // the producer warp: one lane copies every stage,
+    // each into its slot once every consumer warp has released the slot's
+    // previous stage
+    if (kStream && tid == NT) {
+      const unsigned char* src = static_cast<const unsigned char*>(p.frames) +
+                                 (utt + (size_t)rlo * p.wp) * ES;
+      for (int i = 0; i * G < n_rows; ++i) {
+        const int slot = i % NS;
+        if (i >= NS) sm90::mbar_wait(empty + slot, ((i / NS) - 1) & 1);
+        const uint32_t bytes = (uint32_t)min(G, n_rows - i * G) * row_bytes;
         sm90::mbar_expect_tx(full + slot, bytes);
-        sm90::bulk_load(ring + (size_t)slot * G * row_bytes,
-                        src + (size_t)issued * G * row_bytes, bytes, full + slot);
+        sm90::bulk_load(ring + (size_t)slot * G * row_bytes, src + (size_t)i * G * row_bytes,
+                        bytes, full + slot);
       }
     }
-  };
-  if (tid >= NT) {  // the producer warp: one lane copies every stage
-    if (kStream && tid == NT) issue_to(n_rows);
     return;
   }
-  // Without a producer warp, consumer warp 0 copies the stages a block of
-  // rows needs, and `ahead` more, before it waits for them: the slots they
-  // reuse were released by every warp at the end of the previous block (NS
-  // is sized so), so the copies never wait for a block still to come.
-  const int ahead = NS - ((2 * D + kRows - 1 + G - 1) / G + 1);
 
   const uint32_t ring_a = sm90::smem_u32(ring);
   const int nseg = row_bytes / 16, w_len = p.w_len, hop = p.hop;
@@ -336,10 +297,6 @@ __global__ void REPROJECT_BOUNDS reproject_kernel(const ReprojectArgs p) {
     if (kAblate != 1 && tid * V < w_len) load_wss(t, nr, tid * V);  // off the wait's path
     if (kStream) {
       const int need = (min(t + nr - 1 + D, rhi - 1) - rlo) / G;
-      if (!kProducerWarp && tid < 32) {
-        issue_to(need + ahead);
-        __syncwarp();
-      }
       for (; waited <= need; ++waited) sm90::mbar_wait(full + waited % NS, (waited / NS) & 1);
     }
     const int pos0 = (t - rlo) % ring_rows;  // ring row of input row t
@@ -465,7 +422,7 @@ int sstts_reproject_rows() { return kRows; }
 
 // Threads a block: the consumers and the producer warp.
 int sstts_reproject_threads(int wp, int elem_bytes) {
-  return consumer_threads(wp, elem_bytes) + (kProducerWarp ? 32 : 0);
+  return consumer_threads(wp, elem_bytes) + 32;
 }
 
 // Blocks of this shape one SM holds at once (the wrapper sizes the grid to

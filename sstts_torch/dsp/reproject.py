@@ -247,32 +247,30 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
-def ring_candidates(row_bytes: int, d_max: int, rows: int,
-                    prefetch: int = PREFETCH_STAGES, stage_bytes: int = STAGE_BYTES):
+def ring_candidates(row_bytes: int, d_max: int, rows: int):
     """(rows a stage G, stages NS) in the order the wrapper tries them: the
-    stage of at least `stage_bytes` with `prefetch` stages ahead, then less
-    prefetch, then smaller stages.  A consumer computes `rows` output rows
+    stage of at least STAGE_BYTES with PREFETCH_STAGES stages ahead, then
+    less prefetch, then smaller stages.  A consumer computes `rows` output rows
     together, which read the 2 D + rows input rows around them: NS >=
     ceil((2 D + rows - 1) / G) + 1, so that the stage a consumer waits for
     never waits for one it has not released."""
     g = 1
-    while g * row_bytes < stage_bytes:
+    while g * row_bytes < STAGE_BYTES:
         g *= 2
     out = []
     while g >= 1:
-        for pf in range(prefetch, -1, -1):
+        for pf in range(PREFETCH_STAGES, -1, -1):
             out.append((g, -(-(2 * d_max + rows - 1) // g) + 1 + pf))
         g //= 2
     return out
 
 
-def ring_config(smem_bytes, wp: int, elem_bytes: int, d_max: int, rows: int,
-                prefetch: int = PREFETCH_STAGES,
-                stage_bytes: int = STAGE_BYTES) -> Tuple[int, int, int]:
+def ring_config(smem_bytes, wp: int, elem_bytes: int, d_max: int,
+                rows: int) -> Tuple[int, int, int]:
     """(G, NS, shared-memory bytes) of the first of `ring_candidates` whose
     block fits the card by `smem_bytes(wp, elem_bytes, G, NS)`, the
     library's own count.  NotImplementedError if none does."""
-    for g, ns in ring_candidates(wp * elem_bytes, d_max, rows, prefetch, stage_bytes):
+    for g, ns in ring_candidates(wp * elem_bytes, d_max, rows):
         smem = smem_bytes(wp, elem_bytes, g, ns)
         if smem <= build.MAX_SMEM:
             return g, ns, smem
@@ -301,13 +299,12 @@ def runs_fit(runs, n_frames: int, strips: int) -> bool:
     return all(strip_of(t) == strip_of(t_src) for t, _, _, t_src, _, _ in runs)
 
 
-def strip_count(batch: int, n_frames: int, runs, slots: int,
-                min_strip: int = MIN_STRIP) -> int:
+def strip_count(batch: int, n_frames: int, runs, slots: int) -> int:
     """Strips an utterance: as many as fill the `slots` blocks the card
-    holds at once (one wave) but none shorter than `min_strip` rows, then
+    holds at once (one wave) but none shorter than MIN_STRIP rows, then
     fewer until every mirror run lies inside one strip (one strip always
     holds them)."""
-    strips = max(1, min(slots // max(batch, 1), n_frames // min_strip))
+    strips = max(1, min(slots // max(batch, 1), n_frames // MIN_STRIP))
     while strips > 1 and not runs_fit(runs, n_frames, strips):
         strips -= 1
     return strips
@@ -343,8 +340,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def launch(lib, f3, wss2d, w_len, hop, d_max, runs, *, prefetch: int = PREFETCH_STAGES,
-           stage_bytes: int = STAGE_BYTES, min_strip: int = MIN_STRIP):
+def launch(lib, f3, wss2d, w_len, hop, d_max, runs):
     """Launch `lib`'s kernel B1 (`library()`, or another `bind`-ed build) on
     f3 (Bt, T, wp) bf16 or f32, wp a multiple of 8, with its mirror runs
     `runs` (`band_plan`'s); returns the reprojected frames.  Raises
@@ -360,9 +356,9 @@ def launch(lib, f3, wss2d, w_len, hop, d_max, runs, *, prefetch: int = PREFETCH_
         )
     es = f3.element_size()
     group, stages, _ = ring_config(lib.sstts_reproject_smem_bytes, wp, es, d_max,
-                                   lib.sstts_reproject_rows(), prefetch, stage_bytes)
+                                   lib.sstts_reproject_rows())
     slots = _slots(lib, wp, es, group, stages, f3.device)
-    strips = strip_count(bt, n_frames, runs, slots, min_strip)
+    strips = strip_count(bt, n_frames, runs, slots)
     table = run_table(tuple(runs), f3.device)
     f3 = _aligned(f3)
     wss2d = _aligned(wss2d.float())

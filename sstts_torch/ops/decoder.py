@@ -67,7 +67,7 @@ class DecoderWeights(NamedTuple):
 
 
 #: Bytes of one of the kernel's ring stages (kStageBytes in
-#: csrc/decoder.cu): the schedule's chunks are cut to it.
+#: csrc/chain.cuh, B4's and B6's): the schedule's chunks are cut to it.
 STAGE_BYTES = 65536
 
 #: Sources a chunk is copied from: the packed weights, or this utterance's
@@ -82,7 +82,7 @@ STEP_ORDER = (
 
 #: Widest product the kernel takes, as the first port's kernel did (a
 #: consumer thread holds one 16-byte segment of a row: 512 of them a
-#: 1024-column f32 row).
+#: 1024-column f32 row; kMaxCols in csrc/chain.cuh).
 MAX_COLS = 1024
 
 #: Columns of a schedule row (int32): source, product (index in STEP_ORDER),

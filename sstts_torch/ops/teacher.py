@@ -180,11 +180,11 @@ MATRICES = ("attn_wx", "attn_wh", "query_w", "dec_w",
 STEP_ORDER = ("attn_wx", "attn_wh", "query_w", "keys", "memory",
               "dec_w", "gru0_wx", "gru0_wh", "gru1_wx", "gru1_wh")
 
-#: Bytes of one of the kernel's ring stages (kStageBytes in csrc/teacher.cu,
-#: B4's setting): the schedule's chunks are cut to it.
+#: Bytes of one of the kernel's ring stages (kStageBytes in csrc/chain.cuh,
+#: B4's setting too): the schedule's chunks are cut to it.
 STAGE_BYTES = dec.STAGE_BYTES
 
-#: Widest product the kernel takes (kMaxCols in csrc/teacher.cu).
+#: Widest product the kernel takes (kMaxCols in csrc/chain.cuh).
 MAX_COLS = dec.MAX_COLS
 
 _VECTORS = tuple(n for n in TeacherWeights._fields if n not in MATRICES)

@@ -1,31 +1,21 @@
-"""Stage times and settings of kernel B1 (the banded reprojection with its
-mirror runs) on the card.
+"""Stage times of kernel B1 (the banded reprojection with its mirror runs)
+on the card.
 
     python3 -m sstts_torch.tools.ablate_reproject [--out FILE]
 
-Builds `sstts_torch/csrc/reproject.cu` once for each build-time setting, one
-`nvcc` per build, all started together, into a temporary directory, and
-times each with CUDA events at the split iteration's shape, (32, 800) frames
-at wp = 1152 in bf16 and f32:
-
-- every combination of SSTTS_ROWS (the output rows a consumer computes
-  together: 1, 2, 4) and SSTTS_PAIR (misaligned segments by two aligned
-  loads, 1, or by scalar loads, 0), and the default build under a register
-  cap (SSTTS_MAXNREG 64, 80, 96: more blocks an SM against spills) and
-  with consumer warp 0 copying the stages (SSTTS_PRODUCER_WARP=0: no
-  producer warp, so more blocks an SM), each
-  build first held to `reproject_frames_plain` bit for bit, and each timed
-  over the launch settings: stages of 8 or 16 KB, 0 or 1 stage of
-  prefetch, strips of at least 16 or 32 rows;
-- by SSTTS_ABLATE at the default build and settings: 1 the stream alone
-  (the consumers only wait for and release each stage), 2 without the
-  stream (no copies, no waiting: the arithmetic on whatever the ring
-  holds), 4 without the terms d != 0 (the stream, the d = 0 term, the
-  envelope and the stores).
+Builds `sstts_torch/csrc/reproject.cu` as it is and once for each
+SSTTS_ABLATE mask, one `nvcc` per build, all started together, into a
+temporary directory, and times each with CUDA events at the split
+iteration's shape, (32, 800) frames at wp = 1152 in bf16 and f32.  The
+build as it is is first held to `reproject_frames_plain` bit for bit.  The
+masks: 1 the stream alone (the consumers only wait for and release each
+stage), 2 without the stream (no copies, no waiting: the arithmetic on
+whatever the ring holds), 4 without the terms d != 0 (the stream, the d = 0
+term, the envelope and the stores).
 
 Ablated builds compute garbage; the stages overlap, so the times do not add
-up.  Prints one JSON line with the ten fastest settings of each type, the
-card's name and power limit; `--out` writes every reading.
+up.  Prints one JSON line with the times, ptxas's registers and spills, the
+card's name and power limit; `--out` writes the same object to a file.
 """
 
 from __future__ import annotations
@@ -44,11 +34,8 @@ from sstts_torch.dsp import reproject as rp
 from sstts_torch.ops import build
 from sstts_torch.tools import card_line, time_ms
 
-ROWS = (1, 2, 4)
-MASKS = {1: "stream alone", 2: "without the stream", 4: "without the terms d != 0"}
-SETTINGS = [{"stage_bytes": sb, "prefetch": pf, "min_strip": ms}
-            for sb in (8192, 16384) for pf in (0, 1) for ms in (16, 32)]
-MAXNREG = (64, 80, 96)
+MASKS = {0: "whole kernel", 1: "stream alone", 2: "without the stream",
+         4: "without the terms d != 0"}
 
 
 def compile_all(jobs, tmp):
@@ -90,51 +77,23 @@ def main() -> None:
     frames = torch.randn(32, T, wp, generator=g)
     wss2d = rp.padded_wss2d(plan, wp, dev)
     args = (wss2d, plan["w_len"], ds.hop_len, plan["d_max"], plan["runs"])
-    src = (build.CSRC / "reproject.cu").read_text()
-    default = (int(re.search(r"#define SSTTS_ROWS (\d+)", src)[1]),
-               int(re.search(r"#define SSTTS_PAIR (\d+)", src)[1]))
-    jobs = {("build", r, pr): [f"SSTTS_ROWS={r}", f"SSTTS_PAIR={pr}"]
-            for r in ROWS for pr in (1, 0)}
-    jobs.update({("mask", m, 0): [f"SSTTS_ABLATE={m}"] for m in MASKS})
-    jobs.update({(f"maxnreg {n}", default[0], default[1]): [f"SSTTS_MAXNREG={n}"]
-                 for n in MAXNREG})
-    jobs[("consumer-warp copies", default[0], default[1])] = ["SSTTS_PRODUCER_WARP=0"]
-    res = {"shape": [32, T, wp], "default": {"rows": default[0], "pair": default[1],
-                                             "stage_bytes": rp.STAGE_BYTES,
-                                             "prefetch": rp.PREFETCH_STAGES,
-                                             "min_strip": rp.MIN_STRIP}, "ptxas": {}}
-    top = {}
+    res = {"shape": [32, T, wp], "ptxas": {}}
     with tempfile.TemporaryDirectory() as tmp:
-        libs = compile_all(jobs, tmp)
+        libs = compile_all({m: [f"SSTTS_ABLATE={m}"] for m in MASKS}, tmp)
         for dt in (torch.bfloat16, torch.float32):
             f3 = frames.to(dev, dt)
-            ref = rp.reproject_frames_plain(f3, *geom, wss2d)
             out = {}
-            for (kind, v, pr), (lib, ptxas) in libs.items():
-                res["ptxas"][f"{kind} {v} {pr}"] = ptxas
-                if kind == "mask":
-                    run = lambda: rp.launch(lib, f3, *args)  # noqa: E731
-                    out[MASKS[v]] = time_ms(run)
-                    continue
-                got = rp.launch(lib, f3, *args)
-                torch.cuda.synchronize()
-                tag = f"rows {v} pair {pr}" if kind == "build" else f"{kind} rows {v} pair {pr}"
-                out[f"{tag} bit_equal"] = bool(torch.equal(got, ref))
-                for kw in SETTINGS:
-                    run = lambda: rp.launch(lib, f3, *args, **kw)  # noqa: E731
-                    key = (f"{tag} stage {kw['stage_bytes']} prefetch "
-                           f"{kw['prefetch']} strip {kw['min_strip']}")
-                    out[key] = time_ms(run, iters=10, reps=3)
-            name = str(dt).split(".")[-1]
-            res[name] = out
-            timed = sorted((v, k) for k, v in out.items()
-                           if isinstance(v, float) and k not in MASKS.values())
-            top[name] = {"fastest": timed[:10],
-                         "ablation": {m: out[m] for m in MASKS.values()},
-                         "bit_equal": all(v for k, v in out.items() if k.endswith("bit_equal"))}
+            for m, (lib, ptxas) in libs.items():
+                res["ptxas"][MASKS[m]] = ptxas
+                if m == 0:
+                    got = rp.launch(lib, f3, *args)
+                    out["bit_equal"] = bool(torch.equal(
+                        got, rp.reproject_frames_plain(f3, *geom, wss2d)))
+                out[MASKS[m]] = time_ms(lambda: rp.launch(lib, f3, *args))
+            res[str(dt).split(".")[-1]] = out
     if args_ns.out:
         Path(args_ns.out).write_text(json.dumps(res))
-    print(json.dumps({"ablate_reproject": top, "card": card_line()}))
+    print(json.dumps({"ablate_reproject": res, "card": card_line()}))
 
 
 if __name__ == "__main__":

@@ -300,23 +300,27 @@ def c_struct_fields(src, struct):
 
 @pytest.mark.parametrize("kernel", KERNELS)
 def test_host_mirrors_match_decoder_cu(kernel):
-    """The host's stage size and widest product are the kernel source's
-    (decoder.cu or teacher.cu: one ring setting for both), its args
-    structure has the C struct's fields in their order, and the schedule's
-    fields are the stream::Chunk's (stream.cuh)."""
+    """The host's stage size and widest product are the ring's settings,
+    defined once in chain.cuh for both kernels (decoder.cu and teacher.cu
+    take them from there and define none of their own), its args structure
+    has the kernel source's C struct's fields in their order, and the
+    schedule's fields are the stream::Chunk's (stream.cuh)."""
     source, struct, args, stage, cols = {
         "decode": ("decoder.cu", "DecodeArgs", dec._DecodeArgs, dec.STAGE_BYTES, dec.MAX_COLS),
         "teacher": ("teacher.cu", "TeacherArgs", tops._TeacherArgs, tops.STAGE_BYTES,
                     tops.MAX_COLS),
     }[kernel]
-    src = (build.CSRC / source).read_text()
-    kb = re.search(r"constexpr int kStageBytes = (\d+) \* 1024;", src).group(1)
+    chain = (build.CSRC / "chain.cuh").read_text()
+    kb = re.search(r"constexpr int kStageBytes = (\d+) \* 1024;", chain).group(1)
     assert stage == 1024 * int(kb)
-    assert cols == int(re.search(r"constexpr int kMaxCols = (\d+);", src).group(1))
-    settings = {n: re.search(rf"constexpr int {n} = (\d+);", src).group(1)
+    assert cols == int(re.search(r"constexpr int kMaxCols = (\d+);", chain).group(1))
+    settings = {n: re.search(rf"constexpr int {n} = (\d+);", chain).group(1)
                 for n in ("kStages", "kConsumerWarps")}
     assert settings == {"kStages": "2", "kConsumerWarps": "16"}
+    src = (build.CSRC / source).read_text()
     assert '#include "chain.cuh"' in src and '#include "stream.cuh"' in src
+    assert "using Ring = chain::Ring<kStream>;" in src
+    assert not re.search(r"constexpr int k(Stages|StageBytes|ConsumerWarps|MaxCols)\b", src)
     assert c_struct_fields(src, struct) == [f for f, _ in args._fields_]
     chunk = re.search(r"struct alignas\(16\) Chunk \{\s*int ([^;]*);",
                       (build.CSRC / "stream.cuh").read_text()).group(1)

@@ -43,8 +43,8 @@ GEOMETRIES = {
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
 
-#: Output rows a consumer computes together (SSTTS_ROWS in reproject.cu).
-ROWS = int(re.search(r"#define SSTTS_ROWS (\d+)", (build.CSRC / "reproject.cu").read_text())[1])
+#: Output rows a consumer computes together (kRows in reproject.cu).
+ROWS = int(re.search(r"constexpr int kRows = (\d+);", (build.CSRC / "reproject.cu").read_text())[1])
 
 
 def smem_bytes(wp, elem_bytes, group, stages):
@@ -232,7 +232,7 @@ def test_strips_fill_one_wave_and_hold_every_run():
             assert rp.runs_fit(runs, 800, strips)
 
 
-def test_runs_beyond_a_strip_take_larger_strips():
+def test_runs_beyond_a_strip_take_larger_strips(monkeypatch):
     """A geometry whose mirror runs reach far (a 64-sample hop under a
     2048-sample window: sources up to ~17 rows from their targets) and one
     whose head and tail runs meet (5 frames) are not cut where a run would
@@ -243,10 +243,12 @@ def test_runs_beyond_a_strip_take_larger_strips():
     reach = max(abs(t - t_src) for t, _, _, t_src, _, _ in runs)
     assert reach >= 16
     assert not rp.runs_fit(runs, 200, 12)
-    strips = rp.strip_count(1, 200, runs, 528, min_strip=16)
+    monkeypatch.setattr(rp, "MIN_STRIP", 16)
+    strips = rp.strip_count(1, 200, runs, 528)
     assert 1 <= strips < 12 and rp.runs_fit(runs, 200, strips)
     _, plan5, _ = geometry("22k", 5)
-    assert not rp.runs_fit(plan5["runs"], 5, 2) and rp.strip_count(1, 5, plan5["runs"], 528, 1) == 1
+    monkeypatch.setattr(rp, "MIN_STRIP", 1)
+    assert not rp.runs_fit(plan5["runs"], 5, 2) and rp.strip_count(1, 5, plan5["runs"], 528) == 1
 
 
 @pytest.mark.parametrize("elem_bytes", [2, 4])
