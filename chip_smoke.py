@@ -57,7 +57,22 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    eval step (4/0/1); a checkpoint, `Synthesizer.from_checkpoint` and two
    utterances from it; and a tiny config's train step on the card (kernels,
    f32 teacher products) against the same step on the CPU (plain versions);
-4. one JSON line of every kernel's numbers, the card's line before it, and
+3d. the command line (`sstts_torch.cli.main`, on the card) at the default
+   `Config()` widths: an LJSpeech-layout corpus of 96 synthetic utterances
+   (22,050 Hz PCM16, 0.25 s of silence at each end) and a CSS10-layout one
+   of 8 at 16 kHz written to disk; `precompute --features --stats`, `train
+   --max-steps 2` from that cache (b=32), `evaluate --num-batches 1
+   --synthesize 2`, `synthesize` with `--text`, `--text-file` (3 lines) and
+   `--longform`, and `train --max-steps 1` on the CSS10 corpus resampled on
+   load; each command's wall time and launches, with the counters set to 0
+   just before and read just after it and held to the counts its corpus
+   implies (a train step 4/4/1, an eval batch 4 GRU and 1 teacher scan, a
+   synthesis batch 4 GRU, 1 decode and griffin_lim_iters B2 launches, and
+   the train media's Griffin-Lim where matplotlib imports); the WAV files,
+   the `metrics.jsonl` records in the JAX package's shape, finite eval
+   losses and resynthesis mel-L1, and the cache's index;
+4. one JSON line of every kernel's numbers (its launches on each path,
+   "cli" the sum of phase 3d's commands), the card's line before it, and
    last `{"ok": true, "device": {...}}`.
 
 Without CUDA, or without the rest of the repository beside it, it exits
@@ -1609,6 +1624,152 @@ def train_path(dev, card):
     return result
 
 
+# --------------------------------------------------------------- phase 3d --
+
+
+def cli_expected(cfg, overrides, command: str, steps: int = 0) -> dict:
+    """The launches one CLI command must make, from the corpus it reads:
+    a train step 4 GRU forward, 4 backward, 1 teacher scan; an eval batch 4
+    GRU and 1 teacher scan (train evaluates min(num_eval_batches, the eval
+    split's batches) and then vocodes one eval row for its media log when
+    matplotlib imports); a synthesis batch 4 GRU, 1 decode and
+    griffin_lim_iters semi iterations (B2)."""
+    from sstts_torch import cli
+    from sstts_torch.data import pipeline
+    from sstts_torch.train import load_corpus
+
+    cfg = cli.apply_overrides(cfg, overrides)
+    iters = cfg.inference.griffin_lim_iters
+    n = {"gru_sequence": 0, "gru_sequence_backward": 0, "fused_teacher_scan": 0,
+         "fused_decode": 0, "fused_reproject_analyze": 0}
+
+    def add(gru=0, back=0, teacher=0, decode=0, b2=0):
+        for k, v in zip(n, (gru, back, teacher, decode, b2)):
+            n[k] += v
+
+    if command == "train":
+        add(4 * steps, 4 * steps, steps)
+        eval_utts = load_corpus(cfg)[1]
+        n_eval = min(cfg.evaluation.num_eval_batches, pipeline.Batcher(
+            eval_utts, cfg).batches_per_epoch(cfg.evaluation.batch_size)) if eval_utts else 0
+        add(4 * n_eval, 0, n_eval)
+        try:
+            import matplotlib  # noqa: F401
+
+            add(b2=iters if n_eval else 0)
+        except ImportError:
+            pass
+    elif command == "evaluate":
+        add(4 * steps, 0, steps)  # `steps` eval batches
+        add(8, 0, 0, 2, 2 * iters)  # resynthesis, then --synthesize
+    elif command == "synthesize":
+        add(4, 0, 0, 1, iters)
+    return n
+
+
+def cli_path(dev, card):
+    """Phase 3d: the command line at the default `Config()` widths on
+    corpora written to disk, every kernel counted per command."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sstts_torch import cli
+    from sstts_torch.config import Config
+    from sstts_torch.data.synthetic import materialize_corpus
+    from sstts_torch.data.wav import load_wav
+
+    cfg = Config()
+    root = Path(__file__).resolve().parent / "chip_scratch" / "cli"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    lj = materialize_corpus(root / "lj", 96, cfg.dataset, "ljspeech", pad_s=0.25)
+    css = materialize_corpus(root / "css10", 8, cfg.dataset, "css10", sample_rate=16000,
+                             pad_s=0.25)
+    mb = sum(f.stat().st_size for f in lj.rglob("*.wav")) / 1e6
+    log(f"  corpora: 96 LJSpeech-layout utterances at {cfg.dataset.sample_rate} Hz "
+        f"({mb:.1f} MB of WAV), "
+        f"8 CSS10 at 16 kHz, written in {time.perf_counter() - t0:.2f} s")
+    run, out = root / "run", root / "run" / cfg.inference.output_dir
+    lj_sets = [f"dataset.dataset_dir={lj}", "dataset.eval_fraction=0.25",
+               f"dataset.cache_dir={root / 'cache'}", "training.summary_every=1"]
+    css_sets = [f"dataset.dataset_dir={css}", "dataset.dataset=css10",
+                "dataset.resample_on_load=True", "dataset.eval_fraction=0.25"]
+    text_file = root / "texts.txt"
+    text_file.write_text("the first of three lines\nprinting reports on speech\n"
+                         "a lazy dog while the quick fox jumps\n")
+    # (name, argv, overrides, train steps or eval batches)
+    commands = [
+        ("precompute", ["precompute", "--workdir", str(run), "--features", "--stats"],
+         lj_sets, 0),
+        ("train", ["train", "--workdir", str(run), "--max-steps", "2"], lj_sets, 2),
+        ("evaluate", ["evaluate", "--workdir", str(run), "--num-batches", "1",
+                      "--synthesize", "2"], lj_sets, 1),
+        ("synthesize --text", ["synthesize", "--workdir", str(run), "--text",
+                               "speech from the command line", "--out",
+                               str(root / "single.wav")], lj_sets, 0),
+        ("synthesize --text-file", ["synthesize", "--workdir", str(run), "--text-file",
+                                    str(text_file)], lj_sets, 0),
+        ("synthesize --longform", ["synthesize", "--workdir", str(run), "--longform",
+                                   "--text", "one sentence here. and another one! "
+                                   "and a third, a little longer than the others.",
+                                   "--out", str(root / "longform.wav")], lj_sets, 0),
+        ("train css10", ["train", "--workdir", str(root / "run_css10"), "--max-steps", "1"],
+         css_sets, 1),
+    ]
+    result = {"commands": {}}
+    totals = None
+    for name, argv, sets, steps in commands:
+        want = dict.fromkeys(counts(), 0)
+        want.update(cli_expected(cfg, sets, argv[0], steps))
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(argv + [x for o in sets for x in ("--set", o)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        log(f"  {name}: rc {rc}, wall {wall:.3f} s, launches "
+            f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+        if rc != 0 or launches != want:
+            raise AssertionError(f"{name}: rc {rc}, launches {launches} != {want}")
+        result["commands"][name] = {"wall_s": wall, "launches": launches}
+        totals = launches if totals is None else {k: totals[k] + v for k, v in launches.items()}
+    result["launches"] = totals
+
+    # What the commands wrote.
+    wavs = sorted(out.glob("eval_*.wav")) + sorted(out.glob("synthesis_*.wav")) + [
+        root / "single.wav", root / "longform.wav"]
+    if len(wavs) != 7:
+        raise AssertionError(f"expected 7 WAV files, found {wavs}")
+    for w in wavs:
+        y, sr = load_wav(w)
+        if sr != cfg.dataset.sample_rate or len(y) == 0 or not np.isfinite(y).all():
+            raise AssertionError(f"{w}: {len(y)} samples at {sr} Hz")
+    records = [json.loads(x) for x in (run / "metrics.jsonl").read_text().splitlines()]
+    shape = {"step", "wall_s", "prefix", "loss"}
+    train_recs = [r for r in records if r["prefix"] == "train"]
+    eval_recs = [r for r in records if r["prefix"] == "eval"]
+    if [r["step"] for r in train_recs] != [1, 2] or len(eval_recs) != 2 or not all(
+        shape <= set(r) for r in records
+    ):
+        raise AssertionError(f"metrics.jsonl records not in the reference shape: {records}")
+    final = eval_recs[-1]
+    finite = {k: final[k] for k in ("loss", "loss_mel", "loss_linear", "loss_stop",
+                                    "resynthesis_mel_l1") if k in final}
+    if len(finite) != 5 or not all(np.isfinite(v) for v in finite.values()):
+        raise AssertionError(f"evaluate's record: {final}")
+    index = json.loads((root / "cache" / "index.json").read_text())
+    if len(index["audio"]) != 96 or len(index["features"]) != 96:
+        raise AssertionError("the cache does not hold all 96 utterances")
+    log(f"  metrics.jsonl: {len(train_recs)} train and {len(eval_recs)} eval records; "
+        f"evaluate: {finite}; {len(wavs)} WAV files")
+    result["evaluate"] = finite
+    shutil.rmtree(root)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1648,17 +1809,20 @@ def main() -> int:
     serve_res = serving_path(dev, card)
     log("phase 3b: the training path")
     train_res = train_path(dev, card)
+    log("phase 3d: the command line")
+    cli_res = cli_path(dev, card)
     # Each kernel's launches come from the path it carries.
     own_path = {"gru_sequence_backward": "training", "fused_teacher_scan": "training",
                 "reproject_frames_pallas": "serving", "fused_gl_iteration": "serving"}
     for k in kernels:
         by_path = {"synthesis": main_res["launches"][k["name"]],
                    "serving": serve_res["launches"][k["name"]],
-                   "training": train_res["launches"][k["name"]]}
+                   "training": train_res["launches"][k["name"]],
+                   "cli": cli_res["launches"][k["name"]]}
         k["launches"] = by_path[own_path.get(k["name"], "synthesis")]
         k["launches_by_path"] = by_path
     log(json.dumps({"main_path": main_res, "serving_path": serve_res,
-                    "train_path": train_res, "card": card}))
+                    "train_path": train_res, "cli_path": cli_res, "card": card}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

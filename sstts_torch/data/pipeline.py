@@ -1,13 +1,16 @@
-"""Input pipeline: bucketing, padding, batching.  The port of
-`sstts/data/pipeline.py` (41-250) over the synthetic corpus.
+"""Input pipeline: loading, bucketing, padding, batching.  The port of
+`sstts/data/pipeline.py` (41-250).
 
 Every batch is padded to one of a few static (text_len, n_frames) bucket
 shapes.  Waveforms ship to the device as PCM16; the train step computes the
 features there.  A centered STFT over n samples gives 1 + n // hop frames;
 the loss mask ends `ceil((n_fft/2)/hop) + 1` frames early, where the
-analysis window starts to cross the end of the valid audio.  Loading audio
-files (`load_audio` of an LJSpeech corpus, the features cache) is not
-ported yet (ROADMAP A.6).
+analysis window starts to cross the end of the valid audio.  `load_audio`
+reads a WAV file (`data/wav.py`, numpy), resamples it when
+`dataset.resample_on_load` is set, and trims its silence (`trim_silence`):
+what the JAX package returns where its native decoder is not built (the
+port has none yet, ROADMAP A.13).  The `Batcher` reads the offline cache
+(`data/features_cache.py`) when `dataset.cache_dir` holds one.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 from sstts_torch.config import Config
 from sstts_torch.data import synthetic
 from sstts_torch.data import text as text_mod
+from sstts_torch.data import wav as wav_mod
 from sstts_torch.data.ljspeech import Utterance
 
 Batch = Dict[str, np.ndarray]
@@ -34,14 +38,50 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def trim_silence(
+    y: np.ndarray, top_db: float, frame_length: int = 2048, hop_length: int = 512
+) -> np.ndarray:
+    """Trim leading and trailing frames quieter than `top_db` below the
+    loudest frame's RMS; float32.  A copy of `sstts/dsp/reference.py:216-236`
+    (RMS in float64 over whole frames: a float32 RMS can move a boundary
+    frame)."""
+    y64 = np.asarray(y, dtype=np.float64)
+    if len(y64) == 0:
+        return y64.astype(np.float32)
+    if len(y64) < frame_length:
+        frames = y64[None]
+    else:
+        frames = np.lib.stride_tricks.sliding_window_view(y64, frame_length)[::hop_length]
+    rms = np.sqrt(np.mean(frames**2, axis=1))
+    db = 20.0 * np.log10(np.maximum(rms, 1e-10) / max(np.max(rms), 1e-10))
+    keep = np.where(db > -top_db)[0]
+    if len(keep) == 0:
+        return y64[:0].astype(np.float32)
+    start = keep[0] * hop_length
+    end = min(len(y64), keep[-1] * hop_length + frame_length)
+    return y64[start:end].astype(np.float32)
+
+
 def load_audio(utt: Utterance, cfg: Config) -> np.ndarray:
-    """One utterance's waveform; the synthetic corpus only."""
-    if not utt.wav_path.startswith("<synthetic"):
-        raise NotImplementedError(
-            f"{utt.wav_path}: loading audio files is not ported yet "
-            "(ROADMAP A.6); use dataset='synthetic'"
-        )
-    return synthetic.synth_waveform(utt.uid, utt.text, cfg.dataset)
+    """One utterance's waveform (host side): the synthetic corpus's, or a
+    WAV file read, resampled to `dataset.sample_rate` where
+    `resample_on_load` allows (a `ValueError` on a rate mismatch
+    otherwise) and trimmed at `trim_top_db`."""
+    ds = cfg.dataset
+    if utt.wav_path.startswith("<synthetic"):
+        return synthetic.synth_waveform(utt.uid, utt.text, ds)
+    y, sr = wav_mod.load_wav(utt.wav_path)
+    if sr != ds.sample_rate:
+        if not ds.resample_on_load:
+            raise ValueError(
+                f"{utt.wav_path}: sample rate {sr} != configured "
+                f"{ds.sample_rate} (set dataset.resample_on_load to "
+                "convert at load time)"
+            )
+        from sstts_torch.dsp.resample import resample
+
+        y = resample(y, sr, ds.sample_rate)
+    return trim_silence(y, ds.trim_top_db)
 
 
 def frame_bucket_shapes(cfg: Config) -> List[Tuple[int, int]]:
@@ -97,13 +137,31 @@ def make_batch(
 
 class Batcher:
     """Bucketed batch iterator over a list of utterances, shuffled per
-    epoch from its seed; the synthetic corpus stays resident."""
+    epoch from its seed.  Audio comes from `audio_cache` (default: the
+    cache under `dataset.cache_dir`, if one is built) or is loaded on
+    first use; a corpus of at most 4096 utterances stays resident.
+    Utterances whose text exceeds `max_text_len` or that fit no bucket are
+    dropped (`drop_oversize` is the JAX package's argument, which it
+    does not read either)."""
 
-    def __init__(self, utts: Sequence[Utterance], cfg: Config):
+    def __init__(
+        self,
+        utts: Sequence[Utterance],
+        cfg: Config,
+        drop_oversize: bool = True,
+        audio_cache=None,
+    ):
         self.cfg = cfg
+        if audio_cache is None:
+            from sstts_torch.data import features_cache
+
+            audio_cache = features_cache.open_cache(cfg)
+        self.audio_cache = audio_cache
         self.shapes = frame_bucket_shapes(cfg)
         self.examples: List[Tuple[Utterance, np.ndarray]] = []
-        self._audio: Dict[str, np.ndarray] = {}
+        self._resident: Dict[str, np.ndarray] = {}
+        self._len_cache: Dict[str, int] = {}  # uid -> trimmed sample count
+        self._cache_all = len(utts) <= 4096
         self.skipped = 0
         for u in utts:
             ids = text_mod.encode(
@@ -117,16 +175,36 @@ class Batcher:
             self.examples.append((u, ids))
 
     def audio(self, u: Utterance) -> np.ndarray:
-        if u.uid not in self._audio:
-            self._audio[u.uid] = load_audio(u, self.cfg)
-        return self._audio[u.uid]
+        """One utterance's trimmed waveform, from the cache where it holds it."""
+        if self._cache_all and u.uid in self._resident:
+            return self._resident[u.uid]
+        if self.audio_cache is not None and u.uid in self.audio_cache:
+            y = self.audio_cache.get(u.uid)
+        else:
+            y = load_audio(u, self.cfg)
+        if self._cache_all:
+            self._resident[u.uid] = y
+        return y
+
+    def _audio_len(self, u: Utterance) -> int:
+        """Trimmed sample count: from the memo, else the cache's index (no
+        I/O), else a real load."""
+        n = self._len_cache.get(u.uid)
+        if n is None:
+            if self.audio_cache is not None and u.uid in self.audio_cache:
+                n = self.audio_cache.length(u.uid)
+            else:
+                n = len(self.audio(u))
+            self._len_cache[u.uid] = n
+        return n
 
     def batches_per_epoch(self, batch_size: int) -> int:
-        """Batch count of one epoch (the same for every shuffle)."""
+        """Batch count of one epoch (the same for every shuffle), from the
+        lengths alone: a cached corpus is not decoded to count it."""
         per_bucket: Dict[int, int] = {}
         hop = self.cfg.dataset.hop_len
         for u, ids in self.examples:
-            bucket = assign_bucket(len(ids), 1 + len(self.audio(u)) // hop, self.shapes)
+            bucket = assign_bucket(len(ids), 1 + self._audio_len(u) // hop, self.shapes)
             if bucket >= 0:
                 per_bucket[bucket] = per_bucket.get(bucket, 0) + 1
         return sum(-(-n // batch_size) for n in per_bucket.values())
@@ -139,6 +217,7 @@ class Batcher:
         for idx in rng.permutation(len(self.examples)):
             u, ids = self.examples[idx]
             audio = self.audio(u)
+            self._len_cache[u.uid] = len(audio)
             bucket = assign_bucket(len(ids), 1 + len(audio) // hop, self.shapes)
             if bucket < 0:
                 continue

@@ -94,7 +94,7 @@ def resolve_iter_impl(iter_impl, momentum: float, fft_impl: str, device) -> str:
         raise NotImplementedError(
             f"griffin_lim iter_impl={impl!r} with fft_impl={fft_impl!r} on "
             "CUDA: kernels B2 and B5 are bf16 only; the f32 loop runs "
-            "iter_impl='split' (ROADMAP A.5)"
+            "iter_impl='split' (ROADMAP B.2, B.5: an f32 variant)"
         )
     return impl
 

@@ -4,7 +4,7 @@ feature pipeline.
 Port of `sstts/dsp/ops.py:24-28` (pre-emphasis), `30-83` (de-emphasis),
 `99-113` (dB ops), `116-570` (the device->host wire codecs) and `618-651`
 (`wav_to_features` with `fft_impl="default"`).  The direct-DFT feature
-transforms ("dft_*") are not ported (ROADMAP A.6).
+transforms ("dft_*") are not ported (ROADMAP A.8).
 """
 
 from __future__ import annotations
@@ -372,7 +372,7 @@ def wav_to_features(
     both."""
     if fft_impl in _DFT_IMPLS:
         raise NotImplementedError(
-            f"feature fft_impl={fft_impl!r} is not ported yet (ROADMAP A.6: "
+            f"feature fft_impl={fft_impl!r} is not ported yet (ROADMAP A.8: "
             "direct-DFT features); use 'default'"
         )
     if fft_impl != "default":

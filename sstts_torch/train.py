@@ -17,15 +17,19 @@ versions.  Dropout draws from a `torch.Generator` seeded from
 the same seed); the two streams differ, so parity with JAX runs at
 `prenet_dropout=0`.
 
-Not ported yet (ROADMAP A.7): the device-resident corpus, grouped steps
-(`steps_per_call > 1`), meshes, and loading real corpora.
+`load_corpus` reads an LJSpeech-, Blizzard-Nancy- or CSS10-layout corpus
+from disk, or makes the synthetic one.  `train` logs through
+`sstts_torch.utils.logging.MetricsLogger`, in the JAX package's record
+shape, with the eval media (alignment and mel images, Griffin-Lim audio of
+the last eval batch).  Not ported yet (ROADMAP A.6): the device-resident
+corpus, grouped steps (`steps_per_call > 1`), the background prefetch,
+`debug_nans` and meshes.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
-import json
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
@@ -35,12 +39,13 @@ import torch
 from sstts_torch.checkpoint import CheckpointManager
 from sstts_torch.config import Config
 from sstts_torch.data import pipeline as pipeline_mod
-from sstts_torch.data.ljspeech import train_eval_split
+from sstts_torch.data.ljspeech import load_metadata, train_eval_split
 from sstts_torch.data.synthetic import make_utterances
 from sstts_torch.dsp.ops import wav_to_features
 from sstts_torch.model.losses import frame_mask_from_lengths, tacotron_loss
 from sstts_torch.model.tacotron import Tacotron, init_state_dict
 from sstts_torch.synthesize import exact_f32, resolve_device
+from sstts_torch.utils.logging import MetricsLogger
 
 
 @dataclasses.dataclass
@@ -82,12 +87,12 @@ def check_trainable(cfg: Config) -> None:
     if t.device_corpus_cache == "on" or t.steps_per_call > 1:
         raise NotImplementedError(
             "the device-resident corpus and grouped steps are not ported yet "
-            "(ROADMAP A.7); the port feeds batches from the host"
+            "(ROADMAP A.6); the port feeds batches from the host"
         )
     if t.model_parallel > 1:
         raise NotImplementedError("model_parallel > 1 is not ported yet (ROADMAP A)")
     if t.debug_nans:
-        raise NotImplementedError("training.debug_nans is not ported yet (ROADMAP A.7)")
+        raise NotImplementedError("training.debug_nans is not ported yet (ROADMAP A.6)")
     if not 0.0 <= t.ema_decay < 1.0:
         raise ValueError(f"training.ema_decay must be in [0, 1): {t.ema_decay}")
 
@@ -209,21 +214,48 @@ def make_eval_step(cfg: Config):
 
 
 def load_corpus(cfg: Config):
-    """(train, eval) utterances; the synthetic corpus only."""
-    if cfg.dataset.dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset={cfg.dataset.dataset!r}: corpus loaders are not ported "
-            "yet (ROADMAP A.6); use dataset='synthetic'"
-        )
-    utts = make_utterances(cfg.dataset.synthetic_size, cfg.dataset)
-    return train_eval_split(utts, max(cfg.dataset.eval_fraction, 0.05))
+    """(train, eval) utterances of the corpus `dataset.dataset` names:
+    "ljspeech" / "csv" (`metadata.csv` + `wavs/`), "blizzard_nancy"
+    (`prompts.data` + `wavn/`), "css10" (`transcript.txt`) or "synthetic"
+    (made in memory; its eval share is at least 0.05)."""
+    ds = cfg.dataset
+    if ds.dataset == "synthetic":
+        utts = make_utterances(ds.synthetic_size, ds)
+        return train_eval_split(utts, max(ds.eval_fraction, 0.05))
+    if ds.dataset in ("ljspeech", "csv"):
+        return train_eval_split(load_metadata(ds), ds.eval_fraction)
+    if ds.dataset in ("blizzard_nancy", "css10"):
+        from sstts_torch.data import corpora
+
+        loader = {
+            "blizzard_nancy": corpora.load_blizzard_nancy,
+            "css10": corpora.load_css10,
+        }[ds.dataset]
+        return train_eval_split(loader(ds), ds.eval_fraction)
+    raise ValueError(f"unknown dataset kind: {ds.dataset!r}")
 
 
-def _log(path: Path, step: int, metrics: Dict[str, float], prefix: str = "train") -> None:
-    line = {"step": step, **{f"{prefix}/{k}": v for k, v in metrics.items()}}
-    with path.open("a") as f:
-        f.write(json.dumps(line) + "\n")
-    print(json.dumps(line), flush=True)
+def _log_eval_media(logger: MetricsLogger, step: int, cfg: Config, out) -> None:
+    """The alignment and mel images and the Griffin-Lim audio of the first
+    row of an eval batch's outputs.  A failure is printed, never raised
+    (media logging must not end a run)."""
+    if out is None:
+        return
+    try:
+        from sstts_torch.dsp.griffin_lim import spectrogram_to_wav
+        from sstts_torch.utils import visualization as viz
+
+        align = out["alignments"][0].cpu().numpy()
+        mel = out["mel"][0].cpu().numpy()
+        logger.log_image(step, "eval/alignment", viz.plot_attention_alignment(align))
+        logger.log_image(step, "eval/mel", viz.plot_spectrogram(mel, "predicted mel"))
+        linear = out["linear"][:1]
+        n_frames = linear.shape[1]
+        with torch.inference_mode(), exact_f32(linear.device):
+            wav = spectrogram_to_wav(linear, cfg, (n_frames - 1) * cfg.dataset.hop_len)
+        logger.log_audio(step, "eval/audio", wav[0].cpu().numpy(), cfg.dataset.sample_rate)
+    except Exception as e:
+        print(f"[warn] eval media logging failed: {type(e).__name__}: {e}", flush=True)
 
 
 def train(
@@ -251,7 +283,6 @@ def train(
     if ckpt.restore_latest(state) is not None:
         print(f"resumed from checkpoint at step {state.step}", flush=True)
     train_step, eval_step = make_train_step(cfg), make_eval_step(cfg)
-    metrics_path = workdir / "metrics.jsonl"
     spe = batcher.batches_per_epoch(t.batch_size)
     if spe == 0:
         raise ValueError(
@@ -260,37 +291,42 @@ def train(
         )
     epoch, skip = divmod(state.step, spe)
     last_eval, last_log, t_last = state.step, state.step, time.time()
-    while state.step < max_steps:
-        batches = itertools.islice(batcher.epoch(t.seed + epoch, t.batch_size), skip, None)
-        skip = 0
-        for _, batch in batches:
-            metrics = train_step(state, batch)
-            step = state.step
-            if step % log_every == 0:
-                host = {k: float(v) for k, v in metrics.items()}
-                now = time.time()
-                host["steps_per_s"] = (step - last_log) / max(now - t_last, 1e-9)
-                last_log, t_last = step, now
-                _log(metrics_path, step, host)
-            if step % t.checkpoint_every == 0:
-                ckpt.save(step, state)
-            if step >= max_steps:
-                break
-        epoch += 1
-        due = (state.step - last_eval) >= min(cfg.evaluation.eval_every, max_steps)
-        if eval_batcher is not None and (due or state.step >= max_steps):
-            last_eval = state.step
-            agg: Dict[str, float] = {}
-            n = 0
-            for _, ebatch in eval_batcher.epoch(0, cfg.evaluation.batch_size):
-                emetrics, _ = eval_step(state, ebatch)
-                for k, v in emetrics.items():
-                    agg[k] = agg.get(k, 0.0) + float(v)
-                n += 1
-                if n >= cfg.evaluation.num_eval_batches:
+    logger = MetricsLogger(workdir)
+    try:
+        while state.step < max_steps:
+            batches = itertools.islice(batcher.epoch(t.seed + epoch, t.batch_size), skip, None)
+            skip = 0
+            for _, batch in batches:
+                metrics = train_step(state, batch)
+                step = state.step
+                if step % log_every == 0:
+                    host = {k: float(v) for k, v in metrics.items()}
+                    now = time.time()
+                    host["steps_per_s"] = (step - last_log) / max(now - t_last, 1e-9)
+                    last_log, t_last = step, now
+                    logger.log(step, host)
+                if step % t.checkpoint_every == 0:
+                    ckpt.save(step, state)
+                if step >= max_steps:
                     break
-            if n:
-                _log(metrics_path, state.step, {k: v / n for k, v in agg.items()}, "eval")
-    ckpt.save(state.step, state)
+            epoch += 1
+            due = (state.step - last_eval) >= min(cfg.evaluation.eval_every, max_steps)
+            if eval_batcher is not None and (due or state.step >= max_steps):
+                last_eval = state.step
+                agg: Dict[str, float] = {}
+                n = 0
+                last_out = None
+                for _, ebatch in eval_batcher.epoch(0, cfg.evaluation.batch_size):
+                    emetrics, last_out = eval_step(state, ebatch)
+                    for k, v in emetrics.items():
+                        agg[k] = agg.get(k, 0.0) + float(v)
+                    n += 1
+                    if n >= cfg.evaluation.num_eval_batches:
+                        break
+                if n:
+                    logger.log(state.step, {k: v / n for k, v in agg.items()}, prefix="eval")
+                    _log_eval_media(logger, state.step, cfg, last_out)
+        ckpt.save(state.step, state)
+    finally:
+        logger.close()
     return state
-

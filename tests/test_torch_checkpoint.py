@@ -20,6 +20,18 @@ from sstts_torch.convert import convert_params, to_flax
 from sstts_torch.synthesize import Synthesizer
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_tensorboard():
+    """`train`'s logger would import TensorFlow for TensorBoard where it is
+    installed (~16 s a process); the records in metrics.jsonl are what is
+    tested."""
+    from sstts_torch.utils import logging as plogging
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(plogging, "_tensorboard_writer", lambda logdir: None)
+        yield
+
+
 def _cfg(**training):
     _, pcfg = tiny_pair(
         dataset={"dataset": "synthetic", "synthetic_size": 24},
@@ -57,10 +69,10 @@ def test_driver_logs_checkpoints_and_evaluates(trained):
     cfg, workdir, state = trained
     assert state.step == 3
     lines = [json.loads(x) for x in (workdir / "metrics.jsonl").read_text().splitlines()]
-    train_lines = [x for x in lines if "train/loss" in x]
+    train_lines = [x for x in lines if x["prefix"] == "train"]
     assert [x["step"] for x in train_lines] == [1, 2, 3]
-    assert all(np.isfinite(x["train/loss"]) for x in train_lines)
-    assert any("eval/loss" in x for x in lines)
+    assert all(np.isfinite(x["loss"]) for x in train_lines)
+    assert any(x["prefix"] == "eval" and "loss" in x for x in lines)
     mgr = CheckpointManager(cfg, workdir)
     assert mgr.latest_step() == 3
 

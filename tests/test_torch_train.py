@@ -243,8 +243,10 @@ def test_unported_training_settings_raise():
         cfg = pcfg.replace(**{section: dataclasses.replace(getattr(pcfg, section), **fields)})
         with pytest.raises(NotImplementedError):
             ptrain.create_state(cfg, device="cpu")
-    cfg = pcfg.replace(dataset=dataclasses.replace(pcfg.dataset, dataset="ljspeech"))
-    with pytest.raises(NotImplementedError):
+    # An LJSpeech corpus without its metadata.csv raises, as the JAX loader does.
+    cfg = pcfg.replace(dataset=dataclasses.replace(pcfg.dataset, dataset="ljspeech",
+                                                   dataset_dir="/nonexistent"))
+    with pytest.raises(FileNotFoundError, match="metadata.csv"):
         ptrain.load_corpus(cfg)
 
 
