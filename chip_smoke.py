@@ -71,9 +71,33 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    the train media's Griffin-Lim where matplotlib imports); the WAV files,
    the `metrics.jsonl` records in the JAX package's shape, finite eval
    losses and resynthesis mel-L1, and the cache's index;
+3e. the resident corpus (`train.build_device_corpus`) at the default
+   `Config()` widths, b=32, on the synthetic corpus (256 utterances, 5%
+   held out, buckets 0 and 1): built in each format (pcm16, features,
+   features_bf16) with its bytes, build time and peak memory; one step on
+   32 rows of bucket 1 from one init in each mode, held to the host-fed
+   step (cached pcm16, loss and grad_norm within 1e-5 relative) and to the
+   pcm16 step (features 1e-4, features_bf16 1e-2); a grouped S=4 call
+   against four cached steps, and four cached steps run twice, bit-equal
+   under PyTorch's deterministic algorithms (cuDNN's convolution backward
+   and nn.Embedding's above 3072 indices add by atomics); the direct-DFT
+   features against torch.fft's (dft_highest 1e-4, dft_high 1e-3,
+   dft_default 2e-2 on 99% of the normalized values, the largest and the
+   mean printed: low-energy bins amplify rounding, even in f32, and one
+   bf16 pass, the reference's own DEFAULT rung, reaches ~6e-2 at its worst
+   value);
+   the prefetch's batches against the `Batcher`'s; medians of 8 host-fed
+   (through the prefetch), 8 cached and 8 grouped calls on the same rows,
+   in turns, and one profiled cached step; `train` at "auto" (8 steps), at
+   steps_per_call=4 (8) and "off" (4), each with the counters set to 0
+   just before and read just after (a step 4/4/1, the eval as
+   `cli_expected` counts it); "on" over a 1 MiB budget must raise
+   ValueError and a NaN planted in the embedding under debug_nans
+   FloatingPointError. Every step above launches B3 4, B3' 4, B6 1;
 4. one JSON line of every kernel's numbers (its launches on each path,
-   "cli" the sum of phase 3d's commands), the card's line before it, and
-   last `{"ok": true, "device": {...}}`.
+   "cli" the sum of phase 3d's commands, "corpus" of phase 3e's three
+   `train` runs), the card's line before it, and last `{"ok": true,
+   "device": {...}}`.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -1770,6 +1794,271 @@ def cli_path(dev, card):
     return result
 
 
+# --------------------------------------------------------------- phase 3e --
+
+
+def corpus_config(**training):
+    """The default `Config()` on the synthetic corpus (256 utterances of
+    4-12 words: buckets 0 and 1), b=32, the prenets' dropout off (steps
+    compared across modes draw no masks)."""
+    from sstts_torch.config import Config
+
+    cfg = Config()
+    return cfg.replace(
+        dataset=dataclasses.replace(cfg.dataset, dataset="synthetic"),
+        arch=dataclasses.replace(cfg.arch, prenet_dropout=0.0),
+        training=dataclasses.replace(cfg.training, batch_size=32, **training),
+    )
+
+
+def step_launches(run, steps: int, what: str) -> dict:
+    """Run `run()` with the counters set to 0 just before and read just
+    after; it must launch B3 4, B3' 4 and B6 1 times a step."""
+    reset()
+    out = run()
+    launches = counts()
+    want = dict.fromkeys(launches, 0)
+    want.update({"gru_sequence": 4 * steps, "gru_sequence_backward": 4 * steps,
+                 "fused_teacher_scan": steps})
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} != {want}")
+    return out
+
+
+def rel(a, b) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def corpus_path(dev, card):
+    """Phase 3e: the device-resident corpus in its three formats, the
+    cached and grouped steps against the host-fed one, the direct-DFT
+    features, the prefetch, the driver at "auto", at steps_per_call=4 and
+    host-fed, and the refusals that must raise."""
+    import itertools
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sstts_torch import train as tr
+    from sstts_torch.data import pipeline
+    from sstts_torch.dsp.ops import wav_to_features
+    from sstts_torch.synthesize import exact_f32
+
+    cfg = corpus_config()
+    utts = tr.load_corpus(cfg)[0]
+    batcher = pipeline.Batcher(utts, cfg)
+    result = {"formats": {}}
+    corpora = {}
+    for fmt in ("pcm16", "features", "features_bf16"):
+        fcfg = corpus_config(device_corpus_format=fmt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        built, reason = tr.build_device_corpus(fcfg, utts, batcher=batcher, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if built is None:
+            raise AssertionError(f"{fmt}: {reason}")
+        corpus, counts_ = built
+        size = sum(nbytes(*rows.values()) for rows in corpus.values())
+        peak = torch.cuda.max_memory_allocated() - base
+        log(f"  {fmt}: {sum(counts_.values())} utterances in buckets {counts_}, "
+            f"{size / 1e6:.1f} MB on the card, built in {secs:.3f} s, peak "
+            f"{peak / 1e6:.1f} MB above the start [{card}]")
+        corpora[fmt] = (fcfg, corpus, counts_)
+        result["formats"][fmt] = {"bytes": size, "build_s": secs, "peak_bytes": peak,
+                                  "counts": counts_}
+    _, corpus, counts_ = corpora["pcm16"]
+    bucket = 1
+    if counts_.get(bucket, 0) < 32:
+        raise AssertionError(f"bucket 1 holds {counts_.get(bucket)} < 32 utterances")
+    rows = corpus[bucket]
+    idx = np.arange(32, dtype=np.int32)
+    valid = np.ones(32, np.float32)
+    host = {k: v[:32].cpu().numpy() for k, v in rows.items()}
+
+    # Steps on the same rows from the same init.
+    def one_step(fmt, kind):
+        fcfg, fcorpus, _ = corpora[fmt]
+        state = tr.create_state(fcfg, seed=0, device=dev)
+        if kind == "host":
+            run = lambda: tr.make_train_step(fcfg)(state, host)  # noqa: E731
+        else:
+            run = lambda: tr.make_cached_train_step(fcfg)(  # noqa: E731
+                state, fcorpus[bucket], idx, valid)
+        m = step_launches(run, 1, f"{fmt} {kind} step")
+        return {k: float(m[k]) for k in ("loss", "grad_norm")}
+
+    host_m = one_step("pcm16", "host")
+    steps = {"pcm16": one_step("pcm16", "cached"), "features": one_step("features", "cached"),
+             "features_bf16": one_step("features_bf16", "cached")}
+    checks = [("cached pcm16 vs host-fed", steps["pcm16"], host_m, 1e-5),
+              ("features vs pcm16", steps["features"], steps["pcm16"], 1e-4),
+              ("features_bf16 vs pcm16", steps["features_bf16"], steps["pcm16"], 1e-2)]
+    result["steps"] = {}
+    for name, got, ref, tol in checks:
+        r = {k: rel(got[k], ref[k]) for k in got}
+        log(f"  {name}: loss {got['loss']:.7f} vs {ref['loss']:.7f}, grad_norm "
+            f"{got['grad_norm']:.6f} vs {ref['grad_norm']:.6f}: relative {r} (limit {tol})")
+        if not max(r.values()) <= tol:
+            raise AssertionError(f"{name}: {r} > {tol}")
+        result["steps"][name] = r
+
+    # Grouped S=4 against four cached steps, and four cached steps repeated
+    # (the card's own run-to-run spread).
+    gcfg = corpus_config(steps_per_call=4)
+    idxs = (np.arange(128, dtype=np.int32) % counts_[bucket]).reshape(4, 32)
+    valids = np.ones((4, 32), np.float32)
+    valids[3, 20:] = 0.0  # an epoch tail's fill rows
+
+    def four(kind):
+        state = tr.create_state(gcfg, seed=0, device=dev)
+        if kind == "grouped":
+            run = lambda: tr.make_grouped_train_step(gcfg)(  # noqa: E731
+                state, rows, idxs, valids)
+        else:
+            step = tr.make_cached_train_step(gcfg)
+            run = lambda: [step(state, rows, idxs[i], valids[i])  # noqa: E731
+                           for i in range(4)]
+        m = step_launches(run, 4, f"{kind} x4")
+        if kind != "grouped":
+            m = {k: torch.stack([x[k] for x in m]) for k in m[0]}
+        return {k: v.cpu() for k, v in m.items()}, [p.detach().clone() for p in
+                                                    state.model.parameters()]
+
+    # cuDNN's default convolution backward, and nn.Embedding's backward
+    # above 3072 indices (b=32 x 128 characters = 4096), add by atomics:
+    # two runs from one state part there, and Adam's sign flips near zero
+    # gradients carry it into every parameter
+    # (`sstts_torch/tools/train_determinism.py`). With PyTorch's
+    # deterministic algorithms the modes must agree bit for bit.
+    saved = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        gm, gp = four("grouped")
+        cm, cp = four("cached")
+        cm2, cp2 = four("cached")
+    finally:
+        torch.use_deterministic_algorithms(saved)
+    if gm["loss"].shape != (4,):
+        raise AssertionError(f"grouped metrics shape {gm['loss'].shape}")
+
+    def spread(ma, pa, mb, pb):
+        return {"metrics": max(float((ma[k] - mb[k]).abs().max()) for k in ma),
+                "params": max(float((a - b).abs().max()) for a, b in zip(pa, pb))}
+
+    g_vs_c, c_vs_c = spread(gm, gp, cm, cp), spread(cm, cp, cm2, cp2)
+    log(f"  grouped S=4 vs 4 cached steps (deterministic algorithms): largest "
+        f"differences {g_vs_c}; 4 cached steps run twice: {c_vs_c}; losses "
+        f"{gm['loss'].tolist()}")
+    if max(g_vs_c.values()) or max(c_vs_c.values()):
+        raise AssertionError(f"not bit-equal: grouped vs cached {g_vs_c}, cached twice {c_vs_c}")
+    result["grouped_vs_cached"] = g_vs_c
+    result["cached_vs_cached"] = c_vs_c
+
+    # The direct-DFT features against the default (torch.fft) on 32 rows.
+    samples = rows["samples"][:32].float() * (1.0 / 32767.0)
+    with torch.no_grad(), exact_f32(dev):
+        ref = wav_to_features(samples, cfg.dataset)
+        result["dft"] = {}
+        for impl, tol in (("dft_highest", 1e-4), ("dft_high", 1e-3), ("dft_default", 2e-2)):
+            errs = {}
+            for name, got, want in zip(("linear", "mel"),
+                                       wav_to_features(samples, cfg.dataset, impl), ref):
+                d = (got - want).abs()
+                errs[name] = {"max": float(d.max()), "mean": float(d.mean()),
+                              "share_beyond": float((d > tol).float().mean())}
+            log(f"  {impl} features vs default: {errs} (limit {tol} on 99% of the values)")
+            if not max(e["share_beyond"] for e in errs.values()) <= 0.01:
+                raise AssertionError(f"{impl}: {errs} beyond {tol}")
+            result["dft"][impl] = errs
+
+    # The prefetch: order and content of an epoch's first batches.
+    n = 0
+    for (b1, want), (b2, got) in zip(batcher.epoch(7, 32),
+                                     tr._prefetch_to_device(batcher.epoch(7, 32), dev)):
+        if b1 != b2 or any(not np.array_equal(want[k], torch.as_tensor(got[k]).cpu().numpy())
+                           for k in want):
+            raise AssertionError(f"prefetched batch {n} differs")
+        n += 1
+    log(f"  prefetch: {n} batches, equal and in order")
+
+    # Timing on the same rows of bucket 1: 8 calls of each mode in turns
+    # after a warm-up, each synchronized (a drifting host weighs on each
+    # alike); host-fed uploads its rows through the prefetch every step.
+    state = tr.create_state(cfg, seed=0, device=dev)
+    batches = tr._prefetch_to_device(itertools.repeat((bucket, host)), dev)
+    hstep = tr.make_train_step(cfg)
+    cstep = tr.make_cached_train_step(cfg)
+    gstep = tr.make_grouped_train_step(gcfg)
+    runs = {"host-fed": (lambda: hstep(state, next(batches)[1]), 1),
+            "cached": (lambda: cstep(state, rows, idx, valid), 1),
+            "grouped S=4": (lambda: gstep(state, rows, idxs, valids), 4)}
+    ms = {k: [] for k in runs}
+    for rep in range(9):
+        for k, (fn, per) in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if rep:  # the first round warms up
+                ms[k].append((time.perf_counter() - t0) * 1e3 / per)
+    result["ms_per_step"] = {k: statistics.median(v) for k, v in ms.items()}
+    for k, v in ms.items():
+        log(f"  {k}: median {statistics.median(v):.2f} ms a step ({[round(x, 2) for x in v]}) "
+            f"[{card}]")
+    result["profile"] = profile(lambda: cstep(state, rows, idx, valid), card)
+    batches.close()
+    del state
+
+    # The driver: "auto" (the corpus fits), steps_per_call=4, host-fed.
+    root = Path(__file__).resolve().parent / "chip_scratch" / "corpus"
+    shutil.rmtree(root, ignore_errors=True)
+    result["driver"] = {}
+    totals = None
+    for name, dcfg, steps_ in (("auto", cfg, 8), ("steps_per_call=4", gcfg, 8),
+                               ("off", corpus_config(device_corpus_cache="off"), 4)):
+        want = dict.fromkeys(counts(), 0)
+        want.update(cli_expected(dcfg, [], "train", steps_))
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = tr.train(dcfg, root / name.replace("=", "_"), max_steps=steps_, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts()
+        log(f"  train {name}: {steps_} steps, wall {wall:.3f} s (corpus build, init, eval "
+            f"included), launches {launches} [{card}]")
+        if state.step != steps_ or launches != want:
+            raise AssertionError(f"train {name}: step {state.step}, {launches} != {want}")
+        result["driver"][name] = {"wall_s": wall, "launches": launches}
+        totals = launches if totals is None else {k: totals[k] + v for k, v in launches.items()}
+    result["launches"] = totals
+
+    # What must raise: "on" over its budget, and a NaN under debug_nans.
+    try:
+        tr.train(corpus_config(device_corpus_cache="on", device_corpus_budget_mb=1),
+                 root / "on", max_steps=1, device=dev)
+    except ValueError as e:
+        log(f"  device_corpus_cache=on over a 1 MiB budget raised: {e}")
+    else:
+        raise AssertionError("device_corpus_cache=on over budget did not raise")
+    ncfg = corpus_config(debug_nans=True)
+    state = tr.create_state(ncfg, seed=0, device=dev)
+    with torch.no_grad():
+        state.model.embedding.weight[5, 0] = float("nan")
+    try:
+        tr.make_cached_train_step(ncfg)(state, rows, idx, valid)
+    except FloatingPointError as e:
+        log(f"  debug_nans with a NaN planted in the embedding raised: {e}")
+    else:
+        raise AssertionError("debug_nans did not raise on a planted NaN")
+    shutil.rmtree(root)
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1811,6 +2100,8 @@ def main() -> int:
     train_res = train_path(dev, card)
     log("phase 3d: the command line")
     cli_res = cli_path(dev, card)
+    log("phase 3e: the resident corpus")
+    corpus_res = corpus_path(dev, card)
     # Each kernel's launches come from the path it carries.
     own_path = {"gru_sequence_backward": "training", "fused_teacher_scan": "training",
                 "reproject_frames_pallas": "serving", "fused_gl_iteration": "serving"}
@@ -1818,11 +2109,13 @@ def main() -> int:
         by_path = {"synthesis": main_res["launches"][k["name"]],
                    "serving": serve_res["launches"][k["name"]],
                    "training": train_res["launches"][k["name"]],
-                   "cli": cli_res["launches"][k["name"]]}
+                   "cli": cli_res["launches"][k["name"]],
+                   "corpus": corpus_res["launches"][k["name"]]}
         k["launches"] = by_path[own_path.get(k["name"], "synthesis")]
         k["launches_by_path"] = by_path
     log(json.dumps({"main_path": main_res, "serving_path": serve_res,
-                    "train_path": train_res, "cli_path": cli_res, "card": card}))
+                    "train_path": train_res, "cli_path": cli_res,
+                    "corpus_path": corpus_res, "card": card}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

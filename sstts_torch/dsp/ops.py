@@ -2,9 +2,22 @@
 feature pipeline.
 
 Port of `sstts/dsp/ops.py:24-28` (pre-emphasis), `30-83` (de-emphasis),
-`99-113` (dB ops), `116-570` (the device->host wire codecs) and `618-651`
-(`wav_to_features` with `fft_impl="default"`).  The direct-DFT feature
-transforms ("dft_*") are not ported (ROADMAP A.8).
+`99-113` (dB ops), `116-570` (the device->host wire codecs) and `572-651`
+(`wav_to_features` with every `fft_impl`).
+
+The direct-DFT features (`fft_impl="dft_*"`, `training.feature_fft_impl`)
+take |STFT| as two GEMMs over the window's support with the Hann window
+folded into the matrices (`dsp/fft.py:rdft_matrices_windowed`).  The JAX
+package runs them outside any Pallas kernel, at an XLA precision rung; on
+the card each rung maps to cuBLAS: "dft_highest" f32 with TF32 off;
+"dft_high" three TF32 products in place of each f32 one (each operand
+split into a part exact in TF32 and the rest: hi*hi + hi*lo + lo*hi, TF32
+on for them only and restored after), the counterpart of XLA's HIGH
+(three bf16 passes on a TPU); "dft_default" one pass of bf16 operands with f32 accumulation and
+f32 results, as XLA's DEFAULT.  One TF32 pass is not enough for "high":
+on an H100 (700 W) it put a mel value 9.6e-3 from the f32 features at the
+default widths, three products 6.9e-6 (`chip_smoke.py`, phase 3e).  On the
+CPU all three run in f32, as XLA:CPU runs every rung.
 """
 
 from __future__ import annotations
@@ -18,6 +31,7 @@ import torch
 from sstts_torch.config import DatasetConfig
 from sstts_torch.dsp import mel as mel_mod
 from sstts_torch.dsp import stft as stft_mod
+from sstts_torch.dsp.fft import rdft_matrices_windowed
 
 _DFT_IMPLS = ("dft_default", "dft_high", "dft_highest")
 
@@ -364,24 +378,76 @@ def decode_wire_rows(rows: np.ndarray, wire_format: str) -> np.ndarray:
     raise ValueError(f"unknown wire_format {wire_format!r}; expected one of {WIRE_FORMATS}")
 
 
+def _tf32_split(x: torch.Tensor):
+    """(hi, lo) with hi + lo == x exactly and hi exact in TF32 (its low 13
+    mantissa bits zero, rounded to nearest)."""
+    bits = x.contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return hi, x - hi
+
+
+def _dft_products(seg: torch.Tensor, cos_w: torch.Tensor, nsin_w: torch.Tensor, impl: str):
+    """(re, im) = (seg @ cos_w, seg @ nsin_w), f32, at `impl`'s precision
+    rung on the card (module docstring); f32 on the CPU."""
+    lead = seg.shape[:-1]
+    a = seg.reshape(-1, seg.shape[-1])
+    w = torch.cat([cos_w, nsin_w], dim=1)
+    if seg.device.type != "cuda":
+        out = a @ w
+    elif impl == "dft_default":
+        out = torch.mm(a.to(torch.bfloat16), w.to(torch.bfloat16), out_dtype=torch.float32)
+    else:
+        matmul = torch.backends.cuda.matmul
+        saved = matmul.allow_tf32
+        matmul.allow_tf32 = impl == "dft_high"
+        try:
+            if impl == "dft_high":
+                (a_hi, a_lo), (w_hi, w_lo) = _tf32_split(a), _tf32_split(w)
+                out = a_hi @ w_hi + (a_hi @ w_lo + a_lo @ w_hi)
+            else:
+                out = a @ w
+        finally:
+            matmul.allow_tf32 = saved
+    re, im = out.reshape(*lead, -1).split(cos_w.shape[1], dim=-1)
+    return re, im
+
+
+def _stft_magnitude_dft(y: torch.Tensor, cfg: DatasetConfig, impl: str) -> torch.Tensor:
+    """|STFT| as two support-reduced, window-folded DFT GEMMs, with the
+    centered STFT's reflect padding and frame count.  The frames are cut at
+    the window's support directly from the signal shifted by its start
+    (`frame_signal` fits more such frames than n_fft-wide ones; the extra
+    ones are dropped)."""
+    n_fft, hop = cfg.n_fft, cfg.hop_len
+    lead = y.shape[:-1]
+    y = torch.nn.functional.pad(
+        y.reshape(-1, 1, y.shape[-1]), (n_fft // 2, n_fft // 2), mode="reflect"
+    ).reshape(*lead, -1)
+    n_frames = (y.shape[-1] - n_fft) // hop + 1
+    lo, w_len, cos_w, nsin_w, _, _ = rdft_matrices_windowed(
+        n_fft, stft_mod.window(n_fft, cfg.win_len), device=y.device
+    )
+    seg = stft_mod.frame_signal(y[..., lo:], w_len, hop)[..., :n_frames, :]
+    re, im = _dft_products(seg, cos_w, nsin_w, impl)
+    return torch.sqrt(re * re + im * im)
+
+
 def wav_to_features(
     y: torch.Tensor, cfg: DatasetConfig, fft_impl: str = "default"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(..., n_samples) waveform -> (linear (..., n_frames, n_fft//2+1),
     mel (..., n_frames, n_mels)), both normalized to [0, 1]; one STFT feeds
-    both."""
-    if fft_impl in _DFT_IMPLS:
-        raise NotImplementedError(
-            f"feature fft_impl={fft_impl!r} is not ported yet (ROADMAP A.8: "
-            "direct-DFT features); use 'default'"
-        )
-    if fft_impl != "default":
+    both.  `fft_impl`: "default" (`torch.fft`) or a direct-DFT rung."""
+    if fft_impl != "default" and fft_impl not in _DFT_IMPLS:
         raise ValueError(
             f"unknown fft_impl {fft_impl!r}; valid: 'default', "
             + ", ".join(repr(k) for k in _DFT_IMPLS)
         )
     y = preemphasis(y.float(), cfg.preemphasis)
-    mag = stft_mod.stft(y, cfg.n_fft, cfg.hop_len, cfg.win_len).abs()
+    if fft_impl == "default":
+        mag = stft_mod.stft(y, cfg.n_fft, cfg.hop_len, cfg.win_len).abs()
+    else:
+        mag = _stft_magnitude_dft(y, cfg, fft_impl)
     linear = normalize_decibel(magnitude_to_decibel(mag), cfg.ref_level_db, cfg.min_level_db)
     mel = normalize_decibel(
         magnitude_to_decibel(mel_mod.apply_mel(mag, cfg)), cfg.ref_level_db, cfg.min_level_db

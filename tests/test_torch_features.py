@@ -78,8 +78,13 @@ def test_wav_to_features_matches_jax(which):
 
 
 def test_dft_feature_impls_are_refused():
-    with pytest.raises(NotImplementedError):
-        wav_to_features(torch.zeros(1, 800), port_config.tiny_config().dataset, "dft_high")
+    """An unknown transform is refused with the valid ones named; the
+    direct-DFT rungs are ported (held to JAX in test_torch_train_corpus.py)."""
+    ds = port_config.tiny_config().dataset
+    with pytest.raises(ValueError, match="'dft_default', 'dft_high', 'dft_highest'"):
+        wav_to_features(torch.zeros(1, 800), ds, "dft_fast")
+    lin, mel = wav_to_features(torch.zeros(1, 800), ds, "dft_high")
+    assert lin.shape == (1, 9, ds.n_linear) and mel.shape == (1, 9, ds.n_mels)
 
 
 @pytest.mark.parametrize("guided", [0.0, 0.7], ids=["plain", "guided"])

@@ -52,6 +52,7 @@ def test_port_imports_no_jax_and_no_sstts():
         "sstts_torch.data.features_cache", "sstts_torch.data.statistics",
         "sstts_torch.dsp.resample", "sstts_torch.dsp.metrics",
         "sstts_torch.utils.logging", "sstts_torch.utils.visualization",
+        "sstts_torch.tools.overfit_demo",
     ):
         assert expected in res["modules"]
 

@@ -236,10 +236,9 @@ def test_batching_matches_jax():
 
 def test_unported_training_settings_raise():
     _, pcfg = tiny_pair()
-    for section, fields in (("training", {"steps_per_call": 2}),
-                            ("training", {"device_corpus_cache": "on"}),
-                            ("training", {"debug_nans": True}),
-                            ("arch", {"fused_conv_bank": True})):
+    for section, fields in (("arch", {"fused_conv_bank": True}),
+                            ("arch", {"compute_dtype": "bfloat16"}),
+                            ("training", {"model_parallel": 2})):
         cfg = pcfg.replace(**{section: dataclasses.replace(getattr(pcfg, section), **fields)})
         with pytest.raises(NotImplementedError):
             ptrain.create_state(cfg, device="cpu")
