@@ -94,10 +94,33 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    `cli_expected` counts it); "on" over a 1 MiB budget must raise
    ValueError and a NaN planted in the embedding under debug_nans
    FloatingPointError. Every step above launches B3 4, B3' 4, B6 1;
+3f. the architecture variants at the default `Config()` widths, each run
+   with the counters set to 0 just before and read just after:
+   `compute_dtype="bfloat16"` synthesis on bench.py's workload (warm-up,
+   one timed batch: B3 4, B4 1, B2 60), its teacher-forced forward and 8
+   decode steps (B4) against the f32 model's on the same weights (relative
+   L2 under 2e-2), B4 (8 steps) and B6 (103 teacher-forced steps) against
+   the same bf16 model's plain loops on the same keep masks
+   (`BF16_LOOP_TOL`), 5 bf16 train steps on phase 3b's bucket (4/4/1 a
+   step, the loss falling), the first step's gradient against the f32
+   step's (cosine at least 0.999) and the tiny bf16 step card vs CPU
+   (2e-2);
+   local-Luong attention, whose decoder and teacher scan run the plain
+   loops on the card as the reference's "auto" runs its scans (synthesis:
+   B3 4, B2 60, B4 0; 2 train steps: B3 4, B3' 4, B6 0 a step), its
+   alignment rows summing to 1, the tiny Luong batch and train step card
+   vs CPU; the fused conv bank against the unfused bank on the same
+   parameters (1e-4, TF32 off) and 2 train steps (4/4/1); and the
+   reference's "xla" names on the card at the default architecture:
+   `decoder_impl="xla"` synthesis (B4 0), the plain decode loop against B4
+   (f32 products, 20 steps: 2e-4 / 2e-5; bf16, the first 8 steps: phase
+   2's bf16 limits), the plain teacher-forced loop against B6 (f32 and
+   bf16, all 103 steps, the same limits), and 2 train steps with the
+   teacher "xla" (B6 0);
 4. one JSON line of every kernel's numbers (its launches on each path,
    "cli" the sum of phase 3d's commands, "corpus" of phase 3e's three
-   `train` runs), the card's line before it, and last `{"ok": true,
-   "device": {...}}`.
+   `train` runs, "variants" of phase 3f's counted runs), the card's line
+   before it, and last `{"ok": true, "device": {...}}`.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -1625,26 +1648,7 @@ def train_path(dev, card):
     # One tiny train step: the card (kernels, f32 teacher products) against
     # the CPU (plain versions, the fused scan's plain version), dropout off.
     # Both are f32 throughout (TF32 off), with sums in other orders: 1e-4.
-    tcfg = tiny_config()
-    tcfg = tcfg.replace(
-        dataset=dataclasses.replace(tcfg.dataset, dataset="synthetic"),
-        arch=dataclasses.replace(tcfg.arch, prenet_dropout=0.0),
-        training=dataclasses.replace(tcfg.training, text_buckets=(48,), frame_buckets=(96,)),
-    )
-    tbatch = fixed_batch(tcfg, 2, 0, (1, 2))
-    tstep = tr.make_train_step(tcfg)
-    res = {}
-    for name, device in (("card", None), ("cpu", "cpu")):
-        st = tr.create_state(tcfg, seed=1, device=device)
-        st.model.teacher_impl, st.model.teacher_dtype = "fused", torch.float32
-        res[name] = {k: float(v) for k, v in tstep(st, tbatch).items()}
-    rel = {k: abs(res["card"][k] - res["cpu"][k]) / abs(res["cpu"][k])
-           for k in ("loss", "grad_norm")}
-    log(f"  tiny train step, card vs CPU: {res['card']} vs {res['cpu']}; relative "
-        f"differences {rel} (tol 1e-4)")
-    if not max(rel.values()) <= 1e-4:
-        raise AssertionError(f"tiny train step card vs CPU: {rel}")
-    result["tiny_card_vs_cpu_rel"] = rel
+    result["tiny_card_vs_cpu_rel"] = tiny_step_card_vs_cpu(tiny_config(), 1e-4)
     return result
 
 
@@ -2059,6 +2063,359 @@ def corpus_path(dev, card):
     return result
 
 
+# --------------------------------------------------------------- phase 3f --
+
+
+def with_arch(cfg, **fields):
+    return cfg.replace(arch=dataclasses.replace(cfg.arch, **fields))
+
+
+class Launches:
+    """The launches of phase 3f's counted runs, summed by kernel."""
+
+    def __init__(self):
+        self.total = {}
+
+    def run(self, what: str, fn, expected: dict):
+        """`fn()` with the counters set to 0 just before and read just after;
+        they must equal `expected` (kernels it does not name: 0)."""
+        import torch
+
+        reset()
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        got = counts()
+        want = dict.fromkeys(got, 0)
+        want.update(expected)
+        log(f"  {what}: launches {got}")
+        if got != want:
+            raise AssertionError(f"{what}: launches {got} != {want}")
+        for k, n in got.items():
+            self.total[k] = self.total.get(k, 0) + n
+        return out
+
+
+def synthesis_item(name, cfg, params, texts, ledger, expected, card):
+    """A Synthesizer on `cfg`: one warm-up batch, then one timed batch with
+    its launches held to `expected`; the waveforms finite and of the full
+    length (stop threshold 1.1: every row runs max_decoder_steps)."""
+    import numpy as np
+    import torch
+
+    from sstts_torch.synthesize import Synthesizer
+
+    synth = Synthesizer(cfg, params, seed=0)
+    synth.synthesize_batch(texts)
+    torch.cuda.synchronize()
+
+    def timed():
+        t0 = time.perf_counter()
+        wavs = synth.synthesize_batch(texts)
+        return wavs, time.perf_counter() - t0
+
+    wavs, wall = ledger.run(f"{name} synthesis batch", timed, expected)
+    frames = cfg.inference.max_decoder_steps * cfg.arch.reduction_factor
+    n_expected = (frames - 1) * cfg.dataset.hop_len
+    for w in wavs:
+        if w.shape != (n_expected,) or not np.isfinite(w).all():
+            raise AssertionError(f"{name}: waveform {w.shape}, finite {np.isfinite(w).all()}")
+    audio_s = len(wavs) * n_expected / cfg.dataset.sample_rate
+    log(f"  {name} synthesis: b={len(texts)}, {frames} frames, "
+        f"GL-{cfg.inference.griffin_lim_iters}, {cfg.inference.wire_format}: wall "
+        f"{wall:.4f} s, {audio_s / wall:.2f} s audio / wall s [{card}]")
+    return synth, wall
+
+
+def train_item(name, cfg, batch, ledger, per_step: dict, timed_steps: int, card,
+               teacher_impl=None):
+    """A train state on `cfg`: one warm-up step, then `timed_steps` timed
+    steps with their launches held to `per_step` each; every loss finite."""
+    import numpy as np
+    import torch
+
+    from sstts_torch import train as tr
+
+    state = tr.create_state(cfg, seed=0)
+    state.model.teacher_impl = teacher_impl
+    step = tr.make_train_step(cfg)
+    step(state, batch)
+    torch.cuda.synchronize()
+
+    def timed():
+        losses, ms = [], []
+        for _ in range(timed_steps):
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        return losses, ms
+
+    want = {k: n * timed_steps for k, n in per_step.items()}
+    losses, ms = ledger.run(f"{name}: {timed_steps} train steps", timed, want)
+    log(f"  {name} train steps: losses {losses}; ms per step {ms} (median "
+        f"{statistics.median(ms):.2f}) [{card}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: non-finite loss {losses}")
+    return state, losses, ms
+
+
+def rel_l2(a, b) -> float:
+    return float((a.float() - b.float()).norm() / b.float().norm())
+
+
+#: B4 and B6 against the plain loops of one bf16 model, relative L2 limits
+#: by output: about three times the readings on the H100 (B4, 8 steps:
+#: 5.2e-3, 3.8e-3, 1.6e-3; B6, 103 steps: 5.1e-3, 3.8e-3, 1.3e-3), which
+#: are the size of the bf16 effect itself (4.3e-3 to 5.8e-3).
+BF16_LOOP_TOL = {"mel": 1.5e-2, "stop_logits": 1.2e-2, "alignments": 5e-3}
+
+
+def bf16_kernels_vs_loops(model, ids, mel_gt, dev) -> dict:
+    """B4 and B6 on a bf16 model (bf16 matmuls, f32 state) against the same
+    model's plain loops ("xla": the reference's scan, whose carry is bf16),
+    on the same keep masks: the first 8 decode steps, and the 103
+    teacher-forced steps of phase 3b."""
+    import torch
+
+    from sstts_torch.ops import decoder as dec
+    from sstts_torch.synthesize import exact_f32
+
+    a = model.arch
+    r, steps = a.reduction_factor, 8
+    with torch.no_grad(), exact_f32(dev):
+        memory, mmask = model.encode(ids)
+        keep = dec.draw_keep_masks(steps, ids.shape[0], a.prenet_units, a.prenet_dropout,
+                                   torch.Generator(device=dev).manual_seed(10), dev)
+        loop = model.decode_infer(memory, mmask, steps, 1.1, steps, keep)
+        kernel = dec.fused_decode(model.decoder_cell, memory, mmask, steps,
+                                  stop_threshold=1.1, min_steps=steps, keep=keep)
+        teacher = {}
+        for impl in ("xla", "fused"):
+            model.teacher_impl = impl
+            gen = torch.Generator(device=dev).manual_seed(11)
+            mel, stops, align = model.decode_teacher(memory, mmask, mel_gt[:, : 103 * r], gen)
+            teacher[impl] = {"mel": mel, "stop_logits": stops, "alignments": align}
+        model.teacher_impl = None
+    got = {"B4-S8": {k: rel_l2(kernel[k][:, : steps * r if k != "alignments" else steps],
+                               loop[k][:, : steps * r if k != "alignments" else steps])
+                     for k in BF16_LOOP_TOL},
+           "B6-S103": {k: rel_l2(teacher["fused"][k], teacher["xla"][k]) for k in BF16_LOOP_TOL}}
+    for name, errs in got.items():
+        log(f"  bf16 model, {name} vs the plain loop: rel L2 {errs} (tol {BF16_LOOP_TOL})")
+        if not all(errs[k] <= BF16_LOOP_TOL[k] for k in errs):
+            raise AssertionError(f"bf16 {name} vs the plain loop: {errs}")
+    return got
+
+
+def variants_path(dev, card):
+    """Phase 3f: the architectures the reference's model accepts beyond the
+    default, at the default widths on the card."""
+    import numpy as np
+    import torch
+
+    from sstts_torch import train as tr
+    from sstts_torch.config import tiny_config
+    from sstts_torch.model.tacotron import Tacotron, init_state_dict
+    from sstts_torch.ops import decoder as dec
+    from sstts_torch.synthesize import Synthesizer, exact_f32
+
+    ledger = Launches()
+    res = {}
+    cfg = bench_config()
+    texts = ["the quick brown fox jumps over the lazy dog " * 2] * 32
+    params = init_state_dict(cfg.arch, cfg.dataset, seed=0)
+    synth_expected = {"gru_sequence": 4, "fused_decode": 1, "fused_reproject_analyze": 60}
+    train_cfg = corpus_config()
+    tbatch = fixed_batch(train_cfg, 32, 1, (10, 16))
+    train_per_step = {"gru_sequence": 4, "gru_sequence_backward": 4, "fused_teacher_scan": 1}
+
+    # -- bf16: synthesis (B3 4, B4 1, B2 60), then the same weights' f32
+    # and bf16 models on one text batch, its f32 synthesis as the teacher.
+    bf16_cfg = with_arch(cfg, compute_dtype="bfloat16")
+    synth16, res["bf16_synthesis_wall_s"] = synthesis_item(
+        "bf16", bf16_cfg, params, texts, ledger, synth_expected, card)
+    synth32 = Synthesizer(cfg, params, seed=0)
+    _, full = synth32.synthesize_batch(texts, full_output=True,
+                                       fetch=("wav", "n_samples", "mel", "n_frames"))
+    ids = torch.as_tensor(synth32._encode_ids(texts, None), dtype=torch.long).to(dev)
+    mel_gt = torch.as_tensor(full["mel"]).to(dev)
+    fmask = torch.arange(mel_gt.shape[1], device=dev)[None] < torch.as_tensor(
+        full["n_frames"]).to(dev)[:, None]
+    outs, decs = {}, {}
+    with torch.no_grad(), exact_f32(dev):
+        for name, sy in (("f32", synth32), ("bf16", synth16)):
+            gen = torch.Generator(device=dev).manual_seed(5)
+            outs[name] = sy.model(ids, mel_gt, fmask, gen)
+            memory, mmask = sy.model.encode(ids)
+            keep = dec.draw_keep_masks(8, 32, cfg.arch.prenet_units, cfg.arch.prenet_dropout,
+                                       torch.Generator(device=dev).manual_seed(6), dev)
+            decs[name] = dec.fused_decode(sy.model.decoder_cell, memory, mmask, 8,
+                                          stop_threshold=1.1, min_steps=8, keep=keep)
+    # Limits: bf16 rounds every activation to 8 bits of mantissa (relative
+    # steps of 2^-8 = 3.9e-3), which the recurrences carry; on the tiny
+    # config the effect reads 2e-3 to 5e-3 (tests/test_torch_bf16.py).
+    forward = {k: rel_l2(outs["bf16"][k], outs["f32"][k]) for k in ("mel", "linear")}
+    decode8 = rel_l2(decs["bf16"]["mel"], decs["f32"]["mel"])
+    log(f"  bf16 vs f32, same weights: teacher-forced forward rel L2 {forward} "
+        f"(tol 2e-2), 8 decode steps (B4) mel rel L2 {decode8:.3e} (tol 2e-2)")
+    if not (max(forward.values()) < 2e-2 and decode8 < 2e-2):
+        raise AssertionError(f"bf16 vs f32: forward {forward}, decode {decode8}")
+    res.update(bf16_forward_rel_l2=forward, bf16_decode8_rel_l2=decode8)
+    res["bf16_kernels_vs_loops_rel_l2"] = bf16_kernels_vs_loops(synth16.model, ids, mel_gt, dev)
+
+    # -- bf16: train steps (4/4/1 a step), the loss falling; the first
+    # step's gradient against the f32 step's from the same init and batch.
+    bf16_train = with_arch(train_cfg, compute_dtype="bfloat16")
+    state16, losses, ms = train_item("bf16", bf16_train, tbatch, ledger, train_per_step, 5, card)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"bf16: the loss did not fall over 5 steps: {losses}")
+    res.update(bf16_train_losses=losses, bf16_train_ms=ms)
+    grads = {}
+    for name, c in (("f32", train_cfg), ("bf16", bf16_train)):
+        st = tr.create_state(c, seed=0)
+        tr.make_train_step(c)(st, tbatch)
+        # The step clips by the global norm: one scale for every leaf,
+        # which the cosine ignores.
+        grads[name] = torch.cat([p.grad.flatten() for p in st.model.parameters()])
+    cos = float(torch.nn.functional.cosine_similarity(grads["bf16"], grads["f32"], 0))
+    log(f"  bf16 vs f32 first-step gradient: cosine {cos:.6f} (tol >= 0.999)")
+    if not cos >= 0.999:
+        raise AssertionError(f"bf16 gradient cosine {cos}")
+    res["bf16_grad_cosine"] = cos
+    res["bf16_tiny_card_vs_cpu_rel"] = tiny_step_card_vs_cpu(
+        with_arch(tiny_config(), compute_dtype="bfloat16"), 2e-2)
+
+    # -- local-Luong attention: the plain decoder loop and teacher scan on
+    # the card (B4 and B6 implement Bahdanau only, as in the reference).
+    luong_cfg = with_arch(cfg, attention_type="local_luong")
+    lparams = init_state_dict(luong_cfg.arch, luong_cfg.dataset, seed=0)
+    lsynth, res["luong_synthesis_wall_s"] = synthesis_item(
+        "luong", luong_cfg, lparams, texts, ledger,
+        {"gru_sequence": 4, "fused_reproject_analyze": 60}, card)
+    _, lfull = lsynth.synthesize_batch(texts[:4], full_output=True,
+                                       fetch=("wav", "n_samples", "alignments"))
+    row_sums = lfull["alignments"].sum(-1)
+    log(f"  luong alignments: rows sum to 1 within {np.abs(row_sums - 1).max():.2e} "
+        "(tol 1e-3)")
+    if not np.abs(row_sums - 1).max() < 1e-3:
+        raise AssertionError("luong alignment rows do not sum to 1")
+    _, losses, ms = train_item(
+        "luong", with_arch(train_cfg, attention_type="local_luong"), tbatch, ledger,
+        {"gru_sequence": 4, "gru_sequence_backward": 4}, 2, card)
+    res.update(luong_train_losses=losses, luong_train_ms=ms)
+    ltiny = with_arch(tiny_cfg(), attention_type="local_luong", local_attention_window=2)
+    res["luong_tiny_card_vs_cpu_rel_l2"] = tiny_card_vs_cpu(
+        with_inference(ltiny, decoder_impl=None))
+    res["luong_tiny_step_card_vs_cpu_rel"] = tiny_step_card_vs_cpu(
+        with_arch(tiny_config(), attention_type="local_luong", local_attention_window=2),
+        1e-4)
+
+    # -- the fused conv bank: the encoder's bank fused and unfused on the
+    # same parameters (f32, TF32 off: another conv algorithm, 1e-4), then
+    # train steps.
+    fcfg = with_arch(train_cfg, fused_conv_bank=True)
+    model = Tacotron(fcfg.arch, fcfg.dataset)
+    model.load_state_dict(init_state_dict(fcfg.arch, fcfg.dataset, seed=0))
+    bank = model.encoder_cbhg.bank.to(dev).eval()
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(32, 128, bank.conv1.shape[1], generator=g).to(dev)
+    xmask = torch.arange(128, device=dev)[None] < torch.randint(40, 129, (32, 1), generator=g).to(dev)
+    with torch.no_grad(), exact_f32(dev):
+        fused = bank(x, xmask)
+        bank.fused = False
+        unfused = bank(x, xmask)
+    bank_err = max_err(fused, unfused)
+    log(f"  fused conv bank vs unfused (K={bank.bank_k}, {tuple(x.shape)}): max_abs_err "
+        f"{bank_err:.3e} (tol 1e-4)")
+    if not bank_err < 1e-4:
+        raise AssertionError(f"fused bank: {bank_err}")
+    _, losses, ms = train_item("fused bank", fcfg, tbatch, ledger, train_per_step, 2, card)
+    res.update(fused_bank_max_abs_err=bank_err, fused_bank_train_ms=ms)
+
+    # -- the reference's "xla" names on the card at the default
+    # architecture: the plain loops, held to B4 and B6 on the same inputs
+    # and keep masks.
+    xsynth, res["xla_decoder_synthesis_wall_s"] = synthesis_item(
+        "decoder_impl=xla", with_inference(cfg, decoder_impl="xla"), params, texts, ledger,
+        {"gru_sequence": 4, "fused_reproject_analyze": 60}, card)
+    model = xsynth.model
+    with torch.no_grad(), exact_f32(dev):
+        memory, mmask = model.encode(ids)
+        keep = dec.draw_keep_masks(20, 32, cfg.arch.prenet_units, cfg.arch.prenet_dropout,
+                                   torch.Generator(device=dev).manual_seed(8), dev)
+        plain = model.decode_infer(memory, mmask, 20, 1.1, 8, keep)
+        kernel = {dt: dec.fused_decode(model.decoder_cell, memory, mmask, 20,
+                                       stop_threshold=1.1, min_steps=8, keep=keep,
+                                       matmul_dtype=dt)
+                  for dt in (torch.float32, torch.bfloat16)}
+        teacher_mel = mel_gt[:, : 103 * cfg.arch.reduction_factor]  # phase 3b's 103 steps
+        teacher = {}
+        for impl, dt in (("xla", None), ("fused", torch.float32), ("fused", torch.bfloat16)):
+            model.teacher_impl, model.teacher_dtype = impl, dt
+            gen = torch.Generator(device=dev).manual_seed(9)
+            teacher[(impl, dt)] = model.decode_teacher(memory, mmask, teacher_mel, gen)
+        model.teacher_impl = model.teacher_dtype = None
+    # f32 products: the same arithmetic in another order, all 20 steps;
+    # bf16 products against the f32 loop: the first 8 steps (their
+    # roundings feed back through the decoded frames).
+    errs = {}
+    r = cfg.arch.reduction_factor
+    for dt, got in kernel.items():
+        steps = 20 if dt == torch.float32 else 8
+        mel_p, al_p = plain["mel"][:, : steps * r], plain["alignments"][:, :steps]
+        tol = ring_tolerances(dt, True, float(mel_p.abs().max()), float(al_p.max()))
+        errs[f"B4-{str(dt)[6:]}-S{steps}"] = (max_err(got["mel"][:, : steps * r], mel_p),
+                                              max_err(got["alignments"][:, :steps], al_p), tol)
+    ref = teacher[("xla", None)]
+    for key in (("fused", torch.float32), ("fused", torch.bfloat16)):
+        got = teacher[key]
+        tol = ring_tolerances(key[1], True, float(ref[0].abs().max()), float(ref[2].max()))
+        errs[f"B6-{str(key[1])[6:]}"] = (max_err(got[0], ref[0]), max_err(got[2], ref[2]), tol)
+    for k, (e_mel, e_al, (t_mel, t_al)) in errs.items():
+        log(f"  xla plain loop vs {k}: mel max_abs_err {e_mel:.3e} (tol {t_mel:.1e}), "
+            f"alignments {e_al:.3e} (tol {t_al:.1e})")
+        if not (e_mel <= t_mel and e_al <= t_al):
+            raise AssertionError(f"xla vs {k}: {e_mel}, {e_al}")
+    res["xla_vs_kernels"] = {k: v[:2] for k, v in errs.items()}
+    _, losses, ms = train_item("teacher_impl=xla", train_cfg, tbatch, ledger,
+                               {"gru_sequence": 4, "gru_sequence_backward": 4}, 2, card,
+                               teacher_impl="xla")
+    res.update(xla_teacher_train_ms=ms)
+    res["launches"] = ledger.total
+    return res
+
+
+def tiny_step_card_vs_cpu(tcfg, tol: float) -> dict:
+    """One tiny train step on the card (kernels where the architecture has
+    them, B6 with f32 products) against the same step on the CPU (plain
+    versions), dropout off: loss and gradient norm within `tol` relative."""
+    import torch
+
+    from sstts_torch import train as tr
+
+    tcfg = tcfg.replace(
+        dataset=dataclasses.replace(tcfg.dataset, dataset="synthetic"),
+        arch=dataclasses.replace(tcfg.arch, prenet_dropout=0.0),
+        training=dataclasses.replace(tcfg.training, text_buckets=(48,), frame_buckets=(96,)),
+    )
+    tbatch = fixed_batch(tcfg, 2, 0, (1, 2))
+    tstep = tr.make_train_step(tcfg)
+    res = {}
+    for name, device in (("card", None), ("cpu", "cpu")):
+        st = tr.create_state(tcfg, seed=1, device=device)
+        if tcfg.arch.attention_type == "bahdanau":
+            st.model.teacher_impl, st.model.teacher_dtype = "fused", torch.float32
+        res[name] = {k: float(v) for k, v in tstep(st, tbatch).items()}
+    rel_diff = {k: rel(res["card"][k], res["cpu"][k]) for k in ("loss", "grad_norm")}
+    log(f"  tiny train step ({tcfg.arch.compute_dtype}, {tcfg.arch.attention_type}), card "
+        f"vs CPU: relative differences {rel_diff} (tol {tol})")
+    if not max(rel_diff.values()) <= tol:
+        raise AssertionError(f"tiny train step card vs CPU: {rel_diff}")
+    return rel_diff
+
+
 def main() -> int:
     import torch
 
@@ -2102,6 +2459,8 @@ def main() -> int:
     cli_res = cli_path(dev, card)
     log("phase 3e: the resident corpus")
     corpus_res = corpus_path(dev, card)
+    log("phase 3f: the architecture variants")
+    variants_res = variants_path(dev, card)
     # Each kernel's launches come from the path it carries.
     own_path = {"gru_sequence_backward": "training", "fused_teacher_scan": "training",
                 "reproject_frames_pallas": "serving", "fused_gl_iteration": "serving"}
@@ -2110,12 +2469,14 @@ def main() -> int:
                    "serving": serve_res["launches"][k["name"]],
                    "training": train_res["launches"][k["name"]],
                    "cli": cli_res["launches"][k["name"]],
-                   "corpus": corpus_res["launches"][k["name"]]}
+                   "corpus": corpus_res["launches"][k["name"]],
+                   "variants": variants_res["launches"].get(k["name"], 0)}
         k["launches"] = by_path[own_path.get(k["name"], "synthesis")]
         k["launches_by_path"] = by_path
     log(json.dumps({"main_path": main_res, "serving_path": serve_res,
                     "train_path": train_res, "cli_path": cli_res,
-                    "corpus_path": corpus_res, "card": card}))
+                    "corpus_path": corpus_res, "variants_path": variants_res,
+                    "card": card}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

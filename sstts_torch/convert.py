@@ -12,7 +12,12 @@ layout rules:
   `backward` become `forward_gru`/`backward_gru` (an `nn.Module` cannot
   have a child named `forward`);
 * batch-norm `scale`/`bias` plus `mean`/`var` from batch_stats;
-* attention `memory_proj`/`query_proj` kernels as Dense, `b` and `v` as is;
+* attention `memory_proj`/`query_proj` kernels as Dense, Bahdanau's `b`
+  and `v` as is (a local-Luong tree has only the two projections, and each
+  model refuses the other's tree);
+* the fused and unfused conv banks share their `conv{k}` parameters, and
+  `compute_dtype` changes no parameter (they stay f32), so the three
+  convert identically;
 * `embedding/embedding` -> `embedding.weight`.
 
 It raises on a leaf the port has no place for and on a port tensor that no

@@ -5,7 +5,10 @@ eval split (`make_eval_step`: B3 x4 and B6 on the card), measures
 resynthesis (the eval texts decoded autoregressively by the
 `Synthesizer`: B3, B4 and B2 on the card) against the ground-truth mel,
 and optionally writes WAVs and plots of synthesized eval utterances under
-`workdir/<inference.output_dir>`.  `device` None means the card.
+`workdir/<inference.output_dir>`.  `device` None means the card.  Every
+architecture the model takes evaluates here: a bf16 or local-Luong model
+through `make_eval_step` and the `Synthesizer` (Luong's decoder and
+teacher-forced scan run their plain loops on the card, B4 and B6 0).
 """
 
 from __future__ import annotations

@@ -1,14 +1,18 @@
 """The attention-GRU decoder cell: the port of `sstts/model/decoder.py`
 (49-228).
 
-One autoregressive step: prenet -> attention GRU -> Bahdanau attention ->
-decoder projection -> residual GRU stack -> r mel frames and r stop
-logits.  Once an utterance has finished, every carry freezes and its frames
+One autoregressive step: prenet -> attention GRU -> attention (Bahdanau or
+local-Luong, `make_attention`) -> decoder projection -> residual GRU stack
+-> r mel frames and r stop logits.  Once an utterance has finished, every carry freezes and its frames
 are zeroed; the stop check is sigmoid(max over r) > threshold.  This is
 the plain path that `Tacotron.decode_infer` loops; the fused CUDA decode is
 `sstts_torch.ops.decoder`.  `teacher_step` is the teacher-forced step with
 the prenet and the projections hoisted out (the plain path of
 `Tacotron.decode_teacher`; the fused scan is `sstts_torch.ops.teacher`).
+
+Under a bf16 compute dtype the carry is kept in it: the attention's f32
+alignment and context and the attention GRU's state are cast back after
+each step (`sstts/model/decoder.py:112-115`), as the reference's scan does.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from torch import nn
 
 from sstts_torch.config import ArchitectureConfig
-from sstts_torch.model.attention import BahdanauAttention, attention_context
+from sstts_torch.model.attention import attention_context, linear, make_attention
 from sstts_torch.model.modules import PreNet
 from sstts_torch.model.rnn import GRUCell
 
@@ -41,26 +45,24 @@ class StepOutput(NamedTuple):
 
 
 class DecoderCell(nn.Module):
-    def __init__(self, arch: ArchitectureConfig, n_mels: int, memory_dim: int):
+    def __init__(self, arch: ArchitectureConfig, n_mels: int, memory_dim: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        if arch.attention_type != "bahdanau":
-            raise NotImplementedError(
-                f"attention_type={arch.attention_type!r}: the port implements "
-                "Bahdanau attention only (local-Luong is ROADMAP queue A)"
-            )
         a = arch
         self.arch = arch
         self.n_mels = n_mels
-        self.prenet = PreNet(n_mels, a.prenet_units, a.prenet_dropout)
-        self.attention = BahdanauAttention(
-            memory_dim, a.attention_gru_units, a.attention_units
+        self.dtype = dtype
+        self.prenet = PreNet(n_mels, a.prenet_units, a.prenet_dropout, dtype)
+        self.attention = make_attention(
+            a.attention_type, memory_dim, a.attention_gru_units, a.attention_units,
+            dtype, a.local_attention_window,
         )
-        self.attn_gru = GRUCell(a.prenet_units[-1] + memory_dim, a.attention_gru_units)
+        self.attn_gru = GRUCell(a.prenet_units[-1] + memory_dim, a.attention_gru_units, dtype)
         self.dec_proj = nn.Linear(a.attention_gru_units + memory_dim, a.decoder_gru_units)
         for i in range(a.decoder_gru_layers):
             setattr(
                 self, f"dec_gru{i}",
-                GRUCell(a.decoder_gru_units, a.decoder_gru_units),
+                GRUCell(a.decoder_gru_units, a.decoder_gru_units, dtype),
             )
         self.frame_proj = nn.Linear(a.decoder_gru_units, a.reduction_factor * n_mels)
         self.stop_proj = nn.Linear(a.decoder_gru_units, a.reduction_factor)
@@ -72,7 +74,7 @@ class DecoderCell(nn.Module):
     def init_carry(self, memory: torch.Tensor) -> DecoderCarry:
         a = self.arch
         batch, t_enc, memory_dim = memory.shape
-        z = lambda n: memory.new_zeros(batch, n)  # noqa: E731
+        z = lambda n: memory.new_zeros(batch, n, dtype=self.dtype)  # noqa: E731
         align0 = z(t_enc)
         align0[:, 0] = 1.0
         return DecoderCarry(
@@ -89,9 +91,12 @@ class DecoderCell(nn.Module):
         attention GRU -> attention -> residual GRU stack.  Returns (attn_h,
         alignment, context, new_dec_hs, x)."""
         attn_h = self.attn_gru(torch.cat([prenet_out, carry.context], dim=-1), carry.attn_h)
-        alignment = self.attention(attn_h, keys, memory_mask)
+        alignment = self.attention(attn_h, keys, memory_mask, carry.alignment)
         context = attention_context(alignment, memory)
-        x = self.dec_proj(torch.cat([attn_h, context], dim=-1))
+        # The softmax runs in f32; the carry stays in the compute dtype.
+        alignment, context = alignment.to(self.dtype), context.to(self.dtype)
+        attn_h = attn_h.to(self.dtype)
+        x = linear(torch.cat([attn_h, context], dim=-1), self.dec_proj, self.dtype)
         new_dec_hs = []
         for gru, h in zip(self.dec_grus, carry.dec_hs):
             h_new = gru(x, h)
@@ -133,8 +138,8 @@ class DecoderCell(nn.Module):
         attn_h, alignment, context, new_dec_hs, x = self._sequential_chain(
             carry, pre, memory, keys, memory_mask
         )
-        mel = self.frame_proj(x).reshape(-1, a.reduction_factor, self.n_mels)
-        stop_logits = self.stop_proj(x)
+        mel = linear(x, self.frame_proj, self.dtype).reshape(-1, a.reduction_factor, self.n_mels)
+        stop_logits = linear(x, self.stop_proj, self.dtype)
 
         fin = carry.finished
 

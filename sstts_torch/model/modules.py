@@ -7,6 +7,13 @@ of the (B, T) mask and updates its running statistics at momentum 0.99; in
 package at the module boundary — (B, T, D) batch-major with an optional
 (B, T) mask — and convolutions transpose to PyTorch's (B, D, T) inside.  Parameter names
 follow flax, so `sstts_torch.convert` maps one tree onto the other.
+
+`dtype` is flax's compute dtype: parameters stay f32 and the inputs and
+weights of each dense layer and convolution are cast to it at use.  Batch
+norm computes its statistics and normalisation in f32 and returns the
+compute dtype, and the BiGRU computes and returns f32
+(`sstts_torch.model.rnn`), cast here to the compute dtype, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -17,11 +24,23 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sstts_torch.model.attention import linear
 from sstts_torch.model.rnn import BiGRU
 
 
 def _mask3(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask[..., None].to(like.dtype)
+
+
+def _conv(x: torch.Tensor, weight: torch.Tensor, dtype: torch.dtype,
+          pad: Optional[Tuple[int, int]] = None, padding: int = 0) -> torch.Tensor:
+    """(B, T, D) -> (B, T, C): conv1d of input and kernel in the compute
+    dtype, after explicit (left, right) padding of time (`pad`) or with the
+    conv's own symmetric `padding`."""
+    xc = x.to(dtype).transpose(1, 2)
+    if pad is not None:
+        xc = F.pad(xc, pad)
+    return F.conv1d(xc, weight.to(dtype), padding=padding).transpose(1, 2)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -30,8 +49,10 @@ class MaskedBatchNorm(nn.Module):
     statistics move towards them (EMA at `momentum`); eval mode: the
     running statistics."""
 
-    def __init__(self, features: int, epsilon: float = 1e-3, momentum: float = 0.99):
+    def __init__(self, features: int, epsilon: float = 1e-3, momentum: float = 0.99,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.epsilon = epsilon
         self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
@@ -42,7 +63,7 @@ class MaskedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.training:
             if mask is not None:
-                m = _mask3(mask, x)
+                m = mask[..., None].float()  # f32 statistics under bf16 compute
                 count = torch.clamp(m.sum(), min=1.0)
                 mean = (x * m).sum((0, 1)) / count
                 var = (((x - mean) ** 2) * m).sum((0, 1)) / count
@@ -56,7 +77,7 @@ class MaskedBatchNorm(nn.Module):
         else:
             mean, var = self.mean, self.var
         y = (x - mean) / torch.sqrt(var + self.epsilon)
-        return y * self.scale + self.bias
+        return (y * self.scale + self.bias).to(self.dtype)
 
 
 class PreNet(nn.Module):
@@ -65,8 +86,10 @@ class PreNet(nn.Module):
     path — plain, kernel, batch of one — can be fed the same noise;
     `keep_masks` draws them from a `torch.Generator`."""
 
-    def __init__(self, d_in: int, units: Sequence[int], dropout: float = 0.5):
+    def __init__(self, d_in: int, units: Sequence[int], dropout: float = 0.5,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.dropout = dropout
         self.units = tuple(units)
         dims = [d_in, *units]
@@ -88,7 +111,7 @@ class PreNet(nn.Module):
     def forward(self, x: torch.Tensor, keep=None) -> torch.Tensor:
         scale = 1.0 / (1.0 - self.dropout) if self.dropout < 1.0 else 0.0
         for i in range(self.n_layers):
-            x = F.relu(getattr(self, f"fc{i}")(x))
+            x = F.relu(linear(x, getattr(self, f"fc{i}"), self.dtype))
             if keep is not None:
                 x = torch.where(keep[i] > 0, x * scale, torch.zeros_like(x))
         return x
@@ -97,14 +120,15 @@ class PreNet(nn.Module):
 class Highway(nn.Module):
     """Single highway layer: T * H(x) + (1 - T) * x."""
 
-    def __init__(self, units: int):
+    def __init__(self, units: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.h = nn.Linear(units, units)
         self.t = nn.Linear(units, units)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.relu(self.h(x))
-        t = torch.sigmoid(self.t(x))
+        h = F.relu(linear(x, self.h, self.dtype))
+        t = torch.sigmoid(linear(x, self.t, self.dtype))
         return h * t + x * (1.0 - t)
 
 
@@ -114,27 +138,49 @@ class Conv1dBank(nn.Module):
 
     Kernel `conv{k}` is (channels, D, k), PyTorch's Conv1d layout.  SAME
     padding is asymmetric for even widths, ((k-1)//2, k//2), as in XLA, so
-    each conv pads explicitly and runs unpadded.
+    each conv pads explicitly and runs unpadded.  `fused` runs the same
+    parameters as one conv: each width-k kernel zero-padded to width K with
+    its tap j at offset left - (k-1)//2 + j (left = (K-1)//2), the K kernels
+    concatenated along the output channels, one conv padded (left,
+    K-1-left), as the reference's fused bank (`sstts/model/modules.py:161-185`).
     """
 
-    def __init__(self, d_in: int, bank_k: int, channels: int):
+    def __init__(self, d_in: int, bank_k: int, channels: int,
+                 dtype: torch.dtype = torch.float32, fused: bool = False):
         super().__init__()
         self.bank_k = bank_k
+        self.channels = channels
+        self.dtype = dtype
+        self.fused = fused
         for k in range(1, bank_k + 1):
             setattr(self, f"conv{k}", nn.Parameter(torch.empty(channels, d_in, k)))
-            setattr(self, f"bn{k}", MaskedBatchNorm(channels))
+            setattr(self, f"bn{k}", MaskedBatchNorm(channels, dtype=dtype))
+
+    def fused_kernel(self) -> torch.Tensor:
+        """The bank's kernels as one (K * channels, D, K) kernel."""
+        K, left = self.bank_k, (self.bank_k - 1) // 2
+        wide = []
+        for k in range(1, K + 1):
+            off = left - (k - 1) // 2
+            wide.append(F.pad(getattr(self, f"conv{k}"), (off, K - k - off)))
+        return torch.cat(wide, 0)
 
     def forward(
         self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
     ) -> torch.Tensor:
         if mask is not None:
             x = x * _mask3(mask, x)
-        xc = x.transpose(1, 2)  # (B, D, T)
-        outs = []
-        for k in range(1, self.bank_k + 1):
-            y = F.conv1d(F.pad(xc, ((k - 1) // 2, k // 2)), getattr(self, f"conv{k}"))
-            y = getattr(self, f"bn{k}")(y.transpose(1, 2), mask)
-            outs.append(F.relu(y))
+        K, C = self.bank_k, self.channels
+        if self.fused:
+            left = (K - 1) // 2
+            y = _conv(x, self.fused_kernel(), self.dtype, (left, K - 1 - left))
+            ys = [y[..., (k - 1) * C : k * C] for k in range(1, K + 1)]
+        else:
+            ys = [
+                _conv(x, getattr(self, f"conv{k}"), self.dtype, ((k - 1) // 2, k // 2))
+                for k in range(1, K + 1)
+            ]
+        outs = [F.relu(getattr(self, f"bn{k}")(y, mask)) for k, y in enumerate(ys, 1)]
         out = torch.cat(outs, dim=-1)
         if mask is not None:
             out = out * _mask3(mask, out)
@@ -155,22 +201,25 @@ class CBHG(nn.Module):
         highway_layers: int,
         highway_units: int,
         gru_units: int,
+        dtype: torch.dtype = torch.float32,
+        fused_bank: bool = False,
     ):
         super().__init__()
         if proj_channels[1] != d_in:
             raise ValueError(
                 f"CBHG residual dim mismatch: proj2={proj_channels[1]} vs input={d_in}"
             )
-        self.bank = Conv1dBank(d_in, bank_k, bank_channels)
+        self.dtype = dtype
+        self.bank = Conv1dBank(d_in, bank_k, bank_channels, dtype, fused_bank)
         self.proj1 = nn.Conv1d(bank_k * bank_channels, proj_channels[0], 3, padding=1, bias=False)
-        self.proj1_bn = MaskedBatchNorm(proj_channels[0])
+        self.proj1_bn = MaskedBatchNorm(proj_channels[0], dtype=dtype)
         self.proj2 = nn.Conv1d(proj_channels[0], proj_channels[1], 3, padding=1, bias=False)
-        self.proj2_bn = MaskedBatchNorm(proj_channels[1])
+        self.proj2_bn = MaskedBatchNorm(proj_channels[1], dtype=dtype)
         if d_in != highway_units:
             self.highway_in = nn.Linear(d_in, highway_units)
         self.highway_layers = highway_layers
         for i in range(highway_layers):
-            setattr(self, f"highway{i}", Highway(highway_units))
+            setattr(self, f"highway{i}", Highway(highway_units, dtype))
         self.gru = BiGRU(highway_units, gru_units)
 
     def forward(
@@ -183,17 +232,17 @@ class CBHG(nn.Module):
         y = torch.maximum(y, right)
         if mask is not None:
             y = torch.where(mask[..., None], y, torch.zeros_like(y))
-        y = self.proj1(y.transpose(1, 2)).transpose(1, 2)
+        y = _conv(y, self.proj1.weight, self.dtype, padding=1)
         y = F.relu(self.proj1_bn(y, mask))
         if mask is not None:
             y = y * _mask3(mask, y)
-        y = self.proj2(y.transpose(1, 2)).transpose(1, 2)
+        y = _conv(y, self.proj2.weight, self.dtype, padding=1)
         y = self.proj2_bn(y, mask)
         y = y + residual
         if hasattr(self, "highway_in"):
-            y = self.highway_in(y)
+            y = linear(y, self.highway_in, self.dtype)
         for i in range(self.highway_layers):
             y = getattr(self, f"highway{i}")(y)
         if mask is not None:
             y = y * _mask3(mask, y)
-        return self.gru(y, mask)
+        return self.gru(y, mask).to(self.dtype)

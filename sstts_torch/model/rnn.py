@@ -1,9 +1,14 @@
-"""GRU cell and sequence GRUs: the port of `sstts/model/rnn.py` (76-158).
+"""GRU cell and sequence GRUs: the port of `sstts/model/rnn.py` (49-158).
 
 Parameters keep the flax names and the fused r, z, n layout (wx (D, 3H),
 wh (H, 3H), b (3H,)), so weight conversion is a table.  Whole sequences go
 through `sstts_torch.ops.gru.gru_sequence`, which runs the CUDA kernel on
 the card and its plain version on the CPU.
+
+The GRUs compute in f32 under a bf16 compute dtype, as the reference's do:
+the cell upcasts its inputs and rounds its new state to its `dtype` (the
+decoder's carry), and the sequence GRUs return f32, which their caller
+casts (`sstts_torch.model.modules.CBHG`).
 """
 
 from __future__ import annotations
@@ -26,15 +31,22 @@ class _GRUParams(nn.Module):
 
 
 class GRUCell(_GRUParams):
-    """Fused-gate GRU step: (x (B, D), h (B, H)) -> new h (B, H)."""
+    """Fused-gate GRU step: (x (B, D), h (B, H)) -> new h (B, H), computed
+    in f32 and returned in the compute dtype."""
+
+    def __init__(self, d_in: int, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(d_in, features)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
-        return gru_step_math(x, h, self.wx, self.wh, self.b)
+        dt = self.wx.dtype
+        return gru_step_math(x.to(dt), h.to(dt), self.wx, self.wh, self.b).to(self.dtype)
 
 
 class UnidirectionalGRU(_GRUParams):
-    """(B, T, D), optional (B, T) mask -> (B, T, H); `reverse` scans right to
-    left with outputs in the original order; the carry freezes on padding."""
+    """(B, T, D), optional (B, T) mask -> (B, T, H) f32; `reverse` scans
+    right to left with outputs in the original order; the carry freezes on
+    padding."""
 
     def __init__(self, d_in: int, features: int, reverse: bool = False):
         super().__init__(d_in, features)
@@ -47,8 +59,8 @@ class UnidirectionalGRU(_GRUParams):
 
 
 class BiGRU(nn.Module):
-    """Bidirectional GRU: concat(forward, backward) -> (B, T, 2H).  The input
-    is masked before both directions."""
+    """Bidirectional GRU: concat(forward, backward) -> (B, T, 2H) f32.  The
+    input is masked before both directions."""
 
     def __init__(self, d_in: int, features: int):
         super().__init__()

@@ -1,7 +1,8 @@
 """The Tacotron model: the port of `sstts/model/tacotron.py`.
 
-char embedding -> pre-net -> CBHG encoder -> (Bahdanau-attention GRU +
-residual GRU stack, r frames/step) -> post-CBHG -> linear spectrogram.
+char embedding -> pre-net -> CBHG encoder -> (attention GRU, Bahdanau or
+local-Luong attention, residual GRU stack, r frames/step) -> post-CBHG ->
+linear spectrogram.
 Module and parameter names follow the flax tree (see
 `sstts_torch.convert`).
 
@@ -12,7 +13,16 @@ uses its running statistics and only the decoder prenet drops out (when
 `prenet_dropout_at_inference`, Tacotron-1's behaviour).  Dropout masks come
 from the `torch.Generator` the caller passes.  The teacher-forced scan runs
 the fused kernel on CUDA and, on the CPU, the plain module loop unless
-`teacher_impl="fused"` (`sstts_torch.ops.teacher.resolve_teacher_impl`).
+`teacher_impl="fused"` (`sstts_torch.ops.teacher.resolve_teacher_impl`;
+"auto" takes the plain loop on the card too where the kernel lacks the
+architecture, as for local-Luong attention).
+
+`arch.compute_dtype` is flax's compute dtype (`compute_dtype`): the
+parameters stay f32, the embedding, dense layers, convolutions and batch
+norm's output are in the compute dtype, the GRUs and the softmax in f32,
+and `forward` returns f32 for the losses (`sstts/model/tacotron.py:30-238`).
+The fused teacher scan takes the prenet output in f32 and its outputs are
+cast back to the compute dtype.
 """
 
 from __future__ import annotations
@@ -20,14 +30,22 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from sstts_torch.config import ArchitectureConfig, DatasetConfig
 from sstts_torch.data.text import charset_for
+from sstts_torch.model.attention import BahdanauAttention, linear
 from sstts_torch.model.decoder import DecoderCell, teacher_inputs
 from sstts_torch.model.modules import CBHG, Conv1dBank, Highway, PreNet
 from sstts_torch.model.rnn import _GRUParams
 from sstts_torch.ops import teacher as teacher_ops
+
+
+def compute_dtype(arch: ArchitectureConfig) -> torch.dtype:
+    """The torch dtype `arch.compute_dtype` names (the reference's rule:
+    "bfloat16" is bf16, anything else f32)."""
+    return torch.bfloat16 if arch.compute_dtype == "bfloat16" else torch.float32
 
 
 def _keep_masks(prenet: PreNet, shape, generator, active: bool):
@@ -47,33 +65,41 @@ class Tacotron(nn.Module):
         teacher_impl: Optional[str] = None,
         teacher_dtype: Optional[torch.dtype] = None,
     ):
-        """`teacher_impl` ("auto", "xla" or "fused"; None = "auto") picks
-        the teacher-forced scan; `teacher_dtype` is the fused scan's matmul
+        """`teacher_impl` ("auto", "xla" or "fused"; None = "auto") picks the
+        teacher-forced scan; `teacher_dtype` is the fused scan's matmul
         dtype (None: bf16 on CUDA, f32 on the CPU, as the JAX package takes
-        bf16 on its TPU and f32 elsewhere)."""
+        bf16 on its TPU and f32 elsewhere).  The compute dtype is
+        `arch.compute_dtype`'s."""
         super().__init__()
         a = arch
         self.arch = arch
         self.data = data
+        self.dtype = dt = compute_dtype(arch)
         self.teacher_impl = teacher_impl
         self.teacher_dtype = teacher_dtype
         vocab = a.vocab_size or charset_for(data.extra_chars).vocab_size
         self.embedding = nn.Embedding(vocab, a.embedding_dim)
-        self.encoder_prenet = PreNet(a.embedding_dim, a.prenet_units, a.prenet_dropout)
+        self.encoder_prenet = PreNet(a.embedding_dim, a.prenet_units, a.prenet_dropout, dt)
         self.encoder_cbhg = CBHG(
             a.prenet_units[-1], a.encoder_bank_k, a.encoder_bank_channels,
             a.encoder_proj_channels, a.encoder_highway_layers,
-            a.encoder_highway_units, a.encoder_gru_units,
+            a.encoder_highway_units, a.encoder_gru_units, dt, a.fused_conv_bank,
         )
         memory_dim = 2 * a.encoder_gru_units
-        self.decoder_cell = DecoderCell(a, data.n_mels, memory_dim)
+        self.decoder_cell = DecoderCell(a, data.n_mels, memory_dim, dt)
         # The second post projection returns to mel space by definition.
         post_proj = (a.post_proj_channels[0], data.n_mels)
         self.post_cbhg = CBHG(
             data.n_mels, a.post_bank_k, a.post_bank_channels, post_proj,
-            a.post_highway_layers, a.post_highway_units, a.post_gru_units,
+            a.post_highway_layers, a.post_highway_units, a.post_gru_units, dt,
+            a.fused_conv_bank,
         )
         self.linear_proj = nn.Linear(2 * a.post_gru_units, data.n_linear)
+
+    def embed(self, char_ids: torch.Tensor) -> torch.Tensor:
+        """flax's `Embed(dtype=...)`: the table in the compute dtype, then
+        the lookup."""
+        return F.embedding(char_ids, self.embedding.weight.to(self.dtype))
 
     def encode(
         self, char_ids: torch.Tensor, generator: Optional[torch.Generator] = None
@@ -81,7 +107,7 @@ class Tacotron(nn.Module):
         """(B, T) ids -> memory (B, T, 2*enc_gru), mask (B, T) bool.  The
         encoder prenet's dropout is train-time only."""
         mask = char_ids != 0
-        x = self.embedding(char_ids)
+        x = self.embed(char_ids)
         keep = _keep_masks(self.encoder_prenet, x.shape[:2], generator, self.training)
         x = self.encoder_prenet(x, keep)
         return self.encoder_cbhg(x, mask), mask
@@ -110,9 +136,10 @@ class Tacotron(nn.Module):
                 torch.bfloat16 if dev.type == "cuda" else torch.float32
             )
             xs, alignments = teacher_ops.fused_teacher_scan_ad(
-                teacher_ops.teacher_weights_from_cell(cell), pre, memory, keys,
+                teacher_ops.teacher_weights_from_cell(cell), pre.float(), memory, keys,
                 memory_mask.float(), dt,
             )
+            xs, alignments = xs.to(self.dtype), alignments.to(self.dtype)
         else:
             carry = cell.init_carry(memory)
             outs = []
@@ -121,8 +148,8 @@ class Tacotron(nn.Module):
                 outs.append(out)
             xs = torch.stack([x for x, _ in outs], 1)
             alignments = torch.stack([al for _, al in outs], 1)
-        mel = cell.frame_proj(xs).reshape(batch, steps * r, self.data.n_mels)
-        stops = cell.stop_proj(xs).reshape(batch, steps * r)
+        mel = linear(xs, cell.frame_proj, self.dtype).reshape(batch, steps * r, self.data.n_mels)
+        stops = linear(xs, cell.stop_proj, self.dtype).reshape(batch, steps * r)
         return mel, stops, alignments
 
     def decode_infer(
@@ -165,7 +192,7 @@ class Tacotron(nn.Module):
         self, mel: torch.Tensor, frame_mask: Optional[torch.Tensor]
     ) -> torch.Tensor:
         """Predicted mel -> linear spectrogram via the post-processing CBHG."""
-        return self.linear_proj(self.post_cbhg(mel, frame_mask))
+        return linear(self.post_cbhg(mel, frame_mask), self.linear_proj, self.dtype)
 
     def forward(
         self,
@@ -191,8 +218,9 @@ def init_state_dict(
 ) -> Dict[str, torch.Tensor]:
     """A seeded random init on the CPU, with the JAX package's initialiser
     families: LeCun-normal kernels, orthogonal recurrent weights, zero
-    biases, highway gate bias -1, Bahdanau v ~ U(-1, 1)/sqrt(A), batch-norm
-    running stats at mean 0 and var 1."""
+    biases, highway gate bias -1, Bahdanau v ~ U(-1, 1)/sqrt(A) (local-Luong
+    has only its two LeCun-normal projections), batch-norm running stats at
+    mean 0 and var 1."""
     g = torch.Generator().manual_seed(int(seed))
     model = Tacotron(arch, data)
 
@@ -222,7 +250,8 @@ def init_state_dict(
             if isinstance(mod, Highway):
                 mod.t.bias.fill_(-1.0)
         att = model.decoder_cell.attention
-        units = att.v.shape[0]
-        att.v.uniform_(-1.0, 1.0, generator=g).mul_(units ** -0.5)
-        att.b.zero_()
+        if isinstance(att, BahdanauAttention):
+            units = att.v.shape[0]
+            att.v.uniform_(-1.0, 1.0, generator=g).mul_(units ** -0.5)
+            att.b.zero_()
     return model.state_dict()

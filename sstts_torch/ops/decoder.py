@@ -203,6 +203,40 @@ def supports_arch(arch) -> bool:
     )
 
 
+def arch_dims(arch, n_mels: int) -> dict:
+    """The cell dimensions `check_widths` reads, from the config."""
+    return dict(P0=arch.prenet_units[0], P1=arch.prenet_units[-1], Ha=arch.attention_gru_units,
+                A=arch.attention_units, Hd=arch.decoder_gru_units, r=arch.reduction_factor,
+                M=n_mels, Dm=2 * arch.encoder_gru_units)
+
+
+def resolve_decoder_impl(override, arch, device, n_mels: int) -> str:
+    """"xla" (the plain module loop, `Tacotron.decode_infer`) or "fused"
+    (`fused_decode`) for `inference.decoder_impl` in (None, "auto", "xla",
+    "fused") on `device`, by the reference's rule
+    (`sstts/synthesize.py:245-268`): "auto" is the kernel on CUDA where it
+    implements the architecture (`supports_arch`), else the plain loop;
+    "fused" on an architecture it lacks raises ValueError.  A kernel chosen
+    on the card for a product wider than MAX_COLS raises
+    NotImplementedError (`check_widths`).  A pure function of its
+    arguments: nothing is launched."""
+    impl = override or "auto"
+    if impl not in ("auto", "xla", "fused"):
+        raise ValueError(f"unknown decoder_impl {impl!r}; expected 'auto', 'xla', 'fused'")
+    if impl == "fused" and not supports_arch(arch):
+        raise ValueError(
+            "decoder_impl='fused' implements only Bahdanau attention "
+            "with a 2-layer prenet and 2 decoder GRUs; this config "
+            "needs the XLA scan"
+        )
+    cuda = torch.device(device).type == "cuda"
+    if impl == "auto":
+        impl = "fused" if cuda and supports_arch(arch) else "xla"
+    if impl == "fused" and cuda:
+        check_widths(arch_dims(arch, n_mels))
+    return impl
+
+
 def weights_from_cell(cell, matmul_dtype: torch.dtype) -> DecoderWeights:
     """The decoder cell's parameters in kernel layout: Linear weights
     transposed to (in, out), matrices in the matmul dtype, vectors f32."""
@@ -360,16 +394,14 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, ld - cols)).contiguous()
 
 
-def check_widths(p: DecodeInputs) -> None:
-    """Raises NotImplementedError for a cell wider than MAX_COLS."""
-    w = p.w
-    widest = max(w.prenet_w0.shape[1], w.prenet_w1.shape[1], 3 * w.attn_wh.shape[0],
-                 p.keys.shape[-1], 3 * w.gru0_wh.shape[0], p.reduction * p.n_mels,
-                 p.memory.shape[-1])
+def check_widths(d: dict) -> None:
+    """Raises NotImplementedError for a cell, by its dimensions (`_dims`,
+    `arch_dims`), with a product wider than MAX_COLS (ROADMAP B.4)."""
+    widest = max(d["P0"], d["P1"], 3 * d["Ha"], d["A"], 3 * d["Hd"], d["r"] * d["M"], d["Dm"])
     if widest > MAX_COLS:
         raise NotImplementedError(
-            f"fused decode kernel keeps products up to {MAX_COLS} columns wide; "
-            f"this cell needs {widest}"
+            f"fused decode kernel keeps products up to {MAX_COLS} columns wide; this "
+            f"cell needs {widest} (a wider kernel is ROADMAP B.4)"
         )
 
 
@@ -443,7 +475,7 @@ def launch(lib: ctypes.CDLL, p: DecodeInputs) -> Dict[str, torch.Tensor]:
         getattr(w, n).dtype != dt for n in _MATRICES
     ):
         raise ValueError("fused decode: weights, memory and keys must share one dtype")
-    check_widths(p)
+    check_widths(_dims(p))
     if p.packed is None or p.schedule is None:
         raise ValueError("fused decode: no packed weights or schedule (prepare_decode "
                          "packs them when the inputs are on the card)")

@@ -14,6 +14,10 @@ On the card the recurrences come in two kinds, chosen here from H alone
 kernels that hold Wh in shared memory (H up to 137).  Neither stands in for
 the other: a kernel that fails to build or launch raises.
 
+On the card the kernels take H up to `MAX_HIDDEN`: `check_width` refuses a
+wider GRU with NotImplementedError, from the entry points' checks
+(`check_arch`) before anything is launched and again at each launch.
+
 Gradient: when grad mode is on and an input requires grad, the call goes
 through `_GRUSequence`, an `autograd.Function`.  Its forward also keeps the
 gates r, z, n, the recurrent candidate term hn and the carry before each
@@ -39,12 +43,37 @@ SIGNATURES = {
     "sstts_gru_sequence_backward": ([_P] * 7 + [_I] * 5 + [_P], _I),
     "sstts_gru_input_proj": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "sstts_gru_recurrence": ([_P] * 6 + [_I] * 5 + [_P], _I),
-    "sstts_gru_smem_bytes": ([_I], _I),
-    "sstts_gru_bwd_smem_bytes": ([_I], _I),
 }
 
 #: The `kind` argument of the C entry points (SSTTS_GRU_* in csrc/gru.cu).
 KIND_GENERIC, KIND_H128 = 0, 1
+
+
+def generic_smem_bytes(hidden: int) -> Tuple[int, int]:
+    """Shared memory of the generic forward and backward recurrences at
+    width H, as `sstts_gru_smem_bytes` and `sstts_gru_bwd_smem_bytes` in
+    csrc/gru.cu count it: Wh and the step's vectors, f32."""
+    return (3 * hidden * hidden + 7 * hidden) * 4, (3 * hidden * hidden + 8 * hidden) * 4
+
+
+#: The widest H both generic recurrences take within a block's shared memory.
+MAX_HIDDEN = max(h for h in range(1, 512) if max(generic_smem_bytes(h)) <= build.MAX_SMEM)
+
+
+def check_width(hidden: int, device) -> None:
+    """Raises NotImplementedError for a GRU of width H > MAX_HIDDEN on the
+    card (ROADMAP B.3); the plain versions on the CPU take any H."""
+    if torch.device(device).type == "cuda" and hidden > MAX_HIDDEN:
+        raise NotImplementedError(
+            f"the gru_sequence CUDA kernels take H up to {MAX_HIDDEN}; this GRU "
+            f"has H={hidden} (a wider kernel is ROADMAP B.3)"
+        )
+
+
+def check_arch(arch, device) -> None:
+    """`check_width` for each of `arch`'s sequence GRUs (the two CBHGs')."""
+    for hidden in (arch.encoder_gru_units, arch.post_gru_units):
+        check_width(hidden, device)
 
 
 def gru_step_math(x, h, wx, wh, b):
@@ -178,20 +207,10 @@ def kernel_kind(hidden: int) -> int:
     return KIND_H128 if hidden == 128 else KIND_GENERIC
 
 
-def _load(smem_fn: str, hidden: int):
-    """The library and the kind of kernel for width H; raises where that
-    kernel cannot take H."""
-    lib = build.load("gru", SIGNATURES)
-    kind = kernel_kind(hidden)
-    if kind == KIND_GENERIC:
-        smem = getattr(lib, smem_fn)(hidden)
-        if smem > build.MAX_SMEM:
-            raise NotImplementedError(
-                f"the generic gru_sequence CUDA kernel keeps Wh (H x 3H, f32) in "
-                f"shared memory: H={hidden} needs {smem} bytes of the "
-                f"{build.MAX_SMEM} a block may use"
-            )
-    return lib, kind
+def _load(hidden: int, device):
+    """The library and the kind of kernel for width H."""
+    check_width(hidden, device)
+    return build.load("gru", SIGNATURES), kernel_kind(hidden)
 
 
 def _mask_f32(mask, dev):
@@ -211,7 +230,7 @@ def _ptr(t):
 def _kernel(xs, wx, wh, b, mask, reverse, save: bool):
     batch, t_len, d_in = xs.shape
     hidden = wh.shape[0]
-    lib, kind = _load("sstts_gru_smem_bytes", hidden)
+    lib, kind = _load(hidden, xs.device)
     dev = xs.device
     f32 = dict(device=dev, dtype=torch.float32)
     xs_c, wx_c, wh_c, b_c = (_dense(a) for a in (xs, wx, wh, b))
@@ -255,7 +274,7 @@ def gru_sequence_backward(
             f"gru_sequence_backward: shapes dout {tuple(dout.shape)}, gates "
             f"{tuple(gates.shape)}, hprev {tuple(hprev.shape)}, wh {tuple(wh.shape)}"
         )
-    lib, kind = _load("sstts_gru_bwd_smem_bytes", hidden)
+    lib, kind = _load(hidden, dout.device)
     dev = dout.device
     dout_c, gates_c, hprev_c, wh_c = (_dense(a) for a in (dout, gates, hprev, wh))
     m_c = _mask_f32(mask, dev)

@@ -24,11 +24,12 @@ parameters, cast inside the wrapper and never detached from the graph; the
 backward recomputes the scan through the plain f32 version under autograd.
 A backward kernel is later work (ROADMAP B.6).
 
-Implementation choice (`resolve_teacher_impl`): on CUDA the scan always
-runs the kernel, and "xla" (the JAX scan) raises; on the CPU "auto" is the
-plain module loop (`DecoderCell.teacher_step`), as JAX's CPU "auto" is its
-scan, and "fused" is this module's plain version under the same
-`autograd.Function`.
+Implementation choice (`resolve_teacher_impl`): "xla", the reference's
+name for its scan, is the plain module loop (`DecoderCell.teacher_step`)
+on any device; "auto" is the kernel on CUDA where it implements the
+architecture (Bahdanau attention, 2 decoder GRUs) and the plain loop
+elsewhere, as JAX's CPU "auto" is its scan; "fused" on the CPU is this
+module's plain version under the same `autograd.Function`.
 """
 
 from __future__ import annotations
@@ -70,26 +71,33 @@ def supports_teacher_arch(arch) -> bool:
     return arch.attention_type == "bahdanau" and arch.decoder_gru_layers == 2
 
 
-def resolve_teacher_impl(override, arch, device: torch.device) -> str:
+def arch_dims(arch) -> dict:
+    """The scan's dimensions `check_widths` reads, from the config."""
+    return dict(Ha=arch.attention_gru_units, A=arch.attention_units,
+                Dm=2 * arch.encoder_gru_units, Hd=arch.decoder_gru_units)
+
+
+def resolve_teacher_impl(override, arch, device) -> str:
     """"xla" (the plain module loop) or "fused" (this module's scan) for an
-    override in (None, "auto", "xla", "fused") on `device`."""
+    override in (None, "auto", "xla", "fused") on `device`: "auto" is the
+    kernel on CUDA where it implements the architecture, else the plain
+    loop; "fused" on an architecture it lacks raises ValueError, as the
+    reference does.  A kernel chosen on the card for a product wider than
+    MAX_COLS raises NotImplementedError (`check_widths`).  A pure function of its arguments:
+    nothing is launched."""
     impl = override or "auto"
     if impl not in ("auto", "xla", "fused"):
         raise ValueError(f"unknown teacher decoder impl: {impl!r}")
-    if device.type == "cuda":
-        if impl == "xla":
-            raise NotImplementedError(
-                "teacher decoder impl 'xla' names the JAX scan; on CUDA the "
-                "port runs the teacher-forced scan with its kernel only"
-            )
-        impl = "fused"
-    elif impl == "auto":
-        impl = "xla"
     if impl == "fused" and not supports_teacher_arch(arch):
-        raise NotImplementedError(
-            "the fused teacher scan implements Bahdanau attention with "
-            "exactly 2 decoder GRUs; this architecture is not supported"
+        raise ValueError(
+            "teacher decoder impl 'fused' requires Bahdanau attention and "
+            "exactly 2 decoder GRUs — use 'xla' for this architecture"
         )
+    cuda = torch.device(device).type == "cuda"
+    if impl == "auto":
+        impl = "fused" if cuda and supports_teacher_arch(arch) else "xla"
+    if impl == "fused" and cuda:
+        check_widths(arch_dims(arch))
     return impl
 
 
@@ -244,13 +252,14 @@ def longest_text(lib: ctypes.CDLL, d: dict) -> int:
     return dec.longest_fit(smem)
 
 
-def check_widths(w: TeacherWeights, d: dict) -> None:
-    """Raises NotImplementedError for a product wider than MAX_COLS."""
+def check_widths(d: dict) -> None:
+    """Raises NotImplementedError for a scan, by its dimensions (`dims`,
+    `arch_dims`), with a product wider than MAX_COLS (ROADMAP B.6)."""
     widest = max(3 * d["Ha"], d["A"], d["Dm"], d["Hd"], 3 * d["Hd"])
     if widest > MAX_COLS:
         raise NotImplementedError(
-            f"fused teacher scan kernel keeps products up to {MAX_COLS} columns "
-            f"wide; this cell needs {widest}"
+            f"the fused teacher scan kernel keeps products up to {MAX_COLS} columns "
+            f"wide; this cell needs {widest} (a wider kernel is ROADMAP B.6)"
         )
 
 
@@ -281,7 +290,7 @@ def launch(lib: ctypes.CDLL, w: TeacherWeights, pre, memory, keys, maskf,
         raise NotImplementedError(f"fused teacher scan matmul dtype {dt}")
     dev = pre.device
     d = dims(w, pre, memory, keys)
-    check_widths(w, d)
+    check_widths(d)
     args = _TeacherArgs(**d)
     smem = lib.sstts_teacher_smem_bytes(ctypes.byref(args))
     if smem > build.MAX_SMEM:

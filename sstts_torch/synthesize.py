@@ -10,9 +10,14 @@ default raises.  On the card hand-written kernels carry the path: the
 BiGRUs (`sstts_torch.ops.gru`), the whole decode (`sstts_torch.ops.decoder`)
 and the Griffin-Lim iteration the config names (`sstts_torch.dsp.gl_fused`
 for "semi" and "fused", `sstts_torch.dsp.reproject` for "split").  On the
-CPU the same wrappers take their plain versions, and the decoder follows
-the JAX package's CPU choice: "auto" is the plain module loop in f32,
-"fused" the kernel's plain version.
+CPU the same wrappers take their plain versions.  The decoder follows the
+reference's choice (`sstts_torch.ops.decoder.resolve_decoder_impl`):
+"auto" is the kernel on the card where it implements the architecture and
+the plain module loop elsewhere (the CPU, local-Luong attention, other
+topologies), "xla" the plain loop on any device, "fused" the kernel (its
+plain version on the CPU).  A bf16 model (`arch.compute_dtype`) hands its
+bf16 linear spectrogram to Griffin-Lim as the reference's does: dB to
+magnitude in bf16, the loop in its `fft_impl`'s dtype.
 
 `synthesize_stream` keeps up to `depth` batches in flight: each batch's
 launches are enqueued and its wire is copied to pinned host memory behind
@@ -40,6 +45,7 @@ from sstts_torch.dsp import ops as dsp_ops
 from sstts_torch.dsp.griffin_lim import GL_FFT_IMPL, resolve_iter_impl, spectrogram_to_wav
 from sstts_torch.model.tacotron import Tacotron
 from sstts_torch.ops import decoder as decoder_ops
+from sstts_torch.ops import gru as gru_ops
 
 
 def _round_up(x: int, m: int) -> int:
@@ -58,24 +64,14 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def check_supported(cfg: Config, device: torch.device) -> None:
-    """Raise NotImplementedError for configuration values this slice of the
-    port does not implement (ROADMAP queue A names each)."""
+def check_supported(cfg: Config, device: torch.device) -> str:
+    """Resolve the implementation choices for `cfg` on `device` before
+    anything is launched, raising for what the port does not implement;
+    returns the decoder's ("fused" or "xla",
+    `sstts_torch.ops.decoder.resolve_decoder_impl`).  Every architecture the
+    reference's model accepts is accepted; on the card the kernels' width
+    limits (ROADMAP B.3, B.4) raise NotImplementedError."""
     a, inf = cfg.arch, cfg.inference
-    if a.attention_type != "bahdanau":
-        raise NotImplementedError(
-            "attention_type='local_luong' is not ported yet (ROADMAP A: "
-            "local-Luong attention)"
-        )
-    if a.fused_conv_bank:
-        raise NotImplementedError(
-            "fused_conv_bank=True is not ported yet (ROADMAP A: fused conv bank)"
-        )
-    if a.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={a.compute_dtype!r} is not ported yet (ROADMAP A: "
-            "compute_dtype='bfloat16')"
-        )
     if inf.wire_format not in dsp_ops.WIRE_FORMATS:
         raise ValueError(
             f"unknown wire_format {inf.wire_format!r}; expected one of "
@@ -85,27 +81,19 @@ def check_supported(cfg: Config, device: torch.device) -> None:
         inf.griffin_lim_iter_impl, inf.griffin_lim_momentum,
         inf.griffin_lim_fft_impl or GL_FFT_IMPL, device,
     )
-    impl = inf.decoder_impl or "auto"
-    if impl not in ("auto", "xla", "fused"):
-        raise ValueError(f"unknown decoder_impl {impl!r}")
-    if device.type == "cuda":
-        if impl == "xla":
-            raise NotImplementedError(
-                "decoder_impl='xla' names the JAX scan; on CUDA the port "
-                "decodes with its kernel only ('auto'/'fused')"
-            )
-        if not decoder_ops.supports_arch(a):
-            raise NotImplementedError(
-                "the CUDA decoder implements a 2-layer prenet and 2 decoder GRUs"
-            )
+    gru_ops.check_arch(a, device)
+    return decoder_ops.resolve_decoder_impl(
+        inf.decoder_impl, a, device, cfg.dataset.n_mels
+    )
 
 
 @contextlib.contextmanager
 def exact_f32(device: torch.device):
-    """Full-f32 convolutions and matmuls on CUDA.  cuDNN convs default to
-    TF32 (about three decimal digits), and cuBLAS may reduce bf16 GEMMs in
-    bf16; the model is f32 and is held to the JAX package, so both are off
-    for the forward and restored after."""
+    """The reference's precision on CUDA: full-f32 convolutions and matmuls
+    for the f32 parts (cuDNN convs and cuBLAS default to TF32, about three
+    decimal digits) and f32 accumulation for the bf16 GEMMs of a
+    `compute_dtype="bfloat16"` model (cuBLAS may otherwise reduce them in
+    bf16), as XLA accumulates; both restored after."""
     if device.type != "cuda":
         yield
         return
@@ -145,14 +133,12 @@ class Synthesizer:
         device=None,
     ):
         self.device = resolve_device(device)
-        check_supported(cfg, self.device)
+        self._decoder_impl = check_supported(cfg, self.device)
         self.cfg = cfg
         model = Tacotron(cfg.arch, cfg.dataset)
         model.load_state_dict(params, strict=True)
         self.model = model.to(self.device).eval()
         self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
-        impl = cfg.inference.decoder_impl or "auto"
-        self._use_fused = self.device.type == "cuda" or impl == "fused"
 
     @classmethod
     def from_checkpoint(
@@ -183,7 +169,7 @@ class Synthesizer:
         cfg = self.cfg
         memory, mmask = self.model.encode(char_ids)
         keep = self._keep_masks(char_ids.shape[0], max_steps)
-        if self._use_fused:
+        if self._decoder_impl == "fused":
             dec = decoder_ops.fused_decode(
                 self.model.decoder_cell, memory, mmask, max_steps,
                 stop_threshold=cfg.inference.stop_threshold,
@@ -313,7 +299,11 @@ class Synthesizer:
             if missing:
                 raise ValueError(f"fetch must include {sorted(missing)}")
             out = {k: out[k] for k in fetch}
-        host = {k: v.cpu().numpy() for k, v in out.items()}
+        # numpy has no bf16: a bf16 model's mel, linear and alignments leave as f32.
+        host = {
+            k: (v.float() if v.dtype == torch.bfloat16 else v).cpu().numpy()
+            for k, v in out.items()
+        }
         wavs = [
             np.asarray(host["wav"][i, : int(host["n_samples"][i])])
             for i in range(len(texts))

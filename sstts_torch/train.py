@@ -36,8 +36,11 @@ every module, autograd's anomaly mode for the backward), as
 from disk, or makes the synthetic one.  `train` logs through
 `sstts_torch.utils.logging.MetricsLogger`, in the JAX package's record
 shape, with the eval media (alignment and mel images, Griffin-Lim audio of
-the last eval batch).  Not ported (ROADMAP A): meshes (`model_parallel`),
-`compute_dtype="bfloat16"` and the fused conv bank.
+the last eval batch).  Every architecture the reference's model accepts
+trains here: at `compute_dtype="bfloat16"` the model computes in bf16
+while the parameters, the losses, gradient clipping, Adam and the EMA stay
+f32, as in the reference.  Not ported (ROADMAP A.14): meshes
+(`model_parallel`).
 """
 
 from __future__ import annotations
@@ -63,6 +66,8 @@ from sstts_torch.data.synthetic import make_utterances
 from sstts_torch.dsp.ops import wav_to_features
 from sstts_torch.model.losses import frame_mask_from_lengths, tacotron_loss
 from sstts_torch.model.tacotron import Tacotron, init_state_dict
+from sstts_torch.ops import gru as gru_ops
+from sstts_torch.ops.teacher import resolve_teacher_impl
 from sstts_torch.synthesize import exact_f32, resolve_device
 from sstts_torch.utils.logging import MetricsLogger
 
@@ -93,16 +98,15 @@ def lr_schedule(cfg: Config) -> Callable[[int], float]:
     return sched
 
 
-def check_trainable(cfg: Config) -> None:
-    """Raise NotImplementedError for training settings this port does not
-    implement (ROADMAP A names each)."""
+def check_trainable(cfg: Config, device: Optional[torch.device] = None) -> None:
+    """Raise for training settings this port does not implement (ROADMAP A
+    names each); with a `device`, also check the BiGRUs' widths and
+    resolve the teacher-forced scan there, before anything is launched (on
+    the card the kernels' width limits raise NotImplementedError)."""
     a, t = cfg.arch, cfg.training
-    if a.fused_conv_bank:
-        raise NotImplementedError("fused_conv_bank=True is not ported yet (ROADMAP A.10)")
-    if a.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={a.compute_dtype!r} is not ported yet (ROADMAP A.9)"
-        )
+    if device is not None:
+        gru_ops.check_arch(a, device)
+        resolve_teacher_impl(None, a, device)
     if t.model_parallel > 1:
         raise NotImplementedError("model_parallel > 1 is not ported yet (ROADMAP A.14)")
     if not 0.0 <= t.ema_decay < 1.0:
@@ -119,8 +123,8 @@ def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
 def create_state(cfg: Config, seed: Optional[int] = None, device=None) -> TrainState:
     """A seeded random init (`init_state_dict`) on `device` (None: the card)
     with fresh Adam moments."""
-    check_trainable(cfg)
     dev = resolve_device(device)
+    check_trainable(cfg, dev)
     model = Tacotron(cfg.arch, cfg.dataset)
     model.load_state_dict(
         init_state_dict(cfg.arch, cfg.dataset, cfg.training.seed if seed is None else seed)

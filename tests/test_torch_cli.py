@@ -186,6 +186,37 @@ def test_cli_precompute_stats_then_train_from_the_cache(run, tmp_path, monkeypat
                          "--set", f"dataset.cache_dir={cache}"], device="cpu") == 0
 
 
+def test_cli_architecture_settings_reach_the_model(run, tmp_path, monkeypatch, capsys):
+    """`--set arch.compute_dtype=bfloat16`, `arch.attention_type=local_luong`
+    and `arch.fused_conv_bank=True` train, evaluate and synthesize: the
+    checkpoint's config carries them and the restored model computes in
+    bf16 with Luong attention and the fused bank."""
+    from sstts_torch.model.attention import LocalLuongAttention
+    from sstts_torch.synthesize import Synthesizer
+
+    _, corpus, _ = run
+    _patch(monkeypatch, corpus)
+    workdir = str(tmp_path / "variants")
+    sets = ["--set", "arch.compute_dtype=bfloat16", "--set", "arch.attention_type=local_luong",
+            "--set", "arch.fused_conv_bank=True"]
+    assert cli_mod.main(["train", "--workdir", workdir, "--max-steps", "1", *sets],
+                        device="cpu") == 0
+    assert cli_mod.main(["evaluate", "--workdir", workdir, "--num-batches", "1", *sets],
+                        device="cpu") == 0
+    assert "resynthesis_mel_l1" in capsys.readouterr().out
+    out = tmp_path / "v.wav"
+    assert cli_mod.main(["synthesize", "--workdir", workdir, "--text", "hello there",
+                         "--out", str(out), *sets], device="cpu") == 0
+    assert out.exists() and out.stat().st_size > 44
+    synth = Synthesizer.from_checkpoint(workdir, device="cpu")
+    a = synth.cfg.arch
+    assert (a.compute_dtype, a.attention_type, a.fused_conv_bank) == (
+        "bfloat16", "local_luong", True)
+    assert synth.model.dtype == torch.bfloat16 and synth.model.encoder_cbhg.bank.fused
+    assert isinstance(synth.model.decoder_cell.attention, LocalLuongAttention)
+    assert synth._decoder_impl == "xla"
+
+
 def test_cli_runs_on_the_card_by_default(run, tmp_path, monkeypatch):
     """From the shell every command runs on CUDA; without it, it raises
     and does not fall back to the CPU."""

@@ -268,14 +268,14 @@ def test_widest_product_the_kernel_takes(kernel, cols, ok):
         p = inputs("tiny", torch.bfloat16, 7)
         w = p.w._replace(frame_w=torch.zeros(p.w.frame_w.shape[0], cols, dtype=torch.bfloat16))
         p = p._replace(w=w, n_mels=cols, reduction=1)
-        check = lambda: dec.check_widths(p)  # noqa: E731
+        check = lambda: dec.check_widths(dec._dims(p))  # noqa: E731
         refuse = lambda: dec.launch(None, p)  # noqa: E731
         products = dec.step_products(dec.weight_layout(w), 7, p.keys.shape[-1],
                                      p.memory.shape[-1], 2)
     else:
         w, pre, memory, keys, maskf = teacher_inputs("tiny", torch.bfloat16, 7, widen=cols)
         d = tops.dims(w, pre, memory, keys)
-        check = lambda: tops.check_widths(w, d)  # noqa: E731
+        check = lambda: tops.check_widths(d)  # noqa: E731
         refuse = lambda: tops.launch(None, w, pre, memory, keys, maskf, torch.bfloat16)  # noqa: E731
         products = tops.step_products(w, d, torch.bfloat16)
     if ok:

@@ -1,0 +1,163 @@
+"""Which implementation runs where: `resolve_decoder_impl` and
+`resolve_teacher_impl` over every override, architecture and device, held
+to the reference's own resolvers, and the kernels' width limits (B3's by
+`sstts_torch.ops.gru.check_width`).  Resolution is a pure function of the config and
+the device: nothing here needs a card or launches anything.
+
+The decoder on CUDA must resolve as the reference's does on its TPU (the
+backend where its kernel runs) and on the CPU as the reference's does on
+the CPU; "fused" on an architecture the kernel lacks raises the
+reference's ValueError.  The teacher-forced scan differs by design in one
+cell: the reference's "auto" is its scan everywhere (its TPU kernel lost
+there), the port's "auto" on CUDA is B6 where B6 implements the
+architecture.
+"""
+
+import dataclasses
+import re
+import types
+from pathlib import Path
+
+import pytest
+import torch
+
+import sstts.synthesize as jsynth
+from sstts.config import tiny_config as jax_tiny_config
+from sstts.ops import pallas_decoder as jpd
+from sstts_torch.config import tiny_config
+from sstts_torch.ops import build
+from sstts_torch.ops import decoder as dec_ops
+from sstts_torch.ops import gru as gru_ops
+from sstts_torch.ops import teacher as tops
+from sstts_torch.synthesize import Synthesizer
+
+OVERRIDES = (None, "auto", "xla", "fused")
+ARCHS = {
+    "bahdanau": {},
+    "luong": {"attention_type": "local_luong"},
+    "three_decoder_grus": {"decoder_gru_layers": 3},
+    "one_prenet_layer": {"prenet_units": (32,)},
+}
+CPU, CUDA = torch.device("cpu"), torch.device("cuda")
+
+
+def _arch(name, cfg=None):
+    cfg = cfg or tiny_config()
+    return dataclasses.replace(cfg.arch, **ARCHS[name])
+
+
+def _outcome(fn):
+    """The value `fn()` returns, or (the exception's type, its message)."""
+    try:
+        return fn()
+    except (ValueError, NotImplementedError) as e:
+        return type(e), str(e)
+
+
+def _reference_decoder(override, arch, backend, monkeypatch):
+    """The reference's `Synthesizer._resolve_decoder_impl` with JAX's
+    default backend reading `backend`."""
+    cfg = jax_tiny_config()
+    cfg = cfg.replace(arch=arch, inference=dataclasses.replace(cfg.inference,
+                                                               decoder_impl=override))
+    monkeypatch.setattr(jsynth.jax, "default_backend", lambda: backend)
+    fake = types.SimpleNamespace(cfg=cfg, _gspmd_multidev=False)
+    return _outcome(lambda: jsynth.Synthesizer._resolve_decoder_impl(fake))
+
+
+@pytest.mark.parametrize("arch_name", sorted(ARCHS))
+@pytest.mark.parametrize("override", OVERRIDES, ids=str)
+def test_decoder_impl_matches_the_reference(override, arch_name, monkeypatch):
+    port_arch = _arch(arch_name)
+    jax_arch = _arch(arch_name, jax_tiny_config())
+    assert dec_ops.supports_arch(port_arch) == jpd.supports_arch(jax_arch)
+    for device, backend in ((CPU, "cpu"), (CUDA, "tpu")):
+        got = _outcome(lambda: dec_ops.resolve_decoder_impl(override, port_arch, device, 20))
+        ref = _reference_decoder(override, jax_arch, backend, monkeypatch)
+        assert got == ref, (device, got, ref)
+    if override == "fused" and arch_name != "bahdanau":
+        assert got[0] is ValueError
+
+
+@pytest.mark.parametrize("arch_name", sorted(ARCHS))
+@pytest.mark.parametrize("override", OVERRIDES, ids=str)
+def test_teacher_impl_matches_the_reference(override, arch_name):
+    port_arch = _arch(arch_name)
+    jax_arch = _arch(arch_name, jax_tiny_config())
+    assert tops.supports_teacher_arch(port_arch) == jpd.supports_teacher_arch(jax_arch)
+    ref = _outcome(lambda: jpd.resolve_teacher_impl(override, jax_arch))
+    assert _outcome(lambda: tops.resolve_teacher_impl(override, port_arch, CPU)) == ref
+    got = _outcome(lambda: tops.resolve_teacher_impl(override, port_arch, CUDA))
+    if override in (None, "auto") and tops.supports_teacher_arch(port_arch):
+        assert got == "fused"  # B6 on the card; the reference's "auto" is its scan
+    else:
+        assert got == ref
+
+
+@pytest.mark.parametrize("override", ["auto", "fused"])
+def test_width_limits_raise_on_the_card_only(override):
+    """A product wider than B4's and B6's 1024 columns: NotImplementedError
+    on CUDA, naming ROADMAP B; the plain versions on the CPU take it."""
+    wide = dataclasses.replace(tiny_config().arch, attention_units=1280)
+    with pytest.raises(NotImplementedError, match=r"1280 \(a wider kernel is ROADMAP B.4\)"):
+        dec_ops.resolve_decoder_impl(override, wide, CUDA, 20)
+    with pytest.raises(NotImplementedError, match=r"1280 \(a wider kernel is ROADMAP B.6\)"):
+        tops.resolve_teacher_impl(override, wide, CUDA)
+    expected = "fused" if override == "fused" else "xla"
+    assert dec_ops.resolve_decoder_impl(override, wide, CPU, 20) == expected
+    assert tops.resolve_teacher_impl(override, wide, CPU) == expected
+    assert dec_ops.resolve_decoder_impl("xla", wide, CUDA, 20) == "xla"
+    # The widest the kernels take: r * n_mels = 1024 columns.
+    edge = dataclasses.replace(tiny_config().arch, reduction_factor=8)
+    assert dec_ops.resolve_decoder_impl(override, edge, CUDA, 128) == "fused"
+    with pytest.raises(NotImplementedError):
+        dec_ops.resolve_decoder_impl(override, edge, CUDA, 129)
+
+
+@pytest.mark.parametrize("hidden", [1, 16, 128, 137, 138, 160])
+def test_gru_width_check(hidden):
+    """The card's GRU kernels take H up to MAX_HIDDEN (137); a wider GRU
+    raises NotImplementedError naming ROADMAP B.3 on CUDA only, from
+    `check_width` and from `check_arch` for either CBHG's GRU."""
+    gru_ops.check_width(hidden, CPU)
+    for field in ("encoder_gru_units", "post_gru_units"):
+        arch = dataclasses.replace(tiny_config().arch, **{field: hidden})
+        gru_ops.check_arch(arch, CPU)
+        if hidden <= gru_ops.MAX_HIDDEN:
+            gru_ops.check_width(hidden, CUDA)
+            gru_ops.check_arch(arch, CUDA)
+        else:
+            for check in (lambda: gru_ops.check_width(hidden, CUDA),
+                          lambda: gru_ops.check_arch(arch, CUDA)):
+                with pytest.raises(NotImplementedError, match=rf"H={hidden} .*ROADMAP B.3"):
+                    check()
+
+
+def test_gru_width_limit_follows_the_kernel_source():
+    """`generic_smem_bytes` repeats csrc/gru.cu's two shared-memory counts;
+    MAX_HIDDEN is the widest H both fit in a block (137)."""
+    src = Path(build.CSRC / "gru.cu").read_text()
+    formulas = [
+        re.search(rf"int {name}\(int H\) {{ return (.*?); }}", src).group(1)
+        for name in ("sstts_gru_smem_bytes", "sstts_gru_bwd_smem_bytes")
+    ]
+    for h in (1, 16, 128, 137, 138, 160):
+        assert gru_ops.generic_smem_bytes(h) == tuple(eval(f, {"H": h}) for f in formulas)
+    assert gru_ops.MAX_HIDDEN == 137
+    assert max(gru_ops.generic_smem_bytes(137)) <= build.MAX_SMEM
+    assert max(gru_ops.generic_smem_bytes(138)) > build.MAX_SMEM
+
+
+def test_synthesizer_resolves_before_anything_runs():
+    """The Synthesizer resolves its decoder at construction: "fused" with
+    Luong raises the reference's ValueError there; "xla" and Luong's
+    "auto" take the plain loop."""
+    cfg = tiny_config()
+    luong = cfg.replace(arch=dataclasses.replace(cfg.arch, attention_type="local_luong"))
+    fused = luong.replace(inference=dataclasses.replace(luong.inference, decoder_impl="fused"))
+    with pytest.raises(ValueError, match="decoder_impl='fused' implements only Bahdanau"):
+        Synthesizer(fused, {}, device="cpu")
+    from sstts_torch.model.tacotron import init_state_dict
+
+    params = init_state_dict(luong.arch, luong.dataset, seed=0)
+    assert Synthesizer(luong, params, device="cpu")._decoder_impl == "xla"

@@ -52,9 +52,58 @@ def test_port_imports_no_jax_and_no_sstts():
         "sstts_torch.data.features_cache", "sstts_torch.data.statistics",
         "sstts_torch.dsp.resample", "sstts_torch.dsp.metrics",
         "sstts_torch.utils.logging", "sstts_torch.utils.visualization",
-        "sstts_torch.tools.overfit_demo",
+        "sstts_torch.tools.overfit_demo", "sstts_torch.model.attention",
+        "sstts_torch.model.modules", "sstts_torch.model.rnn",
+        "sstts_torch.model.decoder", "sstts_torch.utils.profiling",
     ):
         assert expected in res["modules"]
+
+
+def test_package_names_match_the_reference_and_import_no_torch():
+    """`import sstts_torch` gives the reference's top-level names (the
+    config classes, `tiny_config`, a lazy `Synthesizer`) and, like `import
+    sstts` with JAX, imports no torch until `Synthesizer` is asked for."""
+    import sstts
+
+    code = (
+        "import json, sys\n"
+        "import sstts_torch\n"
+        "before = 'torch' in sys.modules\n"
+        "names = sorted(sstts_torch.__all__)\n"
+        "cls = sstts_torch.Synthesizer\n"
+        "print(json.dumps({'before': before, 'names': names, 'after': 'torch' in sys.modules,"
+        " 'cls': cls.__module__ + '.' + cls.__name__}))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["before"] is False and res["after"] is True
+    assert res["names"] == sorted(sstts.__all__)
+    assert res["cls"] == "sstts_torch.synthesize.Synthesizer"
+    import sstts_torch
+
+    for name in sstts.__all__:
+        if name != "Synthesizer":
+            assert getattr(sstts_torch, name) is getattr(port_config, name)
+    with pytest.raises(AttributeError):
+        sstts_torch.Nothing  # noqa: B018
+
+
+def test_profiling_helpers_match_the_reference(tmp_path):
+    """`timed` returns the reference's keys; `trace` writes a trace file."""
+    from sstts.utils import profiling as jprof
+    from sstts_torch.utils import profiling
+
+    got = profiling.timed(lambda x: x @ x, torch.ones(8, 8), trials=4, warmup=1)
+    ref = jprof.timed(lambda x: x @ x, np.ones((8, 8), np.float32), trials=4, warmup=1)
+    assert set(got) == set(ref)
+    assert got["trials"] == 4.0 and 0.0 <= got["p10_s"] <= got["median_s"] <= got["p90_s"]
+    with profiling.trace(tmp_path / "trace"):
+        torch.ones(16).sum()
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert trace["traceEvents"]
 
 
 @pytest.mark.parametrize(
@@ -148,28 +197,55 @@ def test_cpu_gradients_do_not_launch():
 
 
 _REFUSALS = [
-    ("arch", {"attention_type": "local_luong"}, "cpu", NotImplementedError),
-    ("arch", {"fused_conv_bank": True}, "cpu", NotImplementedError),
-    ("arch", {"compute_dtype": "bfloat16"}, "cpu", NotImplementedError),
     # As the JAX package: the fused iteration has no momentum variant, and
     # an unknown wire is refused.
-    ("inference", {"griffin_lim_iter_impl": "fused", "griffin_lim_momentum": 0.99},
+    ({"inference": {"griffin_lim_iter_impl": "fused", "griffin_lim_momentum": 0.99}},
      "cpu", ValueError),
-    ("inference", {"wire_format": "opus"}, "cpu", ValueError),
-    ("inference", {"decoder_impl": "xla"}, "cuda", NotImplementedError),
+    ({"inference": {"wire_format": "opus"}}, "cpu", ValueError),
     # B2 and B5 are bf16 only: the f32 loop on the card runs "split".
-    ("inference", {"griffin_lim_fft_impl": "dft_highest"}, "cuda", NotImplementedError),
-    ("inference", {"griffin_lim_iter_impl": "fused", "griffin_lim_fft_impl": "dft_high"},
+    ({"inference": {"griffin_lim_fft_impl": "dft_highest"}}, "cuda", NotImplementedError),
+    ({"inference": {"griffin_lim_iter_impl": "fused", "griffin_lim_fft_impl": "dft_high"}},
+     "cuda", NotImplementedError),
+    # The decode kernel on an architecture it lacks: the reference's ValueError.
+    ({"arch": {"attention_type": "local_luong"}, "inference": {"decoder_impl": "fused"}},
+     "cpu", ValueError),
+    # The kernels' width limits on the card (ROADMAP B.3, B.4).
+    ({"arch": {"encoder_gru_units": 160}}, "cuda", NotImplementedError),
+    ({"arch": {"attention_units": 1280}, "inference": {"decoder_impl": "fused"}},
      "cuda", NotImplementedError),
 ]
 
 
-@pytest.mark.parametrize("section,fields,device,error", _REFUSALS)
-def test_unported_config_values_raise(section, fields, device, error):
-    cfg = port_config.tiny_config()
-    cfg = cfg.replace(**{section: dataclasses.replace(getattr(cfg, section), **fields)})
+def _with(cfg, sections):
+    return cfg.replace(**{
+        name: dataclasses.replace(getattr(cfg, name), **fields)
+        for name, fields in sections.items()
+    })
+
+
+@pytest.mark.parametrize("sections,device,error", _REFUSALS)
+def test_unported_config_values_raise(sections, device, error):
+    cfg = _with(port_config.tiny_config(), sections)
     with pytest.raises(error):
         check_supported(cfg, torch.device(device))
+
+
+#: Values the port refused before it took every architecture of the
+#: reference's model, with the decoder each resolves to.
+_ACCEPTED = [
+    ({"arch": {"attention_type": "local_luong"}}, "cpu", "xla"),
+    ({"arch": {"fused_conv_bank": True}}, "cpu", "xla"),
+    ({"arch": {"compute_dtype": "bfloat16"}}, "cpu", "xla"),
+    ({"inference": {"decoder_impl": "xla"}}, "cuda", "xla"),
+    ({"arch": {"attention_type": "local_luong"}}, "cuda", "xla"),
+    ({"arch": {"compute_dtype": "bfloat16", "fused_conv_bank": True}}, "cuda", "fused"),
+]
+
+
+@pytest.mark.parametrize("sections,device,decoder", _ACCEPTED)
+def test_architecture_values_are_accepted(sections, device, decoder):
+    cfg = _with(port_config.tiny_config(), sections)
+    assert check_supported(cfg, torch.device(device)) == decoder
 
 
 @pytest.mark.parametrize(

@@ -117,6 +117,10 @@ def test_fused_scan_gradients_match_jax(setup):
 
 
 def test_resolve_teacher_impl():
+    """The kernel on CUDA for the architecture it implements; "xla" (the
+    reference's name for its scan) is the plain loop on any device, and
+    "auto" takes it on the card for a topology the kernel lacks, as the
+    reference's "auto" does (tests/test_torch_impls.py has the full table)."""
     _, tcfg = tiny_pair()
     a = tcfg.arch
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
@@ -124,11 +128,11 @@ def test_resolve_teacher_impl():
     assert tops.resolve_teacher_impl("auto", a, cuda) == "fused"
     assert tops.resolve_teacher_impl(None, a, cpu) == "xla"
     assert tops.resolve_teacher_impl("fused", a, cpu) == "fused"
-    with pytest.raises(NotImplementedError):
-        tops.resolve_teacher_impl("xla", a, cuda)
+    assert tops.resolve_teacher_impl("xla", a, cuda) == "xla"
     deep = a.__class__(**{**a.__dict__, "decoder_gru_layers": 3})
-    with pytest.raises(NotImplementedError):
-        tops.resolve_teacher_impl(None, deep, cuda)
+    assert tops.resolve_teacher_impl(None, deep, cuda) == "xla"
+    with pytest.raises(ValueError, match="requires Bahdanau attention"):
+        tops.resolve_teacher_impl("fused", deep, cuda)
     with pytest.raises(ValueError):
         tops.resolve_teacher_impl("scan", a, cpu)
 

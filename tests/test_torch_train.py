@@ -236,17 +236,39 @@ def test_batching_matches_jax():
 
 def test_unported_training_settings_raise():
     _, pcfg = tiny_pair()
-    for section, fields in (("arch", {"fused_conv_bank": True}),
-                            ("arch", {"compute_dtype": "bfloat16"}),
-                            ("training", {"model_parallel": 2})):
-        cfg = pcfg.replace(**{section: dataclasses.replace(getattr(pcfg, section), **fields)})
-        with pytest.raises(NotImplementedError):
-            ptrain.create_state(cfg, device="cpu")
+    cfg = pcfg.replace(training=dataclasses.replace(pcfg.training, model_parallel=2))
+    with pytest.raises(NotImplementedError, match="model_parallel"):
+        ptrain.create_state(cfg, device="cpu")
+    # The kernels' width limits raise on the card before anything is
+    # launched (resolution needs no card): a BiGRU wider than B3 takes, a
+    # teacher scan product wider than B6's 1024 columns.
+    cuda = torch.device("cuda")
+    for fields, what in (({"encoder_gru_units": 160}, "H=160"),
+                         ({"attention_units": 1280}, "1280")):
+        cfg = pcfg.replace(arch=dataclasses.replace(pcfg.arch, **fields))
+        with pytest.raises(NotImplementedError, match=what):
+            ptrain.check_trainable(cfg, cuda)
     # An LJSpeech corpus without its metadata.csv raises, as the JAX loader does.
     cfg = pcfg.replace(dataset=dataclasses.replace(pcfg.dataset, dataset="ljspeech",
                                                    dataset_dir="/nonexistent"))
     with pytest.raises(FileNotFoundError, match="metadata.csv"):
         ptrain.load_corpus(cfg)
+
+
+@pytest.mark.parametrize("fields,dtype", [
+    ({"fused_conv_bank": True}, torch.float32),
+    ({"compute_dtype": "bfloat16"}, torch.bfloat16),
+], ids=["fused_conv_bank", "bfloat16"])
+def test_architecture_training_settings_are_accepted(fields, dtype):
+    """Values the port refused before it took every architecture of the
+    reference's model: the state builds in the compute dtype with f32
+    parameters."""
+    _, pcfg = tiny_pair()
+    cfg = pcfg.replace(arch=dataclasses.replace(pcfg.arch, **fields))
+    state = ptrain.create_state(cfg, device="cpu")
+    assert state.model.dtype == dtype
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    ptrain.check_trainable(cfg, torch.device("cuda"))
 
 
 def test_create_state_defaults_to_cuda(monkeypatch):

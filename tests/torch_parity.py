@@ -81,3 +81,89 @@ def text_ids(rng: np.random.Generator, lengths, width: int, vocab: int = 40):
 
 def t(x) -> torch.Tensor:
     return torch.as_tensor(np.array(x))
+
+
+def rel_l2(got, ref) -> float:
+    """||got - ref|| / ||ref|| in f64."""
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def train_batch(cfg, seed: int = 0):
+    """One bucketed batch of two short synthetic utterances (the first
+    bucket); each waveform is made once here and the same arrays feed both
+    packages."""
+    from sstts_torch.data import pipeline
+    from sstts_torch.data.synthetic import make_utterances, synth_waveform
+
+    utts = make_utterances(8, cfg.dataset, min_words=1, max_words=2)
+    items = [
+        (pipeline.text_mod.encode(u.text), synth_waveform(u.uid, u.text, cfg.dataset))
+        for u in utts[seed * 2 : seed * 2 + 2]
+    ]
+    lt, fr = pipeline.frame_bucket_shapes(cfg)[0]
+    return pipeline.make_batch(items, lt, fr, cfg)
+
+
+def jax_train_grads(jcfg, variables, batch):
+    """The JAX train step's loss, metrics and parameter gradients
+    (value_and_grad of `sstts.train`'s loss, the model built by
+    `build_model`, so in the config's compute dtype)."""
+    import optax
+
+    from sstts import train as jtrain
+    from sstts.dsp.ops import wav_to_features
+    from sstts.model.losses import frame_mask_from_lengths, tacotron_loss
+
+    model = jtrain.build_model(jcfg)
+
+    @jax.jit
+    def grads_fn(params, batch_stats, batch):
+        samples = batch["samples"].astype(jnp.float32) * (1.0 / 32767.0)
+        lin, mel = wav_to_features(samples, jcfg.dataset)
+        fmask = frame_mask_from_lengths(batch["n_frames"], mel.shape[1])
+
+        def loss_fn(p):
+            out, _ = model.apply(
+                {"params": p, "batch_stats": batch_stats}, batch["char_ids"], mel,
+                fmask, train=True, rngs={"dropout": jax.random.PRNGKey(0)},
+                mutable=["batch_stats"],
+            )
+            return tacotron_loss(out, mel, lin, batch["loss_frames"], jcfg.arch,
+                                 jcfg.dataset, text_lengths=batch["text_len"])
+
+        (_, metrics), grads = jax.value_and_grad(loss_fn, has_aux=True)(params)
+        metrics["grad_norm"] = optax.global_norm(grads)
+        return metrics, grads
+
+    metrics, grads = jax.device_get(
+        grads_fn(variables["params"], variables["batch_stats"], batch)
+    )
+    return {k: float(v) for k, v in metrics.items()}, jax.tree.map(np.asarray, grads)
+
+
+def port_train_grads(pcfg, variables, batch):
+    """The port's train step (`make_train_step`, on the CPU) from the same
+    converted weights: its metrics and its gradients before clipping, as a
+    flax tree."""
+    from sstts_torch import train as ptrain
+    from sstts_torch.convert import to_flax
+
+    state = ptrain.create_state(pcfg, device="cpu")
+    state.model.load_state_dict(
+        convert_params(variables["params"], variables["batch_stats"], pcfg)
+    )
+    metrics = {k: float(v) for k, v in ptrain.make_train_step(pcfg)(state, batch).items()}
+    unclip = max(1.0, metrics["grad_norm"] / pcfg.training.grad_clip_norm)
+    grads = to_flax({n: p.grad * unclip for n, p in state.model.named_parameters()})[0]
+    return metrics, grads
+
+
+def tree_pairs(ref_tree, got_tree):
+    """(path, got, ref) for every leaf of `ref_tree`."""
+    for path, r in jax.tree_util.tree_leaves_with_path(ref_tree):
+        node = got_tree
+        for k in path:
+            node = node[k.key]
+        yield jax.tree_util.keystr(path), np.asarray(node), np.asarray(r)
