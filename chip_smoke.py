@@ -117,10 +117,22 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    2's bf16 limits), the plain teacher-forced loop against B6 (f32 and
    bf16, all 103 steps, the same limits), and 2 train steps with the
    teacher "xla" (B6 0);
+3g. the mesh over the G = `torch.cuda.device_count()` cards, the matmul
+   FFT and the native decoder: `Synthesizer(mesh=G cards)` on bench.py's
+   batch in both partitions against one device ("gspmd" bit-equal at
+   G = 1), each shard's launches (B3 4, B4 1, B2 60); 4 train steps on
+   phase 3b's batch at lr 2e-4 under deterministic algorithms, one device
+   in this process against (G, 1) over NCCL (`mesh.launch`, a process a
+   card; (2, 1) and (1, 2) too where G >= 2; at G = 1 it says that tensor
+   parallelism was not run), each rank's launches 4/4/1 a step; the matmul
+   FFT at (25600, 2048) f32 against torch.fft with the caller's TF32 on;
+   GL-60 on it against torch.fft's loop; the native WAV decoder, trimmer
+   and ADPCM rows against numpy;
 4. one JSON line of every kernel's numbers (its launches on each path,
    "cli" the sum of phase 3d's commands, "corpus" of phase 3e's three
-   `train` runs, "variants" of phase 3f's counted runs), the card's line
-   before it, and last `{"ok": true, "device": {...}}`.
+   `train` runs, "variants" of phase 3f's counted runs, "mesh" of phase
+   3g's), the card's line before it, and last `{"ok": true, "device":
+   {...}}`.
 
 Without CUDA, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -2387,6 +2399,302 @@ def variants_path(dev, card):
     return res
 
 
+# --------------------------------------------------------------- phase 3g --
+
+
+def mesh_synthesis(cfg, params, texts, devices, card) -> dict:
+    """`Synthesizer(mesh=G devices)` in both partitions against one device
+    on the same card: "gspmd" draws one device's keep masks and must give
+    its audio (bit-equal at G = 1, the same shapes; 2e-2 relative L2 at
+    G > 1, where the shards' products run at other batch sizes through the
+    bf16 loop); "shard_map" draws a stream a shard and must keep the stop
+    trim.  A warm-up batch, then one timed batch with the counters set to 0
+    just before and read just after, and each shard's launches."""
+    import numpy as np
+    import torch
+
+    from sstts_torch.parallel.mesh import make_mesh
+    from sstts_torch.synthesize import Synthesizer
+
+    G = len(devices)
+    mesh = make_mesh(devices)
+
+    def sync():
+        for d in devices:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    single = Synthesizer(cfg, params, seed=0, device=devices[0])
+    single.synthesize_batch(texts)
+    sync()
+    t0 = time.perf_counter()
+    want = single.synthesize_batch(texts)
+    one_wall = time.perf_counter() - t0
+    res = {"one_device_wall_s": one_wall, "launches": {}}
+    total = dict.fromkeys(counts(), 0)
+    for partition in ("gspmd", "shard_map"):
+        synth = Synthesizer(cfg, params, seed=0, mesh=mesh, partition=partition)
+        synth.synthesize_batch(texts)
+        sync()
+        per_shard = []
+        run = synth._run_shard
+
+        def counted(i, ids, max_steps, keep, run=run, per_shard=per_shard):
+            before = counts()
+            out = run(i, ids, max_steps, keep)
+            per_shard.append({k: n - before[k] for k, n in counts().items() if n - before[k]})
+            return out
+
+        synth._run_shard = counted
+        reset()
+        sync()
+        t0 = time.perf_counter()
+        got = synth.synthesize_batch(texts)
+        wall = time.perf_counter() - t0
+        launches = counts()
+        for k, n in launches.items():
+            total[k] += n
+        want_shard = {"gru_sequence": 4, "fused_decode": 1,
+                      "fused_reproject_analyze": cfg.inference.griffin_lim_iters}
+        log(f"  {partition} on {G} device(s): wall {wall:.4f} s (one device {one_wall:.4f} s, "
+            f"x{one_wall / wall:.3f}); launches by device {per_shard} [{card}]")
+        if per_shard != [want_shard] * G:
+            raise AssertionError(f"{partition}: launches by device {per_shard}")
+        lengths = [len(w) for w in got]
+        if partition == "gspmd":
+            err = rel_l2(torch.as_tensor(np.concatenate(got)),
+                         torch.as_tensor(np.concatenate(want)))
+            tol = 0.0 if G == 1 else 2e-2
+            log(f"  gspmd vs one device: wav rel L2 {err:.3e} (tol {tol}), lengths equal "
+                f"{lengths == [len(w) for w in want]}")
+            if lengths != [len(w) for w in want] or not err <= tol:
+                raise AssertionError(f"gspmd vs one device: {err}")
+        else:
+            hop = cfg.dataset.hop_len
+            bad = [n for n in lengths if n <= 0 or n % hop]
+            if bad or not all(np.isfinite(w).all() for w in got):
+                raise AssertionError(f"shard_map trim: {lengths}")
+            err = rel_l2(torch.as_tensor(np.concatenate(got)),
+                         torch.as_tensor(np.concatenate(want)))
+            log(f"  shard_map: its own streams, wav rel L2 {err:.3e} from one device's "
+                f"(dropout at inference on: a stream a shard)")
+        res[partition] = {"wall_s": wall, "rel_l2_vs_one_device": err,
+                          "launches_by_device": per_shard}
+    res["launches"] = total
+    return res
+
+
+def mesh_training(cfg, batch, G, card, kind="cuda") -> dict:
+    """4 steps on phase 3b's batch at the default widths, one device in
+    this process against (G, 1) over NCCL (`mesh.launch`, a process a
+    card), and (2, 1) and (1, 2) where there are two cards, all under
+    PyTorch's deterministic algorithms, from one init at lr 2e-4.  Limits:
+    the loss and the gradient norm within rtol 1e-5 at steps 1 and 2 and
+    1e-3 at 3 and 4 (Adam carries last-bit differences of near-zero
+    gradients into every later step); the parameters within 1e-4 relative
+    L2 over the elements whose first moment exceeds 1e-5 (|g| > ~1e-4) and
+    1e-3 over all.  Every rank's launches: B3 4, B3' 4, B6 1 a step."""
+    import torch
+
+    from sstts_torch.model.tacotron import init_state_dict
+    from sstts_torch.parallel.mesh import launch
+    from sstts_torch.tools.mesh_steps import run_steps
+
+    cfg = cfg.replace(training=dataclasses.replace(cfg.training, learning_rate=2e-4))
+    params = init_state_dict(cfg.arch, cfg.dataset, 0)
+    batches = [batch] * 4
+    one = run_steps(cfg, params, batches, kind, None, True)
+    layouts = [(G, 1)] + [lay for lay in ((2, 1), (1, 2)) if G >= 2 and lay != (G, 1)]
+    res = {"one_device_ms": [w * 1e3 for w in one["walls"]], "layouts": {}}
+    per_step = {"gru_sequence": 4, "gru_sequence_backward": 4, "fused_teacher_scan": 1}
+    launches = dict.fromkeys(counts(), 0)
+    for data, model in layouts:
+        t0 = time.perf_counter()
+        ranks = launch(run_steps, data * model, cfg, params, batches, kind, (data, model),
+                       True, device=kind, timeout=900.0)
+        wall = time.perf_counter() - t0
+        r = ranks[0]
+        name = f"{data}x{model}"
+        want = dict.fromkeys(counts(), 0)
+        want.update({k: 4 * n for k, n in per_step.items()})
+        for rank in ranks:
+            if rank["launches"] != want:
+                raise AssertionError(f"{name} rank {rank['rank']}: launches {rank['launches']}")
+            for k, n in rank["launches"].items():
+                launches[k] += n
+        m_err = {k: [abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(r["metrics"], one["metrics"])]
+                 for k in ("loss", "grad_norm")}
+        sel = {n: v["exp_avg"].abs() > 1e-5 for n, v in one["moments"].items()}
+        num = sum(float((r["params"][n] - p)[sel[n]].double().pow(2).sum())
+                  for n, p in one["params"].items())
+        den = sum(float(p[sel[n]].double().pow(2).sum()) for n, p in one["params"].items())
+        p_sel = (num / den) ** 0.5
+        p_all = rel_l2(torch.cat([v.reshape(-1) for v in r["params"].values()]),
+                       torch.cat([v.reshape(-1) for v in one["params"].values()]))
+        differing = sum(int((r["params"][n] != p).any()) for n, p in one["params"].items())
+        ms = [w * 1e3 for w in r["walls"]]
+        log(f"  {name} over NCCL ({data * model} rank(s)): loss rel errors {m_err['loss']}, "
+            f"grad_norm {m_err['grad_norm']}; parameters rel L2 {p_sel:.3e} where |m| > 1e-5, "
+            f"{p_all:.3e} over all, {differing} of {len(one['params'])} tensors differ at "
+            f"all; ms a step {ms} (one device {res['one_device_ms']}); launch wall "
+            f"{wall:.2f} s [{card}]")
+        ok = all(max(e[:2]) <= 1e-5 and max(e) <= 1e-3 for e in m_err.values())
+        if not (ok and p_sel <= 1e-4 and p_all <= 1e-3):
+            raise AssertionError(f"{name} vs one device: {m_err}, {p_sel}, {p_all}")
+        res["layouts"][name] = {"metric_rel_err": m_err, "params_rel_l2": p_sel,
+                                "params_rel_l2_all": p_all, "tensors_differing": differing,
+                                "ms_per_step": ms, "launch_wall_s": wall}
+    res["launches"] = launches
+    return res
+
+
+def check_matmul_fft(dev, card) -> dict:
+    """`dsp/fft.rfft`/`irfft` (the matmul FFT) against `torch.fft` at
+    (25600, 2048) f32, with the caller's TF32 switch on to show the
+    transform turns it off (a TF32 pass would miss by ~1e-3): 1e-5
+    relative L2; their times beside torch.fft's."""
+    import torch
+
+    from sstts_torch.dsp import fft as mmfft
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    x = torch.randn(25600, 2048, device=dev, generator=g)
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.allow_tf32
+    matmul.allow_tf32 = True
+    try:
+        spec = mmfft.rfft(x, 2048)
+        back = mmfft.irfft(spec, 2048)
+        ct_ms = cuda_ms(lambda: mmfft.rfft(x, 2048), iters=5, reps=3)
+        ict_ms = cuda_ms(lambda: mmfft.irfft(spec, 2048), iters=5, reps=3)
+    finally:
+        matmul.allow_tf32 = saved
+    ref = torch.fft.rfft(x.double())
+    err = float((spec.to(torch.complex128) - ref).abs().norm() / ref.abs().norm())
+    err_i = float((back - x).norm() / x.norm())
+    fft_ms = cuda_ms(lambda: torch.fft.rfft(x), iters=5, reps=3)
+    ifft_ms = cuda_ms(lambda: torch.fft.irfft(spec, n=2048), iters=5, reps=3)
+    log(f"  matmul FFT (25600, 2048) f32: rfft rel L2 {err:.3e}, irfft round trip "
+        f"{err_i:.3e} (tol 1e-5, TF32 switched on by the caller); rfft {ct_ms:.4f} ms "
+        f"(torch.fft {fft_ms:.4f} ms), irfft {ict_ms:.4f} ms (torch.fft {ifft_ms:.4f} ms) "
+        f"[{card}]")
+    if not (err <= 1e-5 and err_i <= 1e-5):
+        raise AssertionError(f"matmul FFT: {err}, {err_i}")
+    return {"rfft_rel_l2": err, "irfft_rel_l2": err_i, "rfft_ms": ct_ms,
+            "torch_rfft_ms": fft_ms, "irfft_ms": ict_ms, "torch_irfft_ms": ifft_ms}
+
+
+def check_ct_matmul_gl(cfg, params, texts, card) -> dict:
+    """One GL-60 batch of bench.py's workload with `fft_impl="ct_matmul"`
+    against `"xla"` (torch.fft), the same seed, so the same spectrogram:
+    both are the complex f32 loop, whose last-place differences become
+    phase changes at near-silent bins (check_f32_loop's reason, 5e-3 over
+    8 iterations); over 60, 1e-2 relative L2."""
+    import numpy as np
+    import torch
+
+    from sstts_torch.synthesize import Synthesizer
+
+    out, walls = {}, {}
+    for impl in ("xla", "ct_matmul"):
+        synth = Synthesizer(with_inference(cfg, griffin_lim_fft_impl=impl), params, seed=0)
+        t0 = time.perf_counter()
+        wavs, _ = synth.synthesize_batch(texts, full_output=True, fetch=["wav", "n_samples"])
+        walls[impl] = time.perf_counter() - t0
+        out[impl] = np.concatenate(wavs)  # f32, before the PCM16 wire rounds it
+    err = rel_l2(torch.as_tensor(out["ct_matmul"]), torch.as_tensor(out["xla"]))
+    log(f"  GL-60 b=32 fft_impl=ct_matmul vs xla: wav rel L2 {err:.3e} (tol 1e-2); walls "
+        f"{walls} (each its first batch) [{card}]")
+    if not err <= 1e-2:
+        raise AssertionError(f"ct_matmul Griffin-Lim: {err}")
+    return {"rel_l2": err, "walls_s": walls}
+
+
+def check_native_decoder(card) -> dict:
+    """The native WAV decoder, trimmer and ADPCM rows on this host against
+    the numpy codec: the library must build (g++ is here); decode and trim
+    bit-equal, ADPCM within 1e-6."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sstts_torch.data import native_loader, pipeline
+    from sstts_torch.data import wav as wav_mod
+    from sstts_torch.dsp import ops
+
+    if not native_loader.available():
+        raise AssertionError("the native decoder did not build (g++)")
+    root = Path(__file__).resolve().parent / "chip_scratch" / "native_wavs"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(4)
+    paths = []
+    for i in range(8):
+        n = int(rng.integers(20000, 90000))
+        y = (0.4 * np.sin(np.linspace(0, 300 + 40 * i, n))).astype(np.float32)
+        y[: n // 8] = 0.0
+        paths.append(root / f"u{i}.wav")
+        wav_mod.save_wav(paths[-1], y, 22050)
+    t0 = time.perf_counter()
+    native = [native_loader.load_wav(p) for p in paths]
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    numpy_ = [wav_mod.load_wav(p) for p in paths]
+    t_numpy = time.perf_counter() - t0
+    for (a, sa), (b, sb) in zip(native, numpy_):
+        trimmed = native_loader.trim_silence(a, 60.0)
+        if sa != sb or not np.array_equal(a, b) or not np.array_equal(
+                trimmed, pipeline.trim_silence(b, 60.0)):
+            raise AssertionError("native decode/trim differs from numpy")
+    wav = np.clip(rng.standard_normal((4, 22050)).astype(np.float32) * 0.3, -1, 1)
+    adpcm = {}
+    for bits in (4, 3, 2):
+        rows = getattr(ops, f"adpcm{bits}_encode_wire")(torch.as_tensor(wav)).numpy()
+        got = native_loader.adpcm_decode_rows(rows, bits)
+        want = getattr(ops, f"_adpcm{bits}_decode_rows_np")(rows)
+        adpcm[bits] = float(np.abs(got - want).max())
+    shutil.rmtree(root)
+    log(f"  native decoder: 8 WAVs decoded and trimmed bit-equal to numpy "
+        f"({t_native * 1e3:.2f} ms native, {t_numpy * 1e3:.2f} ms numpy, host time); ADPCM "
+        f"rows max abs err {adpcm} (tol 1e-6) [{card}]")
+    if max(adpcm.values()) > 1e-6:
+        raise AssertionError(f"native ADPCM rows: {adpcm}")
+    return {"decode_ms": t_native * 1e3, "numpy_decode_ms": t_numpy * 1e3, "adpcm_max_err": adpcm}
+
+
+def mesh_path(dev, card):
+    """Phase 3g: the mesh (synthesis in both partitions, training over
+    NCCL), the matmul FFT and the native decoder."""
+    import torch
+
+    from sstts_torch.config import Config
+    from sstts_torch.model.tacotron import init_state_dict
+
+    G = torch.cuda.device_count()
+    if G == 1:
+        log("  one card: the mesh runs at G = 1 (one data shard, one NCCL rank); the "
+            "(2, 1) and (1, 2) layouts, tensor parallelism among them, were not run on "
+            "the card (they need two)")
+    cfg = bench_config()
+    texts = ["the quick brown fox jumps over the lazy dog " * 2] * 32
+    params = init_state_dict(cfg.arch, cfg.dataset, seed=0)
+    devices = [torch.device("cuda", i) for i in range(G)]
+    res = {"devices": G, "synthesis": mesh_synthesis(cfg, params, texts, devices, card)}
+    tcfg = Config()
+    tcfg = tcfg.replace(
+        dataset=dataclasses.replace(tcfg.dataset, dataset="synthetic"),
+        training=dataclasses.replace(tcfg.training, batch_size=32),
+    )
+    res["training"] = mesh_training(tcfg, fixed_batch(tcfg, 32, 1, (10, 16)), G, card)
+    res["launches"] = {k: res["synthesis"]["launches"][k] + res["training"]["launches"][k]
+                       for k in res["synthesis"]["launches"]}
+    res["matmul_fft"] = check_matmul_fft(dev, card)
+    res["ct_matmul_gl"] = check_ct_matmul_gl(cfg, params, texts, card)
+    res["native"] = check_native_decoder(card)
+    return res
+
+
 def tiny_step_card_vs_cpu(tcfg, tol: float) -> dict:
     """One tiny train step on the card (kernels where the architecture has
     them, B6 with f32 products) against the same step on the CPU (plain
@@ -2461,6 +2769,8 @@ def main() -> int:
     corpus_res = corpus_path(dev, card)
     log("phase 3f: the architecture variants")
     variants_res = variants_path(dev, card)
+    log("phase 3g: the mesh, the matmul FFT and the native decoder")
+    mesh_res = mesh_path(dev, card)
     # Each kernel's launches come from the path it carries.
     own_path = {"gru_sequence_backward": "training", "fused_teacher_scan": "training",
                 "reproject_frames_pallas": "serving", "fused_gl_iteration": "serving"}
@@ -2470,13 +2780,14 @@ def main() -> int:
                    "training": train_res["launches"][k["name"]],
                    "cli": cli_res["launches"][k["name"]],
                    "corpus": corpus_res["launches"][k["name"]],
-                   "variants": variants_res["launches"].get(k["name"], 0)}
+                   "variants": variants_res["launches"].get(k["name"], 0),
+                   "mesh": mesh_res["launches"][k["name"]]}
         k["launches"] = by_path[own_path.get(k["name"], "synthesis")]
         k["launches_by_path"] = by_path
     log(json.dumps({"main_path": main_res, "serving_path": serve_res,
                     "train_path": train_res, "cli_path": cli_res,
                     "corpus_path": corpus_res, "variants_path": variants_res,
-                    "card": card}))
+                    "mesh_path": mesh_res, "card": card}))
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({

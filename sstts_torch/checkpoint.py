@@ -10,6 +10,13 @@ the JAX package does: an EMA run resuming a checkpoint without one seeds it
 from the restored parameters; a run without EMA keeps a stored EMA tree
 available (for `inference.use_ema`).  Saves are synchronous and atomic
 (written to a temporary file, then renamed).
+
+A state on a mesh (its model's `mesh`) saves whole tensors: the
+tensor-parallel shards of the parameters, the EMA and the Adam moments are
+gathered over the model group, every rank of data row 0 taking part, and
+rank 0 writes.  Restoring slices them again for the restoring rank, so a
+checkpoint moves between layouts, one device among them, as the
+reference's does (`sstts/config.py:274-280`).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from sstts_torch.config import (
     InferenceConfig,
     TrainingConfig,
 )
+from sstts_torch.parallel.mesh import gather_tensor, shard_tensor
 
 _FILE = re.compile(r"^step_(\d+)\.pt$")
 _SECTIONS = {
@@ -84,16 +92,32 @@ class CheckpointManager:
         return max(steps) if steps else None
 
     def save(self, step: int, state) -> None:
-        """Write the state at `step`; keep the newest `keep_checkpoints`."""
+        """Write the state at `step`; keep the newest `keep_checkpoints`.
+        On a mesh every rank calls it (module docstring)."""
         model = state.model
+        mesh = model.mesh
+        if mesh is not None and mesh.data_index != 0:
+            return
+        names = [n for n, _ in model.named_parameters()]
+
+        def whole(tensors):
+            return _cpu({n: gather_tensor(n, v, mesh) for n, v in tensors.items()})
+
+        opt = state.optimizer.state_dict()
+        opt["state"] = {
+            i: {k: gather_tensor(names[i], v, mesh) if v.dim() else v for k, v in st.items()}
+            for i, st in opt["state"].items()
+        }
         payload = {
             "step": int(step),
-            "params": _cpu(dict(model.named_parameters())),
+            "params": whole(dict(model.named_parameters())),
             "batch_stats": _cpu(dict(model.named_buffers())),
-            "opt_state": state.optimizer.state_dict(),
-            "ema_params": None if state.ema_params is None else _cpu(state.ema_params),
+            "opt_state": opt,
+            "ema_params": None if state.ema_params is None else whole(state.ema_params),
             "config": dataclasses.asdict(self.cfg),
         }
+        if mesh is not None and mesh.rank != 0:
+            return
         path = self.dir / f"step_{int(step)}.pt"
         tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
         torch.save(payload, tmp)
@@ -117,13 +141,24 @@ class CheckpointManager:
         if payload is None:
             return None
         model = state.model
-        model.load_state_dict({**payload["params"], **payload["batch_stats"]}, strict=True)
-        state.optimizer.load_state_dict(payload["opt_state"])
+        mesh = model.mesh
+
+        def local(tensors):
+            return {n: shard_tensor(n, v, mesh) for n, v in tensors.items()}
+
+        model.load_state_dict({**local(payload["params"]), **payload["batch_stats"]}, strict=True)
+        names = [n for n, _ in model.named_parameters()]
+        opt = payload["opt_state"]
+        opt["state"] = {
+            i: {k: shard_tensor(names[i], v, mesh) if v.dim() else v for k, v in st.items()}
+            for i, st in opt["state"].items()
+        }
+        state.optimizer.load_state_dict(opt)
         state.step = payload["step"]
         dev = next(model.parameters()).device
         stored = payload["ema_params"]
         if stored is not None:
-            state.ema_params = {k: v.to(dev) for k, v in stored.items()}
+            state.ema_params = {k: v.to(dev) for k, v in local(stored).items()}
         elif state.ema_params is not None:
             state.ema_params = {n: p.detach().clone() for n, p in model.named_parameters()}
         return state.step

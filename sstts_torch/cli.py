@@ -7,9 +7,12 @@ commands, flags, messages and exit codes.
     python -m sstts_torch.cli synthesize --workdir runs/lj --text "hello world" --out out.wav
 
 Config overrides use dotted paths into the five hparam sections
-(`--set dataset.dataset_dir=/data/LJSpeech-1.1`).  Every command runs on
-the CUDA card and raises where there is none; `main(argv, device="cpu")`
-runs the plain versions on the CPU (the tests do).
+(`--set dataset.dataset_dir=/data/LJSpeech-1.1`).  `train` lays a mesh over
+every visible GPU as the reference lays one over every device
+(`--set training.model_parallel=2` puts two on the model axis).  Every
+command runs on the CUDA card and raises where there is none;
+`main(argv, device="cpu")` runs the plain versions on the CPU (the tests
+do), and `n_devices=N` there lays `train`'s mesh over N gloo processes.
 """
 
 from __future__ import annotations
@@ -110,15 +113,18 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv=None, device=None) -> int:
-    """Run one command; `device` None means the card."""
+def main(argv=None, device=None, n_devices=None) -> int:
+    """Run one command; `device` None means the card, and `n_devices` (the
+    devices `train` lays its mesh over) None means every visible GPU there,
+    one on the CPU."""
     args = build_parser().parse_args(argv)
     cfg = apply_overrides(Config(), args.overrides)
 
     if args.command == "train":
         from sstts_torch.train import train
 
-        train(cfg, workdir=args.workdir, max_steps=args.max_steps, device=device)
+        train(cfg, workdir=args.workdir, max_steps=args.max_steps, device=device,
+              n_devices=n_devices)
         return 0
 
     if args.command == "evaluate":

@@ -7,9 +7,9 @@ features there.  A centered STFT over n samples gives 1 + n // hop frames;
 the loss mask ends `ceil((n_fft/2)/hop) + 1` frames early, where the
 analysis window starts to cross the end of the valid audio.  `load_audio`
 reads a WAV file (`data/wav.py`, numpy), resamples it when
-`dataset.resample_on_load` is set, and trims its silence (`trim_silence`):
-what the JAX package returns where its native decoder is not built (the
-port has none yet, ROADMAP A.13).  The `Batcher` reads the offline cache
+`dataset.resample_on_load` is set, and trims its silence, both in C++
+where `native_loader` is built (as the reference's loader does) and with
+the numpy codec and `trim_silence` otherwise.  The `Batcher` reads the offline cache
 (`data/features_cache.py`) when `dataset.cache_dir` holds one.
 """
 
@@ -22,7 +22,6 @@ import numpy as np
 from sstts_torch.config import Config
 from sstts_torch.data import synthetic
 from sstts_torch.data import text as text_mod
-from sstts_torch.data import wav as wav_mod
 from sstts_torch.data.ljspeech import Utterance
 
 Batch = Dict[str, np.ndarray]
@@ -70,7 +69,9 @@ def load_audio(utt: Utterance, cfg: Config) -> np.ndarray:
     ds = cfg.dataset
     if utt.wav_path.startswith("<synthetic"):
         return synthetic.synth_waveform(utt.uid, utt.text, ds)
-    y, sr = wav_mod.load_wav(utt.wav_path)
+    from sstts_torch.data import native_loader
+
+    y, sr = native_loader.load_wav(utt.wav_path, sample_rate_hint=ds.sample_rate)
     if sr != ds.sample_rate:
         if not ds.resample_on_load:
             raise ValueError(
@@ -81,7 +82,7 @@ def load_audio(utt: Utterance, cfg: Config) -> np.ndarray:
         from sstts_torch.dsp.resample import resample
 
         y = resample(y, sr, ds.sample_rate)
-    return trim_silence(y, ds.trim_top_db)
+    return native_loader.trim_silence(y, ds.trim_top_db)
 
 
 def frame_bucket_shapes(cfg: Config) -> List[Tuple[int, int]]:

@@ -20,7 +20,8 @@ f32.  Every iteration of the JAX package runs:
 "split", but the port keeps one default path whose kernel the card runs.
 On the card B2 and B5 take bf16 only, so the f32 loop there runs "split"
 or "split_xla" (B1 takes both types).  "xla"/"default" run the complex
-loop over the centred STFT (`torch.fft`).
+loop over the centred STFT with `torch.fft`, "ct_matmul" with the
+four-step matmul FFT (`dsp/fft.py`, full f32).
 """
 
 from __future__ import annotations
@@ -50,6 +51,8 @@ _LOOP_DTYPE = {
     "dft_highest": torch.float32,
 }
 ITER_IMPLS = ("auto", "split", "split_xla", "fused", "semi")
+#: Transforms of the complex loop over the centred STFT.
+_COMPLEX_IMPLS = ("default", "xla", "ct_matmul")
 
 
 def _round_up(x: int, m: int) -> int:
@@ -59,9 +62,8 @@ def _round_up(x: int, m: int) -> int:
 def resolve_iter_impl(iter_impl, momentum: float, fft_impl: str, device) -> str:
     """The iteration a call runs, with the JAX package's validation
     (`ValueError` for an unknown iteration or transform and for "fused"
-    with momentum) and the port's refusals (`NotImplementedError`): the
-    matmul FFT, and the f32 loop on the card in B2 and B5, which are bf16
-    only."""
+    with momentum) and the port's refusal (`NotImplementedError`) of the
+    f32 loop on the card in B2 and B5, which are bf16 only."""
     impl = iter_impl or "auto"
     if impl not in ITER_IMPLS:
         raise ValueError(
@@ -74,15 +76,10 @@ def resolve_iter_impl(iter_impl, momentum: float, fft_impl: str, device) -> str:
             "(the fused kernel folds renorm into the iteration); use "
             "'split', 'semi', or momentum=0"
         )
-    if fft_impl == "ct_matmul":
-        raise NotImplementedError(
-            "griffin_lim fft_impl='ct_matmul' (the JAX package's matmul FFT) "
-            "is not ported; 'xla'/'default' run torch.fft"
-        )
-    if fft_impl not in _LOOP_DTYPE and fft_impl not in ("xla", "default"):
+    if fft_impl not in _LOOP_DTYPE and fft_impl not in _COMPLEX_IMPLS:
         raise ValueError(
             f"unknown griffin_lim fft_impl {fft_impl!r}; valid: 'default', "
-            "'xla', 'dft_default', 'dft_high', 'dft_highest'"
+            "'xla', 'ct_matmul', 'dft_default', 'dft_high', 'dft_highest'"
         )
     if impl == "auto":
         impl = "semi"
@@ -131,9 +128,9 @@ def griffin_lim(
             f"length={length} too short for {n_frames} frames at hop={hop_length}"
         )
     impl = resolve_iter_impl(iter_impl, momentum, fft_impl, magnitude.device)
-    if fft_impl in ("xla", "default"):
+    if fft_impl in _COMPLEX_IMPLS:
         return _griffin_lim_complex(
-            magnitude, n_fft, hop_length, win_length, n_iters, length, momentum
+            magnitude, n_fft, hop_length, win_length, n_iters, length, momentum, fft_impl
         )
     return _griffin_lim_real(
         magnitude, n_fft, hop_length, win_length, n_iters, length, momentum,
@@ -142,19 +139,20 @@ def griffin_lim(
 
 
 def _griffin_lim_complex(magnitude, n_fft, hop_length, win_length, n_iters,
-                         length, momentum):
-    """The complex loop over the centred STFT (JAX 136-158)."""
+                         length, momentum, fft_impl):
+    """The complex loop over the centred STFT (JAX 136-158), its transforms
+    `torch.fft` or the matmul FFT ("ct_matmul", full f32)."""
     n_frames = magnitude.shape[-2]
 
     def project(angles):
         return stft_mod.istft(
-            magnitude * angles, n_fft, hop_length, win_length, length
+            magnitude * angles, n_fft, hop_length, win_length, length, fft_impl
         )
 
     angles = torch.ones_like(magnitude, dtype=torch.complex64)
     prev = torch.zeros_like(angles)
     for _ in range(n_iters):
-        s = stft_mod.stft(project(angles), n_fft, hop_length, win_length)
+        s = stft_mod.stft(project(angles), n_fft, hop_length, win_length, fft_impl)
         s = s[..., :n_frames, :]
         extrap = s + momentum * (s - prev) if momentum > 0.0 else s
         angles = extrap / torch.clamp(extrap.abs(), min=1e-16)

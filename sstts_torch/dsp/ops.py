@@ -2,8 +2,9 @@
 feature pipeline.
 
 Port of `sstts/dsp/ops.py:24-28` (pre-emphasis), `30-83` (de-emphasis),
-`99-113` (dB ops), `116-570` (the device->host wire codecs) and `572-651`
-(`wav_to_features` with every `fft_impl`).
+`99-113` (dB ops), `116-570` (the device->host wire codecs; the ADPCM rows
+decode in C++ where `sstts_torch.data.native_loader` is built, as the
+reference's do) and `572-651` (`wav_to_features` with every `fft_impl`).
 
 The direct-DFT features (`fft_impl="dft_*"`, `training.feature_fft_impl`)
 take |STFT| as two GEMMs over the window's support with the Hann window
@@ -29,11 +30,11 @@ import numpy as np
 import torch
 
 from sstts_torch.config import DatasetConfig
+from sstts_torch.data import native_loader
 from sstts_torch.dsp import mel as mel_mod
 from sstts_torch.dsp import stft as stft_mod
-from sstts_torch.dsp.fft import rdft_matrices_windowed
-
-_DFT_IMPLS = ("dft_default", "dft_high", "dft_highest")
+from sstts_torch.dsp.fft import DFT_IMPLS as _DFT_IMPLS
+from sstts_torch.dsp.fft import matmul_at, rdft_matrices_windowed
 
 
 def preemphasis(y: torch.Tensor, coeff: float) -> torch.Tensor:
@@ -316,16 +317,38 @@ def _adpcm2_decode_rows_np(rows: np.ndarray) -> np.ndarray:
     return _integrate(codes - 1.5, scales, seeds)
 
 
+# The host decoders take the native C++ row decoder where it is built, else
+# the numpy one (its oracle: they agree to f32 rounding, ~1e-7).
+
+
+def adpcm4_decode_host_rows(rows: np.ndarray) -> np.ndarray:
+    """Host inverse of `adpcm4_encode_wire` -> (B, n_pad) float32."""
+    dec = native_loader.adpcm_decode_rows(rows, 4)
+    return _adpcm4_decode_rows_np(rows) if dec is None else dec
+
+
+def adpcm3_decode_host_rows(rows: np.ndarray) -> np.ndarray:
+    """Host inverse of `adpcm3_encode_wire` -> (B, n_pad) float32."""
+    dec = native_loader.adpcm_decode_rows(rows, 3)
+    return _adpcm3_decode_rows_np(rows) if dec is None else dec
+
+
+def adpcm2_decode_host_rows(rows: np.ndarray) -> np.ndarray:
+    """Host inverse of `adpcm2_encode_wire` -> (B, n_pad) float32."""
+    dec = native_loader.adpcm_decode_rows(rows, 2)
+    return _adpcm2_decode_rows_np(rows) if dec is None else dec
+
+
 def adpcm4_decode_host(row: np.ndarray, n_samples: int) -> np.ndarray:
-    return _adpcm4_decode_rows_np(row[None])[0, :n_samples]
+    return adpcm4_decode_host_rows(row[None])[0, :n_samples]
 
 
 def adpcm3_decode_host(row: np.ndarray, n_samples: int) -> np.ndarray:
-    return _adpcm3_decode_rows_np(row[None])[0, :n_samples]
+    return adpcm3_decode_host_rows(row[None])[0, :n_samples]
 
 
 def adpcm2_decode_host(row: np.ndarray, n_samples: int) -> np.ndarray:
-    return _adpcm2_decode_rows_np(row[None])[0, :n_samples]
+    return adpcm2_decode_host_rows(row[None])[0, :n_samples]
 
 
 def adpcm4_wire_bytes(n_samples: int) -> int:
@@ -368,46 +391,21 @@ def decode_wire_rows(rows: np.ndarray, wire_format: str) -> np.ndarray:
     if wire_format == "mulaw8":
         return mulaw_decode_host(rows)
     if wire_format == "adpcm4":
-        return _adpcm4_decode_rows_np(rows)
+        return adpcm4_decode_host_rows(rows)
     if wire_format == "adpcm3":
-        return _adpcm3_decode_rows_np(rows)
+        return adpcm3_decode_host_rows(rows)
     if wire_format == "adpcm2":
-        return _adpcm2_decode_rows_np(rows)
+        return adpcm2_decode_host_rows(rows)
     if wire_format == "pcm16":
         return np.multiply(rows, np.float32(1.0 / 32767.0), dtype=np.float32)
     raise ValueError(f"unknown wire_format {wire_format!r}; expected one of {WIRE_FORMATS}")
 
 
-def _tf32_split(x: torch.Tensor):
-    """(hi, lo) with hi + lo == x exactly and hi exact in TF32 (its low 13
-    mantissa bits zero, rounded to nearest)."""
-    bits = x.contiguous().view(torch.int32)
-    hi = ((bits + 0x1000) & -0x2000).view(torch.float32)
-    return hi, x - hi
-
-
 def _dft_products(seg: torch.Tensor, cos_w: torch.Tensor, nsin_w: torch.Tensor, impl: str):
     """(re, im) = (seg @ cos_w, seg @ nsin_w), f32, at `impl`'s precision
-    rung on the card (module docstring); f32 on the CPU."""
+    rung on the card (`fft.matmul_at`); f32 on the CPU."""
     lead = seg.shape[:-1]
-    a = seg.reshape(-1, seg.shape[-1])
-    w = torch.cat([cos_w, nsin_w], dim=1)
-    if seg.device.type != "cuda":
-        out = a @ w
-    elif impl == "dft_default":
-        out = torch.mm(a.to(torch.bfloat16), w.to(torch.bfloat16), out_dtype=torch.float32)
-    else:
-        matmul = torch.backends.cuda.matmul
-        saved = matmul.allow_tf32
-        matmul.allow_tf32 = impl == "dft_high"
-        try:
-            if impl == "dft_high":
-                (a_hi, a_lo), (w_hi, w_lo) = _tf32_split(a), _tf32_split(w)
-                out = a_hi @ w_hi + (a_hi @ w_lo + a_lo @ w_hi)
-            else:
-                out = a @ w
-        finally:
-            matmul.allow_tf32 = saved
+    out = matmul_at(seg.reshape(-1, seg.shape[-1]), torch.cat([cos_w, nsin_w], dim=1), impl)
     re, im = out.reshape(*lead, -1).split(cos_w.shape[1], dim=-1)
     return re, im
 

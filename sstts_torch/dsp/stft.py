@@ -1,11 +1,15 @@
 """Window, framing, STFT, inverse window-sum envelope and overlap-add.
 
-Port of `sstts/dsp/stft.py` (70-150, the centered `stft` and `istft` at
+Port of `sstts/dsp/stft.py` (34-150, the centered `stft` and `istft` at
 153-189 and `num_frames`) and of the host helpers `hann_window`/`pad_center`
-(`sstts/dsp/reference.py:24-34`).  The JAX package runs the FFT in XLA,
-outside any kernel of its own; here it is `torch.fft.rfft`.  The numpy
-helpers are copies, so the port never imports the JAX package; they return
-host numpy (they are cached, and a cached tensor would pin one device).
+(`sstts/dsp/reference.py:24-34`).  `fft_impl` picks the transform as the
+reference's `_rfft`/`_irfft` do: "default" and "xla" are `torch.fft` (XLA's
+FFT in the JAX package, outside any kernel of its own), "ct_matmul" the
+four-step matmul FFT and "dft_*" the direct DFT GEMMs of `dsp/fft.py`; a
+size `fft.supported` refuses takes `torch.fft` under any of them.  The
+numpy helpers are copies, so the port never imports the JAX package; they
+return host numpy (they are cached, and a cached tensor would pin one
+device).
 """
 
 from __future__ import annotations
@@ -15,6 +19,37 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from sstts_torch.dsp import fft as mmfft
+
+FFT_IMPLS = ("default", "xla", "ct_matmul", *mmfft.DFT_IMPLS)
+
+
+def _transform(impl: str, n: int) -> str:
+    """"torch", "ct_matmul" or a DFT rung for `impl` at size n."""
+    if impl not in FFT_IMPLS:
+        raise ValueError(f"unknown fft impl: {impl}")
+    if impl in ("default", "xla") or not mmfft.supported(n):
+        return "torch"
+    return impl
+
+
+def _rfft(x: torch.Tensor, n: int, impl: str = "default") -> torch.Tensor:
+    kind = _transform(impl, n)
+    if kind == "torch":
+        return torch.fft.rfft(x, n=n)
+    if kind == "ct_matmul":
+        return mmfft.rfft(x, n)
+    return mmfft.rdft(x, n, kind)
+
+
+def _irfft(spec: torch.Tensor, n: int, impl: str = "default") -> torch.Tensor:
+    kind = _transform(impl, n)
+    if kind == "torch":
+        return torch.fft.irfft(spec, n=n)
+    if kind == "ct_matmul":
+        return mmfft.irfft(spec, n)
+    return mmfft.irdft(spec, n, kind)
 
 
 def hann_window(win_length: int) -> np.ndarray:
@@ -69,7 +104,8 @@ def frame_signal(y: torch.Tensor, n_fft: int, hop_length: int) -> torch.Tensor:
     return y.unfold(-1, n_fft, hop_length)
 
 
-def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int) -> torch.Tensor:
+def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int,
+         fft_impl: str = "default") -> torch.Tensor:
     """Centered batched STFT with librosa semantics: reflect padding by
     n_fft//2 on both sides, periodic Hann of win_length center-padded to
     n_fft.  (..., n_samples) -> complex (..., n_frames, n_fft//2 + 1)."""
@@ -78,18 +114,19 @@ def stft(y: torch.Tensor, n_fft: int, hop_length: int, win_length: int) -> torch
     y = F.pad(y.reshape(-1, 1, y.shape[-1]), (pad, pad), mode="reflect")
     frames = frame_signal(y.reshape(*lead, -1), n_fft, hop_length)
     win = torch.as_tensor(window(n_fft, win_length), device=y.device)
-    return torch.fft.rfft(frames * win, n=n_fft)
+    return _rfft(frames * win, n_fft, fft_impl)
 
 
 def istft(
-    spec: torch.Tensor, n_fft: int, hop_length: int, win_length: int, length: int
+    spec: torch.Tensor, n_fft: int, hop_length: int, win_length: int, length: int,
+    fft_impl: str = "default",
 ) -> torch.Tensor:
     """Inverse of `stft`: complex (..., n_frames, n_fft//2 + 1) ->
     (..., length) samples by windowed overlap-add, window-sum
     normalisation and the centre trim."""
     n_frames = spec.shape[-2]
     win = torch.as_tensor(window(n_fft, win_length), device=spec.device)
-    y = overlap_add(torch.fft.irfft(spec, n=n_fft) * win, hop_length)
+    y = overlap_add(_irfft(spec, n_fft, fft_impl) * win, hop_length)
     inv = window_sum_sq(n_fft, hop_length, win_length, n_frames)
     y = y * torch.as_tensor(inv, device=spec.device)
     start = n_fft // 2

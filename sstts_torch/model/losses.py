@@ -5,6 +5,11 @@ towards low frequencies (< 3 kHz), plus BCE on the stop token and, when its
 weight is positive, the guided-attention prior.  Every term is masked by the
 per-example loss frame counts, so padded batches train as unpadded ones; a
 row with `loss_frames == 0` (an epoch-tail fill row) contributes nothing.
+
+On a mesh (`group`, the data group) each term is this rank's numerator
+over the global batch's denominator: the ranks' losses then sum to the
+one-device loss, and so do their gradients.  A per-rank mean averaged over
+the ranks is not that loss wherever the ranks' valid counts differ.
 """
 
 from __future__ import annotations
@@ -14,6 +19,7 @@ from typing import Dict, Tuple
 import torch
 
 from sstts_torch.config import ArchitectureConfig, DatasetConfig
+from sstts_torch.parallel.mesh import sum_over
 
 
 def frame_mask_from_lengths(lengths: torch.Tensor, total: int) -> torch.Tensor:
@@ -21,10 +27,11 @@ def frame_mask_from_lengths(lengths: torch.Tensor, total: int) -> torch.Tensor:
     return torch.arange(total, device=lengths.device)[None, :] < lengths[:, None]
 
 
-def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor,
+              group=None) -> torch.Tensor:
     m = mask[..., None].to(pred.dtype)
     num = torch.sum(torch.abs(pred - target) * m)
-    den = torch.clamp(torch.sum(m) * pred.shape[-1], min=1.0)
+    den = torch.clamp(sum_over(torch.sum(m) * pred.shape[-1], group), min=1.0)
     return num / den
 
 
@@ -46,6 +53,7 @@ def guided_attention_loss(
     text_lengths: torch.Tensor,
     decoder_steps: torch.Tensor,
     sigma: float,
+    group=None,
 ) -> torch.Tensor:
     """Diagonal attention prior (Tachibana et al. 2017): W[s, t] =
     1 - exp(-(t/T - s/S)^2 / (2 sigma^2)) over each utterance's valid
@@ -60,7 +68,8 @@ def guided_attention_loss(
     t_norm = t_pos / torch.clamp(texts, min=1.0)
     w = 1.0 - torch.exp(-((t_norm - s_norm) ** 2) / (2.0 * sigma**2))
     mask = ((s_pos < steps) & (t_pos < texts)).float()
-    return torch.sum(alignments * w * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    den = torch.clamp(sum_over(torch.sum(mask), group), min=1.0)
+    return torch.sum(alignments * w * mask) / den
 
 
 def tacotron_loss(
@@ -71,14 +80,17 @@ def tacotron_loss(
     arch: ArchitectureConfig,
     data: DatasetConfig,
     text_lengths: torch.Tensor = None,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(loss, metrics).  With a `group` the loss is this rank's share of the
+    global loss (for its backward) and the metrics are the global values."""
     total = mel_gt.shape[1]
     mask = frame_mask_from_lengths(loss_frames, total)
-    l_mel = masked_l1(outputs["mel"], mel_gt, mask)
+    l_mel = masked_l1(outputs["mel"], mel_gt, mask, group)
 
     n_low = max(1, int(arch.loss_low_freq_hz / (data.sample_rate / 2) * data.n_linear))
-    l_lin_full = masked_l1(outputs["linear"], linear_gt, mask)
-    l_lin_low = masked_l1(outputs["linear"][..., :n_low], linear_gt[..., :n_low], mask)
+    l_lin_full = masked_l1(outputs["linear"], linear_gt, mask, group)
+    l_lin_low = masked_l1(outputs["linear"][..., :n_low], linear_gt[..., :n_low], mask, group)
     w = arch.loss_low_freq_weight
     l_linear = (1.0 - w) * l_lin_full + w * l_lin_low
 
@@ -91,7 +103,9 @@ def tacotron_loss(
     )
     stop_mask = frame_mask_from_lengths(stop_len, total).float()
     bce = sigmoid_bce(outputs["stop_logits"], stop_targets(loss_frames, total))
-    l_stop = torch.sum(bce * stop_mask) / torch.clamp(torch.sum(stop_mask), min=1.0)
+    l_stop = torch.sum(bce * stop_mask) / torch.clamp(
+        sum_over(torch.sum(stop_mask), group), min=1.0
+    )
 
     loss = l_mel + l_linear + arch.stop_token_weight * l_stop
     metrics = {"loss_mel": l_mel, "loss_linear": l_linear, "loss_stop": l_stop}
@@ -99,9 +113,13 @@ def tacotron_loss(
         dec_steps = torch.ceil(loss_frames.float() / arch.reduction_factor)
         l_attn = guided_attention_loss(
             outputs["alignments"], text_lengths.float(), dec_steps,
-            arch.guided_attention_sigma,
+            arch.guided_attention_sigma, group,
         )
         loss = loss + arch.guided_attention_weight * l_attn
         metrics["loss_attn"] = l_attn
     metrics["loss"] = loss
+    if group is not None:
+        names = list(metrics)
+        total_ = sum_over(torch.stack([metrics[k].detach() for k in names]), group)
+        metrics = dict(zip(names, total_.unbind()))
     return loss, metrics

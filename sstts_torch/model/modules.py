@@ -47,7 +47,11 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over (batch, time) of (B, T, C) inputs.  Train mode: mean
     and (biased) variance over the valid positions only, and the running
     statistics move towards them (EMA at `momentum`); eval mode: the
-    running statistics."""
+    running statistics.  With a `group` (a mesh's data group,
+    `sstts_torch.parallel.mesh.shard_model`) the train-mode sums and the
+    count are taken over every rank's rows, as GSPMD takes them over the
+    global batch, through a differentiable all-reduce; the running
+    statistics then stay equal on every rank."""
 
     def __init__(self, features: int, epsilon: float = 1e-3, momentum: float = 0.99,
                  dtype: torch.dtype = torch.float32):
@@ -59,10 +63,23 @@ class MaskedBatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.group = None
+
+    def _global_stats(self, x: torch.Tensor, mask: Optional[torch.Tensor]):
+        from sstts_torch.parallel.mesh import all_reduce_sum
+
+        m = (torch.ones(x.shape[:2], device=x.device) if mask is None else mask)[..., None].float()
+        sums = all_reduce_sum(torch.cat([(x * m).sum((0, 1)), m.sum()[None]]), self.group)
+        count = torch.clamp(sums[-1], min=1.0)
+        mean = sums[:-1] / count
+        var = all_reduce_sum((((x - mean) ** 2) * m).sum((0, 1)), self.group) / count
+        return mean, var
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.training:
-            if mask is not None:
+            if self.group is not None:
+                mean, var = self._global_stats(x, mask)
+            elif mask is not None:
                 m = mask[..., None].float()  # f32 statistics under bf16 compute
                 count = torch.clamp(m.sum(), min=1.0)
                 mean = (x * m).sum((0, 1)) / count

@@ -23,6 +23,16 @@ norm's output are in the compute dtype, the GRUs and the softmax in f32,
 and `forward` returns f32 for the losses (`sstts/model/tacotron.py:30-238`).
 The fused teacher scan takes the prenet output in f32 and its outputs are
 cast back to the compute dtype.
+
+On a mesh (`sstts_torch.parallel.mesh.shard_model` sets `mesh`) the model
+holds a shard of the embedding's feature columns and of the post-net
+projection's input rows: the lookup is gathered over the model group and
+the projection's partial products summed over it before the bias, as the
+reference's GSPMD program computes them (`sstts/parallel/mesh.py:58-61`).
+`forward(..., rows=(start, total))` says that the batch is rows
+[start, start + B) of a global batch of `total`: the prenets' keep masks
+are drawn for the global batch and sliced, so the ranks of a mesh drop out
+as one device would.
 """
 
 from __future__ import annotations
@@ -48,13 +58,19 @@ def compute_dtype(arch: ArchitectureConfig) -> torch.dtype:
     return torch.bfloat16 if arch.compute_dtype == "bfloat16" else torch.float32
 
 
-def _keep_masks(prenet: PreNet, shape, generator, active: bool):
-    """The prenet's keep masks when its dropout is active, else None."""
+def _keep_masks(prenet: PreNet, shape, generator, active: bool, rows=None):
+    """The prenet's keep masks when its dropout is active, else None; with
+    `rows` = (start, total), drawn for `total` rows and sliced to this
+    batch's."""
     if not active or prenet.dropout <= 0.0:
         return None
     if generator is None:
         raise ValueError("prenet dropout is active: pass a torch.Generator")
-    return prenet.keep_masks(tuple(shape), generator)
+    if rows is None:
+        return prenet.keep_masks(tuple(shape), generator)
+    start, total = rows
+    masks = prenet.keep_masks((total, *shape[1:]), generator)
+    return [m[start : start + shape[0]] for m in masks]
 
 
 class Tacotron(nn.Module):
@@ -95,20 +111,27 @@ class Tacotron(nn.Module):
             a.fused_conv_bank,
         )
         self.linear_proj = nn.Linear(2 * a.post_gru_units, data.n_linear)
+        self.mesh = None
 
     def embed(self, char_ids: torch.Tensor) -> torch.Tensor:
         """flax's `Embed(dtype=...)`: the table in the compute dtype, then
-        the lookup."""
-        return F.embedding(char_ids, self.embedding.weight.to(self.dtype))
+        the lookup (of this rank's columns, gathered, on a mesh)."""
+        x = F.embedding(char_ids, self.embedding.weight.to(self.dtype))
+        if self.mesh is not None and self.mesh.tp:
+            from sstts_torch.parallel.mesh import gather_from_group
+
+            x = gather_from_group(x, self.mesh.model_group, dim=-1)
+        return x
 
     def encode(
-        self, char_ids: torch.Tensor, generator: Optional[torch.Generator] = None
+        self, char_ids: torch.Tensor, generator: Optional[torch.Generator] = None,
+        rows=None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, T) ids -> memory (B, T, 2*enc_gru), mask (B, T) bool.  The
         encoder prenet's dropout is train-time only."""
         mask = char_ids != 0
         x = self.embed(char_ids)
-        keep = _keep_masks(self.encoder_prenet, x.shape[:2], generator, self.training)
+        keep = _keep_masks(self.encoder_prenet, x.shape[:2], generator, self.training, rows)
         x = self.encoder_prenet(x, keep)
         return self.encoder_cbhg(x, mask), mask
 
@@ -118,6 +141,7 @@ class Tacotron(nn.Module):
         memory_mask: torch.Tensor,
         mel_gt: torch.Tensor,
         generator: Optional[torch.Generator] = None,
+        rows=None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Teacher-forced scan -> (mel (B, F, M), stop_logits (B, F),
         alignments (B, S, T)).  The prenet runs before the scan on all the
@@ -128,7 +152,9 @@ class Tacotron(nn.Module):
         inputs = teacher_inputs(mel_gt, r)
         batch, steps, _ = inputs.shape
         active = self.training or self.arch.prenet_dropout_at_inference
-        pre = cell.prenet(inputs, _keep_masks(cell.prenet, (batch, steps), generator, active))
+        pre = cell.prenet(
+            inputs, _keep_masks(cell.prenet, (batch, steps), generator, active, rows)
+        )
         keys = cell.attention.init_keys(memory)
         dev = memory.device
         if teacher_ops.resolve_teacher_impl(self.teacher_impl, self.arch, dev) == "fused":
@@ -191,8 +217,19 @@ class Tacotron(nn.Module):
     def postprocess(
         self, mel: torch.Tensor, frame_mask: Optional[torch.Tensor]
     ) -> torch.Tensor:
-        """Predicted mel -> linear spectrogram via the post-processing CBHG."""
-        return linear(self.post_cbhg(mel, frame_mask), self.linear_proj, self.dtype)
+        """Predicted mel -> linear spectrogram via the post-processing CBHG
+        (on a mesh, this rank's input rows of the projection, the partial
+        products summed over the model group, then the bias)."""
+        y = self.post_cbhg(mel, frame_mask)
+        if self.mesh is None or not self.mesh.tp:
+            return linear(y, self.linear_proj, self.dtype)
+        from sstts_torch.parallel.mesh import copy_to_group, reduce_from_group
+
+        group, proj = self.mesh.model_group, self.linear_proj
+        k = proj.weight.shape[1]
+        y = copy_to_group(y, group)[..., self.mesh.model_index * k : (self.mesh.model_index + 1) * k]
+        part = F.linear(y.to(self.dtype), proj.weight.to(self.dtype))
+        return reduce_from_group(part, group) + proj.bias.to(self.dtype)
 
     def forward(
         self,
@@ -200,10 +237,13 @@ class Tacotron(nn.Module):
         mel_gt: torch.Tensor,
         frame_mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        rows=None,
     ) -> Dict[str, torch.Tensor]:
         """Teacher-forced forward: mel, linear, stop_logits, alignments."""
-        memory, memory_mask = self.encode(char_ids, generator)
-        mel, stops, alignments = self.decode_teacher(memory, memory_mask, mel_gt, generator)
+        memory, memory_mask = self.encode(char_ids, generator, rows)
+        mel, stops, alignments = self.decode_teacher(
+            memory, memory_mask, mel_gt, generator, rows
+        )
         linear = self.postprocess(mel, frame_mask)
         return {
             "mel": mel.float(),

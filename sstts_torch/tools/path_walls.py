@@ -8,10 +8,12 @@ another checkout unpacked beside it): it imports `chip_smoke` and
 two trees in turns on one card.  It drives `chip_smoke.py`'s synthesis
 workload (`Synthesizer.synthesize_batch`, b=32, 800 frames, GL-60, PCM16)
 `--batches` times after two warm-up batches, and its training workload
-(b=32 in the 515-frame bucket) `--steps` times after one warm-up step, and
-prints one JSON line with every reading, the medians and the card.  A
-single reading of either moves by more than 10% with the host; compare
-medians.  It also times, five times, the host's side of one decode
+(b=32 in the 515-frame bucket) `--steps` times after one warm-up step,
+in turns with a cached step (`make_cached_train_step` on 32 rows of
+`chip_smoke.corpus_config()`'s pcm16 device corpus, bucket 1, as phase
+3e), and prints one JSON line with every reading, the medians and the
+card.  A single reading of either moves by more than 10% with the host;
+compare medians.  It also times, five times, the host's side of one decode
 (`prepare_decode` and `decode_steps` at b=32, T=96, 160 steps, bf16) while
 the card is held busy for ~100 ms: a host that waits for the card there
 reads near that time, one that does not a few ms.
@@ -26,6 +28,8 @@ import os
 import statistics
 import sys
 import time
+
+import numpy as np
 
 
 def main() -> None:
@@ -82,18 +86,29 @@ def main() -> None:
     batch = chip_smoke.fixed_batch(tcfg, 32, 1, (10, 16))
     state = tr.create_state(tcfg, seed=0)
     step = tr.make_train_step(tcfg)
-    steps = []
+    ccfg = chip_smoke.corpus_config()
+    (corpus, _), _ = tr.build_device_corpus(ccfg, tr.load_corpus(ccfg)[0],
+                                           device=torch.device("cuda"))
+    cstate = tr.create_state(ccfg, seed=0)
+    cstep = tr.make_cached_train_step(ccfg)
+    idx, valid = np.arange(32, dtype=np.int32), np.ones(32, np.float32)
+    runs = {"host": lambda: step(state, batch),
+            "cached": lambda: cstep(cstate, corpus[1], idx, valid)}
+    ms = {k: [] for k in runs}
     for i in range(args.steps + 1):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(state, batch)
-        torch.cuda.synchronize()
-        if i >= 1:
-            steps.append((time.perf_counter() - t0) * 1e3)
+        for k, run in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            if i >= 1:
+                ms[k].append((time.perf_counter() - t0) * 1e3)
+    steps = ms["host"]
     print(json.dumps({
         "tree": os.getcwd(),
         "batch_wall_s": {"median": statistics.median(walls), "all": walls},
         "train_step_ms": {"median": statistics.median(steps), "all": steps},
+        "cached_step_ms": {"median": statistics.median(ms["cached"]), "all": ms["cached"]},
         "decode_host_ms_card_busy": {"median": statistics.median(host), "all": host},
         "card": chip_smoke.card_line(),
     }))

@@ -39,8 +39,25 @@ shape, with the eval media (alignment and mel images, Griffin-Lim audio of
 the last eval batch).  Every architecture the reference's model accepts
 trains here: at `compute_dtype="bfloat16"` the model computes in bf16
 while the parameters, the losses, gradient clipping, Adam and the EMA stay
-f32, as in the reference.  Not ported (ROADMAP A.14): meshes
-(`model_parallel`).
+f32, as in the reference.
+
+Meshes (`sstts/train.py:75-148, 231-356, 779-792`): `train` picks the
+reference's layout, `model_parallel` ranks on the model axis and
+gcd(batch_size, devices / model_parallel) on the data axis, and where that
+is more than one device runs one process per rank
+(`sstts_torch.parallel.mesh.launch`: NCCL on the card, gloo on the CPU).
+Every rank builds the same full initial state and keeps its shard
+(`create_state(mesh=)`); a step takes this rank's rows of the global batch
+(for the resident corpus, its rows of each step's indices: the corpus is
+whole on every rank), draws the prenets' keep masks for the global batch,
+takes batch-norm statistics and loss denominators over the data group,
+sums the gradients over it, clips by the global norm of the sharded and
+replicated gradients and applies Adam (and the EMA) to its shard.  So a
+mesh computes one device's step, to the order of its sums.  Rank 0 alone
+writes `metrics.jsonl` and the checkpoints, which hold the gathered, full
+tensors; the ranks of data row 0 run the evaluation on whole eval batches.
+Unlike the reference, which keeps its Pallas kernels out of a GSPMD
+program, each rank runs the kernels on its rows (ROADMAP C).
 """
 
 from __future__ import annotations
@@ -50,6 +67,7 @@ import contextlib
 import dataclasses
 import functools
 import itertools
+import math
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -68,6 +86,7 @@ from sstts_torch.model.losses import frame_mask_from_lengths, tacotron_loss
 from sstts_torch.model.tacotron import Tacotron, init_state_dict
 from sstts_torch.ops import gru as gru_ops
 from sstts_torch.ops.teacher import resolve_teacher_impl
+from sstts_torch.parallel import mesh as mesh_mod
 from sstts_torch.synthesize import exact_f32, resolve_device
 from sstts_torch.utils.logging import MetricsLogger
 
@@ -107,8 +126,8 @@ def check_trainable(cfg: Config, device: Optional[torch.device] = None) -> None:
     if device is not None:
         gru_ops.check_arch(a, device)
         resolve_teacher_impl(None, a, device)
-    if t.model_parallel > 1:
-        raise NotImplementedError("model_parallel > 1 is not ported yet (ROADMAP A.14)")
+    if t.model_parallel < 1:
+        raise ValueError(f"training.model_parallel must be at least 1: {t.model_parallel}")
     if not 0.0 <= t.ema_decay < 1.0:
         raise ValueError(f"training.ema_decay must be in [0, 1): {t.ema_decay}")
 
@@ -120,15 +139,20 @@ def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
     )
 
 
-def create_state(cfg: Config, seed: Optional[int] = None, device=None) -> TrainState:
+def create_state(
+    cfg: Config, seed: Optional[int] = None, device=None, mesh: Optional[mesh_mod.Mesh] = None
+) -> TrainState:
     """A seeded random init (`init_state_dict`) on `device` (None: the card)
-    with fresh Adam moments."""
+    with fresh Adam moments.  On a `mesh` every rank builds the same full
+    init and keeps its shard (`mesh.shard_model`)."""
     dev = resolve_device(device)
     check_trainable(cfg, dev)
     model = Tacotron(cfg.arch, cfg.dataset)
     model.load_state_dict(
         init_state_dict(cfg.arch, cfg.dataset, cfg.training.seed if seed is None else seed)
     )
+    if mesh is not None:
+        mesh_mod.shard_model(model, mesh)
     model.to(dev)
     ema = None
     if cfg.training.ema_decay > 0.0:
@@ -221,15 +245,22 @@ def _check_nan(what: str, tensors, step: int) -> None:
 def _make_step_body(cfg: Config, from_features: bool = False):
     """(state, batch of tensors on the state's device) -> metrics, updating
     `state` in place.  `from_features` takes "linear"/"mel" from the batch
-    (a feature-format device corpus, cast to f32) instead of "samples"."""
+    (a feature-format device corpus, cast to f32) instead of "samples".  On
+    a mesh (the state's model's) the batch is this rank's rows and the
+    metrics are the global batch's."""
     check_trainable(cfg)
     t = cfg.training
     sched = lr_schedule(cfg)
 
     def step_body(state: TrainState, b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model = state.model
+        mesh = model.mesh
         dev = _device_of(state)
         gen = torch.Generator(device=dev).manual_seed(((t.seed + 1) << 32) + state.step)
+        rows = group = None
+        if mesh is not None:
+            n = b["char_ids"].shape[0]
+            rows, group = (mesh.data_index * n, mesh.shape["data"] * n), mesh.data_group
         model.train()
         guard = _debug_nans(model, state.step) if t.debug_nans else contextlib.nullcontext()
         with exact_f32(dev), guard:
@@ -238,20 +269,27 @@ def _make_step_body(cfg: Config, from_features: bool = False):
                 frame_mask = frame_mask_from_lengths(b["n_frames"], mel_gt.shape[1])
             else:
                 linear_gt, mel_gt, frame_mask = _targets(b, cfg)
-            out = model(b["char_ids"], mel_gt, frame_mask, gen)
+            out = model(b["char_ids"], mel_gt, frame_mask, gen, rows)
             loss, metrics = tacotron_loss(
                 out, mel_gt, linear_gt, b["loss_frames"], cfg.arch, cfg.dataset,
-                text_lengths=b["text_len"],
+                text_lengths=b["text_len"], group=group,
             )
             if t.debug_nans:
                 _check_nan("the loss", [loss], state.step)
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
-            params = list(model.parameters())
+            named = list(model.named_parameters())
+            params = [p for _, p in named]
             for p in params:  # optax updates every leaf, a zero gradient too
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            g_norm = global_norm([p.grad for p in params])
+            if mesh is None:
+                g_norm = global_norm([p.grad for p in params])
+            else:
+                mesh_mod.reduce_gradients(params, mesh)
+                g_norm = mesh_mod.global_grad_norm(
+                    [(n, p.grad) for n, p in named], mesh, global_norm
+                )
             # optax.clip_by_global_norm: g / ||g|| * max_norm once ||g|| >= max_norm.
             keep = g_norm < t.grad_clip_norm
             for p in params:
@@ -277,13 +315,21 @@ def _make_step_body(cfg: Config, from_features: bool = False):
     return step_body
 
 
+def _local(state: TrainState, arrays):
+    """This rank's rows of global arrays on a mesh (`P("data")`), else the
+    arrays."""
+    mesh = state.model.mesh
+    return arrays if mesh is None else mesh_mod.shard_batch(arrays, mesh)
+
+
 def make_train_step(cfg: Config):
     """(state, batch) -> metrics, updating `state` in place.  `batch` holds
-    the `pipeline.make_batch` fields as numpy arrays or tensors."""
+    the `pipeline.make_batch` fields as numpy arrays or tensors: the global
+    batch, of which a mesh's rank takes its rows."""
     body = _make_step_body(cfg)
 
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
-        return body(state, _to_device(batch, _device_of(state)))
+        return body(state, _to_device(_local(state, batch), _device_of(state)))
 
     return train_step
 
@@ -328,7 +374,8 @@ def make_cached_train_step(cfg: Config):
     body = _make_step_body(cfg, from_features="linear" in keys)
 
     def cached_step(state: TrainState, corpus, idx, valid) -> Dict[str, torch.Tensor]:
-        idx_d, valid_d = _pinned_to(_device_of(state), idx, valid)
+        iv = _local(state, {"idx": idx, "valid": valid})
+        idx_d, valid_d = _pinned_to(_device_of(state), iv["idx"], iv["valid"])
         return body(state, _gather(corpus, keys, idx_d, valid_d))
 
     return cached_step
@@ -340,11 +387,15 @@ def make_grouped_train_step(cfg: Config):
     stacked to (S,) ("lr", known on the host, stays there).  Each step
     gathers its own rows and seeds its dropout from its own step number, so
     the call equals S cached steps; nothing waits for the card between
-    them."""
+    them.  A mesh's rank takes its columns of `idxs` and `valids`."""
     keys = corpus_keys(cfg)
     body = _make_step_body(cfg, from_features="linear" in keys)
 
     def grouped_step(state: TrainState, corpus, idxs, valids) -> Dict[str, torch.Tensor]:
+        mesh = state.model.mesh
+        if mesh is not None:  # P(None, "data")
+            cols = mesh.rows(idxs.shape[1])
+            idxs, valids = idxs[:, cols], valids[:, cols]
         idxs_d, valids_d = _pinned_to(_device_of(state), idxs, valids)
         ms = [body(state, _gather(corpus, keys, idxs_d[i], valids_d[i]))
               for i in range(idxs_d.shape[0])]
@@ -674,6 +725,33 @@ def _log_eval_media(logger: MetricsLogger, step: int, cfg: Config, out) -> None:
         print(f"[warn] eval media logging failed: {type(e).__name__}: {e}", flush=True)
 
 
+class _NoLogger:
+    """The metrics logger of a rank that writes none (not rank 0)."""
+
+    def log(self, *args, **kw) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
+
+
+def mesh_layout(cfg: Config, n_devices: int):
+    """(data, model) by the reference's rule (`sstts/train.py:779-792`):
+    `model_parallel` must divide the devices, and the data axis is
+    gcd(batch_size, devices / model_parallel)."""
+    n_model = max(cfg.training.model_parallel, 1)
+    if n_devices % n_model:
+        raise ValueError(
+            f"training.model_parallel={n_model} does not divide the "
+            f"{n_devices} visible devices"
+        )
+    return math.gcd(cfg.training.batch_size, n_devices // n_model), n_model
+
+
+# A mesh's training run has no deadline; each of its collectives waits at
+# most this long, well above the longest wait of a rank: the other data rows
+# while data row 0 evaluates, or every rank while rank 0 writes a checkpoint.
+COLLECTIVE_TIMEOUT_S = 1800.0
 
 
 def train(
@@ -682,27 +760,64 @@ def train(
     max_steps: Optional[int] = None,
     device=None,
     log_every: Optional[int] = None,
+    n_devices: Optional[int] = None,
 ) -> TrainState:
-    """Training driver (`sstts/train.py:_train_loop`): the device-resident
-    corpus where `device_corpus_cache` allows and it fits its budget, else
-    host-fed batches -> train steps (S at a time with `steps_per_call`) ->
-    metrics (`workdir/metrics.jsonl`), checkpoints every
-    `checkpoint_every` steps and at the end, and an evaluation at most
-    every `eval_every` steps.  Log and checkpoint cadences fire where a call
-    crosses their thresholds, so they behave alike for any S.  Resumes from
-    the newest checkpoint under `workdir`, continuing the data order;
-    lands exactly on `max_steps`."""
-    workdir = Path(workdir)
+    """Training driver (`sstts/train.py:train`, `_train_loop`): the
+    device-resident corpus where `device_corpus_cache` allows and it fits
+    its budget, else host-fed batches -> train steps (S at a time with
+    `steps_per_call`) -> metrics (`workdir/metrics.jsonl`), checkpoints
+    every `checkpoint_every` steps and at the end, and an evaluation at
+    most every `eval_every` steps.  Log and checkpoint cadences fire where
+    a call crosses their thresholds, so they behave alike for any S.
+    Resumes from the newest checkpoint under `workdir`, continuing the data
+    order; lands exactly on `max_steps`.
+
+    The layout is `mesh_layout` over `n_devices` (None: every visible GPU
+    on the card, one device on the CPU).  One device trains in this
+    process; more train in one process per rank (`mesh.launch`), and the
+    returned state is then the final checkpoint, whole, on `device`."""
+    dev = resolve_device(device)
+    if n_devices is None:
+        n_devices = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n_data, n_model = mesh_layout(cfg, n_devices)
+    if n_data * n_model == 1:
+        return _train_loop(cfg, Path(workdir), max_steps, dev, log_every, None)
+    check_trainable(cfg, dev)
+    mesh_mod.launch(
+        _train_rank, n_data * n_model, cfg, str(workdir), max_steps, log_every,
+        n_data, n_model, dev.type, device=dev.type,
+        timeout=None, collective_timeout=COLLECTIVE_TIMEOUT_S,
+    )
+    state = create_state(cfg, device=dev)
+    CheckpointManager(cfg, workdir).restore_latest(state)
+    return state
+
+
+def _train_rank(cfg, workdir, max_steps, log_every, n_data, n_model, device_type) -> int:
+    """One rank of a mesh's training run (a `mesh.launch` worker)."""
+    mesh = mesh_mod.make_mesh(data_parallel=n_data, model_parallel=n_model)
+    dev = torch.device("cuda", mesh.rank) if device_type == "cuda" else torch.device("cpu")
+    return _train_loop(cfg, Path(workdir), max_steps, dev, log_every, mesh).step
+
+
+def _train_loop(cfg: Config, workdir: Path, max_steps, dev: torch.device, log_every,
+                mesh: Optional[mesh_mod.Mesh]) -> TrainState:
     workdir.mkdir(parents=True, exist_ok=True)
     t = cfg.training
     max_steps = max_steps or t.max_steps
     log_every = log_every or t.summary_every
+    lead = mesh is None or mesh.rank == 0
+    evaluates = mesh is None or mesh.data_index == 0
     train_utts, eval_utts = load_corpus(cfg)
     batcher = pipeline_mod.Batcher(train_utts, cfg)
-    eval_batcher = pipeline_mod.Batcher(eval_utts, cfg) if eval_utts else None
-    state = create_state(cfg, device=device)
-    dev = _device_of(state)
-    ckpt = CheckpointManager(cfg, workdir)
+    eval_batcher = pipeline_mod.Batcher(eval_utts, cfg) if eval_utts and evaluates else None
+    state = create_state(cfg, device=dev, mesh=mesh)
+    if lead:  # rank 0 writes the directory's fingerprint before the others read it
+        ckpt = CheckpointManager(cfg, workdir)
+    if mesh is not None:
+        torch.distributed.barrier()
+    if not lead:
+        ckpt = CheckpointManager(cfg, workdir)
     if ckpt.restore_latest(state) is not None:
         print(f"resumed from checkpoint at step {state.step}", flush=True)
     eval_step = make_eval_step(cfg)
@@ -751,7 +866,7 @@ def train(
         )
     grouped_step = make_grouped_train_step(cfg) if S > 1 else None
     last_eval, last_log, t_last = step, step, time.time()
-    logger = MetricsLogger(workdir)
+    logger = MetricsLogger(workdir) if lead else _NoLogger()
     try:
         while step < max_steps:
             if corpus is not None and S > 1:
@@ -791,7 +906,7 @@ def train(
                     metrics = grouped_step(state, corpus[bucket], a, b)
                 ns = state.step - step
                 step = state.step
-                if step // log_every != (step - ns) // log_every:
+                if lead and step // log_every != (step - ns) // log_every:
                     host = {k: float(v.reshape(-1)[-1]) for k, v in metrics.items()}
                     now = time.time()
                     host["steps_per_s"] = (step - last_log) / max(now - t_last, 1e-9)
@@ -823,7 +938,7 @@ def train(
                     n += 1
                     if n >= cfg.evaluation.num_eval_batches:
                         break
-                if n:
+                if n and lead:
                     logger.log(step, {k: v / n for k, v in agg.items()}, prefix="eval")
                     _log_eval_media(logger, step, cfg, last_out)
         ckpt.save(step, state)

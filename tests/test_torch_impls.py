@@ -161,3 +161,29 @@ def test_synthesizer_resolves_before_anything_runs():
 
     params = init_state_dict(luong.arch, luong.dataset, seed=0)
     assert Synthesizer(luong, params, device="cpu")._decoder_impl == "xla"
+
+
+@pytest.mark.parametrize("override", [None, "auto"], ids=str)
+def test_a_mesh_keeps_the_kernels_on_every_rank(override, monkeypatch):
+    """An intended difference (ROADMAP C): under a multi-device GSPMD mesh
+    the reference pins its decoder to the XLA scan (GSPMD cannot partition
+    a custom call), and keeps its kernel under `shard_map`; the port runs
+    whole modules on each shard, so the mesh takes no part in the choice
+    and "auto" is B4 on every card, as the reference's `shard_map` mode."""
+    arch = _arch("bahdanau")
+    cfg = jax_tiny_config()
+    cfg = cfg.replace(inference=dataclasses.replace(cfg.inference, decoder_impl=override))
+    monkeypatch.setattr(jsynth.jax, "default_backend", lambda: "tpu")
+    for gspmd_multidev, want in ((True, "xla"), (False, "fused")):
+        fake = types.SimpleNamespace(cfg=cfg, _gspmd_multidev=gspmd_multidev)
+        assert jsynth.Synthesizer._resolve_decoder_impl(fake) == want
+    assert dec_ops.resolve_decoder_impl(override, arch, CUDA, 20) == "fused"
+    assert tops.resolve_teacher_impl(override, arch, CUDA) == "fused"
+    from sstts_torch.model.tacotron import init_state_dict
+    from sstts_torch.parallel.mesh import make_mesh
+
+    pcfg = tiny_config()
+    params = init_state_dict(pcfg.arch, pcfg.dataset, 0)
+    one = Synthesizer(pcfg, params, device="cpu")
+    mesh = Synthesizer(pcfg, params, device="cpu", mesh=make_mesh(devices=[CPU] * 2))
+    assert mesh._decoder_impl == one._decoder_impl

@@ -55,8 +55,36 @@ def test_port_imports_no_jax_and_no_sstts():
         "sstts_torch.tools.overfit_demo", "sstts_torch.model.attention",
         "sstts_torch.model.modules", "sstts_torch.model.rnn",
         "sstts_torch.model.decoder", "sstts_torch.utils.profiling",
+        "sstts_torch.parallel.mesh", "sstts_torch.dsp.fft",
+        "sstts_torch.data.native_loader", "sstts_torch.tools.mesh_steps",
     ):
         assert expected in res["modules"]
+
+
+@pytest.mark.parametrize(
+    "module", ["sstts_torch.parallel.mesh", "sstts_torch.dsp.fft", "sstts_torch.data.native_loader"]
+)
+def test_new_modules_import_cleanly(module):
+    """Importing the mesh, the matmul FFT or the native loader (in a fresh
+    interpreter) initializes no CUDA, joins no process group, starts no
+    thread and builds nothing, and brings in no JAX or sstts module."""
+    code = (
+        "import importlib, json, sys, threading\n"
+        f"importlib.import_module({module!r})\n"
+        "import torch, torch.distributed as dist\n"
+        "from sstts_torch.data import native_loader\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'sstts'))\n"
+        "print(json.dumps({'cuda': torch.cuda.is_initialized(), 'group': dist.is_initialized(),"
+        " 'threads': threading.active_count(), 'bad': bad,"
+        " 'built': native_loader._library.cache_info().currsize}))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, check=True,
+    )
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res == {"cuda": False, "group": False, "threads": 1, "bad": [], "built": 0}
 
 
 def test_package_names_match_the_reference_and_import_no_torch():

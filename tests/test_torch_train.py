@@ -236,8 +236,13 @@ def test_batching_matches_jax():
 
 def test_unported_training_settings_raise():
     _, pcfg = tiny_pair()
+    # model_parallel trains on a mesh (tests/test_torch_mesh_train.py); as in
+    # the reference, it must divide the visible devices and be positive.
     cfg = pcfg.replace(training=dataclasses.replace(pcfg.training, model_parallel=2))
-    with pytest.raises(NotImplementedError, match="model_parallel"):
+    with pytest.raises(ValueError, match="does not divide the 1 visible devices"):
+        ptrain.train(cfg, max_steps=1, device="cpu")
+    cfg = pcfg.replace(training=dataclasses.replace(pcfg.training, model_parallel=0))
+    with pytest.raises(ValueError, match="model_parallel"):
         ptrain.create_state(cfg, device="cpu")
     # The kernels' width limits raise on the card before anything is
     # launched (resolution needs no card): a BiGRU wider than B3 takes, a

@@ -39,7 +39,8 @@ from sstts.dsp.ops import wav_to_features as jax_features
 from sstts_torch import train as ptrain
 from sstts_torch.convert import convert_params
 from sstts_torch.data.synthetic import make_utterances
-from sstts_torch.dsp.ops import _tf32_split, wav_to_features
+from sstts_torch.dsp.fft import tf32_split
+from sstts_torch.dsp.ops import wav_to_features
 
 FORMATS = ("pcm16", "features", "features_bf16")
 
@@ -334,7 +335,7 @@ def test_tf32_split_is_exact():
     rng = np.random.default_rng(3)
     x = torch.as_tensor((rng.standard_normal(4096) * 10.0 ** rng.integers(-30, 30, 4096))
                         .astype(np.float32))
-    hi, lo = _tf32_split(x)
+    hi, lo = tf32_split(x)
     assert bool(((hi.view(torch.int32) & 0x1FFF) == 0).all())
     assert torch.equal(hi + lo, x)
     assert bool((lo.abs() <= x.abs() * 2.0**-11).all())
