@@ -47,11 +47,16 @@
 // Measurement only: SSTTS_ABLATE (gl_tail.cuh) has two more bits here, 8 to
 // skip GEMM1 (its loads and its wgmma) and 16 to skip the slab's stores.
 
+// The kernel above is the whole-panel configuration: the bf16 loop at a
+// window support up to 1137 lanes and D <= 4.  gl_fused_wide_kernel below
+// runs gl_wide.cuh's wide configuration everywhere else inside n_fft <= 2048
+// and D <= 16, in bf16 or f32 (sstts_torch/dsp/gl_tiles.py:config chooses).
+//
 // Plain C interface (bound with ctypes); launch on the caller's stream,
 // return cudaGetLastError() (or a negative code when a tensor map cannot be
 // encoded).
 
-#include "gl_tail.cuh"
+#include "gl_wide.cuh"
 
 extern "C" {
 
@@ -71,6 +76,10 @@ struct GlFusedArgs {
   const bf16* w_inv_t;  // (wp, 2 hp): w_inv transposed
   const bf16* w_fwd_t;  // (2 hp, wp): w_fwd transposed
   int* slab_free;       // (n_slabs,): 1 where the slab is free
+  // The wide configuration (gl_wide.cuh) takes `frames` as n_slabs slabs of
+  // wide::slab_bytes(wp, elem, true) bytes and no slab_free; with f32 set
+  // every tensor but wss2d and the slabs' frames is f32.
+  int f32;
 };
 
 }  // extern "C"
@@ -256,6 +265,33 @@ gl_fused_kernel(const GlFusedArgs p, __grid_constant__ const CUtensorMap map_q,
   }
 }
 
+// The wide configuration (gl_wide.cuh): a persistent block walks work items of
+// 64 frames of one utterance: GEMM1 for them and D halo frames a side into the
+// f32 part of its slab, the panel from there into the rest, then GEMM2 and
+// the renorm a column tile at a time.
+template <typename OT>
+__global__ void __launch_bounds__(wide::kThreads, 2)
+gl_fused_wide_kernel(const GlFusedArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* slab = reinterpret_cast<unsigned char*>(p.frames) +
+                        blockIdx.x * wide::slab_bytes(p.wp, sizeof(OT), true);
+  float* f = reinterpret_cast<float*>(slab);
+  OT* panel = reinterpret_cast<OT*>(slab + (size_t)wide::kG1Rows * p.wp * 4);
+  const int n_rb = (p.T + wide::kRows - 1) / wide::kRows;
+  for (int item = blockIdx.x; item < n_rb * p.Bt; item += gridDim.x) {
+    const int t0 = item % n_rb * wide::kRows, bi = item / n_rb;
+    wide::gemm1<OT>(p, smem, reinterpret_cast<const OT*>(p.q),
+                    reinterpret_cast<const OT*>(p.w_inv_t), f, t0, bi);
+    wide::build_panel<OT>(p, panel, t0, [&](int u) {
+      return f + (size_t)(u - t0 + p.d_max) * p.wp;
+    });
+    wide::gemm2_renorm<false, OT>(p, smem, panel,
+                                  reinterpret_cast<const OT*>(p.w_fwd_t), t0, bi);
+  }
+}
+
+bool wide_ready[2];
+
 }  // namespace
 
 extern "C" {
@@ -320,6 +356,30 @@ int sstts_gl_fused(const GlFusedArgs* a, void* stream) {
   cudaError_t err = launch_clustered(gl_fused_kernel, grid, cl, smem, st, *a, map_q,
                                      map_wi, map_w);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The wide configuration: its shared memory, or -1 beyond its envelope
+// (d_max > 16: GEMM1's 96 rows; or a support above 2048 lanes).
+int sstts_gl_fused_wide_smem_bytes(int w_len, int d_max) {
+  return wide::smem_bytes(w_len, d_max);
+}
+
+// Blocks of the wide kernel an SM holds, or -1.
+int sstts_gl_fused_wide_blocks_per_sm(int f32) {
+  return f32 ? wide::blocks_per_sm(gl_fused_wide_kernel<float>, wide_ready[1])
+             : wide::blocks_per_sm(gl_fused_wide_kernel<bf16>, wide_ready[0]);
+}
+
+// Requires wp % 64 == 0, hp % 128 == 0, 16-byte aligned tensors,
+// 0 <= sstts_gl_fused_wide_smem_bytes(w_len, d_max), and a->n_slabs slabs of
+// wide::slab_bytes(wp, elem, true) bytes at a->frames.
+int sstts_gl_fused_wide(const GlFusedArgs* a, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int items = (a->T + wide::kRows - 1) / wide::kRows * a->Bt;
+  if (a->f32)
+    return wide::launch(gl_fused_wide_kernel<float>, wide_ready[1], items, a->n_slabs, st,
+                        *a);
+  return wide::launch(gl_fused_wide_kernel<bf16>, wide_ready[0], items, a->n_slabs, st, *a);
 }
 
 const char* sstts_error_string(int code) { return tail_error_string(code); }

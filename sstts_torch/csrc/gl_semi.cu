@@ -34,11 +34,16 @@
 // time of each stage (sstts_torch/tools/ablate_gl_semi.py builds this file
 // with SSTTS_ABLATE set to skip stages).
 
+// The kernel above is the whole-panel configuration: the bf16 loop at a
+// window support up to 1152 lanes and D <= 8.  gl_semi_wide_kernel below
+// runs gl_wide.cuh's wide configuration everywhere else inside n_fft <= 2048
+// and D <= 16, in bf16 or f32 (sstts_torch/dsp/gl_tiles.py:config chooses).
+//
 // Plain C interface (bound with ctypes); launch on the caller's stream,
 // return cudaGetLastError() (or a negative code when a tensor map cannot be
 // encoded).
 
-#include "gl_tail.cuh"
+#include "gl_wide.cuh"
 
 extern "C" {
 
@@ -56,6 +61,11 @@ struct GlArgs {
   int Bt, T, wp, hp, w_len, hop, d_max;
   float momentum;
   const bf16* w_fwd_t;  // (2 hp, wp): w_fwd transposed
+  // The wide configuration (gl_wide.cuh) only; the whole-panel kernel reads
+  // none of them.  With f32 set every tensor above but wss2d is f32.
+  void* slab;           // n_slabs x wide::slab_bytes(wp, elem, false)
+  int n_slabs;
+  int f32;
 };
 
 }  // extern "C"
@@ -90,6 +100,28 @@ gl_semi_kernel(const GlArgs p, __grid_constant__ const CUtensorMap map_w) {
   }
 }
 
+// The wide configuration (gl_wide.cuh): a persistent block walks work items of
+// 64 frames of one utterance: the panel from the frames (the loop dtype OT)
+// into its slab, then GEMM2 and the renorm a column tile at a time.
+template <typename OT, bool kMomentum>
+__global__ void __launch_bounds__(wide::kThreads, 2)
+gl_semi_wide_kernel(const GlArgs p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const OT* frames = reinterpret_cast<const OT*>(p.frames);
+  OT* panel = reinterpret_cast<OT*>(static_cast<unsigned char*>(p.slab) +
+                                    blockIdx.x * wide::slab_bytes(p.wp, sizeof(OT), false));
+  const int n_rb = (p.T + wide::kRows - 1) / wide::kRows;
+  for (int item = blockIdx.x; item < n_rb * p.Bt; item += gridDim.x) {
+    const int t0 = item % n_rb * wide::kRows, bi = item / n_rb;
+    const OT* f = frames + (size_t)bi * p.T * p.wp;
+    wide::build_panel<OT>(p, panel, t0, [&](int u) { return f + (size_t)u * p.wp; });
+    wide::gemm2_renorm<kMomentum, OT>(p, smem, panel,
+                                      reinterpret_cast<const OT*>(p.w_fwd_t), t0, bi);
+  }
+}
+
+bool wide_ready[2][2];
+
 }  // namespace
 
 extern "C" {
@@ -121,6 +153,37 @@ int sstts_gl_semi(const GlArgs* a, void* stream) {
   dim3 grid((a->T + BM - 1) / BM, round_up(a->Bt, cl));
   cudaError_t err = launch_clustered(kernel, grid, cl, smem, st, *a, map_w);
   return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+// The wide configuration: its shared memory, or -1 beyond its envelope
+// (d_max > 16 or a support above 2048 lanes).
+int sstts_gl_semi_wide_smem_bytes(int w_len, int d_max) {
+  return wide::smem_bytes(w_len, d_max);
+}
+
+// Blocks of the wide kernel an SM holds (the fewer of its classic and
+// momentum instances), or -1.
+int sstts_gl_semi_wide_blocks_per_sm(int f32) {
+  const int a = f32 ? wide::blocks_per_sm(gl_semi_wide_kernel<float, false>, wide_ready[1][0])
+                    : wide::blocks_per_sm(gl_semi_wide_kernel<bf16, false>, wide_ready[0][0]);
+  const int b = f32 ? wide::blocks_per_sm(gl_semi_wide_kernel<float, true>, wide_ready[1][1])
+                    : wide::blocks_per_sm(gl_semi_wide_kernel<bf16, true>, wide_ready[0][1]);
+  return a < b ? a : b;
+}
+
+// Requires wp % 64 == 0, hp % 128 == 0, 16-byte aligned tensors,
+// 0 <= sstts_gl_semi_wide_smem_bytes(w_len, d_max), and a->n_slabs slabs of
+// wide::slab_bytes(wp, elem, false) bytes at a->slab.
+int sstts_gl_semi_wide(const GlArgs* a, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  const int items = (a->T + wide::kRows - 1) / wide::kRows * a->Bt;
+  const bool m = a->prev != nullptr;
+  bool& ready = wide_ready[a->f32 != 0][m];
+  if (a->f32)
+    return wide::launch(m ? gl_semi_wide_kernel<float, true> : gl_semi_wide_kernel<float, false>,
+                        ready, items, a->n_slabs, st, *a);
+  return wide::launch(m ? gl_semi_wide_kernel<bf16, true> : gl_semi_wide_kernel<bf16, false>,
+                      ready, items, a->n_slabs, st, *a);
 }
 
 const char* sstts_error_string(int code) { return tail_error_string(code); }

@@ -394,13 +394,65 @@ __global__ void __launch_bounds__(kMaxThreads) reproject_kernel(const ReprojectA
   }
 }
 
+// The direct configuration, for the shapes whose 2 D + kRows input rows no
+// ring in shared memory holds (f32 rows of 2048 lanes at D >= 13: a 2048-
+// sample window with a hop below 158 samples): the same function, sums and
+// grid, with every term read from device memory (L2) and no shared memory.
+// A thread takes the block's elements kDirectThreads apart, adds the terms in
+// the same order, scales and casts; then the strip's mirror runs as above.
+constexpr int kDirectThreads = 256;
+
+using Kernel = void (*)(ReprojectArgs);
+
+template <typename T>
+__device__ __forceinline__ float as_f32(T v) {
+  if constexpr (sizeof(T) == 2) return __bfloat162float(v); else return v;
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v) {
+  if constexpr (sizeof(T) == 2) return __float2bfloat16_rn(v); else return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kDirectThreads) reproject_direct_kernel(const ReprojectArgs p) {
+  const int tid = threadIdx.x, b = blockIdx.y, s = blockIdx.x, D = p.d_max;
+  const int t0 = (int)((long long)s * p.T / p.strips);
+  const int t1 = (int)((long long)(s + 1) * p.T / p.strips);
+  const size_t utt = (size_t)b * p.T * p.wp;
+  const T* F = static_cast<const T*>(p.frames) + utt;
+  T* O = static_cast<T*>(p.out) + utt;
+  for (int e = tid; e < (t1 - t0) * p.wp; e += kDirectThreads) {
+    const int t = t0 + e / p.wp, j = e % p.wp;
+    float acc = 0.f;
+    if (j < p.w_len) {
+      for (int di = 0; di <= 2 * D; ++di) {
+        const int d = di == 0 ? 0 : (di <= D ? di - 1 - D : di - D);  // 0, -D..-1, 1..D
+        const int u = t - d, l = j + d * p.hop;
+        if (u >= 0 && u < p.T && l >= 0 && l < p.w_len) acc += as_f32(F[(size_t)u * p.wp + l]);
+      }
+      acc *= p.wss2d[(size_t)t * p.wp + j];
+    }
+    O[(size_t)t * p.wp + j] = from_f32<T>(acc);
+  }
+  for (int i = 0; i < p.n_runs; ++i) {
+    const int* run = p.runs + 6 * i;
+    if (run[0] < t0 || run[0] >= t1) continue;
+    __syncthreads();  // every row of the strip, and the run before, stored
+    T* dst = O + (size_t)run[0] * p.wp + run[1];
+    const T* src = O + (size_t)run[3] * p.wp + run[5] - 1;
+    for (int k = tid; k < run[2] - run[1]; k += kDirectThreads) dst[k] = src[-k];
+  }
+}
+
+Kernel direct_kernel_for(int is_bf16) {
+  return is_bf16 ? reproject_direct_kernel<__nv_bfloat16> : reproject_direct_kernel<float>;
+}
+
 int consumer_threads(int wp, int elem_bytes) {
   const int nseg = wp * elem_bytes / 16;
   const int nt = (nseg + 31) / 32 * 32;
   return nt < kMaxThreads - 32 ? nt : kMaxThreads - 32;
 }
-
-using Kernel = void (*)(ReprojectArgs);
 
 Kernel kernel_for(int is_bf16) {
   return is_bf16 ? reproject_kernel<__nv_bfloat16> : reproject_kernel<float>;
@@ -449,6 +501,22 @@ int sstts_reproject(const ReprojectArgs* a, int is_bf16, void* stream) {
   if (err != cudaSuccess) return (int)err;
   const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   k<<<dim3(a->strips, a->Bt), sstts_reproject_threads(a->wp, es), smem, st>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// The direct configuration: blocks an SM holds (of kDirectThreads threads,
+// no shared memory), or -1.
+int sstts_reproject_direct_blocks_per_sm(int is_bf16) {
+  int n = -1;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &n, direct_kernel_for(is_bf16), kDirectThreads, 0);
+  return err == cudaSuccess ? n : -1;
+}
+
+// Requires 16-byte aligned frames and out; any wp.
+int sstts_reproject_direct(const ReprojectArgs* a, int is_bf16, void* stream) {
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  direct_kernel_for(is_bf16)<<<dim3(a->strips, a->Bt), kDirectThreads, 0, st>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -1,7 +1,8 @@
 // PTX wrappers for the Hopper (sm_90a) features the Griffin-Lim kernels are
-// built from (gl_tail.cuh, gl_semi.cu, gl_fused.cu): mbarriers, TMA tensor
-// loads (plain and multicast over a thread-block cluster), wgmma with both
-// operands in 128-byte-swizzled shared memory, cluster barriers, setmaxnreg,
+// built from (gl_tail.cuh, gl_wide.cuh, gl_semi.cu, gl_fused.cu): mbarriers,
+// TMA tensor loads (plain and multicast over a thread-block cluster), wgmma
+// with both operands in 128-byte-swizzled shared memory, cluster barriers,
+// setmaxnreg, cp.async and the warp-level mma.sync products (bf16 and tf32),
 // and the host-side encoding of a TMA tensor map.  libcuda is not linked:
 // cuTensorMapEncodeTiled is looked up through the runtime.
 
@@ -221,6 +222,58 @@ __device__ __forceinline__ void wgmma_m64n72k16(float (&d)[36], uint64_t desc_a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// ------------------------------------------------- cp.async and mma.sync --
+// What the Griffin-Lim kernels' wide configuration (gl_wide.cuh) is built
+// from: 16-byte copies global -> shared through L2 and the warp-level
+// tensor-core products, bf16 m16n8k16 and tf32 m16n8k8.
+
+// 16 bytes from `src` to `dst` (both 16-byte aligned); with src_bytes 0
+// nothing is read and the 16 bytes are zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Returns once at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// d (16 x 8, f32) += a (16 x 16, bf16, row-major) b (16 x 8, bf16, column-major).
+// Lane l = 4 g + t holds a[0] = A[g][2t, 2t+1], a[1] = A[g+8][2t, 2t+1],
+// a[2] = A[g][2t+8, 2t+9], a[3] = A[g+8][2t+8, 2t+9]; b[0] = B[2t, 2t+1][g],
+// b[1] = B[2t+8, 2t+9][g]; d[0, 1] = D[g][2t, 2t+1], d[2, 3] = D[g+8][2t, 2t+1].
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4], const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d (16 x 8, f32) += a (16 x 8, tf32) b (8 x 8, tf32): a[0] = A[g][t],
+// a[1] = A[g+8][t], a[2] = A[g][t+4], a[3] = A[g+8][t+4]; b[0] = B[t][g],
+// b[1] = B[t+4][g]; d as above.
+__device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// x = hi + lo, each a tf32 value (rounded to nearest): hi holds x's top 11
+// bits of mantissa, lo the next 11, so hi*hi' + hi*lo' + lo*hi' carries a
+// product to about 2^-21 of its size (the "3xTF32" product).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
 }
 
 // -------------------------------------------------------------------- host --

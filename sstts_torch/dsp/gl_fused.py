@@ -24,13 +24,19 @@ tensor runs `gl_iteration_plain`, a CUDA tensor launches
 `sstts_torch/csrc/gl_fused.cu` or raises); `fused_gl_iteration` adds the
 edge repair, rebuilding those rows from q (`_edge_frames`).
 
-Both kernels read their weight matrices K-major (`gl_tiles.k_major`: the
-transposed, contiguous copy, the layout of a wgmma operand a TMA load
-brings); the Griffin-Lim loop makes those copies once per call and passes
-them (`w_fwd_t`, `w_inv_t`), a lone call makes them itself.  B5's f32 frames
-pass through a scratch of one slab per SM that is kept between launches
-(`fused_scratch`).  `dsp/gl_tiles.py` holds the kernels' tile constants and
-refuses the shapes they do not take.
+Both kernels take the loop dtype of their inputs, bf16 or f32, and come in
+two tile configurations that `gl_tiles.config` picks from the geometry and
+the dtype before anything is launched: the whole panel (bf16, the default
+geometry and the 16 kHz one) and the wide one (`csrc/gl_wide.cuh`:
+everything else inside n_fft <= 2048 and D <= 16; the f32 loop as three tf32
+products).  Beyond both they raise NotImplementedError.  They read their
+weight matrices K-major (`gl_tiles.k_major`: the transposed, contiguous
+copy); the Griffin-Lim loop makes those copies once per call and passes
+them (`w_fwd_t`, `w_inv_t`), a lone call makes them itself.  The whole
+panel's B5 passes its f32 frames through a scratch of one slab per SM
+(`fused_scratch`); the wide configuration gives each resident block a slab
+for its panel (and B5's frames) (`wide_scratch`); both are kept between
+launches.
 """
 
 from __future__ import annotations
@@ -60,12 +66,16 @@ class _GlArgs(ctypes.Structure):
     ] + [
         (name, ctypes.c_int)
         for name in ("Bt", "T", "wp", "hp", "w_len", "hop", "d_max")
-    ] + [("momentum", ctypes.c_float), ("w_fwd_t", ctypes.c_void_p)]
+    ] + [("momentum", ctypes.c_float), ("w_fwd_t", ctypes.c_void_p),
+         ("slab", ctypes.c_void_p), ("n_slabs", ctypes.c_int), ("f32", ctypes.c_int)]
 
 
 _SIGNATURES = {
     "sstts_gl_semi": ([ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
     "sstts_gl_semi_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "sstts_gl_semi_wide": ([ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+    "sstts_gl_semi_wide_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "sstts_gl_semi_wide_blocks_per_sm": ([ctypes.c_int], ctypes.c_int),
 }
 
 
@@ -110,23 +120,60 @@ def reproject_analyze_plain(
     return renorm(ex, mag2, hp, dtype), s32.to(dtype)
 
 
-_checked = set()
+_checked = {}
 
 
-def _check_shapes(smem_bytes, kernel, wp, hp, w_len, d_max, fused) -> None:
-    """Refuse what the kernel does not take (`gl_tiles.check_shapes`), and
-    hold that reckoning to the library's own, once per shape."""
-    key = (kernel, wp, hp, w_len, d_max)
-    if key in _checked:
-        return
-    smem = gl_tiles.check_shapes(kernel, wp, hp, w_len, d_max, fused=fused)
-    if smem_bytes(w_len, d_max) != smem:
-        raise RuntimeError(f"{kernel}: dsp/gl_tiles.py and the CUDA source disagree")
-    _checked.add(key)
+def _config(lib, kernel, wp, hp, w_len, d_max, fused, dtype) -> str:
+    """The tile configuration of a launch ("panel" or "wide",
+    `gl_tiles.config`), which refuses what neither takes; its shared memory
+    held to the library's own count once per shape."""
+    key = (kernel, wp, hp, w_len, d_max, dtype)
+    if key not in _checked:
+        name, smem = gl_tiles.config(kernel, wp, hp, w_len, d_max, fused, dtype)
+        counted = getattr(lib, f"sstts_{kernel}{'_wide' if name == 'wide' else ''}_smem_bytes")
+        if counted(w_len, d_max) != smem:
+            raise RuntimeError(f"{kernel}: dsp/gl_tiles.py and the CUDA source disagree")
+        _checked[key] = name
+    return _checked[key]
+
+
+def _loop_dtype(kernel, *tensors) -> torch.dtype:
+    """The one dtype of the kernel's inputs: bf16 or f32."""
+    dtypes = {t.dtype for t in tensors if t is not None}
+    if len(dtypes) != 1 or not dtypes <= {torch.bfloat16, torch.float32}:
+        raise NotImplementedError(
+            f"{kernel} CUDA kernel takes one loop dtype, bf16 or f32: {sorted(map(str, dtypes))}"
+        )
+    return dtypes.pop()
+
+
+#: (kernel, device index, stream, wp, elem bytes) -> the wide configuration's
+#: slabs: one per block the card holds at once (a persistent grid, block b
+#: on slab b), kept between launches.  Launches on one stream run one after
+#: another and share them; two streams could run at once, so each has its
+#: own.
+_wide_slabs = {}
+
+
+def wide_scratch(lib, kernel: str, device: torch.device, wp: int, elem_bytes: int):
+    """(slabs, count) of `device` and its current stream for the wide
+    configuration of `kernel` ("gl_semi" or "gl_fused") at rows of `wp`
+    lanes."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    stream = torch.cuda.current_stream(index).cuda_stream
+    key = (kernel, index, stream, wp, elem_bytes)
+    if key not in _wide_slabs:
+        per_sm = getattr(lib, f"sstts_{kernel}_wide_blocks_per_sm")(int(elem_bytes == 4))
+        if per_sm < 1:
+            raise RuntimeError(f"{kernel} wide kernel: no block fits an SM ({per_sm})")
+        n = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
+        size = gl_tiles.wide_slab_bytes(wp, elem_bytes, kernel == "gl_fused")
+        _wide_slabs[key] = (torch.empty(n, size, dtype=torch.uint8, device=device), n)
+    return _wide_slabs[key]
 
 
 def _aligned(*tensors) -> None:
-    """TMA reads from 16-byte aligned tensors."""
+    """TMA and cp.async read from 16-byte aligned tensors."""
     for t in tensors:
         if t is not None and t.data_ptr() % 16:
             raise ValueError("the Griffin-Lim kernels need 16-byte aligned tensors")
@@ -137,20 +184,14 @@ def _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum,
     bt, n_frames, wp = frames.shape
     L = mag2.shape[-1]
     hp = L // 2
-    tensors = [frames, mag2, w_fwd] + ([] if prev is None else [prev])
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise NotImplementedError(
-            "fused_reproject_analyze CUDA kernel is bf16 only (the default "
-            "fft_impl='dft_default' loop); the f32 loop on CUDA is ROADMAP A "
-            "(f32 Griffin-Lim on CUDA)"
-        )
+    dtype = _loop_dtype("fused_reproject_analyze", frames, mag2, w_fwd, prev, w_fwd_t)
     if tuple(w_fwd.shape) != (wp, L) or tuple(wss2d.shape) != (n_frames, wp):
         raise ValueError(
             f"gl_semi: w_fwd {tuple(w_fwd.shape)} / wss2d {tuple(wss2d.shape)}"
             f" do not match frames {tuple(frames.shape)}, mag2 {tuple(mag2.shape)}"
         )
     lib = build.load("gl_semi", _SIGNATURES)
-    _check_shapes(lib.sstts_gl_semi_smem_bytes, "gl_semi", wp, hp, w_len, d_max, False)
+    cfg = _config(lib, "gl_semi", wp, hp, w_len, d_max, False, dtype)
     frames = frames.contiguous()
     mag2 = mag2.contiguous()
     if w_fwd_t is None:
@@ -160,16 +201,20 @@ def _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum,
     _aligned(frames, mag2, w_fwd_t, wss2d, prev)
     q = torch.empty_like(mag2)
     s = None if prev is None else torch.empty_like(mag2)
+    slabs, n_slabs = (
+        wide_scratch(lib, "gl_semi", frames.device, wp, frames.element_size())
+        if cfg == "wide" else (None, 0)
+    )
     args = _GlArgs(
         frames.data_ptr(), mag2.data_ptr(), w_fwd.data_ptr(), wss2d.data_ptr(),
         None if prev is None else prev.data_ptr(), q.data_ptr(),
         None if s is None else s.data_ptr(),
         bt, n_frames, wp, hp, w_len, hop, d_max, float(momentum),
-        w_fwd_t.data_ptr(),
+        w_fwd_t.data_ptr(), None if slabs is None else slabs.data_ptr(), n_slabs,
+        int(dtype == torch.float32),
     )
-    rc = lib.sstts_gl_semi(
-        ctypes.byref(args), torch.cuda.current_stream(frames.device).cuda_stream
-    )
+    launch = lib.sstts_gl_semi_wide if cfg == "wide" else lib.sstts_gl_semi
+    rc = launch(ctypes.byref(args), torch.cuda.current_stream(frames.device).cuda_stream)
     build.check(lib, rc, "fused_reproject_analyze")
     return q, s
 
@@ -318,12 +363,15 @@ class _GlFusedArgs(ctypes.Structure):
         for name in ("Bt", "T", "wp", "hp", "w_len", "hop", "d_max", "n_slabs")
     ] + [
         (name, ctypes.c_void_p) for name in ("w_inv_t", "w_fwd_t", "slab_free")
-    ]
+    ] + [("f32", ctypes.c_int)]
 
 
 _FUSED_SIGNATURES = {
     "sstts_gl_fused": ([ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
     "sstts_gl_fused_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "sstts_gl_fused_wide": ([ctypes.c_void_p, ctypes.c_void_p], ctypes.c_int),
+    "sstts_gl_fused_wide_smem_bytes": ([ctypes.c_int, ctypes.c_int], ctypes.c_int),
+    "sstts_gl_fused_wide_blocks_per_sm": ([ctypes.c_int], ctypes.c_int),
 }
 
 #: (device index, wp) -> (scratch, flags): GEMM1's f32 slabs, one per SM, and
@@ -377,12 +425,7 @@ def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max,
                   w_inv_t=None, w_fwd_t=None):
     bt, n_frames, L = q.shape
     hp, wp = L // 2, w_inv.shape[1]
-    if any(t.dtype != torch.bfloat16 for t in (q, mag2, w_inv, w_fwd)):
-        raise NotImplementedError(
-            "fused_gl_iteration CUDA kernel is bf16 only (the default "
-            "fft_impl='dft_default' loop); the f32 loop on CUDA runs "
-            "iter_impl='split'"
-        )
+    dtype = _loop_dtype("fused_gl_iteration", q, mag2, w_inv, w_fwd, w_inv_t, w_fwd_t)
     if (
         tuple(w_inv.shape) != (L, wp)
         or tuple(w_fwd.shape) != (wp, L)
@@ -395,7 +438,7 @@ def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max,
             f"{tuple(wss2d.shape)} do not match"
         )
     lib = build.load("gl_fused", _FUSED_SIGNATURES)
-    _check_shapes(lib.sstts_gl_fused_smem_bytes, "gl_fused", wp, hp, w_len, d_max, True)
+    cfg = _config(lib, "gl_fused", wp, hp, w_len, d_max, True, dtype)
     q = q.contiguous()
     mag2 = mag2.contiguous()
     if w_inv_t is None:
@@ -404,17 +447,22 @@ def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max,
         w_fwd_t = gl_tiles.k_major(w_fwd)
     wss2d = wss2d.float().contiguous()
     _aligned(q, mag2, w_inv_t, w_fwd_t, wss2d)
-    scratch, flags = fused_scratch(q.device, wp)
+    if cfg == "wide":
+        scratch, n_slabs = wide_scratch(lib, "gl_fused", q.device, wp, q.element_size())
+        flags = None
+    else:
+        scratch, flags = fused_scratch(q.device, wp)
+        n_slabs = scratch.shape[0]
     out = torch.empty_like(q)
     args = _GlFusedArgs(
         q.data_ptr(), mag2.data_ptr(), w_inv.data_ptr(), w_fwd.data_ptr(),
         wss2d.data_ptr(), scratch.data_ptr(), out.data_ptr(),
-        bt, n_frames, wp, hp, w_len, hop, d_max, scratch.shape[0],
-        w_inv_t.data_ptr(), w_fwd_t.data_ptr(), flags.data_ptr(),
+        bt, n_frames, wp, hp, w_len, hop, d_max, n_slabs,
+        w_inv_t.data_ptr(), w_fwd_t.data_ptr(),
+        None if flags is None else flags.data_ptr(), int(dtype == torch.float32),
     )
-    rc = lib.sstts_gl_fused(
-        ctypes.byref(args), torch.cuda.current_stream(q.device).cuda_stream
-    )
+    launch = lib.sstts_gl_fused_wide if cfg == "wide" else lib.sstts_gl_fused
+    rc = launch(ctypes.byref(args), torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, rc, "fused_gl_iteration")
     return out
 

@@ -18,8 +18,11 @@ f32.  Every iteration of the JAX package runs:
 
 "auto" is "semi" on every device: on the CPU the JAX package would pick
 "split", but the port keeps one default path whose kernel the card runs.
-On the card B2 and B5 take bf16 only, so the f32 loop there runs "split"
-or "split_xla" (B1 takes both types).  "xla"/"default" run the complex
+On the card B2 and B5 take both loop dtypes and every geometry of n_fft
+<= 2048 with at most 16 overlapping frames a side (`kernel_config`: their
+whole-panel configuration where it fits, the wide one elsewhere); beyond
+that they raise NotImplementedError before anything is launched.
+"xla"/"default" run the complex
 loop over the centred STFT with `torch.fft`, "ct_matmul" with the
 four-step matmul FFT (`dsp/fft.py`, full f32).
 """
@@ -34,6 +37,7 @@ from sstts_torch.config import Config
 from sstts_torch.dsp import fft as mmfft
 from sstts_torch.dsp import ops
 from sstts_torch.dsp import stft as stft_mod
+from sstts_torch.dsp import gl_tiles
 from sstts_torch.dsp.gl_tiles import k_major
 from sstts_torch.dsp.gl_fused import (
     fused_gl_iteration,
@@ -62,8 +66,8 @@ def _round_up(x: int, m: int) -> int:
 def resolve_iter_impl(iter_impl, momentum: float, fft_impl: str, device) -> str:
     """The iteration a call runs, with the JAX package's validation
     (`ValueError` for an unknown iteration or transform and for "fused"
-    with momentum) and the port's refusal (`NotImplementedError`) of the
-    f32 loop on the card in B2 and B5, which are bf16 only."""
+    with momentum).  `device` does not change the answer: B2 and B5 take
+    both loop dtypes on the card (`kernel_config` checks the geometry)."""
     impl = iter_impl or "auto"
     if impl not in ITER_IMPLS:
         raise ValueError(
@@ -83,17 +87,36 @@ def resolve_iter_impl(iter_impl, momentum: float, fft_impl: str, device) -> str:
         )
     if impl == "auto":
         impl = "semi"
-    if (
-        torch.device(device).type == "cuda"
-        and _LOOP_DTYPE.get(fft_impl) == torch.float32
-        and impl in ("semi", "fused")
-    ):
-        raise NotImplementedError(
-            f"griffin_lim iter_impl={impl!r} with fft_impl={fft_impl!r} on "
-            "CUDA: kernels B2 and B5 are bf16 only; the f32 loop runs "
-            "iter_impl='split' (ROADMAP B.2, B.5: an f32 variant)"
-        )
     return impl
+
+
+def _spectrum_lanes(n_fft: int, half: int, loop_dtype: torch.dtype):
+    """(packed, hb): whether the bf16 loop packs the Nyquist bin into DC's
+    imaginary slot (an even n_fft), and the bins the flat layout carries."""
+    packed = (
+        loop_dtype == torch.bfloat16 and n_fft % 2 == 0 and half % 2 == 1
+        and half > 2
+    )
+    return packed, (half - 1 if packed else half)
+
+
+def kernel_config(iter_impl: str, n_fft: int, hop_length: int, win_length: int,
+                  fft_impl: str, device):
+    """The tile configuration kernel B2 ("semi") or B5 ("fused") runs on the
+    card for this geometry and loop ("panel" or "wide",
+    `gl_tiles.config`), or None where neither runs (another iteration or
+    transform, or not CUDA).  Raises NotImplementedError, before anything
+    is launched, for a geometry beyond both: n_fft above 2048 or more than
+    16 overlapping frames a side."""
+    if (torch.device(device).type != "cuda" or iter_impl not in ("semi", "fused")
+            or fft_impl not in _LOOP_DTYPE):
+        return None
+    dtype = _LOOP_DTYPE[fft_impl]
+    plan = band_plan(n_fft, hop_length, win_length, 1, 0)
+    _, hb = _spectrum_lanes(n_fft, n_fft // 2 + 1, dtype)
+    kernel = "gl_fused" if iter_impl == "fused" else "gl_semi"
+    return gl_tiles.config(kernel, _round_up(plan["w_len"], 128), _round_up(hb, 128),
+                           plan["w_len"], plan["d_max"], iter_impl == "fused", dtype)[0]
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -128,6 +151,7 @@ def griffin_lim(
             f"length={length} too short for {n_frames} frames at hop={hop_length}"
         )
     impl = resolve_iter_impl(iter_impl, momentum, fft_impl, magnitude.device)
+    kernel_config(impl, n_fft, hop_length, win_length, fft_impl, magnitude.device)
     if fft_impl in _COMPLEX_IMPLS:
         return _griffin_lim_complex(
             magnitude, n_fft, hop_length, win_length, n_iters, length, momentum, fft_impl
@@ -187,11 +211,7 @@ def _griffin_lim_real(magnitude, n_fft, hop_length, win_length, n_iters,
 
     mag_d = magnitude.to(loop_dtype)
     # Nyquist packing needs an even n_fft (a purely real top bin).
-    packed = (
-        loop_dtype == torch.bfloat16 and n_fft % 2 == 0 and half % 2 == 1
-        and half > 2
-    )
-    hb = half - 1 if packed else half
+    packed, hb = _spectrum_lanes(n_fft, half, loop_dtype)
     # The kernels' 128-lane-padded layout on the card, and wherever the
     # iteration needs it (the JAX rule, with the card in place of the TPU);
     # the CPU's "split" runs the window-support widths, as JAX on the CPU.
@@ -241,7 +261,7 @@ def _griffin_lim_real(magnitude, n_fft, hop_length, win_length, n_iters,
     wss2d = padded_wss2d(plan, wp, device)  # uploaded once
     m32 = float(np.float32(momentum))
     # The K-major copies kernels B2 and B5 read, made once per call.
-    on_card = device.type == "cuda" and loop_dtype == torch.bfloat16
+    on_card = device.type == "cuda"
     w_fwd_t = k_major(w_fwd) if on_card and iter_impl in ("semi", "fused") else None
     w_inv_t = k_major(w_inv) if on_card and iter_impl == "fused" else None
     if iter_impl == "semi":

@@ -18,7 +18,10 @@ mirror runs itself, in the same launch, from the run table (`run_table`,
 made once a geometry); the JAX package applies them in XLA after its
 kernel.  The host picks the kernel's ring (`ring_config`) and its strips of
 rows (`strip_count`: about one wave of blocks, and every mirror run inside
-the strip of the block that applies it).
+the strip of the block that applies it).  Where no ring fits shared memory
+(f32 rows of 2048 lanes at D >= 13) inside every geometry B2 and B5 take,
+the same launch runs the direct configuration, whose terms come from L2
+(`config`).
 """
 
 from __future__ import annotations
@@ -218,7 +221,16 @@ _SIGNATURES = {
     "sstts_reproject_threads": ([ctypes.c_int] * 2, ctypes.c_int),
     "sstts_reproject_rows": ([], ctypes.c_int),
     "sstts_reproject_blocks_per_sm": ([ctypes.c_void_p, ctypes.c_int], ctypes.c_int),
+    "sstts_reproject_direct": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+                               ctypes.c_int),
+    "sstts_reproject_direct_blocks_per_sm": ([ctypes.c_int], ctypes.c_int),
 }
+
+#: The direct configuration (terms read from L2, no ring) takes the shapes
+#: no ring holds up to these: every Griffin-Lim geometry of n_fft <= 2048
+#: with at most 16 overlapping frames a side, which B2 and B5 take too.
+DIRECT_MAX_LANES = 2048
+DIRECT_MAX_D = 16
 
 #: A ring stage holds the fewest rows (a power of two) that make at least
 #: this many bytes: one bulk copy and one barrier a stage.
@@ -321,13 +333,26 @@ def run_table(runs: tuple, device: torch.device) -> torch.Tensor:
     return table
 
 
+def config(smem_bytes, wp: int, elem_bytes: int, d_max: int, rows: int):
+    """(G, NS) of the ring (`ring_config`), or None for the direct
+    configuration where no ring fits and the shape is inside
+    DIRECT_MAX_LANES and DIRECT_MAX_D; NotImplementedError beyond both."""
+    try:
+        return ring_config(smem_bytes, wp, elem_bytes, d_max, rows)[:2]
+    except NotImplementedError:
+        if wp <= DIRECT_MAX_LANES and d_max <= DIRECT_MAX_D:
+            return None
+        raise
+
+
 @functools.lru_cache(maxsize=64)
 def _slots(lib, wp: int, elem_bytes: int, group: int, stages: int,
            device: torch.device) -> int:
     """Blocks of this shape the card holds at once: its SMs times the
-    library's blocks an SM."""
+    library's blocks an SM (stages 0: the direct configuration)."""
     args = _ReprojectArgs(wp=wp, group=group, stages=stages)
-    per_sm = lib.sstts_reproject_blocks_per_sm(ctypes.byref(args), int(elem_bytes == 2))
+    per_sm = (lib.sstts_reproject_direct_blocks_per_sm(int(elem_bytes == 2)) if stages == 0
+              else lib.sstts_reproject_blocks_per_sm(ctypes.byref(args), int(elem_bytes == 2)))
     if per_sm < 1:
         raise RuntimeError(f"reproject_frames kernel: no block fits an SM ({per_sm})")
     return per_sm * torch.cuda.get_device_properties(device).multi_processor_count
@@ -343,9 +368,10 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 def launch(lib, f3, wss2d, w_len, hop, d_max, runs):
     """Launch `lib`'s kernel B1 (`library()`, or another `bind`-ed build) on
     f3 (Bt, T, wp) bf16 or f32, wp a multiple of 8, with its mirror runs
-    `runs` (`band_plan`'s); returns the reprojected frames.  Raises
-    NotImplementedError, before any launch, for a ring that shared memory
-    cannot hold."""
+    `runs` (`band_plan`'s); returns the reprojected frames.  The ring
+    kernel where its ring fits shared memory, else the direct one inside
+    DIRECT_MAX_LANES and DIRECT_MAX_D (`config`); NotImplementedError,
+    before any launch, beyond both."""
     if f3.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"reproject_frames kernel: dtype {f3.dtype}")
     bt, n_frames, wp = f3.shape
@@ -355,8 +381,8 @@ def launch(lib, f3, wss2d, w_len, hop, d_max, runs):
             f"{tuple(wss2d.shape)} (needs wp % 8 == 0 and wss2d (T, wp))"
         )
     es = f3.element_size()
-    group, stages, _ = ring_config(lib.sstts_reproject_smem_bytes, wp, es, d_max,
-                                   lib.sstts_reproject_rows())
+    ring = config(lib.sstts_reproject_smem_bytes, wp, es, d_max, lib.sstts_reproject_rows())
+    group, stages = ring or (0, 0)
     slots = _slots(lib, wp, es, group, stages, f3.device)
     strips = strip_count(bt, n_frames, runs, slots)
     table = run_table(tuple(runs), f3.device)
@@ -368,7 +394,8 @@ def launch(lib, f3, wss2d, w_len, hop, d_max, runs):
         out.data_ptr(), bt, n_frames, wp, w_len, hop, d_max, strips, group, stages,
         len(runs),
     )
-    rc = lib.sstts_reproject(
+    kernel = lib.sstts_reproject if ring else lib.sstts_reproject_direct
+    rc = kernel(
         ctypes.byref(args), int(f3.dtype == torch.bfloat16),
         torch.cuda.current_stream(f3.device).cuda_stream,
     )

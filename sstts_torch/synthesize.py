@@ -55,7 +55,9 @@ from sstts_torch.config import Config
 from sstts_torch.data import text as text_mod
 from sstts_torch.data import wav as wav_mod
 from sstts_torch.dsp import ops as dsp_ops
-from sstts_torch.dsp.griffin_lim import GL_FFT_IMPL, resolve_iter_impl, spectrogram_to_wav
+from sstts_torch.dsp.griffin_lim import (
+    GL_FFT_IMPL, kernel_config, resolve_iter_impl, spectrogram_to_wav,
+)
 from sstts_torch.model.tacotron import Tacotron
 from sstts_torch.ops import decoder as decoder_ops
 from sstts_torch.ops import gru as gru_ops
@@ -96,17 +98,21 @@ def check_supported(cfg: Config, device: torch.device) -> str:
     returns the decoder's ("fused" or "xla",
     `sstts_torch.ops.decoder.resolve_decoder_impl`).  Every architecture the
     reference's model accepts is accepted; on the card the kernels' width
-    limits (ROADMAP B.3, B.4) raise NotImplementedError."""
+    limits (ROADMAP B.3, B.4) and a Griffin-Lim geometry beyond B2's and
+    B5's (n_fft above 2048, more than 16 overlapping frames a side) raise
+    NotImplementedError."""
     a, inf = cfg.arch, cfg.inference
     if inf.wire_format not in dsp_ops.WIRE_FORMATS:
         raise ValueError(
             f"unknown wire_format {inf.wire_format!r}; expected one of "
             f"{dsp_ops.WIRE_FORMATS}"
         )
-    resolve_iter_impl(
-        inf.griffin_lim_iter_impl, inf.griffin_lim_momentum,
-        inf.griffin_lim_fft_impl or GL_FFT_IMPL, device,
+    fft_impl = inf.griffin_lim_fft_impl or GL_FFT_IMPL
+    iter_impl = resolve_iter_impl(
+        inf.griffin_lim_iter_impl, inf.griffin_lim_momentum, fft_impl, device,
     )
+    ds = cfg.dataset
+    kernel_config(iter_impl, ds.n_fft, ds.hop_len, ds.win_len, fft_impl, device)
     gru_ops.check_arch(a, device)
     return decoder_ops.resolve_decoder_impl(
         inf.decoder_impl, a, device, cfg.dataset.n_mels

@@ -1,6 +1,6 @@
 """Stage breakdown of the Griffin-Lim kernels B2 and B5 on the card.
 
-    python3 -m sstts_torch.tools.ablate_gl_semi
+    python3 -m sstts_torch.tools.ablate_gl_semi [--geometry NAME] [--dtype bf16|f32]
 
 Builds `sstts_torch/csrc/gl_semi.cu` and `gl_fused.cu` once per stage mask
 (SSTTS_ABLATE: 1 skips the A panel's loads and sums, 2 GEMM2's loads and
@@ -8,17 +8,23 @@ wgmma, 4 the epilogue's loads and stores; for B5 also 8 GEMM1's loads and
 wgmma and 16 the stores of its f32 slab; one `nvcc` per mask, all started
 together, into a temporary directory) and times each build at the main
 path's shape, (32, 800, 1152) -> (32, 800, 2048) bf16, classic iteration,
-with CUDA events.  The stages of a block overlap (and so do the blocks of a
+with CUDA events (or another geometry of `tools/gl_launch.py` where the
+whole panel takes it, `--geometry`).  The stages of a block overlap (and so do the blocks of a
 launch), so the times do not add up: a mask says what the kernel costs
 without that stage's work.  The whole kernels are also built and timed with
 clusters of 1, 2 and 4 blocks (SSTTS_CLUSTER; 2 is what every other build
 uses).  A build with stages skipped computes garbage;
-only its time means anything.  Prints one JSON line with the card's name and
-power limit.
+only its time means anything.  The stage masks and cluster sizes are the
+whole-panel configuration's; at a geometry or loop dtype where the wrappers
+pick the wide configuration (`--geometry`, `--dtype`: `tools/gl_launch.py`;
+`gl_tiles.config`) the script times this tree's build of each whole kernel
+there instead (B2 classic and at momentum 0.99, B5), at (32, 800) frames.
+Prints one JSON line with the card's name and power limit.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -27,11 +33,8 @@ from pathlib import Path
 
 import torch
 
-from sstts_torch.dsp.gl_fused import _GlArgs, _GlFusedArgs, fused_scratch
-from sstts_torch.dsp.gl_tiles import k_major
-from sstts_torch.dsp.reproject import band_plan, padded_wss2d
 from sstts_torch.ops import build
-from sstts_torch.tools import card_line, time_ms
+from sstts_torch.tools import card_line, gl_launch, time_ms
 
 MASKS = {
     0: "full",
@@ -56,9 +59,29 @@ FUSED_MASKS = {
 }
 
 
+def wide(geometry: str, dtype: str) -> None:
+    """The whole wide kernels of this tree at a geometry and loop dtype."""
+    dev = torch.device("cuda")
+    x = gl_launch.inputs(dev, geometry, gl_launch.DTYPES[dtype])
+    res = {}
+    for case in gl_launch.CASES:
+        lib = gl_launch.bind(build.load("gl_fused" if case == "gl_fused" else "gl_semi", {}))
+        launch, _ = gl_launch.launcher(lib, case, x, dev)
+        res[f"{case} ({gl_launch.config(case, x)})"] = time_ms(launch)
+    print(json.dumps({"gl_wide_ms": res, "geometry": geometry, "dtype": dtype,
+                      "shape": [x["Bt"], x["T"], x["wp"], 2 * x["hp"]], "card": card_line()}))
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--geometry", default="defaults", choices=sorted(gl_launch.GEOMETRIES))
+    ap.add_argument("--dtype", default="bf16", choices=sorted(gl_launch.DTYPES))
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate_gl_semi: no CUDA device")
+    x = gl_launch.inputs("cpu", opts.geometry, gl_launch.DTYPES[opts.dtype], Bt=1, T=2)
+    if any(gl_launch.config(case, x) == "wide" for case in gl_launch.CASES):
+        return wide(opts.geometry, opts.dtype)
     with tempfile.TemporaryDirectory() as tmp:
         # (kernel, define, value) -> nvcc: a build per stage mask and per
         # cluster size
@@ -78,50 +101,11 @@ def main() -> None:
             if p.returncode:
                 raise RuntimeError(f"nvcc {key[0]} -D{key[1]}={key[2]} failed:\n{log}")
         dev = torch.device("cuda")
-        Bt, T, wp, hp = 32, 800, 1152, 1024
-        n_fft, hop, win = 2048, 275, 1102
-        plan = band_plan(n_fft, hop, win, T, (T - 1) * hop)
-        g = torch.Generator().manual_seed(5)
-        frames = torch.randn(Bt, T, wp, generator=g)
-        frames[..., plan["w_len"]:] = 0.0
-        frames = frames.to(dev, torch.bfloat16)
-        mag2 = torch.rand(Bt, T, 2 * hp, generator=g).to(dev, torch.bfloat16)
-        w_fwd = (torch.randn(wp, 2 * hp, generator=g) / 32).to(dev, torch.bfloat16)
-        wss2d = padded_wss2d(plan, wp, dev)
-        w_fwd_t = k_major(w_fwd)
-        q = torch.empty_like(mag2)
-        args = _GlArgs(
-            frames.data_ptr(), mag2.data_ptr(), w_fwd.data_ptr(),
-            wss2d.data_ptr(), None, q.data_ptr(), None,
-            Bt, T, wp, hp, plan["w_len"], hop, plan["d_max"], 0.0,
-            w_fwd_t.data_ptr(),
-        )
-        stream = torch.cuda.current_stream().cuda_stream
-        w_inv = torch.randn(2 * hp, wp, generator=g) / 32
-        w_inv[:, plan["w_len"]:] = 0.0
-        w_inv = w_inv.to(dev, torch.bfloat16)
-        w_inv_t = k_major(w_inv)
-        qin = torch.randn(Bt, T, 2 * hp, generator=g).to(dev, torch.bfloat16)
-        scratch, flags = fused_scratch(dev, wp)
-        fargs = _GlFusedArgs(
-            qin.data_ptr(), mag2.data_ptr(), w_inv.data_ptr(), w_fwd.data_ptr(),
-            wss2d.data_ptr(), scratch.data_ptr(), q.data_ptr(),
-            Bt, T, wp, hp, plan["w_len"], hop, plan["d_max"], scratch.shape[0],
-            w_inv_t.data_ptr(), w_fwd_t.data_ptr(), flags.data_ptr(),
-        )
+        x = gl_launch.inputs(dev, opts.geometry, gl_launch.DTYPES[opts.dtype])
         res = {"gl_semi": {}, "gl_fused": {}}
         for name, define, v in procs:
-            lib = ctypes.CDLL(str(Path(tmp) / f"{name}-{define}-{v}.so"))
-            fn = getattr(lib, f"sstts_{name}")
-            fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            a = args if name == "gl_semi" else fargs
-
-            def launch():
-                rc = fn(ctypes.byref(a), stream)
-                if rc:
-                    raise RuntimeError(f"{name} (-D{define}={v}): CUDA error {rc}")
-
+            lib = gl_launch.bind(ctypes.CDLL(str(Path(tmp) / f"{name}-{define}-{v}.so")))
+            launch, _ = gl_launch.launcher(lib, name, x, dev)
             if define == "SSTTS_CLUSTER":
                 label = f"full, clusters of {v}"
             else:
@@ -129,8 +113,8 @@ def main() -> None:
             res[name][label] = time_ms(launch)
     card = card_line()
     print(json.dumps({"gl_semi_phase_ms": res["gl_semi"],
-                      "gl_fused_phase_ms": res["gl_fused"],
-                      "shape": [Bt, T, wp, 2 * hp], "card": card}))
+                      "gl_fused_phase_ms": res["gl_fused"], "geometry": opts.geometry,
+                      "shape": [x["Bt"], x["T"], x["wp"], 2 * x["hp"]], "card": card}))
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ written out below in Python (the swizzle, the shift-add through a ring of
 row groups, a bf16 pair from two words, the work schedule), against
 `shift_add_rows` and plain products; and the wrappers' reckoning of shared
 memory and scratch (`sstts_torch/dsp/gl_tiles.py`) against the constants in
-the sources.  The Python rules are a second statement of the design, not the
+the sources, and the choice between the kernels' two tile configurations
+(whole panel, wide) at every geometry of their envelope.  The Python rules are a second statement of the design, not the
 kernels: those run only on a card, where `chip_smoke.py` holds them to their
 plain versions.
 
@@ -288,6 +289,26 @@ def test_python_reckoning_matches_the_sources():
     assert gt.check_shapes("gl_fused", 512, 256, 399, 3, fused=True) == 140544
     assert gt.g1_stages(1101) == 4 and gt.g1_stages(399) == 3 and gt.g1_stages(16) == 2
     assert gt.slab_floats(1152) == 72 * 1152
+    # the wide configuration (gl_wide.cuh)
+    w = _constants("gl_wide.cuh")
+    wide = {
+        "kThreads": gt.WIDE_THREADS, "kRows": gt.WIDE_ROWS, "kG1Rows": gt.WIDE_G1_ROWS,
+        "kMaxD": gt.WIDE_MAX_D, "kMaxLanes": gt.WIDE_MAX_LANES, "kBins": gt.WIDE_BINS,
+        "kLanes": gt.WIDE_LANES, "kKBytes": gt.WIDE_K_BYTES,
+        "kRowBytes": gt.WIDE_ROW_BYTES, "kStageRows": gt.WIDE_STAGE_ROWS,
+        "kStages": gt.WIDE_STAGES, "kSmemBytes": gt.WIDE_SMEM, "kKAlign": gt.WIDE_K_ALIGN,
+    }
+    assert {k: w[k] for k in wide} == wide
+    assert gt.WIDE_SMEM == 76800 and 2 * (gt.WIDE_SMEM + 1024) <= 233472  # two blocks an SM
+    assert gt.WIDE_G1_ROWS == gt.WIDE_ROWS + 2 * gt.WIDE_MAX_D
+    assert gt.wide_smem_bytes(2047, 16) == 76800 and gt.wide_smem_bytes(2047, 17) == -1
+    assert gt.wide_smem_bytes(2049, 3) == -1
+    assert gt.wide_slab_bytes(1152, 2, False) == 64 * 1152 * 2
+    assert gt.wide_slab_bytes(2048, 4, True) == (96 + 64) * 2048 * 4
+    # the padded rows put the fragment loads of a warp's 8 rows x 4 words on
+    # 32 different banks
+    banks = {(g * gt.WIDE_ROW_BYTES // 4 + t) % 32 for g in range(8) for t in range(4)}
+    assert len(banks) == 32
 
 
 @pytest.mark.parametrize("kw,err", [
@@ -296,7 +317,178 @@ def test_python_reckoning_matches_the_sources():
     (dict(wp=1152, hp=1024, w_len=1101, d_max=5, fused=True), NotImplementedError),
     (dict(wp=1100, hp=1024, w_len=1100, d_max=4), ValueError),
     (dict(wp=1152, hp=1000, w_len=1101, d_max=4), ValueError),
+    # beyond the wide configuration too: D = 17, a window over 2048 samples,
+    # and n_fft 4096's bins in the f32 loop at a short hop
+    (dict(wp=1152, hp=1024, w_len=1101, d_max=17), NotImplementedError),
+    (dict(wp=2176, hp=1024, w_len=2100, d_max=3, fused=True), NotImplementedError),
+    (dict(wp=1152, hp=1280, w_len=1101, d_max=9), NotImplementedError),
 ])
 def test_shapes_beyond_the_kernels_raise(kw, err):
+    """The panel configuration refuses each shape (`check_shapes`).  The
+    first three are inside the envelope (n_fft <= 2048, D <= 16), so
+    `config` takes them in both loop dtypes with the wide configuration: its
+    shared memory fits the card whatever the support, and B5's GEMM1 tile
+    covers the block's 64 frames and D halo rows a side.  The rest raise
+    there too, the layouts the kernels never take with ValueError."""
     with pytest.raises(err):
         gt.check_shapes("gl", **kw)
+    fused = kw.pop("fused", False)
+    inside = (err is NotImplementedError and kw["d_max"] <= gt.WIDE_MAX_D
+              and kw["wp"] <= gt.WIDE_MAX_LANES and kw["hp"] <= gt.MAX_HP)
+    for dtype in (torch.bfloat16, torch.float32):
+        if not inside:
+            with pytest.raises(err):
+                gt.config("gl", **kw, fused=fused, dtype=dtype)
+            continue
+        name, smem = gt.config("gl", **kw, fused=fused, dtype=dtype)
+        assert name == "wide" and smem == gt.WIDE_SMEM <= gt.MAX_SMEM
+        assert gt.WIDE_ROWS + 2 * kw["d_max"] <= gt.WIDE_G1_ROWS
+        assert gt.WIDE_G1_ROWS + gt.WIDE_LANES <= gt.WIDE_STAGE_ROWS
+
+
+#: (case, n_fft, hop, window, w_len, D, the panel configuration takes B2,
+#: B5) for the dataset settings of the kernels' envelope: the defaults,
+#: 16 kHz at n_fft 1024, 24 kHz at the reference's 50 / 12.5 ms, hops of
+#: 10, 5 and 3 ms at 22.05 kHz, and 44.1 kHz at n_fft 2048 with a
+#: 2048-sample window and a 512-sample hop.
+GEOMETRY_TABLE = [
+    ("defaults", 2048, 275, 1102, 1101, 4, True, True),
+    ("16kHz", 1024, 200, 800, 799, 3, True, True),
+    ("24kHz", 2048, 300, 1200, 1199, 3, False, False),
+    ("hop10ms", 2048, 220, 1102, 1101, 5, True, False),
+    ("hop5ms", 2048, 110, 1102, 1101, 10, False, False),
+    ("hop3ms", 2048, 66, 1102, 1101, 16, False, False),
+    ("44kHz", 2048, 512, 2048, 2047, 3, False, False),
+]
+
+
+@pytest.mark.parametrize("case", GEOMETRY_TABLE, ids=[c[0] for c in GEOMETRY_TABLE])
+def test_every_geometry_of_the_envelope_has_a_configuration(case):
+    """Each geometry, B2 and B5, bf16 and f32: the whole-panel
+    configuration where it fits in bf16 (the defaults keep it), the wide one
+    elsewhere; `griffin_lim.kernel_config` asks the same of a dataset's
+    settings."""
+    from sstts_torch.dsp.griffin_lim import kernel_config
+
+    _, n_fft, hop, win, w_len, d_max, semi_panel, fused_panel = case
+    plan = band_plan(n_fft, hop, win, 70, 69 * hop)
+    assert (plan["w_len"], plan["d_max"]) == (w_len, d_max)
+    wp = gt.round_up(w_len, 128)
+    for fft_impl, dtype, half in (("dft_default", torch.bfloat16, n_fft // 2),
+                                  ("dft_high", torch.float32, n_fft // 2 + 1)):
+        hp = gt.round_up(half, 128)
+        for kernel, fused, panel in (("gl_semi", False, semi_panel),
+                                     ("gl_fused", True, fused_panel)):
+            name, smem = gt.config(kernel, wp, hp, w_len, d_max, fused, dtype)
+            want = "panel" if panel and dtype == torch.bfloat16 else "wide"
+            assert name == want and smem <= gt.MAX_SMEM
+            impl = "fused" if fused else "semi"
+            assert kernel_config(impl, n_fft, hop, win, fft_impl, "cuda") == want
+            assert kernel_config(impl, n_fft, hop, win, fft_impl, "cpu") is None
+
+
+def test_resolve_iter_impl_takes_the_f32_loop_on_the_card():
+    """The f32 loop runs B2 ("auto" is "semi") and B5 on the card: no
+    refusal by dtype any more; the reference's ValueErrors stay."""
+    from sstts_torch.dsp.griffin_lim import resolve_iter_impl
+
+    assert resolve_iter_impl(None, 0.0, "dft_high", "cuda") == "semi"
+    assert resolve_iter_impl("fused", 0.0, "dft_highest", "cuda") == "fused"
+    assert resolve_iter_impl("semi", 0.99, "dft_highest", "cuda") == "semi"
+    with pytest.raises(ValueError, match="momentum"):
+        resolve_iter_impl("fused", 0.5, "dft_high", "cuda")
+
+
+def wide_b_row(c: int, j0: int, hp: int) -> int:
+    """Row of the transposed w_fwd (2 hp, wp) that column c (0..255) of a
+    wide GEMM2 tile at bin j0 multiplies (the `b_row` of gl_wide.cuh's
+    gemm2_renorm): warp column wn = c // 64 holds bins j0 + 32 wn .. + 32,
+    their real columns in its n8 tiles 0..3, their imaginary ones in 4..7."""
+    nt = (c & 63) >> 3
+    return (hp if nt >= 4 else 0) + j0 + 32 * (c >> 6) + 8 * (nt & 3) + (c & 7)
+
+
+@pytest.mark.parametrize("hp", [128, 512, 1152])
+def test_wide_column_tiles_pair_re_and_im_in_one_thread(hp):
+    """Over the hp / 128 column tiles every real and imaginary column of
+    w_fwd is multiplied once, and the fragment element a thread holds in n8
+    tile nt (< 4) is the real part of the bin whose imaginary part it holds
+    in tile nt + 4: bin j0 + 32 wn + 8 nt + 2 t + e, where the epilogue
+    loads mag2 and stores q'."""
+    rows = [wide_b_row(c, j0, hp) for j0 in range(0, hp, gt.WIDE_BINS) for c in range(256)]
+    assert sorted(rows) == list(range(2 * hp))
+    for j0 in range(0, hp, gt.WIDE_BINS):
+        for wn in range(4):
+            for nt in range(4):
+                for t in range(4):
+                    for e in range(2):
+                        col = 8 * nt + 2 * t + e
+                        re = wide_b_row(64 * wn + col, j0, hp)
+                        im = wide_b_row(64 * wn + 32 + col, j0, hp)
+                        assert re == j0 + 32 * wn + 8 * nt + 2 * t + e and im == hp + re
+
+
+def tf32(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32: x rounded to 10 bits of mantissa, ties away from
+    zero, as f32."""
+    bits = x.astype(np.float32).view(np.uint32).astype(np.uint64)
+    bits = (bits + 0x1000) & 0xFFFFE000
+    return bits.astype(np.uint32).view(np.float32)
+
+
+def test_three_tf32_products_carry_an_f32_product():
+    """The wide configuration's f32 products: x = hi + lo with both tf32
+    (`split_tf32` in sm90.cuh), and hi*hi' + hi*lo' + lo*hi' (the three
+    mma.sync products) within 2^-20 of the product's size, where one tf32
+    product is off by up to ~2^-10."""
+    rng = np.random.default_rng(5)
+    a = rng.normal(size=100_000).astype(np.float32)
+    b = rng.normal(size=100_000).astype(np.float32)
+    ah, bh = tf32(a), tf32(b)
+    al, bl = tf32(a - ah), tf32(b - bh)
+    exact = a.astype(np.float64) * b.astype(np.float64)
+    three = (ah.astype(np.float64) * bh + ah.astype(np.float64) * bl
+             + al.astype(np.float64) * bh)
+    one = ah.astype(np.float64) * bh
+    scale = np.abs(exact)
+    assert (np.abs(three - exact) <= 2.0**-20 * scale).all()
+    assert np.abs(one - exact).max() / scale[np.argmax(np.abs(one - exact))] > 2.0**-12
+
+
+def l2_bytes_per_block(design: str, wp: int, hp: int, w_len: int, d_max: int,
+                       elem_bytes: int = 2) -> int:
+    """Bytes a block of 64 frames reads from L2 for its panel and GEMM2 (B2)
+    in each design the kernels could take at geometries beyond the panel
+    configuration, the reckoning that chose the wide one:
+
+    - "streamed": the panel rebuilt in K pieces for each of GEMM2's
+      column tiles of 128 bins, each piece re-reading the 2 D + 1 shifted
+      rows of F (64 + 2 D rows): (2 D + 1) x (64 + 2 D) x w_len values a
+      tile;
+    - "slab" (the wide configuration): F's rows once, 2 D + 1 reads each,
+      the panel written once and read back a tile (64 x wp values each).
+
+    Both read all of w_fwd's needed rows once a block (2 hp x w_len), which
+    is added."""
+    tiles = hp // gt.WIDE_BINS
+    weights = 2 * hp * w_len * elem_bytes
+    if design == "streamed":
+        return tiles * (2 * d_max + 1) * (gt.WIDE_ROWS + 2 * d_max) * w_len * elem_bytes + weights
+    if design == "slab":
+        build = (2 * d_max + 1) * gt.WIDE_ROWS * w_len * elem_bytes
+        return build + (1 + tiles) * gt.WIDE_ROWS * wp * elem_bytes + weights
+    raise ValueError(f"unknown design {design!r}")
+
+
+
+def test_wide_design_reads_less_from_l2_than_a_streamed_panel():
+    """The reckoning that chose the wide configuration's slab over a panel
+    streamed in K pieces (gl_wide.cuh's header quotes these numbers, bf16
+    MB a block of 64 frames)."""
+    mb = lambda *a: round(l2_bytes_per_block(*a) / 1e6, 1)  # noqa: E731
+    assert (mb("streamed", 1152, 1024, 1101, 4), mb("slab", 1152, 1024, 1101, 4)) == (15.9, 7.1)
+    assert (mb("streamed", 1152, 1024, 1101, 16), mb("slab", 1152, 1024, 1101, 16)) == (60.3, 10.5)
+    for geom in GEOMETRY_TABLE:
+        _, _, _, _, w_len, d_max, _, _ = geom
+        wp = gt.round_up(w_len, 128)
+        assert mb("slab", wp, 1024, w_len, d_max) < mb("streamed", wp, 1024, w_len, d_max)

@@ -230,10 +230,12 @@ _REFUSALS = [
     ({"inference": {"griffin_lim_iter_impl": "fused", "griffin_lim_momentum": 0.99}},
      "cpu", ValueError),
     ({"inference": {"wire_format": "opus"}}, "cpu", ValueError),
-    # B2 and B5 are bf16 only: the f32 loop on the card runs "split".
-    ({"inference": {"griffin_lim_fft_impl": "dft_highest"}}, "cuda", NotImplementedError),
-    ({"inference": {"griffin_lim_iter_impl": "fused", "griffin_lim_fft_impl": "dft_high"}},
-     "cuda", NotImplementedError),
+    # B2 and B5 on the card beyond their envelope (both loop dtypes, n_fft up
+    # to 2048, at most 16 overlapping frames a side): a 23-sample hop of the
+    # tiny config's 400-sample window (D = 17), and the f32 loop at n_fft 4096.
+    ({"dataset": {"win_hop_ms": 2.875}}, "cuda", NotImplementedError),
+    ({"inference": {"griffin_lim_iter_impl": "fused", "griffin_lim_fft_impl": "dft_high"},
+      "dataset": {"n_fft": 4096}}, "cuda", NotImplementedError),
     # The decode kernel on an architecture it lacks: the reference's ValueError.
     ({"arch": {"attention_type": "local_luong"}, "inference": {"decoder_impl": "fused"}},
      "cpu", ValueError),

@@ -270,6 +270,30 @@ def test_ring_takes_every_shape_the_first_kernel_took(elem_bytes):
     assert (ns - 1 - rp.PREFETCH_STAGES) * g >= 8 + ROWS - 1
 
 
+@pytest.mark.parametrize("elem_bytes", [2, 4])
+def test_every_geometry_of_the_gl_kernels_envelope_has_a_configuration(elem_bytes):
+    """"split" stays the explicit route beside B2 and B5, so B1 takes every
+    geometry they take, in both loop dtypes: window supports up to 2048
+    lanes (wp 896 at 16 kHz, 1152 at 22.05 kHz, 1280 at 24 kHz, 2048 at
+    44.1 kHz and n_fft 2048) with up to 16 overlapping frames a side.  The
+    ring holds all of them but f32 rows of 2048 lanes at D >= 13 (35 rows of
+    8 KB at D = 16), which the direct configuration takes; beyond the
+    envelope the wrapper refuses as before."""
+    for wp in (896, 1152, 1280, 2048):
+        for d in range(17):
+            ring = rp.config(smem_bytes, wp, elem_bytes, d, ROWS)
+            if elem_bytes == 4 and wp == 2048 and d >= 13:
+                assert ring is None, (wp, d)
+                continue
+            g, ns = ring
+            assert (ns - 1) * g >= 2 * d + ROWS - 1, (wp, d)
+            assert smem_bytes(wp, elem_bytes, g, ns) <= build.MAX_SMEM
+    with pytest.raises(NotImplementedError):
+        rp.config(smem_bytes, 2048, 4, 17, ROWS)
+    with pytest.raises(NotImplementedError):
+        rp.config(smem_bytes, 4096, 4, 8, ROWS)
+
+
 class _RefusingLibrary:
     """A stand-in for the built library: csrc's count of shared memory; it
     launches nothing."""
