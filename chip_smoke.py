@@ -13,11 +13,20 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    from CUDA events for the kernel, its plain version and, where one
    PyTorch call computes the same function, that call; and each kernel's
    bound, from its shapes; for the GRU kernels also what ptxas reported
-   (registers, no spill in the H = 128 kernels), both kinds of kernel
-   (H = 128 and the generic one at H = 16), and their stages' times apart;
+   (registers, no spill in the H = 128 kernels), all three kinds of kernel
+   (H = 128, the generic one at H = 16, and the wide one, a cluster a
+   sequence, at H = 138, 256 and 512 at full size, B = 32, T = 800
+   forward and 515 backward, and at 139 and 301 with D != H, each beside
+   cuDNN's nn.GRU at the same H; the wrapper's count of the wide kind's
+   shared memory held to the library's at every wide H), and their
+   stages' times apart;
    for the decode kernel B4 also the tiny config's widths, B=3 at T=300,
    rows that stop at different steps, T=4096, and the longest T taken and
-   the next refused before any launch; for the teacher-forced scan B6 also
+   the next refused before any launch, and phase 3i's cell (products of
+   1536 columns, two panels) at (32, 96, 160) in bf16 and f32 (f32 also at
+   20 steps) and a cell of three panels a product or more (A = 2560, Dm =
+   2176) at B = 2; for the teacher-forced scan B6 also phase 3i's cell at
+   (32, 128, 103) in bf16 and f32 and the three-panel cell, and
    one utterance, an odd T, its longest T and the next refused, the
    gradient, and the launch's host time with the card busy; for B1 bit
    equality at the split iteration's shapes and at batches of 1 and 3, 515,
@@ -148,10 +157,19 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    recorded B2 launch of the path held to its plain version; and fused-60
    at 24 kHz through `synthesize_stream` (2 batches, B5 60 a batch), then
    held likewise;
+3i. the recurrent widths doubled (`WIDE_ARCH`: BiGRUs of 256 a direction,
+   attention and decoder GRUs of 512, products of 1536 columns): bench.py's
+   batch through `Synthesizer` (a warm-up and a timed batch, B3 4 on the
+   wide kind, B4 1 in column panels, B2 60), its decode against the plain
+   loop on the same weights with phase 3f's limits, and 3 train steps on
+   phase 3b's bucket (4/4/1 a step, the loss falling), the first step's
+   gradient against the teacher "xla" step's (cosine at least 0.999);
 4. one JSON line of every kernel's numbers (its launches on each path,
    "cli" the sum of phase 3d's commands, "corpus" of phase 3e's three
    `train` runs, "variants" of phase 3f's counted runs, "mesh" of phase
-   3g's, "geometry" of phase 3h's), the card's line before it, and last
+   3g's, "geometry" of phase 3h's; the wide configurations' rows, B3, B3',
+   B4 and B6 past their single-block widths, with phase 3i's launches), the
+   card's line before it, and last
    `{"ok": true, "device":
    {...}}`.
 
@@ -270,6 +288,15 @@ def gru_ptxas(match: str) -> dict:
     return kernel_ptxas("gru", match, "h128")
 
 
+def gru_kind(H: int) -> str:
+    """The kind of CUDA recurrence `ops/gru.py:kernel_config` gives width H,
+    with the wide kind's cluster size."""
+    from sstts_torch.ops import gru
+
+    kind, cluster = gru.kernel_config(H)
+    return {gru.KIND_H128: "h128", gru.KIND_GENERIC: "generic"}.get(kind, f"wide-C{cluster}")
+
+
 #: (B, T, D, H) beside the main shape: one step, an odd length (both the
 #: H = 128 kernels), the generic kernels at the tiny config's H = 16, and
 #: widths that are no multiple of 4 (the projection's ragged tiles and
@@ -292,7 +319,7 @@ def check_gru(dev):
     checks = []
     for shape in [(32, 800, 128, 128)] + GRU_SIDE_SHAPES:
         B, T, D, H = shape
-        kind = "h128" if gru.kernel_kind(H) == gru.KIND_H128 else "generic"
+        kind = gru_kind(H)
         xs, wx, wh, b, masks, _ = gru_inputs(
             dev, *shape, seed=1, empty_row=shape in GRU_SIDE_SHAPES and T > 1)
         for mask_name, mask in masks.items():
@@ -333,7 +360,7 @@ def check_gru(dev):
         gx.data_ptr(), B * T, D, 3 * H))
     rec_ms = cuda_ms(lambda: stage(
         "sstts_gru_recurrence", gx.data_ptr(), wh.data_ptr(), full.data_ptr(),
-        out.data_ptr(), None, None, B, T, H, 0, gru.KIND_H128))
+        out.data_ptr(), None, None, B, T, H, 0, *gru.kernel_config(H)))
     log(f"  B3 stages at b={B}, T={T}: input projection {proj_ms:.4f} ms, recurrence "
         f"{rec_ms:.4f} ms; the wrapper {ms:.4f} ms, saving the gates {ms_saving:.4f} ms")
     # One PyTorch call with the same function when every step is valid:
@@ -393,7 +420,7 @@ def check_gru_backward(dev):
     checks, main = [], None
     for shape in [(32, 128, 128, 128), (32, 515, 128, 128)] + GRU_SIDE_SHAPES:
         B, T, D, H = shape
-        kind = "h128" if gru.kernel_kind(H) == gru.KIND_H128 else "generic"
+        kind = gru_kind(H)
         xs, wx, wh, b, masks, dout = gru_inputs(
             dev, *shape, seed=11, empty_row=shape in GRU_SIDE_SHAPES and T > 1)
         for mask_name, mask in masks.items():
@@ -453,6 +480,177 @@ def check_gru_backward(dev):
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "library_ms": lib_ms, "ms_whole_backward": ms_whole, "ptxas": ptxas,
         "shape": [B, T, D, H], "checks": checks,
+    }
+
+
+#: The wide GRU kernels' widths held at full size (B = 32, D = H; T = 800
+#: forward, 515 backward): the first past the generic kernels, the
+#: default's doubled (phase 3i's BiGRUs) and 512 (a cluster of 15, whose
+#: last rank owns fewer units); beside them one step and an odd length at
+#: widths no cluster divides, with D != H.
+GRU_WIDE_HIDDEN = (138, 256, 512)
+GRU_WIDE_SIDE_SHAPES = [(3, 1, 64, 139), (4, 37, 96, 301)]
+
+
+def wide_gru_cases(dev, T: int, seed: int):
+    """(shape, inputs) of every wide case at forward length T; row 0 of a
+    side shape's ragged mask is all padding, and of a main one too."""
+    for shape in [(32, T, H, H) for H in GRU_WIDE_HIDDEN] + GRU_WIDE_SIDE_SHAPES:
+        yield shape, gru_inputs(dev, *shape, seed=seed, empty_row=shape[1] > 1)
+
+
+def check_gru_wide_counts():
+    """The wrapper's rule (`kernel_config`, `wide_smem_bytes`) against the
+    library's own count at every wide H, and each configuration the card
+    holds at once (clusters), for the widths of GRU_WIDE_HIDDEN."""
+    from sstts_torch.ops import build, gru
+
+    lib = build.load("gru", gru.SIGNATURES)
+    for H in range(gru.MAX_HIDDEN + 1):
+        kind, C = gru.kernel_config(H)
+        if kind != gru.KIND_WIDE:
+            continue
+        want = gru.wide_smem_bytes(H, C)
+        got = (lib.sstts_gru_wide_smem_bytes(H, C), lib.sstts_gru_wide_bwd_smem_bytes(H, C))
+        if got != want or max(got) > build.MAX_SMEM:
+            raise AssertionError(f"wide GRU H={H}, C={C}: library {got}, wrapper {want}")
+    active = {}
+    for H in GRU_WIDE_HIDDEN:
+        C = gru.kernel_config(H)[1]
+        active[H] = {"cluster": C, "forward": lib.sstts_gru_wide_active_clusters(H, C, 0),
+                     "backward": lib.sstts_gru_wide_active_clusters(H, C, 1)}
+    log(f"  B3 wide: the wrapper's shared-memory counts equal the library's for H = "
+        f"138..{gru.MAX_HIDDEN}; clusters the card holds at once: {active}")
+    return active
+
+
+def check_gru_wide(dev):
+    """B3's wide kernel (a cluster a sequence) against the plain version at
+    H in GRU_WIDE_HIDDEN (B = 32, T = 800, D = H) and the side shapes, full
+    and ragged masks, both directions, with and without the saved gates;
+    its time at each H beside cuDNN's nn.GRU, the plain version and the
+    bound."""
+    import torch
+
+    from sstts_torch.ops import gru
+    from sstts_torch.ops.gru import gru_sequence, gru_sequence_forward_plain, gru_sequence_plain
+
+    ptxas = gru_ptxas("gru_fwd_wide")
+    active = check_gru_wide_counts()
+    tol = 1e-4  # as check_gru: f32 both sides, sums in another order
+    checks, by_h = [], {}
+    for shape, (xs, wx, wh, b, masks, _) in wide_gru_cases(dev, 800, seed=21):
+        B, T, D, H = shape
+        for mask_name, mask in masks.items():
+            for reverse in (False, True):
+                ref, ref_gates, ref_hprev = gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)
+                got = gru_sequence(xs, wx, wh, b, mask, reverse)
+                got_s, gates, hprev = gru._kernel(xs, wx, wh, b, mask, reverse, save=True)
+                torch.cuda.synchronize()
+                errs = {"out": max_err(got, ref), "out_saving": max_err(got_s, ref),
+                        "gates": max_err(gates, ref_gates), "hprev": max_err(hprev, ref_hprev)}
+                case = f"B{B}-T{T}-D{D}-H{H}-{gru_kind(H)}-{mask_name}-{'rev' if reverse else 'fwd'}"
+                log(f"  B3 gru_sequence {case}: max_abs_err {errs} (tol {tol})")
+                if not max(errs.values()) <= tol:
+                    raise AssertionError(f"gru_sequence {case}: {errs} > {tol}")
+                checks.append({"case": case, "max_abs_err": max(errs.values()), "tol": tol})
+        if B != 32:
+            continue
+        full = masks["full"]
+        ms = cuda_ms(lambda: gru_sequence(xs, wx, wh, b, full, False), 3, 5)
+        # The plain version's time (a step loop of small launches, ~0.3 s
+        # whatever H) at the row's width only.
+        plain = (cuda_ms(lambda: gru_sequence_plain(xs, wx, wh, b, full, False), 1, 3)
+                 if H == 256 else None)
+        lib_gru = cudnn_gru(dev, wx, wh, b)
+        with torch.no_grad():
+            lib_ms = cuda_ms(lambda: lib_gru(xs), 3, 5)
+        n_bytes = nbytes(xs, wx, wh, b, full) + B * T * H * 4
+        bms, by = bound_ms(n_bytes, 2 * B * T * (D * 3 * H + H * 3 * H), "f32")
+        by_h[H] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bms,
+                   "bound_by": by, "kind": gru_kind(H), **active[H]}
+        log(f"  B3 wide H={H} ({gru_kind(H)}): {ms:.4f} ms, cuDNN nn.GRU {lib_ms:.4f} ms, "
+            f"plain {plain} ms, bound {bms:.4f} ms by {by}")
+    main = by_h[256]  # phase 3i's BiGRUs
+    return {
+        "name": "gru_sequence_wide", "route": "cuda",
+        "source": "sstts_torch/csrc/gru.cu",
+        "replaces": "sstts/ops/pallas_gru.py:69",
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "by_hidden": by_h, "ptxas": ptxas, "shape": [32, 800, 256, 256], "checks": checks,
+    }
+
+
+def check_gru_backward_wide(dev):
+    """B3's wide backward recurrence against its plain version at H in
+    GRU_WIDE_HIDDEN (B = 32, T = 515, D = H) and the side shapes, both masks
+    and directions; its time at each H beside cuDNN's whole GRU backward."""
+    import torch
+
+    from sstts_torch.ops.gru import (
+        gru_sequence_backward, gru_sequence_backward_plain, gru_sequence_forward_plain,
+    )
+
+    ptxas = gru_ptxas("gru_bwd_wide")
+    tol = 1e-4  # relative to the largest value, as check_gru_backward
+    checks, by_h = [], {}
+    for shape, (xs, wx, wh, b, masks, dout) in wide_gru_cases(dev, 515, seed=22):
+        B, T, D, H = shape
+        timed = None
+        for mask_name, mask in masks.items():
+            for reverse in (False, True):
+                _, gates, hprev = gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)
+                got = gru_sequence_backward(dout, gates, hprev, wh, mask, reverse)
+                ref = gru_sequence_backward_plain(dout, gates, hprev, wh, mask, reverse)
+                torch.cuda.synchronize()
+                errs = {
+                    "dgx": max_err(got[0], ref[0]) / max(float(ref[0].abs().max()), 1e-30),
+                    "dgh": max_err(got[1], ref[1]) / max(float(ref[1].abs().max()), 1e-30),
+                }
+                case = f"B{B}-T{T}-D{D}-H{H}-{gru_kind(H)}-{mask_name}-{'rev' if reverse else 'fwd'}"
+                log(f"  B3 backward {case}: relative errors {errs} (tol {tol})")
+                if not max(errs.values()) <= tol:
+                    raise AssertionError(f"gru_sequence_backward {case}: {errs}")
+                abs_err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
+                checks.append({"case": case, "max_abs_err": abs_err, "rel_errors": errs,
+                               "tol": tol})
+                if mask_name == "ragged" and not reverse:
+                    timed = (gates.contiguous(), hprev.contiguous(), mask)
+        if B != 32:
+            continue
+        gates, hprev, mask = timed
+        ms = cuda_ms(lambda: gru_sequence_backward(dout, gates, hprev, wh, mask, False), 3, 5)
+        plain = (cuda_ms(
+            lambda: gru_sequence_backward_plain(dout, gates, hprev, wh, mask, False), 1, 3)
+            if H == 256 else None)
+        lib = cudnn_gru(dev, wx, wh, b)
+        xs_g = xs.clone().requires_grad_()
+
+        def fwd_bwd():
+            lib.zero_grad(set_to_none=True)
+            xs_g.grad = None
+            lib(xs_g)[0].backward(dout)
+
+        with torch.no_grad():
+            lib_fwd = cuda_ms(lambda: lib(xs), 3, 5)
+        lib_ms = cuda_ms(fwd_bwd, 3, 5) - lib_fwd
+        n_bytes = nbytes(dout, gates, hprev, wh, mask) + 2 * B * T * 3 * H * 4
+        bms, by = bound_ms(n_bytes, 2 * B * T * 3 * H * H, "f32")
+        by_h[H] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bms,
+                   "bound_by": by, "kind": gru_kind(H)}
+        log(f"  B3 backward wide H={H} ({gru_kind(H)}): recurrence {ms:.4f} ms, cuDNN's "
+            f"whole backward {lib_ms:.4f} ms, plain {plain} ms, bound {bms:.4f} ms by {by}")
+    main = by_h[256]
+    return {
+        "name": "gru_sequence_backward_wide", "route": "cuda",
+        "source": "sstts_torch/csrc/gru.cu",
+        "replaces": "sstts/ops/pallas_gru.py:126",
+        "max_abs_err": max(c["max_abs_err"] for c in checks),
+        "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "by_hidden": by_h, "ptxas": ptxas, "shape": [32, 515, 256, 256], "checks": checks,
     }
 
 
@@ -769,6 +967,199 @@ def check_decoder(dev):
         "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
         "library_ms": None, "shape": [B, T, S], "checks": checks,
         "stream_bytes_a_step": step_bytes,
+    }
+
+
+#: Phase 3i's architecture: the default Config() with its recurrent widths
+#: doubled (BiGRUs of 256 a direction, attention and decoder GRUs of 512:
+#: products of 1536 columns, memory of 512).
+WIDE_ARCH = {"encoder_gru_units": 256, "post_gru_units": 256,
+             "attention_gru_units": 512, "decoder_gru_units": 512}
+#: A ring-kernel cell with products of three column panels or more: the
+#: query and the rows of keys (A = 2560), memory (Dm = 2176: 1024 + 1024 +
+#: 128), and 3 Ha = 3 Hd = 1152.
+PANEL_ARCH = {"attention_units": 2560, "encoder_gru_units": 1088,
+              "attention_gru_units": 384, "decoder_gru_units": 384}
+
+
+def decoder_cell(dev, seed: int, **arch):
+    """(config, decoder cell on `dev`) of the default Config() with `arch`
+    changed, from a seeded init."""
+    from sstts_torch.config import Config
+    from sstts_torch.model.tacotron import Tacotron, init_state_dict
+
+    cfg = with_arch(Config(), **arch)
+    model = Tacotron(cfg.arch, cfg.dataset)
+    model.load_state_dict(init_state_dict(cfg.arch, cfg.dataset, seed=seed))
+    return cfg, model.decoder_cell.to(dev).eval()
+
+
+def panel_count(schedule) -> int:
+    """The most column panels a product of `schedule` streams in."""
+    rows = schedule.cpu().tolist()
+    return max(sum(1 for r in rows if r[1] == pid and r[4] == 0) for pid in {r[1] for r in rows})
+
+
+def check_decoder_wide(dev):
+    """B4 in column panels against its plain version: phase 3i's cell at
+    (B, T, S) = (32, 96, 160) with bf16 and f32 products (f32 also at 20
+    steps, the narrow check's f32 case), and a cell of three panels a
+    product or more at B = 2; the wide cell's time, bound and stream."""
+    import torch
+
+    from sstts_torch.ops import decoder as dec
+
+    cells = {"wide": decoder_cell(dev, 2, **WIDE_ARCH), "panels": decoder_cell(dev, 2, **PANEL_ARCH)}
+
+    def inputs(name, B, T, S, dt, thr, min_steps, seed=3):
+        cfg, cell = cells[name]
+        g = torch.Generator().manual_seed(seed)
+        memory = (0.5 * torch.randn(B, T, 2 * cfg.arch.encoder_gru_units, generator=g)).to(dev)
+        lengths = torch.randint(min(40, T), T + 1, (B,), generator=g).to(dev)
+        mask = torch.arange(T, device=dev)[None] < lengths[:, None]
+        gdev = torch.Generator(device=dev).manual_seed(seed + 1)
+        keep = dec.draw_keep_masks(S, B, cfg.arch.prenet_units, 0.5, gdev, dev)
+        with torch.no_grad():
+            return dec.prepare_decode(cell, memory, mask, S, stop_threshold=thr,
+                                      min_steps=min_steps, keep=keep, matmul_dtype=dt)
+
+    # (case, cell, B, T, S, dtype, stop threshold, min_steps), held by
+    # `ring_tolerances` (wide-S160-bf16 the main case, as S160-bf16 is).
+    cases = [("wide-S160-bf16", "wide", 32, 96, 160, torch.bfloat16, 1.1, 8),
+             ("wide-S20-f32", "wide", 32, 96, 20, torch.float32, 0.5, 8),
+             ("wide-S160-f32", "wide", 32, 96, 160, torch.float32, 1.1, 8),
+             ("panels-f32", "panels", 2, 37, 12, torch.float32, 0.5, 2),
+             ("panels-bf16", "panels", 2, 37, 12, torch.bfloat16, 1.1, 2)]
+    checks, main = [], None
+    for case, name, B, T, S, dt, thr, min_steps in cases:
+        p = inputs(name, B, T, S, dt, thr, min_steps)
+        n0 = dec.decode_steps.launches
+        with torch.no_grad():
+            got = dec.decode_steps(p)
+            ref = dec.decode_steps_plain(p)
+        torch.cuda.synchronize()
+        main_case = case == "wide-S160-bf16"
+        mel = float(ref["mel"].abs().max())
+        tol_mel, tol_al = ring_tolerances(
+            dt, main_case, mel if main_case else max(mel, float(ref["stop"].abs().max())),
+            float(ref["align"].max()))
+        errs = {k: max_err(got[k], ref[k]) for k in ("mel", "stop", "align")}
+        fin_equal = bool(torch.equal(got["fin"], ref["fin"]))
+        n_panels = panel_count(p.schedule)
+        log(f"  B4 fused_decode {case}: {errs} fin_equal={fin_equal} (tol mel/stop "
+            f"{tol_mel:.3g}, align {tol_al:.3g}; up to {n_panels} panels a product)")
+        if not (fin_equal and errs["mel"] <= tol_mel and errs["stop"] <= tol_mel
+                and errs["align"] <= tol_al and dec.decode_steps.launches == n0 + 1
+                and n_panels >= (3 if name == "panels" else 2)):
+            raise AssertionError(f"fused_decode {case}: {errs}, fin {fin_equal}, "
+                                 f"{n_panels} panels")
+        checks.append({"case": case, "max_abs_err": max(errs.values()), "tol": tol_mel,
+                       "tol_align": tol_al, "errors": errs, "panels": n_panels})
+        if main_case:
+            main = (p, checks[-1])
+    p, main_check = main
+    with torch.no_grad():
+        ms = cuda_ms(lambda: dec.decode_steps(p), 3, 5)
+        plain = cuda_ms(lambda: dec.decode_steps_plain(p), 1, 3)
+    w = p.w
+    B, T, Dm = p.memory.shape
+    S, r, M = p.max_steps, p.reduction, p.n_mels
+    A = p.keys.shape[-1]
+    n_bytes = nbytes(*w, p.memory, p.keys, p.maskf, p.keep0, p.keep1) + 4 * B * S * (
+        r * M + r + T + 1)
+    macs = sum(getattr(w, n).numel() for n in dec._MATRICES) + T * (A + Dm)
+    bms, by = bound_ms(n_bytes, 2 * S * B * macs, "bf16")
+    step_bytes = p.packed.numel() + T * (dec.row_bytes(A, 2) + dec.row_bytes(Dm, 2))
+    params = sum(getattr(w, n).numel() for n in dec._MATRICES)
+    log(f"  B4 wide cell (B={B}, T={T}, S={S}, bf16): {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {bms:.4f} ms by {by}; {params} matrix parameters, {step_bytes} bytes "
+        f"streamed a step")
+    return {
+        "name": "fused_decode_wide", "route": "cuda",
+        "source": "sstts_torch/csrc/decoder.cu",
+        "replaces": "sstts/ops/pallas_decoder.py:169",
+        "max_abs_err": main_check["max_abs_err"],
+        "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "shape": [B, T, S], "checks": checks,
+        "stream_bytes_a_step": step_bytes, "matrix_parameters": params,
+    }
+
+
+def check_teacher_wide(dev):
+    """B6 in column panels against its plain version: phase 3i's cell at
+    (B, T, S) = (32, 128, 103) with bf16 and f32 products, and a cell of
+    three panels a product or more at B = 2; the wide cell's time as a train
+    step calls it (live f32 weights packed in the call), and its bound."""
+    import torch
+
+    from sstts_torch.ops import teacher as tops
+
+    cells = {"wide": decoder_cell(dev, 12, **WIDE_ARCH),
+             "panels": decoder_cell(dev, 12, **PANEL_ARCH)}
+    g = torch.Generator().manual_seed(13)
+
+    def inputs(name, B, T, S):
+        cfg, cell = cells[name]
+        memory = (0.5 * torch.randn(B, T, 2 * cfg.arch.encoder_gru_units, generator=g)).to(dev)
+        lengths = torch.randint(min(40, T), T + 1, (B,), generator=g).to(dev)
+        maskf = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()
+        with torch.no_grad():
+            keys = cell.attention.init_keys(memory)
+        pre = torch.relu(torch.randn(B, S, cfg.arch.prenet_units[-1], generator=g)).to(dev)
+        return tops.teacher_weights_from_cell(cell), pre, memory, keys, maskf
+
+    cases = [("wide-S103-bf16", "wide", 32, 128, 103, torch.bfloat16),
+             ("wide-S103-f32", "wide", 32, 128, 103, torch.float32),
+             ("panels-f32", "panels", 2, 37, 12, torch.float32),
+             ("panels-bf16", "panels", 2, 37, 12, torch.bfloat16)]
+    checks, main = [], None
+    for case, name, B, T, S, dt in cases:
+        w, pre, memory, keys, maskf = inputs(name, B, T, S)
+        n0 = tops.fused_teacher_scan.launches
+        with torch.no_grad():
+            got = tops.fused_teacher_scan(w, pre, memory, keys, maskf, dt)
+            ref = tops.fused_teacher_scan_plain(w, pre, memory, keys, maskf, dt)
+        torch.cuda.synchronize()
+        scale, align_max = float(ref[0].abs().max()), float(ref[1].max())
+        tol_x, tol_a = ring_tolerances(dt, case == "wide-S103-bf16", scale, align_max)
+        errs = {"xs": max_err(got[0], ref[0]), "align": max_err(got[1], ref[1])}
+        d = tops.dims(w, pre, memory, keys)
+        n_panels = panel_count(tops._schedule(tops.step_products(w, d, dt), dev))
+        log(f"  B6 fused_teacher_scan {case}: {errs} (tol xs {tol_x:.3g}, align "
+            f"{tol_a:.3g}; up to {n_panels} panels a product)")
+        if not (errs["xs"] <= tol_x and errs["align"] <= tol_a
+                and tops.fused_teacher_scan.launches == n0 + 1
+                and n_panels >= (3 if name == "panels" else 2)):
+            raise AssertionError(f"fused_teacher_scan {case}: {errs}, {n_panels} panels")
+        checks.append({"case": case, "max_abs_err": max(errs.values()), "tol": tol_x,
+                       "tol_align": tol_a, "errors": errs, "panels": n_panels})
+        if case == "wide-S103-bf16":
+            main = (w, pre, memory, keys, maskf, checks[-1])
+    w, pre, memory, keys, maskf, main_check = main
+    bf = torch.bfloat16
+    mem_b, keys_b = memory.to(bf), keys.to(bf)
+    with torch.no_grad():
+        ms = cuda_ms(lambda: tops.fused_teacher_scan(w, pre, mem_b, keys_b, maskf, bf), 3, 5)
+        wc = tops.TeacherWeights(*[t.detach().contiguous() for t in tops._cast(w, bf)])
+        plain = cuda_ms(lambda: tops.fused_teacher_scan_plain(
+            wc, pre, mem_b, keys_b, maskf, bf), 1, 3)
+    B, S, _ = pre.shape
+    T, Dm = memory.shape[1:]
+    n_bytes = nbytes(*wc, pre, mem_b, keys_b, maskf) + 4 * B * S * (w.gru0_wh.shape[0] + T)
+    macs = sum(t.numel() for t in w if t.dim() == 2) + T * (keys.shape[-1] + Dm)
+    bms, by = bound_ms(n_bytes, 2 * S * B * macs, "bf16")
+    d = tops.dims(w, pre, memory, keys)
+    step_bytes = sum(pr.rows * pr.row_bytes for pr in tops.step_products(w, d, bf))
+    log(f"  B6 wide cell (B={B}, T={T}, S={S}, bf16): {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"bound {bms:.4f} ms by {by}; {step_bytes} bytes streamed a step")
+    return {
+        "name": "fused_teacher_scan_wide", "route": "cuda",
+        "source": "sstts_torch/csrc/teacher.cu",
+        "replaces": "sstts/ops/pallas_decoder.py:447",
+        "max_abs_err": main_check["max_abs_err"],
+        "ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+        "library_ms": None, "stream_bytes_a_step": step_bytes,
+        "shape": [B, T, S], "checks": checks,
     }
 
 
@@ -3160,6 +3551,90 @@ def mesh_path(dev, card):
     return res
 
 
+# --------------------------------------------------------------- phase 3i --
+
+
+def widths_path(dev, card):
+    """Phase 3i: the default Config() with its recurrent widths doubled
+    (WIDE_ARCH) on the card, from a seeded init: bench.py's batch through
+    `Synthesizer` (B3 4 on the wide kind, B4 1 in column panels, B2 60), its
+    decode held to the plain loop (`decode_infer`, what decoder_impl="xla"
+    runs) on the same weights and keep masks with phase 3f's limits, and 3
+    train steps on phase 3b's bucket (B3 4, B3' 4, B6 1 a step) with the
+    loss finite and falling; the first step's gradient against the teacher
+    "xla" step's from the same init (cosine at least 0.999)."""
+    import torch
+
+    from sstts_torch import train as tr
+    from sstts_torch.model.tacotron import init_state_dict
+    from sstts_torch.ops import decoder as dec
+    from sstts_torch.synthesize import exact_f32
+
+    ledger = Launches()
+    res = {}
+    cfg = with_arch(bench_config(), **WIDE_ARCH)
+    kinds = {H: gru_kind(H) for H in (cfg.arch.encoder_gru_units, cfg.arch.post_gru_units)}
+    log(f"  widths {WIDE_ARCH}: the BiGRUs' kernels {kinds}")
+    if not all(k.startswith("wide") for k in kinds.values()):
+        raise AssertionError(f"phase 3i's BiGRUs do not take the wide kernels: {kinds}")
+    texts = ["the quick brown fox jumps over the lazy dog " * 2] * 32
+    params = init_state_dict(cfg.arch, cfg.dataset, seed=0)
+    synth, res["synthesis_wall_s"] = synthesis_item(
+        "widths", cfg, params, texts, ledger,
+        {"gru_sequence": 4, "fused_decode": 1, "fused_reproject_analyze": 60}, card)
+
+    # The decode against the plain loop: f32 products over 20 steps, bf16
+    # products over the first 8 (their roundings feed back through the
+    # decoded frames), as phase 3f holds the default widths.
+    model = synth.model
+    ids = torch.as_tensor(synth._encode_ids(texts, None), dtype=torch.long).to(dev)
+    with torch.no_grad(), exact_f32(dev):
+        memory, mmask = model.encode(ids)
+        keep = dec.draw_keep_masks(20, 32, cfg.arch.prenet_units, cfg.arch.prenet_dropout,
+                                   torch.Generator(device=dev).manual_seed(8), dev)
+        plain = model.decode_infer(memory, mmask, 20, 1.1, 8, keep)
+        kernel = {dt: dec.fused_decode(model.decoder_cell, memory, mmask, 20,
+                                       stop_threshold=1.1, min_steps=8, keep=keep,
+                                       matmul_dtype=dt)
+                  for dt in (torch.float32, torch.bfloat16)}
+    r = cfg.arch.reduction_factor
+    res["xla_vs_B4"] = {}
+    for dt, got in kernel.items():
+        steps = 20 if dt == torch.float32 else 8
+        mel_p, al_p = plain["mel"][:, : steps * r], plain["alignments"][:, :steps]
+        tol_mel, tol_al = ring_tolerances(dt, True, float(mel_p.abs().max()), float(al_p.max()))
+        e_mel = max_err(got["mel"][:, : steps * r], mel_p)
+        e_al = max_err(got["alignments"][:, :steps], al_p)
+        log(f"  widths: xla plain loop vs B4-{str(dt)[6:]}-S{steps}: mel max_abs_err "
+            f"{e_mel:.3e} (tol {tol_mel:.1e}), alignments {e_al:.3e} (tol {tol_al:.1e})")
+        if not (e_mel <= tol_mel and e_al <= tol_al):
+            raise AssertionError(f"widths: xla vs B4 {dt}: {e_mel}, {e_al}")
+        res["xla_vs_B4"][f"{str(dt)[6:]}-S{steps}"] = (e_mel, e_al)
+
+    train_cfg = with_arch(corpus_config(), **WIDE_ARCH)
+    tbatch = fixed_batch(train_cfg, 32, 1, (10, 16))
+    _, losses, ms = train_item(
+        "widths", train_cfg, tbatch, ledger,
+        {"gru_sequence": 4, "gru_sequence_backward": 4, "fused_teacher_scan": 1}, 3, card)
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"widths: the loss did not fall over 3 steps: {losses}")
+    res.update(train_losses=losses, train_ms=ms)
+    grads = {}
+    for impl in (None, "xla"):
+        st = tr.create_state(train_cfg, seed=0)
+        st.model.teacher_impl = impl
+        tr.make_train_step(train_cfg)(st, tbatch)
+        grads[impl] = torch.cat([p.grad.flatten() for p in st.model.parameters()]).double()
+    cos = float(torch.nn.functional.cosine_similarity(grads[None], grads["xla"], 0))
+    log(f"  widths: first-step gradient, B6 against the teacher xla loop: cosine {cos:.6f} "
+        f"(tol >= 0.999)")
+    if not cos >= 0.999:
+        raise AssertionError(f"widths: gradient cosine {cos}")
+    res["grad_cosine_vs_xla"] = cos
+    res["launches"] = ledger.total
+    return res
+
+
 def tiny_step_card_vs_cpu(tcfg, tol: float) -> dict:
     """One tiny train step on the card (kernels where the architecture has
     them, B6 with f32 products) against the same step on the CPU (plain
@@ -3217,7 +3692,11 @@ def main() -> int:
             check_gru(dev), check_gru_backward(dev), check_teacher(dev),
             check_decoder(dev), check_gl(dev), check_reproject(dev), check_gl_fused(dev),
         ]
-    for k in kernels:
+        # The wide configurations (B3 and B3' past H = 137, B4 and B6 in
+        # column panels), each a row of its own, driven by phase 3i.
+        wide = [check_gru_wide(dev), check_gru_backward_wide(dev), check_teacher_wide(dev),
+                check_decoder_wide(dev)]
+    for k in kernels + wide:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}) [{card}]")
@@ -3238,6 +3717,8 @@ def main() -> int:
     mesh_res = mesh_path(dev, card)
     log("phase 3h: the Griffin-Lim geometries of the kernels' wide configuration")
     geometry_res = geometry_path(dev, card)
+    log("phase 3i: the recurrent widths doubled (B3, B3' wide; B4, B6 in panels)")
+    widths_res = widths_path(dev, card)
     # Each kernel's launches come from the path it carries.
     own_path = {"gru_sequence_backward": "training", "fused_teacher_scan": "training",
                 "reproject_frames_pallas": "serving", "fused_gl_iteration": "serving"}
@@ -3252,12 +3733,18 @@ def main() -> int:
                    "geometry": geometry_res["launches"][k["name"]]}
         k["launches"] = by_path[own_path.get(k["name"], "synthesis")]
         k["launches_by_path"] = by_path
+    for k in wide:  # launched by phase 3i only
+        n = widths_res["launches"].get(k["name"].removesuffix("_wide"), 0)
+        k["launches"], k["launches_by_path"] = n, {"widths": n}
+        if not n:
+            raise AssertionError(f"{k['name']} was not launched in phase 3i")
     log(json.dumps({"main_path": main_res, "serving_path": serve_res,
                     "train_path": train_res, "cli_path": cli_res,
                     "corpus_path": corpus_res, "variants_path": variants_res,
-                    "mesh_path": mesh_res, "geometry_path": geometry_res, "card": card}))
+                    "mesh_path": mesh_res, "geometry_path": geometry_res,
+                    "widths_path": widths_res, "card": card}))
     log(card)
-    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"kernels": kernels + wide}))
     log(json.dumps({
         "ok": True,
         "device": {

@@ -22,16 +22,17 @@ namespace chain {
 
 // The ring both kernels stream through: kStages stages of kStageBytes (the
 // host's schedule cuts its chunks to that size: ops/decoder.py:STAGE_BYTES),
-// kConsumerWarps consumer warps and one producer warp; products up to
-// kMaxCols columns.
+// kConsumerWarps consumer warps and one producer warp; a product wider than
+// kMaxCols columns comes in column panels of at most kMaxCols
+// (ops/decoder.py:panels, stream::matvec).
 constexpr int kStages = 2;
 constexpr int kStageBytes = 64 * 1024;
 constexpr int kConsumerWarps = 16;
 constexpr int kConsumers = 32 * kConsumerWarps;
 constexpr int kThreads = kConsumers + 32;
 constexpr int kMaxCols = 1024;
-static_assert(kStageBytes >= 4 * kMaxCols, "a stage holds a row of kMaxCols f32");
-static_assert(kConsumers >= kMaxCols / 4, "a consumer a 16-byte segment of any row");
+static_assert(kStageBytes >= 4 * kMaxCols, "a stage holds a panel's row of f32");
+static_assert(kConsumers >= kMaxCols / 4, "a consumer a 16-byte segment of a panel's row");
 // Split-K partials: G groups x the padded width, at most 8 floats a consumer.
 constexpr int kPartFloats = 8 * kConsumers;
 

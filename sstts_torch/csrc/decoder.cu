@@ -39,8 +39,9 @@
 // gates, the softmax and the freeze between them; steps 2-4 are the chain
 // B6 runs too (chain.cuh).  The key projection
 // memory @ memory_proj is hoisted out of the kernel, as in JAX.  Limits: any
-// B (one block each); product widths up to kMaxCols = 1024; T up to what
-// shared memory holds beside the ring (T floats of scores).
+// B (one block each); any product width (wider than kMaxCols = 1024 in
+// column panels, one pass of the consumers each: stream::matvec); T up to
+// what shared memory holds beside the ring (T floats of scores).
 //
 // The ring is 2 stages of 64 KB, read by 16 consumer warps beside one
 // producer warp (chain.cuh, B6's too; PERF.md §6 gives the settings tried
@@ -82,8 +83,9 @@ struct DecodeArgs {
   const float* gru1_b;
   const float* frame_b;
   const float* stop_b;
-  const void* memory;  // (B, T, Dm) matmul dtype, rows padded to 16 bytes
-  const void* keys;    // (B, T, A) likewise
+  const void* memory;  // (B, T, Dm) matmul dtype, rows padded to 16 bytes,
+                       // in column panels past kMaxCols (decoder.memory_panels)
+  const void* keys;    // (B, T, A) matmul dtype, rows padded to 16 bytes
   const float* mask;   // (B, T) {0, 1}
   const float* keep0;  // (S, B, P0) {0, 1} or NULL (no dropout)
   const float* keep1;  // (S, B, P1)

@@ -55,9 +55,22 @@
 //       from device memory is on the chain; the stores (out, and
 //       gates/hprev when a gradient is wanted) are sent off and not waited
 //       on.
-//     * any other H (gru_fwd_generic): one thread per gate column, Wh in
-//       dynamic shared memory (3H*H*4 bytes of the 227 KB opt-in, so H up
-//       to 137), exact expf/tanhf, two barriers a step.
+//     * any other H up to 137 (gru_fwd_generic): one thread per gate
+//       column, Wh in dynamic shared memory (3H*H*4 bytes of the 227 KB
+//       opt-in), exact expf/tanhf, two barriers a step.
+//     * H past 137 (gru_fwd_wide): Wh no longer fits one SM (786 KB at
+//       H = 256, 3.1 MB at 512), so a thread-block cluster of C blocks
+//       runs one sequence.  Rank c owns U = ceil(H / C) hidden units and
+//       keeps their 3U gate columns of Wh in its shared memory (WideShape);
+//       every rank holds the whole carry h.  A step: 1024 threads split
+//       the block's 3U columns x H rows over K slices, one barrier, one
+//       thread a unit adds the slices and applies the gates (exact
+//       expf/tanhf), writes its new h into every rank's carry
+//       (distributed shared memory, double-buffered), and one cluster
+//       barrier ends the step.  The step's gx row is loaded into
+//       registers a step ahead.  C is the smallest cluster whose block
+//       fits (sstts_gru_wide_smem_bytes; the wrapper's rule, up to 16
+//       blocks, the non-portable cluster size), which reaches H = 543.
 //     When a gradient is wanted both write, per step, the gates r, z, n, the
 //     recurrent candidate term hn and the carry before the step (5H floats;
 //     42 MB at B=32, T=515, H=128), so that the backward never repeats the
@@ -78,8 +91,16 @@
 //       register from step to step and do the elementwise phase; two
 //       barriers a step.  The step's gates, hprev, dout and mask value
 //       arrive through the same kind of cp.async ring (warps 4..10).
-//     * any other H (gru_bwd_generic): Wh transposed in dynamic shared
-//       memory, three barriers a step.
+//     * any other H up to 137 (gru_bwd_generic): Wh transposed in dynamic
+//       shared memory, three barriers a step.
+//     * H past 137 (gru_bwd_wide): the forward's cluster and layout.  Each
+//       rank computes the dgh of its own 3U columns (its units' gates),
+//       multiplies them by its slice of Wh into a partial dh_prev for all
+//       H units (K rows split over JS column slices, a barrier, the slices
+//       added), and sends each unit's partial to the rank that owns the
+//       unit (a reduce-scatter through distributed shared memory,
+//       double-buffered); the owner adds the C partials at the start of
+//       the next step.  Two block barriers and one cluster barrier a step.
 //     The weight gradients dWx = xs^T dgx, dWh = h_prev^T dgh, db = sum dgx
 //     and dxs = dgx Wx^T are large independent products that the wrapper
 //     leaves to cuBLAS, as the JAX package leaves them to XLA.  Bound:
@@ -87,14 +108,18 @@
 //     and ~100 MB of saved state and outputs, so ~0.03 ms; the 515
 //     dependent steps set the time.
 //
-// The wrapper chooses the kernel from H (`kind`); a kind that does not fit
-// the shape is refused with cudaErrorInvalidValue, never replaced.
+// The wrapper chooses the kernel from H (`kind`, and for the wide kind the
+// cluster size); a kind that does not fit the shape is refused with
+// cudaErrorInvalidValue, never replaced.
 //
 // Plain C interface (bound with ctypes); the launch goes on the caller's
 // stream, nothing synchronises, and the return value is cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -347,6 +372,218 @@ __global__ void gru_bwd_generic(const float* __restrict__ dout,
     for (int i = threadIdx.x; i < H; i += blockDim.x)
       dh_s[i] = dhc_s[i] + part_s[i] + part_s[H + i] + part_s[2 * H + i];
     __syncthreads();
+  }
+}
+
+// ------------------------------------ recurrences past H = 137: clusters --
+
+constexpr int kWideThreads = 1024;
+constexpr int kMaxCluster = 16;
+
+// The wide kernels' split of width H over a cluster of C blocks (see the
+// header): U units a rank, their G = 3U gate columns of Wh in rows ld
+// floats apart (3U made odd: the backward's threads walk down a column, and
+// an odd stride puts a warp's 32 rows in 32 banks), the forward's K slices
+// KS and the backward's column slices JS.
+struct WideShape {
+  int U, G, ld, KS, JS;
+  __host__ __device__ WideShape(int H, int C)
+      : U((H + C - 1) / C),
+        G(3 * U),
+        ld(G | 1),
+        KS(kWideThreads / G),
+        JS(kWideThreads / H > 0 ? kWideThreads / H : 1) {}
+};
+
+// Rank c's slice of Wh (H, 3H) into w_s (H, ld): column g U + u is Wh's
+// column g H + c U + u, zero past the last unit.
+__device__ __forceinline__ void load_wide_slice(float* w_s, const float* __restrict__ wh,
+                                                int H, int c, const WideShape& ws) {
+  for (int i = threadIdx.x; i < H * ws.G; i += blockDim.x) {
+    const int k = i / ws.G, j = i - k * ws.G;
+    const int g = j / ws.U, unit = c * ws.U + (j - g * ws.U);
+    w_s[k * ws.ld + j] = unit < H ? wh[(size_t)k * 3 * H + g * H + unit] : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+gru_fwd_wide(const float* __restrict__ gx, const float* __restrict__ wh,
+             const float* __restrict__ mask, float* __restrict__ out,
+             float* __restrict__ gates, float* __restrict__ hprev, int T, int H,
+             int reverse) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
+  const WideShape ws(H, C);
+  const int U = ws.U, G = ws.G;
+  float* w_s = smem;               // (H, ld) this rank's columns of Wh
+  float* h_s = w_s + H * ws.ld;    // (2, H) the carry, double-buffered
+  float* part_s = h_s + 2 * H;     // (KS, G) the K slices' sums
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)(blockIdx.x / C) * T;
+
+  load_wide_slice(w_s, wh, H, c, ws);
+  for (int i = tid; i < H; i += blockDim.x) h_s[i] = 0.f;
+
+  // Product thread: column j over the rows [k0, k1) of slice ks.
+  const int j = tid % G, ks = tid / G;
+  const int kl = (H + ws.KS - 1) / ws.KS;
+  const int k0 = ks * kl, k1 = min(H, k0 + kl);
+  const bool prod = ks < ws.KS;
+  // Gate thread: unit c U + tid, its gx and mask value a step ahead.
+  const int unit = c * U + tid;
+  const bool gate = tid < U && unit < H;
+  float nr = 0.f, nz = 0.f, nn = 0.f, nm = 1.f;
+  auto fetch = [&](int s) {
+    const size_t row = row0 + (reverse ? T - 1 - s : s);
+    const float* g = gx + row * 3 * H;
+    nr = g[unit];
+    nz = g[H + unit];
+    nn = g[2 * H + unit];
+    nm = mask ? mask[row] : 1.f;
+  };
+  if (gate) fetch(0);
+  float h_own = 0.f;
+  cluster.sync();  // every rank's carry is zero before any peer writes it
+
+  for (int s = 0; s < T; ++s) {
+    const float* hc = h_s + (s & 1) * H;
+    const float xr = nr, xz = nz, xn = nn, m = nm;
+    if (gate && s + 1 < T) fetch(s + 1);
+    if (prod) {
+      float acc = 0.f;
+      const float* w = w_s + j;
+#pragma unroll 4
+      for (int k = k0; k < k1; ++k) acc = fmaf(hc[k], w[k * ws.ld], acc);
+      part_s[ks * G + j] = acc;
+    }
+    __syncthreads();
+    if (gate) {
+      float hr = 0.f, hz = 0.f, hn = 0.f;
+      for (int q = 0; q < ws.KS; ++q) {
+        const float* p = part_s + q * G + tid;
+        hr += p[0];
+        hz += p[U];
+        hn += p[2 * U];
+      }
+      const float r = sigmoidf_(xr + hr);
+      const float z = sigmoidf_(xz + hz);
+      const float n = tanhf(xn + r * hn);
+      const size_t row = row0 + (reverse ? T - 1 - s : s);
+      if (gates) {
+        float* g = gates + row * 4 * H;
+        g[unit] = r;
+        g[H + unit] = z;
+        g[2 * H + unit] = n;
+        g[3 * H + unit] = hn;
+        hprev[row * H + unit] = h_own;
+      }
+      float h_new = z * h_own + (1.f - z) * n;
+      float o = h_new;
+      if (mask) {
+        h_new = m * h_new + (1.f - m) * h_own;
+        o = m * h_new;
+      }
+      h_own = h_new;
+      out[row * H + unit] = o;
+      float* dst = h_s + ((s + 1) & 1) * H + unit;
+      for (int rank = 0; rank < C; ++rank) *cluster.map_shared_rank(dst, rank) = h_new;
+    }
+    cluster.sync();  // the new carry is in every rank; the step's sums are read
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads, 1)
+gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
+             const float* __restrict__ hprev, const float* __restrict__ wh,
+             const float* __restrict__ mask, float* __restrict__ dgx,
+             float* __restrict__ dgh, int T, int H, int reverse) {
+  extern __shared__ float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
+  const WideShape ws(H, C);
+  const int U = ws.U, G = ws.G;
+  float* w_s = smem;                  // (H, ld) this rank's columns of Wh
+  float* d_s = w_s + H * ws.ld;       // (G,) this step's dgh of those columns
+  float* recv_s = d_s + G;            // (2, C, U) each rank's partial dh_prev
+  float* loc_s = recv_s + 2 * C * U;  // (JS, H) the column slices' sums
+  const int tid = threadIdx.x;
+  const size_t row0 = (size_t)(blockIdx.x / C) * T;
+
+  load_wide_slice(w_s, wh, H, c, ws);
+  for (int i = tid; i < G; i += blockDim.x) d_s[i] = 0.f;
+  for (int i = tid; i < C * U; i += blockDim.x) recv_s[i] = 0.f;
+
+  // Product thread: row k over the columns [j0, j1) of slice js.
+  const int k = tid % H, js = tid / H;
+  const int jl = (G + ws.JS - 1) / ws.JS;
+  const int j0 = js * jl, j1 = min(G, j0 + jl);
+  const bool prod = js < ws.JS;
+  // Gate thread: unit c U + tid, its saved gates, carry, output gradient
+  // and mask value a step ahead.
+  const int unit = c * U + tid;
+  const bool gate = tid < U && unit < H;
+  float nr = 0.f, nz = 0.f, nn = 0.f, nhn = 0.f, nh = 0.f, nd = 0.f, nm = 1.f;
+  auto fetch = [&](int s) {
+    const size_t row = row0 + (reverse ? s : T - 1 - s);
+    const float* g = gates + row * 4 * H;
+    nr = g[unit];
+    nz = g[H + unit];
+    nn = g[2 * H + unit];
+    nhn = g[3 * H + unit];
+    nh = hprev[row * H + unit];
+    nd = dout[row * H + unit];
+    nm = mask ? mask[row] : 1.f;
+  };
+  if (gate) fetch(0);
+  float dhc = 0.f;  // direct part of the carry gradient, the gate threads
+  cluster.sync();
+
+  for (int s = 0; s < T; ++s) {
+    if (gate) {
+      const float r = nr, z = nz, n = nn, hn = nhn, h = nh, d = nd, m = nm;
+      if (s + 1 < T) fetch(s + 1);
+      const float* rv = recv_s + (s & 1) * C * U + tid;
+      float dh = dhc;
+      for (int q = 0; q < C; ++q) dh += rv[q * U];
+      // out = m * h_t, h_t = m * h' + (1 - m) * h.
+      const float dh_t = dh + m * d;
+      const float dh_new = m * dh_t;
+      const float dz = dh_new * (h - n);
+      const float dan = dh_new * (1.f - z) * (1.f - n * n);
+      const float dar = dan * hn * r * (1.f - r);
+      const float daz = dz * z * (1.f - z);
+      const size_t row = row0 + (reverse ? s : T - 1 - s);
+      float* gxo = dgx + row * 3 * H;
+      float* gho = dgh + row * 3 * H;
+      gxo[unit] = dar;
+      gxo[H + unit] = daz;
+      gxo[2 * H + unit] = dan;
+      gho[unit] = dar;
+      gho[H + unit] = daz;
+      gho[2 * H + unit] = dan * r;
+      d_s[tid] = dar;
+      d_s[U + tid] = daz;
+      d_s[2 * U + tid] = dan * r;
+      dhc = (1.f - m) * dh_t + dh_new * z;
+    }
+    __syncthreads();
+    if (prod) {
+      float acc = 0.f;
+      const float* w = w_s + k * ws.ld;
+#pragma unroll 4
+      for (int jj = j0; jj < j1; ++jj) acc = fmaf(d_s[jj], w[jj], acc);
+      loc_s[js * H + k] = acc;
+    }
+    __syncthreads();
+    if (tid < H) {
+      float p = 0.f;
+      for (int q = 0; q < ws.JS; ++q) p += loc_s[q * H + tid];
+      const int owner = tid / U;
+      float* dst = recv_s + ((s + 1) & 1) * C * U + c * U + (tid - owner * U);
+      *cluster.map_shared_rank(dst, owner) = p;
+    }
+    cluster.sync();  // every partial has reached its owner
   }
 }
 
@@ -626,12 +863,94 @@ gru_bwd_h128(const float* __restrict__ dout, const float* __restrict__ gates,
 extern "C" {
 
 // Which kernel runs a recurrence; the wrapper chooses from H.
-enum { SSTTS_GRU_GENERIC = 0, SSTTS_GRU_H128 = 1 };
+enum { SSTTS_GRU_GENERIC = 0, SSTTS_GRU_H128 = 1, SSTTS_GRU_WIDE = 2 };
 
 // Dynamic shared memory of the generic kernels at width H.
 int sstts_gru_smem_bytes(int H) { return (H * 3 * H + H + 6 * H) * 4; }
 
 int sstts_gru_bwd_smem_bytes(int H) { return (3 * H * H + 8 * H) * 4; }
+
+// Dynamic shared memory of one block of the wide kernels at width H in a
+// cluster of C (the layouts of gru_fwd_wide and gru_bwd_wide).
+int sstts_gru_wide_smem_bytes(int H, int C) {
+  const WideShape ws(H, C);
+  return (H * ws.ld + 2 * H + ws.KS * ws.G) * 4;
+}
+
+int sstts_gru_wide_bwd_smem_bytes(int H, int C) {
+  const WideShape ws(H, C);
+  return (H * ws.ld + ws.G + 2 * C * ws.U + ws.JS * H) * 4;
+}
+
+}  // extern "C"
+
+namespace {
+
+// The launch configuration of a wide kernel: B clusters of C blocks, its
+// shared memory allowed (and the non-portable cluster sizes past 8).
+template <class Kernel>
+cudaError_t wide_config(Kernel kernel, int B, int C, int smem, cudaStream_t st,
+                        cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (C < 2 || C > kMaxCluster) return cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(B * C);
+  cfg->blockDim = dim3(kWideThreads);
+  cfg->dynamicSmemBytes = smem;
+  cfg->stream = st;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// Launches a wide kernel; a cluster that no part of the card can hold is
+// refused here (cudaErrorInvalidConfiguration), before the launch.
+template <class... Params, class... Args>
+int launch_wide(void (*kernel)(Params...), int B, int C, int smem, cudaStream_t st,
+                Args... args) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = wide_config(kernel, B, C, smem, st, &cfg, &attr);
+  if (err != cudaSuccess) return (int)err;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return (int)err;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// How many clusters of the wide forward (backward: 1) kernel at width H
+// and cluster size C the card holds at once, or minus a CUDA error code.
+int sstts_gru_wide_active_clusters(int H, int C, int backward) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  cudaError_t err;
+  if (backward) {
+    err = wide_config(gru_bwd_wide, 1, C, sstts_gru_wide_bwd_smem_bytes(H, C), 0, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, gru_bwd_wide, &cfg);
+  } else {
+    err = wide_config(gru_fwd_wide, 1, C, sstts_gru_wide_smem_bytes(H, C), 0, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, gru_fwd_wide, &cfg);
+  }
+  return err == cudaSuccess ? clusters : -(int)err;
+}
 
 // gx (M, N) = xs (M, K) @ wx (K, N) + b (N), all f32 and contiguous.
 int sstts_gru_input_proj(const float* xs, const float* wx, const float* b,
@@ -646,9 +965,12 @@ int sstts_gru_input_proj(const float* xs, const float* wx, const float* b,
 // The forward recurrence over gx (B, T, 3H); see sstts_gru_sequence.
 int sstts_gru_recurrence(const float* gx, const float* wh, const float* mask,
                          float* out, float* gates, float* hprev, int B, int T,
-                         int H, int reverse, int kind, void* stream) {
+                         int H, int reverse, int kind, int cluster, void* stream) {
   if (B == 0 || T == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (kind == SSTTS_GRU_WIDE)
+    return launch_wide(gru_fwd_wide, B, cluster, sstts_gru_wide_smem_bytes(H, cluster), st,
+                       gx, wh, mask, out, gates, hprev, T, H, reverse);
   if (kind == SSTTS_GRU_H128) {
     if (H != kH) return (int)cudaErrorInvalidValue;
     if (gates)
@@ -674,16 +996,17 @@ int sstts_gru_recurrence(const float* gx, const float* wh, const float* mask,
 // xs (B, T, D), wx (D, 3H), wh (H, 3H), b (3H), mask (B, T) or NULL, all
 // f32 and contiguous (16-byte aligned); gx_scratch (B, T, 3H) f32; out
 // (B, T, H) f32; gates (B, T, 4H) and hprev (B, T, H) f32, or both NULL
-// when no gradient is wanted.
+// when no gradient is wanted.  `cluster` is the wide kind's C (else unread).
 int sstts_gru_sequence(const float* xs, const float* wx, const float* wh,
                        const float* b, const float* mask, float* gx_scratch,
                        float* out, float* gates, float* hprev, int B, int T,
-                       int D, int H, int reverse, int kind, void* stream) {
+                       int D, int H, int reverse, int kind, int cluster,
+                       void* stream) {
   const int rc =
       sstts_gru_input_proj(xs, wx, b, gx_scratch, B * T, D, 3 * H, stream);
   if (rc != 0) return rc;
   return sstts_gru_recurrence(gx_scratch, wh, mask, out, gates, hprev, B, T,
-                              H, reverse, kind, stream);
+                              H, reverse, kind, cluster, stream);
 }
 
 // dout (B, T, H), gates (B, T, 4H), hprev (B, T, H) from the forward, wh
@@ -693,9 +1016,12 @@ int sstts_gru_sequence_backward(const float* dout, const float* gates,
                                 const float* hprev, const float* wh,
                                 const float* mask, float* dgx, float* dgh,
                                 int B, int T, int H, int reverse, int kind,
-                                void* stream) {
+                                int cluster, void* stream) {
   if (B == 0 || T == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (kind == SSTTS_GRU_WIDE)
+    return launch_wide(gru_bwd_wide, B, cluster, sstts_gru_wide_bwd_smem_bytes(H, cluster), st,
+                       dout, gates, hprev, wh, mask, dgx, dgh, T, H, reverse);
   if (kind == SSTTS_GRU_H128) {
     if (H != kH) return (int)cudaErrorInvalidValue;
     gru_bwd_h128<<<B, kThreads, 0, st>>>(dout, gates, hprev, wh, mask, dgx,

@@ -32,9 +32,11 @@ namespace stream {
 
 // One row of the schedule (ops/decoder.py:CHUNK_FIELDS): `bytes` bytes at
 // `offset` of source `src` (0 the packed weights, 1 this utterance's keys,
-// 2 its memory), rows [k0, k1) of product `product`, `row_bytes` apart.
+// 2 its memory), rows [k0, k1) of product `product`, `row_bytes` apart, of
+// the column panel that starts at the product's column `col0` (0 for a
+// product of one panel).
 struct alignas(16) Chunk {
-  int src, product, offset, bytes, k0, k1, row_bytes, pad;
+  int src, product, offset, bytes, k0, k1, row_bytes, col0;
 };
 
 // Where a consumer stands: the stage and its phase parity, and the index of
@@ -74,8 +76,9 @@ struct Ring {
   }
 
   // The producer: `steps` walks over the schedule's `n` chunks.  A chunk of
-  // keys or memory lies `first_row` rows into its tensor (this utterance's
-  // first row) and `offset` bytes beyond.
+  // keys or memory lies `offset` bytes into its tensor (for memory in column
+  // panels, into its panel's block of rows) and `first_row` rows (this
+  // utterance's first row) beyond.
   __device__ void produce(const Chunk* __restrict__ sched, int n, int steps,
                           const unsigned char* weights, const unsigned char* keys,
                           const unsigned char* memory, size_t first_row) const {
@@ -188,6 +191,12 @@ __device__ __forceinline__ void fma_seg(float (&acc)[Seg<WT>::kValues], float x,
 // Runs `epi(n, sum_k xr(x[k]) * W[k, n])` for n in [0, N), W the product
 // whose chunks come next in the ring; xr rounds to WT when kRoundX (as
 // JAX's dot(x.astype(dt), w.astype(dt)) does), else leaves x as it is.
+// A product wider than a panel (kMaxCols in chain.cuh) comes as its column
+// panels one after the other, each a run of chunks over all K rows that
+// carry the panel's first column (col0): one pass below a panel, its
+// columns col0 + n through the epilogue; a panel ends where the next chunk
+// starts another column or another product, and is as wide as the next
+// panel's col0 says (the last: up to N).
 // Thread t of the consumers owns the 16-byte column segment t % nseg of a
 // row and the rows g, g + G, ... of every chunk, g = t / nseg: a warp reads
 // consecutive 16-byte segments of the stage, free of bank conflicts, and
@@ -206,64 +215,71 @@ __device__ __forceinline__ void matvec(const R& ring, Cursor& cur,
   constexpr int EPL = Seg<WT>::kValues;
   constexpr int C = R::kConsumers;
   const int tid = threadIdx.x;
-  Chunk c = sched[cur.chunk];
-  const int product = c.product;
-  const int row_bytes = c.row_bytes;
-  const int nseg = row_bytes >> 4;
-  const int G = min(C / nseg, kMaxGroups);
-  const int g = tid / nseg, seg = tid - g * nseg;
-  const bool active = g < G;
-  float acc[EPL];
-#pragma unroll
-  for (int j = 0; j < EPL; ++j) acc[j] = 0.f;
+  const int product = sched[cur.chunk].product;
   const uint32_t xa = sm90::smem_u32(x);
   const auto xr = [&](int k) {
     const float v = lds32(xa + 4 * k);
     return kRoundX ? Seg<WT>::round(v) : v;
   };
-  for (;;) {
-    const unsigned char* st = ring.acquire(cur);
-    const Chunk nx = sched[cur.chunk + 1 == n_chunks ? 0 : cur.chunk + 1];
-    if (active && kMath) {
-      const int step = G * row_bytes;
-      uint32_t a = sm90::smem_u32(st) + g * row_bytes + seg * 16;
-      int k = c.k0 + g;
-      for (; k + 3 * G < c.k1; k += 4 * G, a += 4 * step) {
-        const uint4 v0 = lds128(a), v1 = lds128(a + step);
-        const uint4 v2 = lds128(a + 2 * step), v3 = lds128(a + 3 * step);
-        const float x0 = xr(k), x1 = xr(k + G), x2 = xr(k + 2 * G), x3 = xr(k + 3 * G);
-        fma_seg<WT>(acc, x0, v0);
-        fma_seg<WT>(acc, x1, v1);
-        fma_seg<WT>(acc, x2, v2);
-        fma_seg<WT>(acc, x3, v3);
-      }
-      for (; k < c.k1; k += G, a += step) fma_seg<WT>(acc, xr(k), lds128(a));
-    }
-    ring.release(cur, n_chunks);
-    if (nx.product != product) break;
-    c = nx;
-  }
-  const int ld = nseg * EPL;
-  if (active) {
-    float4* pp = reinterpret_cast<float4*>(part + g * ld + seg * EPL);
+  for (;;) {  // one column panel a pass
+    Chunk c = sched[cur.chunk];
+    const int col0 = c.col0;
+    const int row_bytes = c.row_bytes;
+    const int nseg = row_bytes >> 4;
+    const int G = min(C / nseg, kMaxGroups);
+    const int g = tid / nseg, seg = tid - g * nseg;
+    const bool active = g < G;
+    float acc[EPL];
 #pragma unroll
-    for (int j = 0; j < EPL / 4; ++j)
-      pp[j] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    for (int j = 0; j < EPL; ++j) acc[j] = 0.f;
+    Chunk nx;
+    for (;;) {
+      const unsigned char* st = ring.acquire(cur);
+      nx = sched[cur.chunk + 1 == n_chunks ? 0 : cur.chunk + 1];
+      if (active && kMath) {
+        const int step = G * row_bytes;
+        uint32_t a = sm90::smem_u32(st) + g * row_bytes + seg * 16;
+        int k = c.k0 + g;
+        for (; k + 3 * G < c.k1; k += 4 * G, a += 4 * step) {
+          const uint4 v0 = lds128(a), v1 = lds128(a + step);
+          const uint4 v2 = lds128(a + 2 * step), v3 = lds128(a + 3 * step);
+          const float x0 = xr(k), x1 = xr(k + G), x2 = xr(k + 2 * G), x3 = xr(k + 3 * G);
+          fma_seg<WT>(acc, x0, v0);
+          fma_seg<WT>(acc, x1, v1);
+          fma_seg<WT>(acc, x2, v2);
+          fma_seg<WT>(acc, x3, v3);
+        }
+        for (; k < c.k1; k += G, a += step) fma_seg<WT>(acc, xr(k), lds128(a));
+      }
+      ring.release(cur, n_chunks);
+      if (nx.product != product || nx.col0 != col0) break;
+      c = nx;
+    }
+    const bool more = nx.product == product;  // another panel follows
+    const int cols = (more ? nx.col0 : N) - col0;
+    const int ld = nseg * EPL;
+    if (active) {
+      float4* pp = reinterpret_cast<float4*>(part + g * ld + seg * EPL);
+#pragma unroll
+      for (int j = 0; j < EPL / 4; ++j)
+        pp[j] = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    consumer_sync<C>();
+    // tpc (a power of two, at most 32) consecutive lanes a column, each
+    // adding every tpc-th group, then a shuffle tree.
+    int tpc = 1;
+    while (tpc < 32 && 2 * tpc <= G && 2 * tpc * cols <= C) tpc *= 2;
+    for (int base = 0; base < cols * tpc; base += C) {
+      const int i = base + tid, n = i / tpc, sub = i % tpc;
+      float s = 0.f;
+      if (n < cols)
+        for (int gg = sub; gg < G; gg += tpc) s += part[gg * ld + n];
+      for (int o = tpc / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (sub == 0 && n < cols) epi(col0 + n, s);
+    }
+    consumer_sync<C>();
+    if (!more) return;
   }
-  consumer_sync<C>();
-  // tpc (a power of two, at most 32) consecutive lanes a column, each
-  // adding every tpc-th group, then a shuffle tree.
-  int tpc = 1;
-  while (tpc < 32 && 2 * tpc <= G && 2 * tpc * N <= C) tpc *= 2;
-  for (int base = 0; base < N * tpc; base += C) {
-    const int i = base + tid, n = i / tpc, sub = i % tpc;
-    float s = 0.f;
-    if (n < N)
-      for (int gg = sub; gg < G; gg += tpc) s += part[gg * ld + n];
-    for (int o = tpc / 2; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (sub == 0 && n < N) epi(n, s);
-  }
-  consumer_sync<C>();
 }
 
 // Bahdanau scores from the chunks of `keys` that come next in the ring:

@@ -32,9 +32,10 @@
 // cp.async.bulk into a ring of shared-memory stages (stream.cuh); 16
 // consumer warps run the chain (chain.cuh, B4's steps 2-4) on the stages and
 // the state in shared memory.  The next step's prenet row is loaded with the
-// carries.  Limits: any B (one block each); product widths up to kMaxCols =
-// 1024; T up to what shared memory holds beside the ring (T floats of
-// scores), by the library's own count (sstts_teacher_smem_bytes).
+// carries.  Limits: any B (one block each); any product width (in column
+// panels of at most kMaxCols = 1024, as B4); T up to what shared memory
+// holds beside the ring (T floats of scores), by the library's own count
+// (sstts_teacher_smem_bytes).
 //
 // SSTTS_ABLATE, at compile time, gives stage times as in decoder.cu: 1 the
 // stream alone, else a mask: 2 without the stream, 4 without the products'
@@ -67,8 +68,9 @@ struct TeacherArgs {
   const float* gru0_b;
   const float* gru1_b;
   const float* pre;    // (B, S, P1) f32 prenet outputs
-  const void* memory;  // (B, T, Dm) matmul dtype, rows padded to 16 bytes
-  const void* keys;    // (B, T, A) likewise
+  const void* memory;  // (B, T, Dm) matmul dtype, rows padded to 16 bytes,
+                       // in column panels past kMaxCols (decoder.memory_panels)
+  const void* keys;    // (B, T, A) matmul dtype, rows padded to 16 bytes
   const float* mask;   // (B, T) {0, 1}
   float* xs;           // (B, S, Hd)
   float* align;        // (B, S, T)

@@ -12,8 +12,12 @@ The kernel reads the cell's matrices as one stream: on the card,
 them, each row padded to 16 bytes (`pack_weights`), and `chunk_schedule`
 cuts that buffer, with each utterance's keys and memory where the attention
 reads them, into chunks of whole rows of at most one ring stage, copied to
-the card without waiting for it.  The kernel's producer walks that schedule
-once a step; `decode_steps_plain` reads the unpacked weights.
+the card without waiting for it.  A product wider than MAX_COLS columns is
+packed, and streamed, as column panels of at most MAX_COLS (`panels`): each
+panel's rows lie together and run through the stream as their own run of
+chunks, which carry the panel's first column; memory wider than MAX_COLS
+is laid out in panels too (`memory_panels`).  The kernel's producer walks
+that schedule once a step; `decode_steps_plain` reads the unpacked weights.
 
 Dropout: the caller draws the keep masks for both prenet layers, (S, B, P0)
 and (S, B, P1), and the same tensors feed the kernel and the plain version,
@@ -80,19 +84,21 @@ STEP_ORDER = (
     "dec_w", "gru0_wx", "gru0_wh", "gru1_wx", "gru1_wh", "frame_w", "stop_w",
 )
 
-#: Widest product the kernel takes, as the first port's kernel did (a
-#: consumer thread holds one 16-byte segment of a row: 512 of them a
-#: 1024-column f32 row; kMaxCols in csrc/chain.cuh).
+#: Widest column panel of a product (a consumer thread holds one 16-byte
+#: segment of a panel's row: 256 of them a 1024-column f32 row; kMaxCols in
+#: csrc/chain.cuh).  Wider products are cut into panels (`panels`).
 MAX_COLS = 1024
 
 #: Columns of a schedule row (int32): source, product (index in STEP_ORDER),
-#: byte offset in the source, bytes, first and end row (k), row bytes, 0.
-CHUNK_FIELDS = ("src", "product", "offset", "bytes", "k0", "k1", "row_bytes", "pad")
+#: byte offset in the source, bytes, first and end row (k), row bytes, and
+#: the first column of the product's panel the rows belong to.
+CHUNK_FIELDS = ("src", "product", "offset", "bytes", "k0", "k1", "row_bytes", "col0")
 
 
 class Product(NamedTuple):
-    """One operand of a step's stream: `rows` (K) rows of `cols` (N) values,
-    `row_bytes` apart, from `offset` bytes into its source."""
+    """One operand of a step's stream, or one column panel of it: `rows` (K)
+    rows of `cols` (N) values, `row_bytes` apart, from `offset` bytes into
+    its source; the panel's first column is `col0` of the whole product."""
 
     name: str
     src: int
@@ -100,6 +106,13 @@ class Product(NamedTuple):
     rows: int
     cols: int
     row_bytes: int
+    col0: int = 0
+
+
+def panels(cols: int) -> Tuple[Tuple[int, int], ...]:
+    """The column panels of a product `cols` wide, (first column, width):
+    MAX_COLS columns each, the last the rest."""
+    return tuple((c0, min(MAX_COLS, cols - c0)) for c0 in range(0, cols, MAX_COLS))
 
 
 def row_bytes(cols: int, itemsize: int) -> int:
@@ -111,16 +124,18 @@ def weight_layout(w, names=_MATRICES, dtype: Optional[torch.dtype] = None
                   ) -> Tuple[Product, ...]:
     """Where each matrix of `names` (fields of `w`, each (K, N)) lies in the
     packed buffer, in that order: B4's twelve by default, B6's eight
-    (`sstts_torch.ops.teacher.MATRICES`).  Rows are of `dtype` (the
-    matrices' own by default)."""
+    (`sstts_torch.ops.teacher.MATRICES`); a matrix wider than MAX_COLS as
+    its column panels, one after the other, each (K, width) with its own
+    rows.  Rows are of `dtype` (the matrices' own by default)."""
     out, offset = [], 0
     for name in names:
         m = getattr(w, name)
         k, n = m.shape
         size = dtype.itemsize if dtype is not None else m.element_size()
-        rb = row_bytes(n, size)
-        out.append(Product(name, SRC_WEIGHTS, offset, k, n, rb))
-        offset += k * rb
+        for col0, cols in panels(n):
+            rb = row_bytes(cols, size)
+            out.append(Product(name, SRC_WEIGHTS, offset, k, cols, rb, col0))
+            offset += k * rb
     return tuple(out)
 
 
@@ -137,29 +152,52 @@ def pack_weights(w, names=_MATRICES, dtype: Optional[torch.dtype] = None) -> tor
         end, dtype=torch.uint8, device=getattr(w, names[0]).device)
     for pr in layout:
         rows = buf[pr.offset : pr.offset + pr.rows * pr.row_bytes].view(dtype)
-        rows.view(pr.rows, -1)[:, : pr.cols].copy_(getattr(w, pr.name))
+        m = getattr(w, pr.name)
+        rows.view(pr.rows, -1)[:, : pr.cols].copy_(m[:, pr.col0 : pr.col0 + pr.cols])
     return buf
 
 
-def step_products(layout, T: int, A: int, Dm: int, itemsize: int,
-                  order=STEP_ORDER) -> Tuple[Product, ...]:
-    """A step's operands in `order` (B4's `STEP_ORDER` by default, or B6's
-    `sstts_torch.ops.teacher.STEP_ORDER`): the packed matrices, with this
-    utterance's keys (T, A) and memory (T, Dm) where the attention reads
-    them."""
-    by_name = {pr.name: pr for pr in layout}
-    enc = {
-        "keys": Product("keys", SRC_KEYS, 0, T, A, row_bytes(A, itemsize)),
-        "memory": Product("memory", SRC_MEMORY, 0, T, Dm, row_bytes(Dm, itemsize)),
-    }
-    return tuple(enc.get(name) or by_name[name] for name in order)
+def memory_panels(memory: torch.Tensor) -> torch.Tensor:
+    """Memory (B, T, Dm) as the kernels read it: rows padded to 16 bytes
+    (`_rows16`) and, wider than MAX_COLS, one (B * T, width) block a column
+    panel (`panels`), the blocks one after the other."""
+    cut = panels(memory.shape[-1])
+    if len(cut) == 1:
+        return _rows16(memory)
+    return torch.cat([_rows16(memory[..., c0 : c0 + n].contiguous()).reshape(-1)
+                      for c0, n in cut])
+
+
+def step_products(layout, T: int, A: int, Dm: int, itemsize: int, order,
+                  batch: int) -> Tuple[Product, ...]:
+    """A step's operands in `order` (B4's `STEP_ORDER` or B6's
+    `sstts_torch.ops.teacher.STEP_ORDER`), each as its column panels: the
+    packed matrices, with this utterance's keys (T, A), whole rows, and
+    memory (T, Dm) where the attention reads them.  A memory panel's offset
+    is that of its block in `memory_panels` of `batch` utterances (the
+    kernel adds the utterance's first row)."""
+    by_name = {}
+    for pr in layout:
+        by_name.setdefault(pr.name, []).append(pr)
+    by_name["keys"] = [Product("keys", SRC_KEYS, 0, T, A, row_bytes(A, itemsize))]
+    mem, offset = [], 0
+    for col0, cols in panels(Dm):
+        rb = row_bytes(cols, itemsize)
+        mem.append(Product("memory", SRC_MEMORY, offset, T, cols, rb, col0))
+        offset += batch * T * rb
+    by_name["memory"] = mem
+    return tuple(pr for name in order for pr in by_name[name])
 
 
 def chunk_schedule(products, stage_bytes: int = STAGE_BYTES) -> torch.Tensor:
-    """The chunks of one step, (n, 8) int32 (`CHUNK_FIELDS`): each product
-    cut into runs of whole rows of at most `stage_bytes`, in step order."""
-    rows = []
-    for pid, pr in enumerate(products):
+    """The chunks of one step, (n, 8) int32 (`CHUNK_FIELDS`): each product,
+    panel by panel, cut into runs of whole rows of at most `stage_bytes`, in
+    step order; a chunk's `product` counts the step's operands (a product's
+    panels share it)."""
+    rows, pid = [], -1
+    for i, pr in enumerate(products):
+        if i == 0 or pr.name != products[i - 1].name:
+            pid += 1
         per = stage_bytes // pr.row_bytes
         if per < 1:
             raise NotImplementedError(
@@ -169,7 +207,7 @@ def chunk_schedule(products, stage_bytes: int = STAGE_BYTES) -> torch.Tensor:
         for k0 in range(0, pr.rows, per):
             k1 = min(pr.rows, k0 + per)
             rows.append((pr.src, pid, pr.offset + k0 * pr.row_bytes,
-                         (k1 - k0) * pr.row_bytes, k0, k1, pr.row_bytes, 0))
+                         (k1 - k0) * pr.row_bytes, k0, k1, pr.row_bytes, pr.col0))
     return torch.tensor(rows, dtype=torch.int32).reshape(-1, len(CHUNK_FIELDS))
 
 
@@ -203,22 +241,14 @@ def supports_arch(arch) -> bool:
     )
 
 
-def arch_dims(arch, n_mels: int) -> dict:
-    """The cell dimensions `check_widths` reads, from the config."""
-    return dict(P0=arch.prenet_units[0], P1=arch.prenet_units[-1], Ha=arch.attention_gru_units,
-                A=arch.attention_units, Hd=arch.decoder_gru_units, r=arch.reduction_factor,
-                M=n_mels, Dm=2 * arch.encoder_gru_units)
-
-
-def resolve_decoder_impl(override, arch, device, n_mels: int) -> str:
+def resolve_decoder_impl(override, arch, device) -> str:
     """"xla" (the plain module loop, `Tacotron.decode_infer`) or "fused"
     (`fused_decode`) for `inference.decoder_impl` in (None, "auto", "xla",
     "fused") on `device`, by the reference's rule
     (`sstts/synthesize.py:245-268`): "auto" is the kernel on CUDA where it
     implements the architecture (`supports_arch`), else the plain loop;
-    "fused" on an architecture it lacks raises ValueError.  A kernel chosen
-    on the card for a product wider than MAX_COLS raises
-    NotImplementedError (`check_widths`).  A pure function of its
+    "fused" on an architecture it lacks raises ValueError.  The kernel
+    takes products of any width (in column panels).  A pure function of its
     arguments: nothing is launched."""
     impl = override or "auto"
     if impl not in ("auto", "xla", "fused"):
@@ -232,8 +262,6 @@ def resolve_decoder_impl(override, arch, device, n_mels: int) -> str:
     cuda = torch.device(device).type == "cuda"
     if impl == "auto":
         impl = "fused" if cuda and supports_arch(arch) else "xla"
-    if impl == "fused" and cuda:
-        check_widths(arch_dims(arch, n_mels))
     return impl
 
 
@@ -394,17 +422,6 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x, (0, ld - cols)).contiguous()
 
 
-def check_widths(d: dict) -> None:
-    """Raises NotImplementedError for a cell, by its dimensions (`_dims`,
-    `arch_dims`), with a product wider than MAX_COLS (ROADMAP B.4)."""
-    widest = max(d["P0"], d["P1"], 3 * d["Ha"], d["A"], 3 * d["Hd"], d["r"] * d["M"], d["Dm"])
-    if widest > MAX_COLS:
-        raise NotImplementedError(
-            f"fused decode kernel keeps products up to {MAX_COLS} columns wide; this "
-            f"cell needs {widest} (a wider kernel is ROADMAP B.4)"
-        )
-
-
 def _dims(p: DecodeInputs) -> dict:
     """The integer fields of `_DecodeArgs` for `p`."""
     w = p.w
@@ -464,9 +481,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def launch(lib: ctypes.CDLL, p: DecodeInputs) -> Dict[str, torch.Tensor]:
     """Launch `lib` (`library()`, or another `bind`-ed build of
     csrc/decoder.cu) on `p`, made by `prepare_decode` on the card.  Raises
-    NotImplementedError, before anything is launched, for a cell wider than
-    MAX_COLS or a T whose scores no longer fit in shared memory beside the
-    ring."""
+    NotImplementedError, before anything is launched, for a T whose scores
+    no longer fit in shared memory beside the ring."""
     w = p.w
     dt = w.attn_wx.dtype
     if dt not in (torch.bfloat16, torch.float32):
@@ -475,7 +491,6 @@ def launch(lib: ctypes.CDLL, p: DecodeInputs) -> Dict[str, torch.Tensor]:
         getattr(w, n).dtype != dt for n in _MATRICES
     ):
         raise ValueError("fused decode: weights, memory and keys must share one dtype")
-    check_widths(_dims(p))
     if p.packed is None or p.schedule is None:
         raise ValueError("fused decode: no packed weights or schedule (prepare_decode "
                          "packs them when the inputs are on the card)")
@@ -502,7 +517,7 @@ def launch(lib: ctypes.CDLL, p: DecodeInputs) -> Dict[str, torch.Tensor]:
         "align": torch.empty(B, S, T, device=dev),
         "fin": torch.empty(B, S, device=dev),
     }
-    ptrs = {"packed": p.packed, "schedule": p.schedule, "memory": _rows16(p.memory),
+    ptrs = {"packed": p.packed, "schedule": p.schedule, "memory": memory_panels(p.memory),
             "keys": _rows16(p.keys), "mask": p.maskf, "keep0": p.keep0,
             "keep1": p.keep1, **{n: getattr(w, n) for n in _VECTORS}, **out}
     for name, t in ptrs.items():
@@ -556,7 +571,7 @@ def prepare_decode(
         packed = pack_weights(w)
         T, Dm = memory.shape[1:]
         products = step_products(weight_layout(w), T, keys.shape[-1], Dm,
-                                 w.attn_wx.element_size())
+                                 w.attn_wx.element_size(), STEP_ORDER, memory.shape[0])
         # From pinned memory, so that the host does not wait for the card.
         schedule = chunk_schedule(products).pin_memory().to(memory.device, non_blocking=True)
     return DecodeInputs(

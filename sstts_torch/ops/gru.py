@@ -8,15 +8,16 @@ kernels in `sstts_torch/csrc/gru.cu`, or raises.  There is no fallback from
 one to the other.  Layouts match the JAX package: xs (B, T, D), wx (D, 3H),
 wh (H, 3H), b (3H,), mask (B, T), gate order r, z, n.
 
-On the card the recurrences come in two kinds, chosen here from H alone
-(`kernel_kind`): at H = 128, the width of every GRU at the default
-`Config()`, kernels that hold Wh in registers; at any other H, generic
-kernels that hold Wh in shared memory (H up to 137).  Neither stands in for
-the other: a kernel that fails to build or launch raises.
-
-On the card the kernels take H up to `MAX_HIDDEN`: `check_width` refuses a
-wider GRU with NotImplementedError, from the entry points' checks
-(`check_arch`) before anything is launched and again at each launch.
+On the card the recurrences come in three kinds, chosen here from H alone
+(`kernel_config`, before any launch): at H = 128, the width of every GRU at
+the default `Config()`, kernels that hold Wh in registers; at any other H up
+to 137, generic kernels that hold Wh in one block's shared memory; past
+137, wide kernels that split Wh over a thread-block cluster of C blocks
+(the smallest C up to 16 whose block fits, `wide_smem_bytes`), up to
+`MAX_HIDDEN` = 543.  None stands in for another: a kernel that fails to
+build or launch raises.  `check_width` refuses a GRU wider than MAX_HIDDEN
+with NotImplementedError, from the entry points' checks (`check_arch`)
+before anything is launched and again at each launch.
 
 Gradient: when grad mode is on and an input requires grad, the call goes
 through `_GRUSequence`, an `autograd.Function`.  Its forward also keeps the
@@ -39,14 +40,21 @@ from sstts_torch.ops import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "sstts_gru_sequence": ([_P] * 9 + [_I] * 6 + [_P], _I),
-    "sstts_gru_sequence_backward": ([_P] * 7 + [_I] * 5 + [_P], _I),
+    "sstts_gru_sequence": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    "sstts_gru_sequence_backward": ([_P] * 7 + [_I] * 6 + [_P], _I),
     "sstts_gru_input_proj": ([_P] * 4 + [_I] * 3 + [_P], _I),
-    "sstts_gru_recurrence": ([_P] * 6 + [_I] * 5 + [_P], _I),
+    "sstts_gru_recurrence": ([_P] * 6 + [_I] * 6 + [_P], _I),
+    "sstts_gru_wide_smem_bytes": ([_I] * 2, _I),
+    "sstts_gru_wide_bwd_smem_bytes": ([_I] * 2, _I),
+    "sstts_gru_wide_active_clusters": ([_I] * 3, _I),
 }
 
 #: The `kind` argument of the C entry points (SSTTS_GRU_* in csrc/gru.cu).
-KIND_GENERIC, KIND_H128 = 0, 1
+KIND_GENERIC, KIND_H128, KIND_WIDE = 0, 1, 2
+
+#: Threads of a wide block and the largest cluster (kWideThreads and
+#: kMaxCluster in csrc/gru.cu).
+WIDE_THREADS, MAX_CLUSTER = 1024, 16
 
 
 def generic_smem_bytes(hidden: int) -> Tuple[int, int]:
@@ -56,18 +64,56 @@ def generic_smem_bytes(hidden: int) -> Tuple[int, int]:
     return (3 * hidden * hidden + 7 * hidden) * 4, (3 * hidden * hidden + 8 * hidden) * 4
 
 
-#: The widest H both generic recurrences take within a block's shared memory.
-MAX_HIDDEN = max(h for h in range(1, 512) if max(generic_smem_bytes(h)) <= build.MAX_SMEM)
+def wide_smem_bytes(hidden: int, cluster: int) -> Tuple[int, int]:
+    """Shared memory of one block of the wide forward and backward
+    recurrences at width H in a cluster of C, as `sstts_gru_wide_smem_bytes`
+    and `sstts_gru_wide_bwd_smem_bytes` in csrc/gru.cu count it (its
+    `WideShape`): the block's U = ceil(H / C) units' 3U columns of Wh in rows
+    of 3U | 1 floats, and the step's vectors, f32."""
+    units = -(-hidden // cluster)
+    cols = 3 * units
+    ld = cols | 1
+    k_slices = WIDE_THREADS // cols
+    col_slices = max(1, WIDE_THREADS // hidden)
+    return ((hidden * ld + 2 * hidden + k_slices * cols) * 4,
+            (hidden * ld + cols + 2 * cluster * units + col_slices * hidden) * 4)
 
 
-def check_width(hidden: int, device) -> None:
-    """Raises NotImplementedError for a GRU of width H > MAX_HIDDEN on the
-    card (ROADMAP B.3); the plain versions on the CPU take any H."""
-    if torch.device(device).type == "cuda" and hidden > MAX_HIDDEN:
+def _config(hidden: int) -> Optional[Tuple[int, int]]:
+    if hidden == 128:
+        return KIND_H128, 1
+    if max(generic_smem_bytes(hidden)) <= build.MAX_SMEM:
+        return KIND_GENERIC, 1
+    for cluster in range(2, MAX_CLUSTER + 1):
+        if max(wide_smem_bytes(hidden, cluster)) <= build.MAX_SMEM:
+            return KIND_WIDE, cluster
+    return None
+
+
+#: The widest H a kind of kernel takes (543: the wide kind at C = 16).
+MAX_HIDDEN = max(h for h in range(1, 1024) if _config(h) is not None)
+
+
+def kernel_config(hidden: int) -> Tuple[int, int]:
+    """(kind, cluster size) of the CUDA recurrences at width H: the
+    register-resident kernels at H = 128, the generic ones where their block
+    fits (H up to 137), else the wide ones on the smallest cluster whose
+    block fits.  NotImplementedError past MAX_HIDDEN (ROADMAP B.3).  A pure
+    function of H: nothing is built or launched."""
+    config = _config(hidden)
+    if config is None:
         raise NotImplementedError(
             f"the gru_sequence CUDA kernels take H up to {MAX_HIDDEN}; this GRU "
             f"has H={hidden} (a wider kernel is ROADMAP B.3)"
         )
+    return config
+
+
+def check_width(hidden: int, device) -> None:
+    """`kernel_config` on the card, where it raises NotImplementedError for
+    H > MAX_HIDDEN; the plain versions on the CPU take any H."""
+    if torch.device(device).type == "cuda":
+        kernel_config(hidden)
 
 
 def check_arch(arch, device) -> None:
@@ -201,16 +247,9 @@ def _check_mask(mask, batch_time, what: str) -> None:
         )
 
 
-def kernel_kind(hidden: int) -> int:
-    """Which pair of CUDA recurrences serves width H: the register-resident
-    ones at H = 128, else the generic ones."""
-    return KIND_H128 if hidden == 128 else KIND_GENERIC
-
-
-def _load(hidden: int, device):
-    """The library and the kind of kernel for width H."""
-    check_width(hidden, device)
-    return build.load("gru", SIGNATURES), kernel_kind(hidden)
+def _load(hidden: int):
+    """The library and the (kind, cluster size) of kernel for width H."""
+    return build.load("gru", SIGNATURES), kernel_config(hidden)
 
 
 def _mask_f32(mask, dev):
@@ -230,7 +269,7 @@ def _ptr(t):
 def _kernel(xs, wx, wh, b, mask, reverse, save: bool):
     batch, t_len, d_in = xs.shape
     hidden = wh.shape[0]
-    lib, kind = _load(hidden, xs.device)
+    lib, (kind, cluster) = _load(hidden)
     dev = xs.device
     f32 = dict(device=dev, dtype=torch.float32)
     xs_c, wx_c, wh_c, b_c = (_dense(a) for a in (xs, wx, wh, b))
@@ -242,7 +281,7 @@ def _kernel(xs, wx, wh, b, mask, reverse, save: bool):
     rc = lib.sstts_gru_sequence(
         xs_c.data_ptr(), wx_c.data_ptr(), wh_c.data_ptr(), b_c.data_ptr(),
         _ptr(m_c), gx.data_ptr(), out.data_ptr(), _ptr(gates), _ptr(hprev),
-        batch, t_len, d_in, hidden, int(bool(reverse)), kind,
+        batch, t_len, d_in, hidden, int(bool(reverse)), kind, cluster,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "gru_sequence")
@@ -274,7 +313,7 @@ def gru_sequence_backward(
             f"gru_sequence_backward: shapes dout {tuple(dout.shape)}, gates "
             f"{tuple(gates.shape)}, hprev {tuple(hprev.shape)}, wh {tuple(wh.shape)}"
         )
-    lib, kind = _load(hidden, dout.device)
+    lib, (kind, cluster) = _load(hidden)
     dev = dout.device
     dout_c, gates_c, hprev_c, wh_c = (_dense(a) for a in (dout, gates, hprev, wh))
     m_c = _mask_f32(mask, dev)
@@ -283,7 +322,7 @@ def gru_sequence_backward(
     rc = lib.sstts_gru_sequence_backward(
         dout_c.data_ptr(), gates_c.data_ptr(), hprev_c.data_ptr(),
         wh_c.data_ptr(), _ptr(m_c), dgx.data_ptr(), dgh.data_ptr(),
-        batch, t_len, hidden, int(bool(reverse)), kind,
+        batch, t_len, hidden, int(bool(reverse)), kind, cluster,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "gru_sequence_backward")

@@ -13,8 +13,9 @@ matmul dtype as an argument), a CUDA tensor launches
 
 The kernel reads its eight matrices as one stream, as B4 does
 (`sstts_torch/ops/decoder.py`): `launch` packs them in the matmul dtype,
-rows padded to 16 bytes, in the order a step reads them (one device copy a
-forward, since the weights change every train step), and takes the
+rows padded to 16 bytes, in the order a step reads them, a product wider
+than MAX_COLS in column panels (one device copy a forward, since the
+weights change every train step), and takes the
 shape's chunk schedule, made once for each shape and copied from pinned
 memory, so that the launch never waits for the card.
 
@@ -71,20 +72,14 @@ def supports_teacher_arch(arch) -> bool:
     return arch.attention_type == "bahdanau" and arch.decoder_gru_layers == 2
 
 
-def arch_dims(arch) -> dict:
-    """The scan's dimensions `check_widths` reads, from the config."""
-    return dict(Ha=arch.attention_gru_units, A=arch.attention_units,
-                Dm=2 * arch.encoder_gru_units, Hd=arch.decoder_gru_units)
-
-
 def resolve_teacher_impl(override, arch, device) -> str:
     """"xla" (the plain module loop) or "fused" (this module's scan) for an
     override in (None, "auto", "xla", "fused") on `device`: "auto" is the
     kernel on CUDA where it implements the architecture, else the plain
     loop; "fused" on an architecture it lacks raises ValueError, as the
-    reference does.  A kernel chosen on the card for a product wider than
-    MAX_COLS raises NotImplementedError (`check_widths`).  A pure function of its arguments:
-    nothing is launched."""
+    reference does.  The kernel takes products of any width (in column
+    panels, as B4).  A pure function of its arguments: nothing is
+    launched."""
     impl = override or "auto"
     if impl not in ("auto", "xla", "fused"):
         raise ValueError(f"unknown teacher decoder impl: {impl!r}")
@@ -96,8 +91,6 @@ def resolve_teacher_impl(override, arch, device) -> str:
     cuda = torch.device(device).type == "cuda"
     if impl == "auto":
         impl = "fused" if cuda and supports_teacher_arch(arch) else "xla"
-    if impl == "fused" and cuda:
-        check_widths(arch_dims(arch))
     return impl
 
 
@@ -192,7 +185,8 @@ STEP_ORDER = ("attn_wx", "attn_wh", "query_w", "keys", "memory",
 #: B4's setting too): the schedule's chunks are cut to it.
 STAGE_BYTES = dec.STAGE_BYTES
 
-#: Widest product the kernel takes (kMaxCols in csrc/chain.cuh).
+#: Widest column panel of a product (kMaxCols in csrc/chain.cuh); wider
+#: products are streamed in panels (`decoder.panels`).
 MAX_COLS = dec.MAX_COLS
 
 _VECTORS = tuple(n for n in TeacherWeights._fields if n not in MATRICES)
@@ -252,22 +246,12 @@ def longest_text(lib: ctypes.CDLL, d: dict) -> int:
     return dec.longest_fit(smem)
 
 
-def check_widths(d: dict) -> None:
-    """Raises NotImplementedError for a scan, by its dimensions (`dims`,
-    `arch_dims`), with a product wider than MAX_COLS (ROADMAP B.6)."""
-    widest = max(3 * d["Ha"], d["A"], d["Dm"], d["Hd"], 3 * d["Hd"])
-    if widest > MAX_COLS:
-        raise NotImplementedError(
-            f"the fused teacher scan kernel keeps products up to {MAX_COLS} columns "
-            f"wide; this cell needs {widest} (a wider kernel is ROADMAP B.6)"
-        )
-
-
 def step_products(w: TeacherWeights, d: dict, dt: torch.dtype):
     """A step's operands in `STEP_ORDER`, the matrices as `pack_weights`
-    lays them out in `dt`."""
+    lays them out in `dt`, each in its column panels."""
     layout = dec.weight_layout(w, MATRICES, dt)
-    return dec.step_products(layout, d["T"], d["A"], d["Dm"], dt.itemsize, STEP_ORDER)
+    return dec.step_products(layout, d["T"], d["A"], d["Dm"], dt.itemsize, STEP_ORDER,
+                             d["B"])
 
 
 @functools.lru_cache(maxsize=64)
@@ -283,14 +267,12 @@ def launch(lib: ctypes.CDLL, w: TeacherWeights, pre, memory, keys, maskf,
     """Launch `lib` (`library()`, or another `bind`-ed build of
     csrc/teacher.cu) on live or cast weights: packs the eight matrices in
     `dt` on the card (one copy each), takes the shape's schedule, launches.
-    Raises NotImplementedError, before anything is launched, for a product
-    wider than MAX_COLS or a T whose scores no longer fit in shared memory
-    beside the ring."""
+    Raises NotImplementedError, before anything is launched, for a T whose
+    scores no longer fit in shared memory beside the ring."""
     if dt not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"fused teacher scan matmul dtype {dt}")
     dev = pre.device
     d = dims(w, pre, memory, keys)
-    check_widths(d)
     args = _TeacherArgs(**d)
     smem = lib.sstts_teacher_smem_bytes(ctypes.byref(args))
     if smem > build.MAX_SMEM:
@@ -300,7 +282,7 @@ def launch(lib: ctypes.CDLL, w: TeacherWeights, pre, memory, keys, maskf,
             f"longer fit; this cell takes T up to {longest_text(lib, d)}"
         )
     vectors = [getattr(w, n).detach().float().contiguous() for n in _VECTORS]
-    ins = [pre.detach().float().contiguous(), dec._rows16(memory.detach().to(dt).contiguous()),
+    ins = [pre.detach().float().contiguous(), dec.memory_panels(memory.detach().to(dt).contiguous()),
            dec._rows16(keys.detach().to(dt).contiguous()), maskf.detach().float().contiguous()]
     for t in (*w, *ins):
         if t.device != dev:

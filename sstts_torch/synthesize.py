@@ -97,10 +97,10 @@ def check_supported(cfg: Config, device: torch.device) -> str:
     anything is launched, raising for what the port does not implement;
     returns the decoder's ("fused" or "xla",
     `sstts_torch.ops.decoder.resolve_decoder_impl`).  Every architecture the
-    reference's model accepts is accepted; on the card the kernels' width
-    limits (ROADMAP B.3, B.4) and a Griffin-Lim geometry beyond B2's and
-    B5's (n_fft above 2048, more than 16 overlapping frames a side) raise
-    NotImplementedError."""
+    reference's model accepts is accepted; on the card a BiGRU wider than
+    B3 takes (H above 543, ROADMAP B.3) and a Griffin-Lim geometry beyond
+    B2's and B5's (n_fft above 2048, more than 16 overlapping frames a
+    side) raise NotImplementedError."""
     a, inf = cfg.arch, cfg.inference
     if inf.wire_format not in dsp_ops.WIRE_FORMATS:
         raise ValueError(
@@ -114,9 +114,7 @@ def check_supported(cfg: Config, device: torch.device) -> str:
     ds = cfg.dataset
     kernel_config(iter_impl, ds.n_fft, ds.hop_len, ds.win_len, fft_impl, device)
     gru_ops.check_arch(a, device)
-    return decoder_ops.resolve_decoder_impl(
-        inf.decoder_impl, a, device, cfg.dataset.n_mels
-    )
+    return decoder_ops.resolve_decoder_impl(inf.decoder_impl, a, device)
 
 
 @contextlib.contextmanager

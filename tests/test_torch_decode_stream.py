@@ -87,7 +87,8 @@ def case(kernel, name, dtype, T, B=2, S=3):
         # On the CPU nothing is packed: the plain version reads the matrices.
         assert p.packed is None and p.schedule is None
         products = dec.step_products(dec.weight_layout(p.w), T, p.keys.shape[-1],
-                                     p.memory.shape[-1], p.w.attn_wx.element_size())
+                                     p.memory.shape[-1], p.w.attn_wx.element_size(),
+                                     dec.STEP_ORDER, B)
         return Case(products, dec.chunk_schedule(products), dec.pack_weights(p.w),
                     dec._MATRICES, dec.STEP_ORDER,
                     {n: getattr(p.w, n) for n in dec._MATRICES},
@@ -137,7 +138,7 @@ def test_schedule_covers_each_operand_once_in_step_order(kernel, name, dtype, T)
         offset, k = pr.offset, 0
         for ch in mine:
             assert ch["offset"] == offset and ch["k0"] == k
-            assert ch["row_bytes"] == pr.row_bytes and ch["pad"] == 0
+            assert ch["row_bytes"] == pr.row_bytes and ch["col0"] == pr.col0 == 0
             assert ch["bytes"] == (ch["k1"] - ch["k0"]) * pr.row_bytes
             assert 0 < ch["bytes"] <= stage and ch["bytes"] % 16 == 0
             assert ch["offset"] % 16 == 0
@@ -258,33 +259,39 @@ def test_longest_text_the_kernel_takes_and_its_refusal(kernel, dtype):
                 run()
 
 
-@pytest.mark.parametrize("cols,ok", [(1024, True), (1025, False)])
+@pytest.mark.parametrize("cols", [1024, 1025, 2560])
 @pytest.mark.parametrize("kernel", KERNELS)
-def test_widest_product_the_kernel_takes(kernel, cols, ok):
-    """Products up to 1024 columns (B4: the frame projection, r * M; B6:
-    the query, and so the keys) are taken; the wrapper refuses a wider one
-    by name before it looks at the library."""
+def test_widest_product_the_kernel_takes(kernel, cols):
+    """Products of any width are taken (B4: the frame projection, r * M;
+    B6: the query, and so the keys): up to 1024 columns as one panel, wider
+    as panels of at most 1024 columns, each its own run of chunks over all
+    K rows that carries its first column; the keys' rows stay whole (the
+    scores read a row a warp).  Nothing on the host refuses the width."""
     if kernel == "decode":
         p = inputs("tiny", torch.bfloat16, 7)
         w = p.w._replace(frame_w=torch.zeros(p.w.frame_w.shape[0], cols, dtype=torch.bfloat16))
         p = p._replace(w=w, n_mels=cols, reduction=1)
-        check = lambda: dec.check_widths(dec._dims(p))  # noqa: E731
-        refuse = lambda: dec.launch(None, p)  # noqa: E731
         products = dec.step_products(dec.weight_layout(w), 7, p.keys.shape[-1],
-                                     p.memory.shape[-1], 2)
+                                     p.memory.shape[-1], 2, dec.STEP_ORDER, 2)
+        wide, matrix = "frame_w", w.frame_w
     else:
         w, pre, memory, keys, maskf = teacher_inputs("tiny", torch.bfloat16, 7, widen=cols)
         d = tops.dims(w, pre, memory, keys)
-        check = lambda: tops.check_widths(d)  # noqa: E731
-        refuse = lambda: tops.launch(None, w, pre, memory, keys, maskf, torch.bfloat16)  # noqa: E731
         products = tops.step_products(w, d, torch.bfloat16)
-    if ok:
-        check()
-        chunks = schedule_rows(dec.chunk_schedule(products))
-        assert max(ch["bytes"] for ch in chunks) <= dec.STAGE_BYTES
-    else:
-        with pytest.raises(NotImplementedError, match="up to 1024 columns"):
-            refuse()
+        wide, matrix = "query_w", w.query_w
+        assert [pr.cols for pr in products if pr.name == "keys"] == [cols]
+    panels = [pr for pr in products if pr.name == wide]
+    assert [(pr.col0, pr.cols) for pr in panels] == list(dec.panels(cols))
+    assert len(panels) == -(-cols // dec.MAX_COLS)
+    assert all(pr.rows == matrix.shape[0] for pr in panels)
+    chunks = schedule_rows(dec.chunk_schedule(products))
+    assert max(ch["bytes"] for ch in chunks) <= dec.STAGE_BYTES
+    pid = products.index(panels[0])
+    pid = len({pr.name for pr in products[:pid]})
+    mine = [ch for ch in chunks if ch["product"] == pid]
+    starts = [ch["col0"] for ch in mine if ch["k0"] == 0]
+    assert starts == [pr.col0 for pr in panels]
+    assert sorted(ch["col0"] for ch in mine) == [ch["col0"] for ch in mine]
 
 
 def c_struct_fields(src, struct):

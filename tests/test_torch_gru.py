@@ -96,16 +96,19 @@ def test_gru_sequence_rejects_a_mask_that_is_not_batch_by_time(gru_inputs):
 
 
 def test_kernel_kind_follows_the_hidden_width():
-    """H = 128 takes the register-resident kernels, every other width the
-    generic ones; the C entry points' signatures carry the kind."""
-    assert gru_ops.kernel_kind(128) == gru_ops.KIND_H128
-    assert {gru_ops.kernel_kind(h) for h in (1, 16, 127, 129, 137, 256)} == {
-        gru_ops.KIND_GENERIC
+    """H = 128 takes the register-resident kernels, every other width up to
+    137 the generic ones, wider ones the wide kind on a cluster
+    (`kernel_config`); the C entry points' signatures carry the kind and
+    the cluster size."""
+    assert gru_ops.kernel_config(128) == (gru_ops.KIND_H128, 1)
+    assert {gru_ops.kernel_config(h) for h in (1, 16, 127, 129, 137)} == {
+        (gru_ops.KIND_GENERIC, 1)
     }
-    assert gru_ops.KIND_GENERIC != gru_ops.KIND_H128
+    assert gru_ops.kernel_config(256) == (gru_ops.KIND_WIDE, 4)
+    assert len({gru_ops.KIND_GENERIC, gru_ops.KIND_H128, gru_ops.KIND_WIDE}) == 3
     for fn in ("sstts_gru_sequence", "sstts_gru_sequence_backward", "sstts_gru_recurrence"):
         argtypes, _ = gru_ops.SIGNATURES[fn]
-        assert argtypes[-2] is gru_ops._I and argtypes[-1] is gru_ops._P
+        assert argtypes[-3:] == [gru_ops._I, gru_ops._I, gru_ops._P]
 
 
 def test_ptxas_report_reads_the_log_kept_beside_the_library(tmp_path, monkeypatch):

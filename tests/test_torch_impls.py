@@ -1,8 +1,9 @@
 """Which implementation runs where: `resolve_decoder_impl` and
 `resolve_teacher_impl` over every override, architecture and device, held
-to the reference's own resolvers, and the kernels' width limits (B3's by
-`sstts_torch.ops.gru.check_width`).  Resolution is a pure function of the config and
-the device: nothing here needs a card or launches anything.
+to the reference's own resolvers, and the kernels' widths (B3's kind of
+kernel by `sstts_torch.ops.gru.kernel_config`, refused past H = 543; B4 and B6
+at any width).  Resolution is a pure function of the config and the device:
+nothing here needs a card or launches anything.
 
 The decoder on CUDA must resolve as the reference's does on its TPU (the
 backend where its kernel runs) and on the CPU as the reference's does on
@@ -72,7 +73,7 @@ def test_decoder_impl_matches_the_reference(override, arch_name, monkeypatch):
     jax_arch = _arch(arch_name, jax_tiny_config())
     assert dec_ops.supports_arch(port_arch) == jpd.supports_arch(jax_arch)
     for device, backend in ((CPU, "cpu"), (CUDA, "tpu")):
-        got = _outcome(lambda: dec_ops.resolve_decoder_impl(override, port_arch, device, 20))
+        got = _outcome(lambda: dec_ops.resolve_decoder_impl(override, port_arch, device))
         ref = _reference_decoder(override, jax_arch, backend, monkeypatch)
         assert got == ref, (device, got, ref)
     if override == "fused" and arch_name != "bahdanau":
@@ -95,37 +96,50 @@ def test_teacher_impl_matches_the_reference(override, arch_name):
 
 
 @pytest.mark.parametrize("override", ["auto", "fused"])
-def test_width_limits_raise_on_the_card_only(override):
-    """A product wider than B4's and B6's 1024 columns: NotImplementedError
-    on CUDA, naming ROADMAP B; the plain versions on the CPU take it."""
-    wide = dataclasses.replace(tiny_config().arch, attention_units=1280)
-    with pytest.raises(NotImplementedError, match=r"1280 \(a wider kernel is ROADMAP B.4\)"):
-        dec_ops.resolve_decoder_impl(override, wide, CUDA, 20)
-    with pytest.raises(NotImplementedError, match=r"1280 \(a wider kernel is ROADMAP B.6\)"):
-        tops.resolve_teacher_impl(override, wide, CUDA)
-    expected = "fused" if override == "fused" else "xla"
-    assert dec_ops.resolve_decoder_impl(override, wide, CPU, 20) == expected
-    assert tops.resolve_teacher_impl(override, wide, CPU) == expected
-    assert dec_ops.resolve_decoder_impl("xla", wide, CUDA, 20) == "xla"
-    # The widest the kernels take: r * n_mels = 1024 columns.
-    edge = dataclasses.replace(tiny_config().arch, reduction_factor=8)
-    assert dec_ops.resolve_decoder_impl(override, edge, CUDA, 128) == "fused"
-    with pytest.raises(NotImplementedError):
-        dec_ops.resolve_decoder_impl(override, edge, CUDA, 129)
+def test_wide_products_take_the_kernels_on_the_card(override):
+    """Products past the 1024 columns of a panel (B4's and B6's query and
+    keys at 1280 and 4096 columns, the recurrent products of 512-unit GRUs:
+    1536) resolve to the kernels on CUDA, which stream them in column
+    panels; on the CPU the plain versions take them, as before."""
+    arch = tiny_config().arch
+    for fields in ({"attention_units": 1280}, {"attention_units": 4096},
+                   {"attention_gru_units": 512, "decoder_gru_units": 512}):
+        wide = dataclasses.replace(arch, **fields)
+        assert dec_ops.resolve_decoder_impl(override, wide, CUDA) == "fused"
+        assert tops.resolve_teacher_impl(override, wide, CUDA) == "fused"
+        expected = "fused" if override == "fused" else "xla"
+        assert dec_ops.resolve_decoder_impl(override, wide, CPU) == expected
+        assert tops.resolve_teacher_impl(override, wide, CPU) == expected
+        assert dec_ops.resolve_decoder_impl("xla", wide, CUDA) == "xla"
+    # The frame projection past a panel: r * n_mels = 8 * 129 = 1032 columns
+    # (the resolver needs no n_mels: no width is refused).
+    edge = dataclasses.replace(arch, reduction_factor=8)
+    assert dec_ops.resolve_decoder_impl(override, edge, CUDA) == "fused"
+    assert len(dec_ops.panels(8 * 129)) == 2 and len(dec_ops.panels(4096)) == 4
 
 
-@pytest.mark.parametrize("hidden", [1, 16, 128, 137, 138, 160])
+#: Widths and the kind of kernel each takes on the card (None: refused).
+_GRU_KINDS = {1: "generic", 16: "generic", 128: "h128", 137: "generic", 138: "wide",
+              160: "wide", 512: "wide", 544: None}
+
+
+@pytest.mark.parametrize("hidden", sorted(_GRU_KINDS))
 def test_gru_width_check(hidden):
-    """The card's GRU kernels take H up to MAX_HIDDEN (137); a wider GRU
-    raises NotImplementedError naming ROADMAP B.3 on CUDA only, from
-    `check_width` and from `check_arch` for either CBHG's GRU."""
+    """The card's GRU kernels take H up to MAX_HIDDEN (543): the register
+    kernels at 128, the generic ones up to 137, the wide ones (a cluster a
+    sequence) past it; a wider GRU raises NotImplementedError naming ROADMAP
+    B.3 on CUDA only, from `check_width` and from `check_arch` for either
+    CBHG's GRU."""
+    kinds = {gru_ops.KIND_H128: "h128", gru_ops.KIND_GENERIC: "generic",
+             gru_ops.KIND_WIDE: "wide"}
     gru_ops.check_width(hidden, CPU)
     for field in ("encoder_gru_units", "post_gru_units"):
         arch = dataclasses.replace(tiny_config().arch, **{field: hidden})
         gru_ops.check_arch(arch, CPU)
-        if hidden <= gru_ops.MAX_HIDDEN:
+        if _GRU_KINDS[hidden] is not None:
             gru_ops.check_width(hidden, CUDA)
             gru_ops.check_arch(arch, CUDA)
+            assert kinds[gru_ops.kernel_config(hidden)[0]] == _GRU_KINDS[hidden]
         else:
             for check in (lambda: gru_ops.check_width(hidden, CUDA),
                           lambda: gru_ops.check_arch(arch, CUDA)):
@@ -134,8 +148,11 @@ def test_gru_width_check(hidden):
 
 
 def test_gru_width_limit_follows_the_kernel_source():
-    """`generic_smem_bytes` repeats csrc/gru.cu's two shared-memory counts;
-    MAX_HIDDEN is the widest H both fit in a block (137)."""
+    """`generic_smem_bytes` repeats csrc/gru.cu's two shared-memory counts,
+    which both fit in a block up to H = 137; past it the wide kernels, whose
+    block size and largest cluster are the source's, reach MAX_HIDDEN =
+    543 (chip_smoke.py holds `wide_smem_bytes` to the library's count at
+    every wide H)."""
     src = Path(build.CSRC / "gru.cu").read_text()
     formulas = [
         re.search(rf"int {name}\(int H\) {{ return (.*?); }}", src).group(1)
@@ -143,9 +160,13 @@ def test_gru_width_limit_follows_the_kernel_source():
     ]
     for h in (1, 16, 128, 137, 138, 160):
         assert gru_ops.generic_smem_bytes(h) == tuple(eval(f, {"H": h}) for f in formulas)
-    assert gru_ops.MAX_HIDDEN == 137
+    assert gru_ops.MAX_HIDDEN == 543
     assert max(gru_ops.generic_smem_bytes(137)) <= build.MAX_SMEM
     assert max(gru_ops.generic_smem_bytes(138)) > build.MAX_SMEM
+    for name, value in (("kWideThreads", gru_ops.WIDE_THREADS),
+                        ("kMaxCluster", gru_ops.MAX_CLUSTER)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
+    assert gru_ops.kernel_config(543) == (gru_ops.KIND_WIDE, 16)
 
 
 def test_synthesizer_resolves_before_anything_runs():
@@ -177,7 +198,7 @@ def test_a_mesh_keeps_the_kernels_on_every_rank(override, monkeypatch):
     for gspmd_multidev, want in ((True, "xla"), (False, "fused")):
         fake = types.SimpleNamespace(cfg=cfg, _gspmd_multidev=gspmd_multidev)
         assert jsynth.Synthesizer._resolve_decoder_impl(fake) == want
-    assert dec_ops.resolve_decoder_impl(override, arch, CUDA, 20) == "fused"
+    assert dec_ops.resolve_decoder_impl(override, arch, CUDA) == "fused"
     assert tops.resolve_teacher_impl(override, arch, CUDA) == "fused"
     from sstts_torch.model.tacotron import init_state_dict
     from sstts_torch.parallel.mesh import make_mesh

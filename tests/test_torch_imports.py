@@ -239,10 +239,8 @@ _REFUSALS = [
     # The decode kernel on an architecture it lacks: the reference's ValueError.
     ({"arch": {"attention_type": "local_luong"}, "inference": {"decoder_impl": "fused"}},
      "cpu", ValueError),
-    # The kernels' width limits on the card (ROADMAP B.3, B.4).
-    ({"arch": {"encoder_gru_units": 160}}, "cuda", NotImplementedError),
-    ({"arch": {"attention_units": 1280}, "inference": {"decoder_impl": "fused"}},
-     "cuda", NotImplementedError),
+    # B3's width limit on the card (ROADMAP B.3): a BiGRU past H = 543.
+    ({"arch": {"encoder_gru_units": 544}}, "cuda", NotImplementedError),
 ]
 
 
@@ -261,7 +259,8 @@ def test_unported_config_values_raise(sections, device, error):
 
 
 #: Values the port refused before it took every architecture of the
-#: reference's model, with the decoder each resolves to.
+#: reference's model and every width its kernels take, with the decoder each
+#: resolves to.
 _ACCEPTED = [
     ({"arch": {"attention_type": "local_luong"}}, "cpu", "xla"),
     ({"arch": {"fused_conv_bank": True}}, "cpu", "xla"),
@@ -269,6 +268,11 @@ _ACCEPTED = [
     ({"inference": {"decoder_impl": "xla"}}, "cuda", "xla"),
     ({"arch": {"attention_type": "local_luong"}}, "cuda", "xla"),
     ({"arch": {"compute_dtype": "bfloat16", "fused_conv_bank": True}}, "cuda", "fused"),
+    # Widths past the kernels' single-block limits: B3's wide kind (H past
+    # 137) and B4's column panels (past 1024 columns).
+    ({"arch": {"encoder_gru_units": 160}}, "cuda", "fused"),
+    ({"arch": {"attention_units": 1280}, "inference": {"decoder_impl": "fused"}},
+     "cuda", "fused"),
 ]
 
 

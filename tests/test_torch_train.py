@@ -244,15 +244,17 @@ def test_unported_training_settings_raise():
     cfg = pcfg.replace(training=dataclasses.replace(pcfg.training, model_parallel=0))
     with pytest.raises(ValueError, match="model_parallel"):
         ptrain.create_state(cfg, device="cpu")
-    # The kernels' width limits raise on the card before anything is
-    # launched (resolution needs no card): a BiGRU wider than B3 takes, a
-    # teacher scan product wider than B6's 1024 columns.
+    # B3's width limit raises on the card before anything is launched
+    # (resolution needs no card): a BiGRU past H = 543.  The widths past the
+    # kernels' single-block limits are taken: B3's wide kind (H = 160), B6's
+    # column panels (a 1280-column query).
     cuda = torch.device("cuda")
-    for fields, what in (({"encoder_gru_units": 160}, "H=160"),
-                         ({"attention_units": 1280}, "1280")):
+    cfg = pcfg.replace(arch=dataclasses.replace(pcfg.arch, post_gru_units=544))
+    with pytest.raises(NotImplementedError, match="H=544"):
+        ptrain.check_trainable(cfg, cuda)
+    for fields in ({"encoder_gru_units": 160}, {"attention_units": 1280}):
         cfg = pcfg.replace(arch=dataclasses.replace(pcfg.arch, **fields))
-        with pytest.raises(NotImplementedError, match=what):
-            ptrain.check_trainable(cfg, cuda)
+        ptrain.check_trainable(cfg, cuda)
     # An LJSpeech corpus without its metadata.csv raises, as the JAX loader does.
     cfg = pcfg.replace(dataset=dataclasses.replace(pcfg.dataset, dataset="ljspeech",
                                                    dataset_dir="/nonexistent"))
