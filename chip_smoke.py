@@ -14,12 +14,16 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    PyTorch call computes the same function, that call; and each kernel's
    bound, from its shapes; for the GRU kernels also what ptxas reported
    (registers, no spill in the H = 128 kernels), all three kinds of kernel
-   (H = 128, the generic one at H = 16, and the wide one, a cluster a
+   (H = 128, the generic one at H = 16, the wide one, a cluster a
    sequence, at H = 138, 256 and 512 at full size, B = 32, T = 800
-   forward and 515 backward, and at 139 and 301 with D != H, each beside
-   cuDNN's nn.GRU at the same H; the wrapper's count of the wide kind's
-   shared memory held to the library's at every wide H), and their
-   stages' times apart;
+   forward and 515 backward, and at 139 and 301 with D != H, and the
+   spilling one, whose blocks read the rows of Wh that their shared memory
+   cannot hold from device memory, at H = 560, 752 and 1104 with D = 128
+   at full size and at 1025 and 5456 (the widest taken), each main width
+   beside cuDNN's nn.GRU at the same H, timed in turns with it; the
+   wrapper's count of the wide kinds' shared memory held to the library's
+   at every wide H, and the cluster size and spilled rows of each spilling
+   width on a line of its own), and their stages' times apart;
    for the decode kernel B4 also the tiny config's widths, B=3 at T=300,
    rows that stop at different steps, T=4096, and the longest T taken and
    the next refused before any launch, and phase 3i's cell (products of
@@ -164,11 +168,16 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    loop on the same weights with phase 3f's limits, and 3 train steps on
    phase 3b's bucket (4/4/1 a step, the loss falling), the first step's
    gradient against the teacher "xla" step's (cosine at least 0.999);
+3j. the same as 3i on `SPILL_ARCH` (the default Config() with BiGRUs of 752
+   a direction, the reference GRU kernel's reach at D = 128 on 16 MiB of
+   VMEM: B3 and B3' on the spilling kind, B4 and B6 on a memory of 1504
+   columns);
 4. one JSON line of every kernel's numbers (its launches on each path,
    "cli" the sum of phase 3d's commands, "corpus" of phase 3e's three
    `train` runs, "variants" of phase 3f's counted runs, "mesh" of phase
    3g's, "geometry" of phase 3h's; the wide configurations' rows, B3, B3',
-   B4 and B6 past their single-block widths, with phase 3i's launches), the
+   B4 and B6 past their single-block widths, with phase 3i's launches, and
+   the spilling B3 and B3' with phase 3j's), the
    card's line before it, and last
    `{"ok": true, "device":
    {...}}`.
@@ -181,6 +190,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -254,7 +264,10 @@ def gru_inputs(dev, B, T, D, H, seed, empty_row=False):
     g = torch.Generator().manual_seed(seed)
     xs = torch.randn(B, T, D, generator=g).to(dev)
     wx = (torch.randn(D, 3 * H, generator=g) / D**0.5).to(dev)
-    wh = torch.nn.init.orthogonal_(torch.empty(H, 3 * H), generator=g).to(dev)
+    # Orthogonal rows up to H = 1104; past it a scaled normal (the host's QR
+    # of a (3H, H) matrix grows as H^3).
+    wh = (torch.nn.init.orthogonal_(torch.empty(H, 3 * H), generator=g) if H <= 1104
+          else torch.randn(H, 3 * H, generator=g) / H**0.5).to(dev)
     b = (0.1 * torch.randn(3 * H, generator=g)).to(dev)
     lengths = torch.randint(max(T // 2, 1), T + 1, (B,), generator=g).to(dev)
     ragged = (torch.arange(T, device=dev)[None] < lengths[:, None]).float()
@@ -290,10 +303,13 @@ def gru_ptxas(match: str) -> dict:
 
 def gru_kind(H: int) -> str:
     """The kind of CUDA recurrence `ops/gru.py:kernel_config` gives width H,
-    with the wide kind's cluster size."""
+    with the wide kinds' cluster size and the spilling kind's rows of each
+    slice in shared memory (forward / backward)."""
     from sstts_torch.ops import gru
 
     kind, cluster = gru.kernel_config(H)
+    if kind == gru.KIND_SPILL:
+        return "spill-C{}-R{}/{}".format(cluster, *gru.smem_rows(H))
     return {gru.KIND_H128: "h128", gru.KIND_GENERIC: "generic"}.get(kind, f"wide-C{cluster}")
 
 
@@ -360,7 +376,7 @@ def check_gru(dev):
         gx.data_ptr(), B * T, D, 3 * H))
     rec_ms = cuda_ms(lambda: stage(
         "sstts_gru_recurrence", gx.data_ptr(), wh.data_ptr(), full.data_ptr(),
-        out.data_ptr(), None, None, B, T, H, 0, *gru.kernel_config(H)))
+        out.data_ptr(), None, None, None, B, T, H, 0, *gru.kernel_config(H), H))
     log(f"  B3 stages at b={B}, T={T}: input projection {proj_ms:.4f} ms, recurrence "
         f"{rec_ms:.4f} ms; the wrapper {ms:.4f} ms, saving the gates {ms_saving:.4f} ms")
     # One PyTorch call with the same function when every step is valid:
@@ -483,53 +499,86 @@ def check_gru_backward(dev):
     }
 
 
-#: The wide GRU kernels' widths held at full size (B = 32, D = H; T = 800
-#: forward, 515 backward): the first past the generic kernels, the
-#: default's doubled (phase 3i's BiGRUs) and 512 (a cluster of 15, whose
-#: last rank owns fewer units); beside them one step and an odd length at
-#: widths no cluster divides, with D != H.
-GRU_WIDE_HIDDEN = (138, 256, 512)
-GRU_WIDE_SIDE_SHAPES = [(3, 1, 64, 139), (4, 37, 96, 301)]
+#: The wide GRU kernels' widths held at full size (B = 32; T = 800 forward,
+#: 515 backward): the wide kind's (D = H) the first past the generic
+#: kernels, the default's doubled (phase 3i's BiGRUs) and 512 (a cluster of
+#: 15, whose last rank owns fewer units); the spilling kind's (D = 128, the
+#: model's highway width) 560, 752 (phase 3j's BiGRUs: the reference
+#: kernel's reach at D = 128 on 16 MiB of VMEM) and 1104 (on 32 MiB); beside
+#: them one step and an odd length at widths no cluster divides, with
+#: D != H, two rows a backward thread (1025) and the widest H taken.
+GRU_WIDE_HIDDEN = (138, 256, 512, 560, 752, 1104)
+GRU_WIDE_SIDE_SHAPES = [(3, 1, 64, 139), (4, 37, 96, 301), (2, 9, 128, 1025),
+                        (1, 3, 64, 5456)]
+#: The width each kind's row of the kernels line is read at.
+GRU_WIDE_MAIN = {"wide": 256, "spill": 752}
 
 
-def wide_gru_cases(dev, T: int, seed: int):
-    """(shape, inputs) of every wide case at forward length T; row 0 of a
-    side shape's ragged mask is all padding, and of a main one too."""
-    for shape in [(32, T, H, H) for H in GRU_WIDE_HIDDEN] + GRU_WIDE_SIDE_SHAPES:
-        yield shape, gru_inputs(dev, *shape, seed=seed, empty_row=shape[1] > 1)
+def wide_kind(H: int) -> str:
+    """"wide" or "spill": the kind of wide recurrence width H takes."""
+    return gru_kind(H).split("-")[0]
 
 
+def wide_input_width(H: int) -> int:
+    """D of a main width's case: H for the wide kind, the model's 128 past."""
+    return H if wide_kind(H) == "wide" else 128
+
+
+def wide_gru_cases(dev, T: int, seed: int, kind: str):
+    """(shape, inputs) of every case of `kind` at forward length T; row 0 of
+    a ragged mask is all padding where T > 1."""
+    main = [(32, T, wide_input_width(H), H) for H in GRU_WIDE_HIDDEN]
+    for shape in main + GRU_WIDE_SIDE_SHAPES:
+        if wide_kind(shape[3]) == kind:
+            yield shape, gru_inputs(dev, *shape, seed=seed, empty_row=shape[1] > 1)
+
+
+@functools.lru_cache(maxsize=None)
 def check_gru_wide_counts():
-    """The wrapper's rule (`kernel_config`, `wide_smem_bytes`) against the
-    library's own count at every wide H, and each configuration the card
-    holds at once (clusters), for the widths of GRU_WIDE_HIDDEN."""
+    """The wrapper's rule (`kernel_config`, `smem_rows`, `wide_smem_bytes`)
+    against the library's own count at every wide H up to MAX_HIDDEN, and
+    each configuration the card holds at once (clusters), for the widths of
+    GRU_WIDE_HIDDEN; a line of its own for each spilling width."""
     from sstts_torch.ops import build, gru
 
     lib = build.load("gru", gru.SIGNATURES)
     for H in range(gru.MAX_HIDDEN + 1):
         kind, C = gru.kernel_config(H)
-        if kind != gru.KIND_WIDE:
+        if kind not in (gru.KIND_WIDE, gru.KIND_SPILL):
             continue
-        want = gru.wide_smem_bytes(H, C)
-        got = (lib.sstts_gru_wide_smem_bytes(H, C), lib.sstts_gru_wide_bwd_smem_bytes(H, C))
+        rows = gru.smem_rows(H)
+        want = gru.wide_smem_bytes(H, C, rows)
+        got = (lib.sstts_gru_wide_smem_bytes(H, C, rows[0]),
+               lib.sstts_gru_wide_bwd_smem_bytes(H, C, rows[1]))
         if got != want or max(got) > build.MAX_SMEM:
-            raise AssertionError(f"wide GRU H={H}, C={C}: library {got}, wrapper {want}")
+            raise AssertionError(f"wide GRU H={H}, C={C}, R={rows}: library {got}, "
+                                 f"wrapper {want}")
     active = {}
     for H in GRU_WIDE_HIDDEN:
         C = gru.kernel_config(H)[1]
-        active[H] = {"cluster": C, "forward": lib.sstts_gru_wide_active_clusters(H, C, 0),
-                     "backward": lib.sstts_gru_wide_active_clusters(H, C, 1)}
+        rows = gru.smem_rows(H)
+        active[H] = {"cluster": C, "smem_rows": rows, "spilled_rows": [H - r for r in rows],
+                     "forward": lib.sstts_gru_wide_active_clusters(H, C, rows[0], 0),
+                     "backward": lib.sstts_gru_wide_active_clusters(H, C, rows[1], 1)}
+        if min(active[H]["forward"], active[H]["backward"]) < 1:
+            raise AssertionError(f"wide GRU H={H}: no cluster fits the card: {active[H]}")
+        if wide_kind(H) == "spill":
+            log(f"  B3 spill H={H}: cluster {C}, rows in shared memory {rows[0]} forward / "
+                f"{rows[1]} backward, spilled rows {H - rows[0]} / {H - rows[1]}; clusters the "
+                f"card holds at once {active[H]['forward']} / {active[H]['backward']}")
     log(f"  B3 wide: the wrapper's shared-memory counts equal the library's for H = "
         f"138..{gru.MAX_HIDDEN}; clusters the card holds at once: {active}")
     return active
 
 
-def check_gru_wide(dev):
-    """B3's wide kernel (a cluster a sequence) against the plain version at
-    H in GRU_WIDE_HIDDEN (B = 32, T = 800, D = H) and the side shapes, full
-    and ragged masks, both directions, with and without the saved gates;
-    its time at each H beside cuDNN's nn.GRU, the plain version and the
-    bound."""
+def check_gru_wide(dev, kind: str):
+    """B3's wide kernels of `kind` ("wide": a cluster a sequence; "spill":
+    with the rows of Wh that shared memory cannot hold read from device
+    memory) against the plain version at their widths of GRU_WIDE_HIDDEN (B
+    = 32, T = 800) and side shapes, full and ragged masks, both directions,
+    with and without the saved gates; the time at each main width beside
+    cuDNN's nn.GRU (in turns with the kernel, three rounds: its median and
+    spread), the plain version and the bound."""
     import torch
 
     from sstts_torch.ops import gru
@@ -539,7 +588,7 @@ def check_gru_wide(dev):
     active = check_gru_wide_counts()
     tol = 1e-4  # as check_gru: f32 both sides, sums in another order
     checks, by_h = [], {}
-    for shape, (xs, wx, wh, b, masks, _) in wide_gru_cases(dev, 800, seed=21):
+    for shape, (xs, wx, wh, b, masks, _) in wide_gru_cases(dev, 800, seed=21, kind=kind):
         B, T, D, H = shape
         for mask_name, mask in masks.items():
             for reverse in (False, True):
@@ -549,44 +598,55 @@ def check_gru_wide(dev):
                 torch.cuda.synchronize()
                 errs = {"out": max_err(got, ref), "out_saving": max_err(got_s, ref),
                         "gates": max_err(gates, ref_gates), "hprev": max_err(hprev, ref_hprev)}
+                rel = max(errs.values()) / max(float(ref.abs().max()), 1e-30)
                 case = f"B{B}-T{T}-D{D}-H{H}-{gru_kind(H)}-{mask_name}-{'rev' if reverse else 'fwd'}"
-                log(f"  B3 gru_sequence {case}: max_abs_err {errs} (tol {tol})")
+                log(f"  B3 gru_sequence {case}: max_abs_err {errs}, relative to the largest "
+                    f"output {rel:.2e} (tol {tol})")
                 if not max(errs.values()) <= tol:
                     raise AssertionError(f"gru_sequence {case}: {errs} > {tol}")
-                checks.append({"case": case, "max_abs_err": max(errs.values()), "tol": tol})
+                checks.append({"case": case, "max_abs_err": max(errs.values()),
+                               "max_rel_err": rel, "tol": tol})
         if B != 32:
             continue
         full = masks["full"]
-        ms = cuda_ms(lambda: gru_sequence(xs, wx, wh, b, full, False), 3, 5)
+        lib_gru = cudnn_gru(dev, wx, wh, b)
+        ms, lib_runs = [], []
+        with torch.no_grad():
+            for _ in range(3):  # in turns: cuDNN's reading moves from call to call
+                ms.append(cuda_ms(lambda: gru_sequence(xs, wx, wh, b, full, False), 3, 5))
+                lib_runs.append(cuda_ms(lambda: lib_gru(xs), 3, 5))
+        ms, lib_ms = statistics.median(ms), statistics.median(lib_runs)
         # The plain version's time (a step loop of small launches, ~0.3 s
         # whatever H) at the row's width only.
         plain = (cuda_ms(lambda: gru_sequence_plain(xs, wx, wh, b, full, False), 1, 3)
-                 if H == 256 else None)
-        lib_gru = cudnn_gru(dev, wx, wh, b)
-        with torch.no_grad():
-            lib_ms = cuda_ms(lambda: lib_gru(xs), 3, 5)
+                 if H == GRU_WIDE_MAIN[kind] else None)
         n_bytes = nbytes(xs, wx, wh, b, full) + B * T * H * 4
         bms, by = bound_ms(n_bytes, 2 * B * T * (D * 3 * H + H * 3 * H), "f32")
-        by_h[H] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bms,
-                   "bound_by": by, "kind": gru_kind(H), **active[H]}
-        log(f"  B3 wide H={H} ({gru_kind(H)}): {ms:.4f} ms, cuDNN nn.GRU {lib_ms:.4f} ms, "
-            f"plain {plain} ms, bound {bms:.4f} ms by {by}")
-    main = by_h[256]  # phase 3i's BiGRUs
+        by_h[H] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                   "library_ms_runs": lib_runs, "bound_ms": bms, "bound_by": by,
+                   "kind": gru_kind(H), **active[H]}
+        log(f"  B3 {kind} H={H} ({gru_kind(H)}): {ms:.4f} ms, cuDNN nn.GRU {lib_ms:.4f} ms "
+            f"(in turns: {', '.join(f'{x:.4f}' for x in lib_runs)}), plain {plain} ms, bound "
+            f"{bms:.4f} ms by {by}")
+    main_h = GRU_WIDE_MAIN[kind]
+    main = by_h[main_h]
     return {
-        "name": "gru_sequence_wide", "route": "cuda",
+        "name": f"gru_sequence_{kind}", "route": "cuda",
         "source": "sstts_torch/csrc/gru.cu",
         "replaces": "sstts/ops/pallas_gru.py:69",
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-        "by_hidden": by_h, "ptxas": ptxas, "shape": [32, 800, 256, 256], "checks": checks,
+        "by_hidden": by_h, "ptxas": ptxas,
+        "shape": [32, 800, wide_input_width(main_h), main_h], "checks": checks,
     }
 
 
-def check_gru_backward_wide(dev):
-    """B3's wide backward recurrence against its plain version at H in
-    GRU_WIDE_HIDDEN (B = 32, T = 515, D = H) and the side shapes, both masks
-    and directions; its time at each H beside cuDNN's whole GRU backward."""
+def check_gru_backward_wide(dev, kind: str):
+    """B3's wide backward recurrence of `kind` against its plain version at
+    its widths of GRU_WIDE_HIDDEN (B = 32, T = 515) and side shapes, both
+    masks and directions; its time at each main width beside cuDNN's whole
+    GRU backward (in turns, three rounds)."""
     import torch
 
     from sstts_torch.ops.gru import (
@@ -596,7 +656,7 @@ def check_gru_backward_wide(dev):
     ptxas = gru_ptxas("gru_bwd_wide")
     tol = 1e-4  # relative to the largest value, as check_gru_backward
     checks, by_h = [], {}
-    for shape, (xs, wx, wh, b, masks, dout) in wide_gru_cases(dev, 515, seed=22):
+    for shape, (xs, wx, wh, b, masks, dout) in wide_gru_cases(dev, 515, seed=22, kind=kind):
         B, T, D, H = shape
         timed = None
         for mask_name, mask in masks.items():
@@ -621,10 +681,6 @@ def check_gru_backward_wide(dev):
         if B != 32:
             continue
         gates, hprev, mask = timed
-        ms = cuda_ms(lambda: gru_sequence_backward(dout, gates, hprev, wh, mask, False), 3, 5)
-        plain = (cuda_ms(
-            lambda: gru_sequence_backward_plain(dout, gates, hprev, wh, mask, False), 1, 3)
-            if H == 256 else None)
         lib = cudnn_gru(dev, wx, wh, b)
         xs_g = xs.clone().requires_grad_()
 
@@ -633,24 +689,37 @@ def check_gru_backward_wide(dev):
             xs_g.grad = None
             lib(xs_g)[0].backward(dout)
 
-        with torch.no_grad():
-            lib_fwd = cuda_ms(lambda: lib(xs), 3, 5)
-        lib_ms = cuda_ms(fwd_bwd, 3, 5) - lib_fwd
+        ms, lib_runs = [], []
+        for _ in range(3):  # in turns, as the forward's
+            ms.append(cuda_ms(
+                lambda: gru_sequence_backward(dout, gates, hprev, wh, mask, False), 3, 5))
+            with torch.no_grad():
+                lib_fwd = cuda_ms(lambda: lib(xs), 3, 5)
+            lib_runs.append(cuda_ms(fwd_bwd, 3, 5) - lib_fwd)
+        ms, lib_ms = statistics.median(ms), statistics.median(lib_runs)
+        plain = (cuda_ms(
+            lambda: gru_sequence_backward_plain(dout, gates, hprev, wh, mask, False), 1, 3)
+            if H == GRU_WIDE_MAIN[kind] else None)
         n_bytes = nbytes(dout, gates, hprev, wh, mask) + 2 * B * T * 3 * H * 4
         bms, by = bound_ms(n_bytes, 2 * B * T * 3 * H * H, "f32")
-        by_h[H] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms, "bound_ms": bms,
-                   "bound_by": by, "kind": gru_kind(H)}
-        log(f"  B3 backward wide H={H} ({gru_kind(H)}): recurrence {ms:.4f} ms, cuDNN's "
-            f"whole backward {lib_ms:.4f} ms, plain {plain} ms, bound {bms:.4f} ms by {by}")
-    main = by_h[256]
+        by_h[H] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
+                   "library_ms_runs": lib_runs, "bound_ms": bms, "bound_by": by,
+                   "kind": gru_kind(H)}
+        log(f"  B3 backward {kind} H={H} ({gru_kind(H)}): recurrence {ms:.4f} ms, cuDNN's "
+            f"whole backward {lib_ms:.4f} ms (in turns: "
+            f"{', '.join(f'{x:.4f}' for x in lib_runs)}), plain {plain} ms, bound "
+            f"{bms:.4f} ms by {by}")
+    main_h = GRU_WIDE_MAIN[kind]
+    main = by_h[main_h]
     return {
-        "name": "gru_sequence_backward_wide", "route": "cuda",
+        "name": f"gru_sequence_backward_{kind}", "route": "cuda",
         "source": "sstts_torch/csrc/gru.cu",
         "replaces": "sstts/ops/pallas_gru.py:126",
         "max_abs_err": max(c["max_abs_err"] for c in checks),
         "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"], "library_ms": main["library_ms"],
-        "by_hidden": by_h, "ptxas": ptxas, "shape": [32, 515, 256, 256], "checks": checks,
+        "by_hidden": by_h, "ptxas": ptxas,
+        "shape": [32, 515, wide_input_width(main_h), main_h], "checks": checks,
     }
 
 
@@ -975,6 +1044,10 @@ def check_decoder(dev):
 #: products of 1536 columns, memory of 512).
 WIDE_ARCH = {"encoder_gru_units": 256, "post_gru_units": 256,
              "attention_gru_units": 512, "decoder_gru_units": 512}
+#: Phase 3j's architecture: the default Config() with BiGRUs of 752 units a
+#: direction, the reference GRU kernel's reach at the model's D = 128 on 16
+#: MiB of VMEM (memory of 1504 columns, two panels in B4 and B6).
+SPILL_ARCH = {"encoder_gru_units": 752, "post_gru_units": 752}
 #: A ring-kernel cell with products of three column panels or more: the
 #: query and the rows of keys (A = 2560), memory (Dm = 2176: 1024 + 1024 +
 #: 128), and 3 Ha = 3 Hd = 1152.
@@ -3554,7 +3627,7 @@ def mesh_path(dev, card):
 # --------------------------------------------------------------- phase 3i --
 
 
-def widths_path(dev, card):
+def widths_path(dev, card, arch=None, kind: str = "wide", phase: str = "3i"):
     """Phase 3i: the default Config() with its recurrent widths doubled
     (WIDE_ARCH) on the card, from a seeded init: bench.py's batch through
     `Synthesizer` (B3 4 on the wide kind, B4 1 in column panels, B2 60), its
@@ -3562,7 +3635,8 @@ def widths_path(dev, card):
     runs) on the same weights and keep masks with phase 3f's limits, and 3
     train steps on phase 3b's bucket (B3 4, B3' 4, B6 1 a step) with the
     loss finite and falling; the first step's gradient against the teacher
-    "xla" step's from the same init (cosine at least 0.999)."""
+    "xla" step's from the same init (cosine at least 0.999).  Phase 3j runs
+    the same on SPILL_ARCH, whose BiGRUs take the spilling kind."""
     import torch
 
     from sstts_torch import train as tr
@@ -3570,17 +3644,19 @@ def widths_path(dev, card):
     from sstts_torch.ops import decoder as dec
     from sstts_torch.synthesize import exact_f32
 
+    arch = WIDE_ARCH if arch is None else arch
+    name = "widths" if phase == "3i" else "spill"
     ledger = Launches()
     res = {}
-    cfg = with_arch(bench_config(), **WIDE_ARCH)
+    cfg = with_arch(bench_config(), **arch)
     kinds = {H: gru_kind(H) for H in (cfg.arch.encoder_gru_units, cfg.arch.post_gru_units)}
-    log(f"  widths {WIDE_ARCH}: the BiGRUs' kernels {kinds}")
-    if not all(k.startswith("wide") for k in kinds.values()):
-        raise AssertionError(f"phase 3i's BiGRUs do not take the wide kernels: {kinds}")
+    log(f"  widths {arch}: the BiGRUs' kernels {kinds}")
+    if not all(k.startswith(kind) for k in kinds.values()):
+        raise AssertionError(f"phase {phase}'s BiGRUs do not take the {kind} kernels: {kinds}")
     texts = ["the quick brown fox jumps over the lazy dog " * 2] * 32
     params = init_state_dict(cfg.arch, cfg.dataset, seed=0)
     synth, res["synthesis_wall_s"] = synthesis_item(
-        "widths", cfg, params, texts, ledger,
+        name, cfg, params, texts, ledger,
         {"gru_sequence": 4, "fused_decode": 1, "fused_reproject_analyze": 60}, card)
 
     # The decode against the plain loop: f32 products over 20 steps, bf16
@@ -3605,19 +3681,19 @@ def widths_path(dev, card):
         tol_mel, tol_al = ring_tolerances(dt, True, float(mel_p.abs().max()), float(al_p.max()))
         e_mel = max_err(got["mel"][:, : steps * r], mel_p)
         e_al = max_err(got["alignments"][:, :steps], al_p)
-        log(f"  widths: xla plain loop vs B4-{str(dt)[6:]}-S{steps}: mel max_abs_err "
+        log(f"  {name}: xla plain loop vs B4-{str(dt)[6:]}-S{steps}: mel max_abs_err "
             f"{e_mel:.3e} (tol {tol_mel:.1e}), alignments {e_al:.3e} (tol {tol_al:.1e})")
         if not (e_mel <= tol_mel and e_al <= tol_al):
-            raise AssertionError(f"widths: xla vs B4 {dt}: {e_mel}, {e_al}")
+            raise AssertionError(f"{name}: xla vs B4 {dt}: {e_mel}, {e_al}")
         res["xla_vs_B4"][f"{str(dt)[6:]}-S{steps}"] = (e_mel, e_al)
 
-    train_cfg = with_arch(corpus_config(), **WIDE_ARCH)
+    train_cfg = with_arch(corpus_config(), **arch)
     tbatch = fixed_batch(train_cfg, 32, 1, (10, 16))
     _, losses, ms = train_item(
-        "widths", train_cfg, tbatch, ledger,
+        name, train_cfg, tbatch, ledger,
         {"gru_sequence": 4, "gru_sequence_backward": 4, "fused_teacher_scan": 1}, 3, card)
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"widths: the loss did not fall over 3 steps: {losses}")
+        raise AssertionError(f"{name}: the loss did not fall over 3 steps: {losses}")
     res.update(train_losses=losses, train_ms=ms)
     grads = {}
     for impl in (None, "xla"):
@@ -3626,10 +3702,10 @@ def widths_path(dev, card):
         tr.make_train_step(train_cfg)(st, tbatch)
         grads[impl] = torch.cat([p.grad.flatten() for p in st.model.parameters()]).double()
     cos = float(torch.nn.functional.cosine_similarity(grads[None], grads["xla"], 0))
-    log(f"  widths: first-step gradient, B6 against the teacher xla loop: cosine {cos:.6f} "
+    log(f"  {name}: first-step gradient, B6 against the teacher xla loop: cosine {cos:.6f} "
         f"(tol >= 0.999)")
     if not cos >= 0.999:
-        raise AssertionError(f"widths: gradient cosine {cos}")
+        raise AssertionError(f"{name}: gradient cosine {cos}")
     res["grad_cosine_vs_xla"] = cos
     res["launches"] = ledger.total
     return res
@@ -3693,10 +3769,12 @@ def main() -> int:
             check_decoder(dev), check_gl(dev), check_reproject(dev), check_gl_fused(dev),
         ]
         # The wide configurations (B3 and B3' past H = 137, B4 and B6 in
-        # column panels), each a row of its own, driven by phase 3i.
-        wide = [check_gru_wide(dev), check_gru_backward_wide(dev), check_teacher_wide(dev),
-                check_decoder_wide(dev)]
-    for k in kernels + wide:
+        # column panels), each a row of its own, driven by phase 3i; B3 and
+        # B3' past H = 543 (the spilling kind), driven by phase 3j.
+        wide = [check_gru_wide(dev, "wide"), check_gru_backward_wide(dev, "wide"),
+                check_teacher_wide(dev), check_decoder_wide(dev)]
+        spill = [check_gru_wide(dev, "spill"), check_gru_backward_wide(dev, "spill")]
+    for k in kernels + wide + spill:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}) [{card}]")
@@ -3719,6 +3797,8 @@ def main() -> int:
     geometry_res = geometry_path(dev, card)
     log("phase 3i: the recurrent widths doubled (B3, B3' wide; B4, B6 in panels)")
     widths_res = widths_path(dev, card)
+    log("phase 3j: BiGRUs of 752 (B3, B3' spilling rows of Wh past shared memory)")
+    spill_res = widths_path(dev, card, SPILL_ARCH, "spill", "3j")
     # Each kernel's launches come from the path it carries.
     own_path = {"gru_sequence_backward": "training", "fused_teacher_scan": "training",
                 "reproject_frames_pallas": "serving", "fused_gl_iteration": "serving"}
@@ -3733,18 +3813,19 @@ def main() -> int:
                    "geometry": geometry_res["launches"][k["name"]]}
         k["launches"] = by_path[own_path.get(k["name"], "synthesis")]
         k["launches_by_path"] = by_path
-    for k in wide:  # launched by phase 3i only
-        n = widths_res["launches"].get(k["name"].removesuffix("_wide"), 0)
-        k["launches"], k["launches_by_path"] = n, {"widths": n}
-        if not n:
-            raise AssertionError(f"{k['name']} was not launched in phase 3i")
+    for rows, res, phase in ((wide, widths_res, "3i"), (spill, spill_res, "3j")):
+        for k in rows:  # launched by their phase only
+            n = res["launches"].get(k["name"].rsplit("_", 1)[0], 0)
+            k["launches"], k["launches_by_path"] = n, {f"phase {phase}": n}
+            if not n:
+                raise AssertionError(f"{k['name']} was not launched in phase {phase}")
     log(json.dumps({"main_path": main_res, "serving_path": serve_res,
                     "train_path": train_res, "cli_path": cli_res,
                     "corpus_path": corpus_res, "variants_path": variants_res,
                     "mesh_path": mesh_res, "geometry_path": geometry_res,
-                    "widths_path": widths_res, "card": card}))
+                    "widths_path": widths_res, "spill_path": spill_res, "card": card}))
     log(card)
-    log(json.dumps({"kernels": kernels + wide}))
+    log(json.dumps({"kernels": kernels + wide + spill}))
     log(json.dumps({
         "ok": True,
         "device": {

@@ -71,6 +71,20 @@
 //       registers a step ahead.  C is the smallest cluster whose block
 //       fits (sstts_gru_wide_smem_bytes; the wrapper's rule, up to 16
 //       blocks, the non-portable cluster size), which reaches H = 543.
+//     * H past 543 (gru_fwd_wide<true>, the spilling kind): a cluster of 16
+//       whose slices (3U columns, H rows: 914 KB at H = 1104) no block
+//       holds.  Each block keeps rows [0, R) of its slice in shared memory,
+//       R the most that fit beside the step's vectors (394 of 752, 266 of
+//       1104), and reads rows [R, H) every step from a packed copy in
+//       device memory (gru_pack_spill, run before the recurrence on the
+//       same stream): a K slice's threads read a row's 3U floats together,
+//       and every cluster's rank c reads the same copy, so L2 (50 MB) holds
+//       it once for all sequences (11.1 MB at H = 1104).  Each K slice takes
+//       an equal share of the shared rows and of the spilled ones; the gates
+//       and the carry's exchange are the wide kind's.  A step then moves
+//       16 (H - R) 3U floats from L2 a sequence (11.1 MB at H = 1104), which
+//       sets its time.  Up to H = 5456, where 3U reaches the block's 1024
+//       threads.
 //     When a gradient is wanted both write, per step, the gates r, z, n, the
 //     recurrent candidate term hn and the carry before the step (5H floats;
 //     42 MB at B=32, T=515, H=128), so that the backward never repeats the
@@ -101,6 +115,11 @@
 //       unit (a reduce-scatter through distributed shared memory,
 //       double-buffered); the owner adds the C partials at the start of
 //       the next step.  Two block barriers and one cluster barrier a step.
+//     * H past 543 (gru_bwd_wide<true>): the forward's spilling split on the
+//       backward's slice: rows [0, R) in shared memory, rows [R, H) from a
+//       packed copy laid out by column (a warp's threads, one a row, read a
+//       column's rows together); one column slice, a thread a row (rows
+//       tid, tid + 1024, ... past H = 1024).
 //     The weight gradients dWx = xs^T dgx, dWh = h_prev^T dgh, db = sum dgx
 //     and dxs = dgx Wx^T are large independent products that the wrapper
 //     leaves to cuBLAS, as the JAX package leaves them to XLA.  Bound:
@@ -108,8 +127,9 @@
 //     and ~100 MB of saved state and outputs, so ~0.03 ms; the 515
 //     dependent steps set the time.
 //
-// The wrapper chooses the kernel from H (`kind`, and for the wide kind the
-// cluster size); a kind that does not fit the shape is refused with
+// The wrapper chooses the kernel from H (`kind`, and for the wide kinds the
+// cluster size, for the spilling kind also R and the packed copy's
+// scratch); a kind that does not fit the shape is refused with
 // cudaErrorInvalidValue, never replaced.
 //
 // Plain C interface (bound with ctypes); the launch goes on the caller's
@@ -384,7 +404,9 @@ constexpr int kMaxCluster = 16;
 // header): U units a rank, their G = 3U gate columns of Wh in rows ld
 // floats apart (3U made odd: the backward's threads walk down a column, and
 // an odd stride puts a warp's 32 rows in 32 banks), the forward's K slices
-// KS and the backward's column slices JS.
+// KS and the backward's column slices JS.  The spilling kind keeps R of the
+// slice's H rows in shared memory and the other H - R in a packed copy in
+// device memory (gru_pack_spill); the wide kind all H.
 struct WideShape {
   int U, G, ld, KS, JS;
   __host__ __device__ WideShape(int H, int C)
@@ -395,40 +417,71 @@ struct WideShape {
         JS(kWideThreads / H > 0 ? kWideThreads / H : 1) {}
 };
 
-// Rank c's slice of Wh (H, 3H) into w_s (H, ld): column g U + u is Wh's
-// column g H + c U + u, zero past the last unit.
+// Rows [0, R) of rank c's slice of Wh (H, 3H) into w_s (R, ld): column
+// g U + u is Wh's column g H + c U + u, zero past the last unit.
 __device__ __forceinline__ void load_wide_slice(float* w_s, const float* __restrict__ wh,
-                                                int H, int c, const WideShape& ws) {
-  for (int i = threadIdx.x; i < H * ws.G; i += blockDim.x) {
+                                                int H, int R, int c, const WideShape& ws) {
+  for (int i = threadIdx.x; i < R * ws.G; i += blockDim.x) {
     const int k = i / ws.G, j = i - k * ws.G;
     const int g = j / ws.U, unit = c * ws.U + (j - g * ws.U);
     w_s[k * ws.ld + j] = unit < H ? wh[(size_t)k * 3 * H + g * H + unit] : 0.f;
   }
 }
 
+// Rows [R, H) of every rank's slice, packed: spill[c][k - R][j] for the
+// forward (by_column = 0: a K slice's threads, one a column, read a row's
+// G floats together) and spill[c][j][k - R] for the backward (by_column =
+// 1: its threads, one a row, read a column's rows together).  Run before
+// each spilling launch, on the same stream; every cluster's rank c then
+// reads the same S x G floats a step, which L2 keeps (the C slices are C S
+// 3U floats in all: 11.1 MB at H = 1104).
+__global__ void gru_pack_spill(const float* __restrict__ wh, float* __restrict__ spill,
+                               int H, int C, int rows, int by_column) {
+  const WideShape ws(H, C);
+  const int S = H - rows;
+  const size_t per = (size_t)S * ws.G, n = per * C;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(i / per), e = (int)(i - c * per);
+    const int k = rows + (by_column ? e % S : e / ws.G);
+    const int j = by_column ? e / S : e % ws.G;
+    const int g = j / ws.U, unit = c * ws.U + (j - g * ws.U);
+    spill[i] = unit < H ? wh[(size_t)k * 3 * H + g * H + unit] : 0.f;
+  }
+}
+
+// kSpill: rows [R, H) of the slice from `spill` (gru_pack_spill, by row),
+// each K slice taking an equal share of the shared rows and of the spilled
+// ones; else R = H, and `spill` and `rows` are unread.
+template <bool kSpill>
 __global__ void __launch_bounds__(kWideThreads, 1)
 gru_fwd_wide(const float* __restrict__ gx, const float* __restrict__ wh,
-             const float* __restrict__ mask, float* __restrict__ out,
-             float* __restrict__ gates, float* __restrict__ hprev, int T, int H,
-             int reverse) {
+             const float* __restrict__ spill, const float* __restrict__ mask,
+             float* __restrict__ out, float* __restrict__ gates,
+             float* __restrict__ hprev, int T, int H, int rows, int reverse) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
   const WideShape ws(H, C);
   const int U = ws.U, G = ws.G;
-  float* w_s = smem;               // (H, ld) this rank's columns of Wh
-  float* h_s = w_s + H * ws.ld;    // (2, H) the carry, double-buffered
+  const int R = kSpill ? rows : H, S = H - R;
+  float* w_s = smem;               // (R, ld) this rank's columns of Wh
+  float* h_s = w_s + R * ws.ld;    // (2, H) the carry, double-buffered
   float* part_s = h_s + 2 * H;     // (KS, G) the K slices' sums
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)(blockIdx.x / C) * T;
 
-  load_wide_slice(w_s, wh, H, c, ws);
+  load_wide_slice(w_s, wh, H, R, c, ws);
   for (int i = tid; i < H; i += blockDim.x) h_s[i] = 0.f;
 
-  // Product thread: column j over the rows [k0, k1) of slice ks.
+  // Product thread: column j over the shared rows [k0, k1) of slice ks
+  // and (kSpill) the spilled rows R + [q0, q1).
   const int j = tid % G, ks = tid / G;
-  const int kl = (H + ws.KS - 1) / ws.KS;
-  const int k0 = ks * kl, k1 = min(H, k0 + kl);
+  const int kl = (R + ws.KS - 1) / ws.KS;
+  const int k0 = ks * kl, k1 = min(R, k0 + kl);
+  const int ql = (S + ws.KS - 1) / ws.KS;
+  const int q0 = ks * ql, q1 = min(S, q0 + ql);
+  const float* wq = kSpill ? spill + (size_t)c * S * G + j : nullptr;
   const bool prod = ks < ws.KS;
   // Gate thread: unit c U + tid, its gx and mask value a step ahead.
   const int unit = c * U + tid;
@@ -455,6 +508,11 @@ gru_fwd_wide(const float* __restrict__ gx, const float* __restrict__ wh,
       const float* w = w_s + j;
 #pragma unroll 4
       for (int k = k0; k < k1; ++k) acc = fmaf(hc[k], w[k * ws.ld], acc);
+      if constexpr (kSpill) {
+        const float* hq = hc + R;
+#pragma unroll 16
+        for (int k = q0; k < q1; ++k) acc = fmaf(hq[k], __ldg(wq + (size_t)k * G), acc);
+      }
       part_s[ks * G + j] = acc;
     }
     __syncthreads();
@@ -493,24 +551,31 @@ gru_fwd_wide(const float* __restrict__ gx, const float* __restrict__ wh,
   }
 }
 
+// kSpill: rows [R, H) of the slice from `spill` (gru_pack_spill, by
+// column); H > 512 there, so one column slice (JS = 1) and a thread a row,
+// the rows tid, tid + 1024, ...; else R = H, and `spill` and `rows` are
+// unread.
+template <bool kSpill>
 __global__ void __launch_bounds__(kWideThreads, 1)
 gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
              const float* __restrict__ hprev, const float* __restrict__ wh,
-             const float* __restrict__ mask, float* __restrict__ dgx,
-             float* __restrict__ dgh, int T, int H, int reverse) {
+             const float* __restrict__ spill, const float* __restrict__ mask,
+             float* __restrict__ dgx, float* __restrict__ dgh, int T, int H, int rows,
+             int reverse) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
   const WideShape ws(H, C);
   const int U = ws.U, G = ws.G;
-  float* w_s = smem;                  // (H, ld) this rank's columns of Wh
-  float* d_s = w_s + H * ws.ld;       // (G,) this step's dgh of those columns
+  const int R = kSpill ? rows : H, S = H - R;
+  float* w_s = smem;                  // (R, ld) this rank's columns of Wh
+  float* d_s = w_s + R * ws.ld;       // (G,) this step's dgh of those columns
   float* recv_s = d_s + G;            // (2, C, U) each rank's partial dh_prev
   float* loc_s = recv_s + 2 * C * U;  // (JS, H) the column slices' sums
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)(blockIdx.x / C) * T;
 
-  load_wide_slice(w_s, wh, H, c, ws);
+  load_wide_slice(w_s, wh, H, R, c, ws);
   for (int i = tid; i < G; i += blockDim.x) d_s[i] = 0.f;
   for (int i = tid; i < C * U; i += blockDim.x) recv_s[i] = 0.f;
 
@@ -519,6 +584,7 @@ gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
   const int jl = (G + ws.JS - 1) / ws.JS;
   const int j0 = js * jl, j1 = min(G, j0 + jl);
   const bool prod = js < ws.JS;
+  const float* wq = kSpill ? spill + (size_t)c * G * S : nullptr;
   // Gate thread: unit c U + tid, its saved gates, carry, output gradient
   // and mask value a step ahead.
   const int unit = c * U + tid;
@@ -568,7 +634,21 @@ gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
       dhc = (1.f - m) * dh_t + dh_new * z;
     }
     __syncthreads();
-    if (prod) {
+    if constexpr (kSpill) {
+      for (int kk = tid; kk < H; kk += kWideThreads) {
+        float acc = 0.f;
+        if (kk < R) {
+          const float* w = w_s + kk * ws.ld;
+#pragma unroll 4
+          for (int jj = 0; jj < G; ++jj) acc = fmaf(d_s[jj], w[jj], acc);
+        } else {
+          const float* w = wq + (kk - R);
+#pragma unroll 16
+          for (int jj = 0; jj < G; ++jj) acc = fmaf(d_s[jj], __ldg(w + (size_t)jj * S), acc);
+        }
+        loc_s[kk] = acc;
+      }
+    } else if (prod) {
       float acc = 0.f;
       const float* w = w_s + k * ws.ld;
 #pragma unroll 4
@@ -576,7 +656,13 @@ gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
       loc_s[js * H + k] = acc;
     }
     __syncthreads();
-    if (tid < H) {
+    if constexpr (kSpill) {  // one column slice: each row's sum is whole
+      for (int kk = tid; kk < H; kk += kWideThreads) {
+        const int owner = kk / U;
+        float* dst = recv_s + ((s + 1) & 1) * C * U + c * U + (kk - owner * U);
+        *cluster.map_shared_rank(dst, owner) = loc_s[kk];
+      }
+    } else if (tid < H) {
       float p = 0.f;
       for (int q = 0; q < ws.JS; ++q) p += loc_s[q * H + tid];
       const int owner = tid / U;
@@ -863,7 +949,7 @@ gru_bwd_h128(const float* __restrict__ dout, const float* __restrict__ gates,
 extern "C" {
 
 // Which kernel runs a recurrence; the wrapper chooses from H.
-enum { SSTTS_GRU_GENERIC = 0, SSTTS_GRU_H128 = 1, SSTTS_GRU_WIDE = 2 };
+enum { SSTTS_GRU_GENERIC = 0, SSTTS_GRU_H128 = 1, SSTTS_GRU_WIDE = 2, SSTTS_GRU_SPILL = 3 };
 
 // Dynamic shared memory of the generic kernels at width H.
 int sstts_gru_smem_bytes(int H) { return (H * 3 * H + H + 6 * H) * 4; }
@@ -871,15 +957,16 @@ int sstts_gru_smem_bytes(int H) { return (H * 3 * H + H + 6 * H) * 4; }
 int sstts_gru_bwd_smem_bytes(int H) { return (3 * H * H + 8 * H) * 4; }
 
 // Dynamic shared memory of one block of the wide kernels at width H in a
-// cluster of C (the layouts of gru_fwd_wide and gru_bwd_wide).
-int sstts_gru_wide_smem_bytes(int H, int C) {
+// cluster of C with R rows of its slice in shared memory (the layouts of
+// gru_fwd_wide and gru_bwd_wide; R = H but for the spilling kind).
+int sstts_gru_wide_smem_bytes(int H, int C, int R) {
   const WideShape ws(H, C);
-  return (H * ws.ld + 2 * H + ws.KS * ws.G) * 4;
+  return (R * ws.ld + 2 * H + ws.KS * ws.G) * 4;
 }
 
-int sstts_gru_wide_bwd_smem_bytes(int H, int C) {
+int sstts_gru_wide_bwd_smem_bytes(int H, int C, int R) {
   const WideShape ws(H, C);
-  return (H * ws.ld + ws.G + 2 * C * ws.U + ws.JS * H) * 4;
+  return (R * ws.ld + ws.G + 2 * C * ws.U + ws.JS * H) * 4;
 }
 
 }  // extern "C"
@@ -931,23 +1018,46 @@ int launch_wide(void (*kernel)(Params...), int B, int C, int smem, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
+// The spilling kind's R: 1 <= R <= H (the backward keeps all H rows at a
+// few widths past 543 where the forward cannot), and `spill` given where
+// R < H.
+bool spill_args(int H, int rows, const float* spill) {
+  return rows >= 1 && rows <= H && (rows == H || spill != nullptr);
+}
+
+// Packs rows [R, H) of every rank's slice into `spill` (gru_pack_spill);
+// nothing where R = H.
+int pack_spill(const float* wh, float* spill, int H, int C, int rows, int by_column,
+               cudaStream_t st) {
+  if (C < 2 || C > kMaxCluster) return (int)cudaErrorInvalidValue;
+  const size_t n = (size_t)C * (H - rows) * WideShape(H, C).G;
+  if (n == 0) return 0;
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  gru_pack_spill<<<blocks, 256, 0, st>>>(wh, spill, H, C, rows, by_column);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// How many clusters of the wide forward (backward: 1) kernel at width H
-// and cluster size C the card holds at once, or minus a CUDA error code.
-int sstts_gru_wide_active_clusters(int H, int C, int backward) {
+// How many clusters of the wide forward (backward: 1) kernel at width H,
+// cluster size C and R rows in shared memory (R < H: the spilling kind) the
+// card holds at once, or minus a CUDA error code.
+int sstts_gru_wide_active_clusters(int H, int C, int R, int backward) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int clusters = 0;
   cudaError_t err;
+  const bool spill = R < H;
   if (backward) {
-    err = wide_config(gru_bwd_wide, 1, C, sstts_gru_wide_bwd_smem_bytes(H, C), 0, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, gru_bwd_wide, &cfg);
+    auto kernel = spill ? gru_bwd_wide<true> : gru_bwd_wide<false>;
+    err = wide_config(kernel, 1, C, sstts_gru_wide_bwd_smem_bytes(H, C, R), 0, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   } else {
-    err = wide_config(gru_fwd_wide, 1, C, sstts_gru_wide_smem_bytes(H, C), 0, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, gru_fwd_wide, &cfg);
+    auto kernel = spill ? gru_fwd_wide<true> : gru_fwd_wide<false>;
+    err = wide_config(kernel, 1, C, sstts_gru_wide_smem_bytes(H, C, R), 0, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
   }
   return err == cudaSuccess ? clusters : -(int)err;
 }
@@ -964,13 +1074,23 @@ int sstts_gru_input_proj(const float* xs, const float* wx, const float* b,
 
 // The forward recurrence over gx (B, T, 3H); see sstts_gru_sequence.
 int sstts_gru_recurrence(const float* gx, const float* wh, const float* mask,
-                         float* out, float* gates, float* hprev, int B, int T,
-                         int H, int reverse, int kind, int cluster, void* stream) {
+                         float* out, float* gates, float* hprev, float* spill, int B,
+                         int T, int H, int reverse, int kind, int cluster, int rows,
+                         void* stream) {
   if (B == 0 || T == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (kind == SSTTS_GRU_WIDE)
-    return launch_wide(gru_fwd_wide, B, cluster, sstts_gru_wide_smem_bytes(H, cluster), st,
-                       gx, wh, mask, out, gates, hprev, T, H, reverse);
+    return launch_wide(gru_fwd_wide<false>, B, cluster,
+                       sstts_gru_wide_smem_bytes(H, cluster, H), st, gx, wh,
+                       (const float*)nullptr, mask, out, gates, hprev, T, H, H, reverse);
+  if (kind == SSTTS_GRU_SPILL) {
+    if (!spill_args(H, rows, spill)) return (int)cudaErrorInvalidValue;
+    const int rc = pack_spill(wh, spill, H, cluster, rows, 0, st);
+    if (rc != 0) return rc;
+    return launch_wide(gru_fwd_wide<true>, B, cluster,
+                       sstts_gru_wide_smem_bytes(H, cluster, rows), st, gx, wh,
+                       (const float*)spill, mask, out, gates, hprev, T, H, rows, reverse);
+  }
   if (kind == SSTTS_GRU_H128) {
     if (H != kH) return (int)cudaErrorInvalidValue;
     if (gates)
@@ -996,32 +1116,45 @@ int sstts_gru_recurrence(const float* gx, const float* wh, const float* mask,
 // xs (B, T, D), wx (D, 3H), wh (H, 3H), b (3H), mask (B, T) or NULL, all
 // f32 and contiguous (16-byte aligned); gx_scratch (B, T, 3H) f32; out
 // (B, T, H) f32; gates (B, T, 4H) and hprev (B, T, H) f32, or both NULL
-// when no gradient is wanted.  `cluster` is the wide kind's C (else unread).
+// when no gradient is wanted.  `cluster` is the wide kinds' C (else
+// unread); `rows` the spilling kind's R and `spill` its scratch, C (H - R)
+// 3U floats (else unread).
 int sstts_gru_sequence(const float* xs, const float* wx, const float* wh,
                        const float* b, const float* mask, float* gx_scratch,
-                       float* out, float* gates, float* hprev, int B, int T,
-                       int D, int H, int reverse, int kind, int cluster,
-                       void* stream) {
+                       float* out, float* gates, float* hprev, float* spill, int B,
+                       int T, int D, int H, int reverse, int kind, int cluster,
+                       int rows, void* stream) {
   const int rc =
       sstts_gru_input_proj(xs, wx, b, gx_scratch, B * T, D, 3 * H, stream);
   if (rc != 0) return rc;
-  return sstts_gru_recurrence(gx_scratch, wh, mask, out, gates, hprev, B, T,
-                              H, reverse, kind, cluster, stream);
+  return sstts_gru_recurrence(gx_scratch, wh, mask, out, gates, hprev, spill, B, T,
+                              H, reverse, kind, cluster, rows, stream);
 }
 
 // dout (B, T, H), gates (B, T, 4H), hprev (B, T, H) from the forward, wh
 // (H, 3H), mask (B, T) or NULL, all f32 and contiguous (16-byte aligned);
-// dgx and dgh (B, T, 3H) f32 outputs.
+// dgx and dgh (B, T, 3H) f32 outputs; `spill` and `rows` as in
+// sstts_gru_sequence (the backward's own R).
 int sstts_gru_sequence_backward(const float* dout, const float* gates,
                                 const float* hprev, const float* wh,
                                 const float* mask, float* dgx, float* dgh,
-                                int B, int T, int H, int reverse, int kind,
-                                int cluster, void* stream) {
+                                float* spill, int B, int T, int H, int reverse,
+                                int kind, int cluster, int rows, void* stream) {
   if (B == 0 || T == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (kind == SSTTS_GRU_WIDE)
-    return launch_wide(gru_bwd_wide, B, cluster, sstts_gru_wide_bwd_smem_bytes(H, cluster), st,
-                       dout, gates, hprev, wh, mask, dgx, dgh, T, H, reverse);
+    return launch_wide(gru_bwd_wide<false>, B, cluster,
+                       sstts_gru_wide_bwd_smem_bytes(H, cluster, H), st, dout, gates,
+                       hprev, wh, (const float*)nullptr, mask, dgx, dgh, T, H, H, reverse);
+  if (kind == SSTTS_GRU_SPILL) {
+    if (!spill_args(H, rows, spill)) return (int)cudaErrorInvalidValue;
+    const int rc = pack_spill(wh, spill, H, cluster, rows, 1, st);
+    if (rc != 0) return rc;
+    return launch_wide(gru_bwd_wide<true>, B, cluster,
+                       sstts_gru_wide_bwd_smem_bytes(H, cluster, rows), st, dout, gates,
+                       hprev, wh, (const float*)spill, mask, dgx, dgh, T, H, rows,
+                       reverse);
+  }
   if (kind == SSTTS_GRU_H128) {
     if (H != kH) return (int)cudaErrorInvalidValue;
     gru_bwd_h128<<<B, kThreads, 0, st>>>(dout, gates, hprev, wh, mask, dgx,

@@ -8,16 +8,19 @@ kernels in `sstts_torch/csrc/gru.cu`, or raises.  There is no fallback from
 one to the other.  Layouts match the JAX package: xs (B, T, D), wx (D, 3H),
 wh (H, 3H), b (3H,), mask (B, T), gate order r, z, n.
 
-On the card the recurrences come in three kinds, chosen here from H alone
+On the card the recurrences come in four kinds, chosen here from H alone
 (`kernel_config`, before any launch): at H = 128, the width of every GRU at
 the default `Config()`, kernels that hold Wh in registers; at any other H up
 to 137, generic kernels that hold Wh in one block's shared memory; past
 137, wide kernels that split Wh over a thread-block cluster of C blocks
-(the smallest C up to 16 whose block fits, `wide_smem_bytes`), up to
-`MAX_HIDDEN` = 543.  None stands in for another: a kernel that fails to
-build or launch raises.  `check_width` refuses a GRU wider than MAX_HIDDEN
-with NotImplementedError, from the entry points' checks (`check_arch`)
-before anything is launched and again at each launch.
+(the smallest C up to 16 whose block fits, `wide_smem_bytes`), up to 543;
+past 543, the spilling kind: the wide kernels on a cluster of 16 whose
+blocks keep the first R rows of their slice of Wh in shared memory
+(`smem_rows`) and read the others each step from a packed copy in device
+memory, up to `MAX_HIDDEN` = 5456.  None stands in for another: a kernel
+that fails to build or launch raises.  `check_width` refuses a GRU wider
+than MAX_HIDDEN with NotImplementedError, from the entry points' checks
+(`check_arch`) before anything is launched and again at each launch.
 
 Gradient: when grad mode is on and an input requires grad, the call goes
 through `_GRUSequence`, an `autograd.Function`.  Its forward also keeps the
@@ -40,17 +43,17 @@ from sstts_torch.ops import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "sstts_gru_sequence": ([_P] * 9 + [_I] * 7 + [_P], _I),
-    "sstts_gru_sequence_backward": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    "sstts_gru_sequence": ([_P] * 10 + [_I] * 8 + [_P], _I),
+    "sstts_gru_sequence_backward": ([_P] * 8 + [_I] * 7 + [_P], _I),
     "sstts_gru_input_proj": ([_P] * 4 + [_I] * 3 + [_P], _I),
-    "sstts_gru_recurrence": ([_P] * 6 + [_I] * 6 + [_P], _I),
-    "sstts_gru_wide_smem_bytes": ([_I] * 2, _I),
-    "sstts_gru_wide_bwd_smem_bytes": ([_I] * 2, _I),
-    "sstts_gru_wide_active_clusters": ([_I] * 3, _I),
+    "sstts_gru_recurrence": ([_P] * 7 + [_I] * 7 + [_P], _I),
+    "sstts_gru_wide_smem_bytes": ([_I] * 3, _I),
+    "sstts_gru_wide_bwd_smem_bytes": ([_I] * 3, _I),
+    "sstts_gru_wide_active_clusters": ([_I] * 4, _I),
 }
 
 #: The `kind` argument of the C entry points (SSTTS_GRU_* in csrc/gru.cu).
-KIND_GENERIC, KIND_H128, KIND_WIDE = 0, 1, 2
+KIND_GENERIC, KIND_H128, KIND_WIDE, KIND_SPILL = 0, 1, 2, 3
 
 #: Threads of a wide block and the largest cluster (kWideThreads and
 #: kMaxCluster in csrc/gru.cu).
@@ -64,19 +67,36 @@ def generic_smem_bytes(hidden: int) -> Tuple[int, int]:
     return (3 * hidden * hidden + 7 * hidden) * 4, (3 * hidden * hidden + 8 * hidden) * 4
 
 
-def wide_smem_bytes(hidden: int, cluster: int) -> Tuple[int, int]:
+def wide_smem_bytes(hidden: int, cluster: int,
+                    rows: Optional[Tuple[int, int]] = None) -> Tuple[int, int]:
     """Shared memory of one block of the wide forward and backward
     recurrences at width H in a cluster of C, as `sstts_gru_wide_smem_bytes`
     and `sstts_gru_wide_bwd_smem_bytes` in csrc/gru.cu count it (its
-    `WideShape`): the block's U = ceil(H / C) units' 3U columns of Wh in rows
-    of 3U | 1 floats, and the step's vectors, f32."""
+    `WideShape`): `rows` (forward, backward; all H by default) of the
+    block's U = ceil(H / C) units' 3U columns of Wh in rows of 3U | 1
+    floats, and the step's vectors, f32."""
+    r_fwd, r_bwd = (hidden, hidden) if rows is None else rows
     units = -(-hidden // cluster)
     cols = 3 * units
     ld = cols | 1
     k_slices = WIDE_THREADS // cols
     col_slices = max(1, WIDE_THREADS // hidden)
-    return ((hidden * ld + 2 * hidden + k_slices * cols) * 4,
-            (hidden * ld + cols + 2 * cluster * units + col_slices * hidden) * 4)
+    return ((r_fwd * ld + 2 * hidden + k_slices * cols) * 4,
+            (r_bwd * ld + cols + 2 * cluster * units + col_slices * hidden) * 4)
+
+
+def _spill_rows(hidden: int) -> Optional[Tuple[int, int]]:
+    """The spilling kind's R, forward and backward, at width H in a cluster
+    of 16: the most rows of a block's slice, up to H, that fit beside the
+    step's vectors; None unless its 3U columns fit the block's threads and
+    both hold a row."""
+    cols = 3 * -(-hidden // MAX_CLUSTER)
+    if cols > WIDE_THREADS:
+        return None
+    row_bytes = (cols | 1) * 4
+    rows = tuple(min(hidden, (build.MAX_SMEM - fixed) // row_bytes)
+                 for fixed in wide_smem_bytes(hidden, MAX_CLUSTER, (0, 0)))
+    return rows if min(rows) >= 1 else None
 
 
 def _config(hidden: int) -> Optional[Tuple[int, int]]:
@@ -87,26 +107,42 @@ def _config(hidden: int) -> Optional[Tuple[int, int]]:
     for cluster in range(2, MAX_CLUSTER + 1):
         if max(wide_smem_bytes(hidden, cluster)) <= build.MAX_SMEM:
             return KIND_WIDE, cluster
+    if _spill_rows(hidden) is not None:
+        return KIND_SPILL, MAX_CLUSTER
     return None
 
 
-#: The widest H a kind of kernel takes (543: the wide kind at C = 16).
-MAX_HIDDEN = max(h for h in range(1, 1024) if _config(h) is not None)
+#: The widest H a kind of kernel takes (5456: the spilling kind, where a
+#: block's 3U gate columns reach its 1024 threads).
+MAX_HIDDEN = next(h for h in range(MAX_CLUSTER * (WIDE_THREADS // 3) + 1, 0, -1)
+                  if _config(h) is not None)
 
 
 def kernel_config(hidden: int) -> Tuple[int, int]:
     """(kind, cluster size) of the CUDA recurrences at width H: the
     register-resident kernels at H = 128, the generic ones where their block
-    fits (H up to 137), else the wide ones on the smallest cluster whose
-    block fits.  NotImplementedError past MAX_HIDDEN (ROADMAP B.3).  A pure
-    function of H: nothing is built or launched."""
+    fits (H up to 137), the wide ones on the smallest cluster whose block
+    fits (up to 543), else the spilling kind on a cluster of 16 (its rows in
+    shared memory: `smem_rows`).  NotImplementedError past MAX_HIDDEN.  A
+    pure function of H: nothing is built or launched."""
     config = _config(hidden)
     if config is None:
         raise NotImplementedError(
-            f"the gru_sequence CUDA kernels take H up to {MAX_HIDDEN}; this GRU "
-            f"has H={hidden} (a wider kernel is ROADMAP B.3)"
+            f"the gru_sequence CUDA kernels take H up to MAX_HIDDEN = {MAX_HIDDEN}, "
+            f"where a block's {3 * -(-MAX_HIDDEN // MAX_CLUSTER)} gate columns fill its "
+            f"{WIDE_THREADS} threads; this GRU has H={hidden}"
         )
     return config
+
+
+def smem_rows(hidden: int) -> Tuple[int, int]:
+    """Rows of a block's slice of Wh that the forward and the backward keep
+    in shared memory at width H: all H but for the spilling kind, whose
+    other rows come from a packed copy in device memory.  A pure function
+    of H, as `kernel_config`."""
+    if kernel_config(hidden)[0] == KIND_SPILL:
+        return _spill_rows(hidden)
+    return hidden, hidden
 
 
 def check_width(hidden: int, device) -> None:
@@ -252,6 +288,15 @@ def _load(hidden: int):
     return build.load("gru", SIGNATURES), kernel_config(hidden)
 
 
+def _spill(hidden: int, kind: int, rows: int, dev) -> Optional[torch.Tensor]:
+    """The spilling kind's scratch for the packed rows [R, H) of every
+    rank's slice (16 (H - R) 3U floats), else None."""
+    if kind != KIND_SPILL or rows == hidden:
+        return None
+    cols = 3 * -(-hidden // MAX_CLUSTER)
+    return torch.empty(MAX_CLUSTER * (hidden - rows) * cols, device=dev, dtype=torch.float32)
+
+
 def _mask_f32(mask, dev):
     return None if mask is None else mask.to(dev, torch.float32).contiguous()
 
@@ -278,10 +323,12 @@ def _kernel(xs, wx, wh, b, mask, reverse, save: bool):
     out = torch.empty(batch, t_len, hidden, **f32)
     gates = torch.empty(batch, t_len, 4 * hidden, **f32) if save else None
     hprev = torch.empty(batch, t_len, hidden, **f32) if save else None
+    rows = smem_rows(hidden)[0]
+    spill = _spill(hidden, kind, rows, dev)
     rc = lib.sstts_gru_sequence(
         xs_c.data_ptr(), wx_c.data_ptr(), wh_c.data_ptr(), b_c.data_ptr(),
-        _ptr(m_c), gx.data_ptr(), out.data_ptr(), _ptr(gates), _ptr(hprev),
-        batch, t_len, d_in, hidden, int(bool(reverse)), kind, cluster,
+        _ptr(m_c), gx.data_ptr(), out.data_ptr(), _ptr(gates), _ptr(hprev), _ptr(spill),
+        batch, t_len, d_in, hidden, int(bool(reverse)), kind, cluster, rows,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "gru_sequence")
@@ -319,10 +366,12 @@ def gru_sequence_backward(
     m_c = _mask_f32(mask, dev)
     dgx = torch.empty(batch, t_len, 3 * hidden, device=dev, dtype=torch.float32)
     dgh = torch.empty_like(dgx)
+    rows = smem_rows(hidden)[1]
+    spill = _spill(hidden, kind, rows, dev)
     rc = lib.sstts_gru_sequence_backward(
         dout_c.data_ptr(), gates_c.data_ptr(), hprev_c.data_ptr(),
-        wh_c.data_ptr(), _ptr(m_c), dgx.data_ptr(), dgh.data_ptr(),
-        batch, t_len, hidden, int(bool(reverse)), kind, cluster,
+        wh_c.data_ptr(), _ptr(m_c), dgx.data_ptr(), dgh.data_ptr(), _ptr(spill),
+        batch, t_len, hidden, int(bool(reverse)), kind, cluster, rows,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "gru_sequence_backward")

@@ -98,9 +98,9 @@ def check_supported(cfg: Config, device: torch.device) -> str:
     returns the decoder's ("fused" or "xla",
     `sstts_torch.ops.decoder.resolve_decoder_impl`).  Every architecture the
     reference's model accepts is accepted; on the card a BiGRU wider than
-    B3 takes (H above 543, ROADMAP B.3) and a Griffin-Lim geometry beyond
-    B2's and B5's (n_fft above 2048, more than 16 overlapping frames a
-    side) raise NotImplementedError."""
+    B3 takes (H above 5456, `ops/gru.py:MAX_HIDDEN`) and a Griffin-Lim
+    geometry beyond B2's and B5's (n_fft above 2048, more than 16
+    overlapping frames a side) raise NotImplementedError."""
     a, inf = cfg.arch, cfg.inference
     if inf.wire_format not in dsp_ops.WIRE_FORMATS:
         raise ValueError(

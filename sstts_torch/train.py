@@ -121,7 +121,7 @@ def check_trainable(cfg: Config, device: Optional[torch.device] = None) -> None:
     """Raise for training settings this port does not implement (ROADMAP A
     names each); with a `device`, also check the BiGRUs' widths and
     resolve the teacher-forced scan there, before anything is launched (on
-    the card a BiGRU wider than B3 takes, H above 543, raises
+    the card a BiGRU wider than B3 takes, H above 5456, raises
     NotImplementedError; B6 takes any width)."""
     a, t = cfg.arch, cfg.training
     if device is not None:

@@ -1,7 +1,7 @@
 """Which implementation runs where: `resolve_decoder_impl` and
 `resolve_teacher_impl` over every override, architecture and device, held
 to the reference's own resolvers, and the kernels' widths (B3's kind of
-kernel by `sstts_torch.ops.gru.kernel_config`, refused past H = 543; B4 and B6
+kernel by `sstts_torch.ops.gru.kernel_config`, refused past H = 5456; B4 and B6
 at any width).  Resolution is a pure function of the config and the device:
 nothing here needs a card or launches anything.
 
@@ -120,18 +120,20 @@ def test_wide_products_take_the_kernels_on_the_card(override):
 
 #: Widths and the kind of kernel each takes on the card (None: refused).
 _GRU_KINDS = {1: "generic", 16: "generic", 128: "h128", 137: "generic", 138: "wide",
-              160: "wide", 512: "wide", 544: None}
+              160: "wide", 512: "wide", 544: "spill", 752: "spill", 1104: "spill",
+              5457: None}
 
 
 @pytest.mark.parametrize("hidden", sorted(_GRU_KINDS))
 def test_gru_width_check(hidden):
-    """The card's GRU kernels take H up to MAX_HIDDEN (543): the register
+    """The card's GRU kernels take H up to MAX_HIDDEN (5456): the register
     kernels at 128, the generic ones up to 137, the wide ones (a cluster a
-    sequence) past it; a wider GRU raises NotImplementedError naming ROADMAP
-    B.3 on CUDA only, from `check_width` and from `check_arch` for either
-    CBHG's GRU."""
+    sequence) up to 543, the spilling ones (rows of Wh past shared memory
+    read from device memory) past it; a wider GRU raises
+    NotImplementedError naming MAX_HIDDEN on CUDA only, from `check_width`
+    and from `check_arch` for either CBHG's GRU."""
     kinds = {gru_ops.KIND_H128: "h128", gru_ops.KIND_GENERIC: "generic",
-             gru_ops.KIND_WIDE: "wide"}
+             gru_ops.KIND_WIDE: "wide", gru_ops.KIND_SPILL: "spill"}
     gru_ops.check_width(hidden, CPU)
     for field in ("encoder_gru_units", "post_gru_units"):
         arch = dataclasses.replace(tiny_config().arch, **{field: hidden})
@@ -143,16 +145,18 @@ def test_gru_width_check(hidden):
         else:
             for check in (lambda: gru_ops.check_width(hidden, CUDA),
                           lambda: gru_ops.check_arch(arch, CUDA)):
-                with pytest.raises(NotImplementedError, match=rf"H={hidden} .*ROADMAP B.3"):
+                with pytest.raises(NotImplementedError,
+                                   match=rf"MAX_HIDDEN = 5456, .*H={hidden}$"):
                     check()
 
 
 def test_gru_width_limit_follows_the_kernel_source():
     """`generic_smem_bytes` repeats csrc/gru.cu's two shared-memory counts,
     which both fit in a block up to H = 137; past it the wide kernels, whose
-    block size and largest cluster are the source's, reach MAX_HIDDEN =
-    543 (chip_smoke.py holds `wide_smem_bytes` to the library's count at
-    every wide H)."""
+    block size and largest cluster are the source's, reach 543, and the
+    spilling ones MAX_HIDDEN = 5456, where a block's 3U gate columns fill
+    its threads (chip_smoke.py holds `wide_smem_bytes` to the library's
+    count at every wide H)."""
     src = Path(build.CSRC / "gru.cu").read_text()
     formulas = [
         re.search(rf"int {name}\(int H\) {{ return (.*?); }}", src).group(1)
@@ -160,13 +164,16 @@ def test_gru_width_limit_follows_the_kernel_source():
     ]
     for h in (1, 16, 128, 137, 138, 160):
         assert gru_ops.generic_smem_bytes(h) == tuple(eval(f, {"H": h}) for f in formulas)
-    assert gru_ops.MAX_HIDDEN == 543
+    assert gru_ops.MAX_HIDDEN == 5456
+    assert 3 * -(-gru_ops.MAX_HIDDEN // gru_ops.MAX_CLUSTER) <= gru_ops.WIDE_THREADS
+    assert 3 * -(-(gru_ops.MAX_HIDDEN + 1) // gru_ops.MAX_CLUSTER) > gru_ops.WIDE_THREADS
     assert max(gru_ops.generic_smem_bytes(137)) <= build.MAX_SMEM
     assert max(gru_ops.generic_smem_bytes(138)) > build.MAX_SMEM
     for name, value in (("kWideThreads", gru_ops.WIDE_THREADS),
                         ("kMaxCluster", gru_ops.MAX_CLUSTER)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
     assert gru_ops.kernel_config(543) == (gru_ops.KIND_WIDE, 16)
+    assert gru_ops.kernel_config(544) == (gru_ops.KIND_SPILL, 16)
 
 
 def test_synthesizer_resolves_before_anything_runs():

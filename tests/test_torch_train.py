@@ -245,14 +245,15 @@ def test_unported_training_settings_raise():
     with pytest.raises(ValueError, match="model_parallel"):
         ptrain.create_state(cfg, device="cpu")
     # B3's width limit raises on the card before anything is launched
-    # (resolution needs no card): a BiGRU past H = 543.  The widths past the
-    # kernels' single-block limits are taken: B3's wide kind (H = 160), B6's
-    # column panels (a 1280-column query).
+    # (resolution needs no card): a BiGRU past H = 5456.  The widths past the
+    # kernels' single-block limits are taken: B3's wide kind (H = 160) and
+    # spilling kind (H = 752), B6's column panels (a 1280-column query).
     cuda = torch.device("cuda")
-    cfg = pcfg.replace(arch=dataclasses.replace(pcfg.arch, post_gru_units=544))
-    with pytest.raises(NotImplementedError, match="H=544"):
+    cfg = pcfg.replace(arch=dataclasses.replace(pcfg.arch, post_gru_units=5457))
+    with pytest.raises(NotImplementedError, match="H=5457"):
         ptrain.check_trainable(cfg, cuda)
-    for fields in ({"encoder_gru_units": 160}, {"attention_units": 1280}):
+    for fields in ({"encoder_gru_units": 160}, {"post_gru_units": 752},
+                   {"attention_units": 1280}):
         cfg = pcfg.replace(arch=dataclasses.replace(pcfg.arch, **fields))
         ptrain.check_trainable(cfg, cuda)
     # An LJSpeech corpus without its metadata.csv raises, as the JAX loader does.

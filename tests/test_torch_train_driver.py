@@ -7,20 +7,34 @@ The driver-parity test runs both packages' `train` at the default
 `device_corpus_cache="auto"` on the same synthetic corpus (one process:
 the waveforms' noise follows Python's per-process hash, the same for
 both), from the same init (the JAX init, converted), dropout off, for 4
-steps.  Tolerances, those of a multi-step run in
+steps at lr 2e-4.  Tolerances, those of a multi-step run in
 `tests/test_torch_train.py`: every logged train loss and the final eval
 losses within rtol 1e-3.  The final parameters: Adam's first updates are
 about -lr * sign(g), so a gradient near 0 can flip sign between two
 correct implementations, and a flipped parameter moves the other way by
 up to ~1.01 lr a step (Cauchy-Schwarz on Adam's moment weights over 4
-steps).  Measured over several runs of this comparison (the noise differs
-per process; one- and two-bucket corpora), 0-6%
-of the parameters lie beyond 1e-4 + 1e-3 |p| of JAX's, at most 2.8e-3
-apart, with a median difference of 3e-7 to 1.5e-5.  So every parameter
-lies within 2.1 lr a step of JAX's (1.68e-2 after 4 steps at lr 2e-3),
-and the median difference is at most lr / 20 (1e-4).  The fault this
-test was written for (other batches than JAX's at "auto") fails the
-first logged loss by 1.6%.
+steps); so every parameter lies within 2.1 lr a step of JAX's (1.68e-3
+after 4 steps) and the median difference is at most lr / 20 (1e-5).
+
+The learning rate is that of tests/test_torch_train_driver_modes.py, a
+tenth of the 2e-3 this test first ran at.  At 2e-3 it missed in 32 of 400
+string-hash seeds (`tests/torch_driver_sweep.py`), by up to 4.6e-3 in a
+step-4 loss; the trace of PYTHONHASHSEED=13: the step-1 losses agree to
+1.8e-7, but one linear output of the first batch lies 1.8e-6 above its L1
+target in the port and below it in JAX, so the L1 term's gradient there
+flips sign; the step-1 gradients then differ by 7.7e-4 (relative L2, all
+in the post-CBHG), 14 near-zero entries change sign, Adam moves those
+parameters 2 lr apart, and the losses part by 2.6e-4, 1.5e-3 and 4.6e-3
+over steps 2-4.  The port from an init moved by one ulp crosses the same
+kink and parts from the port by the same amounts, and the port with that
+one output moved across the kink in its first step stays within 1.7e-5 of
+JAX at every record: f32 noise, no port line at fault.  Other seeds (21)
+part later, where JAX itself parts by 7.5e-4 from a one-ulp move of its
+init.  At 2e-4 none of the 400 seeds missed (largest loss difference
+1.3e-4, parameters 8.3e-4 and median 1.1e-6 against their limits), and
+the fault this test was written for (other batches than JAX's at "auto")
+still fails it: the first logged loss by 1.6% (taken before any update,
+at any rate) at steps_per_call=1, the logged steps at 2.
 
 Torch runs on one thread in these modules: the tiny model gains nothing
 from more, and a test suite with one process per core oversubscribes.
@@ -46,6 +60,8 @@ from sstts_torch.tools import overfit_demo
 
 MAX_STEPS = 4
 LR = 2e-3
+#: The driver-parity test's learning rate (see the module docstring).
+PARITY_LR = 2e-4
 
 
 @pytest.fixture(autouse=True)
@@ -80,7 +96,8 @@ def _records(workdir, prefix):
 @pytest.mark.parametrize("steps_per_call", [1, 2])
 def test_driver_matches_jax_at_default_corpus_cache(tmp_path, monkeypatch, capsys,
                                                     steps_per_call):
-    jcfg, pcfg = _pair(((40,), (160,)), steps_per_call=steps_per_call)
+    jcfg, pcfg = _pair(((40,), (160,)), steps_per_call=steps_per_call,
+                       learning_rate=PARITY_LR)
     assert pcfg.training.device_corpus_cache == "auto"
     init = jtrain.create_state(jcfg)
     params0 = jax.tree.map(np.asarray, jax.device_get(init.params))
@@ -113,8 +130,8 @@ def test_driver_matches_jax_at_default_corpus_cache(tmp_path, monkeypatch, capsy
             g = g[k.key]
         diffs.append(np.abs(np.asarray(g) - np.asarray(r)).ravel())
     diffs = np.concatenate(diffs)
-    assert diffs.max() <= 2.1 * LR * MAX_STEPS, diffs.max()
-    assert np.median(diffs) <= LR / 20, np.median(diffs)
+    assert diffs.max() <= 2.1 * PARITY_LR * MAX_STEPS, diffs.max()
+    assert np.median(diffs) <= PARITY_LR / 20, np.median(diffs)
 
 
 def test_grouped_resume_lands_on_max_steps(tmp_path):

@@ -1,5 +1,7 @@
 """The recurrent kernels past their single-block widths, on the CPU: B3 and
-B3' past H = 137 (the wide kind, a thread-block cluster a sequence) and B4
+B3' past H = 137 (the wide kind, a thread-block cluster a sequence), past
+H = 543 (the spilling kind: the rows of each block's slice of Wh that
+shared memory cannot hold read from a packed copy in device memory) and B4
 and B6 past 1024 columns (products streamed in column panels).
 
 The kernels run only on the card (`chip_smoke.py` phase 2 holds them to
@@ -7,16 +9,18 @@ their plain versions at full size, phase 3i drives them through
 `Synthesizer` and `train`).  Here:
 
 * the plain versions at those widths against the JAX package's kernels in
-  interpret mode (the GRU and its gradient at H = 144 and 256; the decode
-  and the teacher-forced scan, and the scan's gradients, at a cell of 1152
-  columns);
+  interpret mode (the GRU and its gradient at H = 144 and 256, and at 560
+  and 752 with the model's D = 128; the decode and the teacher-forced scan,
+  and the scan's gradients, at a cell of 1152 columns);
 * a numpy replay of the wide GRU's split over a cluster (`WideShape` in
   csrc/gru.cu: each rank's columns of Wh, the forward's K slices and
   all-gather of the carry, the backward's column slices and reduce-scatter)
-  against the plain version;
+  against the plain version, and of the spilling kind's (the shared rows
+  and the packed copy's, `gru_pack_spill`) at H = 544, 752 and 1104;
 * a numpy replay of `chunk_schedule` as the ring's producer and consumers
   read it (stream.cuh: the copies, the panels, their columns);
-* the rule that picks the GRU's kernel from H (`kernel_config`).
+* the rule that picks the GRU's kernel from H (`kernel_config`), and the
+  reference kernel's reach, from its block shapes, against MAX_HIDDEN.
 
 Tolerances: f32 on both sides with sums in another order.  The GRU forward
 within 2e-5 and its gradient within atol 2e-5, rtol 1e-4 (test_torch_gru.py
@@ -31,6 +35,7 @@ Torch runs on one thread in this module.
 """
 
 import dataclasses
+import inspect
 import re
 
 import jax
@@ -42,6 +47,7 @@ import torch
 from torch_parity import t
 
 from sstts.ops import pallas_decoder as jpd
+from sstts.ops import pallas_gru as jpg
 from sstts.ops.pallas_gru import gru_sequence as jax_gru_sequence
 from sstts.ops.pallas_gru import gru_sequence_ad
 from sstts_torch.config import tiny_config
@@ -76,11 +82,18 @@ def gru_arrays(H, B=2, T=9, D=7, seed=0):
 # ------------------------------------------------------------------ B3, B3' --
 
 
+#: The widths held to the JAX package, the kind each takes on the card and
+#: its input width: past 543 the model's D = 128 (the highway width).
+WIDTHS = {144: (gru_ops.KIND_WIDE, 7), 256: (gru_ops.KIND_WIDE, 7),
+          560: (gru_ops.KIND_SPILL, 128), 752: (gru_ops.KIND_SPILL, 128)}
+
+
 @pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
-@pytest.mark.parametrize("H", [144, 256])
+@pytest.mark.parametrize("H", sorted(WIDTHS))
 def test_wide_gru_plain_matches_pallas(H, reverse):
-    x = gru_arrays(H)
-    assert gru_ops.kernel_config(H)[0] == gru_ops.KIND_WIDE
+    kind, D = WIDTHS[H]
+    x = gru_arrays(H, D=D)
+    assert gru_ops.kernel_config(H)[0] == kind
     got = gru_ops.gru_sequence(*(t(x[k]) for k in ("xs", "wx", "wh", "b", "mask")), reverse)
     ref = jax_gru_sequence(jnp.asarray(x["xs"]), x["wx"], x["wh"], x["b"],
                            jnp.asarray(x["mask"]), reverse=reverse, interpret=True)
@@ -88,11 +101,11 @@ def test_wide_gru_plain_matches_pallas(H, reverse):
     assert np.all(got.numpy()[x["mask"] == 0] == 0.0)
 
 
-@pytest.mark.parametrize("H", [144, 256])
+@pytest.mark.parametrize("H", sorted(WIDTHS))
 def test_wide_gru_gradient_matches_jax_vjp(H):
     """Masked and reversed: the port's Function (CPU backward: the backward
     kernel's explicit reverse loop) against jax.vjp of gru_sequence_ad."""
-    x = gru_arrays(H, seed=1)
+    x = gru_arrays(H, D=WIDTHS[H][1], seed=1)
     _, vjp = jax.vjp(
         lambda xs, wx, wh, b: gru_sequence_ad(xs, wx, wh, b, jnp.asarray(x["mask"]), True, True),
         *(jnp.asarray(x[k]) for k in ("xs", "wx", "wh", "b")),
@@ -124,14 +137,38 @@ def rank_slice(wh, H, C, c):
     return w
 
 
-def replay_wide_forward(gx, wh, mask, H, C, reverse):
+def pack_spill(wh, H, C, R, by_column):
+    """csrc/gru.cu's gru_pack_spill by its flat index rule: rows [R, H) of
+    every rank's slice, (C, H - R, G) by row or (C, G, H - R) by column."""
+    U, G, _, _, _ = wide_shape(H, C)
+    S = H - R
+    c, e = np.divmod(np.arange(C * S * G), S * G)
+    k = R + (e % S if by_column else e // G)
+    j = e // S if by_column else e % G
+    g, u = np.divmod(j, U)
+    unit = c * U + u
+    return np.where(unit < H, wh[k, g * H + np.minimum(unit, H - 1)], 0.0)
+
+
+def replay_wide_forward(gx, wh, mask, H, C, reverse, rows=None):
     """gru_fwd_wide's arithmetic for one sequence, rank by rank: each rank's
     K slices of its columns from the whole carry, its units' gates, the new
-    carry gathered into every rank.  Returns out (T, H)."""
+    carry gathered into every rank.  With `rows` = R < H (the spilling
+    kind) a slice takes its share of the shared rows [0, R) and of rows
+    [R, H), the latter read from gru_pack_spill's copy at the kernel's
+    offsets.  Returns out (T, H)."""
     U, G, ld, KS, _ = wide_shape(H, C)
+    R = H if rows is None else rows
+    S = H - R
     T = gx.shape[0]
-    kl = -(-H // KS)
-    w = [rank_slice(wh, H, C, c) for c in range(C)]
+    kl, ql = -(-R // KS), -(-S // KS)
+    w = [rank_slice(wh, H, C, c)[:R, :G] for c in range(C)]
+    spill = pack_spill(wh, H, C, R, False)
+
+    def spilled(c, q0, q1):  # rank c's packed rows R + [q0, q1), (q1 - q0, G)
+        base = c * S * G
+        return spill[base + q0 * G: base + q1 * G].reshape(q1 - q0, G)
+
     h = np.zeros(H)
     out = np.zeros((T, H))
     sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
@@ -139,9 +176,12 @@ def replay_wide_forward(gx, wh, mask, H, C, reverse):
         step = T - 1 - s if reverse else s
         new = np.zeros(H)
         for c in range(C):
-            part = np.stack([h[ks * kl: (ks + 1) * kl] @ w[c][ks * kl: (ks + 1) * kl, :G]
-                             for ks in range(KS)])
-            sums = part.sum(0)
+            part = []
+            for ks in range(KS):
+                k0, k1 = min(R, ks * kl), min(R, (ks + 1) * kl)
+                q0, q1 = min(S, ks * ql), min(S, (ks + 1) * ql)
+                part.append(h[k0:k1] @ w[c][k0:k1] + h[R + q0: R + q1] @ spilled(c, q0, q1))
+            sums = np.stack(part).sum(0)
             for u in range(U):
                 unit = c * U + u
                 if unit >= H:
@@ -157,14 +197,19 @@ def replay_wide_forward(gx, wh, mask, H, C, reverse):
     return out
 
 
-def replay_wide_backward(dout, gates, hprev, wh, mask, H, C, reverse):
+def replay_wide_backward(dout, gates, hprev, wh, mask, H, C, reverse, rows=None):
     """gru_bwd_wide's arithmetic for one sequence: each rank's dgh of its
     columns times its slice of Wh in JS column slices, the partials sent to
-    the units' owners and added there.  Returns dgx, dgh (T, 3H)."""
+    the units' owners and added there.  With `rows` = R < H (the spilling
+    kind) the slice's rows [R, H) come from gru_pack_spill's copy laid out
+    by column, at the kernel's offsets.  Returns dgx, dgh (T, 3H)."""
     U, G, ld, _, JS = wide_shape(H, C)
+    R = H if rows is None else rows
+    S = H - R
     T = dout.shape[0]
     jl = -(-G // JS)
-    w = [rank_slice(wh, H, C, c) for c in range(C)]
+    spill = pack_spill(wh, H, C, R, True).reshape(C, G, S)
+    w = [np.concatenate([rank_slice(wh, H, C, c)[:R, :G], spill[c].T]) for c in range(C)]
     recv = np.zeros((C, C, U))  # [owner, sender, unit]
     dhc = np.zeros(H)
     dgx, dgh = np.zeros((T, 3 * H)), np.zeros((T, 3 * H))
@@ -197,6 +242,26 @@ def replay_wide_backward(dout, gates, hprev, wh, mask, H, C, reverse):
     return dgx, dgh
 
 
+def replay_against_plain(H, C, rows=(None, None)):
+    """Both replays at width H on a cluster of C, masked, both directions,
+    held to the plain versions within 1e-5."""
+    x = gru_arrays(H, B=2, T=5, seed=2)
+    xs, wx, wh, b, mask, g = (t(x[k]) for k in ("xs", "wx", "wh", "b", "mask", "g"))
+    wh64 = x["wh"].astype(np.float64)
+    for reverse in (False, True):
+        out, gates, hprev = gru_ops.gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)
+        dgx, dgh = gru_ops.gru_sequence_backward_plain(g, gates, hprev, wh, mask, reverse)
+        gx = (xs @ wx + b).double().numpy()
+        for i in range(2):
+            got = replay_wide_forward(gx[i], wh64, x["mask"][i], H, C, reverse, rows[0])
+            np.testing.assert_allclose(got, out[i].numpy(), atol=1e-5)
+            rx, rh = replay_wide_backward(
+                x["g"][i].astype(np.float64), gates[i].double().numpy(),
+                hprev[i].double().numpy(), wh64, x["mask"][i], H, C, reverse, rows[1])
+            np.testing.assert_allclose(rx, dgx[i].numpy(), atol=1e-5)
+            np.testing.assert_allclose(rh, dgh[i].numpy(), atol=1e-5)
+
+
 @pytest.mark.parametrize("H", [139, 301])
 def test_wide_gru_split_replays_the_plain_version(H):
     """The wide kernels' index rules at a width no cluster divides (139: C
@@ -204,22 +269,23 @@ def test_wide_gru_split_replays_the_plain_version(H):
     masked, both directions, held to the plain versions."""
     kind, C = gru_ops.kernel_config(H)
     assert kind == gru_ops.KIND_WIDE and H % C
-    x = gru_arrays(H, B=2, T=5, seed=2)
-    xs, wx, wh, b, mask, g = (t(x[k]) for k in ("xs", "wx", "wh", "b", "mask", "g"))
-    for reverse in (False, True):
-        out, gates, hprev = gru_ops.gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)
-        dgx, dgh = gru_ops.gru_sequence_backward_plain(g, gates, hprev, wh, mask, reverse)
-        gx = (xs @ wx + b).double().numpy()
-        for i in range(2):
-            got = replay_wide_forward(gx[i], x["wh"].astype(np.float64), x["mask"][i], H, C,
-                                      reverse)
-            np.testing.assert_allclose(got, out[i].numpy(), atol=1e-5)
-            rx, rh = replay_wide_backward(
-                x["g"][i].astype(np.float64), gates[i].double().numpy(),
-                hprev[i].double().numpy(), x["wh"].astype(np.float64), x["mask"][i], H, C,
-                reverse)
-            np.testing.assert_allclose(rx, dgx[i].numpy(), atol=1e-5)
-            np.testing.assert_allclose(rh, dgh[i].numpy(), atol=1e-5)
+    replay_against_plain(H, C)
+
+
+@pytest.mark.parametrize("H", [544, 752, 1104])
+def test_spill_gru_split_replays_the_plain_version(H):
+    """The spilling kind's index rules on its cluster of 16: the forward's
+    K slices each over its share of the shared rows and of the packed
+    copy's (by row), the backward's rows from shared memory or from the
+    copy by column (past H = 1024 two rows a thread), masked, both
+    directions, held to the plain versions.  At 544 the forward keeps 543
+    rows and the backward all 544 (nothing spilled); 1104 is the reference
+    kernel's reach at D = 128 on 32 MiB of VMEM."""
+    kind, C = gru_ops.kernel_config(H)
+    rows = gru_ops.smem_rows(H)
+    assert (kind, C) == (gru_ops.KIND_SPILL, 16) and rows[0] < H
+    assert max(gru_ops.wide_smem_bytes(H, C, rows)) <= build.MAX_SMEM
+    replay_against_plain(H, C, rows)
 
 
 def test_gru_kernel_config_rule(monkeypatch):
@@ -227,37 +293,94 @@ def test_gru_kernel_config_rule(monkeypatch):
     register kernels at 128, the generic ones up to 137 (138 is the first
     whose Wh and vectors pass a block's 232,448 bytes), then the wide ones
     on the smallest cluster, up to 16 blocks, whose block fits, up to H =
-    543; past it NotImplementedError naming ROADMAP B.3.  The constants
-    are csrc/gru.cu's."""
+    543 (no cluster's block holds 544), then the spilling kind on a cluster
+    of 16 with the most rows of each slice that fit beside the step's
+    vectors (`smem_rows`), up to MAX_HIDDEN = 5456, where a block's 3U gate
+    columns fill its 1024 threads; past it NotImplementedError.  The
+    constants are csrc/gru.cu's."""
     monkeypatch.setattr(build, "load", lambda *a: pytest.fail("kernel_config built a library"))
     src = (build.CSRC / "gru.cu").read_text()
     for name, value in (("kWideThreads", gru_ops.WIDE_THREADS),
                         ("kMaxCluster", gru_ops.MAX_CLUSTER)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
     assert "SSTTS_GRU_WIDE = 2" in src and gru_ops.KIND_WIDE == 2
-    assert gru_ops.MAX_HIDDEN == 543
-    for H in range(1, 601):
+    assert "SSTTS_GRU_SPILL = 3" in src and gru_ops.KIND_SPILL == 3
+    assert gru_ops.MAX_HIDDEN == 5456
+    for H in [*range(1, 1201), gru_ops.MAX_HIDDEN, gru_ops.MAX_HIDDEN + 1]:
         if H > gru_ops.MAX_HIDDEN:
-            with pytest.raises(NotImplementedError, match=rf"H={H} .*ROADMAP B.3"):
+            with pytest.raises(NotImplementedError, match=rf"MAX_HIDDEN = 5456, .*H={H}$"):
                 gru_ops.kernel_config(H)
             continue
         kind, C = gru_ops.kernel_config(H)
         assert gru_ops.kernel_config(H) == (kind, C)
         fits = max(gru_ops.generic_smem_bytes(H)) <= build.MAX_SMEM
+        U, G, ld, KS, JS = wide_shape(H, C)
         if H == 128:
             assert (kind, C) == (gru_ops.KIND_H128, 1)
         elif fits:
             assert (kind, C) == (gru_ops.KIND_GENERIC, 1)
-        else:
+        elif H <= 543:
             assert kind == gru_ops.KIND_WIDE and 2 <= C <= gru_ops.MAX_CLUSTER
+            assert gru_ops.smem_rows(H) == (H, H)
             assert max(gru_ops.wide_smem_bytes(H, C)) <= build.MAX_SMEM
             assert C == 2 or max(gru_ops.wide_smem_bytes(H, C - 1)) > build.MAX_SMEM
-            U, G, ld, KS, JS = wide_shape(H, C)
             assert KS * G <= gru_ops.WIDE_THREADS and JS * H <= gru_ops.WIDE_THREADS
             assert U <= gru_ops.WIDE_THREADS and (C - 1) * U < H
+        else:
+            assert (kind, C) == (gru_ops.KIND_SPILL, gru_ops.MAX_CLUSTER)
+            assert max(gru_ops.wide_smem_bytes(H, C)) > build.MAX_SMEM
+            rows = gru_ops.smem_rows(H)
+            assert min(rows) >= 1 and rows[0] < H and rows[1] <= H
+            assert max(gru_ops.wide_smem_bytes(H, C, rows)) <= build.MAX_SMEM
+            for i, more in enumerate(((rows[0] + 1, rows[1]), (rows[0], rows[1] + 1))):
+                assert rows[i] == H or gru_ops.wide_smem_bytes(H, C, more)[i] > build.MAX_SMEM
+            assert 1 <= KS and G <= gru_ops.WIDE_THREADS and JS == 1 and (C - 1) * U < H
         assert fits == (H <= 137)
     assert all(max(gru_ops.wide_smem_bytes(544, c)) > build.MAX_SMEM
                for c in range(2, gru_ops.MAX_CLUSTER + 1))
+
+
+#: Scoped VMEM of the reference's chips: 16 MiB (v5e, the BASELINE's), 32 MiB.
+VMEM_BYTES = (16 << 20, 32 << 20)
+
+
+def reference_gru_vmem(hidden: int, d_in: int, batch: int = 32) -> int:
+    """VMEM that `sstts/ops/pallas_gru.py:gru_sequence` needs at (B, D, H):
+    each block of its BlockSpecs (inputs, with the mask, and the output)
+    twice, as Pallas double-buffers them, and its VMEM scratch once, each
+    padded to (8, 128) f32 tiles in its last two dims; shapes read from the
+    function's source."""
+    src = inspect.getsource(jpg.gru_sequence)
+    names = {"batch": batch, "d_in": d_in, "hidden": hidden}
+    blocks = re.findall(r"pl\.BlockSpec\((\([^()]*\))", src)
+    scratch = re.findall(r"pltpu\.VMEM\((\([^()]*\))", src)
+    assert len(blocks) == 6 and len(scratch) == 1  # xs, mask, wx, wh, b, out; h
+
+    def tile_bytes(shape: str) -> int:
+        *lead, rows, cols = eval(shape, {}, names)  # noqa: S307 - the reference's own source
+        lead_n = int(np.prod(lead)) if lead else 1
+        return lead_n * -(-rows // 8) * 8 * -(-cols // 128) * 128 * 4
+
+    return 2 * sum(map(tile_bytes, blocks)) + sum(map(tile_bytes, scratch))
+
+
+def test_max_hidden_covers_the_reference_kernels_reach():
+    """The reference's GRU kernel keeps Wx (D, 3H), Wh (H, 3H) and b
+    resident in VMEM, so its reach depends on D as well as H: at B = 32 it
+    fits 16 MiB up to H = 752 at the model's D = 128 (the highway width) and
+    560 at D = H, and 32 MiB up to 1104 and 810.  The port's kernels take
+    every one of those widths (the input projection runs outside the
+    recurrence, so only H bounds them)."""
+    reach = {}
+    for vmem in VMEM_BYTES:
+        for label, d_of in (("D=128", lambda h: 128), ("D=H", lambda h: h)):
+            reach[vmem >> 20, label] = max(
+                h for h in range(1, 2049) if reference_gru_vmem(h, d_of(h)) <= vmem)
+    assert reach == {(16, "D=128"): 752, (16, "D=H"): 560,
+                     (32, "D=128"): 1104, (32, "D=H"): 810}, reach
+    assert gru_ops.MAX_HIDDEN >= max(reach.values())
+    for h in range(1, max(reach.values()) + 1):
+        gru_ops.kernel_config(h)
 
 
 # ------------------------------------------------------------------ B4, B6 --
