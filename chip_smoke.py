@@ -13,17 +13,23 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    from CUDA events for the kernel, its plain version and, where one
    PyTorch call computes the same function, that call; and each kernel's
    bound, from its shapes; for the GRU kernels also what ptxas reported
-   (registers, no spill in the H = 128 kernels), all three kinds of kernel
+   (registers, no spill in the H = 128 kernels), all five kinds of kernel
    (H = 128, the generic one at H = 16, the wide one, a cluster a
    sequence, at H = 138, 256 and 512 at full size, B = 32, T = 800
-   forward and 515 backward, and at 139 and 301 with D != H, and the
-   spilling one, whose blocks read the rows of Wh that their shared memory
-   cannot hold from device memory, at H = 560, 752 and 1104 with D = 128
-   at full size and at 1025 and 5456 (the widest taken), each main width
-   beside cuDNN's nn.GRU at the same H, timed in turns with it; the
-   wrapper's count of the wide kinds' shared memory held to the library's
-   at every wide H, and the cluster size and spilled rows of each spilling
-   width on a line of its own), and their stages' times apart;
+   forward and 515 backward, and at 139 and 301 with D != H; the grid
+   one, a cooperative grid a direction whose blocks each own U units of
+   every sequence, at H = 560, 752 and 1104 with D = 128 at full size and
+   at one step, an odd length at B = 1, 3 and 33, 561 and 1103 (a last
+   block owning fewer units) and 1025; and the spilling one, whose blocks
+   read the rows of Wh that their shared memory cannot hold from device
+   memory, at H = 1420 at full size and at 2048 and 5456 (the widest
+   taken); two launches of each bit-equal, each main width beside cuDNN's
+   nn.GRU at the same H, timed in turns with it; the wrapper's count of
+   the wide, grid and spilling kinds' shared memory (and the grid's
+   scratch) held to the library's at every H past 137, the grid's blocks
+   held to how many the card holds at once, and the blocks, cluster size
+   and spilled rows of each width on a line of its own), and their
+   stages' times apart;
    for the decode kernel B4 also the tiny config's widths, B=3 at T=300,
    rows that stop at different steps, T=4096, and the longest T taken and
    the next refused before any launch, and phase 3i's cell (products of
@@ -168,16 +174,20 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    loop on the same weights with phase 3f's limits, and 3 train steps on
    phase 3b's bucket (4/4/1 a step, the loss falling), the first step's
    gradient against the teacher "xla" step's (cosine at least 0.999);
-3j. the same as 3i on `SPILL_ARCH` (the default Config() with BiGRUs of 752
+3j. the same as 3i on `GRID_ARCH` (the default Config() with BiGRUs of 752
    a direction, the reference GRU kernel's reach at D = 128 on 16 MiB of
-   VMEM: B3 and B3' on the spilling kind, B4 and B6 on a memory of 1504
+   VMEM: B3 and B3' on the grid kind, B4 and B6 on a memory of 1504
    columns);
+3k. the same as 3i on `SPILL_ARCH` (the default Config() with BiGRUs of
+   1420 a direction, the first width past the grid kind's reach: B3 and
+   B3' on the spilling kind, B4 and B6 on a memory of 2840 columns);
 4. one JSON line of every kernel's numbers (its launches on each path,
    "cli" the sum of phase 3d's commands, "corpus" of phase 3e's three
    `train` runs, "variants" of phase 3f's counted runs, "mesh" of phase
    3g's, "geometry" of phase 3h's; the wide configurations' rows, B3, B3',
-   B4 and B6 past their single-block widths, with phase 3i's launches, and
-   the spilling B3 and B3' with phase 3j's), the
+   B4 and B6 past their single-block widths, with phase 3i's launches, the
+   grid B3 and B3' with phase 3j's, and the spilling B3 and B3' with
+   phase 3k's), the
    card's line before it, and last
    `{"ok": true, "device":
    {...}}`.
@@ -303,13 +313,16 @@ def gru_ptxas(match: str) -> dict:
 
 def gru_kind(H: int) -> str:
     """The kind of CUDA recurrence `ops/gru.py:kernel_config` gives width H,
-    with the wide kinds' cluster size and the spilling kind's rows of each
-    slice in shared memory (forward / backward)."""
+    with the wide kinds' cluster size, the grid kind's blocks and units a
+    block, and the spilling kind's rows of each slice in shared memory
+    (forward / backward)."""
     from sstts_torch.ops import gru
 
     kind, cluster = gru.kernel_config(H)
     if kind == gru.KIND_SPILL:
         return "spill-C{}-R{}/{}".format(cluster, *gru.smem_rows(H))
+    if kind == gru.KIND_GRID:
+        return f"grid-NB{cluster}-U{gru.grid_shape(H, False)['U']}"
     return {gru.KIND_H128: "h128", gru.KIND_GENERIC: "generic"}.get(kind, f"wide-C{cluster}")
 
 
@@ -499,23 +512,30 @@ def check_gru_backward(dev):
     }
 
 
-#: The wide GRU kernels' widths held at full size (B = 32; T = 800 forward,
-#: 515 backward): the wide kind's (D = H) the first past the generic
-#: kernels, the default's doubled (phase 3i's BiGRUs) and 512 (a cluster of
-#: 15, whose last rank owns fewer units); the spilling kind's (D = 128, the
-#: model's highway width) 560, 752 (phase 3j's BiGRUs: the reference
-#: kernel's reach at D = 128 on 16 MiB of VMEM) and 1104 (on 32 MiB); beside
-#: them one step and an odd length at widths no cluster divides, with
-#: D != H, two rows a backward thread (1025) and the widest H taken.
-GRU_WIDE_HIDDEN = (138, 256, 512, 560, 752, 1104)
-GRU_WIDE_SIDE_SHAPES = [(3, 1, 64, 139), (4, 37, 96, 301), (2, 9, 128, 1025),
-                        (1, 3, 64, 5456)]
+#: The GRU kernels' widths past 137 held at full size (B = 32; T = 800
+#: forward, 515 backward): the wide kind's (D = H) the first past the
+#: generic kernels, the default's doubled (phase 3i's BiGRUs) and 512 (a
+#: cluster of 15, whose last rank owns fewer units); the grid kind's (D =
+#: 128, the model's highway width) 560, 752 (phase 3j's BiGRUs: the
+#: reference kernel's reach at D = 128 on 16 MiB of VMEM) and 1104 (on 32
+#: MiB); the spilling kind's first width, 1420.  Beside them: the wide
+#: kind's one step and an odd length at widths no cluster divides, with D
+#: != H; the grid kind's one step, an odd length (37) at B = 1, 3 and 33,
+#: widths whose last block owns fewer units (561: one of 5; 1103: 5 of 9)
+#: and 1025; the spilling kind at 2048 (two rows a backward thread) and the
+#: widest H taken.
+GRU_WIDE_HIDDEN = (138, 256, 512, 560, 752, 1104, 1420)
+GRU_WIDE_SIDE_SHAPES = [(3, 1, 64, 139), (4, 37, 96, 301),
+                        (32, 1, 128, 752), (1, 37, 128, 560), (3, 37, 128, 1104),
+                        (33, 37, 128, 752), (5, 9, 64, 561), (2, 9, 128, 1103),
+                        (2, 9, 128, 1025), (2, 9, 128, 2048), (1, 3, 64, 5456)]
 #: The width each kind's row of the kernels line is read at.
-GRU_WIDE_MAIN = {"wide": 256, "spill": 752}
+GRU_WIDE_MAIN = {"wide": 256, "grid": 752, "spill": 1420}
 
 
 def wide_kind(H: int) -> str:
-    """"wide" or "spill": the kind of wide recurrence width H takes."""
+    """"wide", "grid" or "spill": the kind of recurrence past 137 width H
+    takes."""
     return gru_kind(H).split("-")[0]
 
 
@@ -535,15 +555,28 @@ def wide_gru_cases(dev, T: int, seed: int, kind: str):
 
 @functools.lru_cache(maxsize=None)
 def check_gru_wide_counts():
-    """The wrapper's rule (`kernel_config`, `smem_rows`, `wide_smem_bytes`)
-    against the library's own count at every wide H up to MAX_HIDDEN, and
-    each configuration the card holds at once (clusters), for the widths of
-    GRU_WIDE_HIDDEN; a line of its own for each spilling width."""
+    """The wrapper's rule (`kernel_config`, `smem_rows`, `wide_smem_bytes`,
+    `grid_smem_bytes`, `grid_scratch_floats`) against the library's own
+    count at every H past 137 up to MAX_HIDDEN, and each configuration the
+    card holds at once (clusters; the grid kind's blocks, which must all be
+    resident), for the widths of GRU_WIDE_HIDDEN; a line of its own for
+    each grid and spilling width."""
     from sstts_torch.ops import build, gru
 
     lib = build.load("gru", gru.SIGNATURES)
     for H in range(gru.MAX_HIDDEN + 1):
         kind, C = gru.kernel_config(H)
+        if kind == gru.KIND_GRID:
+            want = gru.grid_smem_bytes(H)
+            got = (lib.sstts_gru_grid_smem_bytes(H, 0), lib.sstts_gru_grid_smem_bytes(H, 1))
+            scratch = [(lib.sstts_gru_grid_scratch_floats(B, H, bwd),
+                        gru.grid_scratch_floats(B, H, bool(bwd)))
+                       for B in (1, 33) for bwd in (0, 1)]
+            if (got != want or max(got) > build.MAX_SMEM or lib.sstts_gru_grid_blocks(H) != C
+                    or any(a != b for a, b in scratch)):
+                raise AssertionError(f"grid GRU H={H}, NB={C}: library {got}, wrapper {want}, "
+                                     f"scratch {scratch}")
+            continue
         if kind not in (gru.KIND_WIDE, gru.KIND_SPILL):
             continue
         rows = gru.smem_rows(H)
@@ -556,6 +589,19 @@ def check_gru_wide_counts():
     active = {}
     for H in GRU_WIDE_HIDDEN:
         C = gru.kernel_config(H)[1]
+        if wide_kind(H) == "grid":
+            gs = gru.grid_shape(H, False)
+            active[H] = {"blocks": C, "units": gs["U"], "smem_bytes": gru.grid_smem_bytes(H),
+                         "threads": [lib.sstts_gru_grid_threads(H, b) for b in (0, 1)],
+                         "forward": lib.sstts_gru_grid_active_blocks(H, 0),
+                         "backward": lib.sstts_gru_grid_active_blocks(H, 1)}
+            if min(active[H]["forward"], active[H]["backward"]) < C:
+                raise AssertionError(f"grid GRU H={H}: the card cannot hold its {C} blocks "
+                                     f"at once: {active[H]}")
+            log(f"  B3 grid H={H}: {C} blocks of {gs['U']} units, shared memory "
+                f"{active[H]['smem_bytes']} bytes forward / backward, blocks the card holds "
+                f"at once {active[H]['forward']} / {active[H]['backward']}")
+            continue
         rows = gru.smem_rows(H)
         active[H] = {"cluster": C, "smem_rows": rows, "spilled_rows": [H - r for r in rows],
                      "forward": lib.sstts_gru_wide_active_clusters(H, C, rows[0], 0),
@@ -566,25 +612,28 @@ def check_gru_wide_counts():
             log(f"  B3 spill H={H}: cluster {C}, rows in shared memory {rows[0]} forward / "
                 f"{rows[1]} backward, spilled rows {H - rows[0]} / {H - rows[1]}; clusters the "
                 f"card holds at once {active[H]['forward']} / {active[H]['backward']}")
-    log(f"  B3 wide: the wrapper's shared-memory counts equal the library's for H = "
-        f"138..{gru.MAX_HIDDEN}; clusters the card holds at once: {active}")
+    log(f"  B3 wide: the wrapper's shared-memory (and the grid kind's scratch) counts equal "
+        f"the library's for H = 138..{gru.MAX_HIDDEN}; configurations the card holds at "
+        f"once: {active}")
     return active
 
 
 def check_gru_wide(dev, kind: str):
-    """B3's wide kernels of `kind` ("wide": a cluster a sequence; "spill":
-    with the rows of Wh that shared memory cannot hold read from device
-    memory) against the plain version at their widths of GRU_WIDE_HIDDEN (B
-    = 32, T = 800) and side shapes, full and ragged masks, both directions,
-    with and without the saved gates; the time at each main width beside
+    """B3's kernels past H = 137 of `kind` ("wide": a cluster a sequence;
+    "grid": one cooperative grid a direction, the batch as the rows of each
+    block's product; "spill": a cluster a sequence with the rows of Wh that
+    shared memory cannot hold read from device memory) against the plain
+    version at their widths of GRU_WIDE_HIDDEN (B = 32, T = 800) and side
+    shapes, full and ragged masks, both directions, with and without the
+    saved gates, two launches bit-equal; the time at each main width beside
     cuDNN's nn.GRU (in turns with the kernel, three rounds: its median and
-    spread), the plain version and the bound."""
+    spread), the plain version and the bound; the launches it made."""
     import torch
 
     from sstts_torch.ops import gru
     from sstts_torch.ops.gru import gru_sequence, gru_sequence_forward_plain, gru_sequence_plain
 
-    ptxas = gru_ptxas("gru_fwd_wide")
+    ptxas = gru_ptxas("gru_fwd_grid" if kind == "grid" else "gru_fwd_wide")
     active = check_gru_wide_counts()
     tol = 1e-4  # as check_gru: f32 both sides, sums in another order
     checks, by_h = [], {}
@@ -598,6 +647,8 @@ def check_gru_wide(dev, kind: str):
                 torch.cuda.synchronize()
                 errs = {"out": max_err(got, ref), "out_saving": max_err(got_s, ref),
                         "gates": max_err(gates, ref_gates), "hprev": max_err(hprev, ref_hprev)}
+                if not torch.equal(got, got_s):  # the same sums in the same order
+                    raise AssertionError(f"gru_sequence {shape}: two launches differ")
                 rel = max(errs.values()) / max(float(ref.abs().max()), 1e-30)
                 case = f"B{B}-T{T}-D{D}-H{H}-{gru_kind(H)}-{mask_name}-{'rev' if reverse else 'fwd'}"
                 log(f"  B3 gru_sequence {case}: max_abs_err {errs}, relative to the largest "
@@ -606,7 +657,7 @@ def check_gru_wide(dev, kind: str):
                     raise AssertionError(f"gru_sequence {case}: {errs} > {tol}")
                 checks.append({"case": case, "max_abs_err": max(errs.values()),
                                "max_rel_err": rel, "tol": tol})
-        if B != 32:
+        if (B, T) != (32, 800):  # the main widths only (the side shapes hold B = 32, T = 1 too)
             continue
         full = masks["full"]
         lib_gru = cudnn_gru(dev, wx, wh, b)
@@ -643,17 +694,18 @@ def check_gru_wide(dev, kind: str):
 
 
 def check_gru_backward_wide(dev, kind: str):
-    """B3's wide backward recurrence of `kind` against its plain version at
-    its widths of GRU_WIDE_HIDDEN (B = 32, T = 515) and side shapes, both
-    masks and directions; its time at each main width beside cuDNN's whole
-    GRU backward (in turns, three rounds)."""
+    """B3's backward recurrence past H = 137 of `kind` against its plain
+    version at its widths of GRU_WIDE_HIDDEN (B = 32, T = 515) and side
+    shapes, both masks and directions, two launches bit-equal; its time at
+    each main width beside cuDNN's whole GRU backward (in turns, three
+    rounds); the launches it made."""
     import torch
 
     from sstts_torch.ops.gru import (
         gru_sequence_backward, gru_sequence_backward_plain, gru_sequence_forward_plain,
     )
 
-    ptxas = gru_ptxas("gru_bwd_wide")
+    ptxas = gru_ptxas("gru_bwd_grid" if kind == "grid" else "gru_bwd_wide")
     tol = 1e-4  # relative to the largest value, as check_gru_backward
     checks, by_h = [], {}
     for shape, (xs, wx, wh, b, masks, dout) in wide_gru_cases(dev, 515, seed=22, kind=kind):
@@ -663,8 +715,11 @@ def check_gru_backward_wide(dev, kind: str):
             for reverse in (False, True):
                 _, gates, hprev = gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)
                 got = gru_sequence_backward(dout, gates, hprev, wh, mask, reverse)
+                again = gru_sequence_backward(dout, gates, hprev, wh, mask, reverse)
                 ref = gru_sequence_backward_plain(dout, gates, hprev, wh, mask, reverse)
                 torch.cuda.synchronize()
+                if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+                    raise AssertionError(f"gru_sequence_backward {shape}: two launches differ")
                 errs = {
                     "dgx": max_err(got[0], ref[0]) / max(float(ref[0].abs().max()), 1e-30),
                     "dgh": max_err(got[1], ref[1]) / max(float(ref[1].abs().max()), 1e-30),
@@ -678,7 +733,7 @@ def check_gru_backward_wide(dev, kind: str):
                                "tol": tol})
                 if mask_name == "ragged" and not reverse:
                     timed = (gates.contiguous(), hprev.contiguous(), mask)
-        if B != 32:
+        if (B, T) != (32, 515):  # the main widths only
             continue
         gates, hprev, mask = timed
         lib = cudnn_gru(dev, wx, wh, b)
@@ -1046,8 +1101,13 @@ WIDE_ARCH = {"encoder_gru_units": 256, "post_gru_units": 256,
              "attention_gru_units": 512, "decoder_gru_units": 512}
 #: Phase 3j's architecture: the default Config() with BiGRUs of 752 units a
 #: direction, the reference GRU kernel's reach at the model's D = 128 on 16
-#: MiB of VMEM (memory of 1504 columns, two panels in B4 and B6).
-SPILL_ARCH = {"encoder_gru_units": 752, "post_gru_units": 752}
+#: MiB of VMEM (B3 and B3' on the grid kind; memory of 1504 columns, two
+#: panels in B4 and B6).
+GRID_ARCH = {"encoder_gru_units": 752, "post_gru_units": 752}
+#: Phase 3k's architecture: BiGRUs of 1420 a direction, the first width past
+#: the grid kind's reach (B3 and B3' on the spilling kind; memory of 2840
+#: columns, three panels in B4 and B6).
+SPILL_ARCH = {"encoder_gru_units": 1420, "post_gru_units": 1420}
 #: A ring-kernel cell with products of three column panels or more: the
 #: query and the rows of keys (A = 2560), memory (Dm = 2176: 1024 + 1024 +
 #: 128), and 3 Ha = 3 Hd = 1152.
@@ -3636,7 +3696,8 @@ def widths_path(dev, card, arch=None, kind: str = "wide", phase: str = "3i"):
     train steps on phase 3b's bucket (B3 4, B3' 4, B6 1 a step) with the
     loss finite and falling; the first step's gradient against the teacher
     "xla" step's from the same init (cosine at least 0.999).  Phase 3j runs
-    the same on SPILL_ARCH, whose BiGRUs take the spilling kind."""
+    the same on GRID_ARCH, whose BiGRUs take the grid kind, and phase 3k on
+    SPILL_ARCH, whose BiGRUs take the spilling kind."""
     import torch
 
     from sstts_torch import train as tr
@@ -3645,7 +3706,7 @@ def widths_path(dev, card, arch=None, kind: str = "wide", phase: str = "3i"):
     from sstts_torch.synthesize import exact_f32
 
     arch = WIDE_ARCH if arch is None else arch
-    name = "widths" if phase == "3i" else "spill"
+    name = {"3i": "widths", "3j": "grid", "3k": "spill"}[phase]
     ledger = Launches()
     res = {}
     cfg = with_arch(bench_config(), **arch)
@@ -3770,11 +3831,13 @@ def main() -> int:
         ]
         # The wide configurations (B3 and B3' past H = 137, B4 and B6 in
         # column panels), each a row of its own, driven by phase 3i; B3 and
-        # B3' past H = 543 (the spilling kind), driven by phase 3j.
+        # B3' from H = 544 to 1419 (the grid kind), driven by phase 3j; past
+        # 1419 (the spilling kind), driven by phase 3k.
         wide = [check_gru_wide(dev, "wide"), check_gru_backward_wide(dev, "wide"),
                 check_teacher_wide(dev), check_decoder_wide(dev)]
+        grid = [check_gru_wide(dev, "grid"), check_gru_backward_wide(dev, "grid")]
         spill = [check_gru_wide(dev, "spill"), check_gru_backward_wide(dev, "spill")]
-    for k in kernels + wide + spill:
+    for k in kernels + wide + grid + spill:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}) [{card}]")
@@ -3797,8 +3860,10 @@ def main() -> int:
     geometry_res = geometry_path(dev, card)
     log("phase 3i: the recurrent widths doubled (B3, B3' wide; B4, B6 in panels)")
     widths_res = widths_path(dev, card)
-    log("phase 3j: BiGRUs of 752 (B3, B3' spilling rows of Wh past shared memory)")
-    spill_res = widths_path(dev, card, SPILL_ARCH, "spill", "3j")
+    log("phase 3j: BiGRUs of 752 (B3, B3' on the grid kind)")
+    grid_res = widths_path(dev, card, GRID_ARCH, "grid", "3j")
+    log("phase 3k: BiGRUs of 1420 (B3, B3' on the spilling kind)")
+    spill_res = widths_path(dev, card, SPILL_ARCH, "spill", "3k")
     # Each kernel's launches come from the path it carries.
     own_path = {"gru_sequence_backward": "training", "fused_teacher_scan": "training",
                 "reproject_frames_pallas": "serving", "fused_gl_iteration": "serving"}
@@ -3813,7 +3878,8 @@ def main() -> int:
                    "geometry": geometry_res["launches"][k["name"]]}
         k["launches"] = by_path[own_path.get(k["name"], "synthesis")]
         k["launches_by_path"] = by_path
-    for rows, res, phase in ((wide, widths_res, "3i"), (spill, spill_res, "3j")):
+    for rows, res, phase in ((wide, widths_res, "3i"), (grid, grid_res, "3j"),
+                             (spill, spill_res, "3k")):
         for k in rows:  # launched by their phase only
             n = res["launches"].get(k["name"].rsplit("_", 1)[0], 0)
             k["launches"], k["launches_by_path"] = n, {f"phase {phase}": n}
@@ -3823,9 +3889,10 @@ def main() -> int:
                     "train_path": train_res, "cli_path": cli_res,
                     "corpus_path": corpus_res, "variants_path": variants_res,
                     "mesh_path": mesh_res, "geometry_path": geometry_res,
-                    "widths_path": widths_res, "spill_path": spill_res, "card": card}))
+                    "widths_path": widths_res, "grid_path": grid_res,
+                    "spill_path": spill_res, "card": card}))
     log(card)
-    log(json.dumps({"kernels": kernels + wide + spill}))
+    log(json.dumps({"kernels": kernels + wide + grid + spill}))
     log(json.dumps({
         "ok": True,
         "device": {

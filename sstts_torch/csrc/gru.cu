@@ -71,20 +71,40 @@
 //       registers a step ahead.  C is the smallest cluster whose block
 //       fits (sstts_gru_wide_smem_bytes; the wrapper's rule, up to 16
 //       blocks, the non-portable cluster size), which reaches H = 543.
-//     * H past 543 (gru_fwd_wide<true>, the spilling kind): a cluster of 16
-//       whose slices (3U columns, H rows: 914 KB at H = 1104) no block
+//     * H from 544 to 1419 (gru_fwd_grid, the grid kind): one persistent
+//       grid a direction, launched cooperatively, NB <= 132 blocks (one an
+//       SM), all resident for the T steps.  Block c owns U = ceil(H / 132)
+//       units for every sequence of the batch (U = 5, 6, 9 at H = 560, 752,
+//       1104: 112, 126, 123 blocks) and keeps their 3U gate columns of Wh,
+//       all H rows, in shared memory (GridShape: 119 KB at 1104).  A step:
+//       for each tile of 32 batch rows, the (32, H) x (H, 3U) product in f32
+//       FMAs, the batch as the rows, the carry streamed from a (2, Bp, KA)
+//       buffer in device memory through a 3-stage cp.async.cg ring of K
+//       tiles (4 x 3 outputs a thread, K split over KS slices added in a
+//       fixed order); one thread a (row, unit) applies the gates and mask
+//       and writes the unit's new carry into the buffer's other half; one
+//       grid barrier (cg::this_grid().sync(), a fence and an arrival) ends
+//       the step.  So Wh is read from shared memory once a step for the
+//       whole batch, and nothing of it from L2 after the first load; a
+//       step moves the whole carry (B H floats) from L2 into every block.
+//       The carry is written inside the launch, so it is read at L2
+//       (cp.async.cg, ld.global.cg), never through the non-coherent path.
+//       Up to H = 1419, the last width whose slice and ring fit 227 KB.
+//     * H past 1419 (gru_fwd_wide<true>, the spilling kind): a cluster of 16
+//       whose slices (3U columns, H rows: 1.2 MB at H = 1420) no block
 //       holds.  Each block keeps rows [0, R) of its slice in shared memory,
-//       R the most that fit beside the step's vectors (394 of 752, 266 of
-//       1104), and reads rows [R, H) every step from a packed copy in
-//       device memory (gru_pack_spill, run before the recurrence on the
-//       same stream): a K slice's threads read a row's 3U floats together,
-//       and every cluster's rank c reads the same copy, so L2 (50 MB) holds
-//       it once for all sequences (11.1 MB at H = 1104).  Each K slice takes
-//       an equal share of the shared rows and of the spilled ones; the gates
+//       R the most that fit beside the step's vectors (204 of 1420), and
+//       reads rows [R, H) every step from a packed copy in device memory
+//       (gru_pack_spill, run before the recurrence on the same stream): a K
+//       slice's threads read a row's 3U floats together, and every
+//       cluster's rank c reads the same copy, so L2 (50 MB) holds it once
+//       for all sequences (20.8 MB at H = 1420).  Each K slice takes an
+//       equal share of the shared rows and of the spilled ones; the gates
 //       and the carry's exchange are the wide kind's.  A step then moves
-//       16 (H - R) 3U floats from L2 a sequence (11.1 MB at H = 1104), which
-//       sets its time.  Up to H = 5456, where 3U reaches the block's 1024
-//       threads.
+//       16 (H - R) 3U floats from L2 a sequence, which sets its time.  The
+//       kernels take every H past 543 (the grid kind's widths too: a
+//       launch with this kind is what the wrapper asks for past 1419), up
+//       to H = 5456, where 3U reaches the block's 1024 threads.
 //     When a gradient is wanted both write, per step, the gates r, z, n, the
 //     recurrent candidate term hn and the carry before the step (5H floats;
 //     42 MB at B=32, T=515, H=128), so that the backward never repeats the
@@ -115,7 +135,17 @@
 //       unit (a reduce-scatter through distributed shared memory,
 //       double-buffered); the owner adds the C partials at the start of
 //       the next step.  Two block barriers and one cluster barrier a step.
-//     * H past 543 (gru_bwd_wide<true>): the forward's spilling split on the
+//     * H from 544 to 1419 (gru_bwd_grid): the forward's grid.  Block c
+//       keeps the rows of Wh of its U units, all 3H columns (U x 3H: the
+//       forward's bytes), in shared memory.  A step: for each row tile, the
+//       (32, 3H) x (3H, U) product of the previous step's dgh, read from a
+//       (2, Bp, KA) exchange buffer as the forward reads its carry, gives
+//       dh_prev of its own units; one thread a (row, unit) forms dar, daz,
+//       dan, writes dgx and dgh and the unit's three dgh values into the
+//       buffer's other half (laid out block by block, 3U columns a block);
+//       one grid barrier a step.  The step reads 3H floats a row from L2
+//       into every block, three times the forward's.
+//     * H past 1419 (gru_bwd_wide<true>): the forward's spilling split on the
 //       backward's slice: rows [0, R) in shared memory, rows [R, H) from a
 //       packed copy laid out by column (a warp's threads, one a row, read a
 //       column's rows together); one column slice, a thread a row (rows
@@ -129,8 +159,10 @@
 //
 // The wrapper chooses the kernel from H (`kind`, and for the wide kinds the
 // cluster size, for the spilling kind also R and the packed copy's
-// scratch); a kind that does not fit the shape is refused with
-// cudaErrorInvalidValue, never replaced.
+// scratch, for the grid kind its block count and its zeroed exchange
+// buffer); a kind that does not fit the shape is refused with
+// cudaErrorInvalidValue, and a grid that the card cannot hold at once with
+// cudaErrorCooperativeLaunchTooLarge, never replaced.
 //
 // Plain C interface (bound with ctypes); the launch goes on the caller's
 // stream, nothing synchronises, and the return value is cudaGetLastError().
@@ -673,6 +705,305 @@ gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
   }
 }
 
+// ---------------------- recurrences from H = 544 to 1419: a grid a direction --
+
+constexpr int kGridBlocks = 132;   // the H100's SMs: the most blocks of a grid
+constexpr int kGridThreads = 512;
+constexpr int kGridRows = 32;      // batch rows of a tile
+constexpr int kGridStages = 3;     // K tiles of the exchanged rows in the ring
+
+constexpr int kGridMaxSmem = 232448;  // a block's shared memory, the opt-in
+
+// The grid kind's split of width H (see the header): U units a block, NB
+// blocks; the exchanged row (the forward's carry, NB U wide; the backward's
+// dgh, NB 3U wide, block by block) padded to KA, a multiple of the K tile
+// KT; the block's slice of Wh as N rows of ldw floats (the forward's 3U
+// gate columns; the backward's U rows of Wh, padded to a multiple of 3);
+// the product's thread tile 4 batch rows x 3 slice rows, `items` tiles a
+// row tile of the batch and KS slices of K, each taking `quads` float4
+// quads of a K tile, KT = 4 KS quads.  A K tile holds about 32 (forward)
+// or 48 (backward) quads, fewer where the block would pass its shared
+// memory (down to 16): the step's reads of the exchanged rows from L2 are
+// what a step waits on, and larger tiles wait fewer times.  ldw and ldt
+// are 4 mod 8 floats, so that the 8 lanes of a quarter warp reading 8 rows
+// 16 bytes each hit 32 distinct banks.
+struct GridShape {
+  int U, NB, N, NG, items, KS, KT, KA, ldw, ldt, threads;
+  __host__ __device__ GridShape(int H, int bwd) {
+    const int target[3] = {bwd ? 48 : 32, 32, 16};
+    for (int i = 0; i < 3; ++i) {
+      init(H, bwd, target[i]);
+      if (smem_bytes() <= kGridMaxSmem) break;
+    }
+  }
+  __host__ __device__ void init(int H, int bwd, int target) {
+    U = (H + kGridBlocks - 1) / kGridBlocks;
+    NB = (H + U - 1) / U;
+    const int K = bwd ? NB * 3 * U : NB * U;
+    N = bwd ? 3 * ((U + 2) / 3) : 3 * U;
+    NG = N / 3;
+    items = (kGridRows / 4) * NG;
+    KS = items <= kGridThreads ? kGridThreads / items : 0;
+    const int quads = KS > 0 ? (target + KS - 1) / KS : 1;
+    KT = 4 * (KS > 0 ? KS : 1) * quads;
+    KA = (K + KT - 1) / KT * KT;
+    ldw = KA % 8 == 4 ? KA : KA + 4;
+    ldt = KT % 8 == 4 ? KT : KT + 4;
+    threads = (items * KS + 31) / 32 * 32;
+  }
+  // The K tiles' ring, (stages, rows, ldt); the K slices' sums, (KS, rows,
+  // N), share its space once a row tile's product is done.
+  __host__ __device__ int ring_floats() const {
+    const int ring = kGridStages * kGridRows * ldt, part = KS * kGridRows * N;
+    return ring > part ? ring : part;
+  }
+  __host__ __device__ int smem_bytes() const { return (N * ldw + ring_floats()) * 4; }
+  __host__ __device__ bool valid() const {
+    return KS >= 1 && kGridRows * U <= threads && NB <= kGridBlocks &&
+           smem_bytes() <= kGridMaxSmem;
+  }
+};
+
+// P (rows, N) = A (kGridRows rows of an exchange buffer from `a`, KA wide)
+// times the block's slice w_s (N, ldw) transposed, in f32 FMAs.  The K
+// tiles of A stream through a ring of kGridStages in shared memory by
+// cp.async.cg: A was written by other blocks in this launch, and .cg reads
+// it at L2, the point of coherence, never from a stale L1 line.  Thread
+// (rg, ng, ks) sums batch rows rg + 8i and slice rows ng + NG j over the
+// quads ks, ks + KS, ... of each tile in order, and leaves its 4 x 3 sums
+// in part (KS, rows, N), aliasing the ring, behind a block barrier.
+__device__ __forceinline__ void grid_product(const GridShape& gs, float* ring,
+                                             const float* w_s, const float* a, bool prod,
+                                             int rg, int ng, int ks) {
+  const int tid = threadIdx.x;
+  const int kt4 = gs.KT / 4, tiles = gs.KA / gs.KT, chunks = kGridRows * kt4;
+  auto issue = [&](int kt) {
+    if (kt < tiles) {
+      float* dst = ring + (kt % kGridStages) * kGridRows * gs.ldt;
+      const float* src = a + (size_t)kt * gs.KT;
+      for (int e = tid; e < chunks; e += blockDim.x) {
+        const int r = e / kt4, q = e - r * kt4;
+        cp_async16(dst + r * gs.ldt + 4 * q, src + (size_t)r * gs.KA + 4 * q);
+      }
+    }
+    cp_async_commit();
+  };
+  float acc[4][3];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) acc[i][j] = 0.f;
+  issue(0);
+  issue(1);
+  for (int kt = 0; kt < tiles; ++kt) {
+    cp_async_wait<1>();  // this thread's copies of tile kt have landed
+    __syncthreads();     // everyone's have; everyone is done with tile kt - 1
+    issue(kt + 2);       // into tile kt - 1's stage
+    if (prod) {
+      const float* as = ring + (kt % kGridStages) * kGridRows * gs.ldt + rg * gs.ldt;
+      const float* ws = w_s + (size_t)ng * gs.ldw + kt * gs.KT;
+      for (int q = ks; q < kt4; q += gs.KS) {
+        float4 av[4], wv[3];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          av[i] = *reinterpret_cast<const float4*>(as + 8 * i * gs.ldt + 4 * q);
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+          wv[j] = *reinterpret_cast<const float4*>(ws + (size_t)j * gs.NG * gs.ldw + 4 * q);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 3; ++j) {
+            acc[i][j] = fmaf(av[i].x, wv[j].x, acc[i][j]);
+            acc[i][j] = fmaf(av[i].y, wv[j].y, acc[i][j]);
+            acc[i][j] = fmaf(av[i].z, wv[j].z, acc[i][j]);
+            acc[i][j] = fmaf(av[i].w, wv[j].w, acc[i][j]);
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: its space takes the sums
+  if (prod) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        ring[(ks * kGridRows + rg + 8 * i) * gs.N + ng + j * gs.NG] = acc[i][j];
+  }
+  __syncthreads();
+}
+
+// The forward.  Block c owns units [c U, c U + U) and keeps their 3U gate
+// columns of Wh, all H rows, in shared memory (w_s[g U + u][k] = Wh[k][g H
+// + c U + u]).  `xbuf` is the carry, (2, Bp, KA), zero on entry: step s
+// reads half s & 1 and writes half (s + 1) & 1; one grid barrier a step.
+// Gate thread (r, u) of a row tile keeps nothing between steps: its unit's
+// carry comes back from the buffer it wrote (its own write, read at L2).
+__global__ void __launch_bounds__(kGridThreads, 1)
+gru_fwd_grid(const float* __restrict__ gx, const float* __restrict__ wh,
+             const float* __restrict__ mask, float* __restrict__ out,
+             float* __restrict__ gates, float* __restrict__ hprev, float* xbuf, int B,
+             int T, int H, int reverse) {
+  extern __shared__ __align__(16) float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const GridShape gs(H, 0);
+  const int c = blockIdx.x, tid = threadIdx.x, U = gs.U, N = gs.N;
+  float* w_s = smem;                            // (N, ldw) the slice
+  float* ring = w_s + (size_t)N * gs.ldw;       // the K tiles, then the sums
+  for (int i = tid; i < N * gs.ldw; i += blockDim.x) {
+    const int k = i / N, n = i - k * N;  // neighbouring threads, neighbouring units
+    const int g = n / U, unit = c * U + (n - g * U);
+    w_s[(size_t)n * gs.ldw + k] = k < H && unit < H ? wh[(size_t)k * 3 * H + g * H + unit] : 0.f;
+  }
+  const int Bp = (B + kGridRows - 1) / kGridRows * kGridRows;
+  const size_t half = (size_t)Bp * gs.KA;
+  const int item = tid % gs.items, ks = tid / gs.items;
+  const bool prod = ks < gs.KS;
+  const int rg = item % (kGridRows / 4), ng = item / (kGridRows / 4);
+  const int gr = tid / U, gu = tid - gr * U, unit = c * U + gu;
+  const bool gate = tid < kGridRows * U && unit < H;
+  __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    const float* hc = xbuf + (s & 1) * half;
+    float* hn = xbuf + ((s + 1) & 1) * half;
+    for (int r0 = 0; r0 < B; r0 += kGridRows) {
+      const int b = r0 + gr;
+      const bool live = gate && b < B;
+      const size_t row = (size_t)b * T + t;
+      float xr = 0.f, xz = 0.f, xn = 0.f, m = 1.f, h = 0.f;
+      if (live) {  // issued now, used after the product
+        const float* g = gx + row * 3 * H;
+        xr = g[unit];
+        xz = g[H + unit];
+        xn = g[2 * H + unit];
+        if (mask) m = mask[row];
+        h = __ldcg(hc + (size_t)b * gs.KA + unit);
+      }
+      grid_product(gs, ring, w_s, hc + (size_t)r0 * gs.KA, prod, rg, ng, ks);
+      if (live) {
+        float hr = 0.f, hz = 0.f, hh = 0.f;
+        for (int q = 0; q < gs.KS; ++q) {
+          const float* p = ring + (q * kGridRows + gr) * N + gu;
+          hr += p[0];
+          hz += p[U];
+          hh += p[2 * U];
+        }
+        const float r = sigmoidf_(xr + hr);
+        const float z = sigmoidf_(xz + hz);
+        const float n = tanhf(xn + r * hh);
+        if (gates) {
+          float* g = gates + row * 4 * H;
+          g[unit] = r;
+          g[H + unit] = z;
+          g[2 * H + unit] = n;
+          g[3 * H + unit] = hh;
+          hprev[row * H + unit] = h;
+        }
+        float h_new = z * h + (1.f - z) * n;
+        float o = h_new;
+        if (mask) {
+          h_new = m * h_new + (1.f - m) * h;
+          o = m * h_new;
+        }
+        out[row * H + unit] = o;
+        hn[(size_t)b * gs.KA + unit] = h_new;
+      }
+      __syncthreads();  // the sums are read before the ring takes the next tiles
+    }
+    grid.sync();  // every block's new carry is in the buffer
+  }
+}
+
+// The backward.  Block c owns units [c U, c U + U) and keeps their rows of
+// Wh, all 3H columns, in shared memory, the columns in the exchange
+// buffer's order: w_s[u][c' 3U + g U + u'] = Wh[c U + u][g H + c' U + u'].
+// `xbuf` holds (2, Bp, KA), the dgh of each step laid out block by block
+// (block c' writes its 3U columns, [c' 3U, c' 3U + 3U)), then (Bp, NB U)
+// the direct part of each unit's carry gradient; zero on entry.  Step s
+// reads the previous step's dgh (half (s + 1) & 1) for dh_prev of its own
+// units, and writes its own into half s & 1; one grid barrier a step.
+__global__ void __launch_bounds__(kGridThreads, 1)
+gru_bwd_grid(const float* __restrict__ dout, const float* __restrict__ gates,
+             const float* __restrict__ hprev, const float* __restrict__ wh,
+             const float* __restrict__ mask, float* __restrict__ dgx,
+             float* __restrict__ dgh, float* xbuf, int B, int T, int H, int reverse) {
+  extern __shared__ __align__(16) float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const GridShape gs(H, 1);
+  const int c = blockIdx.x, tid = threadIdx.x, U = gs.U, N = gs.N, G = 3 * U;
+  float* w_s = smem;                            // (N, ldw) the slice
+  float* ring = w_s + (size_t)N * gs.ldw;       // the K tiles, then the sums
+  for (int i = tid; i < N * gs.ldw; i += blockDim.x) {
+    const int n = i / gs.ldw, k = i - n * gs.ldw;
+    const int c2 = k / G, g = (k - c2 * G) / U, u2 = k - c2 * G - g * U;
+    const int unit = c * U + n, col = c2 * U + u2;
+    w_s[i] = n < U && unit < H && c2 < gs.NB && col < H
+                 ? wh[(size_t)unit * 3 * H + g * H + col] : 0.f;
+  }
+  const int Bp = (B + kGridRows - 1) / kGridRows * kGridRows;
+  const size_t half = (size_t)Bp * gs.KA;
+  float* dhc = xbuf + 2 * half;  // (Bp, NB U)
+  const int item = tid % gs.items, ks = tid / gs.items;
+  const bool prod = ks < gs.KS;
+  const int rg = item % (kGridRows / 4), ng = item / (kGridRows / 4);
+  const int gr = tid / U, gu = tid - gr * U, unit = c * U + gu;
+  const bool gate = tid < kGridRows * U && unit < H;
+  __syncthreads();
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? s : T - 1 - s;
+    float* xc = xbuf + (s & 1) * half;
+    const float* xp = xbuf + ((s + 1) & 1) * half;
+    for (int r0 = 0; r0 < B; r0 += kGridRows) {
+      const int b = r0 + gr;
+      const bool live = gate && b < B;
+      const size_t row = (size_t)b * T + t;
+      float r = 0.f, z = 0.f, n = 0.f, hn = 0.f, h = 0.f, d = 0.f, m = 1.f, dh = 0.f;
+      float* dhc_b = dhc + (size_t)b * gs.NB * U + unit;
+      if (live) {  // issued now, used after the product
+        const float* g = gates + row * 4 * H;
+        r = g[unit];
+        z = g[H + unit];
+        n = g[2 * H + unit];
+        hn = g[3 * H + unit];
+        h = hprev[row * H + unit];
+        d = dout[row * H + unit];
+        if (mask) m = mask[row];
+        dh = __ldcg(dhc_b);
+      }
+      grid_product(gs, ring, w_s, xp + (size_t)r0 * gs.KA, prod, rg, ng, ks);
+      if (live) {
+        for (int q = 0; q < gs.KS; ++q) dh += ring[(q * kGridRows + gr) * N + gu];
+        // out = m * h_t, h_t = m * h' + (1 - m) * h.
+        const float dh_t = dh + m * d;
+        const float dh_new = m * dh_t;
+        const float dz = dh_new * (h - n);
+        const float dan = dh_new * (1.f - z) * (1.f - n * n);
+        const float dar = dan * hn * r * (1.f - r);
+        const float daz = dz * z * (1.f - z);
+        float* gxo = dgx + row * 3 * H;
+        float* gho = dgh + row * 3 * H;
+        gxo[unit] = dar;
+        gxo[H + unit] = daz;
+        gxo[2 * H + unit] = dan;
+        gho[unit] = dar;
+        gho[H + unit] = daz;
+        gho[2 * H + unit] = dan * r;
+        float* x = xc + (size_t)b * gs.KA + c * G + gu;
+        x[0] = dar;
+        x[U] = daz;
+        x[2 * U] = dan * r;
+        *dhc_b = (1.f - m) * dh_t + dh_new * z;
+      }
+      __syncthreads();  // the sums are read before the ring takes the next tiles
+    }
+    grid.sync();  // every block's dgh of the step is in the buffer
+  }
+}
+
 // ---------------------------------------------- recurrences at H = 128 --
 
 constexpr int kH = 128;        // hidden units
@@ -949,7 +1280,10 @@ gru_bwd_h128(const float* __restrict__ dout, const float* __restrict__ gates,
 extern "C" {
 
 // Which kernel runs a recurrence; the wrapper chooses from H.
-enum { SSTTS_GRU_GENERIC = 0, SSTTS_GRU_H128 = 1, SSTTS_GRU_WIDE = 2, SSTTS_GRU_SPILL = 3 };
+enum {
+  SSTTS_GRU_GENERIC = 0, SSTTS_GRU_H128 = 1, SSTTS_GRU_WIDE = 2, SSTTS_GRU_SPILL = 3,
+  SSTTS_GRU_GRID = 4
+};
 
 // Dynamic shared memory of the generic kernels at width H.
 int sstts_gru_smem_bytes(int H) { return (H * 3 * H + H + 6 * H) * 4; }
@@ -968,6 +1302,23 @@ int sstts_gru_wide_bwd_smem_bytes(int H, int C, int R) {
   const WideShape ws(H, C);
   return (R * ws.ld + ws.G + 2 * C * ws.U + ws.JS * H) * 4;
 }
+
+// Dynamic shared memory of one block of the grid kind's forward (backward:
+// 1) at width H: the slice and the ring (gru_fwd_grid, gru_bwd_grid).
+int sstts_gru_grid_smem_bytes(int H, int backward) { return GridShape(H, backward).smem_bytes(); }
+
+// The grid kind's scratch at (B, H), in floats: the exchange buffer (2, Bp,
+// KA), and for the backward the carry gradient's direct part (Bp, NB U).
+long long sstts_gru_grid_scratch_floats(int B, int H, int backward) {
+  const GridShape gs(H, backward);
+  const long long Bp = (B + kGridRows - 1) / kGridRows * kGridRows;
+  return Bp * (2LL * gs.KA + (backward ? (long long)gs.NB * gs.U : 0));
+}
+
+// Blocks of the grid kind at width H (NB), and threads a block.
+int sstts_gru_grid_blocks(int H) { return GridShape(H, 0).NB; }
+
+int sstts_gru_grid_threads(int H, int backward) { return GridShape(H, backward).threads; }
 
 }  // extern "C"
 
@@ -1018,6 +1369,35 @@ int launch_wide(void (*kernel)(Params...), int B, int C, int smem, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
+// Launches a grid kernel cooperatively: NB blocks, all resident for the T
+// steps (their grid barriers wait on each other).  A card without
+// cooperative launches, or one whose SMs cannot hold the NB blocks at once
+// (one block an SM: fewer SMs than NB), is refused here
+// (cudaErrorCooperativeLaunchTooLarge), before the launch.
+template <class... Params, class... Args>
+int launch_grid(void (*kernel)(Params...), int H, int backward, cudaStream_t st,
+                Args... args) {
+  const GridShape gs(H, backward);
+  if (!gs.valid()) return (int)cudaErrorInvalidValue;
+  const int smem = sstts_gru_grid_smem_bytes(H, backward);
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, gs.threads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop || per_sm * sms < gs.NB)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* params[] = {&args...};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(gs.NB),
+                                    dim3(gs.threads), params, (size_t)smem, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // The spilling kind's R: 1 <= R <= H (the backward keeps all H rows at a
 // few widths past 543 where the forward cannot), and `spill` given where
 // R < H.
@@ -1062,6 +1442,29 @@ int sstts_gru_wide_active_clusters(int H, int C, int R, int backward) {
   return err == cudaSuccess ? clusters : -(int)err;
 }
 
+// How many blocks of the grid kind's forward (backward: 1) at width H the
+// card holds at once (a cooperative launch needs NB), or minus a CUDA error
+// code.
+int sstts_gru_grid_active_blocks(int H, int backward) {
+  const int smem = sstts_gru_grid_smem_bytes(H, backward);
+  const int threads = GridShape(H, backward).threads;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (backward) {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(gru_bwd_grid, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gru_bwd_grid, threads, smem);
+  } else {
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(gru_fwd_grid, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gru_fwd_grid, threads, smem);
+  }
+  return err == cudaSuccess ? per_sm * sms : -(int)err;
+}
+
 // gx (M, N) = xs (M, K) @ wx (K, N) + b (N), all f32 and contiguous.
 int sstts_gru_input_proj(const float* xs, const float* wx, const float* b,
                          float* gx, int M, int K, int N, void* stream) {
@@ -1083,6 +1486,11 @@ int sstts_gru_recurrence(const float* gx, const float* wh, const float* mask,
     return launch_wide(gru_fwd_wide<false>, B, cluster,
                        sstts_gru_wide_smem_bytes(H, cluster, H), st, gx, wh,
                        (const float*)nullptr, mask, out, gates, hprev, T, H, H, reverse);
+  if (kind == SSTTS_GRU_GRID) {
+    if (cluster != GridShape(H, 0).NB || spill == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_grid(gru_fwd_grid, H, 0, st, gx, wh, mask, out, gates, hprev, spill, B, T,
+                       H, reverse);
+  }
   if (kind == SSTTS_GRU_SPILL) {
     if (!spill_args(H, rows, spill)) return (int)cudaErrorInvalidValue;
     const int rc = pack_spill(wh, spill, H, cluster, rows, 0, st);
@@ -1146,6 +1554,11 @@ int sstts_gru_sequence_backward(const float* dout, const float* gates,
     return launch_wide(gru_bwd_wide<false>, B, cluster,
                        sstts_gru_wide_bwd_smem_bytes(H, cluster, H), st, dout, gates,
                        hprev, wh, (const float*)nullptr, mask, dgx, dgh, T, H, H, reverse);
+  if (kind == SSTTS_GRU_GRID) {
+    if (cluster != GridShape(H, 1).NB || spill == nullptr) return (int)cudaErrorInvalidValue;
+    return launch_grid(gru_bwd_grid, H, 1, st, dout, gates, hprev, wh, mask, dgx, dgh, spill,
+                       B, T, H, reverse);
+  }
   if (kind == SSTTS_GRU_SPILL) {
     if (!spill_args(H, rows, spill)) return (int)cudaErrorInvalidValue;
     const int rc = pack_spill(wh, spill, H, cluster, rows, 1, st);

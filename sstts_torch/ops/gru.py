@@ -8,19 +8,25 @@ kernels in `sstts_torch/csrc/gru.cu`, or raises.  There is no fallback from
 one to the other.  Layouts match the JAX package: xs (B, T, D), wx (D, 3H),
 wh (H, 3H), b (3H,), mask (B, T), gate order r, z, n.
 
-On the card the recurrences come in four kinds, chosen here from H alone
+On the card the recurrences come in five kinds, chosen here from H alone
 (`kernel_config`, before any launch): at H = 128, the width of every GRU at
 the default `Config()`, kernels that hold Wh in registers; at any other H up
 to 137, generic kernels that hold Wh in one block's shared memory; past
 137, wide kernels that split Wh over a thread-block cluster of C blocks
 (the smallest C up to 16 whose block fits, `wide_smem_bytes`), up to 543;
-past 543, the spilling kind: the wide kernels on a cluster of 16 whose
+from 544 to `GRID_MAX_HIDDEN` = 1419, the grid kind: one cooperative grid
+of up to 132 blocks a direction, each owning U units of every sequence
+(`grid_shape`), the carry (forward) or the step's dgh (backward) exchanged
+through a zeroed buffer in device memory with one grid barrier a step;
+past 1419, the spilling kind: the wide kernels on a cluster of 16 whose
 blocks keep the first R rows of their slice of Wh in shared memory
 (`smem_rows`) and read the others each step from a packed copy in device
 memory, up to `MAX_HIDDEN` = 5456.  None stands in for another: a kernel
-that fails to build or launch raises.  `check_width` refuses a GRU wider
-than MAX_HIDDEN with NotImplementedError, from the entry points' checks
-(`check_arch`) before anything is launched and again at each launch.
+that fails to build or launch raises, and so does a grid launch that the
+card refuses (not all NB blocks resident at once: fewer SMs than NB).
+`check_width` refuses a GRU wider than MAX_HIDDEN with NotImplementedError,
+from the entry points' checks (`check_arch`) before anything is launched
+and again at each launch.
 
 Gradient: when grad mode is on and an input requires grad, the call goes
 through `_GRUSequence`, an `autograd.Function`.  Its forward also keeps the
@@ -50,14 +56,24 @@ SIGNATURES = {
     "sstts_gru_wide_smem_bytes": ([_I] * 3, _I),
     "sstts_gru_wide_bwd_smem_bytes": ([_I] * 3, _I),
     "sstts_gru_wide_active_clusters": ([_I] * 4, _I),
+    "sstts_gru_grid_smem_bytes": ([_I] * 2, _I),
+    "sstts_gru_grid_scratch_floats": ([_I] * 3, ctypes.c_longlong),
+    "sstts_gru_grid_blocks": ([_I], _I),
+    "sstts_gru_grid_threads": ([_I] * 2, _I),
+    "sstts_gru_grid_active_blocks": ([_I] * 2, _I),
 }
 
 #: The `kind` argument of the C entry points (SSTTS_GRU_* in csrc/gru.cu).
-KIND_GENERIC, KIND_H128, KIND_WIDE, KIND_SPILL = 0, 1, 2, 3
+KIND_GENERIC, KIND_H128, KIND_WIDE, KIND_SPILL, KIND_GRID = 0, 1, 2, 3, 4
 
 #: Threads of a wide block and the largest cluster (kWideThreads and
 #: kMaxCluster in csrc/gru.cu).
 WIDE_THREADS, MAX_CLUSTER = 1024, 16
+
+#: The grid kind's constants (kGridBlocks, kGridThreads, kGridRows and
+#: kGridStages in csrc/gru.cu): at most one block per SM of the H100 (132),
+#: threads a block, batch rows of a tile, stages of the K tiles' ring.
+GRID_BLOCKS, GRID_THREADS, GRID_ROWS, GRID_STAGES = 132, 512, 32, 3
 
 
 def generic_smem_bytes(hidden: int) -> Tuple[int, int]:
@@ -99,6 +115,75 @@ def _spill_rows(hidden: int) -> Optional[Tuple[int, int]]:
     return rows if min(rows) >= 1 else None
 
 
+def _grid_shape(hidden: int, backward: bool, target: int) -> dict:
+    units = -(-hidden // GRID_BLOCKS)
+    blocks = -(-hidden // units)
+    k = blocks * (3 * units if backward else units)
+    n = 3 * -(-units // 3) if backward else 3 * units
+    items = GRID_ROWS // 4 * (n // 3)
+    k_slices = GRID_THREADS // items if items <= GRID_THREADS else 0
+    quads = -(-target // k_slices) if k_slices else 1
+    kt = 4 * max(k_slices, 1) * quads
+    ka = -(-k // kt) * kt
+    gs = {"U": units, "NB": blocks, "N": n, "NG": n // 3, "items": items, "KS": k_slices,
+          "KT": kt, "KA": ka, "ldw": ka if ka % 8 == 4 else ka + 4,
+          "ldt": kt if kt % 8 == 4 else kt + 4,
+          "threads": -(-items * k_slices // 32) * 32}
+    ring = max(GRID_STAGES * GRID_ROWS * gs["ldt"], k_slices * GRID_ROWS * n)
+    gs["smem"] = (n * gs["ldw"] + ring) * 4
+    return gs
+
+
+def grid_shape(hidden: int, backward: bool) -> dict:
+    """csrc/gru.cu's GridShape at width H: U units a block and NB blocks
+    (U the smallest with NB = ceil(H / U) <= 132); the exchanged row's
+    width KA (the forward's carry, NB U; the backward's dgh, NB 3U; padded
+    to a multiple of the K tile KT); the block's slice of Wh, N rows (3U
+    gate columns forward; U rows of Wh backward, padded to a multiple of 3)
+    of ldw floats; the product's `items` thread tiles (4 batch rows x 3
+    slice rows) a row tile and KS slices of K, each taking KT / 4 / KS
+    float4 quads of a tile, about 32 (forward) or 48 (backward) quads a
+    tile, or fewer (32, then 16) where the block's shared memory (`smem`:
+    the slice, and the ring of K tiles whose space the K slices' sums take
+    after each product) would pass 232,448 bytes; the ring's row stride
+    ldt; threads a block."""
+    for target in ((48, 32, 16) if backward else (32, 16)):
+        gs = _grid_shape(hidden, backward, target)
+        if gs["smem"] <= build.MAX_SMEM:
+            break
+    return gs
+
+
+def grid_smem_bytes(hidden: int) -> Tuple[int, int]:
+    """Shared memory of one block of the grid kind's forward and backward
+    at width H, as `sstts_gru_grid_smem_bytes` counts it (`grid_shape`)."""
+    return tuple(grid_shape(hidden, backward)["smem"] for backward in (False, True))
+
+
+def grid_scratch_floats(batch: int, hidden: int, backward: bool) -> int:
+    """The grid kind's scratch at (B, H), as `sstts_gru_grid_scratch_floats`
+    counts it: the exchange buffer (2, Bp, KA), Bp = B rounded up to 32
+    rows, and for the backward the carry gradient's direct part (Bp, NB U)."""
+    gs = grid_shape(hidden, backward)
+    rows = -(-batch // GRID_ROWS) * GRID_ROWS
+    return rows * (2 * gs["KA"] + (gs["NB"] * gs["U"] if backward else 0))
+
+
+def _grid_fits(hidden: int) -> bool:
+    shapes = [grid_shape(hidden, bwd) for bwd in (False, True)]
+    return (all(gs["KS"] >= 1 and GRID_ROWS * gs["U"] <= gs["threads"] for gs in shapes)
+            and max(grid_smem_bytes(hidden)) <= build.MAX_SMEM)
+
+
+#: The first width past the wide kind's reach, where the grid kind starts.
+GRID_MIN_HIDDEN = 544
+
+#: The widest H of the grid kind (1419): the last before the first width
+#: whose slice and ring pass a block's 232,448 bytes of shared memory (the
+#: backward's, at U = 11 units a block).
+GRID_MAX_HIDDEN = next(h for h in range(GRID_MIN_HIDDEN, 10**4) if not _grid_fits(h)) - 1
+
+
 def _config(hidden: int) -> Optional[Tuple[int, int]]:
     if hidden == 128:
         return KIND_H128, 1
@@ -107,6 +192,8 @@ def _config(hidden: int) -> Optional[Tuple[int, int]]:
     for cluster in range(2, MAX_CLUSTER + 1):
         if max(wide_smem_bytes(hidden, cluster)) <= build.MAX_SMEM:
             return KIND_WIDE, cluster
+    if GRID_MIN_HIDDEN <= hidden <= GRID_MAX_HIDDEN:
+        return KIND_GRID, grid_shape(hidden, False)["NB"]
     if _spill_rows(hidden) is not None:
         return KIND_SPILL, MAX_CLUSTER
     return None
@@ -119,12 +206,16 @@ MAX_HIDDEN = next(h for h in range(MAX_CLUSTER * (WIDE_THREADS // 3) + 1, 0, -1)
 
 
 def kernel_config(hidden: int) -> Tuple[int, int]:
-    """(kind, cluster size) of the CUDA recurrences at width H: the
-    register-resident kernels at H = 128, the generic ones where their block
-    fits (H up to 137), the wide ones on the smallest cluster whose block
-    fits (up to 543), else the spilling kind on a cluster of 16 (its rows in
-    shared memory: `smem_rows`).  NotImplementedError past MAX_HIDDEN.  A
-    pure function of H: nothing is built or launched."""
+    """(kind, cluster size or blocks) of the CUDA recurrences at width H:
+    the register-resident kernels at H = 128, the generic ones where their
+    block fits (H up to 137), the wide ones on the smallest cluster whose
+    block fits (up to 543), the grid kind on NB = ceil(H / U) blocks, U =
+    ceil(H / 132), from 544 up to GRID_MAX_HIDDEN = 1419 (the widest H
+    whose forward and backward blocks, slice and ring, fit 232,448 bytes of
+    shared memory: `grid_smem_bytes`), else the spilling kind on a cluster
+    of 16 (its rows in shared memory: `smem_rows`).  NotImplementedError
+    past MAX_HIDDEN.  A pure function of H: nothing is built or launched;
+    the grid's residency on the card is checked at each launch."""
     config = _config(hidden)
     if config is None:
         raise NotImplementedError(
@@ -288,9 +379,14 @@ def _load(hidden: int):
     return build.load("gru", SIGNATURES), kernel_config(hidden)
 
 
-def _spill(hidden: int, kind: int, rows: int, dev) -> Optional[torch.Tensor]:
-    """The spilling kind's scratch for the packed rows [R, H) of every
-    rank's slice (16 (H - R) 3U floats), else None."""
+def _scratch(batch: int, hidden: int, kind: int, rows: int, dev,
+             backward: bool) -> Optional[torch.Tensor]:
+    """A launch's scratch: the spilling kind's packed rows [R, H) of every
+    rank's slice (16 (H - R) 3U floats); the grid kind's exchange buffer,
+    zeroed (`grid_scratch_floats`); else None."""
+    if kind == KIND_GRID:
+        return torch.zeros(grid_scratch_floats(batch, hidden, backward), device=dev,
+                           dtype=torch.float32)
     if kind != KIND_SPILL or rows == hidden:
         return None
     cols = 3 * -(-hidden // MAX_CLUSTER)
@@ -324,7 +420,7 @@ def _kernel(xs, wx, wh, b, mask, reverse, save: bool):
     gates = torch.empty(batch, t_len, 4 * hidden, **f32) if save else None
     hprev = torch.empty(batch, t_len, hidden, **f32) if save else None
     rows = smem_rows(hidden)[0]
-    spill = _spill(hidden, kind, rows, dev)
+    spill = _scratch(batch, hidden, kind, rows, dev, backward=False)
     rc = lib.sstts_gru_sequence(
         xs_c.data_ptr(), wx_c.data_ptr(), wh_c.data_ptr(), b_c.data_ptr(),
         _ptr(m_c), gx.data_ptr(), out.data_ptr(), _ptr(gates), _ptr(hprev), _ptr(spill),
@@ -367,7 +463,7 @@ def gru_sequence_backward(
     dgx = torch.empty(batch, t_len, 3 * hidden, device=dev, dtype=torch.float32)
     dgh = torch.empty_like(dgx)
     rows = smem_rows(hidden)[1]
-    spill = _spill(hidden, kind, rows, dev)
+    spill = _scratch(batch, hidden, kind, rows, dev, backward=True)
     rc = lib.sstts_gru_sequence_backward(
         dout_c.data_ptr(), gates_c.data_ptr(), hprev_c.data_ptr(),
         wh_c.data_ptr(), _ptr(m_c), dgx.data_ptr(), dgh.data_ptr(), _ptr(spill),

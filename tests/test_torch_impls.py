@@ -120,20 +120,22 @@ def test_wide_products_take_the_kernels_on_the_card(override):
 
 #: Widths and the kind of kernel each takes on the card (None: refused).
 _GRU_KINDS = {1: "generic", 16: "generic", 128: "h128", 137: "generic", 138: "wide",
-              160: "wide", 512: "wide", 544: "spill", 752: "spill", 1104: "spill",
-              5457: None}
+              160: "wide", 512: "wide", 544: "grid", 752: "grid", 1104: "grid",
+              1419: "grid", 1420: "spill", 5456: "spill", 5457: None}
 
 
 @pytest.mark.parametrize("hidden", sorted(_GRU_KINDS))
 def test_gru_width_check(hidden):
     """The card's GRU kernels take H up to MAX_HIDDEN (5456): the register
     kernels at 128, the generic ones up to 137, the wide ones (a cluster a
-    sequence) up to 543, the spilling ones (rows of Wh past shared memory
-    read from device memory) past it; a wider GRU raises
-    NotImplementedError naming MAX_HIDDEN on CUDA only, from `check_width`
-    and from `check_arch` for either CBHG's GRU."""
+    sequence) up to 543, the grid ones (a cooperative grid a direction) up
+    to 1419, the spilling ones (rows of Wh past shared memory read from
+    device memory) past it; a wider GRU raises NotImplementedError naming
+    MAX_HIDDEN on CUDA only, from `check_width` and from `check_arch` for
+    either CBHG's GRU."""
     kinds = {gru_ops.KIND_H128: "h128", gru_ops.KIND_GENERIC: "generic",
-             gru_ops.KIND_WIDE: "wide", gru_ops.KIND_SPILL: "spill"}
+             gru_ops.KIND_WIDE: "wide", gru_ops.KIND_SPILL: "spill",
+             gru_ops.KIND_GRID: "grid"}
     gru_ops.check_width(hidden, CPU)
     for field in ("encoder_gru_units", "post_gru_units"):
         arch = dataclasses.replace(tiny_config().arch, **{field: hidden})
@@ -153,10 +155,10 @@ def test_gru_width_check(hidden):
 def test_gru_width_limit_follows_the_kernel_source():
     """`generic_smem_bytes` repeats csrc/gru.cu's two shared-memory counts,
     which both fit in a block up to H = 137; past it the wide kernels, whose
-    block size and largest cluster are the source's, reach 543, and the
-    spilling ones MAX_HIDDEN = 5456, where a block's 3U gate columns fill
-    its threads (chip_smoke.py holds `wide_smem_bytes` to the library's
-    count at every wide H)."""
+    block size and largest cluster are the source's, reach 543, the grid
+    ones 1419, and the spilling ones MAX_HIDDEN = 5456, where a block's 3U
+    gate columns fill its threads (chip_smoke.py holds `wide_smem_bytes`
+    and `grid_smem_bytes` to the library's counts at every H past 137)."""
     src = Path(build.CSRC / "gru.cu").read_text()
     formulas = [
         re.search(rf"int {name}\(int H\) {{ return (.*?); }}", src).group(1)
@@ -173,7 +175,9 @@ def test_gru_width_limit_follows_the_kernel_source():
                         ("kMaxCluster", gru_ops.MAX_CLUSTER)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
     assert gru_ops.kernel_config(543) == (gru_ops.KIND_WIDE, 16)
-    assert gru_ops.kernel_config(544) == (gru_ops.KIND_SPILL, 16)
+    assert gru_ops.kernel_config(544) == (gru_ops.KIND_GRID, 109)
+    assert gru_ops.kernel_config(1419) == (gru_ops.KIND_GRID, 129)
+    assert gru_ops.kernel_config(1420) == (gru_ops.KIND_SPILL, 16)
 
 
 def test_synthesizer_resolves_before_anything_runs():

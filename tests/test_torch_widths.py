@@ -1,8 +1,10 @@
 """The recurrent kernels past their single-block widths, on the CPU: B3 and
 B3' past H = 137 (the wide kind, a thread-block cluster a sequence), past
-H = 543 (the spilling kind: the rows of each block's slice of Wh that
+H = 1419 (the spilling kind: the rows of each block's slice of Wh that
 shared memory cannot hold read from a packed copy in device memory) and B4
-and B6 past 1024 columns (products streamed in column panels).
+and B6 past 1024 columns (products streamed in column panels).  The grid
+kind between (544 to 1419) has its own module, test_torch_gru_grid.py; the
+plain versions at its widths 560 and 752 are held to JAX here too.
 
 The kernels run only on the card (`chip_smoke.py` phase 2 holds them to
 their plain versions at full size, phase 3i drives them through
@@ -16,7 +18,7 @@ their plain versions at full size, phase 3i drives them through
   csrc/gru.cu: each rank's columns of Wh, the forward's K slices and
   all-gather of the carry, the backward's column slices and reduce-scatter)
   against the plain version, and of the spilling kind's (the shared rows
-  and the packed copy's, `gru_pack_spill`) at H = 544, 752 and 1104;
+  and the packed copy's, `gru_pack_spill`) at H = 1420, 1701 and 2048;
 * a numpy replay of `chunk_schedule` as the ring's producer and consumers
   read it (stream.cuh: the copies, the panels, their columns);
 * the rule that picks the GRU's kernel from H (`kernel_config`), and the
@@ -85,7 +87,7 @@ def gru_arrays(H, B=2, T=9, D=7, seed=0):
 #: The widths held to the JAX package, the kind each takes on the card and
 #: its input width: past 543 the model's D = 128 (the highway width).
 WIDTHS = {144: (gru_ops.KIND_WIDE, 7), 256: (gru_ops.KIND_WIDE, 7),
-          560: (gru_ops.KIND_SPILL, 128), 752: (gru_ops.KIND_SPILL, 128)}
+          560: (gru_ops.KIND_GRID, 128), 752: (gru_ops.KIND_GRID, 128)}
 
 
 @pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
@@ -272,15 +274,15 @@ def test_wide_gru_split_replays_the_plain_version(H):
     replay_against_plain(H, C)
 
 
-@pytest.mark.parametrize("H", [544, 752, 1104])
+@pytest.mark.parametrize("H", [1420, 1701, 2048])
 def test_spill_gru_split_replays_the_plain_version(H):
     """The spilling kind's index rules on its cluster of 16: the forward's
     K slices each over its share of the shared rows and of the packed
     copy's (by row), the backward's rows from shared memory or from the
     copy by column (past H = 1024 two rows a thread), masked, both
-    directions, held to the plain versions.  At 544 the forward keeps 543
-    rows and the backward all 544 (nothing spilled); 1104 is the reference
-    kernel's reach at D = 128 on 32 MiB of VMEM."""
+    directions, held to the plain versions.  1420 is the first width past
+    the grid kind's reach (204 of its rows in shared memory forward, 200
+    backward); at 1701 the last rank owns fewer units."""
     kind, C = gru_ops.kernel_config(H)
     rows = gru_ops.smem_rows(H)
     assert (kind, C) == (gru_ops.KIND_SPILL, 16) and rows[0] < H
@@ -293,11 +295,12 @@ def test_gru_kernel_config_rule(monkeypatch):
     register kernels at 128, the generic ones up to 137 (138 is the first
     whose Wh and vectors pass a block's 232,448 bytes), then the wide ones
     on the smallest cluster, up to 16 blocks, whose block fits, up to H =
-    543 (no cluster's block holds 544), then the spilling kind on a cluster
-    of 16 with the most rows of each slice that fit beside the step's
-    vectors (`smem_rows`), up to MAX_HIDDEN = 5456, where a block's 3U gate
-    columns fill its 1024 threads; past it NotImplementedError.  The
-    constants are csrc/gru.cu's."""
+    543 (no cluster's block holds 544), then the grid kind up to 1419
+    (test_torch_gru_grid.py holds its rule), then the spilling kind on a
+    cluster of 16 with the most rows of each slice that fit beside the
+    step's vectors (`smem_rows`), up to MAX_HIDDEN = 5456, where a block's
+    3U gate columns fill its 1024 threads; past it NotImplementedError.
+    The constants are csrc/gru.cu's."""
     monkeypatch.setattr(build, "load", lambda *a: pytest.fail("kernel_config built a library"))
     src = (build.CSRC / "gru.cu").read_text()
     for name, value in (("kWideThreads", gru_ops.WIDE_THREADS),
@@ -306,7 +309,7 @@ def test_gru_kernel_config_rule(monkeypatch):
     assert "SSTTS_GRU_WIDE = 2" in src and gru_ops.KIND_WIDE == 2
     assert "SSTTS_GRU_SPILL = 3" in src and gru_ops.KIND_SPILL == 3
     assert gru_ops.MAX_HIDDEN == 5456
-    for H in [*range(1, 1201), gru_ops.MAX_HIDDEN, gru_ops.MAX_HIDDEN + 1]:
+    for H in [*range(1, 1601), gru_ops.MAX_HIDDEN, gru_ops.MAX_HIDDEN + 1]:
         if H > gru_ops.MAX_HIDDEN:
             with pytest.raises(NotImplementedError, match=rf"MAX_HIDDEN = 5456, .*H={H}$"):
                 gru_ops.kernel_config(H)
@@ -326,6 +329,11 @@ def test_gru_kernel_config_rule(monkeypatch):
             assert C == 2 or max(gru_ops.wide_smem_bytes(H, C - 1)) > build.MAX_SMEM
             assert KS * G <= gru_ops.WIDE_THREADS and JS * H <= gru_ops.WIDE_THREADS
             assert U <= gru_ops.WIDE_THREADS and (C - 1) * U < H
+        elif H <= gru_ops.GRID_MAX_HIDDEN:
+            assert (kind, C) == (gru_ops.KIND_GRID, gru_ops.grid_shape(H, False)["NB"])
+            assert max(gru_ops.wide_smem_bytes(H, gru_ops.MAX_CLUSTER)) > build.MAX_SMEM
+            assert max(gru_ops.grid_smem_bytes(H)) <= build.MAX_SMEM
+            assert gru_ops.smem_rows(H) == (H, H)
         else:
             assert (kind, C) == (gru_ops.KIND_SPILL, gru_ops.MAX_CLUSTER)
             assert max(gru_ops.wide_smem_bytes(H, C)) > build.MAX_SMEM
