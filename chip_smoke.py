@@ -13,23 +13,26 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    from CUDA events for the kernel, its plain version and, where one
    PyTorch call computes the same function, that call; and each kernel's
    bound, from its shapes; for the GRU kernels also what ptxas reported
-   (registers, no spill in the H = 128 kernels), all five kinds of kernel
+   (registers, no spill in the H = 128 kernels), all four kinds of kernel
    (H = 128, the generic one at H = 16, the wide one, a cluster a
    sequence, at H = 138, 256 and 512 at full size, B = 32, T = 800
    forward and 515 backward, and at 139 and 301 with D != H; the grid
    one, a cooperative grid a direction whose blocks each own U units of
    every sequence, at H = 560, 752 and 1104 with D = 128 at full size and
    at one step, an odd length at B = 1, 3 and 33, 561 and 1103 (a last
-   block owning fewer units) and 1025; and the spilling one, whose blocks
-   read the rows of Wh that their shared memory cannot hold from device
-   memory, at H = 1420 at full size and at 2048 and 5456 (the widest
-   taken); two launches of each bit-equal, each main width beside cuDNN's
-   nn.GRU at the same H, timed in turns with it; the wrapper's count of
-   the wide, grid and spilling kinds' shared memory (and the grid's
-   scratch) held to the library's at every H past 137, the grid's blocks
-   held to how many the card holds at once, and the blocks, cluster size
-   and spilled rows of each width on a line of its own), and their
-   stages' times apart;
+   block owning fewer units) and 1025, and past H = 1419, where its blocks
+   stream the part of their slice of Wh that their shared memory cannot
+   hold, at 1420, 2048 and 5456 (the widest taken) at full size and at
+   2048, 2113 (a last block owning fewer units, two gate items a thread)
+   and 5456 beside; two launches of each bit-equal, each main width beside
+   cuDNN's nn.GRU at the same H, timed in turns with it, its bound with
+   both terms (f32 operations, and the bytes of Wh that shared memory and
+   L2 cannot keep, read once a step); the wrapper's count of the wide and
+   grid kinds' shared memory (and the grid's resident K range and scratch)
+   held to the library's at every H past 137, the grid's blocks held to how
+   many the card holds at once, and the blocks, cluster size and streamed
+   columns of each width on a line of its own), and their stages' times
+   apart;
    for the decode kernel B4 also the tiny config's widths, B=3 at T=300,
    rows that stop at different steps, T=4096, and the longest T taken and
    the next refused before any launch, and phase 3i's cell (products of
@@ -178,16 +181,17 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    a direction, the reference GRU kernel's reach at D = 128 on 16 MiB of
    VMEM: B3 and B3' on the grid kind, B4 and B6 on a memory of 1504
    columns);
-3k. the same as 3i on `SPILL_ARCH` (the default Config() with BiGRUs of
-   1420 a direction, the first width past the grid kind's reach: B3 and
-   B3' on the spilling kind, B4 and B6 on a memory of 2840 columns);
+3k. the same as 3i on `STREAM_ARCH` (the default Config() with BiGRUs of
+   1420 a direction, the first width whose grid blocks stream part of
+   their slice of Wh: B3 and B3' on the grid kind, the backward streaming,
+   B4 and B6 on a memory of 2840 columns);
 4. one JSON line of every kernel's numbers (its launches on each path,
    "cli" the sum of phase 3d's commands, "corpus" of phase 3e's three
    `train` runs, "variants" of phase 3f's counted runs, "mesh" of phase
    3g's, "geometry" of phase 3h's; the wide configurations' rows, B3, B3',
    B4 and B6 past their single-block widths, with phase 3i's launches, the
-   grid B3 and B3' with phase 3j's, and the spilling B3 and B3' with
-   phase 3k's), the
+   grid B3 and B3' with phase 3j's, and the streaming grid B3 and B3'
+   with phase 3k's), the
    card's line before it, and last
    `{"ok": true, "device":
    {...}}`.
@@ -313,16 +317,18 @@ def gru_ptxas(match: str) -> dict:
 
 def gru_kind(H: int) -> str:
     """The kind of CUDA recurrence `ops/gru.py:kernel_config` gives width H,
-    with the wide kinds' cluster size, the grid kind's blocks and units a
-    block, and the spilling kind's rows of each slice in shared memory
-    (forward / backward)."""
+    with the wide kind's cluster size, the grid kind's blocks and units a
+    block and, where its blocks stream part of their slice, the K columns
+    of each slice row streamed (forward / backward) and "-bulk" where the
+    streamed tiles move as bulk copies."""
     from sstts_torch.ops import gru
 
     kind, cluster = gru.kernel_config(H)
-    if kind == gru.KIND_SPILL:
-        return "spill-C{}-R{}/{}".format(cluster, *gru.smem_rows(H))
     if kind == gru.KIND_GRID:
-        return f"grid-NB{cluster}-U{gru.grid_shape(H, False)['U']}"
+        shapes = [gru.grid_shape(H, b) for b in (False, True)]
+        streamed = "-S{}/{}".format(*(gs["S"] for gs in shapes)) if shapes[1]["S"] else ""
+        bulk = "-bulk" if shapes[1]["bulk"] else ""
+        return f"grid-NB{cluster}-U{shapes[0]['U']}{streamed}{bulk}"
     return {gru.KIND_H128: "h128", gru.KIND_GENERIC: "generic"}.get(kind, f"wide-C{cluster}")
 
 
@@ -389,7 +395,7 @@ def check_gru(dev):
         gx.data_ptr(), B * T, D, 3 * H))
     rec_ms = cuda_ms(lambda: stage(
         "sstts_gru_recurrence", gx.data_ptr(), wh.data_ptr(), full.data_ptr(),
-        out.data_ptr(), None, None, None, B, T, H, 0, *gru.kernel_config(H), H))
+        out.data_ptr(), None, None, None, B, T, H, 0, *gru.kernel_config(H)))
     log(f"  B3 stages at b={B}, T={T}: input projection {proj_ms:.4f} ms, recurrence "
         f"{rec_ms:.4f} ms; the wrapper {ms:.4f} ms, saving the gates {ms_saving:.4f} ms")
     # One PyTorch call with the same function when every step is valid:
@@ -518,25 +524,49 @@ def check_gru_backward(dev):
 #: cluster of 15, whose last rank owns fewer units); the grid kind's (D =
 #: 128, the model's highway width) 560, 752 (phase 3j's BiGRUs: the
 #: reference kernel's reach at D = 128 on 16 MiB of VMEM) and 1104 (on 32
-#: MiB); the spilling kind's first width, 1420.  Beside them: the wide
-#: kind's one step and an odd length at widths no cluster divides, with D
-#: != H; the grid kind's one step, an odd length (37) at B = 1, 3 and 33,
-#: widths whose last block owns fewer units (561: one of 5; 1103: 5 of 9)
-#: and 1025; the spilling kind at 2048 (two rows a backward thread) and the
-#: widest H taken.
-GRU_WIDE_HIDDEN = (138, 256, 512, 560, 752, 1104, 1420)
+#: MiB); past 1419, where its blocks stream part of their slice, 1420
+#: (phase 3k's BiGRUs: the backward streams), 2048 (both stream; L2 holds
+#: what they stream) and the widest H taken, 5456 (read from HBM every
+#: step).  Beside them: the wide kind's one step and an odd length at
+#: widths no cluster divides, with D != H; the grid kind's one step, an odd
+#: length (37) at B = 1, 3 and 33, widths whose last block owns fewer units
+#: (561: one of 5; 1103: 5 of 9; 2113: 5 of 17, two gate items a thread)
+#: and 1025, 2048 and 5456.
+GRU_WIDE_HIDDEN = (138, 256, 512, 560, 752, 1104, 1420, 2048, 5456)
 GRU_WIDE_SIDE_SHAPES = [(3, 1, 64, 139), (4, 37, 96, 301),
                         (32, 1, 128, 752), (1, 37, 128, 560), (3, 37, 128, 1104),
                         (33, 37, 128, 752), (5, 9, 64, 561), (2, 9, 128, 1103),
-                        (2, 9, 128, 1025), (2, 9, 128, 2048), (1, 3, 64, 5456)]
+                        (2, 9, 128, 1025), (2, 9, 128, 2048), (3, 9, 128, 2113),
+                        (1, 3, 64, 5456)]
 #: The width each kind's row of the kernels line is read at.
-GRU_WIDE_MAIN = {"wide": 256, "grid": 752, "spill": 1420}
+GRU_WIDE_MAIN = {"wide": 256, "grid": 752, "streamed": 1420}
+
+#: What the card keeps of Wh between steps at most: every SM's shared
+#: memory (132 x 232,448 bytes) and L2 (50 MB on the H100 data sheet).
+#: The bytes of Wh beyond them are read again every step.
+KEPT_BYTES = 132 * 232448 + 50 * 2**20
 
 
 def wide_kind(H: int) -> str:
-    """"wide", "grid" or "spill": the kind of recurrence past 137 width H
+    """"wide", "grid" or "streamed" (the grid kind whose blocks stream part
+    of their slice of Wh): the kind of recurrence past 137 width H
     takes."""
-    return gru_kind(H).split("-")[0]
+    kind = gru_kind(H)
+    return "streamed" if "-S" in kind else kind.split("-")[0]
+
+
+def gru_bound(n_bytes: float, n_ops: float, H: int, T: int) -> dict:
+    """The bound of a recurrence whose inputs and outputs move `n_bytes`
+    once and whose FMAs are `n_ops` f32 operations, with its two terms:
+    the operations at the f32 peak, and the bytes, `n_bytes` plus the bytes
+    of Wh (12 H^2) past KEPT_BYTES read once a step for T steps, at HBM's
+    rate."""
+    streamed = max(0, 12 * H * H - KEPT_BYTES) * T
+    ms, by = bound_ms(n_bytes + streamed, n_ops, "f32")
+    return {"bound_ms": ms, "bound_by": by,
+            "bound_terms_ms": {"operations": n_ops / PEAK_OPS["f32"] * 1e3,
+                               "bytes": (n_bytes + streamed) / HBM_BYTES_PER_S * 1e3},
+            "wh_bytes_not_kept_a_step": streamed // T}
 
 
 def wide_input_width(H: int) -> int:
@@ -555,85 +585,87 @@ def wide_gru_cases(dev, T: int, seed: int, kind: str):
 
 @functools.lru_cache(maxsize=None)
 def check_gru_wide_counts():
-    """The wrapper's rule (`kernel_config`, `smem_rows`, `wide_smem_bytes`,
-    `grid_smem_bytes`, `grid_scratch_floats`) against the library's own
+    """The wrapper's rule (`kernel_config`, `wide_smem_bytes`,
+    `grid_smem_bytes`, `grid_shape`'s resident K range R,
+    `grid_exchange_floats`, `grid_scratch_floats`) against the library's own
     count at every H past 137 up to MAX_HIDDEN, and each configuration the
     card holds at once (clusters; the grid kind's blocks, which must all be
     resident), for the widths of GRU_WIDE_HIDDEN; a line of its own for
-    each grid and spilling width."""
+    each grid width."""
     from sstts_torch.ops import build, gru
 
     lib = build.load("gru", gru.SIGNATURES)
-    for H in range(gru.MAX_HIDDEN + 1):
+    for H in range(138, gru.MAX_HIDDEN + 1):
         kind, C = gru.kernel_config(H)
         if kind == gru.KIND_GRID:
             want = gru.grid_smem_bytes(H)
             got = (lib.sstts_gru_grid_smem_bytes(H, 0), lib.sstts_gru_grid_smem_bytes(H, 1))
+            rows = [(lib.sstts_gru_grid_resident(H, b), gru.grid_shape(H, bool(b))["R"])
+                    for b in (0, 1)]
             scratch = [(lib.sstts_gru_grid_scratch_floats(B, H, bwd),
-                        gru.grid_scratch_floats(B, H, bool(bwd)))
+                        gru.grid_scratch_floats(B, H, bool(bwd)),
+                        lib.sstts_gru_grid_exchange_floats(B, H, bwd),
+                        gru.grid_exchange_floats(B, H, bool(bwd)))
                        for B in (1, 33) for bwd in (0, 1)]
             if (got != want or max(got) > build.MAX_SMEM or lib.sstts_gru_grid_blocks(H) != C
-                    or any(a != b for a, b in scratch)):
+                    or any(a != b for a, b in rows)
+                    or any(a != b or c != d for a, b, c, d in scratch)):
                 raise AssertionError(f"grid GRU H={H}, NB={C}: library {got}, wrapper {want}, "
-                                     f"scratch {scratch}")
+                                     f"R {rows}, scratch {scratch}")
             continue
-        if kind not in (gru.KIND_WIDE, gru.KIND_SPILL):
-            continue
-        rows = gru.smem_rows(H)
-        want = gru.wide_smem_bytes(H, C, rows)
-        got = (lib.sstts_gru_wide_smem_bytes(H, C, rows[0]),
-               lib.sstts_gru_wide_bwd_smem_bytes(H, C, rows[1]))
+        want = gru.wide_smem_bytes(H, C)
+        got = (lib.sstts_gru_wide_smem_bytes(H, C), lib.sstts_gru_wide_bwd_smem_bytes(H, C))
         if got != want or max(got) > build.MAX_SMEM:
-            raise AssertionError(f"wide GRU H={H}, C={C}, R={rows}: library {got}, "
-                                 f"wrapper {want}")
+            raise AssertionError(f"wide GRU H={H}, C={C}: library {got}, wrapper {want}")
     active = {}
     for H in GRU_WIDE_HIDDEN:
         C = gru.kernel_config(H)[1]
-        if wide_kind(H) == "grid":
-            gs = gru.grid_shape(H, False)
-            active[H] = {"blocks": C, "units": gs["U"], "smem_bytes": gru.grid_smem_bytes(H),
+        if wide_kind(H) != "wide":
+            shapes = [gru.grid_shape(H, b) for b in (False, True)]
+            active[H] = {"blocks": C, "units": shapes[0]["U"],
+                         "smem_bytes": gru.grid_smem_bytes(H),
+                         "resident_k": [gs["R"] for gs in shapes],
+                         "streamed_k": [gs["S"] for gs in shapes],
                          "threads": [lib.sstts_gru_grid_threads(H, b) for b in (0, 1)],
                          "forward": lib.sstts_gru_grid_active_blocks(H, 0),
                          "backward": lib.sstts_gru_grid_active_blocks(H, 1)}
             if min(active[H]["forward"], active[H]["backward"]) < C:
                 raise AssertionError(f"grid GRU H={H}: the card cannot hold its {C} blocks "
                                      f"at once: {active[H]}")
-            log(f"  B3 grid H={H}: {C} blocks of {gs['U']} units, shared memory "
-                f"{active[H]['smem_bytes']} bytes forward / backward, blocks the card holds "
-                f"at once {active[H]['forward']} / {active[H]['backward']}")
+            log(f"  B3 grid H={H}: {C} blocks of {shapes[0]['U']} units, shared memory "
+                f"{active[H]['smem_bytes']} bytes forward / backward, K columns of a slice "
+                f"row in shared memory {active[H]['resident_k']}, streamed "
+                f"{active[H]['streamed_k']}, blocks the card holds at once "
+                f"{active[H]['forward']} / {active[H]['backward']}")
             continue
-        rows = gru.smem_rows(H)
-        active[H] = {"cluster": C, "smem_rows": rows, "spilled_rows": [H - r for r in rows],
-                     "forward": lib.sstts_gru_wide_active_clusters(H, C, rows[0], 0),
-                     "backward": lib.sstts_gru_wide_active_clusters(H, C, rows[1], 1)}
+        active[H] = {"cluster": C,
+                     "forward": lib.sstts_gru_wide_active_clusters(H, C, 0),
+                     "backward": lib.sstts_gru_wide_active_clusters(H, C, 1)}
         if min(active[H]["forward"], active[H]["backward"]) < 1:
             raise AssertionError(f"wide GRU H={H}: no cluster fits the card: {active[H]}")
-        if wide_kind(H) == "spill":
-            log(f"  B3 spill H={H}: cluster {C}, rows in shared memory {rows[0]} forward / "
-                f"{rows[1]} backward, spilled rows {H - rows[0]} / {H - rows[1]}; clusters the "
-                f"card holds at once {active[H]['forward']} / {active[H]['backward']}")
-    log(f"  B3 wide: the wrapper's shared-memory (and the grid kind's scratch) counts equal "
-        f"the library's for H = 138..{gru.MAX_HIDDEN}; configurations the card holds at "
-        f"once: {active}")
+    log(f"  B3 wide: the wrapper's shared-memory (and the grid kind's resident range and "
+        f"scratch) counts equal the library's for H = 138..{gru.MAX_HIDDEN}; configurations "
+        f"the card holds at once: {active}")
     return active
 
 
 def check_gru_wide(dev, kind: str):
     """B3's kernels past H = 137 of `kind` ("wide": a cluster a sequence;
     "grid": one cooperative grid a direction, the batch as the rows of each
-    block's product; "spill": a cluster a sequence with the rows of Wh that
-    shared memory cannot hold read from device memory) against the plain
+    block's product; "streamed": the grid kind whose blocks stream the part
+    of their slice of Wh that shared memory cannot hold) against the plain
     version at their widths of GRU_WIDE_HIDDEN (B = 32, T = 800) and side
     shapes, full and ragged masks, both directions, with and without the
     saved gates, two launches bit-equal; the time at each main width beside
     cuDNN's nn.GRU (in turns with the kernel, three rounds: its median and
-    spread), the plain version and the bound; the launches it made."""
+    spread), the plain version and the bound with both its terms; the
+    launches it made."""
     import torch
 
     from sstts_torch.ops import gru
     from sstts_torch.ops.gru import gru_sequence, gru_sequence_forward_plain, gru_sequence_plain
 
-    ptxas = gru_ptxas("gru_fwd_grid" if kind == "grid" else "gru_fwd_wide")
+    ptxas = gru_ptxas("gru_fwd_wide" if kind == "wide" else "gru_fwd_grid")
     active = check_gru_wide_counts()
     tol = 1e-4  # as check_gru: f32 both sides, sums in another order
     checks, by_h = [], {}
@@ -672,13 +704,13 @@ def check_gru_wide(dev, kind: str):
         plain = (cuda_ms(lambda: gru_sequence_plain(xs, wx, wh, b, full, False), 1, 3)
                  if H == GRU_WIDE_MAIN[kind] else None)
         n_bytes = nbytes(xs, wx, wh, b, full) + B * T * H * 4
-        bms, by = bound_ms(n_bytes, 2 * B * T * (D * 3 * H + H * 3 * H), "f32")
+        bound = gru_bound(n_bytes, 2 * B * T * (D * 3 * H + H * 3 * H), H, T)
         by_h[H] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
-                   "library_ms_runs": lib_runs, "bound_ms": bms, "bound_by": by,
-                   "kind": gru_kind(H), **active[H]}
+                   "library_ms_runs": lib_runs, **bound, "kind": gru_kind(H), **active[H]}
         log(f"  B3 {kind} H={H} ({gru_kind(H)}): {ms:.4f} ms, cuDNN nn.GRU {lib_ms:.4f} ms "
             f"(in turns: {', '.join(f'{x:.4f}' for x in lib_runs)}), plain {plain} ms, bound "
-            f"{bms:.4f} ms by {by}")
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+            f"(terms {bound['bound_terms_ms']})")
     main_h = GRU_WIDE_MAIN[kind]
     main = by_h[main_h]
     return {
@@ -705,7 +737,7 @@ def check_gru_backward_wide(dev, kind: str):
         gru_sequence_backward, gru_sequence_backward_plain, gru_sequence_forward_plain,
     )
 
-    ptxas = gru_ptxas("gru_bwd_grid" if kind == "grid" else "gru_bwd_wide")
+    ptxas = gru_ptxas("gru_bwd_wide" if kind == "wide" else "gru_bwd_grid")
     tol = 1e-4  # relative to the largest value, as check_gru_backward
     checks, by_h = [], {}
     for shape, (xs, wx, wh, b, masks, dout) in wide_gru_cases(dev, 515, seed=22, kind=kind):
@@ -756,14 +788,14 @@ def check_gru_backward_wide(dev, kind: str):
             lambda: gru_sequence_backward_plain(dout, gates, hprev, wh, mask, False), 1, 3)
             if H == GRU_WIDE_MAIN[kind] else None)
         n_bytes = nbytes(dout, gates, hprev, wh, mask) + 2 * B * T * 3 * H * 4
-        bms, by = bound_ms(n_bytes, 2 * B * T * 3 * H * H, "f32")
+        bound = gru_bound(n_bytes, 2 * B * T * 3 * H * H, H, T)
         by_h[H] = {"ms": ms, "plain_ms": plain, "library_ms": lib_ms,
-                   "library_ms_runs": lib_runs, "bound_ms": bms, "bound_by": by,
-                   "kind": gru_kind(H)}
+                   "library_ms_runs": lib_runs, **bound, "kind": gru_kind(H)}
         log(f"  B3 backward {kind} H={H} ({gru_kind(H)}): recurrence {ms:.4f} ms, cuDNN's "
             f"whole backward {lib_ms:.4f} ms (in turns: "
             f"{', '.join(f'{x:.4f}' for x in lib_runs)}), plain {plain} ms, bound "
-            f"{bms:.4f} ms by {by}")
+            f"{bound['bound_ms']:.4f} ms by {bound['bound_by']} "
+            f"(terms {bound['bound_terms_ms']})")
     main_h = GRU_WIDE_MAIN[kind]
     main = by_h[main_h]
     return {
@@ -1104,10 +1136,11 @@ WIDE_ARCH = {"encoder_gru_units": 256, "post_gru_units": 256,
 #: MiB of VMEM (B3 and B3' on the grid kind; memory of 1504 columns, two
 #: panels in B4 and B6).
 GRID_ARCH = {"encoder_gru_units": 752, "post_gru_units": 752}
-#: Phase 3k's architecture: BiGRUs of 1420 a direction, the first width past
-#: the grid kind's reach (B3 and B3' on the spilling kind; memory of 2840
-#: columns, three panels in B4 and B6).
-SPILL_ARCH = {"encoder_gru_units": 1420, "post_gru_units": 1420}
+#: Phase 3k's architecture: BiGRUs of 1420 a direction, the first width
+#: whose grid blocks stream part of their slice of Wh (B3 and B3' on the
+#: grid kind, the backward streaming; memory of 2840 columns, three panels
+#: in B4 and B6).
+STREAM_ARCH = {"encoder_gru_units": 1420, "post_gru_units": 1420}
 #: A ring-kernel cell with products of three column panels or more: the
 #: query and the rows of keys (A = 2560), memory (Dm = 2176: 1024 + 1024 +
 #: 128), and 3 Ha = 3 Hd = 1152.
@@ -3697,7 +3730,8 @@ def widths_path(dev, card, arch=None, kind: str = "wide", phase: str = "3i"):
     loss finite and falling; the first step's gradient against the teacher
     "xla" step's from the same init (cosine at least 0.999).  Phase 3j runs
     the same on GRID_ARCH, whose BiGRUs take the grid kind, and phase 3k on
-    SPILL_ARCH, whose BiGRUs take the spilling kind."""
+    STREAM_ARCH, whose BiGRUs take the grid kind with the streamed slice
+    (`wide_kind` "streamed")."""
     import torch
 
     from sstts_torch import train as tr
@@ -3706,13 +3740,13 @@ def widths_path(dev, card, arch=None, kind: str = "wide", phase: str = "3i"):
     from sstts_torch.synthesize import exact_f32
 
     arch = WIDE_ARCH if arch is None else arch
-    name = {"3i": "widths", "3j": "grid", "3k": "spill"}[phase]
+    name = {"3i": "widths", "3j": "grid", "3k": "stream"}[phase]
     ledger = Launches()
     res = {}
     cfg = with_arch(bench_config(), **arch)
     kinds = {H: gru_kind(H) for H in (cfg.arch.encoder_gru_units, cfg.arch.post_gru_units)}
     log(f"  widths {arch}: the BiGRUs' kernels {kinds}")
-    if not all(k.startswith(kind) for k in kinds.values()):
+    if not all(wide_kind(H) == kind for H in kinds):
         raise AssertionError(f"phase {phase}'s BiGRUs do not take the {kind} kernels: {kinds}")
     texts = ["the quick brown fox jumps over the lazy dog " * 2] * 32
     params = init_state_dict(cfg.arch, cfg.dataset, seed=0)
@@ -3832,12 +3866,13 @@ def main() -> int:
         # The wide configurations (B3 and B3' past H = 137, B4 and B6 in
         # column panels), each a row of its own, driven by phase 3i; B3 and
         # B3' from H = 544 to 1419 (the grid kind), driven by phase 3j; past
-        # 1419 (the spilling kind), driven by phase 3k.
+        # 1419 (the grid kind streaming part of each slice), driven by
+        # phase 3k.
         wide = [check_gru_wide(dev, "wide"), check_gru_backward_wide(dev, "wide"),
                 check_teacher_wide(dev), check_decoder_wide(dev)]
         grid = [check_gru_wide(dev, "grid"), check_gru_backward_wide(dev, "grid")]
-        spill = [check_gru_wide(dev, "spill"), check_gru_backward_wide(dev, "spill")]
-    for k in kernels + wide + grid + spill:
+        stream = [check_gru_wide(dev, "streamed"), check_gru_backward_wide(dev, "streamed")]
+    for k in kernels + wide + grid + stream:
         log(f"  {k['name']}: {k['ms']:.4f} ms (plain {k['plain_ms']:.4f} ms, "
             f"library {k['library_ms']}, bound {k['bound_ms']:.4f} ms by "
             f"{k['bound_by']}) [{card}]")
@@ -3862,8 +3897,8 @@ def main() -> int:
     widths_res = widths_path(dev, card)
     log("phase 3j: BiGRUs of 752 (B3, B3' on the grid kind)")
     grid_res = widths_path(dev, card, GRID_ARCH, "grid", "3j")
-    log("phase 3k: BiGRUs of 1420 (B3, B3' on the spilling kind)")
-    spill_res = widths_path(dev, card, SPILL_ARCH, "spill", "3k")
+    log("phase 3k: BiGRUs of 1420 (B3, B3' on the grid kind, streaming)")
+    stream_res = widths_path(dev, card, STREAM_ARCH, "streamed", "3k")
     # Each kernel's launches come from the path it carries.
     own_path = {"gru_sequence_backward": "training", "fused_teacher_scan": "training",
                 "reproject_frames_pallas": "serving", "fused_gl_iteration": "serving"}
@@ -3879,7 +3914,7 @@ def main() -> int:
         k["launches"] = by_path[own_path.get(k["name"], "synthesis")]
         k["launches_by_path"] = by_path
     for rows, res, phase in ((wide, widths_res, "3i"), (grid, grid_res, "3j"),
-                             (spill, spill_res, "3k")):
+                             (stream, stream_res, "3k")):
         for k in rows:  # launched by their phase only
             n = res["launches"].get(k["name"].rsplit("_", 1)[0], 0)
             k["launches"], k["launches_by_path"] = n, {f"phase {phase}": n}
@@ -3890,9 +3925,9 @@ def main() -> int:
                     "corpus_path": corpus_res, "variants_path": variants_res,
                     "mesh_path": mesh_res, "geometry_path": geometry_res,
                     "widths_path": widths_res, "grid_path": grid_res,
-                    "spill_path": spill_res, "card": card}))
+                    "stream_path": stream_res, "card": card}))
     log(card)
-    log(json.dumps({"kernels": kernels + wide + grid + spill}))
+    log(json.dumps({"kernels": kernels + wide + grid + stream}))
     log(json.dumps({
         "ok": True,
         "device": {

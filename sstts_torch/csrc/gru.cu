@@ -71,40 +71,32 @@
 //       registers a step ahead.  C is the smallest cluster whose block
 //       fits (sstts_gru_wide_smem_bytes; the wrapper's rule, up to 16
 //       blocks, the non-portable cluster size), which reaches H = 543.
-//     * H from 544 to 1419 (gru_fwd_grid, the grid kind): one persistent
+//     * H from 544 to 5456 (gru_fwd_grid, the grid kind): one persistent
 //       grid a direction, launched cooperatively, NB <= 132 blocks (one an
 //       SM), all resident for the T steps.  Block c owns U = ceil(H / 132)
-//       units for every sequence of the batch (U = 5, 6, 9 at H = 560, 752,
-//       1104: 112, 126, 123 blocks) and keeps their 3U gate columns of Wh,
-//       all H rows, in shared memory (GridShape: 119 KB at 1104).  A step:
-//       for each tile of 32 batch rows, the (32, H) x (H, 3U) product in f32
-//       FMAs, the batch as the rows, the carry streamed from a (2, Bp, KA)
-//       buffer in device memory through a 3-stage cp.async.cg ring of K
-//       tiles (4 x 3 outputs a thread, K split over KS slices added in a
-//       fixed order); one thread a (row, unit) applies the gates and mask
+//       units for every sequence of the batch (U = 5, 6, 9, 16, 42 at H =
+//       560, 752, 1104, 2048, 5456: 112, 126, 123, 128, 130 blocks) and keeps
+//       their 3U gate columns of Wh in shared memory (GridShape: 119 KB at
+//       1104).  A step: for each tile of 32 batch rows, the (32, H) x (H,
+//       3U) product in f32 FMAs, the batch as the rows, the carry streamed
+//       from a (2, Bp, KA) buffer in device memory through a 3-stage
+//       cp.async.cg ring of K tiles (4 x 3 outputs a thread, K split over KS
+//       slices added in a fixed order); one thread a (row, unit), up to 3
+//       (row, unit) items a thread past U = 16, applies the gates and mask
 //       and writes the unit's new carry into the buffer's other half; one
 //       grid barrier (cg::this_grid().sync(), a fence and an arrival) ends
-//       the step.  So Wh is read from shared memory once a step for the
-//       whole batch, and nothing of it from L2 after the first load; a
-//       step moves the whole carry (B H floats) from L2 into every block.
-//       The carry is written inside the launch, so it is read at L2
-//       (cp.async.cg, ld.global.cg), never through the non-coherent path.
-//       Up to H = 1419, the last width whose slice and ring fit 227 KB.
-//     * H past 1419 (gru_fwd_wide<true>, the spilling kind): a cluster of 16
-//       whose slices (3U columns, H rows: 1.2 MB at H = 1420) no block
-//       holds.  Each block keeps rows [0, R) of its slice in shared memory,
-//       R the most that fit beside the step's vectors (204 of 1420), and
-//       reads rows [R, H) every step from a packed copy in device memory
-//       (gru_pack_spill, run before the recurrence on the same stream): a K
-//       slice's threads read a row's 3U floats together, and every
-//       cluster's rank c reads the same copy, so L2 (50 MB) holds it once
-//       for all sequences (20.8 MB at H = 1420).  Each K slice takes an
-//       equal share of the shared rows and of the spilled ones; the gates
-//       and the carry's exchange are the wide kind's.  A step then moves
-//       16 (H - R) 3U floats from L2 a sequence, which sets its time.  The
-//       kernels take every H past 543 (the grid kind's widths too: a
-//       launch with this kind is what the wrapper asks for past 1419), up
-//       to H = 5456, where 3U reaches the block's 1024 threads.
+//       the step.  So Wh is read once a step for the whole batch; the carry
+//       is written inside the launch, so it is read at L2 (cp.async.cg,
+//       ld.global.cg), never through the non-coherent path.  Up to H =
+//       1430 (backward 1419) the whole slice fits beside the ring; past
+//       it the block keeps the K range [0, R) of its slice in
+//       shared memory, R the most whole K tiles of 16 quads that fit beside
+//       a ring whose stages also carry a tile of the slice's other rows
+//       [R, KA), and streams those from a packed copy (gru_pack_grid, run
+//       before the recurrence on the same stream) tile by tile, once a step
+//       for the 32 rows of a batch tile: 32 MB a step in all at H = 2048
+//       (L2 holds 50 MB; 16-byte copies), 370 MB at 5456 (read from HBM
+//       every step; one bulk copy a tile).
 //     When a gradient is wanted both write, per step, the gates r, z, n, the
 //     recurrent candidate term hn and the carry before the step (5H floats;
 //     42 MB at B=32, T=515, H=128), so that the backward never repeats the
@@ -135,7 +127,7 @@
 //       unit (a reduce-scatter through distributed shared memory,
 //       double-buffered); the owner adds the C partials at the start of
 //       the next step.  Two block barriers and one cluster barrier a step.
-//     * H from 544 to 1419 (gru_bwd_grid): the forward's grid.  Block c
+//     * H from 544 to 5456 (gru_bwd_grid): the forward's grid.  Block c
 //       keeps the rows of Wh of its U units, all 3H columns (U x 3H: the
 //       forward's bytes), in shared memory.  A step: for each row tile, the
 //       (32, 3H) x (3H, U) product of the previous step's dgh, read from a
@@ -144,12 +136,9 @@
 //       dan, writes dgx and dgh and the unit's three dgh values into the
 //       buffer's other half (laid out block by block, 3U columns a block);
 //       one grid barrier a step.  The step reads 3H floats a row from L2
-//       into every block, three times the forward's.
-//     * H past 1419 (gru_bwd_wide<true>): the forward's spilling split on the
-//       backward's slice: rows [0, R) in shared memory, rows [R, H) from a
-//       packed copy laid out by column (a warp's threads, one a row, read a
-//       column's rows together); one column slice, a thread a row (rows
-//       tid, tid + 1024, ... past H = 1024).
+//       into every block, three times the forward's.  Past H = 1419 the
+//       forward's split of K: columns [0, R) of the slice in shared memory,
+//       [R, KA) streamed through the ring from the packed copy.
 //     The weight gradients dWx = xs^T dgx, dWh = h_prev^T dgh, db = sum dgx
 //     and dxs = dgx Wx^T are large independent products that the wrapper
 //     leaves to cuBLAS, as the JAX package leaves them to XLA.  Bound:
@@ -157,12 +146,12 @@
 //     and ~100 MB of saved state and outputs, so ~0.03 ms; the 515
 //     dependent steps set the time.
 //
-// The wrapper chooses the kernel from H (`kind`, and for the wide kinds the
-// cluster size, for the spilling kind also R and the packed copy's
-// scratch, for the grid kind its block count and its zeroed exchange
-// buffer); a kind that does not fit the shape is refused with
-// cudaErrorInvalidValue, and a grid that the card cannot hold at once with
-// cudaErrorCooperativeLaunchTooLarge, never replaced.
+// The wrapper chooses the kernel from H (`kind`, and for the wide kind the
+// cluster size, for the grid kind its block count and its scratch: the
+// zeroed exchange buffer and the packed copy); a kind that does not fit the
+// shape is refused with cudaErrorInvalidValue, and a grid that the card
+// cannot hold at once with cudaErrorCooperativeLaunchTooLarge, never
+// replaced.
 //
 // Plain C interface (bound with ctypes); the launch goes on the caller's
 // stream, nothing synchronises, and the return value is cudaGetLastError().
@@ -170,6 +159,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -436,9 +427,7 @@ constexpr int kMaxCluster = 16;
 // header): U units a rank, their G = 3U gate columns of Wh in rows ld
 // floats apart (3U made odd: the backward's threads walk down a column, and
 // an odd stride puts a warp's 32 rows in 32 banks), the forward's K slices
-// KS and the backward's column slices JS.  The spilling kind keeps R of the
-// slice's H rows in shared memory and the other H - R in a packed copy in
-// device memory (gru_pack_spill); the wide kind all H.
+// KS and the backward's column slices JS.
 struct WideShape {
   int U, G, ld, KS, JS;
   __host__ __device__ WideShape(int H, int C)
@@ -449,71 +438,40 @@ struct WideShape {
         JS(kWideThreads / H > 0 ? kWideThreads / H : 1) {}
 };
 
-// Rows [0, R) of rank c's slice of Wh (H, 3H) into w_s (R, ld): column
-// g U + u is Wh's column g H + c U + u, zero past the last unit.
+// Rank c's slice of Wh (H, 3H) into w_s (H, ld): column g U + u is Wh's
+// column g H + c U + u, zero past the last unit.
 __device__ __forceinline__ void load_wide_slice(float* w_s, const float* __restrict__ wh,
-                                                int H, int R, int c, const WideShape& ws) {
-  for (int i = threadIdx.x; i < R * ws.G; i += blockDim.x) {
+                                                int H, int c, const WideShape& ws) {
+  for (int i = threadIdx.x; i < H * ws.G; i += blockDim.x) {
     const int k = i / ws.G, j = i - k * ws.G;
     const int g = j / ws.U, unit = c * ws.U + (j - g * ws.U);
     w_s[k * ws.ld + j] = unit < H ? wh[(size_t)k * 3 * H + g * H + unit] : 0.f;
   }
 }
 
-// Rows [R, H) of every rank's slice, packed: spill[c][k - R][j] for the
-// forward (by_column = 0: a K slice's threads, one a column, read a row's
-// G floats together) and spill[c][j][k - R] for the backward (by_column =
-// 1: its threads, one a row, read a column's rows together).  Run before
-// each spilling launch, on the same stream; every cluster's rank c then
-// reads the same S x G floats a step, which L2 keeps (the C slices are C S
-// 3U floats in all: 11.1 MB at H = 1104).
-__global__ void gru_pack_spill(const float* __restrict__ wh, float* __restrict__ spill,
-                               int H, int C, int rows, int by_column) {
-  const WideShape ws(H, C);
-  const int S = H - rows;
-  const size_t per = (size_t)S * ws.G, n = per * C;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int c = (int)(i / per), e = (int)(i - c * per);
-    const int k = rows + (by_column ? e % S : e / ws.G);
-    const int j = by_column ? e / S : e % ws.G;
-    const int g = j / ws.U, unit = c * ws.U + (j - g * ws.U);
-    spill[i] = unit < H ? wh[(size_t)k * 3 * H + g * H + unit] : 0.f;
-  }
-}
-
-// kSpill: rows [R, H) of the slice from `spill` (gru_pack_spill, by row),
-// each K slice taking an equal share of the shared rows and of the spilled
-// ones; else R = H, and `spill` and `rows` are unread.
-template <bool kSpill>
 __global__ void __launch_bounds__(kWideThreads, 1)
 gru_fwd_wide(const float* __restrict__ gx, const float* __restrict__ wh,
-             const float* __restrict__ spill, const float* __restrict__ mask,
-             float* __restrict__ out, float* __restrict__ gates,
-             float* __restrict__ hprev, int T, int H, int rows, int reverse) {
+             const float* __restrict__ mask, float* __restrict__ out,
+             float* __restrict__ gates, float* __restrict__ hprev, int T, int H,
+             int reverse) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
   const WideShape ws(H, C);
   const int U = ws.U, G = ws.G;
-  const int R = kSpill ? rows : H, S = H - R;
-  float* w_s = smem;               // (R, ld) this rank's columns of Wh
-  float* h_s = w_s + R * ws.ld;    // (2, H) the carry, double-buffered
+  float* w_s = smem;               // (H, ld) this rank's columns of Wh
+  float* h_s = w_s + H * ws.ld;    // (2, H) the carry, double-buffered
   float* part_s = h_s + 2 * H;     // (KS, G) the K slices' sums
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)(blockIdx.x / C) * T;
 
-  load_wide_slice(w_s, wh, H, R, c, ws);
+  load_wide_slice(w_s, wh, H, c, ws);
   for (int i = tid; i < H; i += blockDim.x) h_s[i] = 0.f;
 
-  // Product thread: column j over the shared rows [k0, k1) of slice ks
-  // and (kSpill) the spilled rows R + [q0, q1).
+  // Product thread: column j over the rows [k0, k1) of slice ks.
   const int j = tid % G, ks = tid / G;
-  const int kl = (R + ws.KS - 1) / ws.KS;
-  const int k0 = ks * kl, k1 = min(R, k0 + kl);
-  const int ql = (S + ws.KS - 1) / ws.KS;
-  const int q0 = ks * ql, q1 = min(S, q0 + ql);
-  const float* wq = kSpill ? spill + (size_t)c * S * G + j : nullptr;
+  const int kl = (H + ws.KS - 1) / ws.KS;
+  const int k0 = ks * kl, k1 = min(H, k0 + kl);
   const bool prod = ks < ws.KS;
   // Gate thread: unit c U + tid, its gx and mask value a step ahead.
   const int unit = c * U + tid;
@@ -540,11 +498,6 @@ gru_fwd_wide(const float* __restrict__ gx, const float* __restrict__ wh,
       const float* w = w_s + j;
 #pragma unroll 4
       for (int k = k0; k < k1; ++k) acc = fmaf(hc[k], w[k * ws.ld], acc);
-      if constexpr (kSpill) {
-        const float* hq = hc + R;
-#pragma unroll 16
-        for (int k = q0; k < q1; ++k) acc = fmaf(hq[k], __ldg(wq + (size_t)k * G), acc);
-      }
       part_s[ks * G + j] = acc;
     }
     __syncthreads();
@@ -583,31 +536,24 @@ gru_fwd_wide(const float* __restrict__ gx, const float* __restrict__ wh,
   }
 }
 
-// kSpill: rows [R, H) of the slice from `spill` (gru_pack_spill, by
-// column); H > 512 there, so one column slice (JS = 1) and a thread a row,
-// the rows tid, tid + 1024, ...; else R = H, and `spill` and `rows` are
-// unread.
-template <bool kSpill>
 __global__ void __launch_bounds__(kWideThreads, 1)
 gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
              const float* __restrict__ hprev, const float* __restrict__ wh,
-             const float* __restrict__ spill, const float* __restrict__ mask,
-             float* __restrict__ dgx, float* __restrict__ dgh, int T, int H, int rows,
-             int reverse) {
+             const float* __restrict__ mask, float* __restrict__ dgx,
+             float* __restrict__ dgh, int T, int H, int reverse) {
   extern __shared__ float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
   const WideShape ws(H, C);
   const int U = ws.U, G = ws.G;
-  const int R = kSpill ? rows : H, S = H - R;
-  float* w_s = smem;                  // (R, ld) this rank's columns of Wh
-  float* d_s = w_s + R * ws.ld;       // (G,) this step's dgh of those columns
+  float* w_s = smem;                  // (H, ld) this rank's columns of Wh
+  float* d_s = w_s + H * ws.ld;       // (G,) this step's dgh of those columns
   float* recv_s = d_s + G;            // (2, C, U) each rank's partial dh_prev
   float* loc_s = recv_s + 2 * C * U;  // (JS, H) the column slices' sums
   const int tid = threadIdx.x;
   const size_t row0 = (size_t)(blockIdx.x / C) * T;
 
-  load_wide_slice(w_s, wh, H, R, c, ws);
+  load_wide_slice(w_s, wh, H, c, ws);
   for (int i = tid; i < G; i += blockDim.x) d_s[i] = 0.f;
   for (int i = tid; i < C * U; i += blockDim.x) recv_s[i] = 0.f;
 
@@ -616,7 +562,6 @@ gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
   const int jl = (G + ws.JS - 1) / ws.JS;
   const int j0 = js * jl, j1 = min(G, j0 + jl);
   const bool prod = js < ws.JS;
-  const float* wq = kSpill ? spill + (size_t)c * G * S : nullptr;
   // Gate thread: unit c U + tid, its saved gates, carry, output gradient
   // and mask value a step ahead.
   const int unit = c * U + tid;
@@ -666,21 +611,7 @@ gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
       dhc = (1.f - m) * dh_t + dh_new * z;
     }
     __syncthreads();
-    if constexpr (kSpill) {
-      for (int kk = tid; kk < H; kk += kWideThreads) {
-        float acc = 0.f;
-        if (kk < R) {
-          const float* w = w_s + kk * ws.ld;
-#pragma unroll 4
-          for (int jj = 0; jj < G; ++jj) acc = fmaf(d_s[jj], w[jj], acc);
-        } else {
-          const float* w = wq + (kk - R);
-#pragma unroll 16
-          for (int jj = 0; jj < G; ++jj) acc = fmaf(d_s[jj], __ldg(w + (size_t)jj * S), acc);
-        }
-        loc_s[kk] = acc;
-      }
-    } else if (prod) {
+    if (prod) {
       float acc = 0.f;
       const float* w = w_s + k * ws.ld;
 #pragma unroll 4
@@ -688,13 +619,7 @@ gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
       loc_s[js * H + k] = acc;
     }
     __syncthreads();
-    if constexpr (kSpill) {  // one column slice: each row's sum is whole
-      for (int kk = tid; kk < H; kk += kWideThreads) {
-        const int owner = kk / U;
-        float* dst = recv_s + ((s + 1) & 1) * C * U + c * U + (kk - owner * U);
-        *cluster.map_shared_rank(dst, owner) = loc_s[kk];
-      }
-    } else if (tid < H) {
+    if (tid < H) {
       float p = 0.f;
       for (int q = 0; q < ws.JS; ++q) p += loc_s[q * H + tid];
       const int owner = tid / U;
@@ -705,36 +630,60 @@ gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
   }
 }
 
-// ---------------------- recurrences from H = 544 to 1419: a grid a direction --
+// ---------------------- recurrences from H = 544 to 5456: a grid a direction --
 
 constexpr int kGridBlocks = 132;   // the H100's SMs: the most blocks of a grid
 constexpr int kGridThreads = 512;
 constexpr int kGridRows = 32;      // batch rows of a tile
-constexpr int kGridStages = 3;     // K tiles of the exchanged rows in the ring
+constexpr int kGridStages = 3;     // K tiles in the ring
+constexpr int kGridStreamStages = 3;  // K tiles in the ring where the slice streams
+constexpr int kGridStreamQuads = 16;  // quads of a K tile where the slice streams
+constexpr int kGridGateItems = 3;  // (row, unit) gate items a thread, at most
+constexpr int kGridMaxHidden = 5456;  // the widest H taken: U = 42 units a block
+constexpr int kGridL2Bytes = 52428800;  // the H100's L2 (50 MB)
+// How a grid kernel reads its slice: all of it from shared memory, or the
+// streamed tiles by 16-byte copies, or by one bulk copy a tile.
+constexpr int kGridResident = 0, kGridCopies = 1, kGridBulk = 2;
 
 constexpr int kGridMaxSmem = 232448;  // a block's shared memory, the opt-in
 
 // The grid kind's split of width H (see the header): U units a block, NB
 // blocks; the exchanged row (the forward's carry, NB U wide; the backward's
 // dgh, NB 3U wide, block by block) padded to KA, a multiple of the K tile
-// KT; the block's slice of Wh as N rows of ldw floats (the forward's 3U
-// gate columns; the backward's U rows of Wh, padded to a multiple of 3);
-// the product's thread tile 4 batch rows x 3 slice rows, `items` tiles a
-// row tile of the batch and KS slices of K, each taking `quads` float4
-// quads of a K tile, KT = 4 KS quads.  A K tile holds about 32 (forward)
-// or 48 (backward) quads, fewer where the block would pass its shared
-// memory (down to 16): the step's reads of the exchanged rows from L2 are
-// what a step waits on, and larger tiles wait fewer times.  ldw and ldt
-// are 4 mod 8 floats, so that the 8 lanes of a quarter warp reading 8 rows
-// 16 bytes each hit 32 distinct banks.
+// KT; the block's slice of Wh as N rows (the forward's 3U gate columns; the
+// backward's U rows of Wh, padded to a multiple of 3) of which the K range
+// [0, R) lies in shared memory, ldw floats a row, and [R, KA) streams
+// through the ring; the product's thread tile 4 batch rows x 3 slice rows,
+// `items` tiles a row tile of the batch and KS slices of K, each taking
+// `quads` float4 quads of a K tile, KT = 4 KS quads.  A K tile holds about
+// 32 (forward) or 48 (backward) quads, fewer where the whole slice would
+// pass the block's shared memory (down to 16): the step's reads of the
+// exchanged rows from L2 are what a step waits on, and larger tiles wait
+// fewer times.  Where the whole slice does not fit even then, the tile
+// holds kGridStreamQuads quads, the ring kGridStreamStages stages, each
+// also holding the tile's N slice rows, and R is the most whole tiles that
+// fit beside that ring (R < KA).  Where the packed tiles of all blocks
+// pass L2 (`bulk`: from H = 2377), so that every step reads them from HBM,
+// a tile moves as one bulk copy, counted on an mbarrier a stage (each
+// thread's 16-byte copies, waiting that long, hold back the product's
+// issue); where L2 keeps them, as 16-byte copies beside the exchanged
+// rows'.  ldw and ldt are 4 mod 8 floats, so that the 8 lanes of a quarter
+// warp reading 8 rows 16 bytes each hit 32 distinct banks.  The gate pass
+// takes (row, unit) items tid, tid + threads, ...: one a thread where the
+// slice is resident, at most kGridGateItems where it streams.
 struct GridShape {
-  int U, NB, N, NG, items, KS, KT, KA, ldw, ldt, threads;
+  int U, NB, N, NG, items, KS, KT, KA, R, ldw, ldt, threads, stages;
   __host__ __device__ GridShape(int H, int bwd) {
     const int target[3] = {bwd ? 48 : 32, 32, 16};
     for (int i = 0; i < 3; ++i) {
       init(H, bwd, target[i]);
-      if (smem_bytes() <= kGridMaxSmem) break;
+      if (smem_bytes() <= kGridMaxSmem) return;
     }
+    init(H, bwd, kGridStreamQuads);
+    stages = kGridStreamStages;
+    for (R = 0; R + KT < KA && N * ld(R + KT) + ring_floats() + 2 * stages <= kGridMaxSmem / 4;)
+      R += KT;
+    ldw = ld(R);
   }
   __host__ __device__ void init(int H, int bwd, int target) {
     U = (H + kGridBlocks - 1) / kGridBlocks;
@@ -747,43 +696,139 @@ struct GridShape {
     const int quads = KS > 0 ? (target + KS - 1) / KS : 1;
     KT = 4 * (KS > 0 ? KS : 1) * quads;
     KA = (K + KT - 1) / KT * KT;
-    ldw = KA % 8 == 4 ? KA : KA + 4;
-    ldt = KT % 8 == 4 ? KT : KT + 4;
-    threads = (items * KS + 31) / 32 * 32;
+    R = KA;
+    stages = kGridStages;
+    ldw = ld(KA);
+    ldt = ld(KT);
+    // The product's threads, or as many as the gate items up to a block.
+    const int prod = (items * KS + 31) / 32 * 32;
+    const int gate = kGridRows * U < kGridThreads ? kGridRows * U : kGridThreads;
+    threads = prod > gate ? prod : gate;
   }
-  // The K tiles' ring, (stages, rows, ldt); the K slices' sums, (KS, rows,
-  // N), share its space once a row tile's product is done.
+  __host__ __device__ static int ld(int k) { return k % 8 == 4 ? k : k + 4; }
+  __host__ __device__ bool streams() const { return R < KA; }
+  __host__ __device__ bool bulk() const {
+    return streams() && (long long)NB * pack_floats() * 4 > kGridL2Bytes;
+  }
+  __host__ __device__ int mode() const {
+    return !streams() ? kGridResident : bulk() ? kGridBulk : kGridCopies;
+  }
+  __host__ __device__ int gate_items() const { return (kGridRows * U + threads - 1) / threads; }
+  // Rows of a ring stage: the exchanged rows' tile, and where the slice
+  // streams, its N rows' tile.
+  __host__ __device__ int stage_rows() const { return kGridRows + (streams() ? N : 0); }
+  // The ring, (stages, stage_rows, ldt); the K slices' sums, (KS, rows, N),
+  // share its space once a row tile's product is done.
   __host__ __device__ int ring_floats() const {
-    const int ring = kGridStages * kGridRows * ldt, part = KS * kGridRows * N;
+    const int ring = stages * stage_rows() * ldt, part = KS * kGridRows * N;
     return ring > part ? ring : part;
   }
-  __host__ __device__ int smem_bytes() const { return (N * ldw + ring_floats()) * 4; }
-  __host__ __device__ bool valid() const {
-    return KS >= 1 && kGridRows * U <= threads && NB <= kGridBlocks &&
-           smem_bytes() <= kGridMaxSmem;
+  // The slice's K range [0, R), the ring and, where the slice streams, an
+  // mbarrier a stage.
+  __host__ __device__ int smem_bytes() const {
+    return (N * ldw + ring_floats() + (streams() ? 2 * stages : 0)) * 4;
+  }
+  // Floats of a block's packed K range [R, KA): its streamed K tiles, each
+  // N rows of ldt floats (the ring's layout, so that one bulk copy moves a
+  // tile).
+  __host__ __device__ long long pack_floats() const {
+    return (long long)(KA - R) / KT * N * ldt;
+  }
+  __host__ __device__ bool valid(int H) const {
+    return H <= kGridMaxHidden && KS >= 1 && gate_items() <= (streams() ? kGridGateItems : 1) &&
+           threads <= kGridThreads && NB <= kGridBlocks && smem_bytes() <= kGridMaxSmem;
   }
 };
 
+// Entry (n, k) of block c's slice of Wh, zero past H: forward w[g U +
+// u][k] = Wh[k][g H + c U + u]; backward, the columns in the exchange
+// buffer's order, w[u][c' 3U + g U + u'] = Wh[c U + u][g H + c' U + u'].
+__device__ __forceinline__ float grid_slice(const float* __restrict__ wh, const GridShape& gs,
+                                            int H, int bwd, int c, int n, int k) {
+  const int U = gs.U;
+  if (!bwd) {
+    const int g = n / U, unit = c * U + (n - g * U);
+    return k < H && unit < H ? wh[(size_t)k * 3 * H + g * H + unit] : 0.f;
+  }
+  const int G = 3 * U, c2 = k / G, g = (k - c2 * G) / U, u2 = k - c2 * G - g * U;
+  const int unit = c * U + n, col = c2 * U + u2;
+  return n < U && unit < H && c2 < gs.NB && col < H ? wh[(size_t)unit * 3 * H + g * H + col]
+                                                    : 0.f;
+}
+
+// The K range [R, KA) of every block's slice, packed (NB, (KA - R) / KT,
+// N, ldt): each streamed K tile as the ring holds it, zero in the padding,
+// so that one bulk copy moves it.  Run before each launch that streams, on
+// the same stream.
+__global__ void gru_pack_grid(const float* __restrict__ wh, float* __restrict__ pack, int H,
+                              int bwd) {
+  const GridShape gs(H, bwd);
+  const size_t per = gs.pack_floats(), n = per * gs.NB, tile = (size_t)gs.N * gs.ldt;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int c = (int)(i / per);
+    const size_t e = i - c * per;
+    const int jt = (int)(e / tile), row = (int)(e % tile) / gs.ldt, q = (int)(e % gs.ldt);
+    pack[i] = q < gs.KT ? grid_slice(wh, gs, H, bwd, c, row, gs.R + jt * gs.KT + q) : 0.f;
+  }
+}
+
+// Block c's slice, the K range [0, R), into w_s (N, ldw); zero past R.
+__device__ __forceinline__ void load_grid_slice(float* w_s, const float* __restrict__ wh,
+                                                const GridShape& gs, int H, int bwd, int c) {
+  for (int i = threadIdx.x; i < gs.N * gs.ldw; i += blockDim.x) {
+    // Forward: neighbouring threads, neighbouring units (Wh's columns).
+    const int k = bwd ? i % gs.ldw : i / gs.N, n = bwd ? i / gs.ldw : i % gs.N;
+    w_s[(size_t)n * gs.ldw + k] = k < gs.R ? grid_slice(wh, gs, H, bwd, c, n, k) : 0.f;
+  }
+}
+
 // P (rows, N) = A (kGridRows rows of an exchange buffer from `a`, KA wide)
-// times the block's slice w_s (N, ldw) transposed, in f32 FMAs.  The K
-// tiles of A stream through a ring of kGridStages in shared memory by
-// cp.async.cg: A was written by other blocks in this launch, and .cg reads
-// it at L2, the point of coherence, never from a stale L1 line.  Thread
-// (rg, ng, ks) sums batch rows rg + 8i and slice rows ng + NG j over the
-// quads ks, ks + KS, ... of each tile in order, and leaves its 4 x 3 sums
-// in part (KS, rows, N), aliasing the ring, behind a block barrier.
+// times the block's slice transposed, in f32 FMAs.  The K tiles of A stream
+// through a ring in shared memory by cp.async.cg: A was
+// written by other blocks in this launch, and .cg reads it at L2, the point
+// of coherence, never from a stale L1 line; the ring's `stages` - 1 tiles
+// ahead of the one in use are in flight.  The slice's tiles below R are
+// read from w_s (N, ldw); those from R on arrive in the same ring stage as
+// A's, from the block's packed tiles `wp`: one bulk copy a tile in mode
+// kGridBulk (issued by thread 0, counted on the stage's mbarrier in `bars`;
+// `phases` holds the parity each stage's barrier waits for next), 16-byte
+// copies in A's groups in mode kGridCopies.  Thread (rg, ng, ks)
+// sums batch rows rg + 8i and slice rows ng + NG j over the quads ks, ks +
+// KS, ... of each tile in order, and leaves its 4 x 3 sums in part (KS,
+// rows, N), aliasing the ring, behind a block barrier.
+template <int kMode>
 __device__ __forceinline__ void grid_product(const GridShape& gs, float* ring,
-                                             const float* w_s, const float* a, bool prod,
-                                             int rg, int ng, int ks) {
+                                             const float* w_s, const float* wp, uint64_t* bars,
+                                             uint32_t& phases, const float* a, bool prod, int rg,
+                                             int ng, int ks) {
+  constexpr bool kStream = kMode != kGridResident, bulk = kMode == kGridBulk;
+  constexpr int stages = kStream ? kGridStreamStages : kGridStages;
   const int tid = threadIdx.x;
   const int kt4 = gs.KT / 4, tiles = gs.KA / gs.KT, chunks = kGridRows * kt4;
+  const int rt = kStream ? gs.R / gs.KT : tiles, sr = kStream ? kGridRows + gs.N : kGridRows;
+  const uint32_t wbytes = gs.N * gs.ldt * 4;
   auto issue = [&](int kt) {
     if (kt < tiles) {
-      float* dst = ring + (kt % kGridStages) * kGridRows * gs.ldt;
+      float* dst = ring + (kt % stages) * sr * gs.ldt;
       const float* src = a + (size_t)kt * gs.KT;
       for (int e = tid; e < chunks; e += blockDim.x) {
         const int r = e / kt4, q = e - r * kt4;
         cp_async16(dst + r * gs.ldt + 4 * q, src + (size_t)r * gs.KA + 4 * q);
+      }
+      if (kStream && kt >= rt) {  // the slice's rows of a streamed tile
+        const float* w = wp + (size_t)(kt - rt) * gs.N * gs.ldt;
+        float* wd = dst + kGridRows * gs.ldt;
+        if constexpr (!bulk) {
+          for (int e = tid; e < gs.N * kt4; e += blockDim.x) {
+            const int r = e / kt4, q = e - r * kt4;
+            cp_async16(wd + r * gs.ldt + 4 * q, w + r * gs.ldt + 4 * q);
+          }
+        } else if (tid == 0) {
+          uint64_t* bar = bars + kt % stages;
+          sm90::mbar_expect_tx(bar, wbytes);
+          sm90::bulk_load(wd, w, wbytes, bar);
+        }
       }
     }
     cp_async_commit();
@@ -793,15 +838,23 @@ __device__ __forceinline__ void grid_product(const GridShape& gs, float* ring,
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 3; ++j) acc[i][j] = 0.f;
-  issue(0);
-  issue(1);
+  for (int kt = 0; kt < stages - 1; ++kt) issue(kt);
   for (int kt = 0; kt < tiles; ++kt) {
-    cp_async_wait<1>();  // this thread's copies of tile kt have landed
-    __syncthreads();     // everyone's have; everyone is done with tile kt - 1
-    issue(kt + 2);       // into tile kt - 1's stage
+    cp_async_wait<stages - 2>();  // this thread's copies of tile kt have landed
+    if (bulk && kt >= rt) {  // and the tile's slice rows
+      const int stage = kt % stages;
+      sm90::mbar_wait(bars + stage, (phases >> stage) & 1u);
+      phases ^= 1u << stage;
+    }
+    __syncthreads();  // everyone's have; everyone is done with tile kt - 1
+    issue(kt + stages - 1);  // into tile kt - 1's stage
     if (prod) {
-      const float* as = ring + (kt % kGridStages) * kGridRows * gs.ldt + rg * gs.ldt;
-      const float* ws = w_s + (size_t)ng * gs.ldw + kt * gs.KT;
+      const float* stage = ring + (kt % stages) * sr * gs.ldt;
+      const float* as = stage + rg * gs.ldt;
+      const bool resident = !kStream || kt < rt;
+      const int ld = resident ? gs.ldw : gs.ldt;
+      const float* ws = resident ? w_s + (size_t)ng * gs.ldw + kt * gs.KT
+                                 : stage + (kGridRows + ng) * gs.ldt;
       for (int q = ks; q < kt4; q += gs.KS) {
         float4 av[4], wv[3];
 #pragma unroll
@@ -809,7 +862,7 @@ __device__ __forceinline__ void grid_product(const GridShape& gs, float* ring,
           av[i] = *reinterpret_cast<const float4*>(as + 8 * i * gs.ldt + 4 * q);
 #pragma unroll
         for (int j = 0; j < 3; ++j)
-          wv[j] = *reinterpret_cast<const float4*>(ws + (size_t)j * gs.NG * gs.ldw + 4 * q);
+          wv[j] = *reinterpret_cast<const float4*>(ws + (size_t)j * gs.NG * ld + 4 * q);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -831,38 +884,67 @@ __device__ __forceinline__ void grid_product(const GridShape& gs, float* ring,
       for (int j = 0; j < 3; ++j)
         ring[(ks * kGridRows + rg + 8 * i) * gs.N + ng + j * gs.NG] = acc[i][j];
   }
+  // The sums' stores before the next tiles' bulk copies into their space.
+  if constexpr (bulk) sm90::fence_proxy_async();
   __syncthreads();
 }
 
+// The streamed tiles' mbarriers, one a ring stage (mode kGridBulk), armed
+// by thread 0 before the block's first barrier.
+__device__ __forceinline__ void grid_init_bars(const GridShape& gs, uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < gs.stages; ++s) sm90::mbar_init(bars + s, 1);
+    sm90::fence_barrier_init();
+  }
+}
+
+// A thread's gate items: item i, e = tid + i threads, is (row gr[i] of
+// each row tile, unit c U + gu[i]); `own[i]` where that unit exists.
+template <int kItems>
+struct GateItems {
+  int gr[kItems], gu[kItems];
+  bool own[kItems];
+  __device__ GateItems(const GridShape& gs, int c, int H) {
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const int e = threadIdx.x + i * blockDim.x;
+      gr[i] = e / gs.U;
+      gu[i] = e - gr[i] * gs.U;
+      own[i] = e < kGridRows * gs.U && c * gs.U + gu[i] < H;
+    }
+  }
+};
+
 // The forward.  Block c owns units [c U, c U + U) and keeps their 3U gate
-// columns of Wh, all H rows, in shared memory (w_s[g U + u][k] = Wh[k][g H
-// + c U + u]).  `xbuf` is the carry, (2, Bp, KA), zero on entry: step s
-// reads half s & 1 and writes half (s + 1) & 1; one grid barrier a step.
-// Gate thread (r, u) of a row tile keeps nothing between steps: its unit's
-// carry comes back from the buffer it wrote (its own write, read at L2).
+// columns of Wh, the K range [0, R), in shared memory (w_s[g U + u][k] =
+// Wh[k][g H + c U + u]); `pack` holds every block's [R, KA) (unread where R
+// = KA).  `xbuf` is the carry, (2, Bp, KA), zero on entry: step s reads
+// half s & 1 and writes half (s + 1) & 1; one grid barrier a step.  A gate
+// item keeps nothing between steps: its unit's carry comes back from the
+// buffer it wrote (its own write, read at L2).
+template <int kMode, int kItems>
 __global__ void __launch_bounds__(kGridThreads, 1)
 gru_fwd_grid(const float* __restrict__ gx, const float* __restrict__ wh,
-             const float* __restrict__ mask, float* __restrict__ out,
-             float* __restrict__ gates, float* __restrict__ hprev, float* xbuf, int B,
-             int T, int H, int reverse) {
+             const float* __restrict__ pack, const float* __restrict__ mask,
+             float* __restrict__ out, float* __restrict__ gates, float* __restrict__ hprev,
+             float* xbuf, int B, int T, int H, int reverse) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const GridShape gs(H, 0);
   const int c = blockIdx.x, tid = threadIdx.x, U = gs.U, N = gs.N;
-  float* w_s = smem;                            // (N, ldw) the slice
+  float* w_s = smem;                            // (N, ldw) the slice's K range [0, R)
   float* ring = w_s + (size_t)N * gs.ldw;       // the K tiles, then the sums
-  for (int i = tid; i < N * gs.ldw; i += blockDim.x) {
-    const int k = i / N, n = i - k * N;  // neighbouring threads, neighbouring units
-    const int g = n / U, unit = c * U + (n - g * U);
-    w_s[(size_t)n * gs.ldw + k] = k < H && unit < H ? wh[(size_t)k * 3 * H + g * H + unit] : 0.f;
-  }
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + gs.ring_floats());
+  const float* wp = pack + (size_t)c * gs.pack_floats();
+  uint32_t phases = 0;
+  if constexpr (kMode == kGridBulk) grid_init_bars(gs, bars);
+  load_grid_slice(w_s, wh, gs, H, 0, c);
   const int Bp = (B + kGridRows - 1) / kGridRows * kGridRows;
   const size_t half = (size_t)Bp * gs.KA;
   const int item = tid % gs.items, ks = tid / gs.items;
   const bool prod = ks < gs.KS;
   const int rg = item % (kGridRows / 4), ng = item / (kGridRows / 4);
-  const int gr = tid / U, gu = tid - gr * U, unit = c * U + gu;
-  const bool gate = tid < kGridRows * U && unit < H;
+  const GateItems<kItems> gi(gs, c, H);
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
@@ -870,43 +952,51 @@ gru_fwd_grid(const float* __restrict__ gx, const float* __restrict__ wh,
     const float* hc = xbuf + (s & 1) * half;
     float* hn = xbuf + ((s + 1) & 1) * half;
     for (int r0 = 0; r0 < B; r0 += kGridRows) {
-      const int b = r0 + gr;
-      const bool live = gate && b < B;
-      const size_t row = (size_t)b * T + t;
-      float xr = 0.f, xz = 0.f, xn = 0.f, m = 1.f, h = 0.f;
-      if (live) {  // issued now, used after the product
-        const float* g = gx + row * 3 * H;
-        xr = g[unit];
-        xz = g[H + unit];
-        xn = g[2 * H + unit];
-        if (mask) m = mask[row];
-        h = __ldcg(hc + (size_t)b * gs.KA + unit);
+      float xr[kItems], xz[kItems], xn[kItems], m[kItems], h[kItems];
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {  // issued now, used after the product
+        const int b = r0 + gi.gr[i], unit = c * U + gi.gu[i];
+        xr[i] = xz[i] = xn[i] = h[i] = 0.f;
+        m[i] = 1.f;
+        if (gi.own[i] && b < B) {
+          const size_t row = (size_t)b * T + t;
+          const float* g = gx + row * 3 * H;
+          xr[i] = g[unit];
+          xz[i] = g[H + unit];
+          xn[i] = g[2 * H + unit];
+          if (mask) m[i] = mask[row];
+          h[i] = __ldcg(hc + (size_t)b * gs.KA + unit);
+        }
       }
-      grid_product(gs, ring, w_s, hc + (size_t)r0 * gs.KA, prod, rg, ng, ks);
-      if (live) {
+      grid_product<kMode>(gs, ring, w_s, wp, bars, phases, hc + (size_t)r0 * gs.KA, prod, rg, ng, ks);
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int b = r0 + gi.gr[i], unit = c * U + gi.gu[i];
+        if (!(gi.own[i] && b < B)) continue;
+        const size_t row = (size_t)b * T + t;
         float hr = 0.f, hz = 0.f, hh = 0.f;
         for (int q = 0; q < gs.KS; ++q) {
-          const float* p = ring + (q * kGridRows + gr) * N + gu;
+          const float* p = ring + (q * kGridRows + gi.gr[i]) * N + gi.gu[i];
           hr += p[0];
           hz += p[U];
           hh += p[2 * U];
         }
-        const float r = sigmoidf_(xr + hr);
-        const float z = sigmoidf_(xz + hz);
-        const float n = tanhf(xn + r * hh);
+        const float r = sigmoidf_(xr[i] + hr);
+        const float z = sigmoidf_(xz[i] + hz);
+        const float n = tanhf(xn[i] + r * hh);
         if (gates) {
           float* g = gates + row * 4 * H;
           g[unit] = r;
           g[H + unit] = z;
           g[2 * H + unit] = n;
           g[3 * H + unit] = hh;
-          hprev[row * H + unit] = h;
+          hprev[row * H + unit] = h[i];
         }
-        float h_new = z * h + (1.f - z) * n;
+        float h_new = z * h[i] + (1.f - z) * n;
         float o = h_new;
         if (mask) {
-          h_new = m * h_new + (1.f - m) * h;
-          o = m * h_new;
+          h_new = m[i] * h_new + (1.f - m[i]) * h[i];
+          o = m[i] * h_new;
         }
         out[row * H + unit] = o;
         hn[(size_t)b * gs.KA + unit] = h_new;
@@ -918,39 +1008,39 @@ gru_fwd_grid(const float* __restrict__ gx, const float* __restrict__ wh,
 }
 
 // The backward.  Block c owns units [c U, c U + U) and keeps their rows of
-// Wh, all 3H columns, in shared memory, the columns in the exchange
-// buffer's order: w_s[u][c' 3U + g U + u'] = Wh[c U + u][g H + c' U + u'].
-// `xbuf` holds (2, Bp, KA), the dgh of each step laid out block by block
-// (block c' writes its 3U columns, [c' 3U, c' 3U + 3U)), then (Bp, NB U)
-// the direct part of each unit's carry gradient; zero on entry.  Step s
-// reads the previous step's dgh (half (s + 1) & 1) for dh_prev of its own
-// units, and writes its own into half s & 1; one grid barrier a step.
+// Wh, all 3H columns, in the exchange buffer's order, the K range [0, R) in
+// shared memory (w_s[u][c' 3U + g U + u'] = Wh[c U + u][g H + c' U + u'])
+// and [R, KA) in `pack` (unread where R = KA).  `xbuf` holds (2, Bp, KA),
+// the dgh of each step laid out block by block (block c' writes its 3U
+// columns, [c' 3U, c' 3U + 3U)), then (Bp, NB U) the direct part of each
+// unit's carry gradient; zero on entry.  Step s reads the previous step's
+// dgh (half (s + 1) & 1) for dh_prev of its own units, and writes its own
+// into half s & 1; one grid barrier a step.
+template <int kMode, int kItems>
 __global__ void __launch_bounds__(kGridThreads, 1)
 gru_bwd_grid(const float* __restrict__ dout, const float* __restrict__ gates,
              const float* __restrict__ hprev, const float* __restrict__ wh,
-             const float* __restrict__ mask, float* __restrict__ dgx,
-             float* __restrict__ dgh, float* xbuf, int B, int T, int H, int reverse) {
+             const float* __restrict__ pack, const float* __restrict__ mask,
+             float* __restrict__ dgx, float* __restrict__ dgh, float* xbuf, int B, int T, int H,
+             int reverse) {
   extern __shared__ __align__(16) float smem[];
   cg::grid_group grid = cg::this_grid();
   const GridShape gs(H, 1);
   const int c = blockIdx.x, tid = threadIdx.x, U = gs.U, N = gs.N, G = 3 * U;
-  float* w_s = smem;                            // (N, ldw) the slice
+  float* w_s = smem;                            // (N, ldw) the slice's K range [0, R)
   float* ring = w_s + (size_t)N * gs.ldw;       // the K tiles, then the sums
-  for (int i = tid; i < N * gs.ldw; i += blockDim.x) {
-    const int n = i / gs.ldw, k = i - n * gs.ldw;
-    const int c2 = k / G, g = (k - c2 * G) / U, u2 = k - c2 * G - g * U;
-    const int unit = c * U + n, col = c2 * U + u2;
-    w_s[i] = n < U && unit < H && c2 < gs.NB && col < H
-                 ? wh[(size_t)unit * 3 * H + g * H + col] : 0.f;
-  }
+  uint64_t* bars = reinterpret_cast<uint64_t*>(ring + gs.ring_floats());
+  const float* wp = pack + (size_t)c * gs.pack_floats();
+  uint32_t phases = 0;
+  if constexpr (kMode == kGridBulk) grid_init_bars(gs, bars);
+  load_grid_slice(w_s, wh, gs, H, 1, c);
   const int Bp = (B + kGridRows - 1) / kGridRows * kGridRows;
   const size_t half = (size_t)Bp * gs.KA;
   float* dhc = xbuf + 2 * half;  // (Bp, NB U)
   const int item = tid % gs.items, ks = tid / gs.items;
   const bool prod = ks < gs.KS;
   const int rg = item % (kGridRows / 4), ng = item / (kGridRows / 4);
-  const int gr = tid / U, gu = tid - gr * U, unit = c * U + gu;
-  const bool gate = tid < kGridRows * U && unit < H;
+  const GateItems<kItems> gi(gs, c, H);
   __syncthreads();
 
   for (int s = 0; s < T; ++s) {
@@ -958,32 +1048,41 @@ gru_bwd_grid(const float* __restrict__ dout, const float* __restrict__ gates,
     float* xc = xbuf + (s & 1) * half;
     const float* xp = xbuf + ((s + 1) & 1) * half;
     for (int r0 = 0; r0 < B; r0 += kGridRows) {
-      const int b = r0 + gr;
-      const bool live = gate && b < B;
-      const size_t row = (size_t)b * T + t;
-      float r = 0.f, z = 0.f, n = 0.f, hn = 0.f, h = 0.f, d = 0.f, m = 1.f, dh = 0.f;
-      float* dhc_b = dhc + (size_t)b * gs.NB * U + unit;
-      if (live) {  // issued now, used after the product
-        const float* g = gates + row * 4 * H;
-        r = g[unit];
-        z = g[H + unit];
-        n = g[2 * H + unit];
-        hn = g[3 * H + unit];
-        h = hprev[row * H + unit];
-        d = dout[row * H + unit];
-        if (mask) m = mask[row];
-        dh = __ldcg(dhc_b);
+      float r[kItems], z[kItems], n[kItems], hn[kItems], h[kItems], d[kItems], m[kItems],
+          dh[kItems];
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {  // issued now, used after the product
+        const int b = r0 + gi.gr[i], unit = c * U + gi.gu[i];
+        r[i] = z[i] = n[i] = hn[i] = h[i] = d[i] = dh[i] = 0.f;
+        m[i] = 1.f;
+        if (gi.own[i] && b < B) {
+          const size_t row = (size_t)b * T + t;
+          const float* g = gates + row * 4 * H;
+          r[i] = g[unit];
+          z[i] = g[H + unit];
+          n[i] = g[2 * H + unit];
+          hn[i] = g[3 * H + unit];
+          h[i] = hprev[row * H + unit];
+          d[i] = dout[row * H + unit];
+          if (mask) m[i] = mask[row];
+          dh[i] = __ldcg(dhc + (size_t)b * gs.NB * U + unit);
+        }
       }
-      grid_product(gs, ring, w_s, xp + (size_t)r0 * gs.KA, prod, rg, ng, ks);
-      if (live) {
-        for (int q = 0; q < gs.KS; ++q) dh += ring[(q * kGridRows + gr) * N + gu];
+      grid_product<kMode>(gs, ring, w_s, wp, bars, phases, xp + (size_t)r0 * gs.KA, prod, rg, ng, ks);
+#pragma unroll
+      for (int i = 0; i < kItems; ++i) {
+        const int b = r0 + gi.gr[i], unit = c * U + gi.gu[i];
+        if (!(gi.own[i] && b < B)) continue;
+        const size_t row = (size_t)b * T + t;
+        float dhi = dh[i];
+        for (int q = 0; q < gs.KS; ++q) dhi += ring[(q * kGridRows + gi.gr[i]) * N + gi.gu[i]];
         // out = m * h_t, h_t = m * h' + (1 - m) * h.
-        const float dh_t = dh + m * d;
-        const float dh_new = m * dh_t;
-        const float dz = dh_new * (h - n);
-        const float dan = dh_new * (1.f - z) * (1.f - n * n);
-        const float dar = dan * hn * r * (1.f - r);
-        const float daz = dz * z * (1.f - z);
+        const float dh_t = dhi + m[i] * d[i];
+        const float dh_new = m[i] * dh_t;
+        const float dz = dh_new * (h[i] - n[i]);
+        const float dan = dh_new * (1.f - z[i]) * (1.f - n[i] * n[i]);
+        const float dar = dan * hn[i] * r[i] * (1.f - r[i]);
+        const float daz = dz * z[i] * (1.f - z[i]);
         float* gxo = dgx + row * 3 * H;
         float* gho = dgh + row * 3 * H;
         gxo[unit] = dar;
@@ -991,12 +1090,12 @@ gru_bwd_grid(const float* __restrict__ dout, const float* __restrict__ gates,
         gxo[2 * H + unit] = dan;
         gho[unit] = dar;
         gho[H + unit] = daz;
-        gho[2 * H + unit] = dan * r;
-        float* x = xc + (size_t)b * gs.KA + c * G + gu;
+        gho[2 * H + unit] = dan * r[i];
+        float* x = xc + (size_t)b * gs.KA + c * G + gi.gu[i];
         x[0] = dar;
         x[U] = daz;
-        x[2 * U] = dan * r;
-        *dhc_b = (1.f - m) * dh_t + dh_new * z;
+        x[2 * U] = dan * r[i];
+        dhc[(size_t)b * gs.NB * U + unit] = (1.f - m[i]) * dh_t + dh_new * z[i];
       }
       __syncthreads();  // the sums are read before the ring takes the next tiles
     }
@@ -1280,10 +1379,7 @@ gru_bwd_h128(const float* __restrict__ dout, const float* __restrict__ gates,
 extern "C" {
 
 // Which kernel runs a recurrence; the wrapper chooses from H.
-enum {
-  SSTTS_GRU_GENERIC = 0, SSTTS_GRU_H128 = 1, SSTTS_GRU_WIDE = 2, SSTTS_GRU_SPILL = 3,
-  SSTTS_GRU_GRID = 4
-};
+enum { SSTTS_GRU_GENERIC = 0, SSTTS_GRU_H128 = 1, SSTTS_GRU_WIDE = 2, SSTTS_GRU_GRID = 4 };
 
 // Dynamic shared memory of the generic kernels at width H.
 int sstts_gru_smem_bytes(int H) { return (H * 3 * H + H + 6 * H) * 4; }
@@ -1291,28 +1387,41 @@ int sstts_gru_smem_bytes(int H) { return (H * 3 * H + H + 6 * H) * 4; }
 int sstts_gru_bwd_smem_bytes(int H) { return (3 * H * H + 8 * H) * 4; }
 
 // Dynamic shared memory of one block of the wide kernels at width H in a
-// cluster of C with R rows of its slice in shared memory (the layouts of
-// gru_fwd_wide and gru_bwd_wide; R = H but for the spilling kind).
-int sstts_gru_wide_smem_bytes(int H, int C, int R) {
+// cluster of C (the layouts of gru_fwd_wide and gru_bwd_wide).
+int sstts_gru_wide_smem_bytes(int H, int C) {
   const WideShape ws(H, C);
-  return (R * ws.ld + 2 * H + ws.KS * ws.G) * 4;
+  return (H * ws.ld + 2 * H + ws.KS * ws.G) * 4;
 }
 
-int sstts_gru_wide_bwd_smem_bytes(int H, int C, int R) {
+int sstts_gru_wide_bwd_smem_bytes(int H, int C) {
   const WideShape ws(H, C);
-  return (R * ws.ld + ws.G + 2 * C * ws.U + ws.JS * H) * 4;
+  return (H * ws.ld + ws.G + 2 * C * ws.U + ws.JS * H) * 4;
 }
 
 // Dynamic shared memory of one block of the grid kind's forward (backward:
-// 1) at width H: the slice and the ring (gru_fwd_grid, gru_bwd_grid).
+// 1) at width H: the slice's K range [0, R) and the ring (gru_fwd_grid,
+// gru_bwd_grid).
 int sstts_gru_grid_smem_bytes(int H, int backward) { return GridShape(H, backward).smem_bytes(); }
 
-// The grid kind's scratch at (B, H), in floats: the exchange buffer (2, Bp,
-// KA), and for the backward the carry gradient's direct part (Bp, NB U).
-long long sstts_gru_grid_scratch_floats(int B, int H, int backward) {
+// The K range of a block's slice that the grid kind's forward (backward:
+// 1) keeps in shared memory at width H, R (KA, the whole padded range,
+// where nothing streams).
+int sstts_gru_grid_resident(int H, int backward) { return GridShape(H, backward).R; }
+
+// The grid kind's exchange buffer at (B, H), in floats: (2, Bp, KA), and
+// for the backward the carry gradient's direct part (Bp, NB U); Bp rows, a
+// multiple of 32, so what follows it stays 16-byte aligned.
+long long sstts_gru_grid_exchange_floats(int B, int H, int backward) {
   const GridShape gs(H, backward);
   const long long Bp = (B + kGridRows - 1) / kGridRows * kGridRows;
   return Bp * (2LL * gs.KA + (backward ? (long long)gs.NB * gs.U : 0));
+}
+
+// The grid kind's scratch at (B, H), in floats: the exchange buffer, then
+// the packed K range [R, KA) of every block's slice (gru_pack_grid).
+long long sstts_gru_grid_scratch_floats(int B, int H, int backward) {
+  const GridShape gs(H, backward);
+  return sstts_gru_grid_exchange_floats(B, H, backward) + gs.NB * gs.pack_floats();
 }
 
 // Blocks of the grid kind at width H (NB), and threads a block.
@@ -1369,6 +1478,29 @@ int launch_wide(void (*kernel)(Params...), int B, int C, int smem, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
+// The instantiation of the grid kind's forward and backward for a shape:
+// its mode, and one gate item a thread or up to kGridGateItems (always
+// where the tiles move as bulk copies: past H = 2376, U >= 19).
+using GridFwd = void (*)(const float*, const float*, const float*, const float*, float*,
+                         float*, float*, float*, int, int, int, int);
+using GridBwd = void (*)(const float*, const float*, const float*, const float*,
+                         const float*, const float*, float*, float*, float*, int, int, int,
+                         int);
+
+GridFwd grid_fwd_kernel(const GridShape& gs) {
+  if (gs.mode() == kGridResident) return gru_fwd_grid<kGridResident, 1>;
+  if (gs.mode() == kGridBulk) return gru_fwd_grid<kGridBulk, kGridGateItems>;
+  return gs.gate_items() == 1 ? gru_fwd_grid<kGridCopies, 1>
+                              : gru_fwd_grid<kGridCopies, kGridGateItems>;
+}
+
+GridBwd grid_bwd_kernel(const GridShape& gs) {
+  if (gs.mode() == kGridResident) return gru_bwd_grid<kGridResident, 1>;
+  if (gs.mode() == kGridBulk) return gru_bwd_grid<kGridBulk, kGridGateItems>;
+  return gs.gate_items() == 1 ? gru_bwd_grid<kGridCopies, 1>
+                              : gru_bwd_grid<kGridCopies, kGridGateItems>;
+}
+
 // Launches a grid kernel cooperatively: NB blocks, all resident for the T
 // steps (their grid barriers wait on each other).  A card without
 // cooperative launches, or one whose SMs cannot hold the NB blocks at once
@@ -1378,7 +1510,7 @@ template <class... Params, class... Args>
 int launch_grid(void (*kernel)(Params...), int H, int backward, cudaStream_t st,
                 Args... args) {
   const GridShape gs(H, backward);
-  if (!gs.valid()) return (int)cudaErrorInvalidValue;
+  if (!gs.valid(H)) return (int)cudaErrorInvalidValue;
   const int smem = sstts_gru_grid_smem_bytes(H, backward);
   int dev = 0, sms = 0, coop = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1398,22 +1530,19 @@ int launch_grid(void (*kernel)(Params...), int H, int backward, cudaStream_t st,
   return (int)cudaGetLastError();
 }
 
-// The spilling kind's R: 1 <= R <= H (the backward keeps all H rows at a
-// few widths past 543 where the forward cannot), and `spill` given where
-// R < H.
-bool spill_args(int H, int rows, const float* spill) {
-  return rows >= 1 && rows <= H && (rows == H || spill != nullptr);
-}
-
-// Packs rows [R, H) of every rank's slice into `spill` (gru_pack_spill);
-// nothing where R = H.
-int pack_spill(const float* wh, float* spill, int H, int C, int rows, int by_column,
-               cudaStream_t st) {
-  if (C < 2 || C > kMaxCluster) return (int)cudaErrorInvalidValue;
-  const size_t n = (size_t)C * (H - rows) * WideShape(H, C).G;
+// Packs the K range [R, KA) of every block's slice (gru_pack_grid) into
+// `scratch` after its exchange buffer, on `st`, and points `pack` there;
+// nothing to pack where the slice is resident.
+int pack_grid(const float* wh, float* scratch, int B, int H, int backward, cudaStream_t st,
+              const float** pack) {
+  const GridShape gs(H, backward);
+  if (!gs.valid(H) || scratch == nullptr) return (int)cudaErrorInvalidValue;
+  float* dst = scratch + sstts_gru_grid_exchange_floats(B, H, backward);
+  *pack = dst;
+  const size_t n = (size_t)gs.NB * gs.pack_floats();
   if (n == 0) return 0;
   const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  gru_pack_spill<<<blocks, 256, 0, st>>>(wh, spill, H, C, rows, by_column);
+  gru_pack_grid<<<blocks, 256, 0, st>>>(wh, dst, H, backward);
   return (int)cudaGetLastError();
 }
 
@@ -1421,23 +1550,19 @@ int pack_spill(const float* wh, float* spill, int H, int C, int rows, int by_col
 
 extern "C" {
 
-// How many clusters of the wide forward (backward: 1) kernel at width H,
-// cluster size C and R rows in shared memory (R < H: the spilling kind) the
-// card holds at once, or minus a CUDA error code.
-int sstts_gru_wide_active_clusters(int H, int C, int R, int backward) {
+// How many clusters of the wide forward (backward: 1) kernel at width H and
+// cluster size C the card holds at once, or minus a CUDA error code.
+int sstts_gru_wide_active_clusters(int H, int C, int backward) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int clusters = 0;
   cudaError_t err;
-  const bool spill = R < H;
   if (backward) {
-    auto kernel = spill ? gru_bwd_wide<true> : gru_bwd_wide<false>;
-    err = wide_config(kernel, 1, C, sstts_gru_wide_bwd_smem_bytes(H, C, R), 0, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    err = wide_config(gru_bwd_wide, 1, C, sstts_gru_wide_bwd_smem_bytes(H, C), 0, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, gru_bwd_wide, &cfg);
   } else {
-    auto kernel = spill ? gru_fwd_wide<true> : gru_fwd_wide<false>;
-    err = wide_config(kernel, 1, C, sstts_gru_wide_smem_bytes(H, C, R), 0, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    err = wide_config(gru_fwd_wide, 1, C, sstts_gru_wide_smem_bytes(H, C), 0, &cfg, &attr);
+    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, gru_fwd_wide, &cfg);
   }
   return err == cudaSuccess ? clusters : -(int)err;
 }
@@ -1446,22 +1571,17 @@ int sstts_gru_wide_active_clusters(int H, int C, int R, int backward) {
 // card holds at once (a cooperative launch needs NB), or minus a CUDA error
 // code.
 int sstts_gru_grid_active_blocks(int H, int backward) {
-  const int smem = sstts_gru_grid_smem_bytes(H, backward);
-  const int threads = GridShape(H, backward).threads;
+  const GridShape gs(H, backward);
+  const int smem = gs.smem_bytes();
+  const void* kernel = backward ? reinterpret_cast<const void*>(grid_bwd_kernel(gs))
+                                : reinterpret_cast<const void*>(grid_fwd_kernel(gs));
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (backward) {
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gru_bwd_grid, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gru_bwd_grid, threads, smem);
-  } else {
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gru_fwd_grid, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gru_fwd_grid, threads, smem);
-  }
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, gs.threads, smem);
   return err == cudaSuccess ? per_sm * sms : -(int)err;
 }
 
@@ -1477,27 +1597,20 @@ int sstts_gru_input_proj(const float* xs, const float* wx, const float* b,
 
 // The forward recurrence over gx (B, T, 3H); see sstts_gru_sequence.
 int sstts_gru_recurrence(const float* gx, const float* wh, const float* mask,
-                         float* out, float* gates, float* hprev, float* spill, int B,
-                         int T, int H, int reverse, int kind, int cluster, int rows,
-                         void* stream) {
+                         float* out, float* gates, float* hprev, float* scratch, int B,
+                         int T, int H, int reverse, int kind, int cluster, void* stream) {
   if (B == 0 || T == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (kind == SSTTS_GRU_WIDE)
-    return launch_wide(gru_fwd_wide<false>, B, cluster,
-                       sstts_gru_wide_smem_bytes(H, cluster, H), st, gx, wh,
-                       (const float*)nullptr, mask, out, gates, hprev, T, H, H, reverse);
+    return launch_wide(gru_fwd_wide, B, cluster, sstts_gru_wide_smem_bytes(H, cluster), st,
+                       gx, wh, mask, out, gates, hprev, T, H, reverse);
   if (kind == SSTTS_GRU_GRID) {
-    if (cluster != GridShape(H, 0).NB || spill == nullptr) return (int)cudaErrorInvalidValue;
-    return launch_grid(gru_fwd_grid, H, 0, st, gx, wh, mask, out, gates, hprev, spill, B, T,
-                       H, reverse);
-  }
-  if (kind == SSTTS_GRU_SPILL) {
-    if (!spill_args(H, rows, spill)) return (int)cudaErrorInvalidValue;
-    const int rc = pack_spill(wh, spill, H, cluster, rows, 0, st);
+    if (cluster != GridShape(H, 0).NB) return (int)cudaErrorInvalidValue;
+    const float* pack = nullptr;
+    const int rc = pack_grid(wh, scratch, B, H, 0, st, &pack);
     if (rc != 0) return rc;
-    return launch_wide(gru_fwd_wide<true>, B, cluster,
-                       sstts_gru_wide_smem_bytes(H, cluster, rows), st, gx, wh,
-                       (const float*)spill, mask, out, gates, hprev, T, H, rows, reverse);
+    return launch_grid(grid_fwd_kernel(GridShape(H, 0)), H, 0, st, gx, wh, pack, mask, out,
+                       gates, hprev, scratch, B, T, H, reverse);
   }
   if (kind == SSTTS_GRU_H128) {
     if (H != kH) return (int)cudaErrorInvalidValue;
@@ -1524,49 +1637,44 @@ int sstts_gru_recurrence(const float* gx, const float* wh, const float* mask,
 // xs (B, T, D), wx (D, 3H), wh (H, 3H), b (3H), mask (B, T) or NULL, all
 // f32 and contiguous (16-byte aligned); gx_scratch (B, T, 3H) f32; out
 // (B, T, H) f32; gates (B, T, 4H) and hprev (B, T, H) f32, or both NULL
-// when no gradient is wanted.  `cluster` is the wide kinds' C (else
-// unread); `rows` the spilling kind's R and `spill` its scratch, C (H - R)
-// 3U floats (else unread).
+// when no gradient is wanted.  `cluster` is the wide kind's C or the grid
+// kind's NB (else unread); `scratch` the grid kind's,
+// sstts_gru_grid_scratch_floats (B, H, 0) floats, its exchange buffer zero
+// (else unread).
 int sstts_gru_sequence(const float* xs, const float* wx, const float* wh,
                        const float* b, const float* mask, float* gx_scratch,
-                       float* out, float* gates, float* hprev, float* spill, int B,
+                       float* out, float* gates, float* hprev, float* scratch, int B,
                        int T, int D, int H, int reverse, int kind, int cluster,
-                       int rows, void* stream) {
+                       void* stream) {
   const int rc =
       sstts_gru_input_proj(xs, wx, b, gx_scratch, B * T, D, 3 * H, stream);
   if (rc != 0) return rc;
-  return sstts_gru_recurrence(gx_scratch, wh, mask, out, gates, hprev, spill, B, T,
-                              H, reverse, kind, cluster, rows, stream);
+  return sstts_gru_recurrence(gx_scratch, wh, mask, out, gates, hprev, scratch, B, T, H,
+                              reverse, kind, cluster, stream);
 }
 
 // dout (B, T, H), gates (B, T, 4H), hprev (B, T, H) from the forward, wh
 // (H, 3H), mask (B, T) or NULL, all f32 and contiguous (16-byte aligned);
-// dgx and dgh (B, T, 3H) f32 outputs; `spill` and `rows` as in
-// sstts_gru_sequence (the backward's own R).
+// dgx and dgh (B, T, 3H) f32 outputs; `cluster` and `scratch` as in
+// sstts_gru_sequence (the backward's: sstts_gru_grid_scratch_floats (B, H,
+// 1) floats).
 int sstts_gru_sequence_backward(const float* dout, const float* gates,
                                 const float* hprev, const float* wh,
                                 const float* mask, float* dgx, float* dgh,
-                                float* spill, int B, int T, int H, int reverse,
-                                int kind, int cluster, int rows, void* stream) {
+                                float* scratch, int B, int T, int H, int reverse,
+                                int kind, int cluster, void* stream) {
   if (B == 0 || T == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (kind == SSTTS_GRU_WIDE)
-    return launch_wide(gru_bwd_wide<false>, B, cluster,
-                       sstts_gru_wide_bwd_smem_bytes(H, cluster, H), st, dout, gates,
-                       hprev, wh, (const float*)nullptr, mask, dgx, dgh, T, H, H, reverse);
+    return launch_wide(gru_bwd_wide, B, cluster, sstts_gru_wide_bwd_smem_bytes(H, cluster), st,
+                       dout, gates, hprev, wh, mask, dgx, dgh, T, H, reverse);
   if (kind == SSTTS_GRU_GRID) {
-    if (cluster != GridShape(H, 1).NB || spill == nullptr) return (int)cudaErrorInvalidValue;
-    return launch_grid(gru_bwd_grid, H, 1, st, dout, gates, hprev, wh, mask, dgx, dgh, spill,
-                       B, T, H, reverse);
-  }
-  if (kind == SSTTS_GRU_SPILL) {
-    if (!spill_args(H, rows, spill)) return (int)cudaErrorInvalidValue;
-    const int rc = pack_spill(wh, spill, H, cluster, rows, 1, st);
+    if (cluster != GridShape(H, 1).NB) return (int)cudaErrorInvalidValue;
+    const float* pack = nullptr;
+    const int rc = pack_grid(wh, scratch, B, H, 1, st, &pack);
     if (rc != 0) return rc;
-    return launch_wide(gru_bwd_wide<true>, B, cluster,
-                       sstts_gru_wide_bwd_smem_bytes(H, cluster, rows), st, dout, gates,
-                       hprev, wh, (const float*)spill, mask, dgx, dgh, T, H, rows,
-                       reverse);
+    return launch_grid(grid_bwd_kernel(GridShape(H, 1)), H, 1, st, dout, gates, hprev, wh, pack,
+                       mask, dgx, dgh, scratch, B, T, H, reverse);
   }
   if (kind == SSTTS_GRU_H128) {
     if (H != kH) return (int)cudaErrorInvalidValue;

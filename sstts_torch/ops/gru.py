@@ -8,22 +8,22 @@ kernels in `sstts_torch/csrc/gru.cu`, or raises.  There is no fallback from
 one to the other.  Layouts match the JAX package: xs (B, T, D), wx (D, 3H),
 wh (H, 3H), b (3H,), mask (B, T), gate order r, z, n.
 
-On the card the recurrences come in five kinds, chosen here from H alone
+On the card the recurrences come in four kinds, chosen here from H alone
 (`kernel_config`, before any launch): at H = 128, the width of every GRU at
 the default `Config()`, kernels that hold Wh in registers; at any other H up
 to 137, generic kernels that hold Wh in one block's shared memory; past
 137, wide kernels that split Wh over a thread-block cluster of C blocks
 (the smallest C up to 16 whose block fits, `wide_smem_bytes`), up to 543;
-from 544 to `GRID_MAX_HIDDEN` = 1419, the grid kind: one cooperative grid
-of up to 132 blocks a direction, each owning U units of every sequence
+from 544 to `MAX_HIDDEN` = 5456, the grid kind: one cooperative grid of up
+to 132 blocks a direction, each owning U units of every sequence
 (`grid_shape`), the carry (forward) or the step's dgh (backward) exchanged
-through a zeroed buffer in device memory with one grid barrier a step;
-past 1419, the spilling kind: the wide kernels on a cluster of 16 whose
-blocks keep the first R rows of their slice of Wh in shared memory
-(`smem_rows`) and read the others each step from a packed copy in device
-memory, up to `MAX_HIDDEN` = 5456.  None stands in for another: a kernel
-that fails to build or launch raises, and so does a grid launch that the
-card refuses (not all NB blocks resident at once: fewer SMs than NB).
+through a zeroed buffer in device memory with one grid barrier a step.
+Where a block's slice of Wh no longer fits its shared memory (past H =
+1419 backward), the block keeps the K range [0, R) of it there and streams
+the rest from a packed copy in device memory, tile by tile, once a step
+for each 32 rows of the batch.  None stands in for another: a kernel that
+fails to build or launch raises, and so does a grid launch that the card
+refuses (not all NB blocks resident at once: fewer SMs than NB).
 `check_width` refuses a GRU wider than MAX_HIDDEN with NotImplementedError,
 from the entry points' checks (`check_arch`) before anything is launched
 and again at each launch.
@@ -41,6 +41,7 @@ db) to torch.matmul, as JAX leaves them to XLA.  Under `no_grad` or
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -49,14 +50,16 @@ from sstts_torch.ops import build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "sstts_gru_sequence": ([_P] * 10 + [_I] * 8 + [_P], _I),
-    "sstts_gru_sequence_backward": ([_P] * 8 + [_I] * 7 + [_P], _I),
+    "sstts_gru_sequence": ([_P] * 10 + [_I] * 7 + [_P], _I),
+    "sstts_gru_sequence_backward": ([_P] * 8 + [_I] * 6 + [_P], _I),
     "sstts_gru_input_proj": ([_P] * 4 + [_I] * 3 + [_P], _I),
-    "sstts_gru_recurrence": ([_P] * 7 + [_I] * 7 + [_P], _I),
-    "sstts_gru_wide_smem_bytes": ([_I] * 3, _I),
-    "sstts_gru_wide_bwd_smem_bytes": ([_I] * 3, _I),
-    "sstts_gru_wide_active_clusters": ([_I] * 4, _I),
+    "sstts_gru_recurrence": ([_P] * 7 + [_I] * 6 + [_P], _I),
+    "sstts_gru_wide_smem_bytes": ([_I] * 2, _I),
+    "sstts_gru_wide_bwd_smem_bytes": ([_I] * 2, _I),
+    "sstts_gru_wide_active_clusters": ([_I] * 3, _I),
     "sstts_gru_grid_smem_bytes": ([_I] * 2, _I),
+    "sstts_gru_grid_resident": ([_I] * 2, _I),
+    "sstts_gru_grid_exchange_floats": ([_I] * 3, ctypes.c_longlong),
     "sstts_gru_grid_scratch_floats": ([_I] * 3, ctypes.c_longlong),
     "sstts_gru_grid_blocks": ([_I], _I),
     "sstts_gru_grid_threads": ([_I] * 2, _I),
@@ -64,7 +67,7 @@ SIGNATURES = {
 }
 
 #: The `kind` argument of the C entry points (SSTTS_GRU_* in csrc/gru.cu).
-KIND_GENERIC, KIND_H128, KIND_WIDE, KIND_SPILL, KIND_GRID = 0, 1, 2, 3, 4
+KIND_GENERIC, KIND_H128, KIND_WIDE, KIND_GRID = 0, 1, 2, 4
 
 #: Threads of a wide block and the largest cluster (kWideThreads and
 #: kMaxCluster in csrc/gru.cu).
@@ -75,6 +78,18 @@ WIDE_THREADS, MAX_CLUSTER = 1024, 16
 #: threads a block, batch rows of a tile, stages of the K tiles' ring.
 GRID_BLOCKS, GRID_THREADS, GRID_ROWS, GRID_STAGES = 132, 512, 32, 3
 
+#: kGridStreamStages, kGridStreamQuads and kGridGateItems: the ring's
+#: stages and a K tile's float4 quads where the slice streams, and the most
+#: (row, unit) gate items a thread takes.
+GRID_STREAM_STAGES, GRID_STREAM_QUADS, GRID_GATE_ITEMS = 3, 16, 3
+
+#: The widest H the kernels take (kGridMaxHidden: 42 units a grid block).
+MAX_HIDDEN = 5456
+
+#: kGridL2Bytes, the H100's L2: past it the streamed tiles move as bulk
+#: copies.
+GRID_L2_BYTES = 52428800
+
 
 def generic_smem_bytes(hidden: int) -> Tuple[int, int]:
     """Shared memory of the generic forward and backward recurrences at
@@ -83,39 +98,38 @@ def generic_smem_bytes(hidden: int) -> Tuple[int, int]:
     return (3 * hidden * hidden + 7 * hidden) * 4, (3 * hidden * hidden + 8 * hidden) * 4
 
 
-def wide_smem_bytes(hidden: int, cluster: int,
-                    rows: Optional[Tuple[int, int]] = None) -> Tuple[int, int]:
+def wide_smem_bytes(hidden: int, cluster: int) -> Tuple[int, int]:
     """Shared memory of one block of the wide forward and backward
     recurrences at width H in a cluster of C, as `sstts_gru_wide_smem_bytes`
     and `sstts_gru_wide_bwd_smem_bytes` in csrc/gru.cu count it (its
-    `WideShape`): `rows` (forward, backward; all H by default) of the
-    block's U = ceil(H / C) units' 3U columns of Wh in rows of 3U | 1
-    floats, and the step's vectors, f32."""
-    r_fwd, r_bwd = (hidden, hidden) if rows is None else rows
+    `WideShape`): the block's U = ceil(H / C) units' 3U columns of Wh, H
+    rows of 3U | 1 floats, and the step's vectors, f32."""
     units = -(-hidden // cluster)
     cols = 3 * units
     ld = cols | 1
     k_slices = WIDE_THREADS // cols
     col_slices = max(1, WIDE_THREADS // hidden)
-    return ((r_fwd * ld + 2 * hidden + k_slices * cols) * 4,
-            (r_bwd * ld + cols + 2 * cluster * units + col_slices * hidden) * 4)
+    return ((hidden * ld + 2 * hidden + k_slices * cols) * 4,
+            (hidden * ld + cols + 2 * cluster * units + col_slices * hidden) * 4)
 
 
-def _spill_rows(hidden: int) -> Optional[Tuple[int, int]]:
-    """The spilling kind's R, forward and backward, at width H in a cluster
-    of 16: the most rows of a block's slice, up to H, that fit beside the
-    step's vectors; None unless its 3U columns fit the block's threads and
-    both hold a row."""
-    cols = 3 * -(-hidden // MAX_CLUSTER)
-    if cols > WIDE_THREADS:
-        return None
-    row_bytes = (cols | 1) * 4
-    rows = tuple(min(hidden, (build.MAX_SMEM - fixed) // row_bytes)
-                 for fixed in wide_smem_bytes(hidden, MAX_CLUSTER, (0, 0)))
-    return rows if min(rows) >= 1 else None
+def _ld(k: int) -> int:
+    return k if k % 8 == 4 else k + 4
 
 
-def _grid_shape(hidden: int, backward: bool, target: int) -> dict:
+def _grid_smem(gs: dict) -> int:
+    """The block's shared memory: the slice's K range [0, R), N rows of
+    ldw floats, the ring (where R < KA, GRID_STREAM_STAGES stages that
+    also carry the slice's rows) or the K slices' sums, whichever is
+    larger, and where R < KA an mbarrier (8 bytes) a stage."""
+    streamed = gs["R"] < gs["KA"]
+    stages = GRID_STREAM_STAGES if streamed else GRID_STAGES
+    stage = GRID_ROWS + (gs["N"] if streamed else 0)
+    ring = max(stages * stage * gs["ldt"], gs["KS"] * GRID_ROWS * gs["N"])
+    return (gs["N"] * _ld(gs["R"]) + ring + (2 * stages if streamed else 0)) * 4
+
+
+def _grid_tiles(hidden: int, backward: bool, target: int) -> dict:
     units = -(-hidden // GRID_BLOCKS)
     blocks = -(-hidden // units)
     k = blocks * (3 * units if backward else units)
@@ -125,12 +139,22 @@ def _grid_shape(hidden: int, backward: bool, target: int) -> dict:
     quads = -(-target // k_slices) if k_slices else 1
     kt = 4 * max(k_slices, 1) * quads
     ka = -(-k // kt) * kt
+    prod = -(-items * k_slices // 32) * 32
     gs = {"U": units, "NB": blocks, "N": n, "NG": n // 3, "items": items, "KS": k_slices,
-          "KT": kt, "KA": ka, "ldw": ka if ka % 8 == 4 else ka + 4,
-          "ldt": kt if kt % 8 == 4 else kt + 4,
-          "threads": -(-items * k_slices // 32) * 32}
-    ring = max(GRID_STAGES * GRID_ROWS * gs["ldt"], k_slices * GRID_ROWS * n)
-    gs["smem"] = (n * gs["ldw"] + ring) * 4
+          "KT": kt, "KA": ka, "R": ka, "ldt": _ld(kt),
+          "threads": max(prod, min(GRID_ROWS * units, GRID_THREADS))}
+    return gs
+
+
+def _pack_floats(gs: dict) -> int:
+    return gs["S"] // gs["KT"] * gs["N"] * gs["ldt"]
+
+
+def _finish(gs: dict) -> dict:
+    gs["ldw"] = _ld(gs["R"])
+    gs["S"] = gs["KA"] - gs["R"]
+    gs["bulk"] = gs["S"] > 0 and gs["NB"] * _pack_floats(gs) * 4 > GRID_L2_BYTES
+    gs["smem"] = _grid_smem(gs)
     return gs
 
 
@@ -139,19 +163,37 @@ def grid_shape(hidden: int, backward: bool) -> dict:
     (U the smallest with NB = ceil(H / U) <= 132); the exchanged row's
     width KA (the forward's carry, NB U; the backward's dgh, NB 3U; padded
     to a multiple of the K tile KT); the block's slice of Wh, N rows (3U
-    gate columns forward; U rows of Wh backward, padded to a multiple of 3)
-    of ldw floats; the product's `items` thread tiles (4 batch rows x 3
-    slice rows) a row tile and KS slices of K, each taking KT / 4 / KS
-    float4 quads of a tile, about 32 (forward) or 48 (backward) quads a
-    tile, or fewer (32, then 16) where the block's shared memory (`smem`:
-    the slice, and the ring of K tiles whose space the K slices' sums take
-    after each product) would pass 232,448 bytes; the ring's row stride
-    ldt; threads a block."""
+    gate columns forward; U rows of Wh backward, padded to a multiple of 3);
+    the product's `items` thread tiles (4 batch rows x 3 slice rows) a row
+    tile and KS slices of K, each taking KT / 4 / KS float4 quads of a
+    tile, about 32 (forward) or 48 (backward) quads a tile, or fewer (32,
+    then 16) where the block's shared memory (`smem`: the slice, and the
+    ring of K tiles whose space the K slices' sums take after each product)
+    would pass 232,448 bytes.  Where even 16 does not fit, the slice
+    streams: K tiles of GRID_STREAM_QUADS quads, each of the ring's
+    GRID_STREAM_STAGES stages also holding a tile of the slice's N rows
+    (with an mbarrier a stage), and the slice's K range [0, R) in shared
+    memory, R the most whole tiles that fit beside that ring (R < KA); S =
+    KA - R columns of each row streamed from the packed copy, a tile as one
+    bulk copy where all blocks' packed tiles pass L2 (`bulk`, from H =
+    2377), else as 16-byte copies.  The rows' strides ldw and ldt; threads
+    a block (the product's, or the gate pass's 32 U up to 512).  A copy of
+    the rule's, cached a width."""
+    return dict(_grid_shape_of(hidden, bool(backward)))
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_shape_of(hidden: int, backward: bool) -> dict:
     for target in ((48, 32, 16) if backward else (32, 16)):
-        gs = _grid_shape(hidden, backward, target)
+        gs = _finish(_grid_tiles(hidden, backward, target))
         if gs["smem"] <= build.MAX_SMEM:
-            break
-    return gs
+            return gs
+    gs = _grid_tiles(hidden, backward, GRID_STREAM_QUADS)
+    gs["R"] = 0
+    while (gs["R"] + gs["KT"] < gs["KA"]
+           and _grid_smem(dict(gs, R=gs["R"] + gs["KT"])) <= build.MAX_SMEM):
+        gs["R"] += gs["KT"]
+    return _finish(gs)
 
 
 def grid_smem_bytes(hidden: int) -> Tuple[int, int]:
@@ -160,28 +202,45 @@ def grid_smem_bytes(hidden: int) -> Tuple[int, int]:
     return tuple(grid_shape(hidden, backward)["smem"] for backward in (False, True))
 
 
-def grid_scratch_floats(batch: int, hidden: int, backward: bool) -> int:
-    """The grid kind's scratch at (B, H), as `sstts_gru_grid_scratch_floats`
-    counts it: the exchange buffer (2, Bp, KA), Bp = B rounded up to 32
-    rows, and for the backward the carry gradient's direct part (Bp, NB U)."""
+def grid_exchange_floats(batch: int, hidden: int, backward: bool) -> int:
+    """The grid kind's exchange buffer at (B, H), as
+    `sstts_gru_grid_exchange_floats` counts it: (2, Bp, KA), Bp = B rounded
+    up to 32 rows, and for the backward the carry gradient's direct part
+    (Bp, NB U)."""
     gs = grid_shape(hidden, backward)
     rows = -(-batch // GRID_ROWS) * GRID_ROWS
     return rows * (2 * gs["KA"] + (gs["NB"] * gs["U"] if backward else 0))
 
 
+def grid_pack_floats(hidden: int, backward: bool) -> int:
+    """Floats of one block's packed K range [R, KA) (`GridShape::
+    pack_floats`): its S / KT streamed K tiles, each N rows of ldt floats,
+    as the ring holds them."""
+    return _pack_floats(grid_shape(hidden, backward))
+
+
+def grid_scratch_floats(batch: int, hidden: int, backward: bool) -> int:
+    """The grid kind's scratch at (B, H), as `sstts_gru_grid_scratch_floats`
+    counts it: the exchange buffer, then the packed K range [R, KA) of every
+    block's slice, NB `grid_pack_floats`."""
+    gs = grid_shape(hidden, backward)
+    return (grid_exchange_floats(batch, hidden, backward)
+            + gs["NB"] * grid_pack_floats(hidden, backward))
+
+
 def _grid_fits(hidden: int) -> bool:
-    shapes = [grid_shape(hidden, bwd) for bwd in (False, True)]
-    return (all(gs["KS"] >= 1 and GRID_ROWS * gs["U"] <= gs["threads"] for gs in shapes)
-            and max(grid_smem_bytes(hidden)) <= build.MAX_SMEM)
+    """GridShape::valid: one gate item a thread where the slice is resident,
+    at most GRID_GATE_ITEMS where it streams; KS, threads, blocks and shared
+    memory within the block's."""
+    return all(gs["KS"] >= 1
+               and GRID_ROWS * gs["U"] <= (GRID_GATE_ITEMS if gs["S"] else 1) * gs["threads"]
+               and gs["threads"] <= GRID_THREADS and gs["NB"] <= GRID_BLOCKS
+               and gs["smem"] <= build.MAX_SMEM
+               for gs in (grid_shape(hidden, bwd) for bwd in (False, True)))
 
 
 #: The first width past the wide kind's reach, where the grid kind starts.
 GRID_MIN_HIDDEN = 544
-
-#: The widest H of the grid kind (1419): the last before the first width
-#: whose slice and ring pass a block's 232,448 bytes of shared memory (the
-#: backward's, at U = 11 units a block).
-GRID_MAX_HIDDEN = next(h for h in range(GRID_MIN_HIDDEN, 10**4) if not _grid_fits(h)) - 1
 
 
 def _config(hidden: int) -> Optional[Tuple[int, int]]:
@@ -192,48 +251,29 @@ def _config(hidden: int) -> Optional[Tuple[int, int]]:
     for cluster in range(2, MAX_CLUSTER + 1):
         if max(wide_smem_bytes(hidden, cluster)) <= build.MAX_SMEM:
             return KIND_WIDE, cluster
-    if GRID_MIN_HIDDEN <= hidden <= GRID_MAX_HIDDEN:
+    if GRID_MIN_HIDDEN <= hidden <= MAX_HIDDEN and _grid_fits(hidden):
         return KIND_GRID, grid_shape(hidden, False)["NB"]
-    if _spill_rows(hidden) is not None:
-        return KIND_SPILL, MAX_CLUSTER
     return None
-
-
-#: The widest H a kind of kernel takes (5456: the spilling kind, where a
-#: block's 3U gate columns reach its 1024 threads).
-MAX_HIDDEN = next(h for h in range(MAX_CLUSTER * (WIDE_THREADS // 3) + 1, 0, -1)
-                  if _config(h) is not None)
 
 
 def kernel_config(hidden: int) -> Tuple[int, int]:
     """(kind, cluster size or blocks) of the CUDA recurrences at width H:
     the register-resident kernels at H = 128, the generic ones where their
     block fits (H up to 137), the wide ones on the smallest cluster whose
-    block fits (up to 543), the grid kind on NB = ceil(H / U) blocks, U =
-    ceil(H / 132), from 544 up to GRID_MAX_HIDDEN = 1419 (the widest H
-    whose forward and backward blocks, slice and ring, fit 232,448 bytes of
-    shared memory: `grid_smem_bytes`), else the spilling kind on a cluster
-    of 16 (its rows in shared memory: `smem_rows`).  NotImplementedError
-    past MAX_HIDDEN.  A pure function of H: nothing is built or launched;
-    the grid's residency on the card is checked at each launch."""
+    block fits (up to 543), else the grid kind on NB = ceil(H / U) blocks,
+    U = ceil(H / 132), up to MAX_HIDDEN = 5456 (`grid_shape`: past 1419 a
+    block streams the part of its slice that its shared memory cannot
+    hold).  NotImplementedError past MAX_HIDDEN.  A pure function of H:
+    nothing is built or launched; the grid's residency on the card is
+    checked at each launch."""
     config = _config(hidden)
     if config is None:
         raise NotImplementedError(
             f"the gru_sequence CUDA kernels take H up to MAX_HIDDEN = {MAX_HIDDEN}, "
-            f"where a block's {3 * -(-MAX_HIDDEN // MAX_CLUSTER)} gate columns fill its "
-            f"{WIDE_THREADS} threads; this GRU has H={hidden}"
+            f"{-(-MAX_HIDDEN // GRID_BLOCKS)} units a block of the grid kind; "
+            f"this GRU has H={hidden}"
         )
     return config
-
-
-def smem_rows(hidden: int) -> Tuple[int, int]:
-    """Rows of a block's slice of Wh that the forward and the backward keep
-    in shared memory at width H: all H but for the spilling kind, whose
-    other rows come from a packed copy in device memory.  A pure function
-    of H, as `kernel_config`."""
-    if kernel_config(hidden)[0] == KIND_SPILL:
-        return _spill_rows(hidden)
-    return hidden, hidden
 
 
 def check_width(hidden: int, device) -> None:
@@ -379,18 +419,15 @@ def _load(hidden: int):
     return build.load("gru", SIGNATURES), kernel_config(hidden)
 
 
-def _scratch(batch: int, hidden: int, kind: int, rows: int, dev,
-             backward: bool) -> Optional[torch.Tensor]:
-    """A launch's scratch: the spilling kind's packed rows [R, H) of every
-    rank's slice (16 (H - R) 3U floats); the grid kind's exchange buffer,
-    zeroed (`grid_scratch_floats`); else None."""
-    if kind == KIND_GRID:
-        return torch.zeros(grid_scratch_floats(batch, hidden, backward), device=dev,
-                           dtype=torch.float32)
-    if kind != KIND_SPILL or rows == hidden:
+def _scratch(batch: int, hidden: int, kind: int, dev, backward: bool) -> Optional[torch.Tensor]:
+    """A launch's scratch: the grid kind's exchange buffer, zeroed, and the
+    room for its packed copy (`grid_scratch_floats`); else None."""
+    if kind != KIND_GRID:
         return None
-    cols = 3 * -(-hidden // MAX_CLUSTER)
-    return torch.empty(MAX_CLUSTER * (hidden - rows) * cols, device=dev, dtype=torch.float32)
+    scratch = torch.empty(grid_scratch_floats(batch, hidden, backward), device=dev,
+                          dtype=torch.float32)
+    scratch[: grid_exchange_floats(batch, hidden, backward)].zero_()
+    return scratch
 
 
 def _mask_f32(mask, dev):
@@ -419,12 +456,11 @@ def _kernel(xs, wx, wh, b, mask, reverse, save: bool):
     out = torch.empty(batch, t_len, hidden, **f32)
     gates = torch.empty(batch, t_len, 4 * hidden, **f32) if save else None
     hprev = torch.empty(batch, t_len, hidden, **f32) if save else None
-    rows = smem_rows(hidden)[0]
-    spill = _scratch(batch, hidden, kind, rows, dev, backward=False)
+    scratch = _scratch(batch, hidden, kind, dev, backward=False)
     rc = lib.sstts_gru_sequence(
         xs_c.data_ptr(), wx_c.data_ptr(), wh_c.data_ptr(), b_c.data_ptr(),
-        _ptr(m_c), gx.data_ptr(), out.data_ptr(), _ptr(gates), _ptr(hprev), _ptr(spill),
-        batch, t_len, d_in, hidden, int(bool(reverse)), kind, cluster, rows,
+        _ptr(m_c), gx.data_ptr(), out.data_ptr(), _ptr(gates), _ptr(hprev), _ptr(scratch),
+        batch, t_len, d_in, hidden, int(bool(reverse)), kind, cluster,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "gru_sequence")
@@ -462,12 +498,11 @@ def gru_sequence_backward(
     m_c = _mask_f32(mask, dev)
     dgx = torch.empty(batch, t_len, 3 * hidden, device=dev, dtype=torch.float32)
     dgh = torch.empty_like(dgx)
-    rows = smem_rows(hidden)[1]
-    spill = _scratch(batch, hidden, kind, rows, dev, backward=True)
+    scratch = _scratch(batch, hidden, kind, dev, backward=True)
     rc = lib.sstts_gru_sequence_backward(
         dout_c.data_ptr(), gates_c.data_ptr(), hprev_c.data_ptr(),
-        wh_c.data_ptr(), _ptr(m_c), dgx.data_ptr(), dgh.data_ptr(), _ptr(spill),
-        batch, t_len, hidden, int(bool(reverse)), kind, cluster, rows,
+        wh_c.data_ptr(), _ptr(m_c), dgx.data_ptr(), dgh.data_ptr(), _ptr(scratch),
+        batch, t_len, hidden, int(bool(reverse)), kind, cluster,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     build.check(lib, rc, "gru_sequence_backward")

@@ -1,7 +1,7 @@
-"""The grid kind of the GRU kernels (B3 and B3' from H = 544 to 1419)
+"""The grid kind of the GRU kernels (B3 and B3' from H = 544 to 5456)
 taken apart on the card.
 
-    python3 -m sstts_torch.tools.ablate_grid [--widths 560 752 1104]
+    python3 -m sstts_torch.tools.ablate_grid [--widths 560 752 1104 1420 2048 5456]
 
 Builds variants of `sstts_torch/csrc/gru.cu`, one `nvcc` each, all started
 together, into a temporary directory:
@@ -9,9 +9,19 @@ together, into a temporary directory:
 - "as built": the source as it is;
 - "tiles16": K tiles of about 16 float4 quads in both directions (the
   first design; the source takes about 32 forward and 48 backward);
+- "stream4", "stream-q8": past H = 1419, where a block streams part of its
+  slice, a ring of 4 stages (the source: 3), or K tiles of 8 quads (the
+  source: 16);
+- "stream-copies", "stream-bulk": every streamed tile as 16-byte copies,
+  or as one bulk copy (the source: bulk copies where the packed tiles of
+  all blocks pass L2's 50 MB, from H = 2377);
 - "no-fma", "no-barrier", "no-fma-no-barrier": the product's FMAs, the
   grid barrier, or both left out (their outputs are wrong; what is left of
-  a step is timed).
+  a step is timed);
+- "no-stream": past H = 1419, the copies of the streamed tiles of each
+  block's slice and their waits left out (the product reads whatever the
+  ring holds: the outputs are wrong; what the stream costs a step is what
+  it saves).
 
 A rewrite that no longer finds what it replaces in the source stops the
 script before anything is built.
@@ -48,14 +58,37 @@ def _replace(src: str, old: str, new: str, count: int = 1) -> str:
 
 
 def _no_fma(src: str) -> str:
-    return _replace(src, "    if (prod) {\n      const float* as",
-                    "    if (prod && gs.KT < 0) {\n      const float* as")
+    return _replace(src, "    if (prod) {\n      const float* stage",
+                    "    if (prod && gs.KT < 0) {\n      const float* stage")
 
 
 def _no_barrier(src: str) -> str:
     for what in ("new carry", "dgh of the step"):
         src = _replace(src, f"    grid.sync();  // every block's {what} is in the buffer", "")
     return src
+
+
+def _no_stream(src: str) -> str:
+    src = _replace(src, "      if (kStream && kt >= rt) {  // the slice's rows of a streamed tile",
+                   "      if (kStream && kt >= rt && gs.KT < 0) {")
+    return _replace(src, "    if (bulk && kt >= rt) {  // and the tile's slice rows",
+                    "    if (bulk && kt >= rt && gs.KT < 0) {")
+
+
+def _copy_rule(rule: str):
+    def transform(src: str) -> str:
+        return _replace(src, "    return streams() && (long long)NB * pack_floats() * 4 > kGridL2Bytes;",
+                        f"    return {rule};")
+    return transform
+
+
+def _stream(stages: int, quads: int):
+    def transform(src: str) -> str:
+        src = _replace(src, "constexpr int kGridStreamStages = 3;",
+                       f"constexpr int kGridStreamStages = {stages};")
+        return _replace(src, "constexpr int kGridStreamQuads = 16;",
+                        f"constexpr int kGridStreamQuads = {quads};")
+    return transform
 
 
 def _tiles16(src: str) -> str:
@@ -67,9 +100,14 @@ def _tiles16(src: str) -> str:
 VARIANTS = {
     "as built": (lambda s: s, True),
     "tiles16": (_tiles16, True),
+    "stream4": (_stream(4, 16), True),
+    "stream-q8": (_stream(3, 8), True),
+    "stream-copies": (_copy_rule("false"), True),
+    "stream-bulk": (_copy_rule("streams()"), True),
     "no-fma": (_no_fma, False),
     "no-barrier": (_no_barrier, False),
     "no-fma-no-barrier": (lambda s: _no_barrier(_no_fma(s)), False),
+    "no-stream": (_no_stream, False),
 }
 
 
@@ -121,7 +159,7 @@ def _forward(lib, x):
     rc = lib.sstts_gru_sequence(
         *(x[k].data_ptr() for k in ("xs", "wx", "wh", "b", "mask")), gx.data_ptr(),
         out.data_ptr(), None, None, scratch.data_ptr(), B, T, D, H, 0, gru.KIND_GRID,
-        lib.sstts_gru_grid_blocks(H), H, torch.cuda.current_stream().cuda_stream)
+        lib.sstts_gru_grid_blocks(H), torch.cuda.current_stream().cuda_stream)
     build.check(lib, rc, "ablate_grid forward")
     return out
 
@@ -135,7 +173,7 @@ def _backward(lib, x, gates, hprev):
     rc = lib.sstts_gru_sequence_backward(
         x["dout"].data_ptr(), gates.data_ptr(), hprev.data_ptr(), x["wh"].data_ptr(),
         x["mask"].data_ptr(), dgx.data_ptr(), dgh.data_ptr(), scratch.data_ptr(), B, T, H, 0,
-        gru.KIND_GRID, lib.sstts_gru_grid_blocks(H), H, torch.cuda.current_stream().cuda_stream)
+        gru.KIND_GRID, lib.sstts_gru_grid_blocks(H), torch.cuda.current_stream().cuda_stream)
     build.check(lib, rc, "ablate_grid backward")
     return dgx, dgh
 
@@ -162,7 +200,8 @@ def _held(libs, x, T_bwd):
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--widths", nargs="+", type=int, default=[560, 752, 1104])
+    ap.add_argument("--widths", nargs="+", type=int,
+                    default=[560, 752, 1104, 1420, 2048, 5456])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("ablate_grid: no CUDA device")

@@ -78,7 +78,7 @@ def main() -> None:
     for name, kind in KINDS.items():
         for save in (False, True):
             args = (gx, wh, full, out, gates if save else None,
-                    hprev if save else None, None, B, T, H, 0, kind, 1, H)
+                    hprev if save else None, None, B, T, H, 0, kind, 1)
             out.zero_()
             call("sstts_gru_recurrence", *args)
             torch.cuda.synchronize()
@@ -112,7 +112,7 @@ def main() -> None:
     dgx = torch.empty(B, T, 3 * H, device=dev)
     dgh = torch.empty_like(dgx)
     for name, kind in KINDS.items():
-        args = (dout, gates, hprev, wh, ragged, dgx, dgh, None, B, T, H, 0, kind, 1, H)
+        args = (dout, gates, hprev, wh, ragged, dgx, dgh, None, B, T, H, 0, kind, 1)
         call("sstts_gru_sequence_backward", *args)
         torch.cuda.synchronize()
         errs = {"dgx": _rel(dgx, ref[0]), "dgh": _rel(dgh, ref[1])}

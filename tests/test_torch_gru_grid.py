@@ -1,21 +1,26 @@
-"""B3 and B3' from H = 544 to 1419, the grid kind, on the CPU.
+"""B3 and B3' from H = 544 to 5456, the grid kind, on the CPU.
 
 The grid kind's kernels (`gru_fwd_grid`, `gru_bwd_grid` in csrc/gru.cu) run
 only on the card, where `chip_smoke.py` phase 2 holds them to their plain
-versions at full size and phase 3j drives them through `Synthesizer` and
-`train`.  Here:
+versions at full size and phases 3j and 3k drive them through `Synthesizer`
+and `train`.  Here:
 
 * the rule that picks the grid kind from H (`kernel_config`), its shared
-  memory (`grid_smem_bytes`), its scratch and its reach, against the
-  source's constants;
+  memory (`grid_smem_bytes`), the K range of each block's slice it keeps in
+  shared memory (R), its scratch and its reach, against the source's
+  constants;
 * a torch replay of the grid kind's arithmetic (`GridShape`: each block's
-  slice of Wh, the batch in tiles of 32 rows, the K tiles and the K
-  slices' float4 quads summed in a fixed order, the carry and the step's
+  slice of Wh, its K range [0, R) as the kernel loads it and [R, KA) from
+  the packed copy by `gru_pack_grid`'s flat index rule, read tile by tile at
+  the kernel's offsets; the batch in tiles of 32 rows, the K tiles and the
+  K slices' float4 quads summed in a fixed order, the carry and the step's
   dgh exchanged through a (2, Bp, KA) buffer laid out as the kernels lay it
   out, the backward's carried direct part), forward and backward, at widths
-  whose last block owns fewer units, odd batches, ragged masks with an
-  all-padding row, both directions, held to the plain versions;
-* the plain GRU at H = 752 against the JAX package's scan
+  whose last block owns fewer units, widths that stream part of the slice
+  (1420 backward, 1701, 2048, and 2113, whose gate pass takes two items a
+  thread), odd batches, ragged masks with an all-padding row, both
+  directions, held to the plain versions;
+* the plain GRU at H = 752 and 1420 against the JAX package's scan
   (`gru_sequence_xla`) and its gradient against `jax.vjp` of
   `gru_sequence_ad`.
 
@@ -72,59 +77,102 @@ def gru_arrays(H, B, T, D=16, seed=0):
 # ------------------------------------------------------------- the rule --
 
 
-#: (H, blocks, units a block, forward and backward shared-memory bytes).
-GRID_WIDTHS = {544: (109, 5, 91632, 142944), 560: (112, 5, 91632, 142944),
-               752: (126, 6, 120864, 155232), 1104: (123, 9, 175152, 223920),
-               1419: (129, 11, 222864, 232128)}
+#: (H, blocks, units a block, forward and backward shared-memory bytes,
+#: forward and backward K range in shared memory R).
+GRID_WIDTHS = {544: (109, 5, 91632, 142944, 576, 1792),
+               560: (112, 5, 91632, 142944, 576, 1792),
+               752: (126, 6, 120864, 155232, 800, 2304),
+               1104: (123, 9, 175152, 223920, 1120, 3528),
+               1419: (129, 11, 222864, 232128, 1440, 4288),
+               1420: (130, 11, 222864, 229656, 1440, 4032),
+               2048: (128, 16, 225816, 229272, 832, 2480),
+               2113: (125, 17, 223416, 229272, 720, 2480),
+               5456: (130, 42, 227736, 222360, 192, 960)}
+
+
+def _constant(src, name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
 
 
 def test_grid_kind_rule(monkeypatch):
     """From 544 (the first width no cluster's wide block holds) to
-    GRID_MAX_HIDDEN = 1419 `kernel_config` gives the grid kind on NB =
-    ceil(H / U) blocks, U = ceil(H / 132) the fewest units a block with at
-    most 132 blocks; its forward and backward blocks fit 232,448 bytes of
-    shared memory there (K tiles of about 32 quads forward and 48 backward,
-    fewer where the block would not fit) and the backward's passes them at
-    1420 even at 16, where the spilling kind takes over, up to MAX_HIDDEN =
-    5456.  A pure function of H; the constants are csrc/gru.cu's."""
+    MAX_HIDDEN = 5456 `kernel_config` gives the grid kind on NB = ceil(H /
+    U) blocks, U = ceil(H / 132) the fewest units a block with at most 132
+    blocks.  Up to 1419 (forward 1430) a block's whole slice fits 232,448
+    bytes of shared memory beside its ring (K tiles of about 32 quads
+    forward and 48 backward, fewer where it would not fit); past it the
+    block keeps the K range [0, R) of its slice, R the most whole K tiles
+    of 16 quads beside a ring whose stages also carry a tile of the slice's
+    N rows, and streams the rest (a tile as one bulk copy where all
+    blocks' packed tiles pass L2's 50 MB, else as 16-byte copies).  The gate pass takes one (row, unit) item a thread where
+    the slice is resident, at most 3 where it streams.  A pure function of
+    H; the constants are csrc/gru.cu's."""
     monkeypatch.setattr(build, "load", lambda *a: pytest.fail("kernel_config built a library"))
     src = (build.CSRC / "gru.cu").read_text()
     for name, value in (("kGridBlocks", gru_ops.GRID_BLOCKS),
                         ("kGridThreads", gru_ops.GRID_THREADS),
-                        ("kGridRows", gru_ops.GRID_ROWS), ("kGridStages", gru_ops.GRID_STAGES)):
-        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
+                        ("kGridRows", gru_ops.GRID_ROWS), ("kGridStages", gru_ops.GRID_STAGES),
+                        ("kGridStreamQuads", gru_ops.GRID_STREAM_QUADS),
+                        ("kGridGateItems", gru_ops.GRID_GATE_ITEMS),
+                        ("kGridMaxHidden", gru_ops.MAX_HIDDEN),
+                        ("kGridL2Bytes", gru_ops.GRID_L2_BYTES),
+                        ("kGridMaxSmem", build.MAX_SMEM)):
+        assert _constant(src, name) == value, name
     assert "SSTTS_GRU_GRID = 4" in src and gru_ops.KIND_GRID == 4
-    assert gru_ops.GRID_MIN_HIDDEN == 544 and gru_ops.GRID_MAX_HIDDEN == 1419
-    assert gru_ops.MAX_HIDDEN == 5456
+    assert gru_ops.GRID_MIN_HIDDEN == 544 and gru_ops.MAX_HIDDEN == 5456
     assert gru_ops.kernel_config(543)[0] == gru_ops.KIND_WIDE
-    for H, (blocks, units, fwd, bwd) in GRID_WIDTHS.items():
+    for H, (blocks, units, fwd, bwd, r_fwd, r_bwd) in GRID_WIDTHS.items():
         assert gru_ops.kernel_config(H) == (gru_ops.KIND_GRID, blocks)
         assert gru_ops.grid_smem_bytes(H) == (fwd, bwd)
-        assert gru_ops.smem_rows(H) == (H, H)
-        for backward in (False, True):
-            gs = gru_ops.grid_shape(H, backward)
-            assert (gs["NB"], gs["U"]) == (blocks, units)
-    for H in range(544, 1420):
+        shapes = [gru_ops.grid_shape(H, backward) for backward in (False, True)]
+        assert [(gs["NB"], gs["U"]) for gs in shapes] == [(blocks, units)] * 2
+        assert [gs["R"] for gs in shapes] == [r_fwd, r_bwd]
+    first_streamed = {}
+    for H in range(544, gru_ops.MAX_HIDDEN + 1):
         gs = [gru_ops.grid_shape(H, b) for b in (False, True)]
         U = gs[0]["U"]
         assert gru_ops.kernel_config(H) == (gru_ops.KIND_GRID, gs[0]["NB"])
         assert -(-H // U) <= 132 and (U == 1 or -(-H // (U - 1)) > 132)
         assert (gs[0]["NB"] - 1) * U < H <= gs[0]["NB"] * U
         assert max(gru_ops.grid_smem_bytes(H)) <= build.MAX_SMEM
-        for g in gs:
-            assert g["KS"] >= 1 and 32 * U <= g["threads"] <= gru_ops.GRID_THREADS
+        for bwd, g in enumerate(gs):
+            assert g["KS"] >= 1 and g["threads"] <= gru_ops.GRID_THREADS
+            assert 32 * U <= gru_ops.GRID_GATE_ITEMS * g["threads"]
+            assert g["threads"] >= min(32 * U, gru_ops.GRID_THREADS)
             assert g["KT"] % (4 * g["KS"]) == 0 and g["KA"] % g["KT"] == 0
             assert g["ldw"] % 8 == 4 and g["ldt"] % 8 == 4 and g["N"] % 3 == 0
+            assert g["R"] % g["KT"] == 0 and 0 <= g["R"] <= g["KA"] and g["S"] == g["KA"] - g["R"]
+            packed = g["NB"] * gru_ops.grid_pack_floats(H, bool(bwd)) * 4
+            assert g["bulk"] == (g["S"] > 0 and packed > gru_ops.GRID_L2_BYTES)
+            if g["R"] < g["KA"]:  # streamed: tiles of 16 quads, the most whole ones kept
+                first_streamed.setdefault(bwd, H)
+                assert g["KT"] == 4 * g["KS"] * -(-gru_ops.GRID_STREAM_QUADS // g["KS"])
+                more = dict(g, R=g["R"] + g["KT"])
+                assert (more["R"] >= g["KA"]
+                        or gru_ops._grid_smem(more) > build.MAX_SMEM), (H, bwd)
         assert gs[0]["KA"] >= gs[0]["NB"] * U and gs[1]["KA"] >= gs[1]["NB"] * 3 * U
-    assert gru_ops.grid_smem_bytes(1420)[1] > build.MAX_SMEM
+    assert first_streamed == {0: 1431, 1: 1420}
+    # Bulk copies where the packed tiles pass L2, from 2377 (U = 19: always
+    # more than one gate item a thread); 16-byte copies at 1420 and 2048.
+    assert [[gru_ops.grid_shape(H, b)["bulk"] for b in (False, True)]
+            for H in (1420, 2048, 2376, 2377, 5456)] == [[False] * 2] * 3 + [[True] * 2] * 2
+    assert gru_ops.grid_shape(2377, False)["U"] == 19
+    assert gru_ops.grid_shape(1430, False)["S"] == 0
     assert [gru_ops.grid_shape(1104, b)["KT"] for b in (False, True)] == [140, 252]
     assert [gru_ops.grid_shape(1419, b)["KT"] for b in (False, True)] == [80, 64]
-    for H in (1420, 1500, 2048, gru_ops.MAX_HIDDEN):
-        assert gru_ops.kernel_config(H) == (gru_ops.KIND_SPILL, gru_ops.MAX_CLUSTER)
-    # The scratch: (2, Bp, KA), and the backward's (Bp, NB U), Bp = B to 32.
+    with pytest.raises(NotImplementedError, match=r"MAX_HIDDEN = 5456, .*H=5457$"):
+        gru_ops.kernel_config(5457)
+    # The scratch: the exchange buffer (2, Bp, KA), and the backward's (Bp,
+    # NB U), Bp = B to 32; then the packed tiles, (NB, S / KT, N, ldt).
     gs = [gru_ops.grid_shape(1104, b) for b in (False, True)]
     assert gru_ops.grid_scratch_floats(1, 1104, False) == 32 * 2 * gs[0]["KA"]
     assert gru_ops.grid_scratch_floats(33, 1104, True) == 64 * (2 * gs[1]["KA"] + 123 * 9)
+    gs = gru_ops.grid_shape(1701, True)
+    exchange = 32 * (2 * gs["KA"] + gs["NB"] * gs["U"])
+    assert gru_ops.grid_exchange_floats(3, 1701, True) == exchange
+    packed = gs["NB"] * gs["S"] // gs["KT"] * gs["N"] * gs["ldt"]
+    assert gru_ops.grid_pack_floats(1701, True) * gs["NB"] == packed
+    assert gru_ops.grid_scratch_floats(3, 1701, True) == exchange + packed
 
 
 # ----------------------------------------------------------- the replay --
@@ -141,38 +189,49 @@ def k_slices(gs):
 
 def grid_product(gs, a, w):
     """gru.cu's grid_product for every block: a (32, KA) rows of the
-    exchange buffer, w (NB, N, KA) the slices -> each K slice's sums, (NB,
-    32, N), in the order the gate threads add them."""
+    exchange buffer, w (NB, N, KA) the slices as the blocks read them ->
+    each K slice's sums, (NB, 32, N), in the order the gate threads add
+    them."""
     return [torch.einsum("rk,cnk->crn", a[:, idx], w[:, :, idx]) for idx in k_slices(gs)]
 
 
-def forward_slices(wh, gs):
-    """w[c, g U + u, k] = Wh[k, g H + c U + u], zero past H."""
-    H = wh.shape[0]
-    U, NB = gs["U"], gs["NB"]
-    w = torch.zeros(NB, gs["N"], gs["KA"], dtype=wh.dtype)
-    for c in range(NB):
-        for g in range(3):
-            for u in range(U):
-                if c * U + u < H:
-                    w[c, g * U + u, :H] = wh[:, g * H + c * U + u]
-    return w
+def grid_slice(wh, gs, backward, c, n, k):
+    """gru.cu's grid_slice: entry (n, k) of block c's slice, for tensors of
+    n and k; zero past H."""
+    H, U, NB = wh.shape[0], gs["U"], gs["NB"]
+    if not backward:  # w[g U + u][k] = Wh[k][g H + c U + u]
+        g, unit = n // U, c * U + n % U
+        ok = (k < H) & (unit < H)
+        return torch.where(ok, wh[k.clamp(max=H - 1), (g * H + unit).clamp(max=3 * H - 1)], 0)
+    G = 3 * U  # w[u][c' 3U + g U + u'] = Wh[c U + u][g H + c' U + u']
+    c2, g, u2 = k // G, k % G // U, k % U
+    unit, col = c * U + n, c2 * U + u2
+    ok = (n < U) & (unit < H) & (c2 < NB) & (col < H)
+    return torch.where(ok, wh[unit.clamp(max=H - 1), (g * H + col).clamp(max=3 * H - 1)], 0)
 
 
-def backward_slices(wh, gs):
-    """w[c, u, c' 3U + g U + u'] = Wh[c U + u, g H + c' U + u'], zero past H."""
-    H = wh.shape[0]
-    U, NB = gs["U"], gs["NB"]
-    w = torch.zeros(NB, gs["N"], gs["KA"], dtype=wh.dtype)
-    for c in range(NB):
-        for u in range(U):
-            if c * U + u >= H:
-                continue
-            for c2 in range(NB):
-                for g in range(3):
-                    cols = [c2 * U + u2 for u2 in range(U) if c2 * U + u2 < H]
-                    k0 = c2 * 3 * U + g * U
-                    w[c, u, k0: k0 + len(cols)] = wh[c * U + u, [g * H + k for k in cols]]
+def block_slices(wh, gs, backward):
+    """Each block's slice as grid_product reads it, (NB, N, KA): the K
+    range [0, R) as load_grid_slice writes it, and each streamed K tile kt
+    as the bulk copy moves it, N rows of ldt floats from the block's packed
+    tiles at (kt - R / KT) N ldt, of a copy filled by gru_pack_grid's flat
+    index rule (i -> block i // P, P = gru_ops.grid_pack_floats; in the
+    block, tile, row and column of ldt; zero past KT)."""
+    N, KA, R, KT, ldt, NB = gs["N"], gs["KA"], gs["R"], gs["KT"], gs["ldt"], gs["NB"]
+    per = gs["S"] // KT * N * ldt
+    e = torch.arange(per)  # i - blk P for the flat indices i of block blk
+    jt, row, q = e // (N * ldt), e % (N * ldt) // ldt, e % ldt
+    pack = torch.cat([torch.where(q < KT, grid_slice(wh, gs, backward, blk, row,
+                                                      R + jt * KT + q.clamp(max=KT - 1)), 0)
+                      for blk in range(NB)]) if per else torch.zeros(0, dtype=wh.dtype)
+    n = torch.arange(N)[:, None]
+    w = torch.zeros(NB, N, KA, dtype=wh.dtype)
+    for blk in range(NB):
+        w[blk, :, :R] = grid_slice(wh, gs, backward, blk, n, torch.arange(R)[None])
+        for kt in range(R // KT, KA // KT):
+            tile = pack[blk * per + (kt - R // KT) * N * ldt:][: N * ldt].reshape(N, ldt)
+            assert torch.all(tile[:, KT:] == 0)
+            w[blk, :, kt * KT: (kt + 1) * KT] = tile[:, :KT]
     return w
 
 
@@ -183,7 +242,7 @@ def replay_grid_forward(gx, wh, mask, reverse):
     H = wh.shape[0]
     gs = gru_ops.grid_shape(H, False)
     U, NB = gs["U"], gs["NB"]
-    w = forward_slices(wh, gs)
+    w = block_slices(wh, gs, False)
     Bp = -(-B // 32) * 32
     f64 = dict(dtype=torch.float64)
     xbuf = torch.zeros(2, Bp, gs["KA"], **f64)
@@ -223,7 +282,7 @@ def replay_grid_backward(dout, gates, hprev, wh, mask, reverse):
     B, T, H = dout.shape
     gs = gru_ops.grid_shape(H, True)
     U, NB = gs["U"], gs["NB"]
-    w = backward_slices(wh, gs)
+    w = block_slices(wh, gs, True)
     Bp = -(-B // 32) * 32
     f64 = dict(dtype=torch.float64)
     xbuf = torch.zeros(2, Bp, gs["KA"], **f64)
@@ -260,9 +319,15 @@ def replay_grid_backward(dout, gates, hprev, wh, mask, reverse):
 
 #: (H, B): a last block of 1 unit (561 = 112 x 5 + 1) and two row tiles,
 #: the 752 of phase 3j at one sequence, 1104 (9 units a block, K tiles of
-#: 140 forward and 252 backward) at an odd batch, and the reach, 1419 (11
-#: units a block, the largest slices), at two sequences.
-REPLAY_CASES = [(561, 33), (752, 1), (1104, 3), (1419, 2)]
+#: 140 forward and 252 backward) at an odd batch, 1419 (11 units a block,
+#: the largest whole slices) at two sequences; then the widths that stream:
+#: 1420 (phase 3k's; the backward streams 5 of its 68 K tiles) at two row
+#: tiles, 1701 (both directions stream; a last block of 11 of 13 units),
+#: 2048 (16 units, 32 gate items: one pass of 512 threads) and 2113 (17
+#: units, a last block of 5; the forward's gate pass takes two items a
+#: thread).
+REPLAY_CASES = [(561, 33), (752, 1), (1104, 3), (1419, 2),
+                (1420, 33), (1701, 3), (2048, 2), (2113, 5)]
 
 
 def _held(got, ref, what):
@@ -272,11 +337,11 @@ def _held(got, ref, what):
 
 @pytest.mark.parametrize("H,B", REPLAY_CASES)
 def test_grid_forward_replays_the_plain_version(H, B):
-    """The forward's slices, row tiles, K slices and carry exchange, masked
-    (row 0 all padding), both directions, against the plain version: the
-    outputs, the saved gates and the carries."""
+    """The forward's slices (resident and streamed), row tiles, K slices
+    and carry exchange, masked (row 0 all padding), both directions, against
+    the plain version: the outputs, the saved gates and the carries."""
     assert gru_ops.kernel_config(H)[0] == gru_ops.KIND_GRID
-    x = gru_arrays(H, B, T=5, seed=3)
+    x = gru_arrays(H, B, T=5 if H < 1420 else 3, seed=3)
     xs, wx, wh, b, mask = (t(x[k]) for k in ("xs", "wx", "wh", "b", "mask"))
     for reverse in (False, True):
         ref = gru_ops.gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)
@@ -288,10 +353,11 @@ def test_grid_forward_replays_the_plain_version(H, B):
 
 @pytest.mark.parametrize("H,B", REPLAY_CASES)
 def test_grid_backward_replays_the_plain_version(H, B):
-    """The backward's slices (rows of Wh in the exchange's column order),
-    row tiles, K slices, dgh exchange and carried direct part, masked (row
-    0 all padding), both directions, against the plain version."""
-    x = gru_arrays(H, B, T=5, seed=4)
+    """The backward's slices (rows of Wh in the exchange's column order,
+    resident and streamed), row tiles, K slices, dgh exchange and carried
+    direct part, masked (row 0 all padding), both directions, against the
+    plain version."""
+    x = gru_arrays(H, B, T=5 if H < 1420 else 3, seed=4)
     xs, wx, wh, b, mask, g = (t(x[k]) for k in ("xs", "wx", "wh", "b", "mask", "g"))
     for reverse in (False, True):
         _, gates, hprev = gru_ops.gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)
@@ -308,7 +374,28 @@ def test_grid_backward_replays_the_plain_version(H, B):
 def test_plain_gru_752_matches_jax(reverse):
     """The plain version at phase 3j's width (B = 3, T = 6, D = 16, row 0
     all padding) against the JAX package's scan oracle."""
-    x = gru_arrays(752, 3, 6, seed=5)
+    _plain_matches_jax(752, reverse, seed=5, T=6)
+
+
+def test_plain_gru_752_gradient_matches_jax_vjp():
+    """The port's Function (its CPU backward: the backward kernel's explicit
+    reverse loop) against jax.vjp of gru_sequence_ad, masked, reversed."""
+    _gradient_matches_jax_vjp(752, seed=6, T=6)
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["fwd", "rev"])
+def test_plain_gru_1420_matches_jax(reverse):
+    """As at 752, at phase 3k's width (B = 3, T = 4)."""
+    _plain_matches_jax(1420, reverse, seed=7, T=4)
+
+
+def test_plain_gru_1420_gradient_matches_jax_vjp():
+    """As at 752, at phase 3k's width (B = 3, T = 4)."""
+    _gradient_matches_jax_vjp(1420, seed=8, T=4)
+
+
+def _plain_matches_jax(H, reverse, seed, T):
+    x = gru_arrays(H, 3, T, seed=seed)
     got = gru_ops.gru_sequence(*(t(x[k]) for k in ("xs", "wx", "wh", "b", "mask")), reverse)
     ref = gru_sequence_xla(jnp.asarray(x["xs"]), x["wx"], x["wh"], x["b"],
                            jnp.asarray(x["mask"]), reverse=reverse)
@@ -316,10 +403,8 @@ def test_plain_gru_752_matches_jax(reverse):
     assert np.all(got.numpy()[x["mask"] == 0] == 0.0)
 
 
-def test_plain_gru_752_gradient_matches_jax_vjp():
-    """The port's Function (its CPU backward: the backward kernel's explicit
-    reverse loop) against jax.vjp of gru_sequence_ad, masked, reversed."""
-    x = gru_arrays(752, 3, 6, seed=6)
+def _gradient_matches_jax_vjp(H, seed, T):
+    x = gru_arrays(H, 3, T, seed=seed)
     _, vjp = jax.vjp(
         lambda xs, wx, wh, b: gru_sequence_ad(xs, wx, wh, b, jnp.asarray(x["mask"]), True, True),
         *(jnp.asarray(x[k]) for k in ("xs", "wx", "wh", "b")),

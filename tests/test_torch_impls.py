@@ -121,21 +121,20 @@ def test_wide_products_take_the_kernels_on_the_card(override):
 #: Widths and the kind of kernel each takes on the card (None: refused).
 _GRU_KINDS = {1: "generic", 16: "generic", 128: "h128", 137: "generic", 138: "wide",
               160: "wide", 512: "wide", 544: "grid", 752: "grid", 1104: "grid",
-              1419: "grid", 1420: "spill", 5456: "spill", 5457: None}
+              1419: "grid", 1420: "grid", 2113: "grid", 5456: "grid", 5457: None}
 
 
 @pytest.mark.parametrize("hidden", sorted(_GRU_KINDS))
 def test_gru_width_check(hidden):
     """The card's GRU kernels take H up to MAX_HIDDEN (5456): the register
     kernels at 128, the generic ones up to 137, the wide ones (a cluster a
-    sequence) up to 543, the grid ones (a cooperative grid a direction) up
-    to 1419, the spilling ones (rows of Wh past shared memory read from
-    device memory) past it; a wider GRU raises NotImplementedError naming
-    MAX_HIDDEN on CUDA only, from `check_width` and from `check_arch` for
-    either CBHG's GRU."""
+    sequence) up to 543, the grid ones (a cooperative grid a direction,
+    whose blocks stream past 1419 what their shared memory cannot hold of
+    their slice of Wh) up to 5456; a wider GRU raises NotImplementedError
+    naming MAX_HIDDEN on CUDA only, from `check_width` and from `check_arch`
+    for either CBHG's GRU."""
     kinds = {gru_ops.KIND_H128: "h128", gru_ops.KIND_GENERIC: "generic",
-             gru_ops.KIND_WIDE: "wide", gru_ops.KIND_SPILL: "spill",
-             gru_ops.KIND_GRID: "grid"}
+             gru_ops.KIND_WIDE: "wide", gru_ops.KIND_GRID: "grid"}
     gru_ops.check_width(hidden, CPU)
     for field in ("encoder_gru_units", "post_gru_units"):
         arch = dataclasses.replace(tiny_config().arch, **{field: hidden})
@@ -155,10 +154,10 @@ def test_gru_width_check(hidden):
 def test_gru_width_limit_follows_the_kernel_source():
     """`generic_smem_bytes` repeats csrc/gru.cu's two shared-memory counts,
     which both fit in a block up to H = 137; past it the wide kernels, whose
-    block size and largest cluster are the source's, reach 543, the grid
-    ones 1419, and the spilling ones MAX_HIDDEN = 5456, where a block's 3U
-    gate columns fill its threads (chip_smoke.py holds `wide_smem_bytes`
-    and `grid_smem_bytes` to the library's counts at every H past 137)."""
+    block size and largest cluster are the source's, reach 543, and the
+    grid ones MAX_HIDDEN = 5456, the source's kGridMaxHidden, where a block
+    owns 42 units (chip_smoke.py holds `wide_smem_bytes` and
+    `grid_smem_bytes` to the library's counts at every H past 137)."""
     src = Path(build.CSRC / "gru.cu").read_text()
     formulas = [
         re.search(rf"int {name}\(int H\) {{ return (.*?); }}", src).group(1)
@@ -167,8 +166,8 @@ def test_gru_width_limit_follows_the_kernel_source():
     for h in (1, 16, 128, 137, 138, 160):
         assert gru_ops.generic_smem_bytes(h) == tuple(eval(f, {"H": h}) for f in formulas)
     assert gru_ops.MAX_HIDDEN == 5456
-    assert 3 * -(-gru_ops.MAX_HIDDEN // gru_ops.MAX_CLUSTER) <= gru_ops.WIDE_THREADS
-    assert 3 * -(-(gru_ops.MAX_HIDDEN + 1) // gru_ops.MAX_CLUSTER) > gru_ops.WIDE_THREADS
+    assert int(re.search(r"constexpr int kGridMaxHidden = (\d+);", src).group(1)) == 5456
+    assert gru_ops.grid_shape(gru_ops.MAX_HIDDEN, False)["U"] == 42
     assert max(gru_ops.generic_smem_bytes(137)) <= build.MAX_SMEM
     assert max(gru_ops.generic_smem_bytes(138)) > build.MAX_SMEM
     for name, value in (("kWideThreads", gru_ops.WIDE_THREADS),
@@ -177,7 +176,7 @@ def test_gru_width_limit_follows_the_kernel_source():
     assert gru_ops.kernel_config(543) == (gru_ops.KIND_WIDE, 16)
     assert gru_ops.kernel_config(544) == (gru_ops.KIND_GRID, 109)
     assert gru_ops.kernel_config(1419) == (gru_ops.KIND_GRID, 129)
-    assert gru_ops.kernel_config(1420) == (gru_ops.KIND_SPILL, 16)
+    assert gru_ops.kernel_config(1420) == (gru_ops.KIND_GRID, 130)
 
 
 def test_synthesizer_resolves_before_anything_runs():

@@ -1,10 +1,8 @@
 """The recurrent kernels past their single-block widths, on the CPU: B3 and
-B3' past H = 137 (the wide kind, a thread-block cluster a sequence), past
-H = 1419 (the spilling kind: the rows of each block's slice of Wh that
-shared memory cannot hold read from a packed copy in device memory) and B4
+B3' past H = 137 (the wide kind, a thread-block cluster a sequence) and B4
 and B6 past 1024 columns (products streamed in column panels).  The grid
-kind between (544 to 1419) has its own module, test_torch_gru_grid.py; the
-plain versions at its widths 560 and 752 are held to JAX here too.
+kind past 543 has its own module, test_torch_gru_grid.py; the plain
+versions at its widths 560 and 752 are held to JAX here too.
 
 The kernels run only on the card (`chip_smoke.py` phase 2 holds them to
 their plain versions at full size, phase 3i drives them through
@@ -17,8 +15,7 @@ their plain versions at full size, phase 3i drives them through
 * a numpy replay of the wide GRU's split over a cluster (`WideShape` in
   csrc/gru.cu: each rank's columns of Wh, the forward's K slices and
   all-gather of the carry, the backward's column slices and reduce-scatter)
-  against the plain version, and of the spilling kind's (the shared rows
-  and the packed copy's, `gru_pack_spill`) at H = 1420, 1701 and 2048;
+  against the plain version;
 * a numpy replay of `chunk_schedule` as the ring's producer and consumers
   read it (stream.cuh: the copies, the panels, their columns);
 * the rule that picks the GRU's kernel from H (`kernel_config`), and the
@@ -139,38 +136,14 @@ def rank_slice(wh, H, C, c):
     return w
 
 
-def pack_spill(wh, H, C, R, by_column):
-    """csrc/gru.cu's gru_pack_spill by its flat index rule: rows [R, H) of
-    every rank's slice, (C, H - R, G) by row or (C, G, H - R) by column."""
-    U, G, _, _, _ = wide_shape(H, C)
-    S = H - R
-    c, e = np.divmod(np.arange(C * S * G), S * G)
-    k = R + (e % S if by_column else e // G)
-    j = e // S if by_column else e % G
-    g, u = np.divmod(j, U)
-    unit = c * U + u
-    return np.where(unit < H, wh[k, g * H + np.minimum(unit, H - 1)], 0.0)
-
-
-def replay_wide_forward(gx, wh, mask, H, C, reverse, rows=None):
+def replay_wide_forward(gx, wh, mask, H, C, reverse):
     """gru_fwd_wide's arithmetic for one sequence, rank by rank: each rank's
     K slices of its columns from the whole carry, its units' gates, the new
-    carry gathered into every rank.  With `rows` = R < H (the spilling
-    kind) a slice takes its share of the shared rows [0, R) and of rows
-    [R, H), the latter read from gru_pack_spill's copy at the kernel's
-    offsets.  Returns out (T, H)."""
+    carry gathered into every rank.  Returns out (T, H)."""
     U, G, ld, KS, _ = wide_shape(H, C)
-    R = H if rows is None else rows
-    S = H - R
     T = gx.shape[0]
-    kl, ql = -(-R // KS), -(-S // KS)
-    w = [rank_slice(wh, H, C, c)[:R, :G] for c in range(C)]
-    spill = pack_spill(wh, H, C, R, False)
-
-    def spilled(c, q0, q1):  # rank c's packed rows R + [q0, q1), (q1 - q0, G)
-        base = c * S * G
-        return spill[base + q0 * G: base + q1 * G].reshape(q1 - q0, G)
-
+    kl = -(-H // KS)
+    w = [rank_slice(wh, H, C, c)[:, :G] for c in range(C)]
     h = np.zeros(H)
     out = np.zeros((T, H))
     sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
@@ -180,9 +153,8 @@ def replay_wide_forward(gx, wh, mask, H, C, reverse, rows=None):
         for c in range(C):
             part = []
             for ks in range(KS):
-                k0, k1 = min(R, ks * kl), min(R, (ks + 1) * kl)
-                q0, q1 = min(S, ks * ql), min(S, (ks + 1) * ql)
-                part.append(h[k0:k1] @ w[c][k0:k1] + h[R + q0: R + q1] @ spilled(c, q0, q1))
+                k0, k1 = min(H, ks * kl), min(H, (ks + 1) * kl)
+                part.append(h[k0:k1] @ w[c][k0:k1])
             sums = np.stack(part).sum(0)
             for u in range(U):
                 unit = c * U + u
@@ -199,19 +171,14 @@ def replay_wide_forward(gx, wh, mask, H, C, reverse, rows=None):
     return out
 
 
-def replay_wide_backward(dout, gates, hprev, wh, mask, H, C, reverse, rows=None):
+def replay_wide_backward(dout, gates, hprev, wh, mask, H, C, reverse):
     """gru_bwd_wide's arithmetic for one sequence: each rank's dgh of its
     columns times its slice of Wh in JS column slices, the partials sent to
-    the units' owners and added there.  With `rows` = R < H (the spilling
-    kind) the slice's rows [R, H) come from gru_pack_spill's copy laid out
-    by column, at the kernel's offsets.  Returns dgx, dgh (T, 3H)."""
+    the units' owners and added there.  Returns dgx, dgh (T, 3H)."""
     U, G, ld, _, JS = wide_shape(H, C)
-    R = H if rows is None else rows
-    S = H - R
     T = dout.shape[0]
     jl = -(-G // JS)
-    spill = pack_spill(wh, H, C, R, True).reshape(C, G, S)
-    w = [np.concatenate([rank_slice(wh, H, C, c)[:R, :G], spill[c].T]) for c in range(C)]
+    w = [rank_slice(wh, H, C, c)[:, :G] for c in range(C)]
     recv = np.zeros((C, C, U))  # [owner, sender, unit]
     dhc = np.zeros(H)
     dgx, dgh = np.zeros((T, 3 * H)), np.zeros((T, 3 * H))
@@ -244,7 +211,7 @@ def replay_wide_backward(dout, gates, hprev, wh, mask, H, C, reverse, rows=None)
     return dgx, dgh
 
 
-def replay_against_plain(H, C, rows=(None, None)):
+def replay_against_plain(H, C):
     """Both replays at width H on a cluster of C, masked, both directions,
     held to the plain versions within 1e-5."""
     x = gru_arrays(H, B=2, T=5, seed=2)
@@ -255,11 +222,11 @@ def replay_against_plain(H, C, rows=(None, None)):
         dgx, dgh = gru_ops.gru_sequence_backward_plain(g, gates, hprev, wh, mask, reverse)
         gx = (xs @ wx + b).double().numpy()
         for i in range(2):
-            got = replay_wide_forward(gx[i], wh64, x["mask"][i], H, C, reverse, rows[0])
+            got = replay_wide_forward(gx[i], wh64, x["mask"][i], H, C, reverse)
             np.testing.assert_allclose(got, out[i].numpy(), atol=1e-5)
             rx, rh = replay_wide_backward(
                 x["g"][i].astype(np.float64), gates[i].double().numpy(),
-                hprev[i].double().numpy(), wh64, x["mask"][i], H, C, reverse, rows[1])
+                hprev[i].double().numpy(), wh64, x["mask"][i], H, C, reverse)
             np.testing.assert_allclose(rx, dgx[i].numpy(), atol=1e-5)
             np.testing.assert_allclose(rh, dgh[i].numpy(), atol=1e-5)
 
@@ -274,48 +241,34 @@ def test_wide_gru_split_replays_the_plain_version(H):
     replay_against_plain(H, C)
 
 
-@pytest.mark.parametrize("H", [1420, 1701, 2048])
-def test_spill_gru_split_replays_the_plain_version(H):
-    """The spilling kind's index rules on its cluster of 16: the forward's
-    K slices each over its share of the shared rows and of the packed
-    copy's (by row), the backward's rows from shared memory or from the
-    copy by column (past H = 1024 two rows a thread), masked, both
-    directions, held to the plain versions.  1420 is the first width past
-    the grid kind's reach (204 of its rows in shared memory forward, 200
-    backward); at 1701 the last rank owns fewer units."""
-    kind, C = gru_ops.kernel_config(H)
-    rows = gru_ops.smem_rows(H)
-    assert (kind, C) == (gru_ops.KIND_SPILL, 16) and rows[0] < H
-    assert max(gru_ops.wide_smem_bytes(H, C, rows)) <= build.MAX_SMEM
-    replay_against_plain(H, C, rows)
-
-
 def test_gru_kernel_config_rule(monkeypatch):
-    """One pure function of H picks the kind before any launch: the
-    register kernels at 128, the generic ones up to 137 (138 is the first
-    whose Wh and vectors pass a block's 232,448 bytes), then the wide ones
-    on the smallest cluster, up to 16 blocks, whose block fits, up to H =
-    543 (no cluster's block holds 544), then the grid kind up to 1419
-    (test_torch_gru_grid.py holds its rule), then the spilling kind on a
-    cluster of 16 with the most rows of each slice that fit beside the
-    step's vectors (`smem_rows`), up to MAX_HIDDEN = 5456, where a block's
-    3U gate columns fill its 1024 threads; past it NotImplementedError.
-    The constants are csrc/gru.cu's."""
+    """One pure function of H picks the kind before any launch, among four:
+    the register kernels at 128, the generic ones up to 137 (138 is the
+    first whose Wh and vectors pass a block's 232,448 bytes), then the wide
+    ones on the smallest cluster, up to 16 blocks, whose block fits, up to
+    H = 543 (no cluster's block holds 544), then the grid kind up to
+    MAX_HIDDEN = 5456 (test_torch_gru_grid.py holds its rule: past 1419 a
+    block streams what its shared memory cannot hold of its slice); past it
+    NotImplementedError.  The constants are csrc/gru.cu's."""
     monkeypatch.setattr(build, "load", lambda *a: pytest.fail("kernel_config built a library"))
     src = (build.CSRC / "gru.cu").read_text()
     for name, value in (("kWideThreads", gru_ops.WIDE_THREADS),
                         ("kMaxCluster", gru_ops.MAX_CLUSTER)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
     assert "SSTTS_GRU_WIDE = 2" in src and gru_ops.KIND_WIDE == 2
-    assert "SSTTS_GRU_SPILL = 3" in src and gru_ops.KIND_SPILL == 3
+    assert "SPILL" not in src and "kSpill" not in src and not hasattr(gru_ops, "KIND_SPILL")
+    kinds = {gru_ops.KIND_GENERIC, gru_ops.KIND_H128, gru_ops.KIND_WIDE, gru_ops.KIND_GRID}
+    assert len(kinds) == 4
     assert gru_ops.MAX_HIDDEN == 5456
-    for H in [*range(1, 1601), gru_ops.MAX_HIDDEN, gru_ops.MAX_HIDDEN + 1]:
+    seen = set()
+    for H in [*range(1, 1601), 2048, 2113, gru_ops.MAX_HIDDEN, gru_ops.MAX_HIDDEN + 1]:
         if H > gru_ops.MAX_HIDDEN:
             with pytest.raises(NotImplementedError, match=rf"MAX_HIDDEN = 5456, .*H={H}$"):
                 gru_ops.kernel_config(H)
             continue
         kind, C = gru_ops.kernel_config(H)
-        assert gru_ops.kernel_config(H) == (kind, C)
+        assert gru_ops.kernel_config(H) == (kind, C) and kind in kinds
+        seen.add(kind)
         fits = max(gru_ops.generic_smem_bytes(H)) <= build.MAX_SMEM
         U, G, ld, KS, JS = wide_shape(H, C)
         if H == 128:
@@ -324,28 +277,20 @@ def test_gru_kernel_config_rule(monkeypatch):
             assert (kind, C) == (gru_ops.KIND_GENERIC, 1)
         elif H <= 543:
             assert kind == gru_ops.KIND_WIDE and 2 <= C <= gru_ops.MAX_CLUSTER
-            assert gru_ops.smem_rows(H) == (H, H)
             assert max(gru_ops.wide_smem_bytes(H, C)) <= build.MAX_SMEM
             assert C == 2 or max(gru_ops.wide_smem_bytes(H, C - 1)) > build.MAX_SMEM
             assert KS * G <= gru_ops.WIDE_THREADS and JS * H <= gru_ops.WIDE_THREADS
             assert U <= gru_ops.WIDE_THREADS and (C - 1) * U < H
-        elif H <= gru_ops.GRID_MAX_HIDDEN:
+        else:
             assert (kind, C) == (gru_ops.KIND_GRID, gru_ops.grid_shape(H, False)["NB"])
             assert max(gru_ops.wide_smem_bytes(H, gru_ops.MAX_CLUSTER)) > build.MAX_SMEM
             assert max(gru_ops.grid_smem_bytes(H)) <= build.MAX_SMEM
-            assert gru_ops.smem_rows(H) == (H, H)
-        else:
-            assert (kind, C) == (gru_ops.KIND_SPILL, gru_ops.MAX_CLUSTER)
-            assert max(gru_ops.wide_smem_bytes(H, C)) > build.MAX_SMEM
-            rows = gru_ops.smem_rows(H)
-            assert min(rows) >= 1 and rows[0] < H and rows[1] <= H
-            assert max(gru_ops.wide_smem_bytes(H, C, rows)) <= build.MAX_SMEM
-            for i, more in enumerate(((rows[0] + 1, rows[1]), (rows[0], rows[1] + 1))):
-                assert rows[i] == H or gru_ops.wide_smem_bytes(H, C, more)[i] > build.MAX_SMEM
-            assert 1 <= KS and G <= gru_ops.WIDE_THREADS and JS == 1 and (C - 1) * U < H
+            streams = [gru_ops.grid_shape(H, b)["S"] > 0 for b in (False, True)]
+            assert streams == [H > 1430, H > 1419]
         assert fits == (H <= 137)
     assert all(max(gru_ops.wide_smem_bytes(544, c)) > build.MAX_SMEM
                for c in range(2, gru_ops.MAX_CLUSTER + 1))
+    assert seen == kinds
 
 
 #: Scoped VMEM of the reference's chips: 16 MiB (v5e, the BASELINE's), 32 MiB.
