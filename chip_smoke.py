@@ -14,9 +14,10 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    PyTorch call computes the same function, that call; and each kernel's
    bound, from its shapes; for the GRU kernels also what ptxas reported
    (registers, no spill in the H = 128 kernels), all four kinds of kernel
-   (H = 128, the generic one at H = 16, the wide one, a cluster a
-   sequence, at H = 138, 256 and 512 at full size, B = 32, T = 800
-   forward and 515 backward, and at 139 and 301 with D != H; the grid
+   (H = 128, the generic one at H = 16, the wide one, a cluster a tile of
+   the batch, the batch in one wave, at H = 138, 256 and 512 at full size,
+   B = 32, T = 800 forward and 515 backward, and at 139, 301, 256 and 512
+   at B = 1, 3, 4 and 33 (tiles not full), T = 1 and 37; the grid
    one, a cooperative grid a direction whose blocks each own U units of
    every sequence, at H = 560, 752 and 1104 with D = 128 at full size and
    at one step, an odd length at B = 1, 3 and 33, 561 and 1103 (a last
@@ -28,9 +29,11 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    cuDNN's nn.GRU at the same H, timed in turns with it, its bound with
    both terms (f32 operations, and the bytes of Wh that shared memory and
    L2 cannot keep, read once a step); the wrapper's count of the wide and
-   grid kinds' shared memory (and the grid's resident K range and scratch)
-   held to the library's at every H past 137, the grid's blocks held to how
-   many the card holds at once, and the blocks, cluster size and streamed
+   grid kinds' shared memory (the wide kind's tile rows and threads, the
+   grid's resident K range and scratch) held to the library's at every H
+   past 137, the clusters of each size the card holds to the wrapper's
+   table and B = 32 to one wave at every wide H, the grid's blocks held to
+   how many the card holds at once, and the blocks, cluster size and streamed
    columns of each width on a line of its own), and their stages' times
    apart;
    for the decode kernel B4 also the tiny config's widths, B=3 at T=300,
@@ -317,7 +320,8 @@ def gru_ptxas(match: str) -> dict:
 
 def gru_kind(H: int) -> str:
     """The kind of CUDA recurrence `ops/gru.py:kernel_config` gives width H,
-    with the wide kind's cluster size, the grid kind's blocks and units a
+    with the wide kind's cluster size and batch rows a cluster at B = 32,
+    the grid kind's blocks and units a
     block and, where its blocks stream part of their slice, the K columns
     of each slice row streamed (forward / backward) and "-bulk" where the
     streamed tiles move as bulk copies."""
@@ -329,7 +333,9 @@ def gru_kind(H: int) -> str:
         streamed = "-S{}/{}".format(*(gs["S"] for gs in shapes)) if shapes[1]["S"] else ""
         bulk = "-bulk" if shapes[1]["bulk"] else ""
         return f"grid-NB{cluster}-U{shapes[0]['U']}{streamed}{bulk}"
-    return {gru.KIND_H128: "h128", gru.KIND_GENERIC: "generic"}.get(kind, f"wide-C{cluster}")
+    if kind == gru.KIND_WIDE:
+        return f"wide-C{cluster}-Bt{gru.wide_rows(H, 32, cluster)}"
+    return {gru.KIND_H128: "h128", gru.KIND_GENERIC: "generic"}[kind]
 
 
 #: (B, T, D, H) beside the main shape: one step, an odd length (both the
@@ -521,19 +527,23 @@ def check_gru_backward(dev):
 #: The GRU kernels' widths past 137 held at full size (B = 32; T = 800
 #: forward, 515 backward): the wide kind's (D = H) the first past the
 #: generic kernels, the default's doubled (phase 3i's BiGRUs) and 512 (a
-#: cluster of 15, whose last rank owns fewer units); the grid kind's (D =
+#: cluster of 16 taking 5 rows of the batch); the grid kind's (D =
 #: 128, the model's highway width) 560, 752 (phase 3j's BiGRUs: the
 #: reference kernel's reach at D = 128 on 16 MiB of VMEM) and 1104 (on 32
 #: MiB); past 1419, where its blocks stream part of their slice, 1420
 #: (phase 3k's BiGRUs: the backward streams), 2048 (both stream; L2 holds
 #: what they stream) and the widest H taken, 5456 (read from HBM every
-#: step).  Beside them: the wide kind's one step and an odd length at
-#: widths no cluster divides, with D != H; the grid kind's one step, an odd
+#: step).  Beside them: the wide kind's one step and an odd length (37) at
+#: B = 1, 3, 4 and 33, whose last tile of batch rows is not full (33 at 139:
+#: 17 tiles of 2 rows; at 301 and 512: 7 of 5), at widths no cluster
+#: divides (139, 301), with D != H; the grid kind's one step, an odd
 #: length (37) at B = 1, 3 and 33, widths whose last block owns fewer units
 #: (561: one of 5; 1103: 5 of 9; 2113: 5 of 17, two gate items a thread)
 #: and 1025, 2048 and 5456.
 GRU_WIDE_HIDDEN = (138, 256, 512, 560, 752, 1104, 1420, 2048, 5456)
-GRU_WIDE_SIDE_SHAPES = [(3, 1, 64, 139), (4, 37, 96, 301),
+GRU_WIDE_SIDE_SHAPES = [(3, 1, 64, 139), (1, 37, 64, 139), (33, 37, 64, 139),
+                        (4, 37, 96, 301), (1, 1, 96, 301), (33, 37, 96, 301),
+                        (3, 37, 96, 256), (33, 1, 128, 512), (3, 37, 128, 512),
                         (32, 1, 128, 752), (1, 37, 128, 560), (3, 37, 128, 1104),
                         (33, 37, 128, 752), (5, 9, 64, 561), (2, 9, 128, 1103),
                         (2, 9, 128, 1025), (2, 9, 128, 2048), (3, 9, 128, 2113),
@@ -585,16 +595,26 @@ def wide_gru_cases(dev, T: int, seed: int, kind: str):
 
 @functools.lru_cache(maxsize=None)
 def check_gru_wide_counts():
-    """The wrapper's rule (`kernel_config`, `wide_smem_bytes`,
-    `grid_smem_bytes`, `grid_shape`'s resident K range R,
-    `grid_exchange_floats`, `grid_scratch_floats`) against the library's own
-    count at every H past 137 up to MAX_HIDDEN, and each configuration the
-    card holds at once (clusters; the grid kind's blocks, which must all be
-    resident), for the widths of GRU_WIDE_HIDDEN; a line of its own for
-    each grid width."""
+    """The wrapper's rule (`kernel_config`, `wide_rows`, `wide_shape`'s
+    shared memory and threads, `grid_smem_bytes`, `grid_shape`'s resident K
+    range R, `grid_exchange_floats`, `grid_scratch_floats`) against the
+    library's own count at every H past 137 up to MAX_HIDDEN; the clusters
+    of each size the card holds at once against the table the rule reads
+    (`WIDE_CLUSTERS`), and at every H the wide kind takes, its B = 32 in one
+    wave: the card holds ceil(32 / Bt) of its clusters at once; each
+    configuration the card holds at once (clusters; the grid kind's
+    blocks, which must all be resident) for the widths of GRU_WIDE_HIDDEN;
+    a line of its own for each grid width."""
     from sstts_torch.ops import build, gru
 
     lib = build.load("gru", gru.SIGNATURES)
+    held = {C: [lib.sstts_gru_wide_active_clusters(138, C, 1, b) for b in (0, 1)]
+            for C in range(2, gru.MAX_CLUSTER + 1)}
+    log(f"  B3 wide: clusters of C blocks the card holds at once (forward, backward), C = 2.."
+        f"{gru.MAX_CLUSTER}: {held}; the rule's table {list(gru.WIDE_CLUSTERS[2:])}")
+    if any(min(n) < gru.WIDE_CLUSTERS[C] for C, n in held.items()):
+        raise AssertionError(f"the card holds fewer clusters than WIDE_CLUSTERS: {held}")
+    waves = {}
     for H in range(138, gru.MAX_HIDDEN + 1):
         kind, C = gru.kernel_config(H)
         if kind == gru.KIND_GRID:
@@ -613,10 +633,23 @@ def check_gru_wide_counts():
                 raise AssertionError(f"grid GRU H={H}, NB={C}: library {got}, wrapper {want}, "
                                      f"R {rows}, scratch {scratch}")
             continue
-        want = gru.wide_smem_bytes(H, C)
-        got = (lib.sstts_gru_wide_smem_bytes(H, C), lib.sstts_gru_wide_bwd_smem_bytes(H, C))
-        if got != want or max(got) > build.MAX_SMEM:
-            raise AssertionError(f"wide GRU H={H}, C={C}: library {got}, wrapper {want}")
+        for B in (1, 3, 32, 33, 64):
+            rows = gru.wide_rows(H, B, C)
+            want = [rows] + [gru.wide_shape(H, C, rows, b)[k] for b in (0, 1)
+                             for k in ("smem", "threads")]
+            got = [lib.sstts_gru_wide_rows(H, B, C)] + [
+                fn(H, C, rows, b) for b in (0, 1)
+                for fn in (lib.sstts_gru_wide_smem_bytes, lib.sstts_gru_wide_threads)]
+            if got != want or max(got[1], got[3]) > build.MAX_SMEM or rows < 1:
+                raise AssertionError(f"wide GRU H={H}, C={C}, B={B}: library (rows, smem, "
+                                     f"threads forward, backward) {got}, wrapper {want}")
+        rows = gru.wide_rows(H, 32, C)
+        waves[H] = [lib.sstts_gru_wide_active_clusters(H, C, rows, b) for b in (0, 1)]
+        if min(waves[H]) < -(-32 // rows):
+            raise AssertionError(f"wide GRU H={H}, C={C}, Bt={rows}: the card holds "
+                                 f"{waves[H]} clusters at once, B = 32 needs {-(-32 // rows)}")
+    log(f"  B3 wide: B = 32 in one wave of clusters at every H the wide kind takes, 138.."
+        f"{max(waves)} (the fewest clusters held at once {min(min(v) for v in waves.values())})")
     active = {}
     for H in GRU_WIDE_HIDDEN:
         C = gru.kernel_config(H)[1]
@@ -638,11 +671,12 @@ def check_gru_wide_counts():
                 f"{active[H]['streamed_k']}, blocks the card holds at once "
                 f"{active[H]['forward']} / {active[H]['backward']}")
             continue
-        active[H] = {"cluster": C,
-                     "forward": lib.sstts_gru_wide_active_clusters(H, C, 0),
-                     "backward": lib.sstts_gru_wide_active_clusters(H, C, 1)}
-        if min(active[H]["forward"], active[H]["backward"]) < 1:
-            raise AssertionError(f"wide GRU H={H}: no cluster fits the card: {active[H]}")
+        rows = gru.wide_rows(H, 32, C)
+        shapes = [gru.wide_shape(H, C, rows, b) for b in (False, True)]
+        active[H] = {"cluster": C, "rows": rows, "clusters": -(-32 // rows),
+                     "smem_bytes": [ws["smem"] for ws in shapes],
+                     "threads": [ws["threads"] for ws in shapes], "k_slices": shapes[0]["KS"],
+                     "forward": waves[H][0], "backward": waves[H][1]}
     log(f"  B3 wide: the wrapper's shared-memory (and the grid kind's resident range and "
         f"scratch) counts equal the library's for H = 138..{gru.MAX_HIDDEN}; configurations "
         f"the card holds at once: {active}")

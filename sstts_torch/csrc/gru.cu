@@ -58,20 +58,26 @@
 //     * any other H up to 137 (gru_fwd_generic): one thread per gate
 //       column, Wh in dynamic shared memory (3H*H*4 bytes of the 227 KB
 //       opt-in), exact expf/tanhf, two barriers a step.
-//     * H past 137 (gru_fwd_wide): Wh no longer fits one SM (786 KB at
-//       H = 256, 3.1 MB at 512), so a thread-block cluster of C blocks
-//       runs one sequence.  Rank c owns U = ceil(H / C) hidden units and
-//       keeps their 3U gate columns of Wh in its shared memory (WideShape);
-//       every rank holds the whole carry h.  A step: 1024 threads split
-//       the block's 3U columns x H rows over K slices, one barrier, one
-//       thread a unit adds the slices and applies the gates (exact
-//       expf/tanhf), writes its new h into every rank's carry
-//       (distributed shared memory, double-buffered), and one cluster
-//       barrier ends the step.  The step's gx row is loaded into
-//       registers a step ahead.  C is the smallest cluster whose block
-//       fits (sstts_gru_wide_smem_bytes; the wrapper's rule, up to 16
-//       blocks, the non-portable cluster size), which reaches H = 543.
-//     * H from 544 to 5456 (gru_fwd_grid, the grid kind): one persistent
+//     * H from 138 to 522 (gru_fwd_wide): Wh no longer fits one SM (786 KB
+//       at H = 256, 3.1 MB at 512), so a thread-block cluster of C blocks
+//       runs a tile of Bt rows of the batch, Bt = ceil(B / the clusters of C
+//       the card holds), so that the whole batch runs in one wave (at B =
+//       32: C = 5, 8, 16 and Bt = 2, 3, 5 at H = 138, 256, 512).  Rank c
+//       owns U = ceil(H / C) hidden units and keeps their 3U gate columns
+//       of Wh, transposed, in its shared memory (WideShape), and the tile's
+//       whole carry (Bt, H).  A step: the (Bt, H) x (H, 3U) product in f32
+//       FMAs, a thread taking one unit's three gate columns for every row of
+//       the tile (each float4 of Wh feeds 4 Bt FMAs) over one of KS slices
+//       of K, one block barrier, one thread a (row, unit) adds the slices in
+//       order and applies the gates (exact expf/tanhf), writes its new h
+//       into every rank's carry (distributed shared memory,
+//       double-buffered), and one cluster barrier ends the step.  The
+//       step's gx row is loaded into registers a step ahead.  C is the
+//       smallest cluster, up to 16 (the non-portable cluster size), with
+//       at most 32 units a rank where one allows, whose block holds the
+//       rows that B = 32 needs for one wave (the wrapper's rule); from 523
+//       no cluster's does, and the grid kind takes over.
+//     * H from 523 to 5456 (gru_fwd_grid, the grid kind): one persistent
 //       grid a direction, launched cooperatively, NB <= 132 blocks (one an
 //       SM), all resident for the T steps.  Block c owns U = ceil(H / 132)
 //       units for every sequence of the batch (U = 5, 6, 9, 16, 42 at H =
@@ -119,15 +125,18 @@
 //       arrive through the same kind of cp.async ring (warps 4..10).
 //     * any other H up to 137 (gru_bwd_generic): Wh transposed in dynamic
 //       shared memory, three barriers a step.
-//     * H past 137 (gru_bwd_wide): the forward's cluster and layout.  Each
-//       rank computes the dgh of its own 3U columns (its units' gates),
-//       multiplies them by its slice of Wh into a partial dh_prev for all
-//       H units (K rows split over JS column slices, a barrier, the slices
-//       added), and sends each unit's partial to the rank that owns the
-//       unit (a reduce-scatter through distributed shared memory,
-//       double-buffered); the owner adds the C partials at the start of
-//       the next step.  Two block barriers and one cluster barrier a step.
-//     * H from 544 to 5456 (gru_bwd_grid): the forward's grid.  Block c
+//     * H from 138 to 522 (gru_bwd_wide): the forward's clusters, tiles and
+//       columns of Wh.  Each rank computes the tile's dgh of its own 3U
+//       columns (its units' gates), multiplies them by its slice of Wh into
+//       a partial dh_prev for all H units of every row of the tile (a
+//       thread two of Wh's rows over all 3U columns), and sends each unit's
+//       partial to the rank that owns the unit (a reduce-scatter through
+//       distributed shared memory, double-buffered); the owner adds the C
+//       partials in rank order at the start of the next step.  One block
+//       barrier and one cluster barrier a step.  (The grid backward's
+//       layout, a rank holding its units' rows of Wh and gathering the
+//       step's dgh, (Bt, 3H), would not fit beside Wh at H = 512.)
+//     * H from 523 to 5456 (gru_bwd_grid): the forward's grid.  Block c
 //       keeps the rows of Wh of its U units, all 3H columns (U x 3H: the
 //       forward's bytes), in shared memory.  A step: for each row tile, the
 //       (32, 3H) x (3H, U) product of the previous step's dgh, read from a
@@ -147,7 +156,8 @@
 //     dependent steps set the time.
 //
 // The wrapper chooses the kernel from H (`kind`, and for the wide kind the
-// cluster size, for the grid kind its block count and its scratch: the
+// cluster size, from which and B the library takes the tile's rows, for the
+// grid kind its block count and its scratch: the
 // zeroed exchange buffer and the packed copy); a kind that does not fit the
 // shape is refused with cudaErrorInvalidValue, and a grid that the card
 // cannot hold at once with cudaErrorCooperativeLaunchTooLarge, never
@@ -420,62 +430,142 @@ __global__ void gru_bwd_generic(const float* __restrict__ dout,
 
 // ------------------------------------ recurrences past H = 137: clusters --
 
-constexpr int kWideThreads = 1024;
+constexpr int kWideThreads = 512;  // threads of a wide block, at most
 constexpr int kMaxCluster = 16;
+constexpr int kWideMaxRows = 8;    // batch rows of a cluster's tile, at most
+constexpr int kWideMaxSmem = 232448;  // a block's shared memory, the opt-in
+// More than half an SM's shared memory (228 KB, less 1 KB a block), so that
+// the card places one wide block on an SM, as kWideClusters counts them.
+constexpr int kWideMinSmem = 118784;
+// Clusters of C blocks, one block an SM, that an H100 SXM holds at once
+// (index C; cudaOccupancyMaxActiveClusters, which
+// sstts_gru_wide_active_clusters reads on the card).  A cluster takes
+// ceil(B / kWideClusters[C]) batch rows, so that the batch runs in one wave.
+constexpr int kWideClusters[kMaxCluster + 1] = {0, 132, 66, 39, 30, 22, 17, 15, 15,
+                                                9, 7,   7,  7,  7,  7,  7,  7};
 
-// The wide kernels' split of width H over a cluster of C blocks (see the
-// header): U units a rank, their G = 3U gate columns of Wh in rows ld
-// floats apart (3U made odd: the backward's threads walk down a column, and
-// an odd stride puts a warp's 32 rows in 32 banks), the forward's K slices
-// KS and the backward's column slices JS.
+// The wide kernels' split of width H over a cluster of C blocks that runs a
+// tile of `rows` batch rows (see the header); rank c owns U = ceil(H / C)
+// units.  Forward (bwd = 0): the rank keeps its units' N = 3U gate columns
+// of Wh, transposed, as N slice rows of the K = H carry columns; thread
+// (i, ks) takes slice rows i, i + U, i + 2U (unit i's three gates) for every
+// row of the tile over the float4 quads ks, ks + KS, ... of K and leaves
+// KS partial sums; KS the most slices, up to kWideThreads / U and the quads
+// of K, whose sums fit beside the slice and the tile's carry (2, rows, KA).
+// Backward: the same 3U columns, untransposed, as N = 2 NG slice rows
+// (Wh's rows: the units of dh_prev; NG = ceil(H / 2)) of K = 3U columns;
+// thread i takes slice rows i and i + NG over all of K (KS = 1), beside
+// the step's dgh of the rank's columns (rows, KA) and each rank's partial
+// dh_prev of the rank's units (2, C, rows, U).  K padded to KA, a multiple
+// of 4; slice rows ldw floats apart, 4 mod 8, so that the 8 lanes of a
+// quarter warp reading 8 rows 16 bytes each hit 32 distinct banks.  The
+// gate pass takes one (row, unit) item a thread.
 struct WideShape {
-  int U, G, ld, KS, JS;
-  __host__ __device__ WideShape(int H, int C)
-      : U((H + C - 1) / C),
-        G(3 * U),
-        ld(G | 1),
-        KS(kWideThreads / G),
-        JS(kWideThreads / H > 0 ? kWideThreads / H : 1) {}
+  int C, bwd, rows, U, NG, N, KA, ldw, KS, threads;
+  __host__ __device__ WideShape(int H, int C_, int rows_, int bwd_)
+      : C(C_), bwd(bwd_), rows(rows_) {
+    U = (H + C - 1) / C;
+    NG = bwd ? (H + 1) / 2 : U;
+    N = bwd ? 2 * NG : 3 * U;
+    KA = ((bwd ? 3 * U : H) + 3) / 4 * 4;
+    ldw = KA % 8 == 4 ? KA : KA + 4;
+    KS = 1;
+    while (!bwd && KS < kWideThreads / U && KS < KA / 4 && floats(KS + 1) * 4 <= kWideMaxSmem)
+      ++KS;
+    const int prod = bwd ? NG : U * KS, gate = rows * U;
+    threads = ((prod > gate ? prod : gate) + 31) / 32 * 32;
+  }
+  __host__ __device__ int floats(int ks) const {
+    return N * ldw + (bwd ? rows * KA + 2 * C * rows * U : 2 * rows * KA + ks * rows * N);
+  }
+  __host__ __device__ int smem_bytes() const {
+    return floats(KS) * 4 > kWideMinSmem ? floats(KS) * 4 : kWideMinSmem;
+  }
+  __host__ __device__ bool valid() const {
+    return C >= 2 && C <= kMaxCluster && rows >= 1 && rows <= kWideMaxRows &&
+           threads <= kWideThreads && floats(KS) * 4 <= kWideMaxSmem;
+  }
 };
 
-// Rank c's slice of Wh (H, 3H) into w_s (H, ld): column g U + u is Wh's
-// column g H + c U + u, zero past the last unit.
-__device__ __forceinline__ void load_wide_slice(float* w_s, const float* __restrict__ wh,
-                                                int H, int c, const WideShape& ws) {
-  for (int i = threadIdx.x; i < H * ws.G; i += blockDim.x) {
-    const int k = i / ws.G, j = i - k * ws.G;
-    const int g = j / ws.U, unit = c * ws.U + (j - g * ws.U);
-    w_s[k * ws.ld + j] = unit < H ? wh[(size_t)k * 3 * H + g * H + unit] : 0.f;
+// The batch rows of a cluster's tile at (H, B) on clusters of C: enough for
+// the batch in one wave of the clusters the card holds, at most
+// kWideMaxRows, fewer where the forward's or the backward's block would not
+// fit; 0 where not one row fits.
+int wide_rows(int H, int B, int C) {
+  if (C < 2 || C > kMaxCluster || B < 1) return 0;
+  int rows = (B + kWideClusters[C] - 1) / kWideClusters[C];
+  for (rows = rows < kWideMaxRows ? rows : kWideMaxRows; rows >= 1; --rows)
+    if (WideShape(H, C, rows, 0).valid() && WideShape(H, C, rows, 1).valid()) return rows;
+  return 0;
+}
+
+// acc[r][j] += x[r] . w[j NG] over the float4 quads q0, q0 + step, ... <
+// quads, in order, in f32 FMAs: kRows rows of the tile (x, ldx floats
+// apart) times kW slice rows (w, NG rows of ldw floats apart).  Each
+// float4 of the slice feeds kRows x 4 FMAs, each of the tile kW x 4.  The
+// loop is unrolled by 4, so that the next quads' loads issue before this
+// one's FMAs (5% off the backward at 5 rows, and the forward at 512).
+template <int kRows, int kW>
+__device__ __forceinline__ void wide_dot(float (&acc)[kRows][kW], const float* w, int ldw,
+                                         int NG, const float* x, int ldx, int q0, int quads,
+                                         int step) {
+#pragma unroll 4
+  for (int q = q0; q < quads; q += step) {
+    float4 wv[kW];
+#pragma unroll
+    for (int j = 0; j < kW; ++j)
+      wv[j] = *reinterpret_cast<const float4*>(w + (size_t)j * NG * ldw + 4 * q);
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+      const float4 xv = *reinterpret_cast<const float4*>(x + r * ldx + 4 * q);
+#pragma unroll
+      for (int j = 0; j < kW; ++j) {
+        acc[r][j] = fmaf(xv.x, wv[j].x, acc[r][j]);
+        acc[r][j] = fmaf(xv.y, wv[j].y, acc[r][j]);
+        acc[r][j] = fmaf(xv.z, wv[j].z, acc[r][j]);
+        acc[r][j] = fmaf(xv.w, wv[j].w, acc[r][j]);
+      }
+    }
   }
 }
 
+// The forward.  Cluster q runs batch rows [q kRows, q kRows + kRows) (rows
+// past B are carried as zeros and write nothing); rank c owns units [c U,
+// c U + U) and keeps their gate columns of Wh, transposed (w_s[g U + u][k]
+// = Wh[k][g H + c U + u]), and the tile's whole carry, double-buffered:
+// step s reads half s & 1, and each gate thread writes its unit's new
+// carry into half (s + 1) & 1 of every rank (distributed shared memory);
+// one block barrier and one cluster barrier a step.
+template <int kRows>
 __global__ void __launch_bounds__(kWideThreads, 1)
 gru_fwd_wide(const float* __restrict__ gx, const float* __restrict__ wh,
              const float* __restrict__ mask, float* __restrict__ out,
-             float* __restrict__ gates, float* __restrict__ hprev, int T, int H,
+             float* __restrict__ gates, float* __restrict__ hprev, int B, int T, int H,
              int reverse) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
-  const WideShape ws(H, C);
-  const int U = ws.U, G = ws.G;
-  float* w_s = smem;               // (H, ld) this rank's columns of Wh
-  float* h_s = w_s + H * ws.ld;    // (2, H) the carry, double-buffered
-  float* part_s = h_s + 2 * H;     // (KS, G) the K slices' sums
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)(blockIdx.x / C) * T;
+  const WideShape ws(H, C, kRows, 0);
+  const int U = ws.U, N = ws.N, KA = ws.KA, tid = threadIdx.x;
+  float* w_s = smem;                     // (N, ldw) the rank's gate columns, transposed
+  float* h_s = w_s + N * ws.ldw;         // (2, kRows, KA) the tile's carry
+  float* part_s = h_s + 2 * kRows * KA;  // (KS, kRows, N) the K slices' sums
+  const int b0 = blockIdx.x / C * kRows;
 
-  load_wide_slice(w_s, wh, H, c, ws);
-  for (int i = tid; i < H; i += blockDim.x) h_s[i] = 0.f;
+  for (int i = tid; i < N * ws.ldw; i += blockDim.x) {  // neighbouring threads, neighbouring units
+    const int k = i / N, n = i - k * N, g = n / U, unit = c * U + (n - g * U);
+    w_s[n * ws.ldw + k] = k < H && unit < H ? wh[(size_t)k * 3 * H + g * H + unit] : 0.f;
+  }
+  for (int i = tid; i < 2 * kRows * KA; i += blockDim.x) h_s[i] = 0.f;
 
-  // Product thread: column j over the rows [k0, k1) of slice ks.
-  const int j = tid % G, ks = tid / G;
-  const int kl = (H + ws.KS - 1) / ws.KS;
-  const int k0 = ks * kl, k1 = min(H, k0 + kl);
+  // Product thread (item, ks): unit `item`'s three gate columns, slice ks.
+  const int item = tid % U, ks = tid / U;
   const bool prod = ks < ws.KS;
-  // Gate thread: unit c U + tid, its gx and mask value a step ahead.
-  const int unit = c * U + tid;
-  const bool gate = tid < U && unit < H;
+  // Gate thread: row gr of the tile, unit c U + gu; its gx and mask value a
+  // step ahead.
+  const int gr = tid / U, gu = tid - gr * U, unit = c * U + gu, b = b0 + gr;
+  const bool gate = gr < kRows && unit < H && b < B;
+  const size_t row0 = (size_t)b * T;
   float nr = 0.f, nz = 0.f, nn = 0.f, nm = 1.f;
   auto fetch = [&](int s) {
     const size_t row = row0 + (reverse ? T - 1 - s : s);
@@ -490,21 +580,22 @@ gru_fwd_wide(const float* __restrict__ gx, const float* __restrict__ wh,
   cluster.sync();  // every rank's carry is zero before any peer writes it
 
   for (int s = 0; s < T; ++s) {
-    const float* hc = h_s + (s & 1) * H;
+    const float* hc = h_s + (s & 1) * kRows * KA;
     const float xr = nr, xz = nz, xn = nn, m = nm;
     if (gate && s + 1 < T) fetch(s + 1);
     if (prod) {
-      float acc = 0.f;
-      const float* w = w_s + j;
-#pragma unroll 4
-      for (int k = k0; k < k1; ++k) acc = fmaf(hc[k], w[k * ws.ld], acc);
-      part_s[ks * G + j] = acc;
+      float acc[kRows][3] = {};
+      wide_dot<kRows, 3>(acc, w_s + item * ws.ldw, ws.ldw, U, hc, KA, ks, KA / 4, ws.KS);
+#pragma unroll
+      for (int r = 0; r < kRows; ++r)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) part_s[(ks * kRows + r) * N + j * U + item] = acc[r][j];
     }
     __syncthreads();
     if (gate) {
       float hr = 0.f, hz = 0.f, hn = 0.f;
       for (int q = 0; q < ws.KS; ++q) {
-        const float* p = part_s + q * G + tid;
+        const float* p = part_s + (q * kRows + gr) * N + gu;
         hr += p[0];
         hz += p[U];
         hn += p[2 * U];
@@ -529,43 +620,49 @@ gru_fwd_wide(const float* __restrict__ gx, const float* __restrict__ wh,
       }
       h_own = h_new;
       out[row * H + unit] = o;
-      float* dst = h_s + ((s + 1) & 1) * H + unit;
+      float* dst = h_s + ((s + 1) & 1) * kRows * KA + gr * KA + unit;
       for (int rank = 0; rank < C; ++rank) *cluster.map_shared_rank(dst, rank) = h_new;
     }
     cluster.sync();  // the new carry is in every rank; the step's sums are read
   }
 }
 
+// The backward, on the forward's clusters and tiles.  Rank c keeps the same
+// gate columns of Wh, untransposed (w_s[k][g U + u] = Wh[k][g H + c U +
+// u]).  A step: each gate thread (row, unit of the rank) adds the C ranks'
+// partial dh_prev of its unit in rank order to its direct part, forms dgx
+// and dgh and leaves the unit's three dgh values in d_s; a block barrier;
+// thread i multiplies the tile's d_s by slice rows i and i + NG, a partial
+// dh_prev for those units from the rank's 3U columns, and sends each to the
+// rank that owns the unit (a reduce-scatter through distributed shared
+// memory, double-buffered); one cluster barrier.
+template <int kRows>
 __global__ void __launch_bounds__(kWideThreads, 1)
 gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
              const float* __restrict__ hprev, const float* __restrict__ wh,
              const float* __restrict__ mask, float* __restrict__ dgx,
-             float* __restrict__ dgh, int T, int H, int reverse) {
-  extern __shared__ float smem[];
+             float* __restrict__ dgh, int B, int T, int H, int reverse) {
+  extern __shared__ __align__(16) float smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks(), c = (int)cluster.block_rank();
-  const WideShape ws(H, C);
-  const int U = ws.U, G = ws.G;
-  float* w_s = smem;                  // (H, ld) this rank's columns of Wh
-  float* d_s = w_s + H * ws.ld;       // (G,) this step's dgh of those columns
-  float* recv_s = d_s + G;            // (2, C, U) each rank's partial dh_prev
-  float* loc_s = recv_s + 2 * C * U;  // (JS, H) the column slices' sums
-  const int tid = threadIdx.x;
-  const size_t row0 = (size_t)(blockIdx.x / C) * T;
+  const WideShape ws(H, C, kRows, 1);
+  const int U = ws.U, NG = ws.NG, KA = ws.KA, tid = threadIdx.x;
+  float* w_s = smem;                   // (N, ldw) the rank's gate columns
+  float* d_s = w_s + ws.N * ws.ldw;    // (kRows, KA) the step's dgh of those columns
+  float* recv_s = d_s + kRows * KA;    // (2, C, kRows, U) each rank's partial dh_prev
+  const int b0 = blockIdx.x / C * kRows;
 
-  load_wide_slice(w_s, wh, H, c, ws);
-  for (int i = tid; i < G; i += blockDim.x) d_s[i] = 0.f;
-  for (int i = tid; i < C * U; i += blockDim.x) recv_s[i] = 0.f;
+  for (int i = tid; i < ws.N * ws.ldw; i += blockDim.x) {  // neighbouring threads, neighbouring columns
+    const int k = i / ws.ldw, j = i - k * ws.ldw, g = j / U, unit = c * U + (j - g * U);
+    w_s[i] = k < H && j < 3 * U && unit < H ? wh[(size_t)k * 3 * H + g * H + unit] : 0.f;
+  }
+  for (int i = tid; i < kRows * KA + 2 * C * kRows * U; i += blockDim.x) d_s[i] = 0.f;
 
-  // Product thread: row k over the columns [j0, j1) of slice js.
-  const int k = tid % H, js = tid / H;
-  const int jl = (G + ws.JS - 1) / ws.JS;
-  const int j0 = js * jl, j1 = min(G, j0 + jl);
-  const bool prod = js < ws.JS;
-  // Gate thread: unit c U + tid, its saved gates, carry, output gradient
-  // and mask value a step ahead.
-  const int unit = c * U + tid;
-  const bool gate = tid < U && unit < H;
+  // Gate thread: row gr of the tile, unit c U + gu; its saved gates,
+  // carry, output gradient and mask value a step ahead.
+  const int gr = tid / U, gu = tid - gr * U, unit = c * U + gu, b = b0 + gr;
+  const bool gate = gr < kRows && unit < H && b < B;
+  const size_t row0 = (size_t)b * T;
   float nr = 0.f, nz = 0.f, nn = 0.f, nhn = 0.f, nh = 0.f, nd = 0.f, nm = 1.f;
   auto fetch = [&](int s) {
     const size_t row = row0 + (reverse ? s : T - 1 - s);
@@ -586,9 +683,9 @@ gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
     if (gate) {
       const float r = nr, z = nz, n = nn, hn = nhn, h = nh, d = nd, m = nm;
       if (s + 1 < T) fetch(s + 1);
-      const float* rv = recv_s + (s & 1) * C * U + tid;
+      const float* rv = recv_s + ((s & 1) * C * kRows + gr) * U + gu;
       float dh = dhc;
-      for (int q = 0; q < C; ++q) dh += rv[q * U];
+      for (int q = 0; q < C; ++q) dh += rv[q * kRows * U];
       // out = m * h_t, h_t = m * h' + (1 - m) * h.
       const float dh_t = dh + m * d;
       const float dh_new = m * dh_t;
@@ -605,32 +702,31 @@ gru_bwd_wide(const float* __restrict__ dout, const float* __restrict__ gates,
       gho[unit] = dar;
       gho[H + unit] = daz;
       gho[2 * H + unit] = dan * r;
-      d_s[tid] = dar;
-      d_s[U + tid] = daz;
-      d_s[2 * U + tid] = dan * r;
+      float* ds = d_s + gr * KA + gu;
+      ds[0] = dar;
+      ds[U] = daz;
+      ds[2 * U] = dan * r;
       dhc = (1.f - m) * dh_t + dh_new * z;
     }
     __syncthreads();
-    if (prod) {
-      float acc = 0.f;
-      const float* w = w_s + k * ws.ld;
-#pragma unroll 4
-      for (int jj = j0; jj < j1; ++jj) acc = fmaf(d_s[jj], w[jj], acc);
-      loc_s[js * H + k] = acc;
-    }
-    __syncthreads();
-    if (tid < H) {
-      float p = 0.f;
-      for (int q = 0; q < ws.JS; ++q) p += loc_s[q * H + tid];
-      const int owner = tid / U;
-      float* dst = recv_s + ((s + 1) & 1) * C * U + c * U + (tid - owner * U);
-      *cluster.map_shared_rank(dst, owner) = p;
+    if (tid < NG) {
+      float acc[kRows][2] = {};
+      wide_dot<kRows, 2>(acc, w_s + tid * ws.ldw, ws.ldw, NG, d_s, KA, 0, KA / 4, 1);
+      float* dst = recv_s + (((s + 1) & 1) * C + c) * kRows * U;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int k = tid + j * NG, owner = k / U;
+        if (k >= H) continue;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r)
+          if (b0 + r < B) *cluster.map_shared_rank(dst + r * U + k - owner * U, owner) = acc[r][j];
+      }
     }
     cluster.sync();  // every partial has reached its owner
   }
 }
 
-// ---------------------- recurrences from H = 544 to 5456: a grid a direction --
+// ---------------------- recurrences from H = 523 to 5456: a grid a direction --
 
 constexpr int kGridBlocks = 132;   // the H100's SMs: the most blocks of a grid
 constexpr int kGridThreads = 512;
@@ -1386,16 +1482,19 @@ int sstts_gru_smem_bytes(int H) { return (H * 3 * H + H + 6 * H) * 4; }
 
 int sstts_gru_bwd_smem_bytes(int H) { return (3 * H * H + 8 * H) * 4; }
 
-// Dynamic shared memory of one block of the wide kernels at width H in a
-// cluster of C (the layouts of gru_fwd_wide and gru_bwd_wide).
-int sstts_gru_wide_smem_bytes(int H, int C) {
-  const WideShape ws(H, C);
-  return (H * ws.ld + 2 * H + ws.KS * ws.G) * 4;
+// The batch rows of a wide cluster's tile at (H, B) on clusters of C
+// (wide_rows; 0 where not one row fits).
+int sstts_gru_wide_rows(int H, int B, int C) { return wide_rows(H, B, C); }
+
+// Dynamic shared memory of one block of the wide forward (backward: 1) at
+// width H in a cluster of C for a tile of `rows` batch rows (WideShape, at
+// least kWideMinSmem), and its threads.
+int sstts_gru_wide_smem_bytes(int H, int C, int rows, int backward) {
+  return WideShape(H, C, rows, backward).smem_bytes();
 }
 
-int sstts_gru_wide_bwd_smem_bytes(int H, int C) {
-  const WideShape ws(H, C);
-  return (H * ws.ld + ws.G + 2 * C * ws.U + ws.JS * H) * 4;
+int sstts_gru_wide_threads(int H, int C, int rows, int backward) {
+  return WideShape(H, C, rows, backward).threads;
 }
 
 // Dynamic shared memory of one block of the grid kind's forward (backward:
@@ -1433,12 +1532,35 @@ int sstts_gru_grid_threads(int H, int backward) { return GridShape(H, backward).
 
 namespace {
 
-// The launch configuration of a wide kernel: B clusters of C blocks, its
-// shared memory allowed (and the non-portable cluster sizes past 8).
+// The instantiation of the wide forward and backward for a tile of `rows`
+// batch rows (1 to kWideMaxRows).
+using WideFwd = void (*)(const float*, const float*, const float*, float*, float*, float*, int,
+                         int, int, int);
+using WideBwd = void (*)(const float*, const float*, const float*, const float*, const float*,
+                         float*, float*, int, int, int, int);
+
+WideFwd wide_fwd_kernel(int rows) {
+  static const WideFwd k[kWideMaxRows] = {gru_fwd_wide<1>, gru_fwd_wide<2>, gru_fwd_wide<3>,
+                                          gru_fwd_wide<4>, gru_fwd_wide<5>, gru_fwd_wide<6>,
+                                          gru_fwd_wide<7>, gru_fwd_wide<8>};
+  return k[rows - 1];
+}
+
+WideBwd wide_bwd_kernel(int rows) {
+  static const WideBwd k[kWideMaxRows] = {gru_bwd_wide<1>, gru_bwd_wide<2>, gru_bwd_wide<3>,
+                                          gru_bwd_wide<4>, gru_bwd_wide<5>, gru_bwd_wide<6>,
+                                          gru_bwd_wide<7>, gru_bwd_wide<8>};
+  return k[rows - 1];
+}
+
+// The launch configuration of a wide kernel: `clusters` clusters of C
+// blocks of the shape's threads, its shared memory allowed (and the
+// non-portable cluster sizes past 8).
 template <class Kernel>
-cudaError_t wide_config(Kernel kernel, int B, int C, int smem, cudaStream_t st,
+cudaError_t wide_config(Kernel kernel, int clusters, const WideShape& ws, cudaStream_t st,
                         cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  if (C < 2 || C > kMaxCluster) return cudaErrorInvalidValue;
+  if (!ws.valid()) return cudaErrorInvalidValue;
+  const int C = ws.C, smem = ws.smem_bytes();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
@@ -1447,8 +1569,8 @@ cudaError_t wide_config(Kernel kernel, int B, int C, int smem, cudaStream_t st,
     if (err != cudaSuccess) return err;
   }
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(B * C);
-  cfg->blockDim = dim3(kWideThreads);
+  cfg->gridDim = dim3(clusters * C);
+  cfg->blockDim = dim3(ws.threads);
   cfg->dynamicSmemBytes = smem;
   cfg->stream = st;
   attr->id = cudaLaunchAttributeClusterDimension;
@@ -1460,14 +1582,15 @@ cudaError_t wide_config(Kernel kernel, int B, int C, int smem, cudaStream_t st,
   return cudaSuccess;
 }
 
-// Launches a wide kernel; a cluster that no part of the card can hold is
-// refused here (cudaErrorInvalidConfiguration), before the launch.
+// Launches a wide kernel over the batch, ceil(B / rows) clusters; a cluster
+// that no part of the card can hold is refused here
+// (cudaErrorInvalidConfiguration), before the launch.
 template <class... Params, class... Args>
-int launch_wide(void (*kernel)(Params...), int B, int C, int smem, cudaStream_t st,
+int launch_wide(void (*kernel)(Params...), const WideShape& ws, int B, cudaStream_t st,
                 Args... args) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = wide_config(kernel, B, C, smem, st, &cfg, &attr);
+  cudaError_t err = wide_config(kernel, (B + ws.rows - 1) / ws.rows, ws, st, &cfg, &attr);
   if (err != cudaSuccess) return (int)err;
   int clusters = 0;
   err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
@@ -1550,19 +1673,24 @@ int pack_grid(const float* wh, float* scratch, int B, int H, int backward, cudaS
 
 extern "C" {
 
-// How many clusters of the wide forward (backward: 1) kernel at width H and
-// cluster size C the card holds at once, or minus a CUDA error code.
-int sstts_gru_wide_active_clusters(int H, int C, int backward) {
+// How many clusters of the wide forward (backward: 1) kernel at width H,
+// cluster size C and a tile of `rows` batch rows the card holds at once, or
+// minus a CUDA error code.
+int sstts_gru_wide_active_clusters(int H, int C, int rows, int backward) {
+  if (rows < 1 || rows > kWideMaxRows) return -(int)cudaErrorInvalidValue;
+  const WideShape ws(H, C, rows, backward);
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   int clusters = 0;
   cudaError_t err;
   if (backward) {
-    err = wide_config(gru_bwd_wide, 1, C, sstts_gru_wide_bwd_smem_bytes(H, C), 0, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, gru_bwd_wide, &cfg);
+    err = wide_config(wide_bwd_kernel(rows), 1, ws, 0, &cfg, &attr);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&clusters, wide_bwd_kernel(rows), &cfg);
   } else {
-    err = wide_config(gru_fwd_wide, 1, C, sstts_gru_wide_smem_bytes(H, C), 0, &cfg, &attr);
-    if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(&clusters, gru_fwd_wide, &cfg);
+    err = wide_config(wide_fwd_kernel(rows), 1, ws, 0, &cfg, &attr);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&clusters, wide_fwd_kernel(rows), &cfg);
   }
   return err == cudaSuccess ? clusters : -(int)err;
 }
@@ -1601,9 +1729,12 @@ int sstts_gru_recurrence(const float* gx, const float* wh, const float* mask,
                          int T, int H, int reverse, int kind, int cluster, void* stream) {
   if (B == 0 || T == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (kind == SSTTS_GRU_WIDE)
-    return launch_wide(gru_fwd_wide, B, cluster, sstts_gru_wide_smem_bytes(H, cluster), st,
-                       gx, wh, mask, out, gates, hprev, T, H, reverse);
+  if (kind == SSTTS_GRU_WIDE) {
+    const int rows = wide_rows(H, B, cluster);
+    if (rows < 1) return (int)cudaErrorInvalidValue;
+    return launch_wide(wide_fwd_kernel(rows), WideShape(H, cluster, rows, 0), B, st, gx, wh, mask,
+                       out, gates, hprev, B, T, H, reverse);
+  }
   if (kind == SSTTS_GRU_GRID) {
     if (cluster != GridShape(H, 0).NB) return (int)cudaErrorInvalidValue;
     const float* pack = nullptr;
@@ -1665,9 +1796,12 @@ int sstts_gru_sequence_backward(const float* dout, const float* gates,
                                 int kind, int cluster, void* stream) {
   if (B == 0 || T == 0) return 0;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (kind == SSTTS_GRU_WIDE)
-    return launch_wide(gru_bwd_wide, B, cluster, sstts_gru_wide_bwd_smem_bytes(H, cluster), st,
-                       dout, gates, hprev, wh, mask, dgx, dgh, T, H, reverse);
+  if (kind == SSTTS_GRU_WIDE) {
+    const int rows = wide_rows(H, B, cluster);
+    if (rows < 1) return (int)cudaErrorInvalidValue;
+    return launch_wide(wide_bwd_kernel(rows), WideShape(H, cluster, rows, 1), B, st, dout, gates,
+                       hprev, wh, mask, dgx, dgh, B, T, H, reverse);
+  }
   if (kind == SSTTS_GRU_GRID) {
     if (cluster != GridShape(H, 1).NB) return (int)cudaErrorInvalidValue;
     const float* pack = nullptr;

@@ -13,11 +13,16 @@ On the card the recurrences come in four kinds, chosen here from H alone
 the default `Config()`, kernels that hold Wh in registers; at any other H up
 to 137, generic kernels that hold Wh in one block's shared memory; past
 137, wide kernels that split Wh over a thread-block cluster of C blocks
-(the smallest C up to 16 whose block fits, `wide_smem_bytes`), up to 543;
-from 544 to `MAX_HIDDEN` = 5456, the grid kind: one cooperative grid of up
-to 132 blocks a direction, each owning U units of every sequence
-(`grid_shape`), the carry (forward) or the step's dgh (backward) exchanged
-through a zeroed buffer in device memory with one grid barrier a step.
+running a tile of Bt batch rows (`wide_shape`, `wide_rows`: Bt = ceil(B /
+the clusters of C the card holds, `WIDE_CLUSTERS`), so that the batch runs
+in one wave; C the smallest up to 16, of at most `WIDE_UNITS` = 32 units a
+rank where 16 ranks allow it, whose block holds the rows that B = 32 needs),
+up to 522; from `GRID_MIN_HIDDEN` = 523, where no cluster's
+block holds them, to `MAX_HIDDEN` = 5456, the grid kind: one cooperative
+grid of up to 132 blocks a direction, each owning U units of every
+sequence (`grid_shape`), the carry (forward) or the step's dgh (backward)
+exchanged through a zeroed buffer in device memory with one grid barrier a
+step.
 Where a block's slice of Wh no longer fits its shared memory (past H =
 1419 backward), the block keeps the K range [0, R) of it there and streams
 the rest from a packed copy in device memory, tile by tile, once a step
@@ -54,9 +59,10 @@ SIGNATURES = {
     "sstts_gru_sequence_backward": ([_P] * 8 + [_I] * 6 + [_P], _I),
     "sstts_gru_input_proj": ([_P] * 4 + [_I] * 3 + [_P], _I),
     "sstts_gru_recurrence": ([_P] * 7 + [_I] * 6 + [_P], _I),
-    "sstts_gru_wide_smem_bytes": ([_I] * 2, _I),
-    "sstts_gru_wide_bwd_smem_bytes": ([_I] * 2, _I),
-    "sstts_gru_wide_active_clusters": ([_I] * 3, _I),
+    "sstts_gru_wide_rows": ([_I] * 3, _I),
+    "sstts_gru_wide_smem_bytes": ([_I] * 4, _I),
+    "sstts_gru_wide_threads": ([_I] * 4, _I),
+    "sstts_gru_wide_active_clusters": ([_I] * 4, _I),
     "sstts_gru_grid_smem_bytes": ([_I] * 2, _I),
     "sstts_gru_grid_resident": ([_I] * 2, _I),
     "sstts_gru_grid_exchange_floats": ([_I] * 3, ctypes.c_longlong),
@@ -69,9 +75,26 @@ SIGNATURES = {
 #: The `kind` argument of the C entry points (SSTTS_GRU_* in csrc/gru.cu).
 KIND_GENERIC, KIND_H128, KIND_WIDE, KIND_GRID = 0, 1, 2, 4
 
-#: Threads of a wide block and the largest cluster (kWideThreads and
-#: kMaxCluster in csrc/gru.cu).
-WIDE_THREADS, MAX_CLUSTER = 1024, 16
+#: The wide kind's constants (kWideThreads, kMaxCluster, kWideMaxRows and
+#: kWideMinSmem in csrc/gru.cu): threads of a block at most, the largest
+#: cluster, the most batch rows of a cluster's tile, and the least shared
+#: memory a block asks for (past half an SM's: one block an SM).
+WIDE_THREADS, MAX_CLUSTER, WIDE_MAX_ROWS, WIDE_MIN_SMEM = 512, 16, 8, 118784
+
+#: kWideClusters: clusters of C blocks, one block an SM, that an H100 SXM
+#: holds at once (index C; `chip_smoke.py` holds the card to it).
+WIDE_CLUSTERS = (0, 132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
+
+#: The batch the wide kind's cluster size is chosen for: the model's (a
+#: training batch and a synthesis batch at the default `Config()`).
+WIDE_BATCH = 32
+
+#: The most units a rank of the wide kind owns where a cluster of up to 16
+#: allows it: a warp of units.  Clusters of fewer, larger ranks ran slower
+#: in both directions at H = 138, 200, 256 and 384 (`tools/ablate_wide.py`
+#: on an H100 SXM, PERF.md: 256 on 8 ranks of 32 units 1.99 / 1.53 ms
+#: forward / backward, on 4 of 64 units 2.26 / 1.75).
+WIDE_UNITS = 32
 
 #: The grid kind's constants (kGridBlocks, kGridThreads, kGridRows and
 #: kGridStages in csrc/gru.cu): at most one block per SM of the H100 (132),
@@ -98,23 +121,74 @@ def generic_smem_bytes(hidden: int) -> Tuple[int, int]:
     return (3 * hidden * hidden + 7 * hidden) * 4, (3 * hidden * hidden + 8 * hidden) * 4
 
 
-def wide_smem_bytes(hidden: int, cluster: int) -> Tuple[int, int]:
-    """Shared memory of one block of the wide forward and backward
-    recurrences at width H in a cluster of C, as `sstts_gru_wide_smem_bytes`
-    and `sstts_gru_wide_bwd_smem_bytes` in csrc/gru.cu count it (its
-    `WideShape`): the block's U = ceil(H / C) units' 3U columns of Wh, H
-    rows of 3U | 1 floats, and the step's vectors, f32."""
-    units = -(-hidden // cluster)
-    cols = 3 * units
-    ld = cols | 1
-    k_slices = WIDE_THREADS // cols
-    col_slices = max(1, WIDE_THREADS // hidden)
-    return ((hidden * ld + 2 * hidden + k_slices * cols) * 4,
-            (hidden * ld + cols + 2 * cluster * units + col_slices * hidden) * 4)
-
-
 def _ld(k: int) -> int:
     return k if k % 8 == 4 else k + 4
+
+
+def wide_shape(hidden: int, cluster: int, rows: int, backward: bool) -> dict:
+    """csrc/gru.cu's WideShape: the wide kind's split of width H over a
+    cluster of C blocks running a tile of `rows` batch rows.  Rank c owns U
+    = ceil(H / C) units and keeps their 3U gate columns of Wh: forward, as
+    N = 3U slice rows of KA floats (K = H, the carry's columns, padded to a
+    multiple of 4), each thread taking a unit's three gates for every row
+    of the tile over one of KS slices of K (the most, up to WIDE_THREADS /
+    U and the quads of K, whose partial sums (KS, rows, N) fit beside the
+    slice and the tile's carry (2, rows, KA)); backward, untransposed, as N
+    = 2 NG slice rows (NG = ceil(H / 2): Wh's rows) of K = 3U columns, each
+    thread taking two rows over all of K (KS = 1), beside the step's dgh of
+    the rank's columns (rows, KA) and the ranks' partial dh_prev (2, C,
+    rows, U).  Slice rows ldw floats apart (4 mod 8); `floats` the block's
+    shared memory in floats, `smem` in bytes (at least WIDE_MIN_SMEM);
+    threads a block (the product's or the gate pass's rows U, to a warp)."""
+    return dict(_wide_shape_of(hidden, cluster, rows, bool(backward)))
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_shape_of(hidden: int, cluster: int, rows: int, backward: bool) -> dict:
+    units = -(-hidden // cluster)
+    ng = -(-hidden // 2) if backward else units
+    n = 2 * ng if backward else 3 * units
+    ka = -(-(3 * units if backward else hidden) // 4) * 4
+    ws = {"C": cluster, "rows": rows, "U": units, "NG": ng, "N": n, "KA": ka, "ldw": _ld(ka)}
+
+    def floats(k_slices: int) -> int:
+        if backward:
+            return n * ws["ldw"] + rows * ka + 2 * cluster * rows * units
+        return n * ws["ldw"] + 2 * rows * ka + k_slices * rows * n
+
+    k_slices = 1
+    while (not backward and k_slices < WIDE_THREADS // units and k_slices < ka // 4
+           and floats(k_slices + 1) * 4 <= build.MAX_SMEM):
+        k_slices += 1
+    prod = ng if backward else units * k_slices
+    ws.update(KS=k_slices, floats=floats(k_slices),
+              smem=max(floats(k_slices) * 4, WIDE_MIN_SMEM),
+              threads=-(-max(prod, rows * units) // 32) * 32)
+    ws["valid"] = (2 <= cluster <= MAX_CLUSTER and 1 <= rows <= WIDE_MAX_ROWS
+                   and ws["threads"] <= WIDE_THREADS and ws["floats"] * 4 <= build.MAX_SMEM)
+    return ws
+
+
+def wide_rows(hidden: int, batch: int, cluster: int) -> int:
+    """The batch rows of a wide cluster's tile at (H, B) on clusters of C,
+    as `sstts_gru_wide_rows` counts them: ceil(B / WIDE_CLUSTERS[C]), so
+    that the batch runs in one wave of the clusters the card holds, at most
+    WIDE_MAX_ROWS, fewer where the forward's or the backward's block would
+    not fit (`wide_shape`); 0 where not one row fits."""
+    if not 2 <= cluster <= MAX_CLUSTER or batch < 1:
+        return 0
+    rows = min(-(-batch // WIDE_CLUSTERS[cluster]), WIDE_MAX_ROWS)
+    for rows in range(rows, 0, -1):
+        if all(wide_shape(hidden, cluster, rows, b)["valid"] for b in (False, True)):
+            return rows
+    return 0
+
+
+def wide_smem_bytes(hidden: int, cluster: int, rows: int) -> Tuple[int, int]:
+    """Shared memory of one block of the wide forward and backward at width
+    H in a cluster of C for a tile of `rows` batch rows, as
+    `sstts_gru_wide_smem_bytes` counts it (`wide_shape`)."""
+    return tuple(wide_shape(hidden, cluster, rows, b)["smem"] for b in (False, True))
 
 
 def _grid_smem(gs: dict) -> int:
@@ -239,8 +313,16 @@ def _grid_fits(hidden: int) -> bool:
                for gs in (grid_shape(hidden, bwd) for bwd in (False, True)))
 
 
-#: The first width past the wide kind's reach, where the grid kind starts.
-GRID_MIN_HIDDEN = 544
+def _wide_cluster(hidden: int) -> Optional[int]:
+    """The smallest cluster of at most WIDE_UNITS units a rank (where 16
+    ranks allow it) whose tile takes WIDE_BATCH in one wave of the
+    clusters the card holds (`wide_rows` gives its full ceil(32 /
+    WIDE_CLUSTERS[C]) rows), or None."""
+    for cluster in range(min(MAX_CLUSTER, max(2, -(-hidden // WIDE_UNITS))), MAX_CLUSTER + 1):
+        rows = -(-WIDE_BATCH // WIDE_CLUSTERS[cluster])
+        if rows <= WIDE_MAX_ROWS and wide_rows(hidden, WIDE_BATCH, cluster) == rows:
+            return cluster
+    return None
 
 
 def _config(hidden: int) -> Optional[Tuple[int, int]]:
@@ -248,19 +330,27 @@ def _config(hidden: int) -> Optional[Tuple[int, int]]:
         return KIND_H128, 1
     if max(generic_smem_bytes(hidden)) <= build.MAX_SMEM:
         return KIND_GENERIC, 1
-    for cluster in range(2, MAX_CLUSTER + 1):
-        if max(wide_smem_bytes(hidden, cluster)) <= build.MAX_SMEM:
-            return KIND_WIDE, cluster
-    if GRID_MIN_HIDDEN <= hidden <= MAX_HIDDEN and _grid_fits(hidden):
+    cluster = _wide_cluster(hidden)
+    if cluster is not None:
+        return KIND_WIDE, cluster
+    if hidden <= MAX_HIDDEN and _grid_fits(hidden):
         return KIND_GRID, grid_shape(hidden, False)["NB"]
     return None
+
+
+#: The first width that no cluster takes in one wave, where the grid kind
+#: starts.
+GRID_MIN_HIDDEN = next(h for h in range(138, MAX_HIDDEN) if _wide_cluster(h) is None)
 
 
 def kernel_config(hidden: int) -> Tuple[int, int]:
     """(kind, cluster size or blocks) of the CUDA recurrences at width H:
     the register-resident kernels at H = 128, the generic ones where their
-    block fits (H up to 137), the wide ones on the smallest cluster whose
-    block fits (up to 543), else the grid kind on NB = ceil(H / U) blocks,
+    block fits (H up to 137), the wide ones on the smallest cluster of at
+    most 32 units a rank (where 16 ranks allow it) whose block holds the
+    tile B = 32 needs for one wave (up to 522; the tile's
+    rows at other batches: `wide_rows`), else the grid kind on NB =
+    ceil(H / U) blocks,
     U = ceil(H / 132), up to MAX_HIDDEN = 5456 (`grid_shape`: past 1419 a
     block streams the part of its slice that its shared memory cannot
     hold).  NotImplementedError past MAX_HIDDEN.  A pure function of H:

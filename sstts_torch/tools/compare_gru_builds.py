@@ -9,14 +9,19 @@ checkout, both `nvcc` runs started together, into a temporary directory.
 At each width both builds get the same inputs (B = 32; forward T = 800,
 backward T = 515 from the plain forward's saved gates; D = H for the wide
 kind, the model's 128 past it; a ragged mask whose row 0 is all padding)
-and the kind and cluster size (or grid blocks) this tree's wrapper picks
-(`kernel_config`).  The script reports whether the two builds' outputs
+and the kind and cluster size (or grid blocks) each tree's rule picks:
+this tree's `kernel_config`, and for a base whose wide kind runs one
+sequence a cluster (its library has no `sstts_gru_wide_rows`) that kind's
+rule up to H = 543, the smallest cluster whose block fits by the base
+library's own counts.  The script reports whether the two builds' outputs
 (out, gates, hprev; dgx, dgh) are bit-equal, the largest difference where
-they are not, and their times from CUDA events (one untimed round, then
-the order base, new, new, base, three times over).  A base whose library
-has no `sstts_gru_grid_resident` takes one more argument before the stream
-(the rows of each slice in shared memory: H at these widths).  Prints one
-JSON line with the card's name and power limit.
+they are not, each build's largest difference from the plain versions
+(absolute forward, relative to the largest value backward), and their
+times from CUDA events (one untimed round, then the order base, new, new,
+base, three times over).  A base whose library has no
+`sstts_gru_grid_resident` takes one more argument before the stream (the
+rows of each slice in shared memory: H at these widths).  Prints one JSON
+line with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -47,6 +52,9 @@ def _bind(path: Path):
     """The library and whether its entry points take the rows argument."""
     lib = ctypes.CDLL(str(path))
     rows = not hasattr(lib, "sstts_gru_grid_resident")
+    if not hasattr(lib, "sstts_gru_wide_rows"):  # one sequence a cluster
+        for fn in ("sstts_gru_wide_smem_bytes", "sstts_gru_wide_bwd_smem_bytes"):
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = [_I] * 2, _I
     extra = [_I] if rows else []
     lib.sstts_gru_sequence.argtypes = [_P] * 10 + [_I] * 7 + extra + [_P]
     lib.sstts_gru_sequence_backward.argtypes = [_P] * 8 + [_I] * 6 + extra + [_P]
@@ -56,6 +64,17 @@ def _bind(path: Path):
     lib.sstts_gru_grid_scratch_floats.restype = ctypes.c_longlong
     lib.sstts_error_string.argtypes, lib.sstts_error_string.restype = [_I], ctypes.c_char_p
     return lib, rows
+
+
+def _config(lib, H: int):
+    """(kind, cluster or blocks) that the library's own tree picks at H."""
+    if hasattr(lib, "sstts_gru_wide_rows") or not 137 < H <= 543:
+        return gru.kernel_config(H)
+    for c in range(2, gru.MAX_CLUSTER + 1):
+        if max(lib.sstts_gru_wide_smem_bytes(H, c),
+               lib.sstts_gru_wide_bwd_smem_bytes(H, c)) <= build.MAX_SMEM:
+            return gru.KIND_WIDE, c
+    raise RuntimeError(f"compare_gru_builds: no cluster of the base holds H = {H}")
 
 
 def _inputs(dev, H: int, seed: int = 3) -> dict:
@@ -70,16 +89,19 @@ def _inputs(dev, H: int, seed: int = 3) -> dict:
          "mask": (torch.arange(T)[None] < lengths[:, None]).float(),
          "dout": torch.randn(B, 515, H, generator=g)}
     x = {k: v.to(dev).contiguous() for k, v in x.items()}
-    _, gates, hprev = gru.gru_sequence_forward_plain(x["xs"], x["wx"], x["wh"], x["b"], x["mask"])
+    x["ref"] = gru.gru_sequence_forward_plain(x["xs"], x["wx"], x["wh"], x["b"], x["mask"])
+    _, gates, hprev = x["ref"]
     x["gates_b"], x["hprev_b"] = gates[:, :515].contiguous(), hprev[:, :515].contiguous()
     x["mask_b"] = x["mask"][:, :515].contiguous()
+    x["ref_b"] = gru.gru_sequence_backward_plain(x["dout"], x["gates_b"], x["hprev_b"], x["wh"],
+                                                 x["mask_b"])
     return x
 
 
 def _forward(lib, rows: bool, x: dict):
     B, T, D = x["xs"].shape
     H = x["wh"].shape[0]
-    kind, cluster = gru.kernel_config(H)
+    kind, cluster = _config(lib, H)
     dev = x["xs"].device
     gx = torch.empty(B, T, 3 * H, device=dev)
     out = torch.empty(B, T, H, device=dev)
@@ -98,7 +120,7 @@ def _forward(lib, rows: bool, x: dict):
 
 def _backward(lib, rows: bool, x: dict):
     B, T, H = x["dout"].shape
-    kind, cluster = gru.kernel_config(H)
+    kind, cluster = _config(lib, H)
     dev = x["dout"].device
     dgx = torch.empty(B, T, 3 * H, device=dev)
     dgh = torch.empty_like(dgx)
@@ -149,9 +171,14 @@ def main() -> None:
             outs = {n: (_forward(lib, rows, x), _backward(lib, rows, x))
                     for n, (lib, rows) in libs.items()}
             torch.cuda.synchronize()
-            r = {"kind": gru.kernel_config(H),
+            r = {"kind": {n: _config(lib, H) for n, (lib, _) in libs.items()},
                  "forward": _equal(outs["base"][0], outs["new"][0]),
                  "backward": _equal(outs["base"][1], outs["new"][1]),
+                 "plain_error": {n: [max(float((a - b).abs().max())
+                                         for a, b in zip(o[0], x["ref"])),
+                                     max(float((a - b).abs().max() / b.abs().max())
+                                         for a, b in zip(o[1], x["ref_b"]))]
+                                 for n, o in outs.items()},
                  "fwd_ms": {"base": [], "new": []}, "bwd_ms": {"base": [], "new": []}}
             for _ in range(3):
                 for n in ("base", "new", "new", "base"):
@@ -162,7 +189,8 @@ def main() -> None:
                 r[key] = {n: statistics.median(v) for n, v in r[key].items()}
             print(f"H = {H} {r['kind']}: forward {r['forward']} base {r['fwd_ms']['base']:.4f} "
                   f"new {r['fwd_ms']['new']:.4f} ms; backward {r['backward']} base "
-                  f"{r['bwd_ms']['base']:.4f} new {r['bwd_ms']['new']:.4f} ms [{card}]", flush=True)
+                  f"{r['bwd_ms']['base']:.4f} new {r['bwd_ms']['new']:.4f} ms; from the plain "
+                  f"versions (forward, backward) {r['plain_error']} [{card}]", flush=True)
             res[H] = r
     print(json.dumps({"card": card, "compare_gru_builds": {str(h): v for h, v in res.items()}}))
 

@@ -98,7 +98,7 @@ def test_gru_sequence_rejects_a_mask_that_is_not_batch_by_time(gru_inputs):
 def test_kernel_kind_follows_the_hidden_width():
     """H = 128 takes the register-resident kernels, every other width up to
     137 the generic ones, wider ones the wide kind on a cluster, and from
-    544 to 5456 the grid kind (one grid a direction; past 1419 its blocks
+    523 to 5456 the grid kind (one grid a direction; past 1419 its blocks
     stream what their shared memory cannot hold of their slice of Wh):
     four kinds (`kernel_config`); the C entry points' signatures carry the
     kind and the cluster size (the grid's blocks)."""
@@ -106,7 +106,7 @@ def test_kernel_kind_follows_the_hidden_width():
     assert {gru_ops.kernel_config(h) for h in (1, 16, 127, 129, 137)} == {
         (gru_ops.KIND_GENERIC, 1)
     }
-    assert gru_ops.kernel_config(256) == (gru_ops.KIND_WIDE, 4)
+    assert gru_ops.kernel_config(256) == (gru_ops.KIND_WIDE, 8)
     assert gru_ops.kernel_config(752) == (gru_ops.KIND_GRID, 126)
     assert gru_ops.kernel_config(1420) == (gru_ops.KIND_GRID, 130)
     assert gru_ops.kernel_config(5456) == (gru_ops.KIND_GRID, 130)

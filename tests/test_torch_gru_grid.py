@@ -1,4 +1,4 @@
-"""B3 and B3' from H = 544 to 5456, the grid kind, on the CPU.
+"""B3 and B3' from H = 523 to 5456, the grid kind, on the CPU.
 
 The grid kind's kernels (`gru_fwd_grid`, `gru_bwd_grid` in csrc/gru.cu) run
 only on the card, where `chip_smoke.py` phase 2 holds them to their plain
@@ -95,7 +95,8 @@ def _constant(src, name):
 
 
 def test_grid_kind_rule(monkeypatch):
-    """From 544 (the first width no cluster's wide block holds) to
+    """From 523 (the first width at which no cluster's wide block holds the
+    batch rows that B = 32 needs for one wave) to
     MAX_HIDDEN = 5456 `kernel_config` gives the grid kind on NB = ceil(H /
     U) blocks, U = ceil(H / 132) the fewest units a block with at most 132
     blocks.  Up to 1419 (forward 1430) a block's whole slice fits 232,448
@@ -119,8 +120,8 @@ def test_grid_kind_rule(monkeypatch):
                         ("kGridMaxSmem", build.MAX_SMEM)):
         assert _constant(src, name) == value, name
     assert "SSTTS_GRU_GRID = 4" in src and gru_ops.KIND_GRID == 4
-    assert gru_ops.GRID_MIN_HIDDEN == 544 and gru_ops.MAX_HIDDEN == 5456
-    assert gru_ops.kernel_config(543)[0] == gru_ops.KIND_WIDE
+    assert gru_ops.GRID_MIN_HIDDEN == 523 and gru_ops.MAX_HIDDEN == 5456
+    assert gru_ops.kernel_config(522)[0] == gru_ops.KIND_WIDE
     for H, (blocks, units, fwd, bwd, r_fwd, r_bwd) in GRID_WIDTHS.items():
         assert gru_ops.kernel_config(H) == (gru_ops.KIND_GRID, blocks)
         assert gru_ops.grid_smem_bytes(H) == (fwd, bwd)
@@ -128,7 +129,7 @@ def test_grid_kind_rule(monkeypatch):
         assert [(gs["NB"], gs["U"]) for gs in shapes] == [(blocks, units)] * 2
         assert [gs["R"] for gs in shapes] == [r_fwd, r_bwd]
     first_streamed = {}
-    for H in range(544, gru_ops.MAX_HIDDEN + 1):
+    for H in range(gru_ops.GRID_MIN_HIDDEN, gru_ops.MAX_HIDDEN + 1):
         gs = [gru_ops.grid_shape(H, b) for b in (False, True)]
         U = gs[0]["U"]
         assert gru_ops.kernel_config(H) == (gru_ops.KIND_GRID, gs[0]["NB"])

@@ -120,7 +120,8 @@ def test_wide_products_take_the_kernels_on_the_card(override):
 
 #: Widths and the kind of kernel each takes on the card (None: refused).
 _GRU_KINDS = {1: "generic", 16: "generic", 128: "h128", 137: "generic", 138: "wide",
-              160: "wide", 512: "wide", 544: "grid", 752: "grid", 1104: "grid",
+              160: "wide", 512: "wide", 522: "wide", 523: "grid", 544: "grid", 752: "grid",
+              1104: "grid",
               1419: "grid", 1420: "grid", 2113: "grid", 5456: "grid", 5457: None}
 
 
@@ -128,7 +129,7 @@ _GRU_KINDS = {1: "generic", 16: "generic", 128: "h128", 137: "generic", 138: "wi
 def test_gru_width_check(hidden):
     """The card's GRU kernels take H up to MAX_HIDDEN (5456): the register
     kernels at 128, the generic ones up to 137, the wide ones (a cluster a
-    sequence) up to 543, the grid ones (a cooperative grid a direction,
+    tile of the batch) up to 522, the grid ones (a cooperative grid a direction,
     whose blocks stream past 1419 what their shared memory cannot hold of
     their slice of Wh) up to 5456; a wider GRU raises NotImplementedError
     naming MAX_HIDDEN on CUDA only, from `check_width` and from `check_arch`
@@ -154,7 +155,8 @@ def test_gru_width_check(hidden):
 def test_gru_width_limit_follows_the_kernel_source():
     """`generic_smem_bytes` repeats csrc/gru.cu's two shared-memory counts,
     which both fit in a block up to H = 137; past it the wide kernels, whose
-    block size and largest cluster are the source's, reach 543, and the
+    block size and largest cluster are the source's, reach 522 (with B = 32
+    in one wave of clusters), and the
     grid ones MAX_HIDDEN = 5456, the source's kGridMaxHidden, where a block
     owns 42 units (chip_smoke.py holds `wide_smem_bytes` and
     `grid_smem_bytes` to the library's counts at every H past 137)."""
@@ -173,7 +175,8 @@ def test_gru_width_limit_follows_the_kernel_source():
     for name, value in (("kWideThreads", gru_ops.WIDE_THREADS),
                         ("kMaxCluster", gru_ops.MAX_CLUSTER)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
-    assert gru_ops.kernel_config(543) == (gru_ops.KIND_WIDE, 16)
+    assert gru_ops.kernel_config(522) == (gru_ops.KIND_WIDE, 16)
+    assert gru_ops.kernel_config(523) == (gru_ops.KIND_GRID, 131)
     assert gru_ops.kernel_config(544) == (gru_ops.KIND_GRID, 109)
     assert gru_ops.kernel_config(1419) == (gru_ops.KIND_GRID, 129)
     assert gru_ops.kernel_config(1420) == (gru_ops.KIND_GRID, 130)

@@ -12,10 +12,6 @@ their plain versions at full size, phase 3i drives them through
   interpret mode (the GRU and its gradient at H = 144 and 256, and at 560
   and 752 with the model's D = 128; the decode and the teacher-forced scan,
   and the scan's gradients, at a cell of 1152 columns);
-* a numpy replay of the wide GRU's split over a cluster (`WideShape` in
-  csrc/gru.cu: each rank's columns of Wh, the forward's K slices and
-  all-gather of the carry, the backward's column slices and reduce-scatter)
-  against the plain version;
 * a numpy replay of `chunk_schedule` as the ring's producer and consumers
   read it (stream.cuh: the copies, the panels, their columns);
 * the rule that picks the GRU's kernel from H (`kernel_config`), and the
@@ -28,8 +24,9 @@ H = 256 a gradient entry sums twice the terms); the decode's mel frames and
 stop logits within 2e-4 and its alignments within 2e-5, the scan's
 features within 2e-4, alignments 2e-5 and gradients atol 5e-4, rtol 1e-3
 (tests/test_pallas_decoder.py's limits, as test_torch_decoder.py and
-test_torch_teacher.py); the replays, in float64 against the f32 plain
-version, within 1e-5, and the schedule replay exactly (small integers).
+test_torch_teacher.py); the schedule replay exactly (small integers).  The
+wide GRU's split over a cluster and its batch tiles are replayed in
+test_torch_gru_wide.py.
 Torch runs on one thread in this module.
 """
 
@@ -117,149 +114,41 @@ def test_wide_gru_gradient_matches_jax_vjp(H):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=2e-5, rtol=1e-4, err_msg=name)
 
 
-def wide_shape(H, C):
-    """csrc/gru.cu's WideShape: units a rank, its gate columns, their row
-    stride, the forward's K slices and the backward's column slices."""
-    U = -(-H // C)
-    G = 3 * U
-    return U, G, G | 1, gru_ops.WIDE_THREADS // G, max(1, gru_ops.WIDE_THREADS // H)
-
-
-def rank_slice(wh, H, C, c):
-    """Rank c's columns of Wh as load_wide_slice lays them out (H, ld)."""
-    U, G, ld, _, _ = wide_shape(H, C)
-    w = np.zeros((H, ld))
-    for j in range(G):
-        g, u = divmod(j, U)
-        if c * U + u < H:
-            w[:, j] = wh[:, g * H + c * U + u]
-    return w
-
-
-def replay_wide_forward(gx, wh, mask, H, C, reverse):
-    """gru_fwd_wide's arithmetic for one sequence, rank by rank: each rank's
-    K slices of its columns from the whole carry, its units' gates, the new
-    carry gathered into every rank.  Returns out (T, H)."""
-    U, G, ld, KS, _ = wide_shape(H, C)
-    T = gx.shape[0]
-    kl = -(-H // KS)
-    w = [rank_slice(wh, H, C, c)[:, :G] for c in range(C)]
-    h = np.zeros(H)
-    out = np.zeros((T, H))
-    sig = lambda v: 1.0 / (1.0 + np.exp(-v))  # noqa: E731
-    for s in range(T):
-        step = T - 1 - s if reverse else s
-        new = np.zeros(H)
-        for c in range(C):
-            part = []
-            for ks in range(KS):
-                k0, k1 = min(H, ks * kl), min(H, (ks + 1) * kl)
-                part.append(h[k0:k1] @ w[c][k0:k1])
-            sums = np.stack(part).sum(0)
-            for u in range(U):
-                unit = c * U + u
-                if unit >= H:
-                    continue
-                xr, xz, xn = gx[step, unit], gx[step, H + unit], gx[step, 2 * H + unit]
-                r, z = sig(xr + sums[u]), sig(xz + sums[U + u])
-                n = np.tanh(xn + r * sums[2 * U + u])
-                hn = z * h[unit] + (1 - z) * n
-                m = mask[step]
-                new[unit] = m * hn + (1 - m) * h[unit]
-                out[step, unit] = m * new[unit]
-        h = new
-    return out
-
-
-def replay_wide_backward(dout, gates, hprev, wh, mask, H, C, reverse):
-    """gru_bwd_wide's arithmetic for one sequence: each rank's dgh of its
-    columns times its slice of Wh in JS column slices, the partials sent to
-    the units' owners and added there.  Returns dgx, dgh (T, 3H)."""
-    U, G, ld, _, JS = wide_shape(H, C)
-    T = dout.shape[0]
-    jl = -(-G // JS)
-    w = [rank_slice(wh, H, C, c)[:, :G] for c in range(C)]
-    recv = np.zeros((C, C, U))  # [owner, sender, unit]
-    dhc = np.zeros(H)
-    dgx, dgh = np.zeros((T, 3 * H)), np.zeros((T, 3 * H))
-    for s in range(T):
-        step = s if reverse else T - 1 - s
-        nxt = np.zeros((C, C, U))
-        for c in range(C):
-            d = np.zeros(G)
-            for u in range(U):
-                unit = c * U + u
-                if unit >= H:
-                    continue
-                r, z, n, hn = (gates[step, q * H + unit] for q in range(4))
-                m = mask[step]
-                dh_t = dhc[unit] + recv[c, :, u].sum() + m * dout[step, unit]
-                dh_new = m * dh_t
-                dan = dh_new * (1 - z) * (1 - n * n)
-                dar = dan * hn * r * (1 - r)
-                daz = dh_new * (hprev[step, unit] - n) * z * (1 - z)
-                dgx[step, [unit, H + unit, 2 * H + unit]] = dar, daz, dan
-                dgh[step, [unit, H + unit, 2 * H + unit]] = dar, daz, dan * r
-                d[[u, U + u, 2 * U + u]] = dar, daz, dan * r
-                dhc[unit] = (1 - m) * dh_t + dh_new * z
-            part = sum(w[c][:, js * jl: (js + 1) * jl] @ d[js * jl: (js + 1) * jl]
-                       for js in range(JS))
-            for k in range(H):
-                owner = k // U
-                nxt[owner, c, k - owner * U] = part[k]
-        recv = nxt
-    return dgx, dgh
-
-
-def replay_against_plain(H, C):
-    """Both replays at width H on a cluster of C, masked, both directions,
-    held to the plain versions within 1e-5."""
-    x = gru_arrays(H, B=2, T=5, seed=2)
-    xs, wx, wh, b, mask, g = (t(x[k]) for k in ("xs", "wx", "wh", "b", "mask", "g"))
-    wh64 = x["wh"].astype(np.float64)
-    for reverse in (False, True):
-        out, gates, hprev = gru_ops.gru_sequence_forward_plain(xs, wx, wh, b, mask, reverse)
-        dgx, dgh = gru_ops.gru_sequence_backward_plain(g, gates, hprev, wh, mask, reverse)
-        gx = (xs @ wx + b).double().numpy()
-        for i in range(2):
-            got = replay_wide_forward(gx[i], wh64, x["mask"][i], H, C, reverse)
-            np.testing.assert_allclose(got, out[i].numpy(), atol=1e-5)
-            rx, rh = replay_wide_backward(
-                x["g"][i].astype(np.float64), gates[i].double().numpy(),
-                hprev[i].double().numpy(), wh64, x["mask"][i], H, C, reverse)
-            np.testing.assert_allclose(rx, dgx[i].numpy(), atol=1e-5)
-            np.testing.assert_allclose(rh, dgh[i].numpy(), atol=1e-5)
-
-
-@pytest.mark.parametrize("H", [139, 301])
-def test_wide_gru_split_replays_the_plain_version(H):
-    """The wide kernels' index rules at a width no cluster divides (139: C
-    = 2, the last rank one unit short; 301: C = 5), forward and backward,
-    masked, both directions, held to the plain versions."""
-    kind, C = gru_ops.kernel_config(H)
-    assert kind == gru_ops.KIND_WIDE and H % C
-    replay_against_plain(H, C)
+def _source_table(src, name):
+    body = re.search(rf"constexpr int {name}\[kMaxCluster \+ 1\] = \{{([^}}]*)\}};", src)
+    return tuple(int(v) for v in body.group(1).replace("\n", " ").split(","))
 
 
 def test_gru_kernel_config_rule(monkeypatch):
     """One pure function of H picks the kind before any launch, among four:
     the register kernels at 128, the generic ones up to 137 (138 is the
     first whose Wh and vectors pass a block's 232,448 bytes), then the wide
-    ones on the smallest cluster, up to 16 blocks, whose block fits, up to
-    H = 543 (no cluster's block holds 544), then the grid kind up to
-    MAX_HIDDEN = 5456 (test_torch_gru_grid.py holds its rule: past 1419 a
-    block streams what its shared memory cannot hold of its slice); past it
-    NotImplementedError.  The constants are csrc/gru.cu's."""
+    ones on the smallest cluster, up to 16 blocks, of at most 32 units a
+    rank (where 16 ranks allow it), whose tile of Bt = ceil(32 /
+    WIDE_CLUSTERS[C]) batch rows fits its block in both directions, so
+    that B = 32 runs in one wave of the clusters the card holds, up to H =
+    522; from 523 (no cluster's block holds the rows one
+    wave needs) the grid kind, up to MAX_HIDDEN = 5456 (test_torch_gru_grid.py
+    holds its rule); past it NotImplementedError.  Bt at other batches:
+    enough for one wave, at most 8 and what the block holds.  The constants
+    are csrc/gru.cu's."""
     monkeypatch.setattr(build, "load", lambda *a: pytest.fail("kernel_config built a library"))
     src = (build.CSRC / "gru.cu").read_text()
     for name, value in (("kWideThreads", gru_ops.WIDE_THREADS),
-                        ("kMaxCluster", gru_ops.MAX_CLUSTER)):
-        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value
+                        ("kMaxCluster", gru_ops.MAX_CLUSTER),
+                        ("kWideMaxRows", gru_ops.WIDE_MAX_ROWS),
+                        ("kWideMinSmem", gru_ops.WIDE_MIN_SMEM),
+                        ("kWideMaxSmem", build.MAX_SMEM)):
+        assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value, name
+    assert _source_table(src, "kWideClusters") == gru_ops.WIDE_CLUSTERS
     assert "SSTTS_GRU_WIDE = 2" in src and gru_ops.KIND_WIDE == 2
     assert "SPILL" not in src and "kSpill" not in src and not hasattr(gru_ops, "KIND_SPILL")
     kinds = {gru_ops.KIND_GENERIC, gru_ops.KIND_H128, gru_ops.KIND_WIDE, gru_ops.KIND_GRID}
     assert len(kinds) == 4
-    assert gru_ops.MAX_HIDDEN == 5456
+    assert gru_ops.MAX_HIDDEN == 5456 and gru_ops.GRID_MIN_HIDDEN == 523
+    # The clusters of C the card holds shrink as C grows (one block an SM).
+    held = gru_ops.WIDE_CLUSTERS
+    assert all(held[c] >= held[c + 1] and held[c] * c <= 132 for c in range(1, 16))
     seen = set()
     for H in [*range(1, 1601), 2048, 2113, gru_ops.MAX_HIDDEN, gru_ops.MAX_HIDDEN + 1]:
         if H > gru_ops.MAX_HIDDEN:
@@ -270,26 +159,43 @@ def test_gru_kernel_config_rule(monkeypatch):
         assert gru_ops.kernel_config(H) == (kind, C) and kind in kinds
         seen.add(kind)
         fits = max(gru_ops.generic_smem_bytes(H)) <= build.MAX_SMEM
-        U, G, ld, KS, JS = wide_shape(H, C)
         if H == 128:
             assert (kind, C) == (gru_ops.KIND_H128, 1)
         elif fits:
             assert (kind, C) == (gru_ops.KIND_GENERIC, 1)
-        elif H <= 543:
+        elif H < gru_ops.GRID_MIN_HIDDEN:
             assert kind == gru_ops.KIND_WIDE and 2 <= C <= gru_ops.MAX_CLUSTER
-            assert max(gru_ops.wide_smem_bytes(H, C)) <= build.MAX_SMEM
-            assert C == 2 or max(gru_ops.wide_smem_bytes(H, C - 1)) > build.MAX_SMEM
-            assert KS * G <= gru_ops.WIDE_THREADS and JS * H <= gru_ops.WIDE_THREADS
-            assert U <= gru_ops.WIDE_THREADS and (C - 1) * U < H
+            rows = gru_ops.wide_rows(H, 32, C)
+            assert rows == -(-32 // held[C]) and rows * held[C] >= 32
+            assert max(gru_ops.wide_smem_bytes(H, C, rows)) <= build.MAX_SMEM
+            first = min(gru_ops.MAX_CLUSTER, -(-H // gru_ops.WIDE_UNITS))
+            assert C >= first
+            for c in range(first, C):  # no smaller such cluster takes the batch in one wave
+                assert gru_ops.wide_rows(H, 32, c) < -(-32 // held[c])
+            for bwd in (False, True):
+                ws = gru_ops.wide_shape(H, C, rows, bwd)
+                U = ws["U"]
+                assert (C - 1) * U < H <= C * U and ws["valid"]
+                assert ws["threads"] <= gru_ops.WIDE_THREADS and rows * U <= ws["threads"]
+                assert ws["KA"] % 4 == 0 and ws["ldw"] % 8 == 4 and ws["KS"] >= 1
+                assert ws["smem"] == max(ws["floats"] * 4, gru_ops.WIDE_MIN_SMEM)
+                if bwd:
+                    assert ws["KS"] == 1 and ws["N"] >= H and ws["KA"] >= 3 * U
+                else:
+                    assert ws["N"] == 3 * U and ws["KA"] >= H and U * ws["KS"] <= ws["threads"]
+                    assert (ws["KS"] == min(gru_ops.WIDE_THREADS // U, ws["KA"] // 4)
+                            or ws["floats"] + rows * ws["N"] > build.MAX_SMEM // 4), H
+            for B in (1, 3, 33, 64, 300):  # other batches: one wave where 8 rows allow
+                r = gru_ops.wide_rows(H, B, C)
+                assert 1 <= r <= min(gru_ops.WIDE_MAX_ROWS, -(-B // held[C]))
+                assert r == -(-B // held[C]) or not all(
+                    gru_ops.wide_shape(H, C, r + 1, b)["valid"] for b in (False, True))
         else:
             assert (kind, C) == (gru_ops.KIND_GRID, gru_ops.grid_shape(H, False)["NB"])
-            assert max(gru_ops.wide_smem_bytes(H, gru_ops.MAX_CLUSTER)) > build.MAX_SMEM
             assert max(gru_ops.grid_smem_bytes(H)) <= build.MAX_SMEM
             streams = [gru_ops.grid_shape(H, b)["S"] > 0 for b in (False, True)]
             assert streams == [H > 1430, H > 1419]
         assert fits == (H <= 137)
-    assert all(max(gru_ops.wide_smem_bytes(544, c)) > build.MAX_SMEM
-               for c in range(2, gru_ops.MAX_CLUSTER + 1))
     assert seen == kinds
 
 
