@@ -334,7 +334,8 @@ def gru_kind(H: int) -> str:
         bulk = "-bulk" if shapes[1]["bulk"] else ""
         return f"grid-NB{cluster}-U{shapes[0]['U']}{streamed}{bulk}"
     if kind == gru.KIND_WIDE:
-        return f"wide-C{cluster}-Bt{gru.wide_rows(H, 32, cluster)}"
+        held = gru.wide_clusters(cluster, "cuda")
+        return f"wide-C{cluster}-Bt{gru.wide_rows(H, 32, cluster, held)}"
     return {gru.KIND_H128: "h128", gru.KIND_GENERIC: "generic"}[kind]
 
 
@@ -536,12 +537,16 @@ def check_gru_backward(dev):
 #: step).  Beside them: the wide kind's one step and an odd length (37) at
 #: B = 1, 3, 4 and 33, whose last tile of batch rows is not full (33 at 139:
 #: 17 tiles of 2 rows; at 301 and 512: 7 of 5), at widths no cluster
-#: divides (139, 301), with D != H; the grid kind's one step, an odd
+#: divides (139, 301), with D != H, and at B = 177 at 139, tiles of the
+#: most rows (8) in more clusters than an H100 SXM holds at once (two
+#: waves: what a card that holds too few clusters for one wave runs); the
+#: grid kind's one step, an odd
 #: length (37) at B = 1, 3 and 33, widths whose last block owns fewer units
 #: (561: one of 5; 1103: 5 of 9; 2113: 5 of 17, two gate items a thread)
 #: and 1025, 2048 and 5456.
 GRU_WIDE_HIDDEN = (138, 256, 512, 560, 752, 1104, 1420, 2048, 5456)
 GRU_WIDE_SIDE_SHAPES = [(3, 1, 64, 139), (1, 37, 64, 139), (33, 37, 64, 139),
+                        (177, 37, 64, 139),
                         (4, 37, 96, 301), (1, 1, 96, 301), (33, 37, 96, 301),
                         (3, 37, 96, 256), (33, 1, 128, 512), (3, 37, 128, 512),
                         (32, 1, 128, 752), (1, 37, 128, 560), (3, 37, 128, 1104),
@@ -599,22 +604,32 @@ def check_gru_wide_counts():
     shared memory and threads, `grid_smem_bytes`, `grid_shape`'s resident K
     range R, `grid_exchange_floats`, `grid_scratch_floats`) against the
     library's own count at every H past 137 up to MAX_HIDDEN; the clusters
-    of each size the card holds at once against the table the rule reads
-    (`WIDE_CLUSTERS`), and at every H the wide kind takes, its B = 32 in one
-    wave: the card holds ceil(32 / Bt) of its clusters at once; each
+    of each size the card holds at once (`wide_clusters`, read from the
+    card: the wide rule's Bt divides the batch by them), printed beside the
+    H100 SXM's reference table (`WIDE_CLUSTERS`, the CPU's model), and at
+    every H the wide kind takes, its B = 32 in one wave wherever the card's
+    counts give the block the rows one wave needs (the card holds ceil(32 /
+    Bt) of its clusters at once), two waves or more elsewhere; each
     configuration the card holds at once (clusters; the grid kind's
     blocks, which must all be resident) for the widths of GRU_WIDE_HIDDEN;
-    a line of its own for each grid width."""
+    a line of its own for each grid width.  It fails where the wrapper and
+    the library disagree or a launch would be refused, not where the card
+    differs from the table."""
     from sstts_torch.ops import build, gru
 
     lib = build.load("gru", gru.SIGNATURES)
-    held = {C: [lib.sstts_gru_wide_active_clusters(138, C, 1, b) for b in (0, 1)]
-            for C in range(2, gru.MAX_CLUSTER + 1)}
+    raw = {C: [lib.sstts_gru_wide_active_clusters(gru.WIDE_PROBE_HIDDEN, C, 1, b)
+               for b in (0, 1)] for C in range(2, gru.MAX_CLUSTER + 1)}
+    held = {C: gru.wide_clusters(C, "cuda") for C in raw}
     log(f"  B3 wide: clusters of C blocks the card holds at once (forward, backward), C = 2.."
-        f"{gru.MAX_CLUSTER}: {held}; the rule's table {list(gru.WIDE_CLUSTERS[2:])}")
-    if any(min(n) < gru.WIDE_CLUSTERS[C] for C, n in held.items()):
-        raise AssertionError(f"the card holds fewer clusters than WIDE_CLUSTERS: {held}")
-    waves = {}
+        f"{gru.MAX_CLUSTER}: {raw}; the rule's counts {list(held.values())}, the H100 SXM's "
+        f"reference table {list(gru.WIDE_CLUSTERS[2:])} "
+        f"({'the same' if all(held[C] == gru.WIDE_CLUSTERS[C] for C in held) else 'differs'})")
+    bad = {C: (n, raw[C]) for C, n in held.items()
+           if n != min(raw[C]) or n != lib.sstts_gru_wide_clusters(C)}
+    if bad:
+        raise AssertionError(f"the wrapper's and the library's cluster counts differ: {bad}")
+    waves, more_waves = {}, []
     for H in range(138, gru.MAX_HIDDEN + 1):
         kind, C = gru.kernel_config(H)
         if kind == gru.KIND_GRID:
@@ -633,8 +648,8 @@ def check_gru_wide_counts():
                 raise AssertionError(f"grid GRU H={H}, NB={C}: library {got}, wrapper {want}, "
                                      f"R {rows}, scratch {scratch}")
             continue
-        for B in (1, 3, 32, 33, 64):
-            rows = gru.wide_rows(H, B, C)
+        for B in (1, 3, 32, 33, 64, 177):
+            rows = gru.wide_rows(H, B, C, held[C])
             want = [rows] + [gru.wide_shape(H, C, rows, b)[k] for b in (0, 1)
                              for k in ("smem", "threads")]
             got = [lib.sstts_gru_wide_rows(H, B, C)] + [
@@ -643,13 +658,21 @@ def check_gru_wide_counts():
             if got != want or max(got[1], got[3]) > build.MAX_SMEM or rows < 1:
                 raise AssertionError(f"wide GRU H={H}, C={C}, B={B}: library (rows, smem, "
                                      f"threads forward, backward) {got}, wrapper {want}")
-        rows = gru.wide_rows(H, 32, C)
+        rows = gru.wide_rows(H, 32, C, held[C])
         waves[H] = [lib.sstts_gru_wide_active_clusters(H, C, rows, b) for b in (0, 1)]
-        if min(waves[H]) < -(-32 // rows):
+        if min(waves[H]) < 1:
+            raise AssertionError(f"wide GRU H={H}, C={C}, Bt={rows}: the card holds no "
+                                 f"cluster: {waves[H]}")
+        one_wave = rows == -(-32 // held[C])  # the block holds the rows one wave needs
+        if one_wave and min(waves[H]) < -(-32 // rows):
             raise AssertionError(f"wide GRU H={H}, C={C}, Bt={rows}: the card holds "
                                  f"{waves[H]} clusters at once, B = 32 needs {-(-32 // rows)}")
+        if not one_wave:
+            more_waves.append(H)
     log(f"  B3 wide: B = 32 in one wave of clusters at every H the wide kind takes, 138.."
-        f"{max(waves)} (the fewest clusters held at once {min(min(v) for v in waves.values())})")
+        f"{max(waves)}, but {len(more_waves)} widths where the card's counts leave the block "
+        f"too few rows ({more_waves[:8]}{'...' if len(more_waves) > 8 else ''}: more waves)"
+        f" (the fewest clusters held at once {min(min(v) for v in waves.values())})")
     active = {}
     for H in GRU_WIDE_HIDDEN:
         C = gru.kernel_config(H)[1]
@@ -671,9 +694,10 @@ def check_gru_wide_counts():
                 f"{active[H]['streamed_k']}, blocks the card holds at once "
                 f"{active[H]['forward']} / {active[H]['backward']}")
             continue
-        rows = gru.wide_rows(H, 32, C)
+        rows = gru.wide_rows(H, 32, C, held[C])
         shapes = [gru.wide_shape(H, C, rows, b) for b in (False, True)]
         active[H] = {"cluster": C, "rows": rows, "clusters": -(-32 // rows),
+                     "card_clusters": held[C], "reference_clusters": gru.WIDE_CLUSTERS[C],
                      "smem_bytes": [ws["smem"] for ws in shapes],
                      "threads": [ws["threads"] for ws in shapes], "k_slices": shapes[0]["KS"],
                      "forward": waves[H][0], "backward": waves[H][1]}
@@ -1380,6 +1404,12 @@ GL_SIDE_SHAPES = [(3, 515), (1, 800), (3, 37), (2, 5)]
 DS_44K = {"sample_rate": 44100, "n_fft": 2048, "win_len_ms": 46.44, "win_hop_ms": 11.61,
           "mel_fmax": 22050.0}
 DS_24K = {"sample_rate": 24000, "mel_fmax": 12000.0}
+#: 48 kHz and 44.1 kHz at n_fft 4096 and the reference's 50 / 12.5 ms window:
+#: windows of 2400 and 2205 samples (supports of 2399 and 2204 lanes in wp
+#: 2432 and 2304), hops of 600 and 551 (D = 3), 2049 bins (2 hp = 4096 in
+#: the packed bf16 loop, 4352 in the f32 one).
+DS_48K = {"sample_rate": 48000, "n_fft": 4096, "mel_fmax": 24000.0}
+DS_44K_4096 = {"sample_rate": 44100, "n_fft": 4096, "mel_fmax": 22050.0}
 
 #: Other geometries the kernels take, as (case, DatasetConfig fields, kernels,
 #: loop dtypes): a 6.22 ms hop at the default window (137 samples, D = 8, the
@@ -1387,8 +1417,10 @@ DS_24K = {"sample_rate": 24000, "mel_fmax": 12000.0}
 #: (window 800, hop 200: a support of 799 lanes in wp = 896, D = 3), and the
 #: geometries of the wide configuration: 24 kHz at 50 / 12.5 ms (1199 lanes,
 #: D = 3), hops of 10, 5 and 3 ms at 22.05 kHz (D = 5, 10, 16), 44.1 kHz at
-#: n_fft 2048 (2047 lanes, D = 3), and the f32 loop at every geometry (the
-#: defaults' bf16 are the main shape).
+#: n_fft 2048 (2047 lanes, D = 3), and past n_fft 2048 and D = 16: 48 kHz
+#: and 44.1 kHz at n_fft 4096 (`DS_48K`, `DS_44K_4096`), hops of 2.86 and
+#: 1.55 ms at 22.05 kHz (63 and 34 samples: D = 17, 32); and the f32 loop at
+#: every geometry (the defaults' bf16 are the main shape).
 GL_SIDE_GEOMETRIES = [
     ("hop137", {"win_hop_ms": 6.22}, ("B2",), ("bf16",)),
     ("16kHz", {"sample_rate": 16000, "n_fft": 1024, "mel_fmax": 8000.0}, ("B2", "B5"),
@@ -1399,17 +1431,24 @@ GL_SIDE_GEOMETRIES = [
     ("hop5ms", {"win_hop_ms": 5.0}, ("B2", "B5"), ("bf16", "f32")),
     ("hop3ms", {"win_hop_ms": 3.0}, ("B2", "B5"), ("bf16", "f32")),
     ("44kHz", DS_44K, ("B2", "B5"), ("bf16", "f32")),
+    ("48kHz", DS_48K, ("B2", "B5"), ("bf16", "f32")),
+    ("44kHz4096", DS_44K_4096, ("B2", "B5"), ("bf16", "f32")),
+    ("hop2.86ms", {"win_hop_ms": 2.86}, ("B2", "B5"), ("bf16", "f32")),
+    ("hop1.55ms", {"win_hop_ms": 1.55}, ("B2", "B5"), ("bf16", "f32")),
 ]
 
-#: Geometries beyond both configurations (n_fft <= 2048, D <= 16), which the
-#: wrappers must refuse before any launch, as (DatasetConfig fields, kernels,
-#: loop dtype): a 2.86 ms hop (63 samples, D = 17), n_fft 4096 in the f32
-#: loop (2 hp = 2304 + 2048), and a 2205-sample window at 44.1 kHz (n_fft 4096).
+#: Geometries past the kernels' envelope, which the wrappers must refuse
+#: before any launch, as (DatasetConfig fields, kernels, loop dtype): more
+#: than the reference kernels' 128 overlapping frames a side for B2 and B5
+#: (an 8-sample hop of the default window, D = 137; B1 takes it), and more
+#: than 256 for B1 too (a 4-sample hop, D = 275), at the default n_fft and
+#: at n_fft 4096 (48 kHz, D = 599).
 GL_REFUSED = [
-    ({"win_hop_ms": 2.86}, ("B2", "B5"), "bf16"),
-    ({"win_hop_ms": 2.86}, ("B2", "B5"), "f32"),
-    ({"n_fft": 4096}, ("B2", "B5"), "f32"),
-    ({"sample_rate": 44100, "n_fft": 4096, "mel_fmax": 22050.0}, ("B2", "B5"), "bf16"),
+    ({"win_hop_ms": 0.363}, ("B2", "B5"), "bf16"),
+    ({"win_hop_ms": 0.363}, ("B2", "B5"), "f32"),
+    ({"win_hop_ms": 0.182}, ("B1", "B2", "B5"), "bf16"),
+    ({"win_hop_ms": 0.182}, ("B1", "B2", "B5"), "f32"),
+    ({**DS_48K, "win_hop_ms": 0.0834}, ("B1", "B2", "B5"), "f32"),
 ]
 
 #: Tolerance of an f32 kernel (the wide configuration's three tf32 products)
@@ -1421,10 +1460,12 @@ F32_REL_TOL = 1e-5
 def gl_inputs(dev, Bt, T, seed, ds=None, dtype=None, on_card=False):
     """Seeded inputs of B2 and B5 on the card, bf16 (or `dtype`), at the
     default config's widths (wp = 1152 lanes, 2 hp = 2048) or with the
-    lanes of another dataset config `ds`; in f32 with the f32 loop's bins
-    (the unpacked n_fft / 2 + 1 rounded up to 128: 2 hp = 2304 at n_fft
-    2048).  Drawn on the CPU, or with `on_card` on the card (other values,
-    made in milliseconds: for timing)."""
+    lanes of another dataset config `ds` (in bf16 2 hp = 2048 up to n_fft
+    2048, the packed n_fft / 2 rounded up to 128 past it: 4096 at n_fft
+    4096); in f32 with the f32 loop's bins (the unpacked n_fft / 2 + 1
+    rounded up to 128: 2 hp = 2304 at n_fft 2048, 4352 at 4096).  Drawn on
+    the CPU, or with `on_card` on the card (other values, made in
+    milliseconds: for timing)."""
     import torch
 
     from sstts_torch.config import Config
@@ -1432,7 +1473,8 @@ def gl_inputs(dev, Bt, T, seed, ds=None, dtype=None, on_card=False):
 
     ds = ds or Config().dataset
     bf = dtype or torch.bfloat16
-    hp = 1024 if bf == torch.bfloat16 else -(-(ds.n_fft // 2 + 1) // 128) * 128
+    hp = (max(1024, -(-(ds.n_fft // 2) // 128) * 128) if bf == torch.bfloat16
+          else -(-(ds.n_fft // 2 + 1) // 128) * 128)
     wp = -(-(ds.win_len - 1) // 128) * 128
     length = (T - 1) * ds.hop_len
     plan = band_plan(ds.n_fft, ds.hop_len, ds.win_len, T, length)
@@ -1492,6 +1534,24 @@ def gl_refusals(kernel, dev, wrapper, args_of):
             raise AssertionError(f"{kernel} counted a launch it refused")
 
 
+def b5_reference(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max):
+    """What B5's launches are held to: its function, `gl_iteration_plain`,
+    with GEMM1's sums exact (q @ w_inv summed in float64, rounded once to
+    the f32 frames).  The plain version's own f32 GEMM1 sums in cuBLAS's
+    order, and that order alone moves reprojected frames' bf16 rounding
+    more often than the kernel's does: at phase 3h's 48 kHz launch it differs
+    from the exact sums in 6.05% of the outputs, past `hold_gl`'s 5%, where
+    the kernel differs in 1.90% (PERF.md §6).  GEMM2 and the renorm are the
+    plain version's."""
+    from sstts_torch.dsp.gl_fused import renorm
+    from sstts_torch.dsp.reproject import shift_add_rows
+
+    frames = (q.double() @ w_inv.double()).float()
+    acc = shift_add_rows(frames, w_len, hop, d_max, 0, q.shape[-2])
+    fr = (acc * wss2d).to(q.dtype)
+    return renorm(fr.float() @ w_fwd.float(), mag2, mag2.shape[-1] // 2, q.dtype)
+
+
 def rel_err(a, b) -> float:
     """Relative L2 error of a against b."""
     return float((a.float() - b.float()).norm() / b.float().norm())
@@ -1507,11 +1567,11 @@ def hold_gl(kernel: str, case: str, a, b) -> dict:
     summation order, which flips an output's last bf16 bit now and then:
     one bf16 step (2^-7) relative to the output's largest value (q, or s,
     the raw spectrum), and under 1% of the elements may differ at all.
-    bf16 B5: GEMM1's f32 sums run in another order than the plain
-    version's, so a reprojected frame now and then rounds to the
-    neighbouring bf16 value before GEMM2, and the renorm turns that into a
-    phase change that is large only where |s| is near 0: relative L2
-    within 2^-7 and under 5% of the elements differing; the largest
+    bf16 B5 (held to `b5_reference`, GEMM1's sums exact): the kernel's f32
+    GEMM1 sums round otherwise, so a reprojected frame now and then rounds
+    to the neighbouring bf16 value before GEMM2, and the renorm turns that
+    into a phase change that is large only where |s| is near 0: relative
+    L2 within 2^-7 and under 5% of the elements differing; the largest
     difference is reported."""
     import torch
 
@@ -1610,7 +1670,7 @@ def gl_geometry_times(dev, kernel: str) -> dict:
             args = (x["q"], x["mag2"], x["w_inv"], x["w_fwd"], x["wss2d"], w_len, hop, d_max)
             got = gl.gl_iteration(*args, wit, wt)
             with exact_f32(dev):
-                ref = gl.gl_iteration_plain(*args)
+                ref = b5_reference(*args)
             checks = [hold_gl("B5", f"kernel-32x800-{tag}", got, ref)]
             del got, ref
             ms = cuda_ms(lambda: gl.gl_iteration(*args, wit, wt), 3, 3)
@@ -1625,6 +1685,8 @@ def gl_geometry_times(dev, kernel: str) -> dict:
             bms, by = bound_ms(n_bytes, 3 * n_ops, "tf32")
             by += " (3 x tf32)"
             extra = {"bound_ms_f32_fma": bound_ms(n_bytes, n_ops, "f32")[0]}
+        if cfg == "wide":
+            cfg += "-" + gl.gl_tiles.wide_sum(w_len, dtype)
         out[f"{tag}-{name}"] = {"config": cfg, "ms": ms, "bound_ms": bms, "bound_by": by,
                                 "w_len": w_len, "d_max": d_max, "hp": hp, **extra,
                                 "checks": checks}
@@ -1727,15 +1789,23 @@ B1_MS_PREV = {"kernel": 0.2566, "with_mirror_runs": 0.3811}
 #: batch of 3 at 515 frames, one utterance of 37, 3 of 5 frames (the head
 #: and tail mirror runs meet), a hop of 137 samples (D = 8), one of 110
 #: (D = 10: the kernel that takes D at run time), a 16 kHz corpus (w_len
-#: 799 in 896 lanes, D = 3), and 44.1 kHz at n_fft 2048 with a 128-sample
+#: 799 in 896 lanes, D = 3), 44.1 kHz at n_fft 2048 with a 128-sample
 #: hop (w_len 2047, D = 15: in f32 no ring holds its rows, so the direct
-#: configuration runs).
+#: configuration runs), and B2's and B5's geometries past n_fft 2048 and D
+#: = 16 (`REPROJECT_WIDE`).
 REPROJECT_SIDE = [
     ("3x515", {}, 3, 515), ("1x37", {}, 1, 37), ("3x5", {}, 3, 5),
     ("hop137", {"win_hop_ms": 6.22}, 3, 150), ("hop110", {"win_hop_ms": 5.0}, 2, 150),
     ("16kHz", {"sample_rate": 16000, "n_fft": 1024, "mel_fmax": 8000.0}, 1, 150),
     ("44kHz-hop128", {**DS_44K, "win_hop_ms": 2.9025}, 2, 150),
 ]
+
+#: The geometries of `GL_SIDE_GEOMETRIES` past n_fft 2048 and D = 16, at
+#: which B1 ("split", the reference run of phase 3h) is held at 2 x 150 and
+#: timed at 32 x 800: the ring where it fits (48 and 44.1 kHz at n_fft 4096,
+#: D = 3; D = 17; D = 32 in bf16), the direct configuration elsewhere (D =
+#: 32 in f32).
+REPROJECT_WIDE = ["48kHz", "44kHz4096", "hop2.86ms", "hop1.55ms"]
 
 
 def check_reproject(dev):
@@ -1766,7 +1836,9 @@ def check_reproject(dev):
     checks = []
     lib = rp.library()
     main = {}
-    cases = [("32x800", {}, 32, 800)] + REPROJECT_SIDE
+    wide = {tag: fields for tag, fields, *_ in GL_SIDE_GEOMETRIES if tag in REPROJECT_WIDE}
+    cases = ([("32x800", {}, 32, 800)] + REPROJECT_SIDE
+             + [(tag, wide[tag], 2, 150) for tag in REPROJECT_WIDE])
     for i, (case, fields, Bt, T) in enumerate(cases):
         ds = dataclasses.replace(Config().dataset, **fields)
         for dt in (torch.bfloat16, torch.float32):
@@ -1834,6 +1906,45 @@ def check_reproject(dev):
                                          "bound_by": direct_bound[1]}
     log(f"  B1 direct configuration (44.1 kHz, hop 128, D {pl['d_max']}, f32, 32 x 800): "
         f"{direct_ms:.4f} ms, bound {direct_bound[0]:.4f} ({direct_bound[1]})")
+    # The geometries past n_fft 2048 and D = 16 at the split iteration's
+    # batch, each in the configuration `rp.config` picks; the bound: the
+    # needed lanes read once, every lane written, and 2 D + 2 operations an
+    # element (the adds and the scale) at the f32 rate, whichever is larger.
+    for i, tag in enumerate(REPROJECT_WIDE):
+        ds = dataclasses.replace(Config().dataset, **wide[tag])
+        for dt in (torch.bfloat16, torch.float32):
+            f, g, pl, wss = inputs(ds, 32, 800, dt, 20 + i)
+            dw, es, wpw = pl["w_len"], f.element_size(), f.shape[-1]
+            ring = rp.config(lib.sstts_reproject_smem_bytes, wpw, es, pl["d_max"],
+                             lib.sstts_reproject_rows())
+            ms_w = cuda_ms(lambda: rp.launch(lib, f, wss, dw, g[1], pl["d_max"], pl["runs"]),
+                           3, 3)
+            n_bytes = 32 * 800 * (dw + wpw) * es + nbytes(wss[:, :dw])
+            bw = bound_ms(n_bytes, (2 * pl["d_max"] + 2) * 32 * 800 * dw, "f32")
+            name = f"{tag}-{str(dt).split('.')[-1]}"
+            times[name] = {"kernel": ms_w, "config": "ring" if ring else "direct",
+                           "d_max": pl["d_max"], "wp": wpw, "bound_ms": bw[0],
+                           "bound_by": bw[1]}
+            log(f"  B1 {name} ({times[name]['config']}, w_len {dw} in {wpw}, D {pl['d_max']}, "
+                f"32 x 800): {ms_w:.4f} ms, bound {bw[0]:.4f} ({bw[1]}; {bw[0] / ms_w:.1%})")
+            del f, wss
+    # Past its envelope (D > 256) the wrapper refuses before any launch.
+    for fields, kernels, dt in GL_REFUSED:
+        if "B1" not in kernels:
+            continue
+        dtype = {"bf16": torch.bfloat16, "f32": torch.float32}[dt]
+        ds = dataclasses.replace(Config().dataset, **fields)
+        f, g, pl, wss = inputs(ds, 2, 70, dtype, 90)
+        n0 = rp.reproject_frames.launches
+        try:
+            rp.reproject_frames(f, *g, wss)
+        except NotImplementedError as e:
+            log(f"  B1 refuses {fields} {dt} (w_len {pl['w_len']}, D {pl['d_max']}): "
+                f"{str(e)[:60]}...")
+        else:
+            raise AssertionError(f"reproject_frames took {fields} {dt}, D {pl['d_max']}")
+        if rp.reproject_frames.launches != n0:
+            raise AssertionError("reproject_frames counted a launch it refused")
     return {
         "name": "reproject_frames_pallas", "route": "cuda",
         "source": "sstts_torch/csrc/reproject.cu",
@@ -1849,9 +1960,10 @@ def check_reproject(dev):
 
 
 def check_gl_fused(dev):
-    """B5 against its plain version at the synthesis path's shapes, bf16:
-    the kernel's own function, and the whole iteration with the edge repair
-    (the same torch code on both sides)."""
+    """B5 against its function (`b5_reference`: the plain version with
+    GEMM1's sums exact) at the synthesis path's shapes, bf16: the kernel's
+    own function, and the whole iteration with the edge repair (the same
+    torch code on both sides)."""
     import torch
 
     from sstts_torch.dsp import gl_fused as gl
@@ -1872,7 +1984,7 @@ def check_gl_fused(dev):
         got = gl.gl_iteration(*core)
         whole = gl.fused_gl_iteration(*whole_args)
         with exact_f32(dev):
-            ref = gl.gl_iteration_plain(*core)
+            ref = b5_reference(*core)
             whole_ref, _ = gl._patch_edges(
                 ref.clone(), None,
                 lambda lo, hi: (gl._edge_frames(q, w_inv, w_len, hop, d_max, lo, hi)
@@ -2371,12 +2483,20 @@ def tiny_card_vs_cpu(tcfg) -> float:
 #: Phase 3h's cases, as (case, DatasetConfig fields, InferenceConfig fields):
 #: the settings the Griffin-Lim kernels took only through "split" before their
 #: wide configuration: a 24 kHz corpus at 50 / 12.5 ms, 44.1 kHz at n_fft 2048
-#: (a 2048-sample window, a 512-sample hop) and the f32 loop at the defaults.
+#: (a 2048-sample window, a 512-sample hop) and the f32 loop at the defaults;
+#: and 48 kHz at n_fft 4096 and 50 / 12.5 ms (a 2400-sample window, a
+#: 600-sample hop: 10 s of audio an utterance), which they refused before
+#: they lost their lane cap.
 GEOMETRY_CASES = [
     ("24kHz", DS_24K, {}),
     ("44kHz", DS_44K, {}),
     ("dft_highest", {}, {"griffin_lim_fft_impl": "dft_highest"}),
+    ("48kHz", DS_48K, {}),
 ]
+
+#: Phase 3h's fused-60 runs (B5), as (case of GEOMETRY_CASES, batches through
+#: `synthesize_stream` at depth 2).
+GEOMETRY_FUSED = [("24kHz", 2), ("48kHz", 1)]
 
 #: Phase 3h holds each case's audio at the default iteration ("semi": B2)
 #: to the same batch through "split" (B1) on the card, the prenet's dropout
@@ -2452,7 +2572,14 @@ def hold_recorded(kernel: str, seen: dict, case: str, dev) -> list:
             ref = gl.reproject_analyze_plain(*args[:9])
             pairs = [("q", out[0], ref[0]), ("s", out[1], ref[1])]
         else:
-            pairs = [("q", out, gl.gl_iteration_plain(*args[:8]))]
+            ref = b5_reference(*args[:8])
+            pairs = [("q", out, ref)]
+            # For the record: the plain version (GEMM1 in cuBLAS's f32
+            # order) against the kernel and against the exact sums.
+            plain = gl.gl_iteration_plain(*args[:8])
+            log(f"  B5 in-path-{case}: the plain version's f32 GEMM1 against the exact "
+                f"sums: differing {float((plain != ref).float().mean()):.2e}; the kernel "
+                f"against the plain version: differing {float((out != plain).float().mean()):.2e}")
     return [hold_gl(kernel, f"in-path-{case}-{n}", a, b) for n, a, b in pairs
             if a is not None]
 
@@ -2481,9 +2608,10 @@ def geometry_path(dev, card):
     at "auto" and at "split" against each other and against the control
     (`GEOMETRY_MAG_TOL`), its 31st B2 launch held to the plain version (and
     the control's refused by the same check); and
-    the serving path's fused-60 at 24 kHz through `synthesize_stream` (2
-    batches at depth 2: B5 60 a batch), then with the dropout off against
-    the 24 kHz "split" batch, its 31st B5 launch held likewise."""
+    the serving path's fused-60 at each of `GEOMETRY_FUSED` through
+    `synthesize_stream` (at depth 2: B5 60 a batch), then with the dropout
+    off against the case's "split" batch, its 31st B5 launch held
+    likewise."""
     import numpy as np
     import torch
 
@@ -2493,6 +2621,7 @@ def geometry_path(dev, card):
 
     texts = ["the quick brown fox jumps over the lazy dog " * 2] * 32
     result = {"cases": {}}
+    splits = {}
     totals = dict.fromkeys(kernel_wrappers(), 0)
 
     def counted(fn, expected_extra, what):
@@ -2549,8 +2678,7 @@ def geometry_path(dev, card):
             log(f"  {case}: the in-path check refuses the control's launch, as it must")
         else:
             raise AssertionError(f"{case}: the in-path check took the control's launch")
-        if case == "24kHz":
-            split_24k = (quiet, params, split)
+        splits[case] = (quiet, params, split)
         mag_rel = stft_mag_rel(auto, split, ds)
         control = stft_mag_rel(halo, split, ds)
         wav_rel = float(np.linalg.norm(np.stack(auto) - np.stack(split))
@@ -2569,36 +2697,38 @@ def geometry_path(dev, card):
                                  "control_vs_split_mag_rel_l2": control,
                                  "auto_vs_split_wav_rel_l2": wav_rel, "checks": checks}
 
-    base = bench_config()
-    cfg = with_inference(base.replace(dataset=dataclasses.replace(base.dataset, **DS_24K)),
-                         griffin_lim_iter_impl="fused")
-    params = init_state_dict(cfg.arch, cfg.dataset, seed=0)
-    synth = Synthesizer(cfg, params, seed=0)
-    synth.synthesize_batch(texts)  # warm-up
-    n_batches = 2
-    outs, wall, launches = counted(
-        lambda: list(synth.synthesize_stream([texts] * n_batches, depth=2)),
-        {"gru_sequence": 4 * n_batches, "fused_decode": n_batches,
-         "fused_gl_iteration": 60 * n_batches}, "fused-60 at 24 kHz")
-    frames = cfg.inference.max_decoder_steps * cfg.arch.reduction_factor
-    n_expected = (frames - 1) * cfg.dataset.hop_len
-    for wavs in outs:
-        if len(wavs) != 32 or any(w.shape != (n_expected,) or not np.isfinite(w).all()
-                                  for w in wavs):
-            raise AssertionError(f"fused-60 at 24 kHz: {[w.shape for w in wavs]}")
-    quiet, params, split = split_24k
-    fused, seen = vocode(with_inference(quiet, griffin_lim_iter_impl="fused"), params,
-                         "_fused_kernel", at=30)
-    checks = hold_recorded("B5", seen, "fused-24kHz", dev)
-    mag_rel = stft_mag_rel(fused, split, cfg.dataset)
-    tol = GEOMETRY_MAG_TOL["bf16"]
-    log(f"  fused-60/pcm16 at 24 kHz: {n_batches} batches in {wall:.4f} s, "
-        f"{wall / n_batches:.4f} s a batch; launches {launches}; 'fused' vs 'split' "
-        f"STFT-magnitude rel L2 {mag_rel:.3e} (tol {tol}) [{card}]")
-    if not mag_rel <= tol:
-        raise AssertionError(f"fused-60 at 24 kHz: fused vs split {mag_rel} > {tol}")
-    result["fused60_24kHz"] = {"batch_s": wall / n_batches, "launches": launches,
-                               "fused_vs_split_mag_rel_l2": mag_rel, "checks": checks}
+    for case, n_batches in GEOMETRY_FUSED:
+        ds_fields = next(f for c, f, _ in GEOMETRY_CASES if c == case)
+        base = bench_config()
+        cfg = with_inference(base.replace(dataset=dataclasses.replace(base.dataset,
+                                                                      **ds_fields)),
+                             griffin_lim_iter_impl="fused")
+        params = init_state_dict(cfg.arch, cfg.dataset, seed=0)
+        synth = Synthesizer(cfg, params, seed=0)
+        synth.synthesize_batch(texts)  # warm-up
+        outs, wall, launches = counted(
+            lambda: list(synth.synthesize_stream([texts] * n_batches, depth=2)),
+            {"gru_sequence": 4 * n_batches, "fused_decode": n_batches,
+             "fused_gl_iteration": 60 * n_batches}, f"fused-60 at {case}")
+        frames = cfg.inference.max_decoder_steps * cfg.arch.reduction_factor
+        n_expected = (frames - 1) * cfg.dataset.hop_len
+        for wavs in outs:
+            if len(wavs) != 32 or any(w.shape != (n_expected,) or not np.isfinite(w).all()
+                                      for w in wavs):
+                raise AssertionError(f"fused-60 at {case}: {[w.shape for w in wavs]}")
+        quiet, params, split = splits[case]
+        fused, seen = vocode(with_inference(quiet, griffin_lim_iter_impl="fused"), params,
+                             "_fused_kernel", at=30)
+        checks = hold_recorded("B5", seen, f"fused-{case}", dev)
+        mag_rel = stft_mag_rel(fused, split, cfg.dataset)
+        tol = GEOMETRY_MAG_TOL["bf16"]
+        log(f"  fused-60/pcm16 at {case}: {n_batches} batches in {wall:.4f} s, "
+            f"{wall / n_batches:.4f} s a batch; launches {launches}; 'fused' vs 'split' "
+            f"STFT-magnitude rel L2 {mag_rel:.3e} (tol {tol}) [{card}]")
+        if not mag_rel <= tol:
+            raise AssertionError(f"fused-60 at {case}: fused vs split {mag_rel} > {tol}")
+        result[f"fused60_{case}"] = {"batch_s": wall / n_batches, "launches": launches,
+                                     "fused_vs_split_mag_rel_l2": mag_rel, "checks": checks}
     result["launches"] = totals
     return result
 

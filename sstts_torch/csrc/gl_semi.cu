@@ -36,8 +36,9 @@
 
 // The kernel above is the whole-panel configuration: the bf16 loop at a
 // window support up to 1152 lanes and D <= 8.  gl_semi_wide_kernel below
-// runs gl_wide.cuh's wide configuration everywhere else inside n_fft <= 2048
-// and D <= 16, in bf16 or f32 (sstts_torch/dsp/gl_tiles.py:config chooses).
+// runs gl_wide.cuh's wide configuration everywhere else up to D = 128, at
+// any support and bin count, in bf16 or f32
+// (sstts_torch/dsp/gl_tiles.py:config chooses).
 //
 // Plain C interface (bound with ctypes); launch on the caller's stream,
 // return cudaGetLastError() (or a negative code when a tensor map cannot be
@@ -63,7 +64,7 @@ struct GlArgs {
   const bf16* w_fwd_t;  // (2 hp, wp): w_fwd transposed
   // The wide configuration (gl_wide.cuh) only; the whole-panel kernel reads
   // none of them.  With f32 set every tensor above but wss2d is f32.
-  void* slab;           // n_slabs x wide::slab_bytes(wp, elem, false)
+  void* slab;           // n_slabs x wide::slab_bytes(wp, elem, false, d_max)
   int n_slabs;
   int f32;
 };
@@ -102,25 +103,56 @@ gl_semi_kernel(const GlArgs p, __grid_constant__ const CUtensorMap map_w) {
 
 // The wide configuration (gl_wide.cuh): a persistent block walks work items of
 // 64 frames of one utterance: the panel from the frames (the loop dtype OT)
-// into its slab, then GEMM2 and the renorm a column tile at a time.
-template <typename OT, bool kMomentum>
+// into its slab, then GEMM2 (its sums in mode kSum, wide::gemm2_sum) and the
+// renorm a column tile at a time.
+template <typename OT, bool kMomentum, int kSum>
 __global__ void __launch_bounds__(wide::kThreads, 2)
 gl_semi_wide_kernel(const GlArgs p) {
   extern __shared__ __align__(128) unsigned char smem[];
   const OT* frames = reinterpret_cast<const OT*>(p.frames);
   OT* panel = reinterpret_cast<OT*>(static_cast<unsigned char*>(p.slab) +
-                                    blockIdx.x * wide::slab_bytes(p.wp, sizeof(OT), false));
+                                    blockIdx.x * wide::slab_bytes(p.wp, sizeof(OT), false,
+                                                                  p.d_max));
   const int n_rb = (p.T + wide::kRows - 1) / wide::kRows;
   for (int item = blockIdx.x; item < n_rb * p.Bt; item += gridDim.x) {
     const int t0 = item % n_rb * wide::kRows, bi = item / n_rb;
     const OT* f = frames + (size_t)bi * p.T * p.wp;
     wide::build_panel<OT>(p, panel, t0, [&](int u) { return f + (size_t)u * p.wp; });
-    wide::gemm2_renorm<kMomentum, OT>(p, smem, panel,
-                                      reinterpret_cast<const OT*>(p.w_fwd_t), t0, bi);
+    wide::gemm2_renorm<kMomentum, kSum, OT>(p, smem, panel,
+                                            reinterpret_cast<const OT*>(p.w_fwd_t), t0, bi);
   }
 }
 
-bool wide_ready[2][2];
+// The instances: the bf16 loop's GEMM2 chained or compensated, the f32 loop's
+// rounded; each with its attribute set once ([sum][momentum]).
+bool wide_ready[3][2];
+
+template <bool kMomentum>
+int blocks_per_sm_of(int f32) {
+  using wide::blocks_per_sm;
+  if (f32)
+    return blocks_per_sm(gl_semi_wide_kernel<float, kMomentum, wide::kRounded>,
+                         wide_ready[wide::kRounded][kMomentum]);
+  const int a = blocks_per_sm(gl_semi_wide_kernel<bf16, kMomentum, wide::kChained>,
+                              wide_ready[wide::kChained][kMomentum]);
+  const int b = blocks_per_sm(gl_semi_wide_kernel<bf16, kMomentum, wide::kCompensated>,
+                              wide_ready[wide::kCompensated][kMomentum]);
+  return a < b ? a : b;
+}
+
+template <bool kMomentum>
+int launch_wide(const GlArgs* a, int items, cudaStream_t st) {
+  const int sum = wide::gemm2_sum(a->f32 != 0, a->w_len);
+  bool& ready = wide_ready[sum][kMomentum];
+  if (sum == wide::kRounded)
+    return wide::launch(gl_semi_wide_kernel<float, kMomentum, wide::kRounded>, ready, items,
+                        a->n_slabs, st, *a);
+  if (sum == wide::kCompensated)
+    return wide::launch(gl_semi_wide_kernel<bf16, kMomentum, wide::kCompensated>, ready, items,
+                        a->n_slabs, st, *a);
+  return wide::launch(gl_semi_wide_kernel<bf16, kMomentum, wide::kChained>, ready, items,
+                      a->n_slabs, st, *a);
+}
 
 }  // namespace
 
@@ -156,34 +188,25 @@ int sstts_gl_semi(const GlArgs* a, void* stream) {
 }
 
 // The wide configuration: its shared memory, or -1 beyond its envelope
-// (d_max > 16 or a support above 2048 lanes).
+// (d_max > 128).
 int sstts_gl_semi_wide_smem_bytes(int w_len, int d_max) {
   return wide::smem_bytes(w_len, d_max);
 }
 
-// Blocks of the wide kernel an SM holds (the fewer of its classic and
-// momentum instances), or -1.
+// Blocks of the wide kernel an SM holds (the fewest of its instances for
+// the loop dtype), or -1.
 int sstts_gl_semi_wide_blocks_per_sm(int f32) {
-  const int a = f32 ? wide::blocks_per_sm(gl_semi_wide_kernel<float, false>, wide_ready[1][0])
-                    : wide::blocks_per_sm(gl_semi_wide_kernel<bf16, false>, wide_ready[0][0]);
-  const int b = f32 ? wide::blocks_per_sm(gl_semi_wide_kernel<float, true>, wide_ready[1][1])
-                    : wide::blocks_per_sm(gl_semi_wide_kernel<bf16, true>, wide_ready[0][1]);
+  const int a = blocks_per_sm_of<false>(f32), b = blocks_per_sm_of<true>(f32);
   return a < b ? a : b;
 }
 
 // Requires wp % 64 == 0, hp % 128 == 0, 16-byte aligned tensors,
 // 0 <= sstts_gl_semi_wide_smem_bytes(w_len, d_max), and a->n_slabs slabs of
-// wide::slab_bytes(wp, elem, false) bytes at a->slab.
+// wide::slab_bytes(wp, elem, false, d_max) bytes at a->slab.
 int sstts_gl_semi_wide(const GlArgs* a, void* stream) {
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int items = (a->T + wide::kRows - 1) / wide::kRows * a->Bt;
-  const bool m = a->prev != nullptr;
-  bool& ready = wide_ready[a->f32 != 0][m];
-  if (a->f32)
-    return wide::launch(m ? gl_semi_wide_kernel<float, true> : gl_semi_wide_kernel<float, false>,
-                        ready, items, a->n_slabs, st, *a);
-  return wide::launch(m ? gl_semi_wide_kernel<bf16, true> : gl_semi_wide_kernel<bf16, false>,
-                      ready, items, a->n_slabs, st, *a);
+  return a->prev ? launch_wide<true>(a, items, st) : launch_wide<false>(a, items, st);
 }
 
 const char* sstts_error_string(int code) { return tail_error_string(code); }

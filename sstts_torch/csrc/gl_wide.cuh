@@ -1,12 +1,15 @@
 // The wide configuration of the Griffin-Lim kernels B2 (gl_semi.cu) and B5
-// (gl_fused.cu): every geometry of a window of up to 2048 samples (n_fft up
-// to 2048) with up to 16 overlapping frames a side, in the bf16 loop and in
-// the f32 loop, momentum included (B2).  The wrappers take it where the
-// whole-panel configuration of gl_tail.cuh does not fit
+// (gl_fused.cu): every geometry of any window support and bin count (n_fft
+// 4096 at 44.1 and 48 kHz included) with up to 128 overlapping frames a side
+// (the reference kernels' BT_MAX), in the bf16 loop and in the f32 loop,
+// momentum included (B2).  The wrappers take it where the whole-panel
+// configuration of gl_tail.cuh does not fit
 // (sstts_torch/dsp/gl_tiles.py:config, a pure function of the geometry and
 // the loop dtype, chosen before any launch): a support above 1152 lanes (a
-// 24 kHz or 44.1 kHz window), more than 8 overlapping frames for B2 or 4 for
-// B5 (short hops), and the f32 loop.  It computes what gl_tail.cuh's tail
+// 24 kHz, 44.1 kHz or 48 kHz window), more than 8 overlapping frames for B2
+// or 4 for B5 (short hops), and the f32 loop.  Nothing here grows with the
+// support or the bins but the slabs in device memory (rows of wp values)
+// and the loops over K and over GEMM2's column tiles.  It computes what gl_tail.cuh's tail
 // computes, with the same sums in the same order:
 //   A[t, j] = OT( wss2d[t, j] * sum_{d=-D..D} F[t-d, j+d*hop] )  (d = 0 first),
 //   S = A @ w_fwd,  q' = renorm(S [+ momentum]),
@@ -42,8 +45,10 @@
 // GEMM2's column tile is 128 bins' real and imaginary columns, so a thread
 // holds re and im of the same bins and the renorm (and the momentum step)
 // happen in registers as in the whole-panel core.  B5's GEMM1 computes the
-// 64 + 2D <= 96 rows of F into the f32 part of the block's slab, 128 lanes a
-// column tile over K = 2 hp; the panel is built from there.
+// 64 + 2D rows of F into the f32 part of the block's slab, 128 lanes a
+// column tile over K = 2 hp, in passes of 96 rows (one pass up to D = 16;
+// the slab's f32 part holds the passes' rows, g1_rows(D)); the panel is
+// built from there.
 //
 // Bound, as gl_semi.cu and gl_fused.cu state: operations.  This
 // configuration is not the fast one: it runs where the whole-panel core
@@ -57,9 +62,8 @@ namespace wide {
 
 constexpr int kThreads = 256;                  // 8 warps: 2 x 4
 constexpr int kRows = 64;                      // frames a work item (GEMM2's rows)
-constexpr int kG1Rows = 96;                    // GEMM1's rows: 64 + 2 D, D <= 16
-constexpr int kMaxD = 16;
-constexpr int kMaxLanes = 2048;                // wp: a window of up to 2048 samples
+constexpr int kG1Rows = 96;                    // GEMM1's rows a pass: 64 + 2 D at D <= 16
+constexpr int kMaxD = 128;                     // the reference kernels' BT_MAX
 constexpr int kBins = 128;                     // bins of a GEMM2 column tile (re + im)
 constexpr int kLanes = 128;                    // lanes of a GEMM1 column tile
 constexpr int kKBytes = 64;                    // bytes of K of an operand row a stage
@@ -70,10 +74,16 @@ constexpr int kStageBytes = kStageRows * kRowBytes;
 constexpr int kSmemBytes = kStages * kStageBytes;
 constexpr int kKAlign = 32;                    // GEMM2's K: the support rounded up
 
-// Bytes of one block's slab: (B5) GEMM1's f32 frames, kG1Rows x wp, then the
-// panel, kRows x wp values of the loop dtype.
-inline __host__ __device__ size_t slab_bytes(int wp, int elem_bytes, bool fused) {
-  return (fused ? (size_t)kG1Rows * wp * 4 : 0) + (size_t)kRows * wp * elem_bytes;
+// B5's GEMM1 rows a slab holds: the 64 + 2 D frames of a work item rounded
+// up to whole passes of kG1Rows (kG1Rows up to D = 16).
+inline __host__ __device__ int g1_rows(int d_max) {
+  return (kRows + 2 * d_max + kG1Rows - 1) / kG1Rows * kG1Rows;
+}
+
+// Bytes of one block's slab: (B5) GEMM1's f32 frames, g1_rows(D) x wp, then
+// the panel, kRows x wp values of the loop dtype.
+inline __host__ __device__ size_t slab_bytes(int wp, int elem_bytes, bool fused, int d_max) {
+  return (fused ? (size_t)g1_rows(d_max) * wp * 4 : 0) + (size_t)kRows * wp * elem_bytes;
 }
 
 template <typename T> __device__ __forceinline__ float to_f32(T v);
@@ -109,27 +119,60 @@ __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
 // first row is at or past `rows_live` is not multiplied.  Every thread of the
 // block calls it; it returns with the ring free again.
 //
-// The tensor cores add an mma's products to its accumulator without rounding
-// to nearest (the low bits of the smaller addend are cut), and the cut grows
-// with the accumulator, so a sum over K chained through one accumulator
-// drifts by up to ~K x 2^-24 of its size: at 1101-2047 lanes the three tf32
-// products missed the f32 loop's 1e-5 relative L2 that way (PERF.md §6).
-// With kFresh (and always in f32) each k step's products go to a zeroed
-// accumulator and enter the sum by an f32 add, which rounds to nearest.
-template <typename OT, int MW, int NW, bool kFresh, typename ARow, typename BRow>
+// How the k steps enter the sums (kSum).  The tensor cores add an mma's
+// products to its accumulator without rounding to nearest (the low bits of
+// the smaller addend are cut), and the cut grows with the accumulator, so a
+// sum over K chained through one accumulator (kChained) drifts by up to ~K x
+// 2^-24 of its size: at 1101-2047 lanes the three tf32 products missed the
+// f32 loop's 1e-5 relative L2 that way (PERF.md §6).  kRounded gives each
+// k step's products a zeroed accumulator and adds them to the sum in f32,
+// rounding to nearest: the f32 loop, and B5's GEMM1.  The renorm divides by
+// |s|, so an output whose |s| is near 0 moves with the sum's last bits: at
+// 2399 lanes (48 kHz) B2's bf16 GEMM2 moved such outputs by up to 20 bf16
+// steps chained and 3.5 rounded (on an H100, PERF.md §6), where exact f32
+// sums move them by less than one; kCompensated adds each k step with
+// Kahan's compensation, which carries the bits each add loses (about twice
+// the time of kChained).
+// gemm2_sum picks the mode of GEMM2.
+enum { kChained = 0, kRounded = 1, kCompensated = 2 };
+constexpr int kChainedLanes = 2048;  // the bf16 GEMM2 sums chained up to this support
+
+inline __host__ __device__ int gemm2_sum(bool f32, int w_len) {
+  return f32 ? kRounded : (w_len > kChainedLanes ? kCompensated : kChained);
+}
+
+// acc += d, rounded to nearest, or with Kahan's compensation in cmp.
+template <int kSum>
+__device__ __forceinline__ void add_step(float (&acc)[4], float (&cmp)[4], const float (&d)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if constexpr (kSum == kCompensated) {
+      const float y = d[e] - cmp[e];
+      const float sum = acc[e] + y;
+      cmp[e] = (sum - acc[e]) - y;
+      acc[e] = sum;
+    } else {
+      acc[e] += d[e];
+    }
+  }
+}
+
+template <typename OT, int MW, int NW, int kSum, typename ARow, typename BRow>
 __device__ __forceinline__ void gemm(float (&acc)[MW][NW][4], unsigned char* smem, int K,
                                      int rows_live, ARow a_row, BRow b_row) {
   constexpr int KE = kKBytes / (int)sizeof(OT);  // values of K a stage
   constexpr int RA = 32 * MW, RB = 32 * NW;
   static_assert(RA + RB <= kStageRows, "a stage holds both operands' rows");
+  static_assert(sizeof(OT) == 2 || kSum != kChained, "the f32 loop's sums are rounded");
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
+  float cmp[MW][NW][4];  // Kahan's compensation (kCompensated only)
 #pragma unroll
   for (int mi = 0; mi < MW; ++mi)
 #pragma unroll
     for (int nt = 0; nt < NW; ++nt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[mi][nt][e] = 0.f, cmp[mi][nt][e] = 0.f;
   const void* any = b_row(0);  // a valid address for the zero-filled copies
   const int n_k = K / KE;
   auto load = [&](int kc) {
@@ -176,13 +219,12 @@ __device__ __forceinline__ void gemm(float (&acc)[MW][NW][4], unsigned char* sme
 #pragma unroll
           for (int mi = 0; mi < MW; ++mi)
             if (16 * MW * wm + 16 * mi < rows_live) {
-              if constexpr (kFresh) {
+              if constexpr (kSum == kChained) {
+                sm90::mma_bf16_16816(acc[mi][nt], a[mi], b0, b1);
+              } else {
                 float d[4] = {0.f, 0.f, 0.f, 0.f};
                 sm90::mma_bf16_16816(d, a[mi], b0, b1);
-#pragma unroll
-                for (int e = 0; e < 4; ++e) acc[mi][nt][e] += d[e];
-              } else {
-                sm90::mma_bf16_16816(acc[mi][nt], a[mi], b0, b1);
+                add_step<kSum>(acc[mi][nt], cmp[mi][nt], d);
               }
             }
         }
@@ -209,8 +251,7 @@ __device__ __forceinline__ void gemm(float (&acc)[MW][NW][4], unsigned char* sme
               sm90::mma_tf32_1688(d, al[mi], bh0, bh1);
               sm90::mma_tf32_1688(d, ah[mi], bl0, bl1);
               sm90::mma_tf32_1688(d, ah[mi], bh0, bh1);
-#pragma unroll
-              for (int e = 0; e < 4; ++e) acc[mi][nt][e] += d[e];
+              add_step<kSum>(acc[mi][nt], cmp[mi][nt], d);
             }
         }
       }
@@ -218,6 +259,14 @@ __device__ __forceinline__ void gemm(float (&acc)[MW][NW][4], unsigned char* sme
   }
   sm90::cp_async_wait<0>();
   __syncthreads();
+  if constexpr (kSum == kCompensated) {
+#pragma unroll
+    for (int mi = 0; mi < MW; ++mi)
+#pragma unroll
+      for (int nt = 0; nt < NW; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][nt][e] -= cmp[mi][nt][e];
+  }
 }
 
 // The panel for frames [t0, t0 + 64) into `panel` (64 rows of wp values of
@@ -253,8 +302,8 @@ __device__ __forceinline__ void build_panel(const Args& p, OT* panel, int t0, FR
 // tile in turn: S for bins [j0, j0 + 128) from the panel and w_fwd_t (2 hp, wp),
 // then q' (and, with momentum, s) stored.  Warp (wm, wn)'s column tile holds
 // the real columns of bins j0 + 32 wn .. + 32 in its n8 tiles 0..3 and their
-// imaginary columns in 4..7.
-template <bool kMomentum, typename OT, typename Args>
+// imaginary columns in 4..7.  kSum: the sums' mode (gemm2_sum).
+template <bool kMomentum, int kSum, typename OT, typename Args>
 __device__ __forceinline__ void gemm2_renorm(const Args& p, unsigned char* smem,
                                              const OT* panel, const OT* w_fwd_t, int t0,
                                              int bi) {
@@ -265,7 +314,7 @@ __device__ __forceinline__ void gemm2_renorm(const Args& p, unsigned char* smem,
   OT* q_out = reinterpret_cast<OT*>(p.q_out);
   for (int j0 = 0; j0 < p.hp; j0 += kBins) {
     float acc[2][8][4];
-    gemm<OT, 2, 8, false>(
+    gemm<OT, 2, 8, kSum>(
         acc, smem, round_up(p.w_len, kKAlign), kRows,
         [&](int r) -> const OT* { return panel + (size_t)r * p.wp; },
         [&](int c) -> const OT* {
@@ -307,45 +356,49 @@ __device__ __forceinline__ void gemm2_renorm(const Args& p, unsigned char* smem,
 }
 
 // B5's GEMM1 for frames [t0 - D, t0 + 64 + D) of utterance bi into `f`
-// (kG1Rows x wp f32; row n is frame t0 - D + n, zeros outside [0, T)):
+// (g1_rows(D) x wp f32; row n is frame t0 - D + n, zeros outside [0, T)):
 // F = q @ w_inv over K = 2 hp, from the transposed copy w_inv_t (wp, 2 hp),
-// lanes [0, wp) in column tiles of 128.  Its sums are rounded to nearest
-// (kFresh): in the bf16 loop each frame value is rounded to bf16 after the
-// shift-add, and a cut sum flips that rounding often enough to move whole
-// output rows (with cut sums, more than the 5% of outputs that may differ
-// by a bf16 step at D = 16).
+// lanes [0, wp) in column tiles of 128, each in passes of kG1Rows rows (one
+// pass up to D = 16; a later pass reads the tile's columns of w_inv again,
+// from L2).  Its sums are rounded to nearest (kRounded): in the bf16 loop
+// each frame value is rounded to bf16 after the shift-add, and a cut sum
+// flips that rounding often enough to move whole output rows (with cut
+// sums, more than the 5% of outputs that may differ by a bf16 step at D =
+// 16).
 template <typename OT, typename Args>
 __device__ __forceinline__ void gemm1(const Args& p, unsigned char* smem, const OT* q,
                                       const OT* w_inv_t, float* f, int t0, int bi) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int wm = warp >> 2, wn = warp & 3, g = lane >> 2, t = lane & 3;
   const int L = 2 * p.hp, rows = kRows + 2 * p.d_max;
-  for (int k0 = 0; k0 < p.w_len; k0 += kLanes) {
-    float acc[3][4][4];
-    gemm<OT, 3, 4, true>(
-        acc, smem, L, rows,
-        [&](int n) -> const OT* {
-          const int u = t0 - p.d_max + n;
-          return n < rows && u >= 0 && u < p.T ? q + ((size_t)bi * p.T + u) * L : nullptr;
-        },
-        [&](int c) -> const OT* {
-          return k0 + c < p.wp ? w_inv_t + (size_t)(k0 + c) * L : nullptr;
-        });
+  for (int k0 = 0; k0 < p.w_len; k0 += kLanes)
+    for (int n0 = 0; n0 < rows; n0 += kG1Rows) {
+      float acc[3][4][4];
+      gemm<OT, 3, 4, kRounded>(
+          acc, smem, L, rows - n0,
+          [&](int n) -> const OT* {
+            const int u = t0 - p.d_max + n0 + n;
+            return n0 + n < rows && u >= 0 && u < p.T ? q + ((size_t)bi * p.T + u) * L
+                                                      : nullptr;
+          },
+          [&](int c) -> const OT* {
+            return k0 + c < p.wp ? w_inv_t + (size_t)(k0 + c) * L : nullptr;
+          });
 #pragma unroll
-    for (int mi = 0; mi < 3; ++mi)
+      for (int mi = 0; mi < 3; ++mi)
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = 48 * wm + 16 * mi + g + 8 * h;
-        if (n >= rows) continue;
+        for (int h = 0; h < 2; ++h) {
+          const int n = n0 + 48 * wm + 16 * mi + g + 8 * h;
+          if (n >= rows) continue;
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int k = k0 + 32 * wn + 8 * nt + 2 * t;
-          if (k < p.wp)
-            *reinterpret_cast<float2*>(f + (size_t)n * p.wp + k) =
-                make_float2(acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]);
+          for (int nt = 0; nt < 4; ++nt) {
+            const int k = k0 + 32 * wn + 8 * nt + 2 * t;
+            if (k < p.wp)
+              *reinterpret_cast<float2*>(f + (size_t)n * p.wp + k) =
+                  make_float2(acc[mi][nt][2 * h], acc[mi][nt][2 * h + 1]);
+          }
         }
-      }
-  }
+    }
   __threadfence();  // F's stores before the panel's loads
   __syncthreads();
 }
@@ -385,9 +438,10 @@ inline int blocks_per_sm(void (*kernel)(KArgs...), bool& ready) {
   return n;
 }
 
-// Shared memory of a wide launch, or -1 beyond its envelope.
+// Shared memory of a wide launch (the same at any support), or -1 beyond
+// its envelope: more than kMaxD overlapping frames a side.
 inline int smem_bytes(int w_len, int d_max) {
-  return d_max <= kMaxD && round_up(w_len, kKAlign) <= kMaxLanes ? kSmemBytes : -1;
+  return w_len >= 1 && d_max >= 0 && d_max <= kMaxD ? kSmemBytes : -1;
 }
 
 }  // namespace wide

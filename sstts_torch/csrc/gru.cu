@@ -61,8 +61,9 @@
 //     * H from 138 to 522 (gru_fwd_wide): Wh no longer fits one SM (786 KB
 //       at H = 256, 3.1 MB at 512), so a thread-block cluster of C blocks
 //       runs a tile of Bt rows of the batch, Bt = ceil(B / the clusters of C
-//       the card holds), so that the whole batch runs in one wave (at B =
-//       32: C = 5, 8, 16 and Bt = 2, 3, 5 at H = 138, 256, 512).  Rank c
+//       the card holds, read from the card: wide_clusters), so that the
+//       whole batch runs in one wave (at B = 32 on an H100 SXM: C = 5, 8, 16
+//       and Bt = 2, 3, 5 at H = 138, 256, 512).  Rank c
 //       owns U = ceil(H / C) hidden units and keeps their 3U gate columns
 //       of Wh, transposed, in its shared memory (WideShape), and the tile's
 //       whole carry (Bt, H).  A step: the (Bt, H) x (H, 3U) product in f32
@@ -435,14 +436,19 @@ constexpr int kMaxCluster = 16;
 constexpr int kWideMaxRows = 8;    // batch rows of a cluster's tile, at most
 constexpr int kWideMaxSmem = 232448;  // a block's shared memory, the opt-in
 // More than half an SM's shared memory (228 KB, less 1 KB a block), so that
-// the card places one wide block on an SM, as kWideClusters counts them.
+// the card places one wide block on an SM, as wide_clusters counts them.
 constexpr int kWideMinSmem = 118784;
-// Clusters of C blocks, one block an SM, that an H100 SXM holds at once
-// (index C; cudaOccupancyMaxActiveClusters, which
-// sstts_gru_wide_active_clusters reads on the card).  A cluster takes
-// ceil(B / kWideClusters[C]) batch rows, so that the batch runs in one wave.
-constexpr int kWideClusters[kMaxCluster + 1] = {0, 132, 66, 39, 30, 22, 17, 15, 15,
-                                                9, 7,   7,  7,  7,  7,  7,  7};
+// The width at which wide_clusters asks the card: one block an SM at any
+// width and tile, so the count depends on C alone (and on which of the
+// card's TPCs are fused off: H100 SXM parts differ).
+constexpr int kWideProbeHidden = 138;
+
+// Clusters of C blocks, one block an SM, that this card holds at once: the
+// fewer of the wide forward's and backward's, read from the card
+// (cudaOccupancyMaxActiveClusters) once per device and C, at first use; 0
+// where the card holds none or the query fails.  A cluster takes ceil(B /
+// wide_clusters(C)) batch rows, so that the batch runs in one wave.
+int wide_clusters(int C);
 
 // The wide kernels' split of width H over a cluster of C blocks that runs a
 // tile of `rows` batch rows (see the header); rank c owns U = ceil(H / C)
@@ -490,10 +496,13 @@ struct WideShape {
 // The batch rows of a cluster's tile at (H, B) on clusters of C: enough for
 // the batch in one wave of the clusters the card holds, at most
 // kWideMaxRows, fewer where the forward's or the backward's block would not
-// fit; 0 where not one row fits.
+// fit (then the batch runs in more waves); 0 where not one row fits or the
+// card holds no cluster of C.
 int wide_rows(int H, int B, int C) {
   if (C < 2 || C > kMaxCluster || B < 1) return 0;
-  int rows = (B + kWideClusters[C] - 1) / kWideClusters[C];
+  const int held = wide_clusters(C);
+  if (held < 1) return 0;
+  int rows = (B + held - 1) / held;
   for (rows = rows < kWideMaxRows ? rows : kWideMaxRows; rows >= 1; --rows)
     if (WideShape(H, C, rows, 0).valid() && WideShape(H, C, rows, 1).valid()) return rows;
   return 0;
@@ -1582,6 +1591,46 @@ cudaError_t wide_config(Kernel kernel, int clusters, const WideShape& ws, cudaSt
   return cudaSuccess;
 }
 
+// How many clusters of the wide forward (backward: 1) kernel at width H,
+// cluster size C and a tile of `rows` batch rows the card holds at once, or
+// minus a CUDA error code.
+int active_clusters(int H, int C, int rows, int backward) {
+  if (rows < 1 || rows > kWideMaxRows) return -(int)cudaErrorInvalidValue;
+  const WideShape ws(H, C, rows, backward);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int clusters = 0;
+  cudaError_t err;
+  if (backward) {
+    err = wide_config(wide_bwd_kernel(rows), 1, ws, 0, &cfg, &attr);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&clusters, wide_bwd_kernel(rows), &cfg);
+  } else {
+    err = wide_config(wide_fwd_kernel(rows), 1, ws, 0, &cfg, &attr);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveClusters(&clusters, wide_fwd_kernel(rows), &cfg);
+  }
+  return err == cudaSuccess ? clusters : -(int)err;
+}
+
+constexpr int kMaxDevices = 64;
+
+int wide_clusters(int C) {
+  // 0: not read yet; -1: read, none held or the query failed.
+  static int held[kMaxDevices][kMaxCluster + 1];
+  int dev = 0;
+  if (C < 2 || C > kMaxCluster || cudaGetDevice(&dev) != cudaSuccess || dev < 0 ||
+      dev >= kMaxDevices)
+    return 0;
+  if (held[dev][C] == 0) {
+    const int f = active_clusters(kWideProbeHidden, C, 1, 0);
+    const int b = active_clusters(kWideProbeHidden, C, 1, 1);
+    const int n = f < b ? f : b;
+    held[dev][C] = n > 0 ? n : -1;
+  }
+  return held[dev][C] > 0 ? held[dev][C] : 0;
+}
+
 // Launches a wide kernel over the batch, ceil(B / rows) clusters; a cluster
 // that no part of the card can hold is refused here
 // (cudaErrorInvalidConfiguration), before the launch.
@@ -1677,23 +1726,12 @@ extern "C" {
 // cluster size C and a tile of `rows` batch rows the card holds at once, or
 // minus a CUDA error code.
 int sstts_gru_wide_active_clusters(int H, int C, int rows, int backward) {
-  if (rows < 1 || rows > kWideMaxRows) return -(int)cudaErrorInvalidValue;
-  const WideShape ws(H, C, rows, backward);
-  cudaLaunchConfig_t cfg;
-  cudaLaunchAttribute attr;
-  int clusters = 0;
-  cudaError_t err;
-  if (backward) {
-    err = wide_config(wide_bwd_kernel(rows), 1, ws, 0, &cfg, &attr);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(&clusters, wide_bwd_kernel(rows), &cfg);
-  } else {
-    err = wide_config(wide_fwd_kernel(rows), 1, ws, 0, &cfg, &attr);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveClusters(&clusters, wide_fwd_kernel(rows), &cfg);
-  }
-  return err == cudaSuccess ? clusters : -(int)err;
+  return active_clusters(H, C, rows, backward);
 }
+
+// The clusters of C the wide rule divides the batch by on this card
+// (wide_clusters: read once per device and C), or 0.
+int sstts_gru_wide_clusters(int C) { return wide_clusters(C); }
 
 // How many blocks of the grid kind's forward (backward: 1) at width H the
 // card holds at once (a cooperative launch needs NB), or minus a CUDA error

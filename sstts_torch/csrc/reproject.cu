@@ -396,8 +396,10 @@ __global__ void __launch_bounds__(kMaxThreads) reproject_kernel(const ReprojectA
 
 // The direct configuration, for the shapes whose 2 D + kRows input rows no
 // ring in shared memory holds (f32 rows of 2048 lanes at D >= 13: a 2048-
-// sample window with a hop below 158 samples): the same function, sums and
-// grid, with every term read from device memory (L2) and no shared memory.
+// sample window with a hop below 158 samples; bf16 rows of 1152 lanes past
+// D = 48; any width past D = 256 is refused by the wrapper, the reference
+// kernel's bound): the same function, sums and grid, at any width and D,
+// with every term read from device memory (L2) and no shared memory.
 // A thread takes the block's elements kDirectThreads apart, adds the terms in
 // the same order, scales and casts; then the strip's mirror runs as above.
 constexpr int kDirectThreads = 256;

@@ -28,8 +28,9 @@ Both kernels take the loop dtype of their inputs, bf16 or f32, and come in
 two tile configurations that `gl_tiles.config` picks from the geometry and
 the dtype before anything is launched: the whole panel (bf16, the default
 geometry and the 16 kHz one) and the wide one (`csrc/gl_wide.cuh`:
-everything else inside n_fft <= 2048 and D <= 16; the f32 loop as three tf32
-products).  Beyond both they raise NotImplementedError.  They read their
+everything else up to D = 128 overlapping frames a side, at any support and
+bin count; the f32 loop as three tf32 products).  Past D = 128 (the
+reference kernels' bound) they raise NotImplementedError.  They read their
 weight matrices K-major (`gl_tiles.k_major`: the transposed, contiguous
 copy); the Griffin-Lim loop makes those copies once per call and passes
 them (`w_fwd_t`, `w_inv_t`), a lone call makes them itself.  The whole
@@ -147,7 +148,7 @@ def _loop_dtype(kernel, *tensors) -> torch.dtype:
     return dtypes.pop()
 
 
-#: (kernel, device index, stream, wp, elem bytes) -> the wide configuration's
+#: (kernel, device index, stream, wp, elem bytes, B5's GEMM1 rows) -> the wide configuration's
 #: slabs: one per block the card holds at once (a persistent grid, block b
 #: on slab b), kept between launches.  Launches on one stream run one after
 #: another and share them; two streams could run at once, so each has its
@@ -155,19 +156,22 @@ def _loop_dtype(kernel, *tensors) -> torch.dtype:
 _wide_slabs = {}
 
 
-def wide_scratch(lib, kernel: str, device: torch.device, wp: int, elem_bytes: int):
+def wide_scratch(lib, kernel: str, device: torch.device, wp: int, elem_bytes: int,
+                 d_max: int):
     """(slabs, count) of `device` and its current stream for the wide
     configuration of `kernel` ("gl_semi" or "gl_fused") at rows of `wp`
-    lanes."""
+    lanes and `d_max` overlapping frames a side (B5's slab holds GEMM1's
+    64 + 2 D rows, `gl_tiles.wide_g1_rows`)."""
     index = device.index if device.index is not None else torch.cuda.current_device()
     stream = torch.cuda.current_stream(index).cuda_stream
-    key = (kernel, index, stream, wp, elem_bytes)
+    fused = kernel == "gl_fused"
+    key = (kernel, index, stream, wp, elem_bytes, gl_tiles.wide_g1_rows(d_max) if fused else 0)
     if key not in _wide_slabs:
         per_sm = getattr(lib, f"sstts_{kernel}_wide_blocks_per_sm")(int(elem_bytes == 4))
         if per_sm < 1:
             raise RuntimeError(f"{kernel} wide kernel: no block fits an SM ({per_sm})")
         n = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
-        size = gl_tiles.wide_slab_bytes(wp, elem_bytes, kernel == "gl_fused")
+        size = gl_tiles.wide_slab_bytes(wp, elem_bytes, fused, d_max)
         _wide_slabs[key] = (torch.empty(n, size, dtype=torch.uint8, device=device), n)
     return _wide_slabs[key]
 
@@ -202,7 +206,7 @@ def _kernel(frames, mag2, w_fwd, wss2d, w_len, hop, d_max, prev, momentum,
     q = torch.empty_like(mag2)
     s = None if prev is None else torch.empty_like(mag2)
     slabs, n_slabs = (
-        wide_scratch(lib, "gl_semi", frames.device, wp, frames.element_size())
+        wide_scratch(lib, "gl_semi", frames.device, wp, frames.element_size(), d_max)
         if cfg == "wide" else (None, 0)
     )
     args = _GlArgs(
@@ -448,7 +452,8 @@ def _fused_kernel(q, mag2, w_inv, w_fwd, wss2d, w_len, hop, d_max,
     wss2d = wss2d.float().contiguous()
     _aligned(q, mag2, w_inv_t, w_fwd_t, wss2d)
     if cfg == "wide":
-        scratch, n_slabs = wide_scratch(lib, "gl_fused", q.device, wp, q.element_size())
+        scratch, n_slabs = wide_scratch(lib, "gl_fused", q.device, wp, q.element_size(),
+                                        d_max)
         flags = None
     else:
         scratch, flags = fused_scratch(q.device, wp)

@@ -11,8 +11,14 @@ or launched:
 - "wide" (`csrc/gl_wide.cuh`): the panel built once per 64 frames into a
   slab of device memory that stays in L2 and streamed back for each of
   GEMM2's column tiles, mma.sync, bf16 or f32 (three tf32 products).
-  Shared memory does not grow with the support; every geometry of
-  n_fft <= 2048 (wp <= 2048, 2 hp <= 2304) with D <= 16.
+  Shared memory does not grow with the support or the bins: any window
+  support and bin count (n_fft 4096 at 44.1 and 48 kHz included) with D
+  <= 128, the reference kernels' bound (`sstts/dsp/gl_fused.py`'s BT_MAX:
+  their halo comes from one neighbouring block of at most 128 frames).
+  B5's GEMM1 runs in passes of 96 rows past D = 16.  What grows with the
+  geometry is the slabs in device memory (one a resident block,
+  `wide_slab_bytes`: 3.7 MB at wp 2048 and D = 128 in f32), which the
+  card's memory bounds and nothing else.
 
 Beyond both, the wrappers raise NotImplementedError by name.  The tile
 constants of the sources, the shared-memory and scratch reckoning built on
@@ -121,9 +127,8 @@ def check_shapes(kernel: str, wp: int, hp: int, w_len: int, d_max: int,
 #: Mirrors of the constants in csrc/gl_wide.cuh (namespace wide).
 WIDE_THREADS = 256
 WIDE_ROWS = 64  # frames a work item: GEMM2's rows
-WIDE_G1_ROWS = 96  # B5's GEMM1 rows: 64 + 2 D
-WIDE_MAX_D = 16
-WIDE_MAX_LANES = 2048  # wp: a window of up to 2048 samples
+WIDE_G1_ROWS = 96  # B5's GEMM1 rows a pass: 64 + 2 D at D <= 16
+WIDE_MAX_D = 128  # the reference kernels' BT_MAX (sstts/dsp/gl_fused.py)
 WIDE_BINS = 128  # bins of a GEMM2 column tile (their re and im columns)
 WIDE_LANES = 128  # lanes of a GEMM1 column tile
 WIDE_K_BYTES = 64  # bytes of K of an operand row a ring stage
@@ -132,12 +137,10 @@ WIDE_STAGE_ROWS = WIDE_ROWS + 2 * WIDE_BINS
 WIDE_STAGES = 3
 WIDE_SMEM = WIDE_STAGES * WIDE_STAGE_ROWS * WIDE_ROW_BYTES
 WIDE_K_ALIGN = 32
-
-#: The envelope both configurations cover together: n_fft <= 2048, i.e. a
-#: window of up to 2048 samples (wp <= 2048) and up to 1025 bins (hp <=
-#: 1152: the f32 loop's unpacked 1025 rounded up to 128), D <= 16.
-MAX_HP = 1152
-
+#: The bf16 GEMM2's sums are chained through the tensor cores' accumulator
+#: up to this window support and compensated (Kahan) past it; the f32 loop's
+#: are rounded to nearest step by step (`gemm2_sum` in gl_wide.cuh).
+WIDE_CHAINED_LANES = 2048
 
 def _check_layout(kernel: str, wp: int, hp: int, w_len: int) -> None:
     if wp % BK or hp % (2 * BN) or w_len > wp:
@@ -149,17 +152,34 @@ def _check_layout(kernel: str, wp: int, hp: int, w_len: int) -> None:
 
 def wide_smem_bytes(w_len: int, d_max: int) -> int:
     """Dynamic shared memory of a wide launch (the same for B2 and B5, bf16
-    and f32), or -1 beyond its envelope; `sstts_gl_*_wide_smem_bytes`."""
-    if d_max <= WIDE_MAX_D and round_up(w_len, WIDE_K_ALIGN) <= WIDE_MAX_LANES:
+    and f32, at any support), or -1 beyond its envelope (D > WIDE_MAX_D);
+    `sstts_gl_*_wide_smem_bytes`."""
+    if w_len >= 1 and 0 <= d_max <= WIDE_MAX_D:
         return WIDE_SMEM
     return -1
 
 
-def wide_slab_bytes(wp: int, elem_bytes: int, fused: bool) -> int:
+def wide_g1_rows(d_max: int) -> int:
+    """B5's GEMM1 rows a wide slab holds (`g1_rows` in gl_wide.cuh): a work
+    item's 64 + 2 D frames rounded up to whole passes of WIDE_G1_ROWS."""
+    return round_up(WIDE_ROWS + 2 * d_max, WIDE_G1_ROWS)
+
+
+def wide_slab_bytes(wp: int, elem_bytes: int, fused: bool, d_max: int) -> int:
     """Bytes of one block's slab in the wide configuration (`slab_bytes` in
-    gl_wide.cuh): B5's GEMM1 frames (WIDE_G1_ROWS x wp f32), then the panel
-    (WIDE_ROWS x wp values of the loop dtype)."""
-    return (WIDE_G1_ROWS * wp * 4 if fused else 0) + WIDE_ROWS * wp * elem_bytes
+    gl_wide.cuh): B5's GEMM1 frames (`wide_g1_rows(D)` x wp f32), then the
+    panel (WIDE_ROWS x wp values of the loop dtype)."""
+    return (wide_g1_rows(d_max) * wp * 4 if fused else 0) + WIDE_ROWS * wp * elem_bytes
+
+
+def wide_sum(w_len: int, dtype: torch.dtype) -> str:
+    """How the wide configuration's GEMM2 adds its k steps (`gemm2_sum`):
+    "rounded" in the f32 loop, in bf16 "chained" up to WIDE_CHAINED_LANES
+    lanes of support and "compensated" past them, where chained sums moved
+    outputs of near-zero |s| by many bf16 steps (48 kHz)."""
+    if dtype == torch.float32:
+        return "rounded"
+    return "compensated" if w_len > WIDE_CHAINED_LANES else "chained"
 
 
 def panel_fits(wp: int, hp: int, w_len: int, d_max: int, fused: bool,
@@ -175,21 +195,21 @@ def panel_fits(wp: int, hp: int, w_len: int, d_max: int, fused: bool,
 def config(kernel: str, wp: int, hp: int, w_len: int, d_max: int, fused: bool,
            dtype: torch.dtype):
     """("panel" or "wide", shared memory a launch): the panel configuration
-    where it fits, else the wide one inside the envelope (n_fft <= 2048,
-    D <= 16); NotImplementedError beyond it, ValueError for a layout the
-    kernels never take."""
+    where it fits, else the wide one inside the envelope (any support and
+    bin count, D <= WIDE_MAX_D = 128); NotImplementedError beyond it,
+    ValueError for a layout the kernels never take."""
     _check_layout(kernel, wp, hp, w_len)
     if dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"{kernel} kernel: loop dtype {dtype}")
     if panel_fits(wp, hp, w_len, d_max, fused, dtype):
         return "panel", tail_smem_bytes(w_len)
     smem = wide_smem_bytes(w_len, d_max)
-    if smem < 0 or wp > WIDE_MAX_LANES or hp > MAX_HP:
+    if smem < 0:
         raise NotImplementedError(
-            f"{kernel} kernel takes n_fft <= 2048 (a window of up to "
-            f"{WIDE_MAX_LANES} samples, 2 hp <= {2 * MAX_HP}) with at most "
-            f"{WIDE_MAX_D} overlapping frames a side: wp {wp}, w_len {w_len}, "
-            f"hp {hp}, d_max {d_max}; iter_impl='split' takes it where kernel B1's ring fits"
+            f"{kernel} kernel takes at most {WIDE_MAX_D} overlapping frames a side "
+            f"(the reference kernels' BT_MAX: their halo comes from one neighbouring "
+            f"block of at most {WIDE_MAX_D} frames): d_max {d_max} (wp {wp}, w_len "
+            f"{w_len}, hp {hp}); iter_impl='split' takes up to 256 (kernel B1)"
         )
     return "wide", smem
 

@@ -18,10 +18,12 @@ f32.  Every iteration of the JAX package runs:
 
 "auto" is "semi" on every device: on the CPU the JAX package would pick
 "split", but the port keeps one default path whose kernel the card runs.
-On the card B2 and B5 take both loop dtypes and every geometry of n_fft
-<= 2048 with at most 16 overlapping frames a side (`kernel_config`: their
-whole-panel configuration where it fits, the wide one elsewhere); beyond
-that they raise NotImplementedError before anything is launched.
+On the card B2 and B5 take both loop dtypes and every geometry with at
+most 128 overlapping frames a side, at any window support and bin count
+(n_fft 4096 at 44.1 and 48 kHz included; `kernel_config`: their
+whole-panel configuration where it fits, the wide one elsewhere), as the
+reference's kernels do; beyond that they raise NotImplementedError before
+anything is launched ("split", kernel B1, takes up to 256).
 "xla"/"default" run the complex
 loop over the centred STFT with `torch.fft`, "ct_matmul" with the
 four-step matmul FFT (`dsp/fft.py`, full f32).
@@ -106,8 +108,8 @@ def kernel_config(iter_impl: str, n_fft: int, hop_length: int, win_length: int,
     card for this geometry and loop ("panel" or "wide",
     `gl_tiles.config`), or None where neither runs (another iteration or
     transform, or not CUDA).  Raises NotImplementedError, before anything
-    is launched, for a geometry beyond both: n_fft above 2048 or more than
-    16 overlapping frames a side."""
+    is launched, for a geometry beyond both: more than 128 overlapping
+    frames a side (`gl_tiles.WIDE_MAX_D`, the reference kernels' bound)."""
     if (torch.device(device).type != "cuda" or iter_impl not in ("semi", "fused")
             or fft_impl not in _LOOP_DTYPE):
         return None

@@ -19,9 +19,10 @@ made once a geometry); the JAX package applies them in XLA after its
 kernel.  The host picks the kernel's ring (`ring_config`) and its strips of
 rows (`strip_count`: about one wave of blocks, and every mirror run inside
 the strip of the block that applies it).  Where no ring fits shared memory
-(f32 rows of 2048 lanes at D >= 13) inside every geometry B2 and B5 take,
-the same launch runs the direct configuration, whose terms come from L2
-(`config`).
+(f32 rows of 2048 lanes at D >= 13, bf16 rows of 1152 lanes past D =
+48), the same launch runs the direct configuration, whose terms come from
+L2 (`config`), at any width, up to D = 256 (`MAX_D`, the reference
+kernel's bound); past it `config` raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -226,11 +227,12 @@ _SIGNATURES = {
     "sstts_reproject_direct_blocks_per_sm": ([ctypes.c_int], ctypes.c_int),
 }
 
-#: The direct configuration (terms read from L2, no ring) takes the shapes
-#: no ring holds up to these: every Griffin-Lim geometry of n_fft <= 2048
-#: with at most 16 overlapping frames a side, which B2 and B5 take too.
-DIRECT_MAX_LANES = 2048
-DIRECT_MAX_D = 16
+#: The most overlapping frames a side the kernel takes, in either
+#: configuration: the reference kernel's (`sstts/dsp/reproject.py`'s
+#: `_pick_block` blocks of at most 256 frames, whose halo comes from one
+#: neighbouring block).  The direct configuration (terms read from L2, no
+#: ring) takes every shape no ring holds up to it, at any width.
+MAX_D = 256
 
 #: A ring stage holds the fewest rows (a power of two) that make at least
 #: this many bytes: one bulk copy and one barrier a stage.
@@ -335,14 +337,18 @@ def run_table(runs: tuple, device: torch.device) -> torch.Tensor:
 
 def config(smem_bytes, wp: int, elem_bytes: int, d_max: int, rows: int):
     """(G, NS) of the ring (`ring_config`), or None for the direct
-    configuration where no ring fits and the shape is inside
-    DIRECT_MAX_LANES and DIRECT_MAX_D; NotImplementedError beyond both."""
+    configuration where no ring fits; NotImplementedError past MAX_D
+    overlapping frames a side, whichever would take it."""
+    if d_max > MAX_D:
+        raise NotImplementedError(
+            f"reproject_frames kernel takes at most {MAX_D} overlapping frames a side (the "
+            f"reference kernel's bound: its halo comes from one neighbouring block of at most "
+            f"{MAX_D} frames): d_max {d_max} (wp {wp})"
+        )
     try:
         return ring_config(smem_bytes, wp, elem_bytes, d_max, rows)[:2]
     except NotImplementedError:
-        if wp <= DIRECT_MAX_LANES and d_max <= DIRECT_MAX_D:
-            return None
-        raise
+        return None
 
 
 @functools.lru_cache(maxsize=64)
@@ -369,9 +375,8 @@ def launch(lib, f3, wss2d, w_len, hop, d_max, runs):
     """Launch `lib`'s kernel B1 (`library()`, or another `bind`-ed build) on
     f3 (Bt, T, wp) bf16 or f32, wp a multiple of 8, with its mirror runs
     `runs` (`band_plan`'s); returns the reprojected frames.  The ring
-    kernel where its ring fits shared memory, else the direct one inside
-    DIRECT_MAX_LANES and DIRECT_MAX_D (`config`); NotImplementedError,
-    before any launch, beyond both."""
+    kernel where its ring fits shared memory, else the direct one
+    (`config`); NotImplementedError, before any launch, past MAX_D."""
     if f3.dtype not in (torch.bfloat16, torch.float32):
         raise NotImplementedError(f"reproject_frames kernel: dtype {f3.dtype}")
     bt, n_frames, wp = f3.shape

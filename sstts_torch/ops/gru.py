@@ -14,9 +14,11 @@ the default `Config()`, kernels that hold Wh in registers; at any other H up
 to 137, generic kernels that hold Wh in one block's shared memory; past
 137, wide kernels that split Wh over a thread-block cluster of C blocks
 running a tile of Bt batch rows (`wide_shape`, `wide_rows`: Bt = ceil(B /
-the clusters of C the card holds, `WIDE_CLUSTERS`), so that the batch runs
-in one wave; C the smallest up to 16, of at most `WIDE_UNITS` = 32 units a
-rank where 16 ranks allow it, whose block holds the rows that B = 32 needs),
+the clusters of C the card holds, `wide_clusters`: read from the card,
+`WIDE_CLUSTERS` on the CPU), so that the batch runs in one wave where the
+block holds those rows; C the smallest up to 16, of at most `WIDE_UNITS` =
+32 units a rank where 16 ranks allow it, whose block holds the rows that B
+= 32 needs),
 up to 522; from `GRID_MIN_HIDDEN` = 523, where no cluster's
 block holds them, to `MAX_HIDDEN` = 5456, the grid kind: one cooperative
 grid of up to 132 blocks a direction, each owning U units of every
@@ -63,6 +65,7 @@ SIGNATURES = {
     "sstts_gru_wide_smem_bytes": ([_I] * 4, _I),
     "sstts_gru_wide_threads": ([_I] * 4, _I),
     "sstts_gru_wide_active_clusters": ([_I] * 4, _I),
+    "sstts_gru_wide_clusters": ([_I], _I),
     "sstts_gru_grid_smem_bytes": ([_I] * 2, _I),
     "sstts_gru_grid_resident": ([_I] * 2, _I),
     "sstts_gru_grid_exchange_floats": ([_I] * 3, ctypes.c_longlong),
@@ -81,9 +84,17 @@ KIND_GENERIC, KIND_H128, KIND_WIDE, KIND_GRID = 0, 1, 2, 4
 #: memory a block asks for (past half an SM's: one block an SM).
 WIDE_THREADS, MAX_CLUSTER, WIDE_MAX_ROWS, WIDE_MIN_SMEM = 512, 16, 8, 118784
 
-#: kWideClusters: clusters of C blocks, one block an SM, that an H100 SXM
-#: holds at once (index C; `chip_smoke.py` holds the card to it).
+#: The H100 SXM's reference count of clusters of C blocks, one block an SM,
+#: that it holds at once (index C; read on an H100 80GB HBM3 with
+#: `cudaOccupancyMaxActiveClusters`): the CPU's model of the wide rule, and
+#: what `kernel_config` picks the cluster size by.  On the card the library
+#: and `wide_clusters` read the card's own counts instead: parts differ in
+#: which TPCs are fused off.
 WIDE_CLUSTERS = (0, 132, 66, 39, 30, 22, 17, 15, 15, 9, 7, 7, 7, 7, 7, 7, 7)
+
+#: The width at which the card is asked for its clusters (kWideProbeHidden
+#: in csrc/gru.cu): one block an SM at any width, so C alone sets the count.
+WIDE_PROBE_HIDDEN = 138
 
 #: The batch the wide kind's cluster size is chosen for: the model's (a
 #: training batch and a synthesis batch at the default `Config()`).
@@ -169,15 +180,43 @@ def _wide_shape_of(hidden: int, cluster: int, rows: int, backward: bool) -> dict
     return ws
 
 
-def wide_rows(hidden: int, batch: int, cluster: int) -> int:
+#: (device index, C) -> clusters of C the card holds at once (`wide_clusters`).
+_held_clusters = {}
+
+
+def wide_clusters(cluster: int, device="cpu") -> int:
+    """The clusters of C blocks that `device` holds at once, which the wide
+    rule divides the batch by: on the CPU the H100 SXM's reference count
+    (`WIDE_CLUSTERS`); on a CUDA device the card's own, the fewer of the
+    wide forward's and backward's (`sstts_gru_wide_clusters`, the count
+    the library launches by), read once per device and C.  0 where the
+    card holds no cluster of C."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return WIDE_CLUSTERS[cluster]
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    key = (index, cluster)
+    if key not in _held_clusters:
+        with torch.cuda.device(index):
+            _held_clusters[key] = max(0, build.load("gru", SIGNATURES).sstts_gru_wide_clusters(
+                cluster))
+    return _held_clusters[key]
+
+
+def wide_rows(hidden: int, batch: int, cluster: int, clusters: Optional[int] = None) -> int:
     """The batch rows of a wide cluster's tile at (H, B) on clusters of C,
-    as `sstts_gru_wide_rows` counts them: ceil(B / WIDE_CLUSTERS[C]), so
-    that the batch runs in one wave of the clusters the card holds, at most
-    WIDE_MAX_ROWS, fewer where the forward's or the backward's block would
-    not fit (`wide_shape`); 0 where not one row fits."""
+    as `sstts_gru_wide_rows` counts them: ceil(B / the clusters of C the
+    card holds), `clusters` (`wide_clusters(C, device)`; by default the
+    CPU's reference count, `WIDE_CLUSTERS[C]`), so that the batch runs in
+    one wave, at most WIDE_MAX_ROWS, fewer where the forward's or the
+    backward's block would not fit (`wide_shape`; then the batch takes more
+    waves); 0 where not one row fits or the card holds no cluster of C."""
     if not 2 <= cluster <= MAX_CLUSTER or batch < 1:
         return 0
-    rows = min(-(-batch // WIDE_CLUSTERS[cluster]), WIDE_MAX_ROWS)
+    held = WIDE_CLUSTERS[cluster] if clusters is None else clusters
+    if held < 1:
+        return 0
+    rows = min(-(-batch // held), WIDE_MAX_ROWS)
     for rows in range(rows, 0, -1):
         if all(wide_shape(hidden, cluster, rows, b)["valid"] for b in (False, True)):
             return rows

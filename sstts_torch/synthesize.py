@@ -99,8 +99,10 @@ def check_supported(cfg: Config, device: torch.device) -> str:
     `sstts_torch.ops.decoder.resolve_decoder_impl`).  Every architecture the
     reference's model accepts is accepted; on the card a BiGRU wider than
     B3 takes (H above 5456, `ops/gru.py:MAX_HIDDEN`) and a Griffin-Lim
-    geometry beyond B2's and B5's (n_fft above 2048, more than 16
-    overlapping frames a side) raise NotImplementedError."""
+    geometry beyond B2's and B5's (more than 128 overlapping frames a side,
+    the reference kernels' bound; they take any window support and bin
+    count, n_fft 4096 at 44.1 and 48 kHz included) raise
+    NotImplementedError."""
     a, inf = cfg.arch, cfg.inference
     if inf.wire_format not in dsp_ops.WIRE_FORMATS:
         raise ValueError(

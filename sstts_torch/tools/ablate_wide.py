@@ -10,10 +10,10 @@ together, into a temporary directory:
 - "unroll 1", "unroll 2": the product's loop over float4 quads not
   unrolled (the first build), or unrolled by 2 (the source: by 4, so that
   the next quads' loads issue before this one's FMAs);
-- "one row": every cluster takes one sequence (the table of clusters the
-  card holds set to 132 for every C, so a tile is one row and B = 32 runs
-  in as many waves as the card needs: the first design's mapping, with
-  this design's product);
+- "one row": every cluster takes one sequence (the rule's tile cut to one
+  row whatever the clusters the card holds, so B = 32 runs in as many
+  waves as the card needs: the first design's mapping, with this design's
+  product);
 - "no-fma": the product's FMAs left out (the gates read stale sums: the
   outputs are wrong; what is left of a step is timed);
 - "no-push": the carry's (forward) and the partial dh_prev's (backward)
@@ -59,11 +59,7 @@ def _replace(src: str, old: str, new: str, count: int = 1) -> str:
 
 
 def _one_row(src: str) -> str:
-    old = re.search(r"constexpr int kWideClusters\[kMaxCluster \+ 1\] = \{[^}]*\};", src)
-    if old is None:
-        raise RuntimeError("ablate_wide: gru.cu no longer holds kWideClusters")
-    table = ", ".join(["0"] + ["132"] * gru.MAX_CLUSTER)
-    return _replace(src, old.group(0), f"constexpr int kWideClusters[kMaxCluster + 1] = {{{table}}};")
+    return _replace(src, "  int rows = (B + held - 1) / held;\n", "  int rows = 1;\n")
 
 
 def _no_fma(src: str) -> str:
@@ -183,7 +179,7 @@ def _configs(libs, H, B):
     kind, rule_c = gru.kernel_config(H)
     out = []
     for c in range(2, gru.MAX_CLUSTER + 1):
-        rows = gru.wide_rows(H, B, c)
+        rows = gru.wide_rows(H, B, c, gru.wide_clusters(c, "cuda"))
         if rows:
             mark = " (the rule's)" if kind == gru.KIND_WIDE and c == rule_c else ""
             out += [(f"{name} C={c} rows={rows}{mark}", libs[name], gru.KIND_WIDE, c)
@@ -212,8 +208,8 @@ def main() -> None:
         lib = libs["as built"]
         for c in range(2, gru.MAX_CLUSTER + 1):  # one block an SM at any H and tile
             occupancy[c] = [lib.sstts_gru_wide_active_clusters(138, c, 1, b) for b in (0, 1)]
-        print(f"clusters of C the card holds at once (forward, backward; the table: "
-              f"{list(gru.WIDE_CLUSTERS)}): {occupancy}", flush=True)
+        print(f"clusters of C the card holds at once (forward, backward; the H100 SXM's "
+              f"reference table: {list(gru.WIDE_CLUSTERS)}): {occupancy}", flush=True)
         for H in args.widths:
             x = _inputs(dev, 32, 800, H, H, seed=3)
             ref, gates, hprev = gru.gru_sequence_forward_plain(x["xs"], x["wx"], x["wh"], x["b"],

@@ -22,8 +22,10 @@ from sstts_torch.dsp.reproject import band_plan, padded_wss2d
 
 #: name -> (n_fft, hop, window) of the dataset settings the kernels take:
 #: the defaults (22.05 kHz, 50 / 12.5 ms), 16 kHz at n_fft 1024, 24 kHz at
-#: 50 / 12.5 ms, 22.05 kHz at hops of 10, 5 and 3 ms, and 44.1 kHz at n_fft
-#: 2048 with a 2048-sample window and a 512-sample hop.
+#: 50 / 12.5 ms, 22.05 kHz at hops of 10, 5 and 3 ms, 44.1 kHz at n_fft
+#: 2048 with a 2048-sample window and a 512-sample hop, 48 kHz and 44.1 kHz
+#: at n_fft 4096 and 50 / 12.5 ms, and 22.05 kHz at hops of 2.86 and 1.55 ms
+#: (D = 17 and 32).
 GEOMETRIES = {
     "defaults": (2048, 275, 1102),
     "16kHz": (1024, 200, 800),
@@ -32,6 +34,10 @@ GEOMETRIES = {
     "hop5ms": (2048, 110, 1102),
     "hop3ms": (2048, 66, 1102),
     "44kHz": (2048, 512, 2048),
+    "48kHz": (4096, 600, 2400),
+    "44kHz4096": (4096, 551, 2205),
+    "hop2.86ms": (2048, 63, 1102),
+    "hop1.55ms": (2048, 34, 1102),
 }
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 CASES = ("gl_semi", "gl_semi_momentum", "gl_fused")
@@ -86,8 +92,9 @@ def config(case: str, x: dict) -> str:
 
 def launcher(lib: ctypes.CDLL, case: str, x: dict, dev):
     """(launch, output) of `case` at inputs `x` from the bound build `lib`,
-    in `config(case, x)`; None if the build lacks that configuration.  The
-    launch raises on a CUDA error."""
+    in `config(case, x)`; None if the build lacks that configuration or its
+    own count refuses the geometry (a tree from before the geometry was
+    taken).  The launch raises on a CUDA error."""
     cfg = config(case, x)
     kernel = "gl_fused" if case == "gl_fused" else "gl_semi"
     fn_name = f"sstts_{kernel}{'_wide' if cfg == 'wide' else ''}"
@@ -96,11 +103,13 @@ def launcher(lib: ctypes.CDLL, case: str, x: dict, dev):
     fn = getattr(lib, fn_name)
     plan, hp, wp = x["plan"], x["hp"], x["wp"]
     w_len, d_max = plan["w_len"], plan["d_max"]
+    if cfg == "wide" and getattr(lib, f"{fn_name}_smem_bytes")(w_len, d_max) < 0:
+        return None
     f32 = int(x["dtype"] == torch.float32)
     out = torch.empty_like(x["mag2"])
     keep = [out]
     if kernel == "gl_semi":
-        slabs, n_slabs = (wide_scratch(lib, kernel, dev, wp, out.element_size())
+        slabs, n_slabs = (wide_scratch(lib, kernel, dev, wp, out.element_size(), d_max)
                           if cfg == "wide" else (None, 0))
         s_out = torch.empty_like(out) if case == "gl_semi_momentum" else None
         prev = x["prev"] if s_out is not None else None
@@ -116,7 +125,7 @@ def launcher(lib: ctypes.CDLL, case: str, x: dict, dev):
     else:
         flags = None
         if cfg == "wide":
-            scratch, n_slabs = wide_scratch(lib, kernel, dev, wp, out.element_size())
+            scratch, n_slabs = wide_scratch(lib, kernel, dev, wp, out.element_size(), d_max)
         elif hasattr(lib, "sstts_gl_fused_scratch_rows"):  # a slab per block
             rows = lib.sstts_gl_fused_scratch_rows(x["T"], d_max)
             scratch = torch.empty(x["Bt"], rows, wp, dtype=torch.float32, device=dev)

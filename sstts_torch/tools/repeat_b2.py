@@ -1,6 +1,7 @@
 """Kernel B2's check at the 16 kHz geometry, repeated in fresh processes.
 
     python3 -m sstts_torch.tools.repeat_b2 [--processes 8] [--rounds 4] [--save DIR]
+        [--geometry 16kHz|48kHz|...]
 
 Run from the repository's root: it imports `chip_smoke`.  `chip_smoke.py`
 phase 2 holds B2 (`reproject_analyze`) to its plain version at each
@@ -13,7 +14,9 @@ each of `--processes` fresh interpreters.  Every output is also compared
 with the first of its process, the kernel's and the plain version's.  A
 miss prints where its differing elements lie (utterances, frames, bins)
 and, with `--save`, keeps the inputs and both outputs.  Prints one JSON
-line with the counts and the card's name and power limit.
+line with the counts and the card's name and power limit.  `--geometry`
+takes another case of `chip_smoke.GL_SIDE_GEOMETRIES` (bf16), for example
+"48kHz" (n_fft 4096, w_len 2399 in 2432 lanes, the wide configuration).
 """
 
 from __future__ import annotations
@@ -34,11 +37,12 @@ from sstts_torch.synthesize import exact_f32
 from sstts_torch.tools import card_line
 
 
-def inputs(dev) -> dict:
-    """`chip_smoke.gl_geometry_times`' B2 inputs at the 16 kHz geometry."""
+def inputs(dev, geometry: str = "16kHz") -> dict:
+    """`chip_smoke.gl_geometry_times`' B2 inputs at a geometry of
+    `chip_smoke.GL_SIDE_GEOMETRIES` (the 16 kHz one by default)."""
     import chip_smoke
 
-    fields = next(f for tag, f, *_ in chip_smoke.GL_SIDE_GEOMETRIES if tag == "16kHz")
+    fields = next(f for tag, f, *_ in chip_smoke.GL_SIDE_GEOMETRIES if tag == geometry)
     ds = dataclasses.replace(Config().dataset, **fields)
     x = chip_smoke.gl_inputs(dev, 32, 800, 3, ds, torch.bfloat16, on_card=True)
     plan = x["plan"]
@@ -46,13 +50,13 @@ def inputs(dev) -> dict:
                      ds.hop_len, plan["d_max"]), "prev": x["prev"]}
 
 
-def child(rounds: int, save: str | None, tag: str) -> dict:
+def child(rounds: int, save: str | None, tag: str, geometry: str) -> dict:
     import chip_smoke
 
     dev = torch.device("cuda")
     first, misses, same = {}, [], True
     for r in range(rounds):
-        x = inputs(dev)
+        x = inputs(dev, geometry)
         wt = k_major(x["args"][2])
         for m in (0.0, 0.99):
             pv = x["prev"] if m else None
@@ -67,7 +71,7 @@ def child(rounds: int, save: str | None, tag: str) -> dict:
                 first.setdefault(key, (a.clone(), b.clone()))
                 same &= torch.equal(first[key][0], a) and torch.equal(first[key][1], b)
                 try:
-                    chip_smoke.hold_gl("B2", f"{key}-32x800-16kHz", a, b)
+                    chip_smoke.hold_gl("B2", f"{key}-32x800-{geometry}", a, b)
                     continue
                 except AssertionError:
                     pass
@@ -93,22 +97,24 @@ def main() -> None:
     ap.add_argument("--processes", type=int, default=8)
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--save")
+    ap.add_argument("--geometry", default="16kHz")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("repeat_b2: no CUDA device")
     if args.child is not None:
-        print(json.dumps(child(args.rounds, args.save, args.child)))
+        print(json.dumps(child(args.rounds, args.save, args.child, args.geometry)))
         return
     runs = []
     for p in range(args.processes):
         cmd = [sys.executable, "-m", "sstts_torch.tools.repeat_b2", "--rounds",
-               str(args.rounds), "--child", str(p)] + (["--save", args.save] if args.save else [])
+               str(args.rounds), "--child", str(p), "--geometry", args.geometry] + (
+                   ["--save", args.save] if args.save else [])
         out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, check=True)
         runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
         print(f"process {p}: {runs[-1]['checks']} checks, {len(runs[-1]['misses'])} misses, "
               f"bit-equal within the process: {runs[-1]['bit_equal_within_process']}", flush=True)
-    print(json.dumps({"card": card_line(), "processes": len(runs),
+    print(json.dumps({"card": card_line(), "geometry": args.geometry, "processes": len(runs),
                       "checks": sum(r["checks"] for r in runs),
                       "misses": sum(len(r["misses"]) for r in runs),
                       "bit_equal_within_each_process": all(r["bit_equal_within_process"]

@@ -293,18 +293,43 @@ def test_python_reckoning_matches_the_sources():
     w = _constants("gl_wide.cuh")
     wide = {
         "kThreads": gt.WIDE_THREADS, "kRows": gt.WIDE_ROWS, "kG1Rows": gt.WIDE_G1_ROWS,
-        "kMaxD": gt.WIDE_MAX_D, "kMaxLanes": gt.WIDE_MAX_LANES, "kBins": gt.WIDE_BINS,
+        "kMaxD": gt.WIDE_MAX_D, "kBins": gt.WIDE_BINS,
         "kLanes": gt.WIDE_LANES, "kKBytes": gt.WIDE_K_BYTES,
         "kRowBytes": gt.WIDE_ROW_BYTES, "kStageRows": gt.WIDE_STAGE_ROWS,
         "kStages": gt.WIDE_STAGES, "kSmemBytes": gt.WIDE_SMEM, "kKAlign": gt.WIDE_K_ALIGN,
+        "kChainedLanes": gt.WIDE_CHAINED_LANES,
     }
     assert {k: w[k] for k in wide} == wide
     assert gt.WIDE_SMEM == 76800 and 2 * (gt.WIDE_SMEM + 1024) <= 233472  # two blocks an SM
-    assert gt.WIDE_G1_ROWS == gt.WIDE_ROWS + 2 * gt.WIDE_MAX_D
-    assert gt.wide_smem_bytes(2047, 16) == 76800 and gt.wide_smem_bytes(2047, 17) == -1
-    assert gt.wide_smem_bytes(2049, 3) == -1
-    assert gt.wide_slab_bytes(1152, 2, False) == 64 * 1152 * 2
-    assert gt.wide_slab_bytes(2048, 4, True) == (96 + 64) * 2048 * 4
+    assert gt.WIDE_MAX_D == 128  # the reference kernels' BT_MAX
+    # B5's GEMM1 takes 64 + 2 D rows in passes of 96: one pass up to D = 16
+    # (the slab as before), whole passes past it (`g1_rows` in gl_wide.cuh)
+    assert gt.WIDE_G1_ROWS == gt.WIDE_ROWS + 2 * 16 == 3 * 2 * 16  # acc[3]: 3 m16 a warp row
+    assert [gt.wide_g1_rows(d) for d in (0, 3, 16, 17, 32, 64, 128)] == [
+        96, 96, 96, 192, 192, 192, 384]
+    for d in range(gt.WIDE_MAX_D + 1):
+        rows = gt.wide_g1_rows(d)
+        assert rows % gt.WIDE_G1_ROWS == 0 and rows - gt.WIDE_G1_ROWS < 64 + 2 * d <= rows
+    src = (CSRC / "gl_wide.cuh").read_text()
+    assert "return (kRows + 2 * d_max + kG1Rows - 1) / kG1Rows * kG1Rows;" in src
+    assert "(fused ? (size_t)g1_rows(d_max) * wp * 4 : 0) + (size_t)kRows * wp * elem_bytes" in src
+    assert "for (int n0 = 0; n0 < rows; n0 += kG1Rows)" in src
+    # GEMM2's sums: chained in bf16 up to 2048 lanes (as before), Kahan past
+    # them, rounded in f32; GEMM1's rounded
+    assert ("return f32 ? kRounded : (w_len > kChainedLanes ? kCompensated : kChained);"
+            in src and "gemm<OT, 3, 4, kRounded>(" in src and "gemm<OT, 2, 8, kSum>(" in src)
+    assert [gt.wide_sum(w, torch.bfloat16) for w in (1101, 2047, 2048, 2049, 2399)] == [
+        "chained", "chained", "chained", "compensated", "compensated"]
+    assert gt.wide_sum(1101, torch.float32) == gt.wide_sum(2399, torch.float32) == "rounded"
+    assert gt.wide_smem_bytes(2047, 16) == 76800 and gt.wide_smem_bytes(2047, 17) == 76800
+    assert gt.wide_smem_bytes(2047, 128) == 76800 and gt.wide_smem_bytes(2047, 129) == -1
+    assert gt.wide_smem_bytes(2399, 3) == gt.wide_smem_bytes(4095, 3) == 76800
+    assert gt.wide_slab_bytes(1152, 2, False, 4) == 64 * 1152 * 2
+    assert gt.wide_slab_bytes(1152, 2, False, 128) == 64 * 1152 * 2
+    assert gt.wide_slab_bytes(2048, 4, True, 16) == (96 + 64) * 2048 * 4
+    assert gt.wide_slab_bytes(1152, 4, True, 17) == (192 + 64) * 1152 * 4
+    assert gt.wide_slab_bytes(2048, 4, True, 128) == (384 + 64) * 2048 * 4
+    assert gt.wide_slab_bytes(2432, 2, True, 3) == 96 * 2432 * 4 + 64 * 2432 * 2
     # the padded rows put the fragment loads of a warp's 8 rows x 4 words on
     # 32 different banks
     banks = {(g * gt.WIDE_ROW_BYTES // 4 + t) % 32 for g in range(8) for t in range(4)}
@@ -317,40 +342,53 @@ def test_python_reckoning_matches_the_sources():
     (dict(wp=1152, hp=1024, w_len=1101, d_max=5, fused=True), NotImplementedError),
     (dict(wp=1100, hp=1024, w_len=1100, d_max=4), ValueError),
     (dict(wp=1152, hp=1000, w_len=1101, d_max=4), ValueError),
-    # beyond the wide configuration too: D = 17, a window over 2048 samples,
-    # and n_fft 4096's bins in the f32 loop at a short hop
+    # past n_fft 2048 and D = 16, which the wide configuration takes since
+    # it lost its lane cap: D = 17, a window over 2048 samples, and n_fft
+    # 4096's bins in the f32 loop at a short hop
     (dict(wp=1152, hp=1024, w_len=1101, d_max=17), NotImplementedError),
     (dict(wp=2176, hp=1024, w_len=2100, d_max=3, fused=True), NotImplementedError),
     (dict(wp=1152, hp=1280, w_len=1101, d_max=9), NotImplementedError),
+    # 48 kHz at n_fft 4096 (2399 lanes, 2049 bins: 2 hp 4096 packed in
+    # bf16, 4352 in f32), and the most overlapping frames the wide one takes
+    (dict(wp=2432, hp=2048, w_len=2399, d_max=3), NotImplementedError),
+    (dict(wp=2432, hp=2176, w_len=2399, d_max=3, fused=True), NotImplementedError),
+    (dict(wp=1152, hp=1024, w_len=1101, d_max=128, fused=True), NotImplementedError),
+    # past the envelope: more than the reference kernels' 128 frames a side
+    (dict(wp=1152, hp=1024, w_len=1101, d_max=129), NotImplementedError),
+    (dict(wp=1152, hp=1024, w_len=1101, d_max=129, fused=True), NotImplementedError),
+    (dict(wp=2432, hp=2176, w_len=2399, d_max=137), NotImplementedError),
 ])
 def test_shapes_beyond_the_kernels_raise(kw, err):
-    """The panel configuration refuses each shape (`check_shapes`).  The
-    first three are inside the envelope (n_fft <= 2048, D <= 16), so
-    `config` takes them in both loop dtypes with the wide configuration: its
-    shared memory fits the card whatever the support, and B5's GEMM1 tile
-    covers the block's 64 frames and D halo rows a side.  The rest raise
-    there too, the layouts the kernels never take with ValueError."""
+    """The panel configuration refuses each shape (`check_shapes`).  Those
+    with at most WIDE_MAX_D = 128 overlapping frames a side are inside the
+    envelope (any support and bin count), so `config` takes them in both
+    loop dtypes with the wide configuration: its shared memory fits the card
+    whatever the support, and B5's GEMM1 covers the block's 64 frames and D
+    halo rows a side in whole passes of 96 rows.  Past D = 128 they raise
+    there too, by name, as do the layouts the kernels never take
+    (ValueError)."""
     with pytest.raises(err):
         gt.check_shapes("gl", **kw)
     fused = kw.pop("fused", False)
-    inside = (err is NotImplementedError and kw["d_max"] <= gt.WIDE_MAX_D
-              and kw["wp"] <= gt.WIDE_MAX_LANES and kw["hp"] <= gt.MAX_HP)
+    inside = err is NotImplementedError and kw["d_max"] <= gt.WIDE_MAX_D
     for dtype in (torch.bfloat16, torch.float32):
         if not inside:
-            with pytest.raises(err):
+            with pytest.raises(err, match="128 overlapping frames" if err is
+                               NotImplementedError else None):
                 gt.config("gl", **kw, fused=fused, dtype=dtype)
             continue
         name, smem = gt.config("gl", **kw, fused=fused, dtype=dtype)
         assert name == "wide" and smem == gt.WIDE_SMEM <= gt.MAX_SMEM
-        assert gt.WIDE_ROWS + 2 * kw["d_max"] <= gt.WIDE_G1_ROWS
+        assert gt.WIDE_ROWS + 2 * kw["d_max"] <= gt.wide_g1_rows(kw["d_max"])
         assert gt.WIDE_G1_ROWS + gt.WIDE_LANES <= gt.WIDE_STAGE_ROWS
 
 
 #: (case, n_fft, hop, window, w_len, D, the panel configuration takes B2,
 #: B5) for the dataset settings of the kernels' envelope: the defaults,
 #: 16 kHz at n_fft 1024, 24 kHz at the reference's 50 / 12.5 ms, hops of
-#: 10, 5 and 3 ms at 22.05 kHz, and 44.1 kHz at n_fft 2048 with a
-#: 2048-sample window and a 512-sample hop.
+#: 10, 5 and 3 ms at 22.05 kHz, 44.1 kHz at n_fft 2048 with a 2048-sample
+#: window and a 512-sample hop, 48 kHz and 44.1 kHz at n_fft 4096 and the
+#: reference's 50 / 12.5 ms, and hops of 2.86 and 1.55 ms at 22.05 kHz.
 GEOMETRY_TABLE = [
     ("defaults", 2048, 275, 1102, 1101, 4, True, True),
     ("16kHz", 1024, 200, 800, 799, 3, True, True),
@@ -359,6 +397,10 @@ GEOMETRY_TABLE = [
     ("hop5ms", 2048, 110, 1102, 1101, 10, False, False),
     ("hop3ms", 2048, 66, 1102, 1101, 16, False, False),
     ("44kHz", 2048, 512, 2048, 2047, 3, False, False),
+    ("48kHz", 4096, 600, 2400, 2399, 3, False, False),
+    ("44kHz4096", 4096, 551, 2205, 2204, 3, False, False),
+    ("hop2.86ms", 2048, 63, 1102, 1101, 17, False, False),
+    ("hop1.55ms", 2048, 34, 1102, 1101, 32, False, False),
 ]
 
 

@@ -257,3 +257,32 @@ def test_wide_tiles_cover_the_batch_once():
             assert (clusters - 1) * rows < B <= clusters * rows
             if B <= 32:
                 assert clusters <= gru_ops.WIDE_CLUSTERS[C], (H, B)
+
+
+@pytest.mark.parametrize("counts", [
+    gru_ops.WIDE_CLUSTERS,  # the H100 SXM's reference count, the CPU's default
+    (0, 132, 64, 40, 32, 24, 18, 16, 14, 8, 6, 6, 6, 6, 5, 5, 4),  # a die with fewer
+    (0, 132, 66, 44, 33, 26, 22, 18, 16, 14, 13, 12, 11, 10, 9, 8, 8),  # one with more
+    (0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1),  # one cluster at a time
+], ids=["reference", "fewer", "more", "one"])
+def test_wide_rows_divide_the_batch_by_the_cards_clusters(counts):
+    """`wide_rows` with the clusters of each C that a card holds gives Bt =
+    ceil(B / count), capped at WIDE_MAX_ROWS and at what the block holds in
+    both directions (then the batch runs in more waves); the CPU's default
+    is the reference table, and a card holding no cluster of C gives 0."""
+    for C in range(2, gru_ops.MAX_CLUSTER + 1):
+        assert gru_ops.wide_clusters(C, "cpu") == gru_ops.WIDE_CLUSTERS[C]
+        assert gru_ops.wide_rows(139, 32, C, 0) == 0
+    for H in (138, 139, 256, 301, 384, 512, 522):
+        C = gru_ops.kernel_config(H)[1]
+        for c in range(C, gru_ops.MAX_CLUSTER + 1):
+            for B in (1, 3, 32, 33, 64, 177):
+                rows = gru_ops.wide_rows(H, B, c, counts[c])
+                want = min(-(-B // counts[c]), gru_ops.WIDE_MAX_ROWS)
+                fits = [r for r in range(1, want + 1)
+                        if all(gru_ops.wide_shape(H, c, r, b)["valid"] for b in (False, True))]
+                assert rows == max(fits, default=0), (H, c, B)
+                if counts is gru_ops.WIDE_CLUSTERS:
+                    assert rows == gru_ops.wide_rows(H, B, c)
+                if rows == want == -(-B // counts[c]):  # one wave
+                    assert -(-B // rows) <= counts[c]

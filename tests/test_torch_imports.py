@@ -230,12 +230,14 @@ _REFUSALS = [
     ({"inference": {"griffin_lim_iter_impl": "fused", "griffin_lim_momentum": 0.99}},
      "cpu", ValueError),
     ({"inference": {"wire_format": "opus"}}, "cpu", ValueError),
-    # B2 and B5 on the card beyond their envelope (both loop dtypes, n_fft up
-    # to 2048, at most 16 overlapping frames a side): a 23-sample hop of the
-    # tiny config's 400-sample window (D = 17), and the f32 loop at n_fft 4096.
-    ({"dataset": {"win_hop_ms": 2.875}}, "cuda", NotImplementedError),
+    # B2 and B5 on the card beyond their envelope (both loop dtypes, any
+    # support and bin count, at most 128 overlapping frames a side, the
+    # reference kernels' bound): a 3-sample hop of the tiny config's
+    # 400-sample window (D = 132), in the bf16 loop ("semi") and the f32 one
+    # ("fused", at n_fft 4096).
+    ({"dataset": {"win_hop_ms": 0.375}}, "cuda", NotImplementedError),
     ({"inference": {"griffin_lim_iter_impl": "fused", "griffin_lim_fft_impl": "dft_high"},
-      "dataset": {"n_fft": 4096}}, "cuda", NotImplementedError),
+      "dataset": {"n_fft": 4096, "win_hop_ms": 0.375}}, "cuda", NotImplementedError),
     # The decode kernel on an architecture it lacks: the reference's ValueError.
     ({"arch": {"attention_type": "local_luong"}, "inference": {"decoder_impl": "fused"}},
      "cpu", ValueError),
@@ -274,6 +276,13 @@ _ACCEPTED = [
     ({"arch": {"encoder_gru_units": 160}}, "cuda", "fused"),
     ({"arch": {"attention_units": 1280}, "inference": {"decoder_impl": "fused"}},
      "cuda", "fused"),
+    # Griffin-Lim geometries B2 and B5 refused before their wide
+    # configuration lost its lane cap and took D past 16: a 23-sample hop of
+    # the tiny config's 400-sample window (D = 17), and the f32 loop at
+    # n_fft 4096.
+    ({"dataset": {"win_hop_ms": 2.875}}, "cuda", "fused"),
+    ({"inference": {"griffin_lim_iter_impl": "fused", "griffin_lim_fft_impl": "dft_high"},
+      "dataset": {"n_fft": 4096}}, "cuda", "fused"),
 ]
 
 

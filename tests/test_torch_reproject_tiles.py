@@ -277,8 +277,9 @@ def test_every_geometry_of_the_gl_kernels_envelope_has_a_configuration(elem_byte
     lanes (wp 896 at 16 kHz, 1152 at 22.05 kHz, 1280 at 24 kHz, 2048 at
     44.1 kHz and n_fft 2048) with up to 16 overlapping frames a side.  The
     ring holds all of them but f32 rows of 2048 lanes at D >= 13 (35 rows of
-    8 KB at D = 16), which the direct configuration takes; beyond the
-    envelope the wrapper refuses as before."""
+    8 KB at D = 16), which the direct configuration takes; past them (D =
+    17 at 2048 lanes, f32 rows of 4096 lanes) the direct one takes what no
+    ring holds, up to D = MAX_D = 256, and past that the wrapper refuses."""
     for wp in (896, 1152, 1280, 2048):
         for d in range(17):
             ring = rp.config(smem_bytes, wp, elem_bytes, d, ROWS)
@@ -288,10 +289,50 @@ def test_every_geometry_of_the_gl_kernels_envelope_has_a_configuration(elem_byte
             g, ns = ring
             assert (ns - 1) * g >= 2 * d + ROWS - 1, (wp, d)
             assert smem_bytes(wp, elem_bytes, g, ns) <= build.MAX_SMEM
-    with pytest.raises(NotImplementedError):
-        rp.config(smem_bytes, 2048, 4, 17, ROWS)
-    with pytest.raises(NotImplementedError):
-        rp.config(smem_bytes, 4096, 4, 8, ROWS)
+    assert rp.config(smem_bytes, 2048, 4, 17, ROWS) is None
+    assert rp.config(smem_bytes, 4096, 4, 8, ROWS) is None
+    with pytest.raises(NotImplementedError, match="256 overlapping frames"):
+        rp.config(smem_bytes, 2048, elem_bytes, 257, ROWS)
+
+
+#: (case, n_fft, hop, window, D, the ring takes bf16, f32) past n_fft 2048
+#: and D = 16: 48 kHz and 44.1 kHz at n_fft 4096 and 50 / 12.5 ms (wp 2432,
+#: 2304), hops of 2.86 and 1.55 ms at 22.05 kHz (D = 17, 32), the most
+#: overlapping frames B2 and B5 take (a 9-sample hop: D = 122) and B1's
+#: own bound (a 1102-sample window at n_fft 2048 cannot reach D = 256: a
+#: 4096-sample window and a 16-sample hop, D = 255).  None is past MAX_D.
+WIDE_GEOMETRIES = [
+    ("48kHz", 4096, 600, 2400, 3, True, True),
+    ("44kHz4096", 4096, 551, 2205, 3, True, True),
+    ("hop2.86ms", 2048, 63, 1102, 17, True, True),
+    ("hop1.55ms", 2048, 34, 1102, 32, True, False),
+    ("hop9", 2048, 9, 1102, 122, False, False),
+    ("D255", 4096, 16, 4096, 255, False, False),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_GEOMETRIES, ids=[c[0] for c in WIDE_GEOMETRIES])
+def test_geometries_past_n_fft_2048_and_d_16_have_a_configuration(case):
+    """Each geometry in both loop dtypes: the ring where one fits shared
+    memory (its stages covering the band), else the direct configuration;
+    none refused.  Past MAX_D (a 4-sample hop: D = 275) `config` raises by
+    name, before any launch, whichever configuration would take it."""
+    _, n_fft, hop, win, d_max, ring_bf16, ring_f32 = case
+    plan = rp.band_plan(n_fft, hop, win, 70, 69 * hop)
+    assert plan["d_max"] == d_max <= rp.MAX_D
+    wp = -(-plan["w_len"] // 128) * 128
+    for elem_bytes, ring in ((2, ring_bf16), (4, ring_f32)):
+        got = rp.config(smem_bytes, wp, elem_bytes, d_max, ROWS)
+        assert (got is not None) == ring, elem_bytes
+        if ring:
+            g, ns = got
+            assert (ns - 1) * g >= 2 * d_max + ROWS - 1
+            assert smem_bytes(wp, elem_bytes, g, ns) <= build.MAX_SMEM
+    past = rp.band_plan(n_fft, 4, win, 70, 69 * 4)["d_max"]
+    assert past > rp.MAX_D
+    for elem_bytes in (2, 4):
+        with pytest.raises(NotImplementedError, match=f"at most {rp.MAX_D} overlapping"):
+            rp.config(smem_bytes, wp, elem_bytes, past, ROWS)
 
 
 class _RefusingLibrary:
@@ -309,10 +350,16 @@ class _RefusingLibrary:
 
 
 def test_a_ring_beyond_shared_memory_is_refused_before_launch():
+    """No ring holds 32 KB rows: the ring's own reckoning refuses them, and
+    the launch takes the direct configuration up to MAX_D; past it the
+    wrapper refuses before anything is launched."""
     lib = _RefusingLibrary()
-    f3 = torch.zeros(1, 8, 8192, dtype=torch.float32)  # 32 KB rows, D = 4
+    f3 = torch.zeros(1, 8, 8192, dtype=torch.float32)  # 32 KB rows
+    assert rp.config(smem_bytes, 8192, 4, 4, ROWS) is None
     with pytest.raises(NotImplementedError, match="exceeds 232448 bytes"):
-        rp.launch(lib, f3, torch.zeros(8, 8192), 8100, 2000, 4, ())
+        rp.ring_config(smem_bytes, 8192, 4, 4, ROWS)
+    with pytest.raises(NotImplementedError, match=f"at most {rp.MAX_D} overlapping"):
+        rp.launch(lib, f3, torch.zeros(8, 8192), 8100, 30, rp.MAX_D + 1, ())
     with pytest.raises(NotImplementedError, match="exceeds"):
         rp.ring_config(smem_bytes, 2048, 4, 40, ROWS)
 

@@ -114,11 +114,6 @@ def test_wide_gru_gradient_matches_jax_vjp(H):
         np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=2e-5, rtol=1e-4, err_msg=name)
 
 
-def _source_table(src, name):
-    body = re.search(rf"constexpr int {name}\[kMaxCluster \+ 1\] = \{{([^}}]*)\}};", src)
-    return tuple(int(v) for v in body.group(1).replace("\n", " ").split(","))
-
-
 def test_gru_kernel_config_rule(monkeypatch):
     """One pure function of H picks the kind before any launch, among four:
     the register kernels at 128, the generic ones up to 137 (138 is the
@@ -126,7 +121,8 @@ def test_gru_kernel_config_rule(monkeypatch):
     ones on the smallest cluster, up to 16 blocks, of at most 32 units a
     rank (where 16 ranks allow it), whose tile of Bt = ceil(32 /
     WIDE_CLUSTERS[C]) batch rows fits its block in both directions, so
-    that B = 32 runs in one wave of the clusters the card holds, up to H =
+    that B = 32 runs in one wave of the clusters an H100 SXM holds (the
+    reference count; on the card the library reads the card's), up to H =
     522; from 523 (no cluster's block holds the rows one
     wave needs) the grid kind, up to MAX_HIDDEN = 5456 (test_torch_gru_grid.py
     holds its rule); past it NotImplementedError.  Bt at other batches:
@@ -140,7 +136,14 @@ def test_gru_kernel_config_rule(monkeypatch):
                         ("kWideMinSmem", gru_ops.WIDE_MIN_SMEM),
                         ("kWideMaxSmem", build.MAX_SMEM)):
         assert int(re.search(rf"constexpr int {name} = (\d+);", src).group(1)) == value, name
-    assert _source_table(src, "kWideClusters") == gru_ops.WIDE_CLUSTERS
+    # The library reads the clusters of each C from the card (no fixed
+    # table); WIDE_CLUSTERS is the CPU's reference count the rule reckons by.
+    assert "kWideClusters" not in src and "cudaOccupancyMaxActiveClusters" in src
+    assert re.search(r"int wide_clusters\(int C\) \{", src)
+    probe = int(re.search(r"constexpr int kWideProbeHidden = (\d+);", src).group(1))
+    assert probe == gru_ops.WIDE_PROBE_HIDDEN and gru_ops._config(probe)[0] == gru_ops.KIND_WIDE
+    assert all(gru_ops.wide_shape(probe, c, 1, b)["valid"]
+               for c in range(2, gru_ops.MAX_CLUSTER + 1) for b in (False, True))
     assert "SSTTS_GRU_WIDE = 2" in src and gru_ops.KIND_WIDE == 2
     assert "SPILL" not in src and "kSpill" not in src and not hasattr(gru_ops, "KIND_SPILL")
     kinds = {gru_ops.KIND_GENERIC, gru_ops.KIND_H128, gru_ops.KIND_WIDE, gru_ops.KIND_GRID}
