@@ -36,7 +36,10 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    how many the card holds at once, and the blocks, cluster size and streamed
    columns of each width on a line of its own), and their stages' times
    apart;
-   for the decode kernel B4 also the tiny config's widths, B=3 at T=300,
+   every decode case (B4) with the prenet dropout on, drawn in the kernel
+   from a seed and held to the plain version's draw of the same bits;
+   for the decode kernel B4 also the tiny config's widths (at a dropout
+   rate of 0.5 and of 0.25), B=3 at T=300,
    rows that stop at different steps, T=4096, and the longest T taken and
    the next refused before any launch, and phase 3i's cell (products of
    1536 columns, two panels) at (32, 96, 160) in bf16 and f32 (f32 also at
@@ -67,7 +70,9 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    character text, 160 decoder steps = 800 frames, stop threshold 1.1,
    classic Griffin-Lim-60, PCM16): one warm-up batch, then one timed batch
    with every launch counter set to 0 just before and read just after
-   (4 GRU, 1 decode, 60 Griffin-Lim launches); then the same text on a
+   (4 GRU, 1 decode, 60 Griffin-Lim launches) and the decode's route
+   "fused" for its text width (`Synthesizer.decode_routes`); then the same
+   text on a
    tiny config on the card against the plain versions on the CPU; one
    batch with the fast vocoder (GL-30 at momentum 0.99), which runs the
    Griffin-Lim kernel's momentum variant; and one main-path batch under
@@ -134,7 +139,7 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    one timed batch: B3 4, B4 1, B2 60), its teacher-forced forward and 8
    decode steps (B4) against the f32 model's on the same weights (relative
    L2 under 2e-2), B4 (8 steps) and B6 (103 teacher-forced steps) against
-   the same bf16 model's plain loops on the same keep masks
+   the same bf16 model's plain loops at the same dropout seed
    (`BF16_LOOP_TOL`), 5 bf16 train steps on phase 3b's bucket (4/4/1 a
    step, the loss falling), the first step's gradient against the f32
    step's (cosine at least 0.999) and the tiny bf16 step card vs CPU
@@ -172,7 +177,8 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    `GEOMETRY_MAG_TOL`, below a control run that must read above it), one
    recorded B2 launch of the path held to its plain version; and fused-60
    at 24 kHz through `synthesize_stream` (2 batches, B5 60 a batch), then
-   held likewise;
+   held likewise; and B2 on speech-like spectra (the synthetic corpus's
+   at 44.1 kHz, semi-60 at momentum 0.99), every launch held to exact sums;
 3i. the recurrent widths doubled (`WIDE_ARCH`: BiGRUs of 256 a direction,
    attention and decoder GRUs of 512, products of 1536 columns): bench.py's
    batch through `Synthesizer` (a warm-up and a timed batch, B3 4 on the
@@ -188,6 +194,14 @@ Phases, in order; any failure is an uncaught exception and a non-zero exit:
    1420 a direction, the first width whose grid blocks stream part of
    their slice of Wh: B3 and B3' on the grid kind, the backward streaming,
    B4 and B6 on a memory of 2840 columns);
+3l. the per-shape gates at the default `Config()` widths, B = 1, 4
+   decoder steps: synthesis at a text width one past B4's reach (the
+   library's count) under "auto" and "fused" takes the plain loop (route
+   "xla", B4 0 launches) and gives a `decoder_impl="xla"` Synthesizer's
+   audio at the same seed bit for bit; at the reach it takes B4 (1
+   launch); one train step at one past B6's reach under teacher "auto"
+   runs the plain scan (B3 4, B3' 4, B6 0, the loss finite), and the same
+   step under "fused" raises NotImplementedError before any B6 launch;
 4. one JSON line of every kernel's numbers (its launches on each path,
    "cli" the sum of phase 3d's commands, "corpus" of phase 3e's three
    `train` runs, "variants" of phase 3f's counted runs, "mesh" of phase
@@ -1054,8 +1068,13 @@ def check_decoder(dev):
     cells = {}
 
     def inputs(cfg_name, B, T, S, dt, thr, min_steps, seed=3):
+        # Prenet dropout on at the config's rate (0.5; "tiny-q" 0.25), drawn
+        # in the kernel from `seed + 1`: the plain version draws the same
+        # bits (`keep_bits`), so a mask that differs shows as a large error.
         if cfg_name not in cells:
             cfg = Config() if cfg_name == "default" else tiny_config()
+            if cfg_name == "tiny-q":
+                cfg = with_arch(cfg, prenet_dropout=0.25)
             model = Tacotron(cfg.arch, cfg.dataset)
             model.load_state_dict(init_state_dict(cfg.arch, cfg.dataset, seed=2))
             cells[cfg_name] = (cfg, model.decoder_cell.to(dev).eval())
@@ -1065,12 +1084,10 @@ def check_decoder(dev):
         memory = (0.5 * torch.randn(B, T, Dm, generator=g)).to(dev)
         lengths = torch.randint(min(40, T), T + 1, (B,), generator=g).to(dev)
         mask = torch.arange(T, device=dev)[None] < lengths[:, None]
-        gdev = torch.Generator(device=dev).manual_seed(seed + 1)
-        keep = dec.draw_keep_masks(S, B, cfg.arch.prenet_units, 0.5, gdev, dev)
         with torch.no_grad():
             return dec.prepare_decode(
                 cell, memory, mask, S, stop_threshold=thr, min_steps=min_steps,
-                keep=keep, matmul_dtype=dt,
+                seed=seed + 1, matmul_dtype=dt,
             )
 
     checks, main = [], None
@@ -1083,7 +1100,9 @@ def check_decoder(dev):
 
     # (case, config, B, T, S, dtype, stop threshold, min_steps).  Beside
     # chip_smoke's two cases, the ring's edges: the tiny config's narrow rows
-    # (stop_w's 8 bytes padded to 16), B=3 at T=300 (memory over 10 stages),
+    # (stop_w's 8 bytes padded to 16; at a dropout rate of 0.25 too, so that
+    # the keep threshold is held at another value than 2^31), B=3 at T=300
+    # (memory over 10 stages),
     # rows that stop at different steps (f32, so that no stop logit sits
     # across the threshold between the two), T=4096, and the longest T.
     cases = [
@@ -1091,6 +1110,7 @@ def check_decoder(dev):
         ("S160-bf16", "default", 32, 96, 160, torch.bfloat16, 1.1, 8),
         ("tiny-f32", "tiny", 3, 11, 12, torch.float32, 0.5, 2),
         ("tiny-bf16", "tiny", 3, 11, 12, torch.bfloat16, 1.1, 2),
+        ("tiny-q-f32", "tiny-q", 3, 11, 12, torch.float32, 1.1, 2),
         ("B3-T300-bf16", "default", 3, 300, 40, torch.bfloat16, 1.1, 8),
         ("stops-f32", "default", 8, 96, 24, torch.float32, 0.5, 1),
         ("T4096-bf16", "default", 2, 4096, 6, torch.bfloat16, 1.1, 8),
@@ -1141,7 +1161,7 @@ def check_decoder(dev):
     B, T, Dm = p.memory.shape
     S, r, M = p.max_steps, p.reduction, p.n_mels
     A = p.keys.shape[-1]
-    n_bytes = nbytes(*w, p.memory, p.keys, p.maskf, p.keep0, p.keep1) + 4 * B * S * (
+    n_bytes = nbytes(*w, p.memory, p.keys, p.maskf) + 4 * B * S * (
         r * M + r + T + 1
     )
     macs = sum(getattr(w, n).numel() for n in dec._MATRICES) + T * (A + Dm)
@@ -1241,11 +1261,9 @@ def check_decoder_wide(dev):
         memory = (0.5 * torch.randn(B, T, 2 * cfg.arch.encoder_gru_units, generator=g)).to(dev)
         lengths = torch.randint(min(40, T), T + 1, (B,), generator=g).to(dev)
         mask = torch.arange(T, device=dev)[None] < lengths[:, None]
-        gdev = torch.Generator(device=dev).manual_seed(seed + 1)
-        keep = dec.draw_keep_masks(S, B, cfg.arch.prenet_units, 0.5, gdev, dev)
         with torch.no_grad():
             return dec.prepare_decode(cell, memory, mask, S, stop_threshold=thr,
-                                      min_steps=min_steps, keep=keep, matmul_dtype=dt)
+                                      min_steps=min_steps, seed=seed + 1, matmul_dtype=dt)
 
     # (case, cell, B, T, S, dtype, stop threshold, min_steps), held by
     # `ring_tolerances` (wide-S160-bf16 the main case, as S160-bf16 is).
@@ -1289,7 +1307,7 @@ def check_decoder_wide(dev):
     B, T, Dm = p.memory.shape
     S, r, M = p.max_steps, p.reduction, p.n_mels
     A = p.keys.shape[-1]
-    n_bytes = nbytes(*w, p.memory, p.keys, p.maskf, p.keep0, p.keep1) + 4 * B * S * (
+    n_bytes = nbytes(*w, p.memory, p.keys, p.maskf) + 4 * B * S * (
         r * M + r + T + 1)
     macs = sum(getattr(w, n).numel() for n in dec._MATRICES) + T * (A + Dm)
     bms, by = bound_ms(n_bytes, 2 * S * B * macs, "bf16")
@@ -2110,9 +2128,12 @@ def main_path(dev, card):
     launches = counts()
     expected = dict.fromkeys(launches, 0)
     expected.update({"gru_sequence": 4, "fused_decode": 1, "fused_reproject_analyze": 60})
-    log(f"  main path launches: {launches} (expected {expected})")
+    log(f"  main path launches: {launches} (expected {expected}); decode routes "
+        f"{synth.decode_routes}")
     if launches != expected:
         raise AssertionError(f"launch counts {launches} != {expected}")
+    if set(synth.decode_routes.values()) != {"fused"}:
+        raise AssertionError(f"decode routes {synth.decode_routes}: not the kernel")
     n_expected = min(800 * cfg.dataset.hop_len, 799 * cfg.dataset.hop_len)
     for w in wavs:
         if w.shape != (n_expected,) or not np.isfinite(w).all():
@@ -2729,8 +2750,41 @@ def geometry_path(dev, card):
             raise AssertionError(f"fused-60 at {case}: fused vs split {mag_rel} > {tol}")
         result[f"fused60_{case}"] = {"batch_s": wall / n_batches, "launches": launches,
                                      "fused_vs_split_mag_rel_l2": mag_rel, "checks": checks}
+    result["speech_44kHz"] = speech_spectra_check(dev, card)
     result["launches"] = totals
     return result
+
+
+def speech_spectra_check(dev, card) -> dict:
+    """B2 on speech-like spectra (ROADMAP C.5): a GL-60 "semi" loop at
+    momentum 0.99 on the synthetic corpus's 32 spectra at 44.1 kHz (n_fft
+    2048: 2047 lanes, the wide configuration's compensated sums), every
+    launch held by `hold_gl` to the exact sums (`tools/gl_speech_check.py`:
+    float64 products; the plain version's own f32 GEMM2 misses them now
+    and then on such spectra).  The loop is not counted: it runs outside
+    the path's counted batches."""
+    from sstts_torch.config import Config
+    from sstts_torch.tools import gl_speech_check as speech
+
+    base = Config()
+    ds = dataclasses.replace(base.dataset, **DS_44K)
+    cfg = base.replace(dataset=ds, inference=dataclasses.replace(
+        base.inference, griffin_lim_iter_impl="semi", griffin_lim_momentum=0.99,
+        griffin_lim_iters=60))
+    lin = speech.linear_of_corpus(ds, 32, 800, dev)
+    rec = speech.held_loop("B2", "speech-44kHz-semi-m0.99", lin, cfg, dev)
+    n = rec["outputs"]
+    log(f"  B2 on speech-like spectra at 44.1 kHz (semi-60 at 0.99): {rec['launches']} "
+        f"launches, past hold_gl against exact sums {len(rec['missed_vs_exact'])}, against "
+        f"the plain version {len(rec['missed'])} (the plain version against exact sums "
+        f"{len(rec['plain_missed_vs_exact'])}); differing from exact sums "
+        f"{rec['differing_vs_exact'] / n:.3e} (the plain version "
+        f"{rec['plain_differing_vs_exact'] / n:.3e}) [{card}]")
+    if rec["launches"] != 60 or rec["missed_vs_exact"] or not rec["finite"]:
+        raise AssertionError(f"B2 on speech-like spectra: {rec['launches']} launches, "
+                             f"missed {rec['missed_vs_exact']}, finite {rec['finite']}")
+    return {k: rec[k] for k in ("launches", "missed", "missed_vs_exact",
+                                "plain_missed_vs_exact", "differing_vs_exact", "outputs")}
 
 
 # --------------------------------------------------------------- phase 3b --
@@ -3373,7 +3427,7 @@ BF16_LOOP_TOL = {"mel": 1.5e-2, "stop_logits": 1.2e-2, "alignments": 5e-3}
 def bf16_kernels_vs_loops(model, ids, mel_gt, dev) -> dict:
     """B4 and B6 on a bf16 model (bf16 matmuls, f32 state) against the same
     model's plain loops ("xla": the reference's scan, whose carry is bf16),
-    on the same keep masks: the first 8 decode steps, and the 103
+    at one dropout seed: the first 8 decode steps, and the 103
     teacher-forced steps of phase 3b."""
     import torch
 
@@ -3384,11 +3438,9 @@ def bf16_kernels_vs_loops(model, ids, mel_gt, dev) -> dict:
     r, steps = a.reduction_factor, 8
     with torch.no_grad(), exact_f32(dev):
         memory, mmask = model.encode(ids)
-        keep = dec.draw_keep_masks(steps, ids.shape[0], a.prenet_units, a.prenet_dropout,
-                                   torch.Generator(device=dev).manual_seed(10), dev)
-        loop = model.decode_infer(memory, mmask, steps, 1.1, steps, keep)
+        loop = model.decode_infer(memory, mmask, steps, 1.1, steps, 10)
         kernel = dec.fused_decode(model.decoder_cell, memory, mmask, steps,
-                                  stop_threshold=1.1, min_steps=steps, keep=keep)
+                                  stop_threshold=1.1, min_steps=steps, seed=10)
         teacher = {}
         for impl in ("xla", "fused"):
             model.teacher_impl = impl
@@ -3447,10 +3499,8 @@ def variants_path(dev, card):
             gen = torch.Generator(device=dev).manual_seed(5)
             outs[name] = sy.model(ids, mel_gt, fmask, gen)
             memory, mmask = sy.model.encode(ids)
-            keep = dec.draw_keep_masks(8, 32, cfg.arch.prenet_units, cfg.arch.prenet_dropout,
-                                       torch.Generator(device=dev).manual_seed(6), dev)
             decs[name] = dec.fused_decode(sy.model.decoder_cell, memory, mmask, 8,
-                                          stop_threshold=1.1, min_steps=8, keep=keep)
+                                          stop_threshold=1.1, min_steps=8, seed=6)
     # Limits: bf16 rounds every activation to 8 bits of mantissa (relative
     # steps of 2^-8 = 3.9e-3), which the recurrences carry; on the tiny
     # config the effect reads 2e-3 to 5e-3 (tests/test_torch_bf16.py).
@@ -3534,18 +3584,16 @@ def variants_path(dev, card):
 
     # -- the reference's "xla" names on the card at the default
     # architecture: the plain loops, held to B4 and B6 on the same inputs
-    # and keep masks.
+    # and dropout seed.
     xsynth, res["xla_decoder_synthesis_wall_s"] = synthesis_item(
         "decoder_impl=xla", with_inference(cfg, decoder_impl="xla"), params, texts, ledger,
         {"gru_sequence": 4, "fused_reproject_analyze": 60}, card)
     model = xsynth.model
     with torch.no_grad(), exact_f32(dev):
         memory, mmask = model.encode(ids)
-        keep = dec.draw_keep_masks(20, 32, cfg.arch.prenet_units, cfg.arch.prenet_dropout,
-                                   torch.Generator(device=dev).manual_seed(8), dev)
-        plain = model.decode_infer(memory, mmask, 20, 1.1, 8, keep)
+        plain = model.decode_infer(memory, mmask, 20, 1.1, 8, 8)
         kernel = {dt: dec.fused_decode(model.decoder_cell, memory, mmask, 20,
-                                       stop_threshold=1.1, min_steps=8, keep=keep,
+                                       stop_threshold=1.1, min_steps=8, seed=8,
                                        matmul_dtype=dt)
                   for dt in (torch.float32, torch.bfloat16)}
         teacher_mel = mel_gt[:, : 103 * cfg.arch.reduction_factor]  # phase 3b's 103 steps
@@ -3590,7 +3638,7 @@ def variants_path(dev, card):
 
 def mesh_synthesis(cfg, params, texts, devices, card) -> dict:
     """`Synthesizer(mesh=G devices)` in both partitions against one device
-    on the same card: "gspmd" draws one device's keep masks and must give
+    on the same card: "gspmd" draws one device's dropout bits and must give
     its audio (bit-equal at G = 1, the same shapes; 2e-2 relative L2 at
     G > 1, where the shards' products run at other batch sizes through the
     bf16 loop); "shard_map" draws a stream a shard and must keep the stop
@@ -3625,9 +3673,9 @@ def mesh_synthesis(cfg, params, texts, devices, card) -> dict:
         per_shard = []
         run = synth._run_shard
 
-        def counted(i, ids, max_steps, keep, run=run, per_shard=per_shard):
+        def counted(i, ids, max_steps, dropout, run=run, per_shard=per_shard):
             before = counts()
-            out = run(i, ids, max_steps, keep)
+            out = run(i, ids, max_steps, dropout)
             per_shard.append({k: n - before[k] for k, n in counts().items() if n - before[k]})
             return out
 
@@ -3889,7 +3937,7 @@ def widths_path(dev, card, arch=None, kind: str = "wide", phase: str = "3i"):
     (WIDE_ARCH) on the card, from a seeded init: bench.py's batch through
     `Synthesizer` (B3 4 on the wide kind, B4 1 in column panels, B2 60), its
     decode held to the plain loop (`decode_infer`, what decoder_impl="xla"
-    runs) on the same weights and keep masks with phase 3f's limits, and 3
+    runs) on the same weights and dropout seed with phase 3f's limits, and 3
     train steps on phase 3b's bucket (B3 4, B3' 4, B6 1 a step) with the
     loss finite and falling; the first step's gradient against the teacher
     "xla" step's from the same init (cosine at least 0.999).  Phase 3j runs
@@ -3925,11 +3973,9 @@ def widths_path(dev, card, arch=None, kind: str = "wide", phase: str = "3i"):
     ids = torch.as_tensor(synth._encode_ids(texts, None), dtype=torch.long).to(dev)
     with torch.no_grad(), exact_f32(dev):
         memory, mmask = model.encode(ids)
-        keep = dec.draw_keep_masks(20, 32, cfg.arch.prenet_units, cfg.arch.prenet_dropout,
-                                   torch.Generator(device=dev).manual_seed(8), dev)
-        plain = model.decode_infer(memory, mmask, 20, 1.1, 8, keep)
+        plain = model.decode_infer(memory, mmask, 20, 1.1, 8, 8)
         kernel = {dt: dec.fused_decode(model.decoder_cell, memory, mmask, 20,
-                                       stop_threshold=1.1, min_steps=8, keep=keep,
+                                       stop_threshold=1.1, min_steps=8, seed=8,
                                        matmul_dtype=dt)
                   for dt in (torch.float32, torch.bfloat16)}
     r = cfg.arch.reduction_factor
@@ -3999,6 +4045,97 @@ def tiny_step_card_vs_cpu(tcfg, tol: float) -> dict:
     return rel_diff
 
 
+# --------------------------------------------------------------- phase 3l --
+
+
+def gate_path(dev, card):
+    """Phase 3l: the per-shape gates (module docstring) at the default
+    Config() widths, B = 1, 4 decoder steps and Griffin-Lim 4."""
+    import numpy as np
+    import torch
+
+    from sstts_torch import train as tr
+    from sstts_torch.config import Config
+    from sstts_torch.data import pipeline
+    from sstts_torch.data.synthetic import make_utterances
+    from sstts_torch.model.tacotron import init_state_dict
+    from sstts_torch.ops import decoder as dec
+    from sstts_torch.ops import teacher as tops
+    from sstts_torch.synthesize import Synthesizer
+
+    cfg = Config()
+    reach = dec.text_reach(dec.cell_widths(_default_cell(cfg)), dev)
+    reach6 = tops.text_reach(tops.cell_widths(_default_cell(cfg)), dev)
+    log(f"  B4 reach T = {reach}, B6 reach T = {reach6} (the libraries' counts)")
+    if reach < 4096 or reach6 < 4096:
+        raise AssertionError(f"reaches {reach}, {reach6}")
+    cfg = cfg.replace(dataset=dataclasses.replace(cfg.dataset, dataset="synthetic",
+                                                  max_text_len=reach6 + 64))
+    cfg = with_inference(cfg, max_decoder_steps=4, griffin_lim_iters=4, stop_threshold=1.1)
+    params = init_state_dict(cfg.arch, cfg.dataset, seed=0)
+    text = ["the quick brown fox jumps over the lazy dog " * 8]
+    ledger = Launches()
+    res = {"reach": reach, "reach_teacher": reach6}
+    outs, routes = {}, {}
+    for impl in ("auto", "fused", "xla"):
+        synth = Synthesizer(with_inference(cfg, decoder_impl=impl), params, seed=0)
+        want = {"gru_sequence": 4, "fused_reproject_analyze": 4}
+        _, outs[impl] = ledger.run(
+            f"decoder_impl={impl} at T={reach + 1}",
+            lambda: synth.synthesize_batch(text, text_bucket=reach + 1, full_output=True,
+                                           fetch=("wav", "n_samples", "mel")), want)
+        routes[impl] = dict(synth.decode_routes)
+        if impl == "auto":
+            ledger.run(f"decoder_impl=auto at T={reach}",
+                       lambda: synth.synthesize_batch(text, text_bucket=reach),
+                       dict(want, fused_decode=1))
+            routes["auto"] = dict(synth.decode_routes)
+    log(f"  decode routes: {routes}")
+    if routes != {"auto": {reach + 1: "xla", reach: "fused"}, "fused": {reach + 1: "xla"},
+                  "xla": {reach + 1: "xla"}}:
+        raise AssertionError(f"decode routes {routes}")
+    for impl in ("auto", "fused"):
+        for k in ("wav", "mel", "n_samples"):
+            if not np.array_equal(outs[impl][k], outs["xla"][k]):
+                raise AssertionError(f"{impl} past the reach: {k} differs from xla's")
+    if not np.isfinite(outs["xla"]["wav"]).all():
+        raise AssertionError("gated synthesis: non-finite audio")
+    res["decode_routes"] = {k: {str(t): r for t, r in v.items()} for k, v in routes.items()}
+
+    # One train step at one past B6's reach: teacher "auto" takes the plain
+    # scan, an explicit "fused" is refused before any launch.
+    hop, r = cfg.dataset.hop_len, cfg.arch.reduction_factor
+    batcher = pipeline.Batcher(make_utterances(4, cfg.dataset, 10, 16), cfg)
+    u, ids = batcher.examples[0]
+    audio = batcher.audio(u)
+    frames = -(-(1 + len(audio) // hop) // r) * r
+    batch = pipeline.make_batch([(ids, audio)], reach6 + 1, frames, cfg)
+    state = tr.create_state(cfg, seed=0)
+    step = tr.make_train_step(cfg)
+    m = ledger.run(f"train step at T={reach6 + 1}, teacher auto", lambda: step(state, batch),
+                   {"gru_sequence": 4, "gru_sequence_backward": 4})
+    loss = float(m["loss"])
+    state.model.teacher_impl = "fused"
+    reset()
+    try:
+        step(state, batch)
+        raise AssertionError(f"teacher 'fused' took T={reach6 + 1}")
+    except NotImplementedError as e:
+        log(f"  teacher 'fused' at T={reach6 + 1} refused: {e}")
+    if counts()["fused_teacher_scan"] or not np.isfinite(loss):
+        raise AssertionError(f"gated train step: loss {loss}, {counts()}")
+    log(f"  train step at T={reach6 + 1} (teacher auto, plain scan): loss {loss:.5f} [{card}]")
+    res.update(train_loss=loss, launches=ledger.total)
+    return res
+
+
+def _default_cell(cfg):
+    """A decoder cell of `cfg`'s widths (its widths alone are read)."""
+    from sstts_torch.model.decoder import DecoderCell
+
+    return DecoderCell(cfg.arch, cfg.dataset.n_mels, 2 * cfg.arch.encoder_gru_units)
+
+
 def main() -> int:
     import torch
 
@@ -4063,6 +4200,8 @@ def main() -> int:
     grid_res = widths_path(dev, card, GRID_ARCH, "grid", "3j")
     log("phase 3k: BiGRUs of 1420 (B3, B3' on the grid kind, streaming)")
     stream_res = widths_path(dev, card, STREAM_ARCH, "streamed", "3k")
+    log("phase 3l: the per-shape gates of B4 and B6")
+    gate_res = gate_path(dev, card)
     # Each kernel's launches come from the path it carries.
     own_path = {"gru_sequence_backward": "training", "fused_teacher_scan": "training",
                 "reproject_frames_pallas": "serving", "fused_gl_iteration": "serving"}
@@ -4089,7 +4228,7 @@ def main() -> int:
                     "corpus_path": corpus_res, "variants_path": variants_res,
                     "mesh_path": mesh_res, "geometry_path": geometry_res,
                     "widths_path": widths_res, "grid_path": grid_res,
-                    "stream_path": stream_res, "card": card}))
+                    "stream_path": stream_res, "gate_path": gate_res, "card": card}))
     log(card)
     log(json.dumps({"kernels": kernels + wide + grid + stream}))
     log(json.dumps({

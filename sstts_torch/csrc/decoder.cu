@@ -3,8 +3,10 @@
 // Replaces sstts/ops/pallas_decoder.py:fused_decode, the Pallas TPU kernel
 // that runs all S decoder steps in one pallas_call with the whole decoder
 // cell resident in VMEM.  Each step, per utterance:
-//   1. prenet: two FC-ReLU layers with inverted dropout (keep masks drawn
-//      by the caller, so the kernel and its plain version see the same noise),
+//   1. prenet: two FC-ReLU layers with inverted dropout, drawn in the kernel
+//      as the Pallas kernel draws it: step t from seed + t, a unit kept where
+//      its uint32 bits are >= the threshold (philox_keep_bits; the plain
+//      versions compute the same bits, sstts_torch/ops/decoder.py:keep_bits),
 //   2. attention GRU over [prenet, previous context],
 //   3. Bahdanau scores v . tanh(keys + W_q h + b), masked softmax in f32,
 //      context = alignment @ memory,
@@ -87,8 +89,6 @@ struct DecodeArgs {
                        // in column panels past kMaxCols (decoder.memory_panels)
   const void* keys;    // (B, T, A) matmul dtype, rows padded to 16 bytes
   const float* mask;   // (B, T) {0, 1}
-  const float* keep0;  // (S, B, P0) {0, 1} or NULL (no dropout)
-  const float* keep1;  // (S, B, P1)
   float* mel;          // (B, S, r M)
   float* stop;         // (B, S, r)
   float* align;        // (B, S, T)
@@ -96,8 +96,12 @@ struct DecodeArgs {
   int B, T, S, M, P0, P1, Dm, A, Ha, Hd, r;
   int min_steps;
   int n_chunks;
+  int dropout;         // 1: prenet dropout on, 0: off (seed and threshold unread)
+  int row0;            // global row of block 0 (a shard's first row)
+  uint32_t seed;       // step t draws from seed + t (wrapping)
+  uint32_t threshold;  // keep where bits >= threshold: min(rate 2^32, 2^32 - 1)
   float stop_threshold;
-  float dropout_scale;
+  float dropout_scale;  // 1 / (1 - rate), 0 at rate >= 1
 };
 
 }  // extern "C"
@@ -112,6 +116,31 @@ constexpr int kAblate = SSTTS_ABLATE;
 constexpr bool kStream = (kAblate & 2) == 0;
 constexpr bool kMath = (kAblate & 4) == 0;
 using Ring = chain::Ring<kStream>;
+
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+// 3", SC 2011): round multipliers 0xD2511F53, 0xCD9E8D57, key increments
+// (Weyl constants) 0x9E3779B9, 0xBB67AE85.  The prenet dropout's bits for
+// (step key seed + t, global row, layer, unit) are word 0 of the counter
+// (unit, row, layer, 0) under the key (seed + t, 0);
+// sstts_torch/ops/decoder.py:keep_bits is the plain version's copy.
+__device__ __forceinline__ uint32_t philox_keep_bits(uint32_t key, uint32_t row,
+                                                     uint32_t layer, uint32_t unit) {
+  uint32_t c0 = unit, c1 = row, c2 = layer, c3 = 0u, k0 = key, k1 = 0u;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    if (i) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const uint32_t hi0 = __umulhi(0xD2511F53u, c0), lo0 = 0xD2511F53u * c0;
+    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2), lo1 = 0xCD9E8D57u * c2;
+    c0 = hi1 ^ c1 ^ k0;
+    c1 = lo1;
+    c2 = hi0 ^ c3 ^ k1;
+    c3 = lo0;
+  }
+  return c0;
+}
 
 template <typename WT>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -174,13 +203,16 @@ fused_decode_kernel(const DecodeArgs p) {
   float* fin_s = take(1);
   float* kp0 = take(p.P0);  // this step's prenet keep masks
   float* kp1 = take(p.P1);
-  // The keep masks of step t, or 1 (no dropout), from global memory once a
-  // step, off the prenet's critical path.
+  // The keep masks of step t (1 kept, 0 dropped), one unit of either layer
+  // a thread, computed once a step off the prenet's critical path.
   auto stage_keep = [&](int t) {
-    for (int i = tid; i < p.P0; i += kConsumers)
-      kp0[i] = p.keep0 ? p.keep0[((size_t)t * p.B + b) * p.P0 + i] : 1.f;
-    for (int i = tid; i < p.P1; i += kConsumers)
-      kp1[i] = p.keep1 ? p.keep1[((size_t)t * p.B + b) * p.P1 + i] : 1.f;
+    if (!p.dropout) return;
+    const uint32_t key = p.seed + (uint32_t)t, row = (uint32_t)(p.row0 + b);
+    for (int i = tid; i < p.P0 + p.P1; i += kConsumers) {
+      const int layer = i < p.P0 ? 0 : 1, unit = layer ? i - p.P0 : i;
+      const float kept = philox_keep_bits(key, row, layer, unit) >= p.threshold ? 1.f : 0.f;
+      (layer ? kp1 : kp0)[unit] = kept;
+    }
   };
 
   for (int i = tid; i < p.Ha; i += kConsumers) attn_h[i] = 0.f;
@@ -205,11 +237,11 @@ fused_decode_kernel(const DecodeArgs p) {
     // keep mask applied as each column's sum is made.
     stream::matvec<WT, true, kMath>(ring, cur, sched, n, prev, p.P0, part, [&](int j, float s) {
       const float v = fmaxf(s + p.prenet_b0[j], 0.f);
-      x0[j] = !p.keep0 ? v : kp0[j] > 0.f ? v * p.dropout_scale : 0.f;
+      x0[j] = !p.dropout ? v : kp0[j] > 0.f ? v * p.dropout_scale : 0.f;
     });
     stream::matvec<WT, true, kMath>(ring, cur, sched, n, x0, p.P1, part, [&](int j, float s) {
       const float v = fmaxf(s + p.prenet_b1[j], 0.f);
-      xin[j] = !p.keep1 ? v : kp1[j] > 0.f ? v * p.dropout_scale : 0.f;
+      xin[j] = !p.dropout ? v : kp1[j] > 0.f ? v * p.dropout_scale : 0.f;
     });
 
     // 2-4. Attention GRU, Bahdanau attention, decoder projection and two

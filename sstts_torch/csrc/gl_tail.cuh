@@ -53,6 +53,14 @@
 //     barrier therefore counts one arrival from every member.  A member with
 //     no utterance (a batch the cluster size does not divide) computes on
 //     zeros, takes part in every barrier and stores nothing.
+//   * The two consumer warpgroups take the stages by turns, and kStages is
+//     odd, so a slot serves them by turns too.  Each warpgroup therefore
+//     waits on full barriers of its own ([2][kStages]): on one barrier a
+//     slot, a warpgroup that waited for the phase after next (its own next
+//     use) while the phase between (the other's stage, whose copies may land
+//     after later stages') had not completed read the parity as done and
+//     multiplied the wrong weights: one 64 x 128 tile of q' in error, now and
+//     then (ROADMAP C.2; tools/stress_gl_ring.py provokes it).
 // The functions take the kernel's argument struct (GlArgs or GlFusedArgs),
 // whose common fields have the same names.
 
@@ -79,6 +87,20 @@ using bf16 = __nv_bfloat16;
 #define SSTTS_CLUSTER 2
 #endif
 
+// Stress only (sstts_torch/tools/stress_gl_ring.py): SSTTS_RING_STRESS 1 has
+// the producer issue the first six stages of each bin-tile pair as 0, 2, 4,
+// 1, 3, 5 (stage 1, warpgroup 1's first, after warpgroup 0's first three:
+// legal, since no stage waits on a later one, and it lands stage 1's copies
+// late, where warpgroup 0 waits on its slot next), and SSTTS_SHARED_FULL 1
+// gives both consumer warpgroups one full barrier a slot, the scheme before
+// the barriers a warpgroup.  0 in every other build.
+#ifndef SSTTS_RING_STRESS
+#define SSTTS_RING_STRESS 0
+#endif
+#ifndef SSTTS_SHARED_FULL
+#define SSTTS_SHARED_FULL 0
+#endif
+
 namespace {
 
 constexpr int BM = 64;      // frames per block
@@ -92,7 +114,10 @@ constexpr int kStageBytes = 2 * BN * BK * 2;  // one ring stage
 constexpr int kBoxRows = 32;                  // w_fwd rows per TMA box
 constexpr int kFSlots = 4;                    // groups of F rows in flight
 constexpr int kMaxPass = 18;                  // 32-word passes over a panel row
+constexpr int kExtraBarriers = 9;  // for the kernel in front (B5's GEMM1)
 constexpr int kBarrierBytes = 256;
+static_assert((3 * kStages + 2 * kFSlots + kExtraBarriers) * 8 <= kBarrierBytes,
+              "the barriers outgrow their bytes");
 constexpr int kProducerRegs = 40;   // setmaxnreg: 40 * 128 + 232 * 256
 constexpr int kConsumerRegs = 232;  // = 168 * 384, what the launch allots
 
@@ -130,15 +155,19 @@ struct TailSmem {
   __device__ __forceinline__ uint64_t* bars() const {
     return reinterpret_cast<uint64_t*>(ring() + kStages * kStageBytes);
   }
-  // Ring stage loaded / free in every cluster member: [kStages] each.
-  __device__ __forceinline__ uint64_t* full() const { return bars(); }
+  // Ring stage loaded for consumer warpgroup wg: [kStages] each (after the
+  // extra barriers for wg 1); free in every cluster member: [kStages].
+  __device__ __forceinline__ uint64_t* full(int wg) const {
+    return bars() + (wg && !SSTTS_SHARED_FULL ? 2 * kStages + 2 * kFSlots + kExtraBarriers
+                                             : 0);
+  }
   __device__ __forceinline__ uint64_t* empty() const { return bars() + kStages; }
   // Group of F rows loaded / free: [kFSlots] each.
   __device__ __forceinline__ uint64_t* ffull() const { return bars() + 2 * kStages; }
   __device__ __forceinline__ uint64_t* fempty() const {
     return bars() + 2 * kStages + kFSlots;
   }
-  // [9] for the kernel in front (B5's GEMM1).
+  // [kExtraBarriers] for the kernel in front (B5's GEMM1).
   __device__ __forceinline__ uint64_t* extra() const {
     return bars() + 2 * kStages + 2 * kFSlots;
   }
@@ -155,7 +184,8 @@ __device__ __forceinline__ TailSmem tail_smem(unsigned char* raw, int w_len) {
 // By one thread, before the roles split and before a cluster-wide sync.
 __device__ __forceinline__ void tail_init_barriers(const TailSmem& s, int cluster) {
   for (int i = 0; i < kStages; ++i) {
-    sm90::mbar_init(s.full() + i, 1);
+    sm90::mbar_init(s.full(0) + i, 1);
+    sm90::mbar_init(s.full(1) + i, 1);
     sm90::mbar_init(s.empty() + i, cluster);
   }
   for (int i = 0; i < kFSlots; ++i) {
@@ -212,28 +242,45 @@ __device__ __forceinline__ void tail_producer(const Args& p, const TailSmem& s,
   const uint16_t mask = static_cast<uint16_t>((1u << cl) - 1);
   const int n_kc = (kd + BK - 1) / BK;
   const int n_pairs = (SSTTS_ABLATE & 2) ? 0 : p.hp / (2 * BN);
-  int pair = n_pairs ? tile_rotation(cl) % n_pairs : 0;
-  int slot = 0;
+  const int pair0 = n_pairs ? tile_rotation(cl) % n_pairs : 0;
+  // Stage n into its slot, for warpgroup wg: K chunk kc of bin tile 2 pair + wg.
+  auto issue = [&](int slot, uint32_t phase, int wg, int kc, int pair) {
+    const int j0 = (2 * pair + wg) * BN;
+    uint64_t* full = s.full(wg) + slot;
+    sm90::mbar_wait(s.empty() + slot, phase);
+    sm90::mbar_expect_tx(full, kStageBytes);
+    unsigned char* dst = s.ring() + slot * kStageBytes;
+#pragma unroll
+    for (int b = 0; b < 2 * BN / kBoxRows; ++b) {
+      if ((b & (cl - 1)) != rank) continue;
+      const int row = b < BN / kBoxRows
+                          ? j0 + b * kBoxRows
+                          : p.hp + j0 + (b - BN / kBoxRows) * kBoxRows;
+      unsigned char* d = dst + b * kBoxRows * BK * 2;
+      if (cl == 1)
+        sm90::tma_load_2d(d, map_w, full, kc * BK, row);
+      else
+        sm90::tma_load_2d_multicast(d, map_w, full, kc * BK, row, mask);
+    }
+  };
+  if (SSTTS_RING_STRESS) {  // in each pair, stages 0, 2, 4, 1, 3, 5, 6, ... (module head)
+    const int n_stages = 2 * n_pairs * n_kc;
+    for (int i = 0; i < n_stages; ++i) {
+      const int q = i % (2 * n_kc);
+      const int n = n_kc >= 3 && q >= 1 && q <= 4
+                        ? i - q + (q <= 2 ? 2 * q : 2 * q - 5)
+                        : i;
+      issue(n % kStages, (n / kStages) & 1, n & 1, (n >> 1) % n_kc,
+            (pair0 + (n >> 1) / n_kc) % n_pairs);
+    }
+    return;
+  }
+  int pair = pair0, slot = 0;
   uint32_t phase = 0;
   for (int pr = 0; pr < n_pairs; ++pr) {
     for (int kc = 0; kc < n_kc; ++kc) {
       for (int wg = 0; wg < 2; ++wg) {
-        const int j0 = (2 * pair + wg) * BN;
-        sm90::mbar_wait(s.empty() + slot, phase);
-        sm90::mbar_expect_tx(s.full() + slot, kStageBytes);
-        unsigned char* dst = s.ring() + slot * kStageBytes;
-#pragma unroll
-        for (int b = 0; b < 2 * BN / kBoxRows; ++b) {
-          if ((b & (cl - 1)) != rank) continue;
-          const int row = b < BN / kBoxRows
-                              ? j0 + b * kBoxRows
-                              : p.hp + j0 + (b - BN / kBoxRows) * kBoxRows;
-          unsigned char* d = dst + b * kBoxRows * BK * 2;
-          if (cl == 1)
-            sm90::tma_load_2d(d, map_w, s.full() + slot, kc * BK, row);
-          else
-            sm90::tma_load_2d_multicast(d, map_w, s.full() + slot, kc * BK, row, mask);
-        }
+        issue(slot, phase, wg, kc, pair);
         if (++slot == kStages) slot = 0, phase ^= 1;
       }
     }
@@ -408,7 +455,12 @@ __device__ __forceinline__ void tail_gemm_renorm(const Args& p, const TailSmem& 
   float acc[4 * 2 * BN / 8];  // [0, 32) real, [32, 64) imaginary
   const int n_pairs = p.hp / (2 * BN);
   int pair = tile_rotation(cl) % n_pairs;
-  int slot = wg;
+  // This warpgroup's m-th stage is the ring's 2 m + wg: slot (2 m + wg) % kStages,
+  // the use m / kStages of the warpgroup's own barrier of the slot, so the
+  // parity flips every kStages stages (with SSTTS_SHARED_FULL: the slot's
+  // use (2 m + wg) / kStages, a flip where the slot wraps).
+  uint64_t* const full = s.full(wg);
+  int slot = wg, visits = 0;
   uint32_t phase = 0;
   for (int pr = 0; pr < n_pairs; ++pr, pair = pair + 1 == n_pairs ? 0 : pair + 1) {
     const int j0 = (2 * pair + wg) * BN;
@@ -439,7 +491,7 @@ __device__ __forceinline__ void tail_gemm_renorm(const Args& p, const TailSmem& 
     }
     int prev_slot = -1;
     for (int kc = 0; kc < ((SSTTS_ABLATE & 2) ? 0 : n_kc); ++kc) {
-      sm90::mbar_wait(s.full() + slot, phase);
+      sm90::mbar_wait(full + slot, phase);
       const int k_steps = min(BK, kd - kc * BK) / 16;
       const uint64_t da = sm90::sw128_desc(panel_a + kc * kChunkBytes);
       const uint64_t db = sm90::sw128_desc(ring_a + slot * kStageBytes);
@@ -453,7 +505,9 @@ __device__ __forceinline__ void tail_gemm_renorm(const Args& p, const TailSmem& 
       if (prev_slot >= 0 && (tid & 127) == 0) release_stage(s, prev_slot, cl);
       prev_slot = slot;
       slot += 2;  // the other warpgroup has the stage between
-      if (slot >= kStages) slot -= kStages, phase ^= 1;
+      const bool wrapped = slot >= kStages;
+      if (wrapped) slot -= kStages;
+      if (SSTTS_SHARED_FULL ? wrapped : ++visits == kStages) visits = 0, phase ^= 1;
     }
     sm90::wgmma_wait<0>();
     if (prev_slot >= 0 && (tid & 127) == 0) release_stage(s, prev_slot, cl);

@@ -132,10 +132,14 @@ __device__ __forceinline__ uint32_t lds32(const unsigned char* p) {
 // steps chained and 3.5 rounded (on an H100, PERF.md §6), where exact f32
 // sums move them by less than one; kCompensated adds each k step with
 // Kahan's compensation, which carries the bits each add loses (about twice
-// the time of kChained).
+// the time of kChained).  On speech-like spectra (deep valleys, many |s|
+// near 0; tools/gl_speech_check.py) chained sums at 2047 lanes (44.1 kHz,
+// n_fft 2048) changed up to 1.7% of B2's outputs by a bf16 step, past the
+// 1% its check allows, where at 1199 lanes (24 kHz) they changed 0.1%:
+// the sums are chained up to 1280 lanes and compensated past them.
 // gemm2_sum picks the mode of GEMM2.
 enum { kChained = 0, kRounded = 1, kCompensated = 2 };
-constexpr int kChainedLanes = 2048;  // the bf16 GEMM2 sums chained up to this support
+constexpr int kChainedLanes = 1280;  // the bf16 GEMM2 sums chained up to this support
 
 inline __host__ __device__ int gemm2_sum(bool f32, int w_len) {
   return f32 ? kRounded : (w_len > kChainedLanes ? kCompensated : kChained);

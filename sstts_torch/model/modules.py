@@ -100,8 +100,10 @@ class MaskedBatchNorm(nn.Module):
 class PreNet(nn.Module):
     """FC-ReLU-dropout stack.  Dropout takes explicit keep masks (one
     (..., P) {0, 1} tensor per layer, or None for no dropout) so that every
-    path — plain, kernel, batch of one — can be fed the same noise;
-    `keep_masks` draws them from a `torch.Generator`."""
+    path — plain, kernel, batch of one — can be fed the same noise:
+    training draws them with `keep_masks` from a `torch.Generator`, the
+    inference decode from a seed (`sstts_torch.ops.decoder.keep_masks`, the
+    fused decode's own bits)."""
 
     def __init__(self, d_in: int, units: Sequence[int], dropout: float = 0.5,
                  dtype: torch.dtype = torch.float32):

@@ -15,7 +15,9 @@ from the `torch.Generator` the caller passes.  The teacher-forced scan runs
 the fused kernel on CUDA and, on the CPU, the plain module loop unless
 `teacher_impl="fused"` (`sstts_torch.ops.teacher.resolve_teacher_impl`;
 "auto" takes the plain loop on the card too where the kernel lacks the
-architecture, as for local-Luong attention).
+architecture, as for local-Luong attention, and for a text width past the
+kernel's reach, `sstts_torch.ops.teacher.teacher_route`, where an explicit
+"fused" raises).
 
 `arch.compute_dtype` is flax's compute dtype (`compute_dtype`): the
 parameters stay f32, the embedding, dense layers, convolutions and batch
@@ -49,6 +51,7 @@ from sstts_torch.model.attention import BahdanauAttention, linear
 from sstts_torch.model.decoder import DecoderCell, teacher_inputs
 from sstts_torch.model.modules import CBHG, Conv1dBank, Highway, PreNet
 from sstts_torch.model.rnn import _GRUParams
+from sstts_torch.ops import decoder as dec_ops
 from sstts_torch.ops import teacher as teacher_ops
 
 
@@ -157,7 +160,7 @@ class Tacotron(nn.Module):
         )
         keys = cell.attention.init_keys(memory)
         dev = memory.device
-        if teacher_ops.resolve_teacher_impl(self.teacher_impl, self.arch, dev) == "fused":
+        if teacher_ops.scan_impl(self.teacher_impl, cell, memory.shape[1], dev) == "fused":
             dt = self.teacher_dtype or (
                 torch.bfloat16 if dev.type == "cuda" else torch.float32
             )
@@ -185,17 +188,23 @@ class Tacotron(nn.Module):
         max_steps: int,
         stop_threshold: float = 0.5,
         min_steps: int = 8,
-        keep=None,
+        seed: Optional[int] = None,
+        row0: int = 0,
     ) -> Dict[str, torch.Tensor]:
         """Autoregressive fixed-length loop with stop-token mask
-        accumulation (the plain path).  `keep` is (keep0 (S, B, P0),
-        keep1 (S, B, P1)) or None for no dropout.  Returns mel
-        (B, S*r, M), stop_logits (B, S*r), alignments (B, S, T), n_frames."""
+        accumulation (the plain path).  `seed` is the prenet dropout's int32
+        seed, or None for no dropout: the keep masks are the fused
+        decode's (`sstts_torch.ops.decoder.keep_masks`, step t from seed +
+        t, global rows from `row0`), so both decodes drop the same units.
+        Returns mel (B, S*r, M), stop_logits (B, S*r), alignments (B, S, T),
+        n_frames."""
         cell = self.decoder_cell
         r = self.arch.reduction_factor
         batch = memory.shape[0]
         keys = cell.attention.init_keys(memory)
         carry = cell.init_carry(memory)
+        keep = dec_ops.keep_masks(seed, row0, max_steps, batch, cell.prenet.units,
+                                  cell.prenet.dropout, memory.device)
         outs = []
         for step in range(max_steps):
             k = None if keep is None else [m[step] for m in keep]

@@ -19,18 +19,33 @@ chunks, which carry the panel's first column; memory wider than MAX_COLS
 is laid out in panels too (`memory_panels`).  The kernel's producer walks
 that schedule once a step; `decode_steps_plain` reads the unpacked weights.
 
-Dropout: the caller draws the keep masks for both prenet layers, (S, B, P0)
-and (S, B, P1), and the same tensors feed the kernel and the plain version,
-so the two agree with dropout on.  JAX's kernel draws its noise on the TPU
-core, a different stream by design, so parity with JAX runs with dropout
-off.  Products take both operands rounded to the matmul dtype (bf16 by
-default, or f32) with f32 accumulation; gates and softmax run in f32.
+Dropout follows the reference kernel's contract
+(`sstts/ops/pallas_decoder.py:156-166, 231-239`): one int32 `seed` a
+decode, step t draws from `seed + t` (wrapping as int32), a unit is kept
+where its uint32 bits are `>= keep_threshold(rate)` and scaled by
+1 / (1 - rate), and rate >= 1 gives zeros.  The bits are `keep_bits`, a
+stateless counter-based generator (Philox4x32-10) of (seed + t, global row,
+prenet layer, unit) that the kernel computes in place and the plain
+versions (`decode_steps_plain`, `Tacotron.decode_infer` through
+`keep_masks`) compute in int64 tensor ops, so the three agree bit for bit
+at one seed.  `row0` is the first global row of a batch, so that a shard
+of a batch draws the global batch's rows.  JAX's kernel draws its bits on
+the TPU core, a stream no other device reproduces, so parity with JAX runs
+with dropout off.  Products take both operands rounded to the matmul dtype
+(bf16 by default, or f32) with f32 accumulation; gates and softmax run in
+f32.
+
+`decode_route` is the reference's per-shape gate
+(`sstts/synthesize.py:281-296`): a batch whose T is past the kernel's reach
+(`text_reach`, the library's own count of shared memory, once per widths
+and device) takes the plain loop, decided from the shape before any launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple, Optional, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -218,14 +233,14 @@ class DecodeInputs(NamedTuple):
     memory: torch.Tensor  # (B, T, Dm) matmul dtype
     keys: torch.Tensor  # (B, T, A) matmul dtype
     maskf: torch.Tensor  # (B, T) f32 {0, 1}
-    keep0: Optional[torch.Tensor]  # (S, B, P0) f32 {0, 1}, or None
-    keep1: Optional[torch.Tensor]  # (S, B, P1)
+    seed: Optional[int]  # the prenet dropout's int32 seed, or None (no dropout)
+    row0: int  # the global row of this batch's first row
+    rate: float  # the prenet dropout rate
     max_steps: int
     n_mels: int
     reduction: int
     stop_threshold: float
     min_steps: int
-    dropout_scale: float
     # On the card only (None on the CPU, whose plain version reads `w`):
     packed: Optional[torch.Tensor]  # the twelve matrices, `pack_weights`
     schedule: Optional[torch.Tensor]  # one step's chunks, `chunk_schedule`
@@ -297,16 +312,79 @@ def weights_from_cell(cell, matmul_dtype: torch.dtype) -> DecoderWeights:
     )
 
 
-def draw_keep_masks(
-    max_steps: int, batch: int, units, rate: float,
-    generator: torch.Generator, device,
-):
-    """Prenet keep masks (S, B, P) for each layer, f32 {0, 1}, drawn with
-    `generator` on `device` (keep with probability 1 - rate)."""
-    return tuple(
-        (torch.rand(max_steps, batch, p, generator=generator, device=device) >= rate).float()
-        for p in units
-    )
+# Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+# 3", SC 2011): its round multipliers and key increments (Weyl constants).
+# csrc/decoder.cu:philox_keep_bits is the kernel's copy.
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+_U32 = 0xFFFFFFFF
+
+
+def _mulhilo(a: torch.Tensor, m: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(high, low) 32-bit words of a * m, for a in [0, 2^32) (int64) and a
+    32-bit constant m, from 16-bit halves so that no int64 product
+    overflows."""
+    al, ah = a & 0xFFFF, a >> 16
+    ml, mh = m & 0xFFFF, m >> 16
+    ll, lh, hl = al * ml, al * mh, ah * ml
+    mid = (ll >> 16) + (lh & 0xFFFF) + (hl & 0xFFFF)
+    lo = ((mid & 0xFFFF) << 16) | (ll & 0xFFFF)
+    hi = (ah * mh + (lh >> 16) + (hl >> 16) + (mid >> 16)) & _U32
+    return hi, lo
+
+
+def philox4x32(counter, key) -> Tuple[torch.Tensor, ...]:
+    """Philox4x32-10 of four 32-bit counter words and two key words (int64
+    tensors or ints in [0, 2^32), broadcast together): its four output
+    words, int64 in [0, 2^32)."""
+    c0, c1, c2, c3 = (torch.as_tensor(c, dtype=torch.int64) for c in counter)
+    k0, k1 = (torch.as_tensor(k, dtype=torch.int64) for k in key)
+    for i in range(10):
+        if i:
+            k0, k1 = (k0 + _PHILOX_W[0]) & _U32, (k1 + _PHILOX_W[1]) & _U32
+        hi0, lo0 = _mulhilo(c0, _PHILOX_M[0])
+        hi1, lo1 = _mulhilo(c2, _PHILOX_M[1])
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return c0, c1, c2, c3
+
+
+def keep_bits(seed: int, steps: int, row0: int, rows: int, layer: int, units: int,
+              device=None) -> torch.Tensor:
+    """The prenet dropout's uint32 bits, (steps, rows, units) int64 in
+    [0, 2^32): for step t, global row row0 + b, prenet `layer` and unit j,
+    word 0 of Philox4x32-10 with counter (j, row0 + b, layer, 0) and key
+    (seed + t, 0), seed + t wrapping as int32 (the reference seeds step t
+    with `seed_ref[0] + t`)."""
+    kw = dict(dtype=torch.int64, device=device)
+    t = torch.arange(steps, **kw)[:, None, None]
+    row = (row0 + torch.arange(rows, **kw))[None, :, None]
+    unit = torch.arange(units, **kw)[None, None, :]
+    return philox4x32((unit, row, layer, 0), ((seed + t) & _U32, 0))[0]
+
+
+def keep_threshold(rate: float) -> int:
+    """The reference's uint32 keep threshold, `min(rate 2^32, 2^32 - 1)` of
+    the rate clamped to [0, 1]: a unit is kept where its bits are >= it."""
+    rate = min(max(float(rate), 0.0), 1.0)
+    return int(min(rate * 4294967296.0, 4294967295.0))
+
+
+def dropout_scale(rate: float) -> float:
+    """The kept units' scale, 1 / (1 - rate); 0 at rate >= 1, where every
+    unit is zeroed."""
+    return 1.0 / (1.0 - rate) if rate < 1.0 else 0.0
+
+
+def keep_masks(seed: Optional[int], row0: int, steps: int, rows: int, units, rate: float,
+               device=None) -> Optional[List[torch.Tensor]]:
+    """Per-layer keep masks (steps, rows, P) f32 {0, 1} of prenet layers of
+    `units` from `keep_bits`, as the kernel keeps them; None without a
+    seed or at rate <= 0 (dropout is then the identity)."""
+    if seed is None or rate <= 0.0:
+        return None
+    threshold = keep_threshold(rate)
+    return [(keep_bits(seed, steps, row0, rows, i, p, device) >= threshold).float()
+            for i, p in enumerate(units)]
 
 
 def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -338,15 +416,18 @@ def decode_steps_plain(p: DecodeInputs) -> Dict[str, torch.Tensor]:
     zeros = lambda n: torch.zeros(B, n, device=dev)  # noqa: E731
     attn_h, h0, h1, ctx, prev = zeros(Ha), zeros(Hd), zeros(Hd), zeros(Dm), zeros(M)
     fin = zeros(1)
+    masks = keep_masks(p.seed, p.row0, p.max_steps, B,
+                       (w.prenet_w0.shape[1], w.prenet_w1.shape[1]), p.rate, dev)
+    scale = dropout_scale(p.rate)
     mels, stops, aligns, fins = [], [], [], []
     for t in range(p.max_steps):
         fin_old = fin
         x = F.relu(_dot(prev, w.prenet_w0) + w.prenet_b0)
-        if p.keep0 is not None:
-            x = torch.where(p.keep0[t] > 0, x * p.dropout_scale, torch.zeros_like(x))
+        if masks is not None:
+            x = torch.where(masks[0][t] > 0, x * scale, torch.zeros_like(x))
         x = F.relu(_dot(x, w.prenet_w1) + w.prenet_b1)
-        if p.keep1 is not None:
-            x = torch.where(p.keep1[t] > 0, x * p.dropout_scale, torch.zeros_like(x))
+        if masks is not None:
+            x = torch.where(masks[1][t] > 0, x * scale, torch.zeros_like(x))
         h_a = _gru_step(torch.cat([x, ctx], -1), attn_h, w.attn_wx, w.attn_wh, w.attn_b)
         q = _dot(h_a, w.query_w) + w.score_b
         s = torch.tanh(keys + q[:, None, :])
@@ -394,16 +475,17 @@ class _DecodeArgs(ctypes.Structure):
     _fields_ = [
         (name, ctypes.c_void_p)
         for name in (
-            "packed", "schedule", *_VECTORS, "memory", "keys", "mask", "keep0",
-            "keep1", "mel", "stop", "align", "fin",
+            "packed", "schedule", *_VECTORS, "memory", "keys", "mask",
+            "mel", "stop", "align", "fin",
         )
     ] + [
         (name, ctypes.c_int)
         for name in (
             "B", "T", "S", "M", "P0", "P1", "Dm", "A", "Ha", "Hd", "r",
-            "min_steps", "n_chunks",
+            "min_steps", "n_chunks", "dropout", "row0",
         )
-    ] + [("stop_threshold", ctypes.c_float), ("dropout_scale", ctypes.c_float)]
+    ] + [("seed", ctypes.c_uint32), ("threshold", ctypes.c_uint32),
+         ("stop_threshold", ctypes.c_float), ("dropout_scale", ctypes.c_float)]
 
 
 _SIGNATURES = {
@@ -423,7 +505,7 @@ def _rows16(x: torch.Tensor) -> torch.Tensor:
 
 
 def _dims(p: DecodeInputs) -> dict:
-    """The integer fields of `_DecodeArgs` for `p`."""
+    """The shape fields of `_DecodeArgs` for `p`."""
     w = p.w
     B, T, Dm = p.memory.shape
     return dict(
@@ -431,6 +513,15 @@ def _dims(p: DecodeInputs) -> dict:
         P1=w.prenet_w1.shape[1], Dm=Dm, A=p.keys.shape[-1], Ha=w.attn_wh.shape[0],
         Hd=w.gru0_wh.shape[0], r=p.reduction, min_steps=int(p.min_steps),
     )
+
+
+def _dropout_fields(p: DecodeInputs) -> dict:
+    """The dropout fields of `_DecodeArgs` for `p`: the flag, the first
+    global row, the seed's 32 bits, the uint32 threshold and the scale."""
+    on = p.seed is not None and p.rate > 0.0
+    return dict(dropout=int(on), row0=int(p.row0), seed=int(p.seed) & _U32 if on else 0,
+                threshold=keep_threshold(p.rate) if on else 0,
+                dropout_scale=dropout_scale(p.rate) if on else 1.0)
 
 
 def longest_fit(smem_bytes) -> int:
@@ -469,6 +560,44 @@ def library() -> ctypes.CDLL:
     return build.load("decoder", _SIGNATURES)
 
 
+def cell_widths(cell) -> Tuple[int, ...]:
+    """The widths of `cell` that fix one block's shared memory beside T:
+    (M, P0, P1, Dm, A, Ha, Hd, r)."""
+    a = cell.arch
+    return (cell.n_mels, *a.prenet_units, cell.attn_gru.wx.shape[0] - a.prenet_units[-1],
+            a.attention_units, a.attention_gru_units, a.decoder_gru_units,
+            a.reduction_factor)
+
+
+@functools.lru_cache(maxsize=32)
+def text_reach(widths: Tuple[int, ...], device: torch.device) -> int:
+    """The longest T the kernel takes at `widths` (`cell_widths`) on
+    `device`, by this checkout's library's count of shared memory (builds
+    it on first use; the card only), cached so that no batch pays for the
+    search."""
+    M, P0, P1, Dm, A, Ha, Hd, r = widths
+    args = _DecodeArgs(M=M, P0=P0, P1=P1, Dm=Dm, A=A, Ha=Ha, Hd=Hd, r=r)
+    lib = library()
+
+    def smem(t: int) -> int:
+        args.T = t
+        return lib.sstts_decode_smem_bytes(ctypes.byref(args))
+
+    return longest_fit(smem)
+
+
+def decode_route(impl: str, T: int, reach: Optional[int]) -> str:
+    """The decode a batch of T text positions takes: `impl` ("fused" or
+    "xla", `resolve_decoder_impl`'s), except that "fused" past the kernel's
+    `reach` (None: no limit, the plain version on the CPU) is the plain
+    loop, "xla": the reference's per-shape gate (`sstts/synthesize.py:281-296`),
+    for "auto" and an explicit "fused" alike.  A pure function: nothing is
+    launched."""
+    if impl == "fused" and reach is not None and T > reach:
+        return "xla"
+    return impl
+
+
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the decode library's C functions on `lib` (a build of
     csrc/decoder.cu, perhaps with other compile-time settings)."""
@@ -495,13 +624,12 @@ def launch(lib: ctypes.CDLL, p: DecodeInputs) -> Dict[str, torch.Tensor]:
         raise ValueError("fused decode: no packed weights or schedule (prepare_decode "
                          "packs them when the inputs are on the card)")
     dev = p.memory.device
-    for t in (p.memory, p.keys, p.maskf, p.keep0, p.keep1, p.packed, p.schedule, *w):
-        if t is not None and (t.device != dev or not t.is_contiguous()):
+    for t in (p.memory, p.keys, p.maskf, p.packed, p.schedule, *w):
+        if t.device != dev or not t.is_contiguous():
             raise ValueError("fused decode inputs must be contiguous on one device")
     dims = _dims(p)
-    args = _DecodeArgs(**dims, n_chunks=p.schedule.shape[0],
-                       stop_threshold=float(p.stop_threshold),
-                       dropout_scale=float(p.dropout_scale))
+    args = _DecodeArgs(**dims, **_dropout_fields(p), n_chunks=p.schedule.shape[0],
+                       stop_threshold=float(p.stop_threshold))
     smem = lib.sstts_decode_smem_bytes(ctypes.byref(args))
     if smem > build.MAX_SMEM:
         raise NotImplementedError(
@@ -518,10 +646,10 @@ def launch(lib: ctypes.CDLL, p: DecodeInputs) -> Dict[str, torch.Tensor]:
         "fin": torch.empty(B, S, device=dev),
     }
     ptrs = {"packed": p.packed, "schedule": p.schedule, "memory": memory_panels(p.memory),
-            "keys": _rows16(p.keys), "mask": p.maskf, "keep0": p.keep0,
-            "keep1": p.keep1, **{n: getattr(w, n) for n in _VECTORS}, **out}
+            "keys": _rows16(p.keys), "mask": p.maskf,
+            **{n: getattr(w, n) for n in _VECTORS}, **out}
     for name, t in ptrs.items():
-        setattr(args, name, None if t is None else t.data_ptr())
+        setattr(args, name, t.data_ptr())
     rc = lib.sstts_fused_decode(
         ctypes.byref(args), int(dt == torch.bfloat16),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -556,16 +684,17 @@ def prepare_decode(
     *,
     stop_threshold: float = 0.5,
     min_steps: int = 8,
-    keep=None,
+    seed: Optional[int] = None,
+    row0: int = 0,
     matmul_dtype: torch.dtype = torch.bfloat16,
 ) -> DecodeInputs:
     """Hoisted per-utterance work: the key projection (f32, as JAX), the
     casts, and on the card the matrices packed for the kernel's stream and
-    its chunk schedule.  `keep` is (keep0, keep1) or None for no dropout."""
+    its chunk schedule.  `seed` is the prenet dropout's int32 seed (at the
+    cell's prenet rate), or None for no dropout; `row0` the global row of
+    the batch's first row."""
     w = weights_from_cell(cell, matmul_dtype)
     keys = memory.float() @ cell.attention.memory_proj.weight.T.float()
-    keep0, keep1 = (None, None) if keep is None else (k.float().contiguous() for k in keep)
-    rate = float(cell.prenet.dropout)
     packed = schedule = None
     if memory.is_cuda:
         packed = pack_weights(w)
@@ -579,14 +708,14 @@ def prepare_decode(
         memory=memory.to(matmul_dtype).contiguous(),
         keys=keys.to(matmul_dtype).contiguous(),
         maskf=memory_mask.float().contiguous(),
-        keep0=keep0,
-        keep1=keep1,
+        seed=None if seed is None else int(seed),
+        row0=int(row0),
+        rate=float(cell.prenet.dropout),
         max_steps=int(max_steps),
         n_mels=cell.n_mels,
         reduction=cell.arch.reduction_factor,
         stop_threshold=float(stop_threshold),
         min_steps=int(min_steps),
-        dropout_scale=1.0 / (1.0 - rate) if rate < 1.0 else 0.0,
         packed=packed,
         schedule=schedule,
     )

@@ -94,6 +94,54 @@ def resolve_teacher_impl(override, arch, device) -> str:
     return impl
 
 
+def teacher_route(override, impl: str, T: int, reach) -> str:
+    """The scan a batch of T text positions takes: `impl` (`resolve_teacher_impl`'s
+    for `override`), except that under "auto" the kernel past its `reach`
+    (None: no limit, the plain version on the CPU) is the plain loop, "xla",
+    as the reference's "auto" is always its scan
+    (`sstts/ops/pallas_decoder.py:627-645`); an explicit "fused" past the
+    reach raises NotImplementedError.  Decided from the shape before any
+    launch; a pure function."""
+    if impl != "fused" or reach is None or T <= reach:
+        return impl
+    if (override or "auto") == "auto":
+        return "xla"
+    raise NotImplementedError(
+        f"teacher decoder impl 'fused': T={T} is past the fused teacher scan's "
+        f"reach (T up to {reach}); use 'auto' or 'xla' for this text width"
+    )
+
+
+def scan_impl(override, cell, T: int, device) -> str:
+    """The scan `Tacotron.decode_teacher` runs for a batch of T text
+    positions on `device`: `resolve_teacher_impl`, then on the card the
+    shape gate `teacher_route` at the kernel's reach (`text_reach`)."""
+    impl = resolve_teacher_impl(override, cell.arch, device)
+    reach = None
+    if impl == "fused" and torch.device(device).type == "cuda":
+        reach = text_reach(cell_widths(cell), torch.device(device))
+    return teacher_route(override, impl, T, reach)
+
+
+def cell_widths(cell) -> Tuple[int, ...]:
+    """The widths of `cell` that fix one block's shared memory beside T:
+    (P1, Dm, A, Ha, Hd)."""
+    a = cell.arch
+    P1 = a.prenet_units[-1]
+    return (P1, cell.attn_gru.wx.shape[0] - P1, a.attention_units, a.attention_gru_units,
+            a.decoder_gru_units)
+
+
+@functools.lru_cache(maxsize=32)
+def text_reach(widths: Tuple[int, ...], device: torch.device) -> int:
+    """The longest T the kernel takes at `widths` (`cell_widths`) on
+    `device`, by this checkout's library's count of shared memory (builds
+    it on first use; the card only), cached so that no step pays for the
+    search."""
+    P1, Dm, A, Ha, Hd = widths
+    return longest_text(library(), dict(B=0, T=0, S=0, P1=P1, Dm=Dm, A=A, Ha=Ha, Hd=Hd))
+
+
 def teacher_weights_from_cell(cell) -> TeacherWeights:
     """The decoder cell's live parameters (still in the autograd graph) in
     kernel layout."""

@@ -32,11 +32,24 @@ model, and each shard runs the whole pipeline on its device (encoder,
 decode, post-net, Griffin-Lim and the wire are batch-parallel, so no
 collective is needed); the launches of every shard are enqueued before any
 is waited for.  Every shard keeps the global padded text width.
-`partition="gspmd"` draws the prenet keep masks for the global batch and
-slices them, so the output equals one device's; `"shard_map"` gives each
-shard its own stream, seeded from the seed folded with the shard index, as
-the reference folds its key.  Either way the kernels run on every shard
-(the reference keeps them out of a GSPMD program, ROADMAP C).
+
+The prenet dropout at inference takes one int32 seed a batch, drawn from
+the Synthesizer's generator as the reference draws `randint(rng, (), 0,
+2**31 - 1)` (`sstts/synthesize.py:309`); the fused decode and the plain
+loop both draw their keep bits from it (`sstts_torch.ops.decoder.keep_bits`),
+so the two decodes agree at one seed.  `partition="gspmd"` takes one seed
+for the global batch and gives each shard the global row of its first row,
+so the output equals one device's; `"shard_map"` gives each shard its own
+generator, seeded from the seed folded with the shard index, as the
+reference folds its key.  Either way the kernels run on every shard (the
+reference keeps them out of a GSPMD program, ROADMAP C).
+
+The decode takes the fused kernel per shape bucket as the reference's gate
+does (`sstts/synthesize.py:281-296`): on the card, a batch whose text
+width T is past the kernel's reach (`sstts_torch.ops.decoder.text_reach`)
+takes the plain loop, under "auto" and an explicit "fused" alike, decided
+from the shape before anything is launched; `decode_routes` records the
+route each T took.
 """
 
 from __future__ import annotations
@@ -154,7 +167,8 @@ class Synthesizer:
     `params` is a `state_dict` for `Tacotron(cfg.arch, cfg.dataset)`: from
     `sstts_torch.convert.convert_params` (a JAX init or checkpoint tree) or
     `sstts_torch.model.tacotron.init_state_dict` (a seeded random init).
-    `seed` seeds the prenet-dropout generator.
+    `seed` seeds the generator of the prenet dropout's seeds (one a
+    batch, module docstring).
     """
 
     def __init__(
@@ -184,13 +198,18 @@ class Synthesizer:
         model.eval()
         self.models = [model.to(devices[0])] + [copy.deepcopy(model).to(d) for d in devices[1:]]
         self.model = self.models[0]
-        self.generator = torch.Generator(device=self.device).manual_seed(int(seed))
+        # The dropout seeds come from host generators: a seed is a launch
+        # argument, and drawing it must not wait for the card.
+        self.generator = torch.Generator().manual_seed(int(seed))
         self.shard_generators = None
         if self.partition == "shard_map":
             self.shard_generators = [
-                torch.Generator(device=dev).manual_seed(_fold_in(int(seed), i))
-                for i, dev in enumerate(devices)
+                torch.Generator().manual_seed(_fold_in(int(seed), i))
+                for i in range(len(devices))
             ]
+        #: T (the padded text width) -> the decode that batches of it took,
+        #: "fused" or "xla" (`sstts_torch.ops.decoder.decode_route`).
+        self.decode_routes: Dict[int, str] = {}
 
     @classmethod
     def from_checkpoint(
@@ -207,47 +226,55 @@ class Synthesizer:
 
     # The pipeline ---------------------------------------------------------- #
 
-    def _keep_masks(self, batch: int, max_steps: int, generator: torch.Generator):
-        a = self.cfg.arch
-        if not a.prenet_dropout_at_inference:
-            return None
-        return decoder_ops.draw_keep_masks(
-            max_steps, batch, a.prenet_units, a.prenet_dropout,
-            generator, generator.device,
-        )
+    @staticmethod
+    def _draw_seed(generator: torch.Generator) -> int:
+        """One int32 dropout seed, in [0, 2^31 - 1) as the reference's."""
+        return int(torch.randint(0, 2**31 - 1, (), generator=generator))
 
-    def _shard_keep_masks(self, batch: int, max_steps: int):
-        """Each shard's keep masks (or Nones): "gspmd" slices one draw for
-        the global batch, "shard_map" draws from each shard's stream."""
+    def _shard_dropout(self, batch: int):
+        """Each shard's (seed, global row of its first row) for the prenet
+        dropout, or Nones when it is off at inference: "gspmd" one seed for
+        the global batch, "shard_map" a seed from each shard's generator."""
         n = len(self.models)
-        rows = row_slices(batch, n)
-        if self.shard_generators is not None:
-            return [self._keep_masks(r.stop - r.start, max_steps, g)
-                    for r, g in zip(rows, self.shard_generators)]
-        keep = self._keep_masks(batch, max_steps, self.generator)
-        if keep is None:
+        if not self.cfg.arch.prenet_dropout_at_inference:
             return [None] * n
-        return [tuple(m[:, r] for m in keep) for r in rows]
+        if self.shard_generators is not None:
+            return [(self._draw_seed(g), 0) for g in self.shard_generators]
+        seed = self._draw_seed(self.generator)
+        return [(seed, r.start) for r in row_slices(batch, n)]
+
+    def _decode_route(self, model: Tacotron, T: int, dev: torch.device) -> str:
+        """The decode a batch of text width T takes on `dev`, recorded in
+        `decode_routes`: on the card, "fused" past the kernel's reach is the
+        plain loop (`decoder_ops.decode_route`); off it the kernel's plain
+        version has no reach."""
+        reach = None
+        if self._decoder_impl == "fused" and dev.type == "cuda":
+            reach = decoder_ops.text_reach(decoder_ops.cell_widths(model.decoder_cell), dev)
+        route = decoder_ops.decode_route(self._decoder_impl, T, reach)
+        self.decode_routes[T] = route
+        return route
 
     def _prepare(self, model: Tacotron, char_ids: torch.Tensor, max_steps: int,
-                 keep) -> Dict[str, torch.Tensor]:
-        """Text ids -> masked normalized linear spectrogram (+ metadata)."""
+                 dropout) -> Dict[str, torch.Tensor]:
+        """Text ids -> masked normalized linear spectrogram (+ metadata).
+        `dropout` is (seed, row0) for the prenet dropout, or None."""
         cfg = self.cfg
         dev = char_ids.device
+        route = self._decode_route(model, char_ids.shape[1], dev)
         memory, mmask = model.encode(char_ids)
-        if keep is not None:
-            keep = tuple(m.to(dev) for m in keep)
-        if self._decoder_impl == "fused":
+        seed, row0 = dropout if dropout is not None else (None, 0)
+        if route == "fused":
             dec = decoder_ops.fused_decode(
                 model.decoder_cell, memory, mmask, max_steps,
                 stop_threshold=cfg.inference.stop_threshold,
                 min_steps=cfg.inference.min_decoder_steps,
-                keep=keep,
+                seed=seed, row0=row0,
             )
         else:
             dec = model.decode_infer(
                 memory, mmask, max_steps, cfg.inference.stop_threshold,
-                cfg.inference.min_decoder_steps, keep,
+                cfg.inference.min_decoder_steps, seed, row0,
             )
         mel = dec["mel"]
         total_frames = mel.shape[1]
@@ -305,14 +332,15 @@ class Synthesizer:
             ids[i, : len(e)] = e
         return ids
 
-    def _run_shard(self, i: int, ids: np.ndarray, max_steps: int, keep) -> Dict[str, torch.Tensor]:
-        """Shard `i`'s rows through the whole pipeline on its device;
-        returns its device tensors."""
+    def _run_shard(self, i: int, ids: np.ndarray, max_steps: int,
+                   dropout) -> Dict[str, torch.Tensor]:
+        """Shard `i`'s rows through the whole pipeline on its device, with
+        its (seed, row0) dropout or None; returns its device tensors."""
         model = self.models[i]
         dev = next(model.parameters()).device
         ids_d = torch.as_tensor(ids, dtype=torch.long).to(dev)
         with torch.inference_mode(), exact_f32(dev), _on(dev):
-            out = self._prepare(model, ids_d, max_steps, keep)
+            out = self._prepare(model, ids_d, max_steps, dropout)
             out.update(self._vocode(out["linear"]))
         return out
 
@@ -324,9 +352,9 @@ class Synthesizer:
         max_steps = max_steps or self.cfg.inference.max_decoder_steps
         ids = self._encode_ids(texts, text_bucket)
         rows = row_slices(len(ids), len(self.models))
-        keeps = self._shard_keep_masks(len(ids), max_steps)
-        return [self._run_shard(i, ids[r], max_steps, k)
-                for i, (r, k) in enumerate(zip(rows, keeps))]
+        drops = self._shard_dropout(len(ids))
+        return [self._run_shard(i, ids[r], max_steps, d)
+                for i, (r, d) in enumerate(zip(rows, drops))]
 
     def _dispatch(self, texts, max_steps, text_bucket):
         """Enqueue one batch: its launches, then the copy of each shard's

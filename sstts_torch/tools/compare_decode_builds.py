@@ -5,17 +5,18 @@
 Builds `decoder.cu` from `--base` (the `csrc` directory of another
 checkout, for example a parent commit unpacked with `git archive`) and from
 this checkout, one `nvcc` each, started together, into a temporary
-directory.  Either tree may hold the first port's kernel (twelve matrix
-pointers, each thread loading its weights from L2) or the ring kernel (one
-packed buffer and a chunk schedule); the source says which (only the ring
-kernel includes `stream.cuh`).  Both builds get the same inputs:
-`chip_smoke.py`'s two cases at the default `Config()` from a seeded random
-init, (B=32, T=96, S=160) in bf16 and S=20 in f32, prenet dropout on.  The
-script reports, for each case, each output's largest difference between the
-builds and against `decode_steps_plain`, whether `fin` is equal, the times
-from CUDA events (one untimed round, then base, new, new, base, five times
-over) and what ptxas said of each build.  Prints one JSON line with the
-card's name and power limit.
+directory.  Either tree may hold the ring kernel that reads its prenet
+keep masks from global memory (its `DecodeArgs` has `keep0` and `keep1`)
+or the one that draws its dropout itself from a seed (`keep_bits`); the
+source says which.  Both builds get the same inputs: `chip_smoke.py`'s two
+cases at the default `Config()` from a seeded random init, (B=32, T=96,
+S=160) in bf16 and S=20 in f32, prenet dropout on at one seed (the masks
+build given `keep_masks` of that seed: the same bits), and the bf16 case
+again with dropout off.  The script reports, for each case, each output's
+largest difference between the builds and against `decode_steps_plain`,
+whether `fin` is equal, the times from CUDA events (one untimed round, then
+base, new, new, base, five times over) and what ptxas said of each build.
+Prints one JSON line with the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -38,11 +39,17 @@ from sstts_torch.tools import card_line, time_ms
 OUTPUTS = ("mel", "stop", "align", "fin")
 
 
+def interface(src: str) -> str:
+    """"masks" for a B4 source whose kernel reads keep masks from global
+    memory, else "seed" (the current interface)."""
+    return "masks" if "const float* keep0;" in src else "seed"
+
+
 def compile_builds(jobs, tmp, binder=dec.bind):
     """Build every job, {key: (path of decoder.cu or another ring kernel's
     source, [-D settings])}, one `nvcc` each, all started together; {key:
-    (CDLL, ptxas summary, ring)}, ring True for the ring kernel's interface
-    (then `binder` binds the library)."""
+    (CDLL, ptxas summary, interface)}, `binder` binding each library of the
+    current interface."""
     procs = {}
     for key, (src, defines) in jobs.items():
         out = Path(tmp) / f"{Path(src).stem}-{abs(hash(key))}.so"
@@ -53,7 +60,7 @@ def compile_builds(jobs, tmp, binder=dec.bind):
         ), out)
     libs = {}
     for key, (proc, out) in procs.items():
-        ring = '#include "stream.cuh"' in Path(jobs[key][0]).read_text()
+        kind = interface(Path(jobs[key][0]).read_text())
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc {key} failed:\n{log}")
@@ -62,17 +69,17 @@ def compile_builds(jobs, tmp, binder=dec.bind):
             "spill_store_bytes": [int(b) for b in re.findall(r"(\d+) bytes spill stores", log)],
         }
         lib = ctypes.CDLL(str(out))
-        if ring:
+        if kind == "seed":
             binder(lib)
-        libs[key] = (lib, ptxas, ring)
+        libs[key] = (lib, ptxas, kind)
     return libs
 
 
 def decode_case(dev, S: int, dtype: torch.dtype, stop_threshold: float, *, B: int = 32,
-                T: int = 96, cfg=None, seed: int = 3):
+                T: int = 96, cfg=None, seed: int = 3, dropout: bool = True):
     """`chip_smoke.py`'s decoder inputs: a seeded random init of `cfg` (the
-    default `Config()`), memory and lengths from `seed`, dropout keep masks
-    from `seed + 1`, min_steps 8."""
+    default `Config()`), memory and lengths from `seed`, the prenet dropout
+    from the seed `seed + 1` (or off), min_steps 8."""
     from sstts_torch.config import Config
     from sstts_torch.model.tacotron import Tacotron, init_state_dict
 
@@ -85,62 +92,62 @@ def decode_case(dev, S: int, dtype: torch.dtype, stop_threshold: float, *, B: in
     memory = (0.5 * torch.randn(B, T, Dm, generator=g)).to(dev)
     lengths = torch.randint(min(40, T), T + 1, (B,), generator=g).to(dev)
     mask = torch.arange(T, device=dev)[None] < lengths[:, None]
-    gdev = torch.Generator(device=dev).manual_seed(seed + 1)
-    keep = dec.draw_keep_masks(S, B, cfg.arch.prenet_units, 0.5, gdev, dev)
     with torch.no_grad():
         return dec.prepare_decode(cell, memory, mask, S, stop_threshold=stop_threshold,
-                                  min_steps=8, keep=keep, matmul_dtype=dtype)
+                                  min_steps=8, seed=seed + 1 if dropout else None,
+                                  matmul_dtype=dtype)
 
 
-class _FirstDecodeArgs(ctypes.Structure):
-    """`DecodeArgs` of the first port's kernel: every matrix and vector by
-    its own pointer, in `DecoderWeights` order."""
+class _MaskDecodeArgs(ctypes.Structure):
+    """`DecodeArgs` of the ring kernel that reads keep masks (S, B, P) f32
+    {0, 1} from global memory, or NULL for no dropout."""
 
     _fields_ = [
         (name, ctypes.c_void_p)
-        for name in (*dec.DecoderWeights._fields, "memory", "keys", "mask", "keep0",
-                     "keep1", "mel", "stop", "align", "fin")
+        for name in ("packed", "schedule", *dec._VECTORS, "memory", "keys", "mask",
+                     "keep0", "keep1", "mel", "stop", "align", "fin")
     ] + [
         (name, ctypes.c_int)
         for name in ("B", "T", "S", "M", "P0", "P1", "Dm", "A", "Ha", "Hd", "r",
-                     "min_steps")
+                     "min_steps", "n_chunks")
     ] + [("stop_threshold", ctypes.c_float), ("dropout_scale", ctypes.c_float)]
 
 
-def launcher(lib, ring, p):
+def launcher(lib, kind, p):
     """A function that launches `lib`'s kernel on `p` and returns its
-    outputs, for either kernel interface (`ring` as `compile_builds`)."""
-    if ring:
+    outputs, for either interface (`kind` as `compile_builds`): the masks
+    kernel gets `keep_masks` of `p`'s seed, the bits the seed kernel
+    draws."""
+    if kind == "seed":
         return lambda: dec.launch(lib, p)
-    for fn, (argtypes, restype) in {
-        "sstts_fused_decode": ([ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
-        "sstts_decode_smem_bytes": ([ctypes.c_void_p], ctypes.c_int),
-    }.items():
-        getattr(lib, fn).argtypes, getattr(lib, fn).restype = argtypes, restype
+    dec.bind(lib)
     w, dev = p.w, p.memory.device
-    B, T, Dm = p.memory.shape
+    B, T, _ = p.memory.shape
     S, r, M = p.max_steps, p.reduction, p.n_mels
+    units = (w.prenet_w0.shape[1], w.prenet_w1.shape[1])
+    keep = dec.keep_masks(p.seed, p.row0, S, B, units, p.rate, dev) or (None, None)
+    keep = [None if k is None else k.contiguous() for k in keep]
     out = {
         "mel": torch.empty(B, S, r * M, device=dev),
         "stop": torch.empty(B, S, r, device=dev),
         "align": torch.empty(B, S, T, device=dev),
         "fin": torch.empty(B, S, device=dev),
     }
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    args = _FirstDecodeArgs(
-        *[ptr(t) for t in w], ptr(p.memory), ptr(p.keys), ptr(p.maskf), ptr(p.keep0),
-        ptr(p.keep1), *[ptr(out[k]) for k in OUTPUTS],
-        B, T, S, M, w.prenet_w0.shape[1], w.prenet_w1.shape[1], Dm, p.keys.shape[-1],
-        w.attn_wh.shape[0], w.gru0_wh.shape[0], r, int(p.min_steps),
-        float(p.stop_threshold), float(p.dropout_scale),
-    )
+    ptrs = {"packed": p.packed, "schedule": p.schedule, "memory": dec.memory_panels(p.memory),
+            "keys": dec._rows16(p.keys), "mask": p.maskf, "keep0": keep[0], "keep1": keep[1],
+            **{n: getattr(w, n) for n in dec._VECTORS}, **out}
+    drop = dec._dropout_fields(p)
+    args = _MaskDecodeArgs(**dec._dims(p), n_chunks=p.schedule.shape[0],
+                           stop_threshold=float(p.stop_threshold),
+                           dropout_scale=drop["dropout_scale"])
+    for name, t in ptrs.items():
+        setattr(args, name, None if t is None else t.data_ptr())
     bf16 = int(w.attn_wx.dtype == torch.bfloat16)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
-        rc = lib.sstts_fused_decode(ctypes.byref(args), bf16, stream)
-        if rc:
-            raise RuntimeError(f"fused_decode (first kernel): CUDA error {rc}")
+        build.check(lib, lib.sstts_fused_decode(ctypes.byref(args), bf16, stream),
+                    "fused_decode (masks)")
         return out
 
     return launch
@@ -162,13 +169,16 @@ def main() -> None:
             "base": (Path(args.base) / "decoder.cu", []),
             "new": (build.CSRC / "decoder.cu", []),
         }, tmp)
-        res = {"ptxas": {k: v[1] for k, v in libs.items()}}
-        for case, S, dt, thr in (("S160-bf16", 160, torch.bfloat16, 1.1),
-                                 ("S20-f32", 20, torch.float32, 0.5)):
-            p = decode_case(dev, S, dt, thr)
+        res = {"ptxas": {k: v[1] for k, v in libs.items()},
+               "interface": {k: v[2] for k, v in libs.items()}}
+        for case, S, dt, thr, drop in (("S160-bf16", 160, torch.bfloat16, 1.1, True),
+                                       ("S20-f32", 20, torch.float32, 0.5, True),
+                                       ("S160-bf16-no-dropout", 160, torch.bfloat16, 1.1,
+                                        False)):
+            p = decode_case(dev, S, dt, thr, dropout=drop)
             with torch.no_grad():
                 ref = dec.decode_steps_plain(p)
-                launches = {tag: launcher(lib, ring, p) for tag, (lib, _, ring) in libs.items()}
+                launches = {tag: launcher(lib, kind, p) for tag, (lib, _, kind) in libs.items()}
                 outs = {tag: {k: v.clone() for k, v in fn().items()}
                         for tag, fn in launches.items()}
                 torch.cuda.synchronize()
@@ -181,6 +191,7 @@ def main() -> None:
             base, new = statistics.mean(times["base"]), statistics.mean(times["new"])
             res[case] = {
                 "new_vs_base": max_diffs(outs["new"], outs["base"]),
+                "bit_equal": all(torch.equal(outs["new"][k], outs["base"][k]) for k in OUTPUTS),
                 "base_vs_plain": max_diffs(outs["base"], ref),
                 "new_vs_plain": max_diffs(outs["new"], ref),
                 "fin_equal": {tag: bool(torch.equal(o["fin"], ref["fin"]))

@@ -13,7 +13,11 @@ makes those inputs with `chip_smoke.gl_inputs` and holds each launch with
 each of `--processes` fresh interpreters.  Every output is also compared
 with the first of its process, the kernel's and the plain version's.  A
 miss prints where its differing elements lie (utterances, frames, bins)
-and, with `--save`, keeps the inputs and both outputs.  Prints one JSON
+and, with `--save`, keeps the first miss of the geometry over every
+process (`DIR/miss-GEOMETRY.pt`, `save_path`): the weights, and the inputs
+and both outputs of its first differing utterance only (a few MB; the
+whole batch's tensors are ~0.2 GB at 16 kHz, past the 64 MiB a chip call
+brings back).  Prints one JSON
 line with the counts and the card's name and power limit.  `--geometry`
 takes another case of `chip_smoke.GL_SIDE_GEOMETRIES` (bf16), for example
 "48kHz" (n_fft 4096, w_len 2399 in 2432 lanes, the wide configuration).
@@ -50,6 +54,19 @@ def inputs(dev, geometry: str = "16kHz") -> dict:
                      ds.hop_len, plan["d_max"]), "prev": x["prev"]}
 
 
+def save_path(save: str, geometry: str):
+    """The file of the geometry's one kept miss, claimed by an exclusive
+    create; None once a miss of the geometry is kept (by this process or
+    an earlier one)."""
+    path = Path(save) / f"miss-{geometry}.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        with open(path, "x"):
+            return path
+    except FileExistsError:
+        return None
+
+
 def child(rounds: int, save: str | None, tag: str, geometry: str) -> dict:
     import chip_smoke
 
@@ -84,11 +101,16 @@ def child(rounds: int, save: str | None, tag: str, geometry: str) -> dict:
                         "bins": idx[:, 2].unique().tolist()[:40]}
                 misses.append(miss)
                 print("MISS", json.dumps(miss), flush=True)
-                if save:
-                    Path(save).mkdir(parents=True, exist_ok=True)
-                    torch.save({"args": [t.cpu() if torch.is_tensor(t) else t for t in x["args"]],
-                                "prev": x["prev"].cpu(), "momentum": m, "kernel": a.cpu(),
-                                "plain": b.cpu()}, Path(save) / f"miss-{tag}-{r}-{key}.pt")
+                path = save_path(save, geometry) if save else None
+                if path is not None:
+                    u = int(idx[0, 0]) if len(idx) else 0
+                    one = lambda t: (t[u : u + 1] if torch.is_tensor(t) and t.dim() == 3  # noqa: E731
+                                     else t)
+                    torch.save({"args": [one(t).cpu() if torch.is_tensor(t) else t
+                                         for t in x["args"]],
+                                "prev": one(x["prev"]).cpu(), "momentum": m, "case": key,
+                                "process": tag, "round": r, "utterance": u,
+                                "kernel": one(a).cpu(), "plain": one(b).cpu()}, path)
     return {"checks": 3 * rounds, "misses": misses, "bit_equal_within_process": same}
 
 

@@ -76,21 +76,18 @@ def test_decode_infer_matches_jax(setup):
 
 
 def test_plain_kernel_math_matches_module_loop_with_dropout(setup):
-    """With dropout ON and the same keep masks, the kernel's plain version
-    (f32) and the module loop agree: the masks are the whole noise
-    contract between the paths."""
+    """With dropout ON at one seed, the kernel's plain version (f32) and the
+    module loop draw the same keep masks (`keep_masks`, the kernel's bits)
+    and agree: the seed is the whole noise contract between the paths."""
     jcfg, tcfg, v, jmodel, model, memory, mmask = setup
-    g = torch.Generator().manual_seed(0)
-    keep = dec_ops.draw_keep_masks(
-        7, memory.shape[0], tcfg.arch.prenet_units, 0.5, g, "cpu"
-    )
+    keep = dec_ops.keep_masks(123, 0, 7, memory.shape[0], tcfg.arch.prenet_units, 0.5)
     assert 0.3 < float(keep[0].mean()) < 0.7
     with torch.no_grad():
         a = dec_ops.fused_decode(
             model.decoder_cell, t(memory), t(mmask), 7, stop_threshold=0.5,
-            min_steps=2, keep=keep, matmul_dtype=torch.float32,
+            min_steps=2, seed=123, matmul_dtype=torch.float32,
         )
-        b = model.decode_infer(t(memory), t(mmask), 7, 0.5, 2, keep)
+        b = model.decode_infer(t(memory), t(mmask), 7, 0.5, 2, 123)
     np.testing.assert_array_equal(a["n_frames"].numpy(), b["n_frames"].numpy())
     for key in ("mel", "stop_logits", "alignments"):
         np.testing.assert_allclose(a[key].numpy(), b[key].numpy(), atol=2e-5, err_msg=key)

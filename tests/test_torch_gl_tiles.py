@@ -314,12 +314,13 @@ def test_python_reckoning_matches_the_sources():
     assert "return (kRows + 2 * d_max + kG1Rows - 1) / kG1Rows * kG1Rows;" in src
     assert "(fused ? (size_t)g1_rows(d_max) * wp * 4 : 0) + (size_t)kRows * wp * elem_bytes" in src
     assert "for (int n0 = 0; n0 < rows; n0 += kG1Rows)" in src
-    # GEMM2's sums: chained in bf16 up to 2048 lanes (as before), Kahan past
-    # them, rounded in f32; GEMM1's rounded
+    # GEMM2's sums: chained in bf16 up to 1280 lanes (24 kHz's 1199 and the
+    # short hops' 1101), Kahan past them (44.1 kHz at n_fft 2048 on), rounded
+    # in f32; GEMM1's rounded
     assert ("return f32 ? kRounded : (w_len > kChainedLanes ? kCompensated : kChained);"
             in src and "gemm<OT, 3, 4, kRounded>(" in src and "gemm<OT, 2, 8, kSum>(" in src)
-    assert [gt.wide_sum(w, torch.bfloat16) for w in (1101, 2047, 2048, 2049, 2399)] == [
-        "chained", "chained", "chained", "compensated", "compensated"]
+    assert [gt.wide_sum(w, torch.bfloat16) for w in (1101, 1199, 1280, 1281, 2047, 2399)] == [
+        "chained", "chained", "chained", "compensated", "compensated", "compensated"]
     assert gt.wide_sum(1101, torch.float32) == gt.wide_sum(2399, torch.float32) == "rounded"
     assert gt.wide_smem_bytes(2047, 16) == 76800 and gt.wide_smem_bytes(2047, 17) == 76800
     assert gt.wide_smem_bytes(2047, 128) == 76800 and gt.wide_smem_bytes(2047, 129) == -1
