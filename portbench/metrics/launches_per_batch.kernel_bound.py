@@ -1,0 +1,6 @@
+"""`launches_per_batch.synth` in the cells whose end-to-end metric is
+`audio_rtf.kernel_bound`: read as there."""
+
+from portbench import harness
+
+read = harness.metric_reader("launches_per_batch.synth")

@@ -1,0 +1,6 @@
+"""`mfu.synth` in the cells whose end-to-end metric is
+`audio_rtf.kernel_bound`: read as there."""
+
+from portbench import harness
+
+read = harness.metric_reader("mfu.synth")
