@@ -56,6 +56,7 @@ from sstts_torch.dsp.reproject import (
     shift_add_rows,
 )
 from sstts_torch.ops import build, require_no_grad
+from sstts_torch.utils.profiling import span
 
 
 class _GlArgs(ctypes.Structure):
@@ -262,43 +263,44 @@ def _patch_edges(qn, sn, slab_rows, mag3, w_fwd, plan, n_frames, hp, p3=None,
     are redone in plain torch and written over qn (and sn) in place.
     Returns (qn, sn).
     """
-    runs = plan["runs"]
-    if not runs:
+    with span("sstts.gl.edges"):
+        runs = plan["runs"]
+        if not runs:
+            return qn, sn
+        half_t = n_frames // 2
+        head_end = max([max(r[0], r[3]) for r in runs if r[0] < half_t], default=-1) + 1
+        tail_start = min([min(r[0], r[3]) for r in runs if r[0] >= half_t], default=n_frames)
+        dtype = qn.dtype
+        m32 = float(np.float32(momentum))
+        w32 = w_fwd.float()
+
+        def fix(rows_lo, rows_hi, local_runs):
+            slab = apply_mirror_runs(slab_rows(rows_lo, rows_hi), local_runs)
+            s32 = slab.to(dtype).float() @ w32
+            mags = mag3[:, rows_lo:rows_hi]
+            if p3 is not None:
+                ex = s32 + m32 * (s32 - p3[:, rows_lo:rows_hi].float())
+                return renorm(ex, mags, hp, dtype), s32.to(dtype)
+            return renorm(s32, mags, hp, dtype), None
+
+        if head_end > tail_start:  # tiny frame counts: the slabs overlap
+            return fix(0, n_frames, runs)
+        if head_end > 0:
+            q_h, s_h = fix(0, head_end, [r for r in runs if r[0] < head_end])
+            qn[:, :head_end] = q_h
+            if sn is not None:
+                sn[:, :head_end] = s_h
+        if tail_start < n_frames:
+            local = [
+                (r[0] - tail_start, r[1], r[2], r[3] - tail_start, r[4], r[5])
+                for r in runs
+                if r[0] >= tail_start
+            ]
+            q_t, s_t = fix(tail_start, n_frames, local)
+            qn[:, tail_start:] = q_t
+            if sn is not None:
+                sn[:, tail_start:] = s_t
         return qn, sn
-    half_t = n_frames // 2
-    head_end = max([max(r[0], r[3]) for r in runs if r[0] < half_t], default=-1) + 1
-    tail_start = min([min(r[0], r[3]) for r in runs if r[0] >= half_t], default=n_frames)
-    dtype = qn.dtype
-    m32 = float(np.float32(momentum))
-    w32 = w_fwd.float()
-
-    def fix(rows_lo, rows_hi, local_runs):
-        slab = apply_mirror_runs(slab_rows(rows_lo, rows_hi), local_runs)
-        s32 = slab.to(dtype).float() @ w32
-        mags = mag3[:, rows_lo:rows_hi]
-        if p3 is not None:
-            ex = s32 + m32 * (s32 - p3[:, rows_lo:rows_hi].float())
-            return renorm(ex, mags, hp, dtype), s32.to(dtype)
-        return renorm(s32, mags, hp, dtype), None
-
-    if head_end > tail_start:  # tiny frame counts: the slabs overlap
-        return fix(0, n_frames, runs)
-    if head_end > 0:
-        q_h, s_h = fix(0, head_end, [r for r in runs if r[0] < head_end])
-        qn[:, :head_end] = q_h
-        if sn is not None:
-            sn[:, :head_end] = s_h
-    if tail_start < n_frames:
-        local = [
-            (r[0] - tail_start, r[1], r[2], r[3] - tail_start, r[4], r[5])
-            for r in runs
-            if r[0] >= tail_start
-        ]
-        q_t, s_t = fix(tail_start, n_frames, local)
-        qn[:, tail_start:] = q_t
-        if sn is not None:
-            sn[:, tail_start:] = s_t
-    return qn, sn
 
 
 def fused_reproject_analyze(

@@ -47,6 +47,7 @@ from sstts_torch.dsp.gl_fused import (
     renorm,
 )
 from sstts_torch.dsp.reproject import band_plan, padded_wss2d, reproject
+from sstts_torch.utils.profiling import span
 
 #: Default Griffin-Lim transform: direct rDFT GEMMs in bf16 (as the JAX
 #: package's GL_FFT_IMPL).
@@ -190,111 +191,116 @@ def _griffin_lim_real(magnitude, n_fft, hop_length, win_length, n_iters,
                       length, momentum, loop_dtype, iter_impl):
     """The real-arithmetic loop over direct-DFT GEMMs (JAX 161-256 and
     `_loop_banded`, 259-492)."""
-    device = magnitude.device
-    n_frames, half = magnitude.shape[-2], magnitude.shape[-1]
-    window_np = stft_mod.window(n_fft, win_length)
-    inv_wss_full = stft_mod.window_sum_sq(n_fft, hop_length, win_length, n_frames)
-    lo, w_len, cos_w, nsin_w, inv_re_w, inv_im_w = mmfft.rdft_matrices_windowed(
-        n_fft, window_np, device
-    )
-    start = n_fft // 2 - lo
-    inv_wss = torch.as_tensor(
-        inv_wss_full[n_fft // 2 : n_fft // 2 + length], device=device
-    )
-
-    def synth(sr, si):
-        """(re, im) spectra -> time signal (one reduced iSTFT, f32)."""
-        frames = sr @ inv_re_w + si @ inv_im_w
-        y = stft_mod.overlap_add(frames, hop_length)
-        short = start + length - y.shape[-1]
-        if short > 0:  # tail beyond the last frame's window support
-            y = F.pad(y, (0, short))
-        return y[..., start : start + length] * inv_wss
-
-    mag_d = magnitude.to(loop_dtype)
-    # Nyquist packing needs an even n_fft (a purely real top bin).
-    packed, hb = _spectrum_lanes(n_fft, half, loop_dtype)
-    # The kernels' 128-lane-padded layout on the card, and wherever the
-    # iteration needs it (the JAX rule, with the card in place of the TPU);
-    # the CPU's "split" runs the window-support widths, as JAX on the CPU.
-    if device.type == "cuda" or iter_impl != "split":
-        hp, wp = _round_up(hb, 128), _round_up(w_len, 128)
-    else:
-        hp, wp = hb, w_len
-
-    def rowpad(m):  # (rows <= hp, w_len) -> (hp, wp)
-        return F.pad(m, (0, wp - w_len, 0, hp - m.shape[0]))
-
-    def colpad(m):  # (w_len, cols <= hp) -> (wp, hp)
-        return F.pad(m, (0, hp - m.shape[1], 0, wp - w_len))
-
-    lane_pad = (0, hp - hb)
-    if packed:
-        w_inv = torch.cat(
-            [
-                rowpad(inv_re_w[:hb]),
-                rowpad(torch.cat([inv_re_w[hb:], inv_im_w[1:hb]], dim=0)),
-            ],
-            dim=0,
+    with span("sstts.gl.setup"):
+        device = magnitude.device
+        n_frames, half = magnitude.shape[-2], magnitude.shape[-1]
+        window_np = stft_mod.window(n_fft, win_length)
+        inv_wss_full = stft_mod.window_sum_sq(n_fft, hop_length, win_length, n_frames)
+        lo, w_len, cos_w, nsin_w, inv_re_w, inv_im_w = mmfft.rdft_matrices_windowed(
+            n_fft, window_np, device
         )
-        w_fwd = torch.cat(
-            [
-                colpad(cos_w[:, :hb]),
-                colpad(torch.cat([cos_w[:, hb:], nsin_w[:, 1:hb]], dim=1)),
-            ],
-            dim=1,
+        start = n_fft // 2 - lo
+        inv_wss = torch.as_tensor(
+            inv_wss_full[n_fft // 2 : n_fft // 2 + length], device=device
         )
-        mag_r = F.pad(mag_d[..., :hb], lane_pad)
-        mag_i = F.pad(torch.cat([mag_d[..., hb:], mag_d[..., 1:hb]], dim=-1), lane_pad)
-        qi0 = F.pad(mag_i[..., :1], (0, hp - 1))
-    else:
-        w_inv = torch.cat([rowpad(inv_re_w), rowpad(inv_im_w)], dim=0)
-        w_fwd = torch.cat([colpad(cos_w), colpad(nsin_w)], dim=1)
-        mag_r = F.pad(mag_d, lane_pad)
-        mag_i = mag_r
-        qi0 = torch.zeros_like(mag_r)
-    w_inv = w_inv.to(loop_dtype)
-    w_fwd = w_fwd.to(loop_dtype)
-    mag2 = torch.cat([mag_r, mag_i], dim=-1).to(loop_dtype)
-    q = torch.cat([mag_r, qi0], dim=-1).to(loop_dtype)
 
-    plan = band_plan(n_fft, hop_length, win_length, n_frames, length)
-    geom = (n_fft, hop_length, win_length, length)
-    wss2d = padded_wss2d(plan, wp, device)  # uploaded once
-    m32 = float(np.float32(momentum))
-    # The K-major copies kernels B2 and B5 read, made once per call.
-    on_card = device.type == "cuda"
-    w_fwd_t = k_major(w_fwd) if on_card and iter_impl in ("semi", "fused") else None
-    w_inv_t = k_major(w_inv) if on_card and iter_impl == "fused" else None
+        def synth(sr, si):
+            """(re, im) spectra -> time signal (one reduced iSTFT, f32)."""
+            frames = sr @ inv_re_w + si @ inv_im_w
+            y = stft_mod.overlap_add(frames, hop_length)
+            short = start + length - y.shape[-1]
+            if short > 0:  # tail beyond the last frame's window support
+                y = F.pad(y, (0, short))
+            return y[..., start : start + length] * inv_wss
+
+        mag_d = magnitude.to(loop_dtype)
+        # Nyquist packing needs an even n_fft (a purely real top bin).
+        packed, hb = _spectrum_lanes(n_fft, half, loop_dtype)
+        # The kernels' 128-lane-padded layout on the card, and wherever the
+        # iteration needs it (the JAX rule, with the card in place of the TPU);
+        # the CPU's "split" runs the window-support widths, as JAX on the CPU.
+        if device.type == "cuda" or iter_impl != "split":
+            hp, wp = _round_up(hb, 128), _round_up(w_len, 128)
+        else:
+            hp, wp = hb, w_len
+
+        def rowpad(m):  # (rows <= hp, w_len) -> (hp, wp)
+            return F.pad(m, (0, wp - w_len, 0, hp - m.shape[0]))
+
+        def colpad(m):  # (w_len, cols <= hp) -> (wp, hp)
+            return F.pad(m, (0, hp - m.shape[1], 0, wp - w_len))
+
+        lane_pad = (0, hp - hb)
+        if packed:
+            w_inv = torch.cat(
+                [
+                    rowpad(inv_re_w[:hb]),
+                    rowpad(torch.cat([inv_re_w[hb:], inv_im_w[1:hb]], dim=0)),
+                ],
+                dim=0,
+            )
+            w_fwd = torch.cat(
+                [
+                    colpad(cos_w[:, :hb]),
+                    colpad(torch.cat([cos_w[:, hb:], nsin_w[:, 1:hb]], dim=1)),
+                ],
+                dim=1,
+            )
+            mag_r = F.pad(mag_d[..., :hb], lane_pad)
+            mag_i = F.pad(torch.cat([mag_d[..., hb:], mag_d[..., 1:hb]], dim=-1), lane_pad)
+            qi0 = F.pad(mag_i[..., :1], (0, hp - 1))
+        else:
+            w_inv = torch.cat([rowpad(inv_re_w), rowpad(inv_im_w)], dim=0)
+            w_fwd = torch.cat([colpad(cos_w), colpad(nsin_w)], dim=1)
+            mag_r = F.pad(mag_d, lane_pad)
+            mag_i = mag_r
+            qi0 = torch.zeros_like(mag_r)
+        w_inv = w_inv.to(loop_dtype)
+        w_fwd = w_fwd.to(loop_dtype)
+        mag2 = torch.cat([mag_r, mag_i], dim=-1).to(loop_dtype)
+        q = torch.cat([mag_r, qi0], dim=-1).to(loop_dtype)
+
+        plan = band_plan(n_fft, hop_length, win_length, n_frames, length)
+        geom = (n_fft, hop_length, win_length, length)
+        wss2d = padded_wss2d(plan, wp, device)  # uploaded once
+        m32 = float(np.float32(momentum))
+        # The K-major copies kernels B2 and B5 read, made once per call.
+        on_card = device.type == "cuda"
+        w_fwd_t = k_major(w_fwd) if on_card and iter_impl in ("semi", "fused") else None
+        w_inv_t = k_major(w_inv) if on_card and iter_impl == "fused" else None
     if iter_impl == "semi":
         if momentum > 0.0:
             prev = torch.zeros_like(q)
             for _ in range(n_iters):
-                q, prev = fused_reproject_analyze(
-                    _mm(q, w_inv), mag2, w_fwd, *geom, prev=prev,
-                    momentum=momentum, wss2d=wss2d, w_fwd_t=w_fwd_t,
-                )
+                with span("sstts.gl.iter"):
+                    q, prev = fused_reproject_analyze(
+                        _mm(q, w_inv), mag2, w_fwd, *geom, prev=prev,
+                        momentum=momentum, wss2d=wss2d, w_fwd_t=w_fwd_t,
+                    )
         else:
             for _ in range(n_iters):
-                q = fused_reproject_analyze(
-                    _mm(q, w_inv), mag2, w_fwd, *geom, wss2d=wss2d,
-                    w_fwd_t=w_fwd_t,
-                )
+                with span("sstts.gl.iter"):
+                    q = fused_reproject_analyze(
+                        _mm(q, w_inv), mag2, w_fwd, *geom, wss2d=wss2d,
+                        w_fwd_t=w_fwd_t,
+                    )
     elif iter_impl == "fused":
         for _ in range(n_iters):
-            q = fused_gl_iteration(q, mag2, w_inv, w_fwd, *geom, wss2d=wss2d,
-                                   w_inv_t=w_inv_t, w_fwd_t=w_fwd_t)
+            with span("sstts.gl.iter"):
+                q = fused_gl_iteration(q, mag2, w_inv, w_fwd, *geom, wss2d=wss2d,
+                                       w_inv_t=w_inv_t, w_fwd_t=w_fwd_t)
     else:
         impl = "xla" if iter_impl == "split_xla" else "auto"
         prev = torch.zeros_like(q)
         for _ in range(n_iters):
-            frames = reproject(_mm(q, w_inv), *geom, impl=impl, wss2d=wss2d)
-            s = _mm(frames, w_fwd)
-            s32 = s.float()
-            if momentum > 0.0:
-                s32 = s32 + m32 * (s32 - prev.float())
-                prev = s
-            q = renorm(s32, mag2, hp, loop_dtype)
+            with span("sstts.gl.iter"):
+                frames = reproject(_mm(q, w_inv), *geom, impl=impl, wss2d=wss2d)
+                s = _mm(frames, w_fwd)
+                s32 = s.float()
+                if momentum > 0.0:
+                    s32 = s32 + m32 * (s32 - prev.float())
+                    prev = s
+                q = renorm(s32, mag2, hp, loop_dtype)
 
     # Final synthesis in f32: recover the unit phase from the scaled
     # spectrum and apply the exact f32 magnitude; the packed layout unpacks

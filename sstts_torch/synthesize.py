@@ -75,6 +75,7 @@ from sstts_torch.model.tacotron import Tacotron
 from sstts_torch.ops import decoder as decoder_ops
 from sstts_torch.ops import gru as gru_ops
 from sstts_torch.parallel.mesh import Mesh, row_slices
+from sstts_torch.utils.profiling import span
 
 
 def _round_up(x: int, m: int) -> int:
@@ -262,27 +263,30 @@ class Synthesizer:
         cfg = self.cfg
         dev = char_ids.device
         route = self._decode_route(model, char_ids.shape[1], dev)
-        memory, mmask = model.encode(char_ids)
+        with span("sstts.synth.encode"):
+            memory, mmask = model.encode(char_ids)
         seed, row0 = dropout if dropout is not None else (None, 0)
-        if route == "fused":
-            dec = decoder_ops.fused_decode(
-                model.decoder_cell, memory, mmask, max_steps,
-                stop_threshold=cfg.inference.stop_threshold,
-                min_steps=cfg.inference.min_decoder_steps,
-                seed=seed, row0=row0,
-            )
-        else:
-            dec = model.decode_infer(
-                memory, mmask, max_steps, cfg.inference.stop_threshold,
-                cfg.inference.min_decoder_steps, seed, row0,
-            )
+        with span("sstts.synth.decode"):
+            if route == "fused":
+                dec = decoder_ops.fused_decode(
+                    model.decoder_cell, memory, mmask, max_steps,
+                    stop_threshold=cfg.inference.stop_threshold,
+                    min_steps=cfg.inference.min_decoder_steps,
+                    seed=seed, row0=row0,
+                )
+            else:
+                dec = model.decode_infer(
+                    memory, mmask, max_steps, cfg.inference.stop_threshold,
+                    cfg.inference.min_decoder_steps, seed, row0,
+                )
         mel = dec["mel"]
         total_frames = mel.shape[1]
-        pos = torch.arange(total_frames, device=dev)
-        frame_mask = pos[None, :] < dec["n_frames"][:, None]
-        linear = model.postprocess(mel, frame_mask)
-        # Silence (= 0 in normalized dB) beyond each utterance's stop frame.
-        linear = torch.where(frame_mask[..., None], linear, torch.zeros_like(linear))
+        with span("sstts.synth.postprocess"):
+            pos = torch.arange(total_frames, device=dev)
+            frame_mask = pos[None, :] < dec["n_frames"][:, None]
+            linear = model.postprocess(mel, frame_mask)
+            # Silence (= 0 in normalized dB) beyond each utterance's stop frame.
+            linear = torch.where(frame_mask[..., None], linear, torch.zeros_like(linear))
         length = (total_frames - 1) * cfg.dataset.hop_len
         return {
             "linear": linear,
@@ -298,7 +302,8 @@ class Synthesizer:
         quarter, the ADPCM codecs less)."""
         length = (linear.shape[1] - 1) * self.cfg.dataset.hop_len
         wav = spectrogram_to_wav(linear, self.cfg, length)
-        wire = dsp_ops.encode_wire(wav, self.cfg.inference.wire_format)
+        with span("sstts.synth.wire"):
+            wire = dsp_ops.encode_wire(wav, self.cfg.inference.wire_format)
         return {"wav": wav, "wav_wire": wire}
 
     # Host-side API --------------------------------------------------------- #
@@ -307,30 +312,31 @@ class Synthesizer:
         """Texts -> one padded int32 id batch at a bucketed width (multiples
         of 32, capped at dataset.max_text_len); over-length text raises."""
         cfg = self.cfg
-        encoded = [
-            text_mod.encode(
-                t,
-                extra_chars=cfg.dataset.extra_chars,
-                expand_numbers=cfg.dataset.expand_numbers,
-            )
-            for t in texts
-        ]
-        longest = max(len(e) for e in encoded)
-        if longest > cfg.dataset.max_text_len:
-            raise ValueError(
-                f"encoded text length {longest} exceeds dataset.max_text_len"
-                f"={cfg.dataset.max_text_len}; split the input or raise the limit"
-            )
-        if text_bucket is not None and longest > text_bucket:
-            raise ValueError(
-                f"explicit text_bucket={text_bucket} is smaller than the "
-                f"longest encoded text ({longest})"
-            )
-        bucket = text_bucket or min(_round_up(longest, 32), cfg.dataset.max_text_len)
-        ids = np.zeros((len(texts), bucket), np.int32)
-        for i, e in enumerate(encoded):
-            ids[i, : len(e)] = e
-        return ids
+        with span("sstts.synth.text"):
+            encoded = [
+                text_mod.encode(
+                    t,
+                    extra_chars=cfg.dataset.extra_chars,
+                    expand_numbers=cfg.dataset.expand_numbers,
+                )
+                for t in texts
+            ]
+            longest = max(len(e) for e in encoded)
+            if longest > cfg.dataset.max_text_len:
+                raise ValueError(
+                    f"encoded text length {longest} exceeds dataset.max_text_len"
+                    f"={cfg.dataset.max_text_len}; split the input or raise the limit"
+                )
+            if text_bucket is not None and longest > text_bucket:
+                raise ValueError(
+                    f"explicit text_bucket={text_bucket} is smaller than the "
+                    f"longest encoded text ({longest})"
+                )
+            bucket = text_bucket or min(_round_up(longest, 32), cfg.dataset.max_text_len)
+            ids = np.zeros((len(texts), bucket), np.int32)
+            for i, e in enumerate(encoded):
+                ids[i, : len(e)] = e
+            return ids
 
     def _run_shard(self, i: int, ids: np.ndarray, max_steps: int,
                    dropout) -> Dict[str, torch.Tensor]:
@@ -362,32 +368,34 @@ class Synthesizer:
         Returns [(wire, n_samples, event)] by shard for `_fetch`; on the CPU
         the tensors themselves and no event."""
         handles = []
-        for out in self._run(texts, max_steps, text_bucket):
-            wire, n_samples = out["wav_wire"], out["n_samples"]
-            if wire.device.type != "cuda":
-                handles.append((wire, n_samples, None))
-                continue
-            with torch.cuda.device(wire.device):
-                host = []
-                for t in (wire, n_samples):
-                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                    h.copy_(t, non_blocking=True)
-                    host.append(h)
-                done = torch.cuda.Event()
-                done.record()
-            handles.append((host[0], host[1], done))
+        with span("sstts.synth.dispatch"):
+            for out in self._run(texts, max_steps, text_bucket):
+                wire, n_samples = out["wav_wire"], out["n_samples"]
+                if wire.device.type != "cuda":
+                    handles.append((wire, n_samples, None))
+                    continue
+                with torch.cuda.device(wire.device):
+                    host = []
+                    for t in (wire, n_samples):
+                        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                        h.copy_(t, non_blocking=True)
+                        host.append(h)
+                    done = torch.cuda.Event()
+                    done.record()
+                handles.append((host[0], host[1], done))
         return handles
 
     def _fetch(self, handles) -> List[np.ndarray]:
         """Wait for a dispatched batch's copies, decode its wire on the
         host and trim each row to its sample count."""
-        for _, _, done in handles:
-            if done is not None:
-                done.synchronize()
-        wire = np.concatenate([w.numpy() for w, _, _ in handles])
-        n_samples = np.concatenate([n.numpy() for _, n, _ in handles])
-        dec = dsp_ops.decode_wire_rows(wire, self.cfg.inference.wire_format)
-        return self._slice_rows(dec, n_samples)
+        with span("sstts.synth.fetch"):
+            for _, _, done in handles:
+                if done is not None:
+                    done.synchronize()
+            wire = np.concatenate([w.numpy() for w, _, _ in handles])
+            n_samples = np.concatenate([n.numpy() for _, n, _ in handles])
+            dec = dsp_ops.decode_wire_rows(wire, self.cfg.inference.wire_format)
+            return self._slice_rows(dec, n_samples)
 
     @staticmethod
     def _slice_rows(dec: np.ndarray, n_samples: np.ndarray) -> List[np.ndarray]:
@@ -442,14 +450,19 @@ class Synthesizer:
         fetches still queued."""
         pool = ThreadPoolExecutor(max(1, self.cfg.inference.fetch_threads))
         pending = deque()
+
+        def oldest():
+            with span("sstts.synth.wait"):
+                return pending.popleft().result()
+
         try:
             for texts in batches:
                 handles = self._dispatch(texts, max_steps, text_bucket)
                 pending.append(pool.submit(self._fetch, handles))
                 if len(pending) > depth:
-                    yield pending.popleft().result()
+                    yield oldest()
             while pending:
-                yield pending.popleft().result()
+                yield oldest()
         finally:
             pool.shutdown(wait=False, cancel_futures=True)
 

@@ -89,6 +89,7 @@ from sstts_torch.ops.teacher import resolve_teacher_impl
 from sstts_torch.parallel import mesh as mesh_mod
 from sstts_torch.synthesize import exact_f32, resolve_device
 from sstts_torch.utils.logging import MetricsLogger
+from sstts_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -254,64 +255,69 @@ def _make_step_body(cfg: Config, from_features: bool = False):
     sched = lr_schedule(cfg)
 
     def step_body(state: TrainState, b: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        model = state.model
-        mesh = model.mesh
-        dev = _device_of(state)
-        gen = torch.Generator(device=dev).manual_seed(((t.seed + 1) << 32) + state.step)
-        rows = group = None
-        if mesh is not None:
-            n = b["char_ids"].shape[0]
-            rows, group = (mesh.data_index * n, mesh.shape["data"] * n), mesh.data_group
-        model.train()
-        guard = _debug_nans(model, state.step) if t.debug_nans else contextlib.nullcontext()
-        with exact_f32(dev), guard:
-            if from_features:
-                linear_gt, mel_gt = b["linear"].float(), b["mel"].float()
-                frame_mask = frame_mask_from_lengths(b["n_frames"], mel_gt.shape[1])
-            else:
-                linear_gt, mel_gt, frame_mask = _targets(b, cfg)
-            out = model(b["char_ids"], mel_gt, frame_mask, gen, rows)
-            loss, metrics = tacotron_loss(
-                out, mel_gt, linear_gt, b["loss_frames"], cfg.arch, cfg.dataset,
-                text_lengths=b["text_len"], group=group,
-            )
-            if t.debug_nans:
-                _check_nan("the loss", [loss], state.step)
-            state.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            named = list(model.named_parameters())
-            params = [p for _, p in named]
-            for p in params:  # optax updates every leaf, a zero gradient too
-                if p.grad is None:
-                    p.grad = torch.zeros_like(p)
-            if mesh is None:
-                g_norm = global_norm([p.grad for p in params])
-            else:
-                mesh_mod.reduce_gradients(params, mesh)
-                g_norm = mesh_mod.global_grad_norm(
-                    [(n, p.grad) for n, p in named], mesh, global_norm
-                )
-            # optax.clip_by_global_norm: g / ||g|| * max_norm once ||g|| >= max_norm.
-            keep = g_norm < t.grad_clip_norm
-            for p in params:
-                p.grad = torch.where(keep, p.grad, p.grad / g_norm * t.grad_clip_norm)
-            lr = sched(state.step)
-            for group in state.optimizer.param_groups:
-                group["lr"] = lr
-            state.optimizer.step()
-            if t.debug_nans:
-                _check_nan("the gradient norm", [g_norm], state.step)
-                _check_nan("the updated parameters", params, state.step)
-        if state.ema_params is not None and t.ema_decay > 0.0:
-            d = t.ema_decay
-            with torch.no_grad():
-                for n, p in model.named_parameters():
-                    state.ema_params[n] = state.ema_params[n] * d + p * (1.0 - d)
-        state.step += 1
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = g_norm.detach()
-        metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
-        return metrics
+        with span("sstts.train.step"):
+            model = state.model
+            mesh = model.mesh
+            dev = _device_of(state)
+            gen = torch.Generator(device=dev).manual_seed(((t.seed + 1) << 32) + state.step)
+            rows = group = None
+            if mesh is not None:
+                n = b["char_ids"].shape[0]
+                rows, group = (mesh.data_index * n, mesh.shape["data"] * n), mesh.data_group
+            model.train()
+            guard = _debug_nans(model, state.step) if t.debug_nans else contextlib.nullcontext()
+            with exact_f32(dev), guard:
+                with span("sstts.train.features"):
+                    if from_features:
+                        linear_gt, mel_gt = b["linear"].float(), b["mel"].float()
+                        frame_mask = frame_mask_from_lengths(b["n_frames"], mel_gt.shape[1])
+                    else:
+                        linear_gt, mel_gt, frame_mask = _targets(b, cfg)
+                with span("sstts.train.forward"):
+                    out = model(b["char_ids"], mel_gt, frame_mask, gen, rows)
+                    loss, metrics = tacotron_loss(
+                        out, mel_gt, linear_gt, b["loss_frames"], cfg.arch, cfg.dataset,
+                        text_lengths=b["text_len"], group=group,
+                    )
+                    if t.debug_nans:
+                        _check_nan("the loss", [loss], state.step)
+                with span("sstts.train.backward"):
+                    state.optimizer.zero_grad(set_to_none=True)
+                    loss.backward()
+                with span("sstts.train.update"):
+                    named = list(model.named_parameters())
+                    params = [p for _, p in named]
+                    for p in params:  # optax updates every leaf, a zero gradient too
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                    if mesh is None:
+                        g_norm = global_norm([p.grad for p in params])
+                    else:
+                        mesh_mod.reduce_gradients(params, mesh)
+                        g_norm = mesh_mod.global_grad_norm(
+                            [(n, p.grad) for n, p in named], mesh, global_norm
+                        )
+                    # optax.clip_by_global_norm: g / ||g|| * max_norm once ||g|| >= max_norm.
+                    keep = g_norm < t.grad_clip_norm
+                    for p in params:
+                        p.grad = torch.where(keep, p.grad, p.grad / g_norm * t.grad_clip_norm)
+                    lr = sched(state.step)
+                    for group in state.optimizer.param_groups:
+                        group["lr"] = lr
+                    state.optimizer.step()
+                    if t.debug_nans:
+                        _check_nan("the gradient norm", [g_norm], state.step)
+                        _check_nan("the updated parameters", params, state.step)
+                    if state.ema_params is not None and t.ema_decay > 0.0:
+                        d = t.ema_decay
+                        with torch.no_grad():
+                            for n, p in model.named_parameters():
+                                state.ema_params[n] = state.ema_params[n] * d + p * (1.0 - d)
+            state.step += 1
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics["grad_norm"] = g_norm.detach()
+            metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
+            return metrics
 
     return step_body
 
@@ -375,9 +381,11 @@ def make_cached_train_step(cfg: Config):
     body = _make_step_body(cfg, from_features="linear" in keys)
 
     def cached_step(state: TrainState, corpus, idx, valid) -> Dict[str, torch.Tensor]:
-        iv = _local(state, {"idx": idx, "valid": valid})
-        idx_d, valid_d = _pinned_to(_device_of(state), iv["idx"], iv["valid"])
-        return body(state, _gather(corpus, keys, idx_d, valid_d))
+        with span("sstts.train.gather"):
+            iv = _local(state, {"idx": idx, "valid": valid})
+            idx_d, valid_d = _pinned_to(_device_of(state), iv["idx"], iv["valid"])
+            b = _gather(corpus, keys, idx_d, valid_d)
+        return body(state, b)
 
     return cached_step
 

@@ -47,7 +47,7 @@ def test_port_imports_no_jax_and_no_sstts():
         "sstts_torch.model.losses", "sstts_torch.data.pipeline",
         "sstts_torch.dsp.reproject", "sstts_torch.dsp.ops", "sstts_torch.data.wav",
         "sstts_torch.tools.compare_gl_builds", "sstts_torch.tools.ablate_gru",
-        "sstts_torch.tools.sm_microbench", "sstts_torch.tools.path_walls",
+        "sstts_torch.tools.sm_microbench",
         "sstts_torch.cli", "sstts_torch.evaluate", "sstts_torch.data.corpora",
         "sstts_torch.data.features_cache", "sstts_torch.data.statistics",
         "sstts_torch.dsp.resample", "sstts_torch.dsp.metrics",
