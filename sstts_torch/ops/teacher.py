@@ -25,6 +25,15 @@ parameters, cast inside the wrapper and never detached from the graph; the
 backward recomputes the scan through the plain f32 version under autograd.
 A backward kernel is later work (ROADMAP B.6).
 
+On the card that backward is some 20,000 small launches at the train
+cell's shape, so `scan_grad` replays it as a CUDA graph: the first
+backward of a shape (`graph_key`) runs eagerly, the second captures the
+rerun and its `torch.autograd.grad` into one `torch.cuda.CUDAGraph` and
+replays it, later ones replay (`ScanGraphs.route`).  A replay runs the
+eager rerun's kernels on static copies of this call's inputs, and hands
+autograd clones of the graph's gradients.  The CPU, and a backward under
+autograd's anomaly mode (whose NaN checks wait for the card), stay eager.
+
 Implementation choice (`resolve_teacher_impl`): "xla", the reference's
 name for its scan, is the plain module loop (`DecoderCell.teacher_step`)
 on any device; "auto" is the kernel on CUDA where it implements the
@@ -37,13 +46,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from sstts_torch.ops import build
 from sstts_torch.ops import decoder as dec
 from sstts_torch.ops.decoder import _dot, _gru_step
+from sstts_torch.utils.profiling import span
 
 
 class TeacherWeights(NamedTuple):
@@ -376,26 +386,155 @@ def fused_teacher_scan(
 fused_teacher_scan.launches = 0
 
 
+def _rerun_grad(saved, dxs, dalign):
+    """The gradients of the scan by its f32 rerun under autograd: `saved`
+    is (maskf, pre, memory, keys, *w); one per input after maskf, None
+    where the scan does not use it."""
+    maskf, *inputs = saved
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    pre, memory, keys, *w = leaves
+    with torch.enable_grad():
+        out = fused_teacher_scan_plain(
+            TeacherWeights(*w), pre, memory, keys, maskf, torch.float32
+        )
+        return torch.autograd.grad(out, leaves, (dxs, dalign), allow_unused=True)
+
+
+class GraphKey(NamedTuple):
+    """What fixes a captured backward: the shape (B, S, T, P1, Dm, A, Ha,
+    Hd), the forward's matmul dtype, the device, and the dtype and strides
+    of each tensor the graph reads.  Which gradients autograd asks for is
+    not part of it: the graph computes them all (as the eager rerun does),
+    and a replay clones only those asked for."""
+
+    dims: Tuple[int, ...]
+    matmul_dtype: torch.dtype
+    device: torch.device
+    layout: Tuple[Tuple[torch.dtype, Tuple[int, ...]], ...]
+
+
+def graph_key(saved, dxs, dalign, matmul_dtype) -> GraphKey:
+    """The `GraphKey` of a backward of `saved` (maskf, pre, memory, keys,
+    *w) and the gradients (dxs, dalign)."""
+    _, pre, memory, keys, *w = saved
+    d = dims(TeacherWeights(*w), pre, memory, keys)
+    return GraphKey(
+        tuple(d[n] for n in ("B", "S", "T", "P1", "Dm", "A", "Ha", "Hd")), matmul_dtype,
+        pre.device, tuple((t.dtype, t.stride()) for t in (*saved, dxs, dalign)),
+    )
+
+
+class _Captured(NamedTuple):
+    graph: "torch.cuda.CUDAGraph"
+    inputs: Tuple[torch.Tensor, ...]  # static: maskf, pre, memory, keys, *w, dxs, dalign
+    grads: Tuple[Optional[torch.Tensor], ...]  # static: pre, memory, keys, *w
+
+
+class ScanGraphs:
+    """The captured backwards by `GraphKey`, one a shape (a bucket's), and
+    the keys seen.  A device's graphs share one memory pool and one
+    capture stream, so that a graph beyond the first holds only its static
+    inputs and gradients, a few MB.  Sharing the pool is safe: between
+    replays a graph keeps only its static gradients live, which no other
+    capture reuses, and every replay runs on the backward's stream, where
+    the next one starts after this one's gradients are cloned."""
+
+    def __init__(self):
+        self.seen: set = set()
+        self.graphs: Dict[GraphKey, _Captured] = {}
+        self._pools: Dict[torch.device, tuple] = {}
+        self._streams: Dict[torch.device, "torch.cuda.Stream"] = {}
+
+    def route(self, key: GraphKey, anomaly: bool = False) -> str:
+        """"eager", "capture" or "replay" for a backward of `key`: eager off
+        the card, under anomaly mode (its NaN checks wait for the card) and
+        at a key's first sighting, which it notes; capture at the second;
+        replay once captured."""
+        if key.device.type != "cuda" or anomaly:
+            return "eager"
+        if key in self.graphs:
+            return "replay"
+        if key in self.seen:
+            return "capture"
+        self.seen.add(key)
+        return "eager"
+
+    def capture(self, key: GraphKey, tensors) -> _Captured:
+        """Capture the rerun and its gradient for `key` on static copies of
+        `tensors` (maskf, pre, memory, keys, *w, dxs, dalign) and store it;
+        not yet replayed.  On a side stream, in a mode that other threads'
+        CUDA calls (a prefetch thread's) cannot break."""
+        dev = key.device
+        if dev not in self._pools:
+            self._pools[dev] = torch.cuda.graph_pool_handle()
+            self._streams[dev] = torch.cuda.Stream(dev)
+        static = tuple(torch.empty_like(t) for t in tensors)  # the same strides where dense
+        for s, t in zip(static, tensors):
+            s.copy_(t)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=self._pools[dev], stream=self._streams[dev],
+                              capture_error_mode="thread_local"):
+            grads = _rerun_grad(static[:-2], *static[-2:])
+        captured = self.graphs[key] = _Captured(graph, static, tuple(grads))
+        return captured
+
+
+#: The process's captured backwards.
+GRAPHS = ScanGraphs()
+
+
+def _replay(captured: _Captured, tensors, needs):
+    """Copy `tensors` into the graph's inputs, replay it, and clone the
+    gradients that `needs` asks for, so that no later replay overwrites
+    what autograd was handed."""
+    for s, t in zip(captured.inputs, tensors):
+        s.copy_(t)
+    with span("sstts.train.scan_graph"):
+        captured.graph.replay()
+        return [g.clone() if g is not None and need else None
+                for g, need in zip(captured.grads, needs)]
+
+
+def scan_grad(saved, dxs, dalign, matmul_dtype, needs):
+    """The gradients of B6's scan for `_FusedTeacherScan.backward`, one per
+    input after maskf (`needs`: which need one): eager, by a capture and
+    its first replay, or by a replay (`ScanGraphs.route`).  Counts each
+    call once, in `scan_grad.eager`, `.captures` or `.replays`."""
+    with span("sstts.train.scan_grad"):
+        key = graph_key(saved, dxs, dalign, matmul_dtype)
+        route = GRAPHS.route(key, torch.is_anomaly_enabled())
+        if route == "eager":
+            scan_grad.eager += 1
+            return _rerun_grad(saved, dxs, dalign)
+        tensors = (*saved, dxs, dalign)
+        if route == "capture":
+            captured = GRAPHS.capture(key, tensors)
+            scan_grad.captures += 1
+        else:
+            captured = GRAPHS.graphs[key]
+            scan_grad.replays += 1
+        return _replay(captured, tensors, needs)
+
+
+scan_grad.eager = scan_grad.captures = scan_grad.replays = 0
+
+
 class _FusedTeacherScan(torch.autograd.Function):
     """Kernel forward; backward through the plain f32 scan (JAX's
-    `fused_teacher_scan_ad` contract)."""
+    `fused_teacher_scan_ad` contract), replayed as a CUDA graph on the
+    card (`scan_grad`)."""
 
     @staticmethod
     def forward(ctx, maskf, matmul_dtype, pre, memory, keys, *w):
         out = fused_teacher_scan(TeacherWeights(*w), pre, memory, keys, maskf, matmul_dtype)
         ctx.save_for_backward(maskf, pre, memory, keys, *w)
+        ctx.matmul_dtype = matmul_dtype
         return out
 
     @staticmethod
     def backward(ctx, dxs, dalign):
-        maskf, *inputs = ctx.saved_tensors
-        leaves = [t.detach().requires_grad_() for t in inputs]
-        pre, memory, keys, *w = leaves
-        with torch.enable_grad():
-            out = fused_teacher_scan_plain(
-                TeacherWeights(*w), pre, memory, keys, maskf, torch.float32
-            )
-            grads = torch.autograd.grad(out, leaves, (dxs, dalign), allow_unused=True)
+        grads = scan_grad(ctx.saved_tensors, dxs, dalign, ctx.matmul_dtype,
+                          ctx.needs_input_grad[2:])
         return (None, None, *grads)
 
 

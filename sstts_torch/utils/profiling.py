@@ -51,6 +51,8 @@ SPANS = (
     "sstts.train.features",  # the step's features on the device
     "sstts.train.forward",  # the forward and the loss
     "sstts.train.backward",  # zero_grad and the backward
+    "sstts.train.scan_grad",  # B6's backward, whatever its route
+    "sstts.train.scan_graph",  # in it, a replay of a captured graph and its clones
     "sstts.train.update",  # the gradients' fill, norm and clip, Adam, the EMA
 )
 _NO_SPAN = contextlib.nullcontext()

@@ -68,6 +68,7 @@ def train_step():
 
     def run():
         state = ptrain.create_state(cfg, seed=0, device="cpu")
+        state.model.teacher_impl = "fused"  # the card's scan, under its autograd.Function
         return step(state, corpus[bucket], np.array([0, 1], np.int32), np.ones(2, np.float32))
 
     return run
@@ -178,14 +179,17 @@ def test_train_step_spans(traced):
     backward = phases[2]
     grads = [e for e in host if e[0].startswith("autograd::engine::evaluate_function")]
     assert grads and all(_inside(g, backward) for g in grads)
+    (scan,) = _named(host, "sstts.train.scan_grad")  # B6's backward, eager on the CPU
+    assert _inside(scan, backward) and not _named(host, "sstts.train.scan_graph")
 
 
 def test_every_span_is_named_in_spans(traced):
     """The names opened are `SPANS`, each of them but the fetch threads'
-    (which a plain profiler does not record) opened by these runs."""
+    (which a plain profiler does not record) and a captured graph's
+    replay (the card's only) opened by these runs."""
     opened = {e[0] for events in traced.values() for e in events if e[0].startswith("sstts.")}
     assert opened <= set(profiling.SPANS)
-    assert set(profiling.SPANS) - opened <= {"sstts.synth.fetch"}
+    assert set(profiling.SPANS) - opened <= {"sstts.synth.fetch", "sstts.train.scan_graph"}
     assert len(set(profiling.SPANS)) == len(profiling.SPANS)
 
 
